@@ -1,0 +1,98 @@
+"""JAX package variables -> the port's ``state_dict``.
+
+Takes the flax variables of ``OnlyImagingModel`` (``vlp_tpu.serve.Predictor
+.variables``) as a nested dict of numpy arrays, or as the flat ``'/'``-keyed
+``.npz`` that ``scripts/export_flax_params.py`` writes, and maps each leaf
+onto the port's module tree:
+
+  params/backbone/patch_embed/kernel  -> backbone.patch_embed.weight (OIHW)
+  params/backbone/pos_embed_{li}      -> backbone.pos_embed_{li}
+  params/backbone/l{li}_block{d}/...  -> backbone.levels.{li}.{d}...
+  params/backbone/pool{li}/...        -> backbone.pools.{li}...
+  .../kernel (Dense, [in, out]), .../scale -> ....weight
+  params/head/...                     -> head...
+
+A key the model lacks, a key the tree lacks, or a shape that differs
+raises, naming the key.
+"""
+from __future__ import annotations
+
+import re
+from typing import Any, Dict, Mapping, Union
+
+import numpy as np
+import torch
+from torch import nn
+
+_COMPONENT_RULES = (
+    (re.compile(r"^l(\d+)_block(\d+)$"), r"levels.\1.\2"),
+    (re.compile(r"^pool(\d+)$"), r"pools.\1"),
+)
+
+
+def flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
+    """Nested dict -> {'a/b/c': leaf}."""
+    flat = {}
+    for k, v in tree.items():
+        key = f"{prefix}/{k}" if prefix else str(k)
+        if isinstance(v, Mapping):
+            flat.update(flatten(v, key))
+        else:
+            flat[key] = v
+    return flat
+
+
+def load_npz(path: str) -> Dict[str, np.ndarray]:
+    with np.load(path) as z:
+        return {k: z[k] for k in z.files}
+
+
+def torch_key(flax_key: str) -> str:
+    """'params/backbone/l0_block1/attn/qkv/kernel' ->
+    'backbone.levels.0.1.attn.qkv.weight'."""
+    parts = flax_key.split("/")
+    if parts[0] != "params" or len(parts) < 2:
+        raise KeyError(f"{flax_key!r}: only 'params/...' variables map onto "
+                       "the port")
+    out = []
+    for i, part in enumerate(parts[1:]):
+        for pattern, repl in _COMPONENT_RULES:
+            part = pattern.sub(repl, part)
+        if i == len(parts) - 2 and part in ("kernel", "scale"):
+            part = "weight"
+        out.append(part)
+    return ".".join(out)
+
+
+def state_dict_from_flax(variables: Mapping[str, Any], model: nn.Module
+                         ) -> Dict[str, torch.Tensor]:
+    """Maps JAX variables onto ``model``'s state_dict keys and shapes."""
+    flat = flatten(variables)
+    expected = model.state_dict()
+    out = {}
+    for fkey, value in flat.items():
+        arr = np.asarray(value)
+        tkey = torch_key(fkey)
+        if tkey not in expected:
+            raise KeyError(f"{fkey!r} (-> {tkey!r}) has no counterpart in "
+                           f"{type(model).__name__}")
+        if fkey.endswith("/kernel") and arr.ndim == 4:
+            arr = arr.transpose(3, 2, 0, 1)  # HWIO -> OIHW
+        if tuple(arr.shape) != tuple(expected[tkey].shape):
+            raise ValueError(
+                f"{fkey!r}: shape {tuple(arr.shape)} does not match "
+                f"{tkey!r} {tuple(expected[tkey].shape)}")
+        out[tkey] = torch.from_numpy(np.ascontiguousarray(arr))
+    missing = sorted(set(expected) - set(out))
+    if missing:
+        raise KeyError(f"variables lack {missing[0]!r}"
+                       + (f" and {len(missing) - 1} more" if missing[1:]
+                          else ""))
+    return out
+
+
+def load_weights(model: nn.Module,
+                 source: Union[str, Mapping[str, Any]]) -> None:
+    """Loads an ``.npz`` path or a variables tree into ``model``."""
+    variables = load_npz(source) if isinstance(source, str) else source
+    model.load_state_dict(state_dict_from_flax(variables, model), strict=True)
