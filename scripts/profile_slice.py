@@ -1,22 +1,27 @@
-"""Where the device time of NesT-Small serving goes, on one CUDA card.
+"""Where the device time of NesT-Small serving or training goes, on one
+CUDA card.
 
-Drives ``vlp_tpu_torch.serve.Predictor`` (experiment
-``baseline_only_imaging_nest_small``: 224x224, bf16, random weights) with
-batch-64 requests under ``torch.profiler``: ``--warmup`` requests first,
-then ``--requests`` profiled ones. Prints, per batch, the device time of
-each kernel (summed over its launches), the busy time (the union of all
-device intervals: kernels, copies, memsets) and the window (host clock from
-the first profiled request's start to the last one's end, after a
-synchronize), and the idle share 1 - busy / window. ``--output`` also
-writes the table as JSON.
+``--mode serve`` (default) drives ``vlp_tpu_torch.serve.Predictor``
+(experiment ``baseline_only_imaging_nest_small``: 224x224, bf16, random
+weights) with batch-64 requests; ``--mode train`` drives the same
+experiment's training step (``vlp_tpu_torch.train.step.make_train_step``:
+augmentation, forward, weighted BCE, backward, AdamW under cosine_warmup)
+on seeded uint8 batches of 64. Under ``torch.profiler``: ``--warmup``
+iterations first, then ``--requests`` profiled ones. Prints, per iteration,
+the device time of each kernel (summed over its launches), the busy time
+(the union of all device intervals: kernels, copies, memsets) and the
+window (host clock from the first profiled iteration's start to the last
+one's end, after a synchronize), and the idle share 1 - busy / window.
+``--output`` also writes the table as JSON.
 
 Usage:
-  python scripts/profile_slice.py [--requests 5] [--warmup 3] \
-      [--output profile.json]
+  python scripts/profile_slice.py [--mode serve|train] [--requests 5] \
+      [--warmup 3] [--output profile.json]
 """
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import os
 import subprocess
@@ -31,10 +36,35 @@ from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from vlp_tpu_torch.config import EXPERIMENTS  # noqa: E402
+from vlp_tpu_torch.config import EXPERIMENTS, TRAIN_EXPERIMENTS  # noqa: E402
 from vlp_tpu_torch.serve import Predictor  # noqa: E402
+from vlp_tpu_torch.train.setup import build_training, random_batch  # noqa: E402
+from vlp_tpu_torch.train.step import train_steps  # noqa: E402
 
 BATCH = 64
+EXPERIMENT = "baseline_only_imaging_nest_small"
+STEPS_PER_EPOCH = 10      # the schedule's epoch length, as in chip_smoke.py
+
+
+def _serve_iteration():
+    pred = Predictor(EXPERIMENTS[EXPERIMENT], None, mean=128.0, std=64.0,
+                     batch_size=BATCH, device="cuda")
+    images = np.random.default_rng(0).integers(0, 256, (BATCH, 224, 224),
+                                               dtype=np.uint8)
+    return lambda: pred.predict_arrays(images)
+
+
+def _train_iteration():
+    """One training step per call, on seeded uint8 batches of 64 (four
+    batches in turn), random weights, the experiment's augmentation: the
+    run of chip_smoke.py's phase 6."""
+    tcfg = TRAIN_EXPERIMENTS[EXPERIMENT]
+    _, state, step = build_training(tcfg, torch.device("cuda"),
+                                    STEPS_PER_EPOCH)
+    rng = np.random.default_rng(1)
+    batches = itertools.cycle([random_batch(rng, BATCH, tcfg.serve.image_size)
+                               for _ in range(4)])
+    return lambda: train_steps(step, state, [next(batches)])
 
 
 def _union_us(intervals) -> float:
@@ -49,6 +79,8 @@ def _union_us(intervals) -> float:
 
 def main(argv: Optional[List[str]] = None) -> int:
     parser = argparse.ArgumentParser(description=__doc__)
+    parser.add_argument("--mode", choices=("serve", "train"),
+                        default="serve")
     parser.add_argument("--requests", type=int, default=5)
     parser.add_argument("--warmup", type=int, default=3)
     parser.add_argument("--output", default=None)
@@ -60,19 +92,16 @@ def main(argv: Optional[List[str]] = None) -> int:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
 
-    pred = Predictor(EXPERIMENTS["baseline_only_imaging_nest_small"], None,
-                     mean=128.0, std=64.0, batch_size=BATCH, device="cuda")
-    images = np.random.default_rng(0).integers(0, 256, (BATCH, 224, 224),
-                                               dtype=np.uint8)
+    run = _train_iteration() if args.mode == "train" else _serve_iteration()
     for _ in range(args.warmup):
-        pred.predict_arrays(images)
+        run()
     torch.cuda.synchronize()
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(args.requests):
-            pred.predict_arrays(images)
+            run()
         torch.cuda.synchronize()
         window_ms = (time.perf_counter() - t0) * 1e3 / args.requests
 
@@ -90,7 +119,8 @@ def main(argv: Optional[List[str]] = None) -> int:
                    for name, ms in per_kernel.items()),
                   key=lambda r: -r[1])
     print(f"card: {card}")
-    print(f"per batch-{BATCH} request, mean of {args.requests}: window "
+    print(f"{args.mode}: per batch-{BATCH} iteration, mean of "
+          f"{args.requests}: window "
           f"{window_ms:.4f} ms, device busy {busy_ms:.4f} ms, idle "
           f"{1 - busy_ms / window_ms:.4f}")
     for name, ms in rows:
@@ -99,7 +129,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         os.makedirs(os.path.dirname(os.path.abspath(args.output)),
                     exist_ok=True)
         with open(args.output, "w") as fh:
-            json.dump({"card": card, "batch": BATCH,
+            json.dump({"card": card, "mode": args.mode, "batch": BATCH,
                        "requests": args.requests, "window_ms": window_ms,
                        "busy_ms": busy_ms,
                        "per_kernel_ms": dict(rows)}, fh, indent=1)

@@ -1,0 +1,229 @@
+"""The port's augmentation (``vlp_tpu_torch.ops.{shear,warp,noise,augment}``)
+against the JAX package on the CPU, Pallas in interpret mode.
+
+Tolerances:
+- ``shear_rows``: 1e-4 on values up to 255 (about 8 fp32 ulps there). Both
+  compute the same fp32 shift, floor and lerp; XLA may contract the lerp's
+  multiply-add into an FMA where PyTorch rounds each step.
+- The 3-shear warp: 1e-3. As above per pass, plus the zoom product summed in
+  another order by XLA's einsum than by two torch matmuls.
+- The gather warp: 5e-3. The inverse map's sin/cos/tan differ by an ulp
+  between XLA and PyTorch, which moves a sample point by ~1e-5 pixels, on
+  intensity slopes of up to 255 per pixel.
+- Box-Muller: 2e-6 absolute on |z| <= 4.8 (log, sqrt, cos and sin each
+  within an ulp or two of each other in the two libraries).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from vlp_tpu.ops import augment as JA
+from vlp_tpu.ops import pallas_noise as JN
+from vlp_tpu.ops import pallas_shear as JS
+from vlp_tpu.ops import warp as JW
+from vlp_tpu_torch.ops import augment as TA
+from vlp_tpu_torch.ops import noise as TN
+from vlp_tpu_torch.ops import shear as TS
+from vlp_tpu_torch.ops import warp as TW
+
+
+def _images(seed, b, h, w):
+    return np.random.default_rng(seed).integers(
+        0, 256, (b, h, w)).astype(np.float32)
+
+
+@pytest.mark.parametrize("b,h,w,max_shift", [(3, 16, 24, 9), (2, 64, 64, 26)])
+def test_shear_rows_plain_matches_jax_kernel(b, h, w, max_shift):
+    img = _images(b + h, b, h, w)
+    rng = np.random.default_rng(w)
+    # beyond +-max_shift too: the clip is part of the op
+    shift = (rng.standard_normal((b, h)) * max_shift * 0.8).astype(
+        np.float32)
+    want = np.asarray(JS.shear_axis1_batched(
+        jnp.asarray(img), jnp.asarray(shift), max_shift, interpret=True))
+    got = TS.shear_rows_plain(torch.from_numpy(img), torch.from_numpy(shift),
+                              max_shift)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-4, rtol=0)
+    # a CPU tensor routes the public wrapper to the plain version
+    assert torch.equal(TS.shear_rows(torch.from_numpy(img),
+                                     torch.from_numpy(shift), max_shift), got)
+
+
+def test_shear_columns_equal_rows_of_the_transpose():
+    img = torch.from_numpy(_images(1, 2, 12, 20))
+    shift = torch.linspace(-9.0, 9.0, 40).reshape(2, 20)
+    cols = TS.shear_rows(img, shift, 8, axis=0)
+    rows = TS.shear_rows(img.transpose(1, 2).contiguous(), shift, 8, axis=1)
+    assert torch.equal(cols, rows.transpose(1, 2))
+    with pytest.raises(ValueError, match="along axis 1"):
+        TS.shear_rows(img, shift, 8, axis=1)
+
+
+def _warp_params(b, seed):
+    rng = np.random.default_rng(seed)
+    return [np.asarray(v, np.float32) for v in (
+        rng.uniform(-np.pi / 6, np.pi / 6, b),   # theta
+        rng.uniform(1.0, 1.3, b),                # zoom
+        rng.uniform(-20, 20, b),                 # tx
+        rng.uniform(-20, 20, b),                 # ty
+        rng.uniform(-0.08, 0.08, b))]            # shear (rad)
+
+
+def test_affine_warp_shear_matches_jax():
+    img = _images(4, 3, 64, 64)
+    params = _warp_params(3, 5)
+    want = np.asarray(JW.affine_warp_shear(jnp.asarray(img),
+                                           *map(jnp.asarray, params)))
+    got = TW.affine_warp_shear(torch.from_numpy(img),
+                               *map(torch.from_numpy, params))
+    assert got.shape == (3, 64, 64) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-3, rtol=0)
+
+
+def test_zoom_matrix_matches_jax():
+    zoom = np.asarray([1.0, 1.17, 1.3], np.float32)
+    want = np.stack([np.asarray(JW._zoom_matrix(64, jnp.float32(z)))
+                     for z in zoom])
+    got = TW._zoom_matrix(64, torch.from_numpy(zoom))
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-6, rtol=0)
+
+
+def test_gather_warp_matches_jax():
+    img = _images(6, 3, 64, 64)
+    theta, zoom, tx, ty, shear = _warp_params(3, 7)
+    want = np.asarray(jax.vmap(JA._warp_one)(
+        jnp.asarray(img), *map(jnp.asarray, (tx, ty, theta, zoom, shear))))
+    got = TA._warp_one(torch.from_numpy(img),
+                       *map(torch.from_numpy, (tx, ty, theta, zoom, shear)))
+    np.testing.assert_allclose(got.numpy(), want, atol=5e-3, rtol=0)
+
+
+def test_bits_to_gaussian_pair_matches_jax():
+    words = np.random.default_rng(8).integers(
+        0, 2 ** 32, 50000, dtype=np.uint64)
+    words = np.concatenate([words, [0, 0xFFFF, 0xFFFF0000, 0xFFFFFFFF]])
+    jc, js = JN.bits_to_gaussian_pair(jnp.asarray(
+        words.astype(np.uint32).view(np.int32)))
+    tc, ts = TN.bits_to_gaussian_pair(torch.from_numpy(
+        words.astype(np.int64)))
+    np.testing.assert_allclose(tc.numpy(), np.asarray(jc), atol=2e-6, rtol=0)
+    np.testing.assert_allclose(ts.numpy(), np.asarray(js), atol=2e-6, rtol=0)
+
+
+@pytest.mark.parametrize("ctr,key,want", [
+    ((0, 0, 0, 0), (0, 0), "6627e8d5 e169c58d bc57ac4c 9b00dbd8"),
+    ((0xFFFFFFFF,) * 4, (0xFFFFFFFF,) * 2,
+     "408f276d 41c83b0e a20bc7c6 6d5451fd"),
+    ((0x243f6a88, 0x85a308d3, 0x13198a2e, 0x03707344),
+     (0xa4093822, 0x299f31d0), "d16cfe09 94fdcceb 5001e420 24126ea1"),
+])
+def test_philox_known_answers(ctr, key, want):
+    """Random123's known-answer vectors for Philox4x32-10."""
+    out = TN.philox4x32_plain(torch.tensor([ctr], dtype=torch.long),
+                              torch.tensor([key], dtype=torch.long))
+    assert " ".join(f"{int(v):08x}" for v in out[0]) == want
+
+
+def test_noise_layout_identity_and_moments():
+    b, h, w = 3, 32, 48
+    x = torch.from_numpy(_images(9, b, h, w))
+    seeds = torch.tensor([[1, 2], [1, 2], [-5, 7]], dtype=torch.int32)
+    sigma = torch.tensor([0.0, 1.0, 1.0])
+    out = TN.add_gaussian_noise(x, seeds, sigma)
+    assert torch.equal(out[0], x[0])                 # sigma 0: identity
+    # sample 1's noise is the Box-Muller pair of its words, cos | sin
+    words = TN.noise_words_plain(seeds, h, w)
+    zc, zs = TN.bits_to_gaussian_pair(words[1])
+    assert torch.equal(out[1], x[1] + torch.cat([zc, zs], -1))
+    # word w = y * (W/2) + x is output w mod 4 at counter w div 4
+    flat = words[2].reshape(-1)
+    ctr = torch.tensor([[5, 0, 0, 0]], dtype=torch.long)
+    key = torch.tensor([[(-5) & 0xFFFFFFFF, 7]], dtype=torch.long)
+    assert torch.equal(flat[20:24], TN.philox4x32_plain(ctr, key)[0])
+    # deterministic in the seeds, and other seeds give another field
+    assert torch.equal(TN.add_gaussian_noise(x, seeds, sigma), out)
+    z = (out[2] - x[2]).reshape(-1)
+    assert not torch.equal(z, (out[1] - x[1]).reshape(-1))
+    zz = torch.cat([zc, zs], -1).reshape(-1).double()
+    # 768 draws: mean within 4 standard errors, variance within 20%
+    assert abs(zz.mean()) < 4 / np.sqrt(zz.numel())
+    assert abs(zz.var() - 1) < 0.2
+    with pytest.raises(ValueError, match="even width"):
+        TN.add_gaussian_noise(x[:, :, :47].contiguous(), seeds, sigma)
+
+
+def test_sample_params_rates_ranges_and_shear_on_translate():
+    cfg = TA.AugmentConfig(shear_deg=5.0)
+    gen = torch.Generator().manual_seed(0)
+    n = 20000
+    tx, ty, theta, zoom, shear, flip, noise_std = TA._sample_params(
+        gen, cfg, n, "cpu")
+    fired = tx != 0
+    # Bernoulli rates within 4 standard errors of p
+    for on, p in ((fired, 0.3), (theta != 0, 0.3), (zoom != 1, 0.3),
+                  (flip, 0.3), (noise_std > 0, 0.5)):
+        assert abs(on.float().mean().item() - p) < 4 * np.sqrt(p * (1 - p)
+                                                               / n)
+    assert torch.equal(fired, ty != 0)
+    assert torch.equal(fired, shear != 0)            # one RandAffined draw
+    assert tx.abs().max() <= 20 and ty.abs().max() <= 20
+    assert theta.abs().max() <= np.pi / 6
+    assert zoom.min() >= 1.0 and zoom.max() <= 1.3
+    assert zoom[zoom != 1].min() >= 1.1
+    assert shear.abs().max() <= 5 * np.pi / 180
+    assert noise_std.max() <= 0.01
+    # the magnitude does not depend on the gate: fired draws span the range
+    assert tx[fired].abs().max() > 19 and tx[fired].abs().min() < 1
+    # no shear without shear_deg
+    gen.manual_seed(0)
+    assert (TA._sample_params(gen, TA.AugmentConfig(), n, "cpu")[4]
+            == 0).all()
+
+
+def test_disabled_augmentation_is_normalize_only():
+    imgs = torch.from_numpy(_images(10, 4, 16, 16).astype(np.uint8))
+    cfg = TA.AugmentConfig(enabled=False)
+    got = TA.augment_and_normalize(imgs, torch.Generator(), 120.0, 50.0,
+                                   cfg, dtype=torch.float32)
+    want = TA.normalize_only(imgs, 120.0, 50.0, dtype=torch.float32)
+    assert torch.equal(got, want) and got.shape == (4, 16, 16, 3)
+
+
+@pytest.mark.parametrize("method", ["shear", "gather"])
+def test_augment_with_explicit_params_matches_jax(monkeypatch, method):
+    """Same parameters on both sides and sigma 0: the deterministic part of
+    the pipeline (warp, flip, normalise, channel repeat) agrees. For
+    ``gather`` the port's pipeline runs its plain reference ``_warp_one`` in
+    place of the 3-shear warp, against JAX's gather method."""
+    b = 4
+    imgs = _images(11, b, 64, 64).astype(np.uint8)
+    theta, zoom, tx, ty, shear = _warp_params(b, 12)
+    flip = np.asarray([True, False, True, False])
+    sigma = np.zeros(b, np.float32)
+    params = (tx, ty, theta, zoom, shear, flip, sigma)
+    monkeypatch.setattr(JA, "_sample_params",
+                        lambda *a: tuple(map(jnp.asarray, params)))
+    monkeypatch.setattr(TA, "_sample_params",
+                        lambda *a: tuple(map(torch.from_numpy, params)))
+    if method == "gather":
+        monkeypatch.setattr(
+            TA, "affine_warp_shear",
+            lambda x, theta, zoom, tx, ty, shear: TA._warp_one(
+                x, tx, ty, theta, zoom, shear))
+    JA.augment_and_normalize.clear_cache()
+    try:
+        want = np.asarray(JA.augment_and_normalize(
+            jnp.asarray(imgs), jax.random.key(0), jnp.float32(120.0),
+            jnp.float32(50.0), JA.AugmentConfig(method=method, shear_deg=5.0),
+            dtype=jnp.float32))
+    finally:
+        JA.augment_and_normalize.clear_cache()
+    got = TA.augment_and_normalize(
+        torch.from_numpy(imgs), torch.Generator().manual_seed(0), 120.0,
+        50.0, TA.AugmentConfig(shear_deg=5.0), dtype=torch.float32)
+    assert got.shape == want.shape == (b, 64, 64, 3)
+    # the warp's bound in intensity units, divided by std 50
+    atol = {"shear": 1e-3, "gather": 5e-3}[method] / 50
+    np.testing.assert_allclose(got.numpy(), want, atol=atol, rtol=0)

@@ -1,6 +1,7 @@
-"""The CUDA half-block kernels against their plain PyTorch versions, on the
-card. Marked ``gpu``: without a CUDA device every test here skips. Needs no
-JAX, so it runs on a machine without it:
+"""The CUDA kernels (half blocks and their backwards, shear, noise) against
+their plain PyTorch versions, on the card. Marked ``gpu``: without a CUDA
+device every test here skips. Needs no JAX, so it runs on a machine without
+it:
 
   python -m pytest --noconftest -p no:cacheprovider -m gpu \
       tests/test_torch_port_cuda.py -q
@@ -9,12 +10,15 @@ Shapes include ragged row counts (M not a multiple of the 64-row tile) and
 short sequences, which NesT-Small's own shapes do not reach. Bounds as in
 chip_smoke.py: kernel and plain version round to bf16 at the same points
 and differ by fp32 summation order, so up to two bf16 ulps (2^-6) of the
-largest output.
+largest output forward, and 2^-6 of each cotangent's largest |value|
+backward; shear is exact; noise within 2^-13 (chip_smoke.BOUND_NOISE).
 """
 import pytest
 import torch
 
 from vlp_tpu_torch.ops import fused_block as FB
+from vlp_tpu_torch.ops import noise as NZ
+from vlp_tpu_torch.ops import shear as SH
 
 pytestmark = pytest.mark.gpu
 BOUND = 2.0 ** -6
@@ -85,3 +89,151 @@ def test_cuda_tensor_never_takes_the_plain_path(cuda):
     with pytest.raises(ValueError, match="head_dim 32"):
         FB.ln_attention(x.bfloat16(), v, v, w,
                         torch.zeros(3 * d, device=cuda), wo, v, 4)
+
+
+def _attn_params(gen, d, scale=1.0):
+    (g, b, bq, bo), (wq, wo) = FB._cast(
+        torch.bfloat16,
+        vectors=(1.0 + _rand(gen, d, scale=0.1), _rand(gen, d, scale=0.1),
+                 _rand(gen, 3 * d, scale=0.02), _rand(gen, d, scale=0.02)),
+        matrices=(_rand(gen, d, 3 * d, scale=scale * d ** -0.5),
+                  _rand(gen, d, d, scale=d ** -0.5)))
+    return g, b, wq, bq, wo, bo
+
+
+@pytest.mark.parametrize("n,s,d,heads", [(3, 196, 64, 2), (5, 17, 32, 1),
+                                         (2, 64, 384, 12), (7, 200, 96, 3),
+                                         (2, 240, 64, 2)])  # largest S
+def test_ln_attention_bwd_kernel_matches_plain(cuda, n, s, d, heads):
+    gen = torch.Generator(device=cuda).manual_seed(n * s + d + 1)
+    x = _rand(gen, n, s, d).bfloat16()
+    dy = _rand(gen, n, s, d).bfloat16()
+    g, b, wq, bq, wo, bo = _attn_params(gen, d, scale=3.0)
+    _, qkv, o = FB._ln_attention_cuda(x, g, b, wq, bq, wo, bo, heads)
+    before = FB.ln_attention_bwd.launches
+    outs = FB.ln_attention_bwd(x, g, b, wq, bq, wo, dy, heads, qkv, o)
+    torch.cuda.synchronize()
+    assert FB.ln_attention_bwd.launches == before + 1
+    refs = FB.ln_attention_bwd_plain(x, g, b, wq, bq, wo, dy, heads)
+    for out, ref in zip(outs, refs):
+        assert out.shape == ref.shape and out.dtype == ref.dtype
+        assert torch.isfinite(out.float()).all()
+        assert _rel_err(out, ref) <= BOUND
+    again = FB.ln_attention_bwd(x, g, b, wq, bq, wo, dy, heads, qkv, o)
+    assert all(torch.equal(a, b) for a, b in zip(outs, again))  # no atomics
+
+
+@pytest.mark.parametrize("m,d,f", [(100, 64, 256), (1568, 96, 384),
+                                   (33, 384, 1536)])
+def test_ln_mlp_bwd_kernel_matches_plain(cuda, m, d, f):
+    gen = torch.Generator(device=cuda).manual_seed(m + d + 1)
+    x = _rand(gen, m, d).bfloat16()
+    dy = _rand(gen, m, d).bfloat16()
+    (g, b, b1), (w1, w2) = FB._cast(
+        torch.bfloat16,
+        vectors=(1.0 + _rand(gen, d, scale=0.1), _rand(gen, d, scale=0.1),
+                 _rand(gen, f, scale=0.02)),
+        matrices=(_rand(gen, d, f, scale=d ** -0.5),
+                  _rand(gen, f, d, scale=f ** -0.5)))
+    before = FB.ln_mlp_bwd.launches
+    outs = FB.ln_mlp_bwd(x, g, b, w1, b1, w2, dy)
+    torch.cuda.synchronize()
+    assert FB.ln_mlp_bwd.launches == before + 1
+    refs = FB.ln_mlp_bwd_plain(x, g, b, w1, b1, w2, dy)
+    for out, ref in zip(outs, refs):
+        assert out.shape == ref.shape and out.dtype == ref.dtype
+        assert torch.isfinite(out.float()).all()
+        assert _rel_err(out, ref) <= BOUND
+    again = FB.ln_mlp_bwd(x, g, b, w1, b1, w2, dy)
+    assert all(torch.equal(a, b) for a, b in zip(outs, again))
+
+
+def test_autograd_runs_the_backward_kernels(cuda):
+    """Autograd through the public wrappers on CUDA tensors launches the
+    backward kernels and returns their cotangents to fp32 parameters."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    n, s, d, heads = 4, 196, 96, 3
+    x = _rand(gen, n, s, d).bfloat16().requires_grad_()
+    leaves = [t.clone().requires_grad_() for t in (
+        1.0 + _rand(gen, d, scale=0.1), _rand(gen, d, scale=0.1),
+        _rand(gen, d, 3 * d, scale=d ** -0.5), _rand(gen, 3 * d, scale=0.02),
+        _rand(gen, d, d, scale=d ** -0.5), _rand(gen, d, scale=0.02))]
+    dy = _rand(gen, n, s, d).bfloat16()
+    before = FB.ln_attention_bwd.launches
+    FB.ln_attention(x, *leaves, heads).backward(dy)
+    assert FB.ln_attention_bwd.launches == before + 1
+    want = FB.ln_attention_bwd_plain(x.detach(), *[t.detach()
+                                                   for t in leaves[:5]],
+                                     dy, heads)
+    assert _rel_err(x.grad, want[0]) <= BOUND
+    for leaf, w in zip(leaves, want[1:]):
+        assert leaf.grad.dtype == torch.float32
+        assert _rel_err(leaf.grad, w.reshape(leaf.shape)) <= BOUND
+
+
+@pytest.mark.parametrize("b,h,w,axis", [(3, 17, 30, 1), (3, 17, 30, 0),
+                                        (2, 224, 224, 0)])
+def test_shear_kernel_equals_plain(cuda, b, h, w, axis):
+    gen = torch.Generator(device=cuda).manual_seed(b + h + w + axis)
+    img = _rand(gen, b, h, w) * 100.0
+    shift = _rand(gen, b, h if axis == 1 else w, scale=12.0)
+    before = SH.shear_rows.launches
+    out = SH.shear_rows(img, shift, 10, axis)
+    assert SH.shear_rows.launches == before + 1
+    assert torch.equal(out, SH.shear_rows_plain(img, shift, 10, axis))
+
+
+def test_noise_kernel_words_values_and_identity(cuda):
+    got = NZ.philox4x32(torch.tensor([[0x243f6a88, 0x85a308d3, 0x13198a2e,
+                                       0x03707344]], device=cuda),
+                        torch.tensor([[0xa4093822, 0x299f31d0]],
+                                     device=cuda))
+    assert [int(v) for v in got[0]] == [0xd16cfe09, 0x94fdcceb, 0x5001e420,
+                                        0x24126ea1]
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    b, h, w = 3, 33, 46          # h * w / 2 = 759 words: a ragged last group
+    x = torch.rand(b, h, w, generator=gen, device=cuda) * 255.0
+    seeds = torch.randint(-2 ** 31, 2 ** 31 - 1, (b, 2), generator=gen,
+                          device=cuda, dtype=torch.int32)
+    sigma = torch.tensor([0.0, 1.0, 0.01], device=cuda)
+    before = NZ.add_gaussian_noise.launches
+    out = NZ.add_gaussian_noise(x, seeds, sigma)
+    assert NZ.add_gaussian_noise.launches == before + 1
+    assert torch.equal(out[0], x[0])
+    ref = NZ.add_gaussian_noise_plain(x, seeds, sigma)
+    assert (out - ref).abs().max().item() <= 2.0 ** -13
+
+
+def test_backward_and_augmentation_kernels_raise_on_cuda(cuda):
+    """A CUDA tensor the kernels do not take raises in the backward and the
+    augmentation kernels too; it never reaches a plain version."""
+    d = 64
+    x = torch.zeros(2, 16, d, device=cuda)  # float32: the kernel takes bf16
+    vec = torch.zeros(1, d, device=cuda)
+    with pytest.raises(TypeError, match="bfloat16"):
+        FB.ln_attention_bwd(x, vec, vec, torch.zeros(d, 3 * d, device=cuda),
+                            torch.zeros(1, 3 * d, device=cuda),
+                            torch.zeros(d, d, device=cuda), x, 2, x, x)
+    xb = torch.zeros(2, 256, d, device=cuda, dtype=torch.bfloat16)
+    wb = torch.zeros(d, 3 * d, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="S <= 240"):
+        FB.ln_attention_bwd(xb, vec, vec, wb,
+                            torch.zeros(1, 3 * d, device=cuda),
+                            torch.zeros(d, d, device=cuda,
+                                        dtype=torch.bfloat16),
+                            xb, 2, torch.zeros(2, 256, 3 * d, device=cuda,
+                                               dtype=torch.bfloat16), xb)
+    rows = torch.zeros(8, d, device=cuda)
+    with pytest.raises(TypeError, match="bfloat16"):
+        FB.ln_mlp_bwd(rows, vec, vec, torch.zeros(d, 4 * d, device=cuda),
+                      torch.zeros(1, 4 * d, device=cuda),
+                      torch.zeros(4 * d, d, device=cuda), rows)
+    img = torch.zeros(2, 8, 8, device=cuda, dtype=torch.float64)
+    with pytest.raises(TypeError, match="fp32"):
+        SH.shear_rows(img, torch.zeros(2, 8, device=cuda,
+                                       dtype=torch.float64), 4)
+    with pytest.raises(TypeError, match="int32 seeds"):
+        NZ.add_gaussian_noise(torch.zeros(2, 8, 8, device=cuda),
+                              torch.zeros(2, 2, device=cuda,
+                                          dtype=torch.int64),
+                              torch.zeros(2, device=cuda))

@@ -1,7 +1,8 @@
 """The port's import boundary and its kernel loader.
 
 The machine with the card has no JAX, pandas, scikit-learn or cv2, so the
-serving entry point and chip_smoke.py must import without them and without
+serving entry point, the training step and chip_smoke.py must import
+without them and without
 any module of the JAX package ``vlp_tpu``; and a missing CUDA compiler must
 raise, never hand back a plain fallback.
 """
@@ -19,7 +20,8 @@ IMPORTS_JAX = re.compile(r"^\s*(import|from)\s+(jax|flax|optax|orbax)\b",
 
 
 def test_serve_and_chip_smoke_import_without_jax_or_host_pipeline():
-    code = ("import sys; import vlp_tpu_torch.serve, chip_smoke; "
+    code = ("import sys; import vlp_tpu_torch.serve, "
+            "vlp_tpu_torch.train.step, chip_smoke; "
             f"print([m for m in {FORBIDDEN!r} if m in sys.modules] + "
             "[m for m in sys.modules if m.split('.')[0] == 'vlp_tpu'])")
     env = dict(os.environ, PYTHONPATH=REPO)

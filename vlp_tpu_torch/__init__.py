@@ -6,6 +6,9 @@ CUDA C++ kernel written for Hopper (``vlp_tpu_torch/csrc``, built with nvcc
 at first use) beside a plain PyTorch version that CPU tensors take.
 
 Ported so far: the NesT-Small classifier's serving path
-(``vlp_tpu_torch.serve.Predictor``) with the half-block kernels
-``ln_attention`` and ``ln_mlp``. ROADMAP.md lists what follows.
+(``vlp_tpu_torch.serve.Predictor``) and training step
+(``vlp_tpu_torch.train.step.make_train_step``), with the half-block kernels
+``ln_attention`` and ``ln_mlp``, their backwards, and the augmentation
+kernels ``shear_rows`` and ``add_gaussian_noise``. ROADMAP.md lists what
+follows.
 """

@@ -1,16 +1,20 @@
-"""What the port's serving path reads of an experiment config.
+"""What the port's serving and training paths read of an experiment config.
 
 The experiment configs live in the JAX package (``vlp_tpu.config``). The
 serving path needs only seven of their fields, so it takes them as a
-``ServeConfig`` and imports nothing of ``vlp_tpu``: the machine with the card
-runs without the JAX package. ``ServeConfig.from_config`` reads the fields
-off a ``vlp_tpu.config.Config``; ``EXPERIMENTS`` holds the ported
-experiments' values, and tests hold each entry against ``get_experiment``.
+``ServeConfig``, and the training step adds the optimizer, schedule and
+augmentation fields in a ``TrainConfig``; neither imports anything of
+``vlp_tpu``: the machine with the card runs without the JAX package.
+``from_config`` reads the fields off a ``vlp_tpu.config.Config``;
+``EXPERIMENTS`` and ``TRAIN_EXPERIMENTS`` hold the ported experiments'
+values, and tests hold each entry against ``get_experiment``.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict
+from typing import Any, Dict, Optional
+
+from vlp_tpu_torch.ops.augment import AugmentConfig
 
 
 @dataclasses.dataclass(frozen=True)
@@ -34,9 +38,60 @@ class ServeConfig:
                    crop=cfg.data.crop_larger_dimension)
 
 
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    serve: ServeConfig = ServeConfig()
+    optimizer: str = "adamw"                # cfg.optimizer.name
+    lr: float = 1e-3                        # cfg.optimizer.lr
+    weight_decay: float = 0.01              # cfg.optimizer.weight_decay
+    b1: float = 0.9                         # cfg.optimizer.b1
+    b2: float = 0.999                       # cfg.optimizer.b2
+    eps: float = 1e-8                       # cfg.optimizer.eps
+    scheduler: str = "cosine"               # cfg.scheduler.name
+    warmup_epochs: int = 4                  # cfg.scheduler.warmup_epochs
+    batch_size: int = 128                   # cfg.data.batch_size
+    max_epochs: int = 10                    # cfg.trainer.max_epochs
+    coral_lambda: float = 0.0               # cfg.model.coral_lambda
+    vision_encoder_lr: Optional[float] = None  # cfg.model.vision_encoder_lr
+    freeze_encoder: bool = False            # cfg.model.freeze_encoder
+    disable_augmentations: bool = False     # cfg.data.disable_augmentations
+    # cfg.data.gaussian_noise_augmentation
+    gaussian_noise_augmentation: bool = True
+    shear_augmentation: bool = False        # cfg.data.shear_augmentation
+
+    @classmethod
+    def from_config(cls, cfg: Any) -> "TrainConfig":
+        """The training fields of a ``vlp_tpu.config.Config``."""
+        o, m, d = cfg.optimizer, cfg.model, cfg.data
+        return cls(serve=ServeConfig.from_config(cfg), optimizer=o.name,
+                   lr=o.lr, weight_decay=o.weight_decay, b1=o.b1, b2=o.b2,
+                   eps=o.eps, scheduler=cfg.scheduler.name,
+                   warmup_epochs=cfg.scheduler.warmup_epochs,
+                   batch_size=d.batch_size,
+                   max_epochs=cfg.trainer.max_epochs,
+                   coral_lambda=m.coral_lambda,
+                   vision_encoder_lr=m.vision_encoder_lr,
+                   freeze_encoder=m.freeze_encoder,
+                   disable_augmentations=d.disable_augmentations,
+                   gaussian_noise_augmentation=d.gaussian_noise_augmentation,
+                   shear_augmentation=d.shear_augmentation)
+
+    def augment(self) -> AugmentConfig:
+        """The switches mapped as ``vlp_tpu/data/datamodule.py:49-54``."""
+        return AugmentConfig(
+            enabled=not self.disable_augmentations,
+            noise_prob=0.5 if self.gaussian_noise_augmentation else 0.0,
+            shear_deg=5.0 if self.shear_augmentation else 0.0)
+
+
 def as_serve_config(cfg: Any) -> ServeConfig:
-    """``cfg`` itself if it is a ``ServeConfig``, else its serving fields."""
-    return cfg if isinstance(cfg, ServeConfig) else ServeConfig.from_config(cfg)
+    """``cfg`` itself if it is a ``ServeConfig``, the ``serve`` part of a
+    ``TrainConfig``, else the serving fields of a ``vlp_tpu`` Config."""
+    if isinstance(cfg, ServeConfig):
+        return cfg
+    if isinstance(cfg, TrainConfig):
+        return cfg.serve
+    return ServeConfig.from_config(cfg)
 
 
 EXPERIMENTS: Dict[str, ServeConfig] = {
@@ -45,4 +100,13 @@ EXPERIMENTS: Dict[str, ServeConfig] = {
     # Config defaults (224x224, 3 channels, bf16)
     "baseline_only_imaging_nest_small": ServeConfig(model="nest_small",
                                                     crop=True),
+}
+
+TRAIN_EXPERIMENTS: Dict[str, TrainConfig] = {
+    # baseline_only_imaging_resnet34 (:17-32): batch 64, lr 1.29e-4,
+    # cosine_warmup; nest_small sets coral_lambda 0 (:35-40); AdamW and the
+    # 4 warmup of 10 epochs are the Config defaults (config/core.py:19-35,124)
+    "baseline_only_imaging_nest_small": TrainConfig(
+        serve=EXPERIMENTS["baseline_only_imaging_nest_small"],
+        lr=1.2925748253710286e-4, scheduler="cosine_warmup", batch_size=64),
 }

@@ -13,7 +13,9 @@ onto the port's module tree:
   params/head/...                     -> head...
 
 A key the model lacks, a key the tree lacks, or a shape that differs
-raises, naming the key.
+raises, naming the key. ``load_optimizer_state`` maps an optax ``adamw``
+state (``mu``, ``nu``, ``count``) onto ``torch.optim.AdamW``'s per-parameter
+state the same way, so weights and moments carry over together.
 """
 from __future__ import annotations
 
@@ -96,3 +98,22 @@ def load_weights(model: nn.Module,
     """Loads an ``.npz`` path or a variables tree into ``model``."""
     variables = load_npz(source) if isinstance(source, str) else source
     model.load_state_dict(state_dict_from_flax(variables, model), strict=True)
+
+
+def load_optimizer_state(optimizer: torch.optim.Optimizer, model: nn.Module,
+                         mu: Mapping[str, Any], nu: Mapping[str, Any],
+                         count: int) -> None:
+    """optax ``ScaleByAdamState`` (``mu`` and ``nu`` as param-shaped trees
+    of numpy arrays, without the ``params`` level; ``count`` the updates
+    taken) -> ``exp_avg``, ``exp_avg_sq`` and ``step`` of every parameter of
+    ``model`` in ``optimizer`` (``torch.optim.AdamW``/``Adam``)."""
+    moments = [state_dict_from_flax({"params": tree}, model)
+               for tree in (mu, nu)]
+    owned = {id(p) for g in optimizer.param_groups for p in g["params"]}
+    for name, p in model.named_parameters():
+        if id(p) not in owned:
+            raise KeyError(f"{name!r} is not in the optimizer")
+        optimizer.state[p] = {
+            "step": torch.tensor(float(count), dtype=torch.float32),
+            "exp_avg": moments[0][name].to(p.device, p.dtype).clone(),
+            "exp_avg_sq": moments[1][name].to(p.device, p.dtype).clone()}

@@ -1,8 +1,9 @@
 """Builds the CUDA kernels in ``vlp_tpu_torch/csrc`` at first use.
 
-``nvcc`` compiles every ``csrc/*.cu`` for Hopper (``sm_90a``) into one shared
+``nvcc`` compiles every ``csrc/*.cu`` for Hopper (``sm_90a``), one process
+per source, all started together, and links the objects into one shared
 library with a plain C interface under ``build/vlp_tpu_torch/`` at the root
-of the checkout, and ``ctypes`` loads it. The library's file name carries a
+of the checkout, which ``ctypes`` loads. The library's file name carries a
 hash of the sources and flags, so an edited source builds anew and an
 unchanged one is reused. Nothing here runs at import time; a failed build
 raises with nvcc's output, and there is no fallback.
@@ -15,16 +16,18 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "vlp_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_Z = ctypes.c_size_t
 # C signatures of csrc/*.cu's exported functions: (argtypes, restype)
 _SIGNATURES = {
     # x, gamma, beta, wqkv, bqkv, wout, bout, qkv, o, y, N, S, D, H, scale,
@@ -32,6 +35,22 @@ _SIGNATURES = {
     "vlp_ln_attention": ([_P] * 10 + [_I] * 4 + [_F, _F, _P], _I),
     # x, gamma, beta, w1, b1, w2, b2, h, y, M, D, F, eps, stream
     "vlp_ln_mlp": ([_P] * 9 + [_I] * 3 + [_F, _P], _I),
+    # N, S, D, H -> bytes
+    "vlp_ln_attention_bwd_workspace": ([_I] * 4, _Z),
+    # x, gamma, beta, wqkv, wout, qkv, o, dy, dx, dgamma, dbeta, dwqkv,
+    # dbqkv, dwout, dbout, ws, N, S, D, H, scale, eps, stream
+    "vlp_ln_attention_bwd": ([_P] * 16 + [_I] * 4 + [_F, _F, _P], _I),
+    # M, D, F -> bytes
+    "vlp_ln_mlp_bwd_workspace": ([_I] * 3, _Z),
+    # x, gamma, beta, w1, b1, w2, dy, dx, dgamma, dbeta, dw1, db1, dw2, db2,
+    # ws, M, D, F, eps, stream
+    "vlp_ln_mlp_bwd": ([_P] * 15 + [_I] * 3 + [_F, _P], _I),
+    # img, shift, out, B, H, W, max_shift, axis, stream
+    "vlp_shear_rows": ([_P] * 3 + [_I] * 5 + [_P], _I),
+    # x, seeds, sigma, out, B, H, W, stream
+    "vlp_add_gaussian_noise": ([_P] * 4 + [_I] * 3 + [_P], _I),
+    # ctr, key, out, n, stream
+    "vlp_philox4x32": ([_P] * 3 + [_I, _P], _I),
     "vlp_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -64,15 +83,32 @@ def build() -> Path:
         return path
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
-           *map(str, sorted(CSRC.glob("*.cu")))]
-    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed with exit code {proc.returncode}: {' '.join(cmd)}\n"
-            f"{proc.stderr}{proc.stdout}")
-    os.replace(tmp, path)  # atomic: a concurrent loader never sees half a file
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        jobs = []
+        for src in sorted(CSRC.glob("*.cu")):
+            obj = os.path.join(tmpdir, src.stem + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", obj]
+            jobs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        failed = []
+        for cmd, _, proc in jobs:  # wait for every job, even after a failure
+            out, _ = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed with exit code {proc.returncode}: "
+                              f"{' '.join(cmd)}\n{out}")
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        tmp = os.path.join(tmpdir, path.name)
+        cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", tmp,
+               *(obj for _, obj, _ in jobs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True,
+                              check=False)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed with exit code {proc.returncode}: "
+                f"{' '.join(cmd)}\n{proc.stderr}{proc.stdout}")
+        os.replace(tmp, path)  # atomic: a loader never sees half a file
     return path
 
 
