@@ -37,12 +37,37 @@ Phases, each printing its lines before the last line:
    (augmentation off) held against fp32 on the CPU; step latency, images/s,
    device step time and peak memory.
 
-Then one JSON line with every kernel's launches in the training slice's
-timed steps, its error and times (``ms`` and ``plain_ms``: the kernel's
-and the plain version's time per training step, the sum over levels of
-depth x median time per call for the half-block kernels, calls per step x
-median time for shear and noise; the forward kernels add their launches in
-the serving phase as ``serve_launches``), and last ``{"ok": true,
+7. unfused-path kernels: ``attend_qkv`` and its backward at ViT-B/16's
+   shape (N 32, S 197, 12 heads of 64) and NesT-Small's three levels at
+   batch 64 (heads of 32), ``fused_mlp`` and its backward at NesT-Small's
+   three levels, against their plain versions in bf16 and fp32, every
+   output and cotangent; then kernel and plain version timed as plain,
+   kernel, kernel, plain, and ``scaled_dot_product_attention`` (forward,
+   and its autograd backward) on the same q, k, v views as the yardstick
+   of #7 and #8 (the port never calls it).
+8. ViT-B/16 serving: ``Predictor`` for
+   ``experiment=baseline_only_imaging_vit_base`` (batch 32) answers 32, 32
+   and 19 images with 12 launches of ``attend_qkv`` per forward and none
+   of the half-block kernels; logits against fp32 on the CPU; latency.
+9. ViT-B/16 training: the experiment's step at batch 32, full width and
+   depth, with the checks of phase 6 and 12 + 12 launches of
+   ``attend_qkv`` and its backward, 3 + 1 augmentation launches per step.
+10. NesT-Small with ``model.megakernel=false``, training at batch 64, full
+   depth: 24 launches each of ``attend_qkv``, ``fused_mlp`` and their
+   backwards per step, none of the half-block kernels, and phase 6's
+   checks.
+
+Then one JSON line with every kernel: its launches in the timed training
+steps of the path that runs it (NesT-Small's for #1-#4, #11, #12; ViT-B's
+for #7, #8; NesT unfused for #9, #10; ``other_launches`` adds the other
+paths, ``serve_launches`` the serving phases), its largest error against
+the plain bf16 version, and its times per training step of that path:
+``ms`` and ``plain_ms`` (the sum over the path's calls of the median time
+per call), ``bound_ms`` (the larger of the bytes the calls must move, each
+input read and each output written once, over 3.35 TB/s, and their
+operations over 989 TFLOP/s bf16, or 67 TFLOP/s fp32 for shear and noise;
+``bound_by`` says which), and ``library_ms`` (SDPA for #7 and #8, null
+where no single PyTorch call computes the function). Last ``{"ok": true,
 "device": {...}}``. Any failed check raises.
 """
 from __future__ import annotations
@@ -58,10 +83,14 @@ import time
 import numpy as np
 import torch
 
-from vlp_tpu_torch.config import EXPERIMENTS, TRAIN_EXPERIMENTS
+import torch.nn.functional as F
+
+from vlp_tpu_torch.config import EXPERIMENTS, NEST_UNFUSED, TRAIN_EXPERIMENTS
 from vlp_tpu_torch.models.tasks import build_task
 from vlp_tpu_torch.ops import _build
+from vlp_tpu_torch.ops import block_attention as BA
 from vlp_tpu_torch.ops import fused_block as FB
+from vlp_tpu_torch.ops import fused_mlp as FM
 from vlp_tpu_torch.ops import noise as NZ
 from vlp_tpu_torch.ops import shear as SH
 from vlp_tpu_torch.ops.warp import default_max_shift
@@ -117,8 +146,62 @@ GRAD_BATCH = 4
 # sqrt(96) * 2^-9 ~ 1.9% if uncorrelated, and every weight gradient is cast
 # to bf16 once (2^-9): allow 10% of the gradient's L2 norm, and a cosine of
 # at least 0.98 (a 20% error) for every tensor.
+# ViT-B/16 (24 half blocks) and NesT unfused round no more often: the same
+# bounds hold for them.
 BOUND_GRAD_REL = 0.1
 BOUND_GRAD_COS = 0.98
+NEST = "baseline_only_imaging_nest_small"
+VIT_B = "baseline_only_imaging_vit_base"
+VIT_BATCH = 32
+VIT_REQUESTS = (32, 32, 19)
+# (label, N, S, D, heads, calls per training step) of the attention kernels
+# #7/#8 on the unfused path: ViT-B/16 at batch 32 (12 blocks), NesT-Small's
+# levels at batch 64
+VIT_ATTN = ("ViT-B", VIT_BATCH, 197, 768, 12, 12)
+NEST_ATTN = tuple((f"NesT L{i}", BATCH * nb, SEQ, d, h, depth)
+                  for i, (nb, d, h, depth) in enumerate(LEVELS))
+# Peak rates of one H100 SXM (NVIDIA's data sheet): device memory, dense
+# bf16 tensor cores, fp32 outside the tensor cores (shear, noise)
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOPS = 989e12
+FP32_FLOPS = 67e12
+
+
+def _work(name, n, s, d, f=None):
+    """(operations, bytes) one call must do and move: each input read once,
+    each output written once, at N = n, S = s (the MLP kernels: n rows,
+    s = 1), width d and hidden f = 4d. The backwards count the products
+    they must form (the attention core's recomputed scores included)."""
+    m = n * s
+    f = 4 * d if f is None else f
+    return {
+        "ln_attention": (8 * m * d * d + 4 * m * s * d,
+                         4 * m * d + 8 * d * d + 24 * d),
+        "ln_mlp": (4 * m * d * f, 4 * m * d + 4 * d * f + 12 * d + 4 * f),
+        "ln_attention_bwd": (16 * m * d * d + 10 * m * s * d,
+                             14 * m * d + 16 * d * d + 44 * d),
+        "ln_mlp_bwd": (10 * m * d * f,
+                       6 * m * d + 8 * d * f + 20 * d + 8 * f),
+        "attend_qkv": (4 * m * s * d, 8 * m * d),
+        "attend_qkv_bwd": (10 * m * s * d, 14 * m * d),
+        "fused_mlp": (4 * m * d * f, 4 * m * d + 4 * d * f + 4 * f + 4 * d),
+        "fused_mlp_bwd": (10 * m * d * f, 6 * m * d + 8 * d * f + 8 * f
+                          + 4 * d),
+    }[name]
+
+
+def _stat():
+    return {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "flops": 0,
+            "bytes": 0, "library_ms": None}
+
+
+def _finish(stat, rate=BF16_FLOPS):
+    """bound_ms and bound_by of the accumulated work."""
+    t_bytes = stat["bytes"] / HBM_BYTES_PER_S * 1e3
+    t_ops = stat["flops"] / rate * 1e3
+    stat["bound_ms"] = max(t_bytes, t_ops)
+    stat["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    return stat
 
 
 def check(ok: bool, msg: str) -> None:
@@ -191,6 +274,31 @@ def _timed_pair(plain, kern):
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
+def _check_outputs(name, where, outs, refs, refs32, labels, bound,
+                   bound32, stat):
+    """Each output against the plain bf16 (``bound``) and fp32
+    (``bound32``) versions, relative to the reference's largest value."""
+    worst = worst32 = 0.0
+    each = []
+    for label, out, ref, ref32 in zip(labels, outs, refs, refs32):
+        check(out.shape == ref.shape and out.dtype == ref.dtype,
+              f"{name} {label}: {out.dtype}{tuple(out.shape)} vs "
+              f"{ref.dtype}{tuple(ref.shape)}")
+        check(bool(torch.isfinite(out.float()).all()),
+              f"{name} {where} {label}: non-finite")
+        a, r = _err(out, ref)
+        r32 = _err(out, ref32)[1]
+        check(r <= bound, f"{name} {where} {label}: {r:.3g} > {bound}")
+        check(r32 <= bound32, f"{name} {where} {label}: {r32:.3g} > "
+              f"{bound32} vs fp32")
+        stat["max_abs_err"] = max(stat["max_abs_err"], a)
+        worst, worst32 = max(worst, r), max(worst32, r32)
+        each.append(f"{label} {r:.4g}/{r32:.4g}")
+    print(f"kernel {name} {where}: worst rel vs plain bf16 {worst:.6g} "
+          f"(bound {bound:g}), vs plain fp32 {worst32:.6g} (bound "
+          f"{bound32:g}); each bf16/fp32: {', '.join(each)}")
+
+
 def _calls(n, d, heads, x, attn, mlp):
     """(name, kernel fn, plain fn, fp32 plain fn) of one level's shapes."""
     f32 = [t.float() for t in attn]
@@ -212,104 +320,108 @@ def phase_kernels():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
-    stats = {name: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0}
-             for name in ("ln_attention", "ln_mlp")}
+    stats = {name: _stat() for name in ("ln_attention", "ln_mlp")}
     for nb, d, heads, depth in LEVELS:
         n = BATCH * nb
         x, attn, mlp = _inputs(gen, n, d)
         for name, kern, plain, plain32 in _calls(n, d, heads, x, attn, mlp):
             out = kern()
             torch.cuda.synchronize()
-            ref, ref32 = plain(), plain32()
-            check(bool(torch.isfinite(out.float()).all()),
-                  f"{name} D={d}: non-finite output")
-            a, r = _err(out, ref)
-            a32, r32 = _err(out, ref32)
-            print(f"kernel {name} N={n} S={SEQ} D={d}: vs plain bf16 "
-                  f"max_abs {a:.6g} rel {r:.6g} "
-                  f"(bound {BOUND_VS_PLAIN_BF16:g}); "
-                  f"vs plain fp32 max_abs {a32:.6g} rel {r32:.6g} "
-                  f"(bound {BOUND_VS_PLAIN_FP32:g})")
-            check(r <= BOUND_VS_PLAIN_BF16,
-                  f"{name} D={d}: {r:.3g} > {BOUND_VS_PLAIN_BF16}")
-            check(r32 <= BOUND_VS_PLAIN_FP32,
-                  f"{name} D={d}: {r32:.3g} > {BOUND_VS_PLAIN_FP32}")
-            stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], a)
-            del out, ref, ref32
+            _check_outputs(name, f"N={n} S={SEQ} D={d}", (out,), (plain(),),
+                           (plain32(),), ("y",), BOUND_VS_PLAIN_BF16,
+                           BOUND_VS_PLAIN_FP32, stats[name])
+            del out
             k_ms, p_ms = _timed_pair(plain, kern)
             print(f"time {name} N={n} S={SEQ} D={d} (batch {BATCH}): kernel "
                   f"{k_ms:.4f} ms, plain {p_ms:.4f} ms per call")
-            stats[name]["ms"] += depth * k_ms
-            stats[name]["plain_ms"] += depth * p_ms
+            _add(stats[name], depth, k_ms, p_ms,
+                 _work(name, n, SEQ, d) if name == "ln_attention"
+                 else _work(name, n * SEQ, 1, d))
         del x, attn, mlp
         torch.cuda.empty_cache()
     return stats
 
 
-def phase_slice(smi: str):
-    cfg = EXPERIMENTS["baseline_only_imaging_nest_small"]
-    check(cfg.model == "nest_small" and cfg.precision == "bf16"
-          and cfg.image_size == 224, "unexpected experiment config")
-    pred = Predictor(cfg, None, mean=128.0, std=64.0, batch_size=BATCH,
+def _add(stat, calls, k_ms, p_ms, work, lib_ms=None):
+    """Adds `calls` calls of median times k_ms, p_ms (and lib_ms) and their
+    work to a kernel's per-step totals."""
+    stat["ms"] += calls * k_ms
+    stat["plain_ms"] += calls * p_ms
+    stat["flops"] += calls * work[0]
+    stat["bytes"] += calls * work[1]
+    if lib_ms is not None:
+        stat["library_ms"] = (stat["library_ms"] or 0.0) + calls * lib_ms
+
+
+def phase_serve(smi: str, key: str, batch: int, requests, per_forward):
+    """``Predictor`` for ``experiment=key`` at ``batch`` answers
+    ``requests``; every kernel launches ``per_forward[name]`` times per
+    forward (0 where unnamed); logits vs fp32 on the CPU; latency."""
+    cfg = EXPERIMENTS[key]
+    check(cfg.precision == "bf16" and cfg.image_size == 224,
+          f"unexpected experiment config {cfg}")
+    pred = Predictor(cfg, None, mean=128.0, std=64.0, batch_size=batch,
                      device="cuda")
     rng = np.random.default_rng(0)
-    requests = [rng.integers(0, 256, (k, 224, 224), dtype=np.uint8)
-                for k in REQUESTS]
-    pred.predict_arrays(requests[2][:1])  # warm-up: cuDNN plans, allocator
+    reqs = [rng.integers(0, 256, (k, 224, 224), dtype=np.uint8)
+            for k in requests]
+    pred.predict_arrays(reqs[-1][:1])  # warm-up: cuDNN plans, allocator
     torch.cuda.synchronize()
 
-    FB.reset_launch_counts()
-    probs = [pred.predict_arrays(r) for r in requests]
-    launches = {k.__name__: k.launches for k in FB.FORWARD_KERNELS}
-    forwards = sum(-(-k // BATCH) for k in REQUESTS)
-    depth = sum(level[3] for level in LEVELS)
-    print(f"slice: answered requests of {list(REQUESTS)} images in "
-          f"{forwards} batch-{BATCH} forwards; launches {launches}")
+    _reset_counts()
+    probs = [pred.predict_arrays(r) for r in reqs]
+    launches = _counts()
+    forwards = sum(-(-k // batch) for k in requests)
+    print(f"serve {key}: answered requests of {list(requests)} images in "
+          f"{forwards} batch-{batch} forwards; launches {launches}")
     for name, count in launches.items():
-        check(count == depth * forwards,
-              f"{name}: {count} launches, expected {depth} x {forwards}")
-    for p, k in zip(probs, REQUESTS):
+        want = per_forward.get(name, 0) * forwards
+        check(count == want, f"{name}: {count} launches, expected {want}")
+    for p, k in zip(probs, requests):
         check(p.shape == (k,) and bool(np.all(np.isfinite(p)))
               and bool(np.all((p >= 0) & (p <= 1))),
               "probabilities must be finite and in [0, 1]")
 
-    logits = pred.predict_logits(requests[0][:8])
-    ref = Predictor(dataclasses.replace(cfg, precision="fp32"), None, mean=128.0, std=64.0, batch_size=8,
-                    device="cpu")
+    logits = pred.predict_logits(reqs[0][:8])
+    ref = Predictor(dataclasses.replace(cfg, precision="fp32"), None,
+                    mean=128.0, std=64.0, batch_size=8, device="cpu")
     ref.task.model.load_state_dict(pred.task.model.state_dict())
-    ref_logits = ref.predict_logits(requests[0][:8])
+    ref_logits = ref.predict_logits(reqs[0][:8])
     err = float(np.abs(logits - ref_logits).max())
     bound = BOUND_LOGITS * max(1.0, float(np.abs(ref_logits).max()))
-    print(f"slice: logits[:8] bf16 on GPU vs fp32 on CPU: max_abs {err:.6g} "
-          f"(bound {bound:.6g}); gpu {np.round(logits, 4).tolist()} cpu "
-          f"{np.round(ref_logits, 4).tolist()}")
+    print(f"serve {key}: logits[:8] bf16 on GPU vs fp32 on CPU: max_abs "
+          f"{err:.6g} (bound {bound:.6g}); gpu {np.round(logits, 4).tolist()}"
+          f" cpu {np.round(ref_logits, 4).tolist()}")
     check(err <= bound, f"logits differ by {err:.4g} > {bound:.4g}")
 
     times = []
     for _ in range(10):
         t0 = time.perf_counter()
-        pred.predict_arrays(requests[0])
+        pred.predict_arrays(reqs[0])
         times.append(time.perf_counter() - t0)
     med = statistics.median(times)
-    batch = pred._batch(requests[0], None)
-    fwd_ms = _median_ms(lambda: pred.task.eval_fn(batch))
-    print(f"slice: batch-{BATCH} request latency median {med * 1e3:.3f} ms "
-          f"(min {min(times) * 1e3:.3f}, max {max(times) * 1e3:.3f}, n=10), "
-          f"{BATCH / med:.1f} images/s; device forward {fwd_ms:.3f} ms; "
-          f"on {smi}")
-    return launches
+    full = pred._batch(reqs[0], None)
+    fwd_ms = _median_ms(lambda: pred.task.eval_fn(full))
+    print(f"serve {key}: batch-{batch} request latency median "
+          f"{med * 1e3:.3f} ms (min {min(times) * 1e3:.3f}, max "
+          f"{max(times) * 1e3:.3f}, n=10), {batch / med:.1f} images/s; "
+          f"device forward {fwd_ms:.3f} ms; on {smi}")
+    del pred, ref
+    torch.cuda.empty_cache()
+    return {k: v for k, v in launches.items() if v}
+
+
+KERNELS = (*FB.KERNELS, *BA.KERNELS, *FM.KERNELS, SH.shear_rows,
+           NZ.add_gaussian_noise)
 
 
 def _reset_counts() -> None:
-    FB.reset_launch_counts()
-    SH.shear_rows.launches = 0
-    NZ.add_gaussian_noise.launches = 0
+    for k in KERNELS:
+        k.launches = 0
 
 
 def _counts() -> dict:
-    return {**{k.__name__: k.launches for k in FB.KERNELS},
-            "shear_rows": SH.shear_rows.launches,
-            "add_gaussian_noise": NZ.add_gaussian_noise.launches}
+    return {k.__name__: k.launches for k in KERNELS}
 
 
 BWD_NAMES = {"ln_attention_bwd": ("dx", "dgamma", "dbeta", "dwqkv", "dbqkv",
@@ -345,9 +457,8 @@ def _bwd_calls(n, d, heads, x, attn, mlp, dy):
 
 def phase_train_kernels():
     gen = torch.Generator(device="cuda").manual_seed(1)
-    stats = {name: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0}
-             for name in ("ln_attention_bwd", "ln_mlp_bwd", "shear_rows",
-                          "add_gaussian_noise")}
+    stats = {name: _stat() for name in ("ln_attention_bwd", "ln_mlp_bwd",
+                                        "shear_rows", "add_gaussian_noise")}
     for nb, d, heads, depth in LEVELS:
         n = BATCH * nb
         x, attn, mlp = _inputs(gen, n, d)
@@ -356,36 +467,16 @@ def phase_train_kernels():
                                                      mlp, dy):
             outs = kern()
             torch.cuda.synchronize()
-            refs, refs32 = plain(), plain32()
-            worst, worst32 = 0.0, 0.0
-            for label, out, ref, ref32 in zip(BWD_NAMES[name], outs, refs,
-                                              refs32):
-                check(out.shape == ref.shape and out.dtype == ref.dtype,
-                      f"{name} {label}: {out.dtype}{tuple(out.shape)} vs "
-                      f"{ref.dtype}{tuple(ref.shape)}")
-                check(bool(torch.isfinite(out.float()).all()),
-                      f"{name} D={d} {label}: non-finite")
-                a, r = _err(out, ref)
-                a32, r32 = _err(out, ref32)
-                print(f"kernel {name} N={n} D={d} {label}: vs plain bf16 "
-                      f"max_abs {a:.6g} rel {r:.6g}; vs plain fp32 rel "
-                      f"{r32:.6g}")
-                check(r <= BOUND_BWD_BF16, f"{name} D={d} {label}: {r:.3g} "
-                      f"> {BOUND_BWD_BF16}")
-                check(r32 <= BOUND_BWD_FP32, f"{name} D={d} {label}: "
-                      f"{r32:.3g} > {BOUND_BWD_FP32} vs fp32")
-                stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"],
-                                                 a)
-                worst, worst32 = max(worst, r), max(worst32, r32)
-            print(f"kernel {name} N={n} S={SEQ} D={d}: worst rel vs plain "
-                  f"bf16 {worst:.6g} (bound {BOUND_BWD_BF16:g}), vs plain "
-                  f"fp32 {worst32:.6g} (bound {BOUND_BWD_FP32:g})")
-            del outs, refs, refs32
+            _check_outputs(name, f"N={n} S={SEQ} D={d}", outs, plain(),
+                           plain32(), BWD_NAMES[name], BOUND_BWD_BF16,
+                           BOUND_BWD_FP32, stats[name])
+            del outs
             k_ms, p_ms = _timed_pair(plain, kern)
             print(f"time {name} N={n} S={SEQ} D={d} (batch {BATCH}): kernel "
                   f"{k_ms:.4f} ms, plain {p_ms:.4f} ms per call")
-            stats[name]["ms"] += depth * k_ms
-            stats[name]["plain_ms"] += depth * p_ms
+            _add(stats[name], depth, k_ms, p_ms,
+                 _work(name, n, SEQ, d) if name == "ln_attention_bwd"
+                 else _work(name, n * SEQ, 1, d))
         del x, attn, mlp, dy
         torch.cuda.empty_cache()
 
@@ -407,7 +498,11 @@ def phase_train_kernels():
                              lambda: SH.shear_rows(img, shift, ms))
     print(f"time shear_rows [64, 224, 224]: kernel {k_ms:.4f} ms, plain "
           f"{p_ms:.4f} ms per call")
-    stats["shear_rows"].update(ms=3 * k_ms, plain_ms=3 * p_ms)
+    # per pass: the fp32 image read and written, one shift per line; a
+    # lerp (3 operations) per pixel
+    px = img.numel()
+    _add(stats["shear_rows"], 3, k_ms, p_ms,
+         (3 * px, 8 * px + 4 * shift.numel()))
 
     # add_gaussian_noise: Philox known answers, words, values, moments
     kat = ((0, 0, 0, 0), (0, 0), "6627e8d5 e169c58d bc57ac4c 9b00dbd8"), \
@@ -456,9 +551,129 @@ def phase_train_kernels():
         lambda: NZ.add_gaussian_noise(x, seeds, sig))
     print(f"time add_gaussian_noise [64, 224, 224]: kernel {k_ms:.4f} ms, "
           f"plain {p_ms:.4f} ms per call")
-    stats["add_gaussian_noise"].update(ms=k_ms, plain_ms=p_ms)
+    # x read and written (fp32), the seeds and sigmas; about 10 fp32
+    # operations per value (Box-Muller's log, sqrt, cos or sin, and the
+    # scaling), Philox's integer products not counted
+    _add(stats["add_gaussian_noise"], 1, k_ms, p_ms,
+         (10 * x.numel(), 8 * x.numel() + 12 * BATCH))
     del img, shift, x, out, z, words, ctr, key
     torch.cuda.empty_cache()
+    return stats
+
+
+def _dqkv_parts(t, d):
+    return t[..., :d], t[..., d:2 * d], t[..., 2 * d:]
+
+
+def phase_unfused_kernels():
+    """Phase 7: #7-#10 against their plain versions at the shapes of the
+    unfused path, then timed (plain, kernel, kernel, plain) beside SDPA.
+    Returns per-step totals of each kernel on ViT-B/16 (#7, #8) or NesT
+    unfused (#9, #10), and NesT unfused's #7/#8 totals."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    stats = {name: _stat() for name in ("attend_qkv", "attend_qkv_bwd",
+                                        "fused_mlp", "fused_mlp_bwd")}
+    nest = {name: _stat() for name in ("attend_qkv", "attend_qkv_bwd")}
+    for label, n, s, d, heads, calls in (VIT_ATTN, *NEST_ATTN):
+        where = f"{label} N={n} S={s} D={d} H={heads}"
+        qkv = (torch.randn(n, s, 3 * d, generator=gen, device="cuda")
+               * 1.5).bfloat16()
+        do = torch.randn(n, s, d, generator=gen, device="cuda").bfloat16()
+        tot = stats if label == VIT_ATTN[0] else nest
+        out = BA.attend_qkv(qkv, heads)
+        torch.cuda.synchronize()
+        _check_outputs("attend_qkv", where, (out,),
+                       (BA.attend_qkv_plain(qkv, heads),),
+                       (BA.attend_qkv_plain(qkv.float(), heads),), ("o",),
+                       BOUND_VS_PLAIN_BF16, BOUND_VS_PLAIN_FP32,
+                       tot["attend_qkv"])
+        dqkv = BA.attend_qkv_bwd(qkv, do, heads)
+        torch.cuda.synchronize()
+        _check_outputs(
+            "attend_qkv_bwd", where, _dqkv_parts(dqkv, d),
+            _dqkv_parts(BA.attend_qkv_bwd_plain(qkv, do, heads), d),
+            _dqkv_parts(BA.attend_qkv_bwd_plain(qkv.float(), do.float(),
+                                                heads), d),
+            ("dq", "dk", "dv"), BOUND_BWD_BF16, BOUND_BWD_FP32,
+            tot["attend_qkv_bwd"])
+        check(torch.equal(dqkv, BA.attend_qkv_bwd(qkv, do, heads)),
+              f"attend_qkv_bwd {where}: reruns differ")
+        del out, dqkv
+        # the library's yardstick on the same q, k, v views: SDPA forward,
+        # and its autograd backward alone
+        ql, kl, vl = qkv.detach().requires_grad_().view(
+            n, s, 3, heads, d // heads).permute(2, 0, 3, 1, 4)
+        dol = do.view(n, s, heads, d // heads).transpose(1, 2)
+        with torch.no_grad():
+            lib_f = statistics.mean(_median_ms(
+                lambda: F.scaled_dot_product_attention(ql, kl, vl))
+                for _ in range(2))
+        ol = F.scaled_dot_product_attention(ql, kl, vl)
+        lib_b = statistics.mean(_median_ms(lambda: torch.autograd.grad(
+            ol, (ql, kl, vl), dol, retain_graph=True)) for _ in range(2))
+        del ql, kl, vl, ol
+        for name, kern, plain, lib in (
+                ("attend_qkv", lambda: BA.attend_qkv(qkv, heads),
+                 lambda: BA.attend_qkv_plain(qkv, heads), lib_f),
+                ("attend_qkv_bwd", lambda: BA.attend_qkv_bwd(qkv, do, heads),
+                 lambda: BA.attend_qkv_bwd_plain(qkv, do, heads), lib_b)):
+            k_ms, p_ms = _timed_pair(plain, kern)
+            print(f"time {name} {where}: kernel {k_ms:.4f} ms, plain "
+                  f"{p_ms:.4f} ms, SDPA {lib:.4f} ms per call")
+            _add(tot[name], calls, k_ms, p_ms, _work(name, n, s, d), lib)
+        del qkv, do
+        torch.cuda.empty_cache()
+
+    for label, n, s, d, _, calls in NEST_ATTN:
+        m, f = n * s, 4 * d
+        where = f"{label} M={m} D={d} F={f}"
+        x = torch.randn(m, d, generator=gen, device="cuda").bfloat16()
+        dy = torch.randn(m, d, generator=gen, device="cuda").bfloat16()
+        (b1, b2), (w1, w2) = FB._cast(
+            torch.bfloat16,
+            vectors=(torch.randn(f, generator=gen, device="cuda") * 0.02,
+                     torch.randn(d, generator=gen, device="cuda") * 0.02),
+            matrices=(torch.randn(d, f, generator=gen, device="cuda")
+                      * d ** -0.5,
+                      torch.randn(f, d, generator=gen, device="cuda")
+                      * f ** -0.5))
+        f32 = (w1.float(), b1, w2.float(), b2)
+        out = FM.fused_mlp(x, w1, b1, w2, b2)
+        torch.cuda.synchronize()
+        _check_outputs("fused_mlp", where, (out,),
+                       (FM.fused_mlp_plain(x, w1, b1, w2, b2),),
+                       (FM.fused_mlp_plain(x.float(), *f32),), ("y",),
+                       BOUND_VS_PLAIN_BF16, BOUND_VS_PLAIN_FP32,
+                       stats["fused_mlp"])
+        outs = FM.fused_mlp_bwd(x, w1, b1, w2, dy)
+        torch.cuda.synchronize()
+        _check_outputs("fused_mlp_bwd", where, outs,
+                       FM.fused_mlp_bwd_plain(x, w1, b1, w2, dy),
+                       FM.fused_mlp_bwd_plain(x.float(), f32[0], b1, f32[2],
+                                              dy.float()),
+                       ("dx", "dw1", "db1", "dw2", "db2"), BOUND_BWD_BF16,
+                       BOUND_BWD_FP32, stats["fused_mlp_bwd"])
+        check(all(torch.equal(a, b) for a, b in zip(
+            outs, FM.fused_mlp_bwd(x, w1, b1, w2, dy))),
+            f"fused_mlp_bwd {where}: reruns differ")
+        del out, outs
+        for name, kern, plain in (
+                ("fused_mlp", lambda: FM.fused_mlp(x, w1, b1, w2, b2),
+                 lambda: FM.fused_mlp_plain(x, w1, b1, w2, b2)),
+                ("fused_mlp_bwd", lambda: FM.fused_mlp_bwd(x, w1, b1, w2, dy),
+                 lambda: FM.fused_mlp_bwd_plain(x, w1, b1, w2, dy))):
+            k_ms, p_ms = _timed_pair(plain, kern)
+            print(f"time {name} {where}: kernel {k_ms:.4f} ms, plain "
+                  f"{p_ms:.4f} ms per call")
+            _add(stats[name], calls, k_ms, p_ms, _work(name, m, 1, d))
+        del x, dy, w1, w2
+        torch.cuda.empty_cache()
+    for name, stat in nest.items():
+        _finish(stat)
+        print(f"per NesT-unfused step: {name} kernel {stat['ms']:.4f} ms, "
+              f"plain {stat['plain_ms']:.4f} ms, SDPA "
+              f"{stat['library_ms']:.4f} ms, bound {stat['bound_ms']:.4f} "
+              f"ms ({stat['bound_by']})")
     return stats
 
 
@@ -471,19 +686,24 @@ def _grads(task, batch, device):
     return [p.grad.detach().float().cpu() for p in task.model.parameters()]
 
 
-def phase_train_slice(smi: str):
-    tcfg = TRAIN_EXPERIMENTS["baseline_only_imaging_nest_small"]
+def phase_train_slice(smi: str, key: str, model: str, batch_size: int,
+                      per_step_want: dict):
+    """The training step of ``experiment=key`` at its batch from random
+    weights: 3 warm-up and 10 timed steps; every kernel launches
+    ``per_step_want[name]`` times per step (0 where unnamed); phase 6's
+    checks; latency, device span and peak memory."""
+    tcfg = TRAIN_EXPERIMENTS[key]
     aug = tcfg.augment()
-    check(tcfg.serve.model == "nest_small" and tcfg.serve.precision == "bf16"
-          and tcfg.serve.image_size == 224 and tcfg.batch_size == BATCH
+    check(tcfg.serve.model == model and tcfg.serve.precision == "bf16"
+          and tcfg.serve.image_size == 224 and tcfg.batch_size == batch_size
           and tcfg.optimizer == "adamw" and tcfg.scheduler == "cosine_warmup"
           and tcfg.coral_lambda == 0 and aug.enabled
           and aug.noise_prob == 0.5 and aug.shear_deg == 0.0,
-          "unexpected training config")
+          f"unexpected training config {tcfg}")
     cuda = torch.device("cuda")
     task, state, step = build_training(tcfg, cuda, STEPS_PER_EPOCH)
     rng = np.random.default_rng(1)
-    batches = [random_batch(rng, BATCH, tcfg.serve.image_size)
+    batches = [random_batch(rng, batch_size, tcfg.serve.image_size)
                for _ in range(WARMUP_STEPS + TIMED_STEPS)]
     auxes, used_lrs = [], []
 
@@ -522,9 +742,8 @@ def phase_train_slice(smi: str):
     launches = _counts()
     peak = torch.cuda.max_memory_allocated()
     per_step = {k: v / TIMED_STEPS for k, v in launches.items()}
-    print(f"train: {TIMED_STEPS} timed steps, launches {launches}")
-    want = {"ln_attention": 24, "ln_mlp": 24, "ln_attention_bwd": 24,
-            "ln_mlp_bwd": 24, "shear_rows": 3, "add_gaussian_noise": 1}
+    print(f"train {key}: {TIMED_STEPS} timed steps, launches {launches}")
+    want = {name: per_step_want.get(name, 0) for name in per_step}
     check(per_step == want, f"launches per step {per_step}, expected {want}")
     check(not torch.equal(p_warm, params()),
           "parameters did not move in the timed steps")
@@ -543,16 +762,18 @@ def phase_train_slice(smi: str):
           f"lr used per step {used_lrs}, expected {want_lrs}")
     check([a["lr"] for a in auxes] == used_lrs,
           "aux lr differs from the optimizer's")
-    print(f"train: losses {[round(v, 5) for v in losses.tolist()]}; lr used "
+    print(f"train {key}: losses {[round(v, 5) for v in losses.tolist()]}; "
+          f"lr used "
           f"{used_lrs[0]:.6g} -> {used_lrs[-1]:.6g} = base_lr x step / "
           f"{warm} (steps_per_epoch {STEPS_PER_EPOCH}, cosine_warmup over "
           f"{tcfg.warmup_epochs} of {tcfg.max_epochs} epochs)")
 
     med = statistics.median(times)
     dev_ms = statistics.median(s.elapsed_time(e) for s, e in events)
-    print(f"train: batch-{BATCH} step latency median {med * 1e3:.3f} ms "
-          f"(min {min(times) * 1e3:.3f}, max {max(times) * 1e3:.3f}, "
-          f"n={TIMED_STEPS}), {BATCH / med:.1f} images/s; device step span "
+    print(f"train {key}: batch-{batch_size} step latency median "
+          f"{med * 1e3:.3f} ms (min {min(times) * 1e3:.3f}, max "
+          f"{max(times) * 1e3:.3f}, n={TIMED_STEPS}), "
+          f"{batch_size / med:.1f} images/s; device step span "
           f"median {dev_ms:.3f} ms; peak memory {peak / 2 ** 30:.3f} GiB; "
           f"on {smi}")
 
@@ -576,43 +797,75 @@ def phase_train_slice(smi: str):
         for a, b in zip(g_gpu, g_cpu)]
     names = [n for n, _ in task.model.named_parameters()]
     worst = int(np.argmin(cos))
-    print(f"train: {GRAD_BATCH}-image gradients bf16 on GPU vs fp32 on CPU: "
+    print(f"train {key}: {GRAD_BATCH}-image gradients bf16 on GPU vs fp32 "
+          f"on CPU: "
           f"relative L2 {rel:.6g} (bound {BOUND_GRAD_REL:g}); per-tensor "
           f"cosine min {cos[worst]:.6g} at {names[worst]} (bound "
           f"{BOUND_GRAD_COS:g}), median {statistics.median(cos):.6g}")
     check(rel <= BOUND_GRAD_REL, f"gradient relative L2 {rel:.4g}")
     check(min(cos) >= BOUND_GRAD_COS, f"gradient cosine {min(cos):.4g}")
-    return launches
+    del task, state, step, gtask, ctask
+    torch.cuda.empty_cache()
+    return {k: v for k, v in launches.items() if v}
 
 
 def main() -> int:
     smi = phase_device()
     phase_build()
+    t0 = time.perf_counter()
     stats = phase_kernels()
-    FB.reset_launch_counts()
-    serve_launches = phase_slice(smi)
+    serve = phase_serve(smi, NEST, BATCH, REQUESTS,
+                        {"ln_attention": 24, "ln_mlp": 24})
     stats.update(phase_train_kernels())
-    launches = phase_train_slice(smi)
+    nest = phase_train_slice(smi, NEST, "nest_small", BATCH, {
+        "ln_attention": 24, "ln_mlp": 24, "ln_attention_bwd": 24,
+        "ln_mlp_bwd": 24, "shear_rows": 3, "add_gaussian_noise": 1})
+    stats.update(phase_unfused_kernels())
+    serve_vit = phase_serve(smi, VIT_B, VIT_BATCH, VIT_REQUESTS,
+                            {"attend_qkv": 12})
+    vit = phase_train_slice(smi, VIT_B, "vit_base_patch16_224", VIT_BATCH, {
+        "attend_qkv": 12, "attend_qkv_bwd": 12, "shear_rows": 3,
+        "add_gaussian_noise": 1})
+    unfused = phase_train_slice(smi, NEST_UNFUSED, "nest_small", BATCH, {
+        "attend_qkv": 24, "attend_qkv_bwd": 24, "fused_mlp": 24,
+        "fused_mlp_bwd": 24, "shear_rows": 3, "add_gaussian_noise": 1})
+    print(f"phases 3-10: {time.perf_counter() - t0:.1f} s")
+    # kernel -> (source, the TPU kernel it replaces, the training path whose
+    # launches and per-step times the line gives)
     sources = {
-        "ln_attention": ("vlp_tpu_torch/csrc/ln_attention.cu",
-                         "vlp_tpu/ops/fused_block.py:493"),
-        "ln_mlp": ("vlp_tpu_torch/csrc/ln_mlp.cu",
-                   "vlp_tpu/ops/fused_block.py:786"),
-        "ln_attention_bwd": ("vlp_tpu_torch/csrc/ln_attention_bwd.cu",
-                             "vlp_tpu/ops/fused_block.py:522"),
-        "ln_mlp_bwd": ("vlp_tpu_torch/csrc/ln_mlp_bwd.cu",
-                       "vlp_tpu/ops/fused_block.py:813"),
-        "shear_rows": ("vlp_tpu_torch/csrc/shear.cu",
-                       "vlp_tpu/ops/pallas_shear.py:45"),
-        "add_gaussian_noise": ("vlp_tpu_torch/csrc/noise.cu",
-                               "vlp_tpu/ops/pallas_noise.py:64")}
+        "ln_attention": ("ln_attention.cu", "fused_block.py:493", nest),
+        "ln_mlp": ("ln_mlp.cu", "fused_block.py:786", nest),
+        "ln_attention_bwd": ("ln_attention_bwd.cu", "fused_block.py:522",
+                             nest),
+        "ln_mlp_bwd": ("ln_mlp_bwd.cu", "fused_block.py:813", nest),
+        "attend_qkv": ("block_attention.cu", "block_attention.py:175", vit),
+        "attend_qkv_bwd": ("block_attention_bwd.cu", "block_attention.py:197",
+                           vit),
+        "fused_mlp": ("fused_mlp.cu", "fused_mlp.py:137", unfused),
+        "fused_mlp_bwd": ("fused_mlp_bwd.cu", "fused_mlp.py:164", unfused),
+        "shear_rows": ("shear.cu", "pallas_shear.py:45", nest),
+        "add_gaussian_noise": ("noise.cu", "pallas_noise.py:64", nest)}
+    paths = {"nest_train": nest, "vit_b_train": vit,
+             "nest_unfused_train": unfused}
+    serves = {"nest_serve": serve, "vit_b_serve": serve_vit}
     kernels = []
-    for name, (source, replaces) in sources.items():
-        entry = {"name": name, "route": "cuda", "source": source,
-                 "replaces": replaces, "launches": launches[name],
-                 **stats[name]}
-        if name in serve_launches:
-            entry["serve_launches"] = serve_launches[name]
+    for name, (source, replaces, path) in sources.items():
+        stat = _finish(stats[name], FP32_FLOPS if name in (
+            "shear_rows", "add_gaussian_noise") else BF16_FLOPS)
+        entry = {"name": name, "route": "cuda",
+                 "source": f"vlp_tpu_torch/csrc/{source}",
+                 "replaces": f"vlp_tpu/ops/{replaces}",
+                 "launches": path[name],
+                 **{k: stat[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                         "bound_ms", "bound_by",
+                                         "library_ms")}}
+        other = {p: c[name] for p, c in paths.items()
+                 if c is not path and name in c}
+        if other:
+            entry["other_launches"] = other
+        served = {p: c[name] for p, c in serves.items() if name in c}
+        if served:
+            entry["serve_launches"] = served
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,5 @@
-"""The CUDA kernels (half blocks and their backwards, shear, noise) against
+"""The CUDA kernels (half blocks and their backwards, the packed-qkv
+attention and the fused MLP with their backwards, shear, noise) against
 their plain PyTorch versions, on the card. Marked ``gpu``: without a CUDA
 device every test here skips. Needs no JAX, so it runs on a machine without
 it:
@@ -16,7 +17,9 @@ backward; shear is exact; noise within 2^-13 (chip_smoke.BOUND_NOISE).
 import pytest
 import torch
 
+from vlp_tpu_torch.ops import block_attention as BA
 from vlp_tpu_torch.ops import fused_block as FB
+from vlp_tpu_torch.ops import fused_mlp as FM
 from vlp_tpu_torch.ops import noise as NZ
 from vlp_tpu_torch.ops import shear as SH
 
@@ -237,3 +240,104 @@ def test_backward_and_augmentation_kernels_raise_on_cuda(cuda):
                               torch.zeros(2, 2, device=cuda,
                                           dtype=torch.int64),
                               torch.zeros(2, device=cuda))
+
+
+@pytest.mark.parametrize("n,s,d,heads", [(2, 197, 768, 12), (3, 196, 96, 3),
+                                         (5, 17, 128, 2), (2, 256, 64, 1),
+                                         (2, 224, 128, 2), (2, 240, 64, 2)])
+def test_attend_qkv_kernels_match_plain(cuda, n, s, d, heads):
+    """Forward and backward of the packed-qkv attention (#7, #8) at head
+    dims 64 and 32, ragged S and the largest S each takes; reruns of the
+    backward are bit-identical."""
+    gen = torch.Generator(device=cuda).manual_seed(n * s + d + 2)
+    # 3x a unit scale: peaked softmax rows
+    qkv = _rand(gen, n, s, 3 * d, scale=3.0).bfloat16()
+    do = _rand(gen, n, s, d).bfloat16()
+    before = BA.attend_qkv.launches
+    out = BA.attend_qkv(qkv, heads)
+    torch.cuda.synchronize()
+    assert BA.attend_qkv.launches == before + 1
+    assert _rel_err(out, BA.attend_qkv_plain(qkv, heads)) <= BOUND
+    if s > BA.MAX_SEQ_BWD[d // heads]:
+        return
+    before = BA.attend_qkv_bwd.launches
+    dqkv = BA.attend_qkv_bwd(qkv, do, heads)
+    torch.cuda.synchronize()
+    assert BA.attend_qkv_bwd.launches == before + 1
+    ref = BA.attend_qkv_bwd_plain(qkv, do, heads)
+    for part in range(3):  # dq, dk, dv each against its own largest value
+        sl = slice(part * d, (part + 1) * d)
+        assert _rel_err(dqkv[..., sl], ref[..., sl]) <= BOUND
+    assert torch.equal(dqkv, BA.attend_qkv_bwd(qkv, do, heads))
+
+
+@pytest.mark.parametrize("m,d,f", [(1568, 96, 384), (100, 64, 256),
+                                   (512, 384, 1536)])
+def test_fused_mlp_kernels_match_plain(cuda, m, d, f):
+    """Forward and backward of the fused MLP (#9, #10), every cotangent,
+    ragged rows included; reruns of the backward are bit-identical."""
+    gen = torch.Generator(device=cuda).manual_seed(m + d + 3)
+    x = _rand(gen, m, d).bfloat16()
+    dy = _rand(gen, m, d).bfloat16()
+    (b1, b2), (w1, w2) = FB._cast(
+        torch.bfloat16, vectors=(_rand(gen, f, scale=0.02),
+                                 _rand(gen, d, scale=0.02)),
+        matrices=(_rand(gen, d, f, scale=d ** -0.5),
+                  _rand(gen, f, d, scale=f ** -0.5)))
+    before = FM.fused_mlp.launches
+    out = FM.fused_mlp(x, w1, b1, w2, b2)
+    torch.cuda.synchronize()
+    assert FM.fused_mlp.launches == before + 1
+    assert _rel_err(out, FM.fused_mlp_plain(x, w1, b1, w2, b2)) <= BOUND
+    before = FM.fused_mlp_bwd.launches
+    outs = FM.fused_mlp_bwd(x, w1, b1, w2, dy)
+    torch.cuda.synchronize()
+    assert FM.fused_mlp_bwd.launches == before + 1
+    for got, ref in zip(outs, FM.fused_mlp_bwd_plain(x, w1, b1, w2, dy)):
+        assert got.shape == ref.shape and got.dtype == ref.dtype
+        assert torch.isfinite(got.float()).all()
+        assert _rel_err(got, ref) <= BOUND
+    again = FM.fused_mlp_bwd(x, w1, b1, w2, dy)
+    assert all(torch.equal(a, b) for a, b in zip(outs, again))
+
+
+def test_unfused_autograd_runs_the_kernels_and_raises_on_what_they_refuse(
+        cuda):
+    """Autograd through attend_qkv and fused_mlp on CUDA tensors launches
+    the backward kernels; a CUDA tensor the kernels do not take raises."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    qkv = _rand(gen, 2, 197, 3 * 128).bfloat16().requires_grad_()
+    do = _rand(gen, 2, 197, 128).bfloat16()
+    before = BA.attend_qkv_bwd.launches
+    BA.attend_qkv(qkv, 2).backward(do)
+    assert BA.attend_qkv_bwd.launches == before + 1
+    assert _rel_err(qkv.grad, BA.attend_qkv_bwd_plain(qkv.detach(), do, 2)
+                    ) <= BOUND
+    x = _rand(gen, 128, 96).bfloat16().requires_grad_()
+    leaves = [t.requires_grad_() for t in (
+        _rand(gen, 96, 384, scale=96 ** -0.5), _rand(gen, 384, scale=0.02),
+        _rand(gen, 384, 96, scale=384 ** -0.5), _rand(gen, 96, scale=0.02))]
+    before = FM.fused_mlp_bwd.launches
+    FM.fused_mlp(x, *leaves).sum().backward()
+    assert FM.fused_mlp_bwd.launches == before + 1
+    assert all(t.grad is not None and t.grad.dtype == torch.float32
+               for t in leaves)
+    with pytest.raises(ValueError, match="head_dim"):
+        BA.attend_qkv(torch.zeros(2, 16, 3 * 96, device=cuda,
+                                  dtype=torch.bfloat16), 1)
+    with pytest.raises(ValueError, match="S <= 256"):
+        BA.attend_qkv(torch.zeros(2, 257, 3 * 64, device=cuda,
+                                  dtype=torch.bfloat16), 1)
+    with pytest.raises(ValueError, match="S <= 224"):
+        BA.attend_qkv_bwd(torch.zeros(2, 240, 3 * 64, device=cuda,
+                                      dtype=torch.bfloat16),
+                          torch.zeros(2, 240, 64, device=cuda,
+                                      dtype=torch.bfloat16), 1)
+    with pytest.raises(TypeError, match="bfloat16"):
+        BA.attend_qkv(torch.zeros(2, 16, 3 * 64, device=cuda), 1)
+    with pytest.raises(TypeError, match="bfloat16"):
+        FM.fused_mlp(torch.zeros(8, 64, device=cuda),
+                     torch.zeros(64, 256, device=cuda),
+                     torch.zeros(256, device=cuda),
+                     torch.zeros(256, 64, device=cuda),
+                     torch.zeros(64, device=cuda))

@@ -25,6 +25,7 @@ import pytest
 import torch
 
 from vlp_tpu.ops import fused_block as JFB
+from vlp_tpu_torch.ops import _common
 from vlp_tpu_torch.ops import fused_block as TFB
 
 REL = {"fp32": 1e-4, "bf16": 2.0 ** -5}
@@ -157,7 +158,7 @@ def test_autograd_function_equals_plain_backward(dtype):
 def test_plain_backward_is_the_derivative_of_the_plain_forward(monkeypatch):
     """In float64 nothing rounds, so the hand-written backward must be the
     exact derivative of the forward (erf made exact on both sides)."""
-    monkeypatch.setattr(TFB, "_erf", torch.erf)
+    monkeypatch.setattr(_common, "_erf", torch.erf)  # the gelu family's erf
     rng = np.random.default_rng(3)
     f64 = lambda *s: torch.from_numpy(rng.standard_normal(s))  # noqa: E731
     d = 32

@@ -54,6 +54,25 @@ def test_tiny_nest_matches_jax(tiny_nest):
     np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
 
 
+@pytest.mark.parametrize("batch", [4, 6])
+def test_tiny_nest_unfused_matches_jax(monkeypatch, batch):
+    """``megakernel=False``: the unfused blocks, ``attend_qkv`` at every
+    level and ``fused_mlp`` where the rows divide into a tile (batch 4: both
+    levels; batch 6: level 0, with level 1's 96 rows on Dense -> GELU ->
+    Dense)."""
+    monkeypatch.setenv("VLP_PALLAS_INTERPRET", "1")
+    x = np.random.default_rng(23).standard_normal(
+        (batch, 16, 16, 3)).astype(np.float32)
+    jmodel = jnest.NesT(dtype=jnp.float32, megakernel=False, **TINY)
+    variables = _perturbed(jmodel.init(jax.random.key(0), jnp.asarray(x)), 4)
+    want = np.asarray(jmodel.apply(variables, jnp.asarray(x)))
+    model = tnest.NesT(dtype=torch.float32, megakernel=False, **TINY)
+    convert.load_weights(model, variables)
+    with torch.no_grad():
+        got = model(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
+
+
 @pytest.mark.parametrize("n,s,d,heads", [(8, 16, 32, 2), (2, 196, 64, 2)])
 def test_encoder_block_matches_jax(monkeypatch, n, s, d, heads):
     monkeypatch.setenv("VLP_PALLAS_INTERPRET", "1")

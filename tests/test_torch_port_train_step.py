@@ -35,6 +35,7 @@ from vlp_tpu.config import get_experiment
 from vlp_tpu.models import nest as jnest
 from vlp_tpu.models.tasks import TaskStatics as JStatics
 from vlp_tpu.models.tasks import build_task as jbuild_task
+from vlp_tpu.ops import fused_block as JFB
 from vlp_tpu.ops.augment import AugmentConfig as JAugment
 from vlp_tpu.train.optim import make_optimizer as jmake_optimizer
 from vlp_tpu.train.optim import make_schedule as jmake_schedule
@@ -43,6 +44,7 @@ from vlp_tpu.train.step import make_train_step as jmake_train_step
 from vlp_tpu_torch import convert
 from vlp_tpu_torch.config import TRAIN_EXPERIMENTS, TrainConfig
 from vlp_tpu_torch.models import nest as tnest
+from vlp_tpu_torch.models import vit as tvit
 from vlp_tpu_torch.models.tasks import TaskStatics, build_task
 from vlp_tpu_torch.models.vit import flax_init_
 from vlp_tpu_torch.ops.augment import AugmentConfig
@@ -91,10 +93,21 @@ def tiny_port(monkeypatch):
 def tiny(monkeypatch, tiny_port):
     """(config, JAX task, perturbed initial parameters) of the tiny NesT on
     both sides."""
+    return _tiny(monkeypatch, tiny_port)
+
+
+@pytest.fixture
+def tiny_unfused(monkeypatch, tiny_port):
+    """``tiny`` with ``model.megakernel=false``: the unfused block path
+    (``attend_qkv``, and ``fused_mlp`` where its rows divide)."""
+    tiny_port.model.megakernel = False
+    return _tiny(monkeypatch, tiny_port)
+
+
+def _tiny(monkeypatch, cfg):
     monkeypatch.setenv("VLP_PALLAS_INTERPRET", "1")
     monkeypatch.setattr(jnest, "nest_small",
                         lambda **kw: jnest.NesT(**TINY, **kw))
-    cfg = tiny_port
     jtask = jbuild_task(cfg, JStatics(mean=MEAN, std=STD, class_weights=CW,
                                       augment=JAugment(enabled=False)))
     batch = _batch(0)
@@ -163,8 +176,9 @@ def _check_params(model, want, grads, lr, opt=None):
         assert (diff <= 2 * lr + tight).all(), name
 
 
-def test_one_train_step_and_a_carried_over_second_match_jax(tiny):
-    cfg, jtask, params = tiny
+def _check_first_step(cfg, jtask, params):
+    """One step on both sides from the same parameters: loss, gradients and
+    the updated parameters agree. Returns (JAX state after it, JAX step)."""
     tx = jmake_optimizer(cfg, params, SPE)
     jstate = JState.create(params, {}, tx, jax.random.key(3))
     jstep = jmake_train_step(jtask, tx)
@@ -191,6 +205,12 @@ def test_one_train_step_and_a_carried_over_second_match_jax(tiny):
             name
     _check_params(task.model, _as_torch(jstate1.params, task.model), grads,
                   LR)
+    return jstate1, jstep
+
+
+def test_one_train_step_and_a_carried_over_second_match_jax(tiny):
+    cfg, jtask, params = tiny
+    jstate1, jstep = _check_first_step(cfg, jtask, params)
 
     # step 2 from JAX's state: weights and AdamW moments carried over
     adam = _adam_state(jstate1.opt_state)
@@ -209,6 +229,21 @@ def test_one_train_step_and_a_carried_over_second_match_jax(tiny):
     grads2 = {n: p.grad for n, p in task2.model.named_parameters()}
     _check_params(task2.model, _as_torch(jstate2.params, task2.model),
                   grads2, lr1, opt2)
+
+
+def test_one_unfused_train_step_matches_jax(monkeypatch, tiny_unfused):
+    """``model.megakernel=false`` (the experiment's unfused switch): a call
+    to a half-block kernel on either side would raise."""
+    cfg, jtask, params = tiny_unfused
+
+    def refuse(*_, **__):
+        raise AssertionError("a half-block kernel ran")
+
+    for mod in (JFB, tvit):
+        for name in ("ln_attention", "ln_mlp"):
+            monkeypatch.setattr(mod, name, refuse)
+    assert not TrainConfig.from_config(cfg).serve.megakernel
+    _check_first_step(cfg, jtask, params)
 
 
 @pytest.mark.parametrize("name", ["none", "cosine", "cosine_warmup"])

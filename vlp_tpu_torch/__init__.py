@@ -9,6 +9,8 @@ Ported so far: the NesT-Small classifier's serving path
 (``vlp_tpu_torch.serve.Predictor``) and training step
 (``vlp_tpu_torch.train.step.make_train_step``), with the half-block kernels
 ``ln_attention`` and ``ln_mlp``, their backwards, and the augmentation
-kernels ``shear_rows`` and ``add_gaussian_noise``. ROADMAP.md lists what
-follows.
+kernels ``shear_rows`` and ``add_gaussian_noise``; and the unfused block
+path of ViT-B/16, ViT-L/16 and NesT-Small with ``megakernel=False``, with
+the packed-qkv attention ``attend_qkv`` and the fused MLP ``fused_mlp`` and
+their backwards. ROADMAP.md lists what follows.
 """

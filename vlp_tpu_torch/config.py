@@ -1,18 +1,22 @@
 """What the port's serving and training paths read of an experiment config.
 
 The experiment configs live in the JAX package (``vlp_tpu.config``). The
-serving path needs only seven of their fields, so it takes them as a
+serving path needs only ten of their fields, so it takes them as a
 ``ServeConfig``, and the training step adds the optimizer, schedule and
 augmentation fields in a ``TrainConfig``; neither imports anything of
 ``vlp_tpu``: the machine with the card runs without the JAX package.
 ``from_config`` reads the fields off a ``vlp_tpu.config.Config``;
 ``EXPERIMENTS`` and ``TRAIN_EXPERIMENTS`` hold the ported experiments'
-values, and tests hold each entry against ``get_experiment``.
+values (keyed by the experiment name, or by the name and an override as
+the command line gives them), and tests hold each entry against
+``get_experiment`` and ``apply_overrides``. ``serve_config`` resolves a
+command line's ``experiment=`` and overrides of the serving fields.
 """
 from __future__ import annotations
 
+import ast
 import dataclasses
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 from vlp_tpu_torch.ops.augment import AugmentConfig
 
@@ -26,6 +30,9 @@ class ServeConfig:
     in_channels: int = 3                  # cfg.data.in_channels
     scale_intensity: bool = False         # cfg.data.scale_intensity_normalization
     crop: bool = False                    # cfg.data.crop_larger_dimension
+    fused_attention: Optional[bool] = None  # cfg.model.fused_attention
+    megakernel: bool = True               # cfg.model.megakernel
+    remat: bool = False                   # cfg.model.remat
 
     @classmethod
     def from_config(cls, cfg: Any) -> "ServeConfig":
@@ -35,7 +42,9 @@ class ServeConfig:
                    image_size=cfg.data.image_size,
                    in_channels=cfg.data.in_channels,
                    scale_intensity=cfg.data.scale_intensity_normalization,
-                   crop=cfg.data.crop_larger_dimension)
+                   crop=cfg.data.crop_larger_dimension,
+                   fused_attention=cfg.model.fused_attention,
+                   megakernel=cfg.model.megakernel, remat=cfg.model.remat)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,13 +103,74 @@ def as_serve_config(cfg: Any) -> ServeConfig:
     return ServeConfig.from_config(cfg)
 
 
+# The ServeConfig field of each override a command line may give
+# (vlp_tpu.config's dotted names); serve_config raises on any other.
+SERVE_OVERRIDES = {
+    "model.task": "task", "model.model": "model",
+    "trainer.precision": "precision", "data.image_size": "image_size",
+    "data.in_channels": "in_channels",
+    "data.scale_intensity_normalization": "scale_intensity",
+    "data.crop_larger_dimension": "crop",
+    "model.fused_attention": "fused_attention",
+    "model.megakernel": "megakernel", "model.remat": "remat"}
+
+
+def _parse_value(raw: str) -> Any:
+    """A command-line value as ``vlp_tpu.config`` parses it."""
+    low = raw.lower()
+    if low in ("null", "none"):
+        return None
+    if low in ("true", "false"):
+        return low == "true"
+    try:
+        return ast.literal_eval(raw)
+    except (ValueError, SyntaxError):
+        return raw
+
+
+def serve_config(overrides: List[str]) -> ServeConfig:
+    """``experiment=<name>`` (from ``EXPERIMENTS``; the Config defaults when
+    absent) with ``dotted.field=value`` overrides of the serving fields
+    applied, as ``vlp_tpu.config.apply_overrides`` applies them."""
+    names = [o.split("=", 1)[1] for o in overrides
+             if o.startswith("experiment=")]
+    if names and names[-1] not in EXPERIMENTS:
+        raise KeyError(f"experiment {names[-1]!r} is not ported; ported: "
+                       f"{sorted(EXPERIMENTS)}")
+    cfg = EXPERIMENTS[names[-1]] if names else ServeConfig()
+    for item in overrides:
+        if item.startswith("experiment="):
+            continue
+        key, sep, raw = item.partition("=")
+        if not sep or key not in SERVE_OVERRIDES:
+            raise ValueError(
+                f"override {item!r}: the port's serving path takes "
+                f"experiment=<name> and {sorted(SERVE_OVERRIDES)}")
+        cfg = dataclasses.replace(cfg, **{SERVE_OVERRIDES[key]:
+                                          _parse_value(raw)})
+    return cfg
+
+
+NEST_UNFUSED = "baseline_only_imaging_nest_small model.megakernel=false"
+
 EXPERIMENTS: Dict[str, ServeConfig] = {
     # vlp_tpu/config/experiments/__init__.py:35-40 (model nest_small) on
     # baseline_only_imaging_resnet34 (:17-32, crop_larger_dimension) and the
     # Config defaults (224x224, 3 channels, bf16)
     "baseline_only_imaging_nest_small": ServeConfig(model="nest_small",
                                                     crop=True),
+    # the same with the half-block kernels off (config/core.py:57-60): the
+    # unfused block path, attend_qkv and fused_mlp
+    NEST_UNFUSED: ServeConfig(model="nest_small", crop=True,
+                              megakernel=False),
+    # :258-264 and :384-390 on baseline_only_imaging_resnet34
+    "baseline_only_imaging_vit_base": ServeConfig(
+        model="vit_base_patch16_224", crop=True),
+    "baseline_only_imaging_vit_large": ServeConfig(
+        model="vit_large_patch16_224", crop=True),
 }
+
+_LR = 1.2925748253710286e-4
 
 TRAIN_EXPERIMENTS: Dict[str, TrainConfig] = {
     # baseline_only_imaging_resnet34 (:17-32): batch 64, lr 1.29e-4,
@@ -108,5 +178,14 @@ TRAIN_EXPERIMENTS: Dict[str, TrainConfig] = {
     # 4 warmup of 10 epochs are the Config defaults (config/core.py:19-35,124)
     "baseline_only_imaging_nest_small": TrainConfig(
         serve=EXPERIMENTS["baseline_only_imaging_nest_small"],
-        lr=1.2925748253710286e-4, scheduler="cosine_warmup", batch_size=64),
+        lr=_LR, scheduler="cosine_warmup", batch_size=64),
+    NEST_UNFUSED: TrainConfig(serve=EXPERIMENTS[NEST_UNFUSED], lr=_LR,
+                              scheduler="cosine_warmup", batch_size=64),
+    # vit_base sets batch 32 (:263)
+    "baseline_only_imaging_vit_base": TrainConfig(
+        serve=EXPERIMENTS["baseline_only_imaging_vit_base"], lr=_LR,
+        scheduler="cosine_warmup", batch_size=32),
+    "baseline_only_imaging_vit_large": TrainConfig(
+        serve=EXPERIMENTS["baseline_only_imaging_vit_large"], lr=_LR,
+        scheduler="cosine_warmup", batch_size=64),
 }

@@ -9,6 +9,9 @@ onto the port's module tree:
   params/backbone/pos_embed_{li}      -> backbone.pos_embed_{li}
   params/backbone/l{li}_block{d}/...  -> backbone.levels.{li}.{d}...
   params/backbone/pool{li}/...        -> backbone.pools.{li}...
+  params/backbone/cls_token, pos_embed -> backbone.cls_token, pos_embed (ViT)
+  params/backbone/block{i}/...        -> backbone.blocks.{i}... (ViT)
+  params/backbone/final_ln/...        -> backbone.final_ln... (ViT)
   .../kernel (Dense, [in, out]), .../scale -> ....weight
   params/head/...                     -> head...
 
@@ -29,6 +32,7 @@ from torch import nn
 _COMPONENT_RULES = (
     (re.compile(r"^l(\d+)_block(\d+)$"), r"levels.\1.\2"),
     (re.compile(r"^pool(\d+)$"), r"pools.\1"),
+    (re.compile(r"^block(\d+)$"), r"blocks.\1"),
 )
 
 

@@ -5,6 +5,8 @@
 //   ln_bwd_rows_kernel:  dx = bf16(dy + LN_bwd(dln * gamma)), with the
 //                        block's column partial sums of dln * x_hat, dln
 //                        and dy (for dgamma, dbeta and the output bias)
+//   col_partials_kernel: part[b, c] = sum of x[r, c] over the rows r of
+//                        row block b, in order (for a bias gradient)
 //   reduce_rows_kernel:  out[c] = sum over p of part[p * stride + c], p in
 //                        order: partials -> fp32 vector or bf16 weight
 //
@@ -141,6 +143,23 @@ __global__ void __launch_bounds__(kRowWarps * 32)
   }
 }
 
+// grid (ceil(D / 128), col_row_blocks(M)); block 128 threads, one column
+// each: neighbouring threads read neighbouring elements of a row. (A
+// template, as every kernel in these headers, so that each object file's
+// copy links as one.)
+template <typename T>
+__global__ void __launch_bounds__(128)
+    col_partials_kernel(const T* __restrict__ x, float* __restrict__ part,
+                        int M, int D) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= D) return;
+  const int r_end = min(M, (int)(blockIdx.y + 1) * kRowsPerBlock);
+  float s = 0.f;
+  for (int r = blockIdx.y * kRowsPerBlock; r < r_end; ++r)
+    s += static_cast<float>(x[(size_t)r * D + c]);
+  part[(size_t)blockIdx.y * D + c] = s;
+}
+
 template <typename T>
 __device__ __forceinline__ T from_float(float v);
 template <>
@@ -240,6 +259,19 @@ inline cudaError_t launch_ln_bwd_rows(const bf16* x, const float* gamma,
   if (M <= 0) return cudaErrorInvalidValue;
   const LnBwdRowsArgs a{x, gamma, dln, dy, dx, part, M, D, eps, st};
   VLP_PER_LANE_SWITCH(D, a.run)
+}
+
+inline int col_row_blocks(int M) {
+  return (M + kRowsPerBlock - 1) / kRowsPerBlock;
+}
+
+inline cudaError_t launch_col_partials(const bf16* x, float* part, int M,
+                                       int D, cudaStream_t st) {
+  if (M <= 0 || D <= 0 || col_row_blocks(M) > 65535)
+    return cudaErrorInvalidValue;
+  col_partials_kernel<bf16><<<dim3((D + 127) / 128, col_row_blocks(M)), 128, 0,
+                        st>>>(x, part, M, D);
+  return cudaGetLastError();
 }
 
 template <typename T>

@@ -1,0 +1,196 @@
+// The attention core shared by ln_attention.cu (half-block kernel #1) and
+// block_attention.cu (the standalone packed-qkv attention, kernel #7):
+//
+//   o = bf16((bf16(p) @ v) / l) per (sample, head), with s = (q @ k^T) *
+//   scale in fp32, p = exp(s - rowmax(s)), l = sum(p)
+//
+// over a packed qkv [N, S, 3D] bf16 (q | k | v, heads packed inside each D
+// block) into o [N, S, D] bf16. The rounding points are those of the Pallas
+// bodies (vlp_tpu/ops/block_attention.py:75-85, fused_block.py:313-323).
+//
+// One block per (sample, head) stages q, k and v in shared memory (rows
+// S..sp-1 zero, sp = S rounded up to 16), and each of its 4 warps takes
+// 16-query tiles: the 16 x S fp32 score rows with wmma, the softmax from
+// shared memory, P (bf16, unnormalised) written over its own score row, and
+// P @ V with wmma. HD (the head dim, 32 or 64) is a template parameter.
+// Shared memory: 3 * sp * (HD + 8) bf16 plus 4 warps' fp32 score rows:
+// 102 KB at S = 196, HD = 32 (two blocks per SM), 144 KB at S = 197,
+// HD = 64 (one block per SM). S <= 256 (8 keys per lane).
+//
+// What bounds it on this card: 4 * S^2 * HD FLOPs per (sample, head) on
+// 8 * S * HD bytes of q, k, v and o, S / 2 = 98 FLOP/byte at S = 196, below
+// the bf16 ridge (~295 FLOP/byte), so the ideal kernel is bound by device
+// memory; this simple form is latency-bound instead (one pass per tile,
+// the softmax through shared memory, no overlap of the staging with the
+// products).
+#pragma once
+
+#include "gemm.cuh"
+
+namespace vlp {
+
+constexpr int kAttnWarps = 4;
+constexpr int kMaxSeq = 256;          // keys held per lane: kMaxSeq / 32
+constexpr int kKeysPerLane = kMaxSeq / 32;
+
+// fp32 pitch of a warp's score rows; at least HD + 4 so that the 16 x HD
+// output tile staged there fits a row.
+__host__ __device__ inline int mhsa_lds(int S, int HD) {
+  const int sp = (S + 15) / 16 * 16;
+  return (sp > HD ? sp : HD) + 4;
+}
+
+template <int HD>
+inline size_t mhsa_smem_bytes(int S) {
+  const int sp = (S + 15) / 16 * 16;
+  return 3 * (size_t)sp * (HD + 8) * sizeof(bf16) +
+         (size_t)kAttnWarps * 16 * mhsa_lds(S, HD) * sizeof(float) +
+         (size_t)kAttnWarps * 16 * sizeof(float);
+}
+
+// grid (H, N); block kAttnWarps * 32 threads.
+template <int HD>
+__global__ void __launch_bounds__(kAttnWarps * 32)
+    mhsa_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ o, int S,
+                int D, float scale) {
+  constexpr int ld = HD + 8;  // bf16 pitch of the staged q, k, v rows
+  constexpr int kf = HD / 16;  // wmma fragments across the head dim
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int h = blockIdx.x;
+  const int n = blockIdx.y;
+  const int tiles = (S + 15) / 16;
+  const int sp = tiles * 16;
+  const int lds = mhsa_lds(S, HD);  // fp32 pitch of a score row
+  const int ldp = 2 * lds;          // bf16 pitch of P: row r of P starts where
+                                    // row r of the scores starts
+  bf16* Qs = reinterpret_cast<bf16*>(smem);
+  bf16* Ks = Qs + sp * ld;
+  bf16* Vs = Ks + sp * ld;
+  float* Ss = reinterpret_cast<float*>(Vs + sp * ld);
+  float* Ls = Ss + kAttnWarps * 16 * lds;
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const size_t row_stride = 3 * (size_t)D;
+  const bf16* base = qkv + (size_t)n * S * row_stride + h * HD;
+  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+
+  // stage q, k, v of this (sample, head); rows S..sp-1 are zero
+  constexpr int vecs = HD / 8;
+  for (int i = tid; i < 3 * sp * vecs; i += kAttnWarps * 32) {
+    const int mat = i / (sp * vecs);
+    const int rem = i % (sp * vecs);
+    const int r = rem / vecs;
+    const int c = (rem % vecs) * 8;
+    uint4 v = zero;
+    if (r < S)
+      v = *reinterpret_cast<const uint4*>(base + (size_t)r * row_stride +
+                                          mat * D + c);
+    *reinterpret_cast<uint4*>(Qs + (size_t)mat * sp * ld + r * ld + c) = v;
+  }
+  __syncthreads();
+
+  float* S_w = Ss + warp * 16 * lds;
+  bf16* P_w = reinterpret_cast<bf16*>(S_w);
+  float* L_w = Ls + warp * 16;
+  const float neg_inf = __int_as_float(0xff800000);
+
+  for (int qt = warp; qt < tiles; qt += kAttnWarps) {
+    // scores: S_w[16, sp] = Q[qt] @ K^T, fp32
+    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> qa[kf];
+#pragma unroll
+    for (int kk = 0; kk < kf; ++kk)
+      wmma::load_matrix_sync(qa[kk], Qs + qt * 16 * ld + kk * 16, ld);
+    for (int kt = 0; kt < tiles; ++kt) {
+      wmma::fragment<wmma::accumulator, 16, 16, 16, float> sc;
+      wmma::fill_fragment(sc, 0.f);
+#pragma unroll
+      for (int kk = 0; kk < kf; ++kk) {
+        // col_major B: element (k, j) = K[kt*16 + j][kk*16 + k] = (K^T)[k][j]
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> kb;
+        wmma::load_matrix_sync(kb, Ks + kt * 16 * ld + kk * 16, ld);
+        wmma::mma_sync(sc, qa[kk], kb, sc);
+      }
+      wmma::store_matrix_sync(S_w + kt * 16, sc, lds, wmma::mem_row_major);
+    }
+    __syncwarp();
+
+    // softmax rows; p = exp(s - max) kept unnormalised, l = sum(p) in fp32
+    for (int r = 0; r < 16; ++r) {
+      const float* srow = S_w + r * lds;
+      float v[kKeysPerLane];
+      float m = neg_inf;
+#pragma unroll
+      for (int i = 0; i < kKeysPerLane; ++i) {
+        const int j = lane + 32 * i;
+        v[i] = j < S ? srow[j] * scale : neg_inf;
+        m = fmaxf(m, v[i]);
+      }
+      m = warp_max(m);
+      float l = 0.f;
+#pragma unroll
+      for (int i = 0; i < kKeysPerLane; ++i) {
+        const int j = lane + 32 * i;
+        v[i] = j < S ? expf(v[i] - m) : 0.f;
+        l += v[i];
+      }
+      l = warp_sum(l);
+      __syncwarp();  // every lane has read score row r before P overwrites it
+      bf16* prow = P_w + r * ldp;
+#pragma unroll
+      for (int i = 0; i < kKeysPerLane; ++i) {
+        const int j = lane + 32 * i;
+        if (j < sp) prow[j] = __float2bfloat16(v[i]);
+      }
+      if (lane == 0) L_w[r] = l;
+    }
+    __syncwarp();
+
+    // o[16, HD] = P @ V
+    wmma::fragment<wmma::accumulator, 16, 16, 16, float> oc[kf];
+#pragma unroll
+    for (int j = 0; j < kf; ++j) wmma::fill_fragment(oc[j], 0.f);
+    for (int kt = 0; kt < tiles; ++kt) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> pa;
+      wmma::load_matrix_sync(pa, P_w + kt * 16, ldp);
+#pragma unroll
+      for (int j = 0; j < kf; ++j) {
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> vb;
+        wmma::load_matrix_sync(vb, Vs + kt * 16 * ld + j * 16, ld);
+        wmma::mma_sync(oc[j], pa, vb, oc[j]);
+      }
+    }
+    __syncwarp();
+#pragma unroll
+    for (int j = 0; j < kf; ++j)
+      wmma::store_matrix_sync(S_w + j * 16, oc[j], lds, wmma::mem_row_major);
+    __syncwarp();
+    for (int i = lane; i < 16 * HD; i += 32) {
+      const int r = i / HD;
+      const int c = i % HD;
+      const int row = qt * 16 + r;
+      if (row < S)
+        o[((size_t)n * S + row) * D + h * HD + c] =
+            __float2bfloat16(S_w[r * lds + c] / L_w[r]);
+    }
+    __syncwarp();  // the next tile's scores overwrite S_w
+  }
+}
+
+template <int HD>
+cudaError_t launch_mhsa(const bf16* qkv, bf16* o, int N, int S, int D, int H,
+                        float scale, cudaStream_t stream) {
+  if (N <= 0 || S <= 0 || S > kMaxSeq || D != H * HD || N > 65535)
+    return cudaErrorInvalidValue;
+  const size_t smem = mhsa_smem_bytes<HD>(S);
+  cudaError_t err = cudaFuncSetAttribute(
+      mhsa_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  mhsa_kernel<HD><<<dim3(H, N), kAttnWarps * 32, smem, stream>>>(qkv, o, S, D,
+                                                                 scale);
+  return cudaGetLastError();
+}
+
+}  // namespace vlp

@@ -3,8 +3,9 @@
 
 4x4 conv patch embed; per level the NHWC token map is cut into 14x14
 blocks that fold into the batch, the level's encoder blocks attend within
-each block (``ln_attention`` / ``ln_mlp`` kernels), and a ConvPool (3x3
-conv, LayerNorm, 3x3/2 max pool) joins the levels. Head: fp32 LayerNorm
+each block (``ln_attention`` / ``ln_mlp`` kernels by default; with
+``megakernel=False`` the unfused block, ``attend_qkv`` and ``fused_mlp``),
+and a ConvPool (3x3 conv, LayerNorm, 3x3/2 max pool) joins the levels. Head: fp32 LayerNorm
 and a global mean over H and W. Activations are NHWC, as in the JAX
 package; the convolutions (outside Pallas there too) go to ``F.conv2d``.
 """
@@ -16,7 +17,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from vlp_tpu_torch.models.vit import EncoderBlock, LayerNorm
+from vlp_tpu_torch.models.vit import EncoderBlock, LayerNorm, conv_nhwc
 
 
 def blockify(x: torch.Tensor, block: int) -> torch.Tensor:
@@ -33,16 +34,6 @@ def unblockify(x: torch.Tensor, block: int, h: int, w: int) -> torch.Tensor:
     gh, gw = h // block, w // block
     x = x.reshape(b, gh, gw, block, block, c).permute(0, 1, 3, 2, 4, 5)
     return x.reshape(b, h, w, c)
-
-
-def conv_nhwc(x: torch.Tensor, conv: nn.Conv2d, stride: int,
-              padding: int) -> torch.Tensor:
-    """flax ``nn.Conv`` in the activation dtype on NHWC: the convolution
-    without bias, then the bias added in that dtype."""
-    dt = x.dtype
-    y = F.conv2d(x.permute(0, 3, 1, 2), conv.weight.to(dt), None,
-                 stride=stride, padding=padding)
-    return y.permute(0, 2, 3, 1) + conv.bias.to(dt)
 
 
 class ConvPool(nn.Module):
@@ -69,8 +60,15 @@ class NesT(nn.Module):
                  num_heads: Sequence[int] = (3, 6, 12),
                  depths: Sequence[int] = (2, 2, 20), block_size: int = 14,
                  dtype: torch.dtype = torch.bfloat16,
+                 fused_attention: bool = True, megakernel: bool = True,
+                 nhwc_windows: bool = False,
                  device: Optional[torch.device] = None) -> None:
         super().__init__()
+        if nhwc_windows:
+            raise NotImplementedError(
+                "nhwc_windows=True runs the windowed half-block kernels "
+                "_lnattn_nhwc_fwd/_lnattn_nhwc_bwd (#5/#6 in PERF.md), which "
+                "are not ported to vlp_tpu_torch yet; see ROADMAP.md")
         self.dtype = dtype
         self.patch_size = patch_size
         self.block_size = block_size
@@ -86,7 +84,9 @@ class NesT(nn.Module):
             self.register_parameter(f"pos_embed_{li}", nn.Parameter(
                 torch.zeros(1, nb, block_size ** 2, dim, device=device)))
             levels.append(nn.ModuleList(
-                EncoderBlock(dim, heads, device=device)
+                EncoderBlock(dim, heads, device=device,
+                             fused_attention=fused_attention,
+                             megakernel=megakernel)
                 for _ in range(depth)))
             if li < len(embed_dims) - 1:
                 pools.append(ConvPool(dim, embed_dims[li + 1], device))

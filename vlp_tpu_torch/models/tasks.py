@@ -32,14 +32,18 @@ class TaskStatics:
 
 
 class OnlyImagingModel(nn.Module):
-    """Backbone + 1-logit fp32 head; returns (logits [B], features)."""
+    """Backbone + 1-logit fp32 head; returns (logits [B], features).
+    ``backbone_kw`` go to ``create_backbone`` (``fused_attention``,
+    ``megakernel``, ``remat``)."""
 
     def __init__(self, backbone_name: str, dtype: torch.dtype,
                  in_chans: int = 3,
-                 device: Optional[torch.device] = None) -> None:
+                 device: Optional[torch.device] = None,
+                 **backbone_kw) -> None:
         super().__init__()
         self.backbone, self.feature_dim = create_backbone(
-            backbone_name, dtype=dtype, in_chans=in_chans, device=device)
+            backbone_name, dtype=dtype, in_chans=in_chans, device=device,
+            **backbone_kw)
         self.head = Dense(self.feature_dim, 1, device)
 
     def forward(self, images: torch.Tensor):
@@ -55,8 +59,10 @@ class OnlyImagingTask:
             else torch.float32
         self.statics = statics
         self.coral_lambda = float(coral_lambda)
-        self.model = OnlyImagingModel(cfg.model, self.dtype,
-                                      statics.out_channels, device)
+        self.model = OnlyImagingModel(
+            cfg.model, self.dtype, statics.out_channels, device,
+            fused_attention=cfg.fused_attention, megakernel=cfg.megakernel,
+            remat=cfg.remat)
 
     def _prep_train(self, batch: Dict[str, torch.Tensor],
                     gen: torch.Generator) -> torch.Tensor:

@@ -1,11 +1,26 @@
-"""Transformer building blocks (counterpart of ``vlp_tpu/models/vit.py``).
+"""Vision Transformer and the pre-LN transformer block (counterpart of
+``vlp_tpu/models/vit.py``).
 
-Holds the pre-LN ``EncoderBlock`` on its half-block kernel path (3-D
-``[N, S, D]`` input), the ``Dense`` and ``LayerNorm`` layers whose
-parameters mirror flax's, and the flax-scaled random init. The ViT class
-waits for its own kernel (``block_attention``, ROADMAP.md). The TPU's VMEM
-gates (``supports_attn``/``supports_mlp``) are not carried over: on an H100
-the kernels take every NesT-Small shape.
+``EncoderBlock`` on ``[N, S, D]`` tokens takes one of the reference's two
+compositions per half block, by the same per-shape choice:
+
+- the half-block kernels (``ln_attention``, ``ln_mlp``) when ``megakernel``
+  and ``fused_attention`` are set and ``supports_attn`` / ``supports_mlp``
+  hold (NesT-Small by default);
+- otherwise the unfused path: ``LayerNorm`` -> ``FusedSelfAttention``
+  (``Dense`` qkv -> the ``attend_qkv`` kernel -> ``Dense`` out) -> residual,
+  then ``LayerNorm`` -> ``MlpBlock`` (the ``fused_mlp`` kernel where
+  ``fused_mlp.supports`` holds, else ``Dense`` -> GELU -> ``Dense``) ->
+  residual. ViT-B/16 and ViT-L/16 take it at full width, NesT with
+  ``megakernel=False``.
+
+The predicates are copies of the TPU kernels' VMEM arithmetic
+(``ops/fused_block.py``, ``ops/fused_mlp.py``): they say which composition
+the reference computes at a shape, and the port computes the same one.
+``Dense`` and ``LayerNorm`` mirror flax's parameters and rounding;
+``flax_init_`` gives the flax initializers' scales. The flax
+``MultiHeadDotProductAttention`` path (``fused_attention=False``, separate
+query/key/value parameters) is not ported (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -13,19 +28,26 @@ import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-from vlp_tpu_torch.ops.fused_block import ln_attention, ln_mlp
+from vlp_tpu_torch.ops import fused_mlp as FM
+from vlp_tpu_torch.ops.block_attention import attend_qkv
+from vlp_tpu_torch.ops.fused_block import (ln_attention, ln_mlp,
+                                           supports_attn, supports_mlp)
 
 _LN_EPS = 1e-6
 # flax lecun_normal: a normal truncated at two standard deviations, rescaled
 # so that the truncated distribution's std is sqrt(1 / fan_in)
 _TRUNC_STD_CORRECTION = 0.87962566103423978
+# sqrt(0.5) as jax.nn.gelu casts it to a bf16 input's dtype
+_SQRT_HALF_BF16 = 0.70703125
 
 
 class Dense(nn.Module):
     """``y = x @ weight + bias`` with ``weight`` stored ``[in, out]``, the
-    layout of a flax ``Dense`` kernel."""
+    layout of a flax ``Dense`` kernel; in the input's dtype, the product
+    rounded before the bias is added, as flax's ``Dense(dtype=...)``."""
 
     def __init__(self, in_features: int, out_features: int,
                  device: Optional[torch.device] = None) -> None:
@@ -56,34 +78,158 @@ class LayerNorm(nn.Module):
             + self.bias
 
 
-class EncoderBlock(nn.Module):
-    """Pre-LN transformer block on ``[N, S, D]`` tokens through the two
-    half-block kernels: ``x = ln_attention(x)``, then ``ln_mlp`` over the
-    ``[N*S, D]`` rows. Parameter names follow the JAX block's tree
-    (``ln1``, ``attn/{qkv,out}``, ``ln2``, ``mlp/{fc1,fc2}``)."""
+def gelu_exact(h: torch.Tensor) -> torch.Tensor:
+    """``nn.gelu(h, approximate=False)`` as ``jax.nn.gelu`` writes it,
+    ``0.5 * h * erfc(-h * sqrt(0.5))``, each operation in h's dtype: for
+    bf16 the product with bf16(sqrt(0.5)), erfc and the final product each
+    round to bf16 (torch computes each in fp32 and rounds once, as XLA does
+    op by op). Under jit XLA may keep fp32 between the three operations;
+    that moves a result by at most one bf16 ulp."""
+    c = _SQRT_HALF_BF16 if h.dtype == torch.bfloat16 else math.sqrt(0.5)
+    return (0.5 * h) * torch.special.erfc(-h * c)
 
-    def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
+
+class FusedSelfAttention(nn.Module):
+    """One packed QKV projection to ``[N, S, 3D]``, the ``attend_qkv``
+    kernel on it (heads stay packed), and the output projection: the
+    reference's ``FusedSelfAttention``, parameters ``qkv`` and ``out``."""
+
+    def __init__(self, dim: int, num_heads: int,
                  device: Optional[torch.device] = None) -> None:
         super().__init__()
-        hidden = int(dim * mlp_ratio)
         self.num_heads = num_heads
+        self.qkv = Dense(dim, 3 * dim, device)
+        self.out = Dense(dim, dim, device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.out(attend_qkv(self.qkv(x), self.num_heads))
+
+
+class MlpBlock(nn.Module):
+    """fc1 -> exact GELU -> fc2 (the reference's ``MlpBlock``): the
+    ``fused_mlp`` kernel where ``fused_mlp.supports`` holds for the rows,
+    else two ``Dense`` layers around ``gelu_exact``; one parameter tree."""
+
+    def __init__(self, dim: int, hidden: int,
+                 device: Optional[torch.device] = None) -> None:
+        super().__init__()
+        self.fc1 = Dense(dim, hidden, device)
+        self.fc2 = Dense(hidden, dim, device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        lead, d = x.shape[:-1], x.shape[-1]
+        m = math.prod(lead)
+        if FM.supports(m, d, self.fc1.weight.shape[1], x.element_size()):
+            return FM.fused_mlp(x.reshape(m, d), self.fc1.weight,
+                                self.fc1.bias, self.fc2.weight,
+                                self.fc2.bias).view(*lead, d)
+        return self.fc2(gelu_exact(self.fc1(x)))
+
+
+class EncoderBlock(nn.Module):
+    """Pre-LN transformer block on ``[N, S, D]`` tokens in the compute
+    dtype; parameter names follow the JAX block's tree (``ln1``,
+    ``attn/{qkv,out}``, ``ln2``, ``mlp/{fc1,fc2}``), the same on both
+    paths (module docstring)."""
+
+    def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
+                 device: Optional[torch.device] = None, *,
+                 fused_attention: bool = True,
+                 megakernel: bool = True) -> None:
+        super().__init__()
+        if not fused_attention:
+            raise NotImplementedError(
+                "fused_attention=False (flax MultiHeadDotProductAttention, "
+                "separate query/key/value parameters) is not ported to "
+                "vlp_tpu_torch yet; see ROADMAP.md")
+        self.num_heads = num_heads
+        self.megakernel = megakernel
         self.ln1 = LayerNorm(dim, device)
-        self.attn = nn.ModuleDict({"qkv": Dense(dim, 3 * dim, device),
-                                   "out": Dense(dim, dim, device)})
+        self.attn = FusedSelfAttention(dim, num_heads, device)
         self.ln2 = LayerNorm(dim, device)
-        self.mlp = nn.ModuleDict({"fc1": Dense(dim, hidden, device),
-                                  "fc2": Dense(hidden, dim, device)})
+        self.mlp = MlpBlock(dim, int(dim * mlp_ratio), device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         n, s, d = x.shape
-        x = ln_attention(x, self.ln1.weight, self.ln1.bias,
-                         self.attn.qkv.weight, self.attn.qkv.bias,
-                         self.attn.out.weight, self.attn.out.bias,
-                         self.num_heads)
-        y = ln_mlp(x.reshape(n * s, d), self.ln2.weight, self.ln2.bias,
-                   self.mlp.fc1.weight, self.mlp.fc1.bias,
-                   self.mlp.fc2.weight, self.mlp.fc2.bias)
-        return y.view(n, s, d)
+        dt, itemsize = x.dtype, x.element_size()
+        if self.megakernel and supports_attn(n, s, d, self.num_heads,
+                                             itemsize):
+            x = ln_attention(x, self.ln1.weight, self.ln1.bias,
+                             self.attn.qkv.weight, self.attn.qkv.bias,
+                             self.attn.out.weight, self.attn.out.bias,
+                             self.num_heads)
+        else:
+            x = x + self.attn(self.ln1(x).to(dt))
+        mlp = self.mlp
+        if self.megakernel and supports_mlp(n * s, d, mlp.fc1.weight.shape[1],
+                                            itemsize):
+            y = ln_mlp(x.reshape(n * s, d), self.ln2.weight, self.ln2.bias,
+                       mlp.fc1.weight, mlp.fc1.bias, mlp.fc2.weight,
+                       mlp.fc2.bias)
+            return y.view(n, s, d)
+        return x + mlp(self.ln2(x).to(dt))
+
+
+def conv_nhwc(x: torch.Tensor, conv: nn.Conv2d, stride: int,
+              padding: int) -> torch.Tensor:
+    """flax ``nn.Conv`` in the activation dtype on NHWC: the convolution
+    without bias, then the bias added in that dtype."""
+    dt = x.dtype
+    y = F.conv2d(x.permute(0, 3, 1, 2), conv.weight.to(dt), None,
+                 stride=stride, padding=padding)
+    return y.permute(0, 2, 3, 1) + conv.bias.to(dt)
+
+
+class ViT(nn.Module):
+    """Pre-LN ViT with a class token (the reference's ``ViT``): patch conv,
+    CLS token, position embedding, ``depth`` encoder blocks (``blocks.i``,
+    flax ``block{i}``), a final fp32 LayerNorm; returns the CLS feature."""
+
+    def __init__(self, img_size: int = 224, in_chans: int = 3,
+                 patch_size: int = 16, hidden_dim: int = 768,
+                 depth: int = 12, num_heads: int = 12,
+                 mlp_ratio: float = 4.0,
+                 dtype: torch.dtype = torch.bfloat16,
+                 fused_attention: bool = True, megakernel: bool = True,
+                 device: Optional[torch.device] = None) -> None:
+        super().__init__()
+        self.dtype = dtype
+        self.patch_size = patch_size
+        self.num_features = hidden_dim
+        self.patch_embed = nn.Conv2d(in_chans, hidden_dim, patch_size,
+                                     stride=patch_size, device=device)
+        self.cls_token = nn.Parameter(
+            torch.zeros(1, 1, hidden_dim, device=device))
+        self.pos_embed = nn.Parameter(torch.zeros(
+            1, (img_size // patch_size) ** 2 + 1, hidden_dim, device=device))
+        self.blocks = nn.ModuleList(
+            EncoderBlock(hidden_dim, num_heads, mlp_ratio, device,
+                         fused_attention=fused_attention,
+                         megakernel=megakernel)
+            for _ in range(depth))
+        self.final_ln = LayerNorm(hidden_dim, device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """NHWC images -> the fp32 CLS feature [B, D]."""
+        b, dt = x.shape[0], self.dtype
+        x = conv_nhwc(x.to(dt), self.patch_embed, self.patch_size, 0)
+        x = x.reshape(b, -1, self.num_features)
+        cls = self.cls_token.to(dt).expand(b, 1, self.num_features)
+        x = torch.cat([cls, x], dim=1) + self.pos_embed.to(dt)
+        for blk in self.blocks:
+            x = blk(x)
+        return self.final_ln(x)[:, 0]
+
+
+def vit_base_patch16_224(**kw) -> ViT:
+    return ViT(patch_size=16, hidden_dim=768, depth=12, num_heads=12, **kw)
+
+
+def vit_large_patch16_224(**kw) -> ViT:
+    return ViT(patch_size=16, hidden_dim=1024, depth=24, num_heads=16, **kw)
+
+
+FEATURE_DIMS = {"vit_base_patch16_224": 768, "vit_large_patch16_224": 1024}
 
 
 def _lecun_normal_(w: torch.Tensor, fan_in: int,
@@ -97,7 +243,7 @@ def _lecun_normal_(w: torch.Tensor, fan_in: int,
 def flax_init_(model: nn.Module, generator: torch.Generator) -> None:
     """Random weights at the scales of the JAX package's flax initializers:
     Dense and Conv kernels lecun-normal with zero biases, LayerNorm ones
-    and zeros, position embeddings N(0, 0.02)."""
+    and zeros, position embeddings N(0, 0.02), the class token zeros."""
     for module in model.modules():
         if isinstance(module, Dense):
             _lecun_normal_(module.weight, module.weight.shape[0], generator)
@@ -113,3 +259,5 @@ def flax_init_(model: nn.Module, generator: torch.Generator) -> None:
         for name, p in module.named_parameters(recurse=False):
             if name.startswith("pos_embed"):
                 nn.init.normal_(p, 0.0, 0.02, generator=generator)
+            elif name == "cls_token":
+                p.zero_()

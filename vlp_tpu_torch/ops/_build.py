@@ -45,6 +45,16 @@ _SIGNATURES = {
     # x, gamma, beta, w1, b1, w2, dy, dx, dgamma, dbeta, dw1, db1, dw2, db2,
     # ws, M, D, F, eps, stream
     "vlp_ln_mlp_bwd": ([_P] * 15 + [_I] * 3 + [_F, _P], _I),
+    # qkv, o, N, S, D, H, scale, stream
+    "vlp_attend_qkv": ([_P] * 2 + [_I] * 4 + [_F, _P], _I),
+    # qkv, dout, dqkv, N, S, D, H, scale, stream
+    "vlp_attend_qkv_bwd": ([_P] * 3 + [_I] * 4 + [_F, _P], _I),
+    # x, w1, b1, w2, b2, h, y, M, D, F, stream
+    "vlp_fused_mlp": ([_P] * 7 + [_I] * 3 + [_P], _I),
+    # M, D, F -> bytes
+    "vlp_fused_mlp_bwd_workspace": ([_I] * 3, _Z),
+    # x, w1, b1, w2, dy, dx, dw1, db1, dw2, db2, ws, M, D, F, stream
+    "vlp_fused_mlp_bwd": ([_P] * 11 + [_I] * 3 + [_P], _I),
     # img, shift, out, B, H, W, max_shift, axis, stream
     "vlp_shear_rows": ([_P] * 3 + [_I] * 5 + [_P], _I),
     # x, seeds, sigma, out, B, H, W, stream

@@ -33,45 +33,13 @@ from __future__ import annotations
 import torch
 
 from vlp_tpu_torch.ops import _build
+from vlp_tpu_torch.ops._common import (  # noqa: F401 (the gelu family:
+    _acc, _cast, _check_cuda, _mm, _records_grad,  # this module's API)
+    _route, _rows, _stream, gelu, gelu_and_grad, gelu_grad)
+from vlp_tpu_torch.ops.block_attention import attend_qkv_plain, dqkv_f32
+from vlp_tpu_torch.ops.fused_mlp import mlp_bwd_core
 
 _EPS = 1e-6
-_INV_SQRT2 = 0.7071067811865476
-_INV_SQRT_2PI = 0.3989422804014327
-
-
-def _erf(x: torch.Tensor) -> torch.Tensor:
-    """erf by Abramowitz & Stegun 7.1.26 (|error| <= 1.5e-7), the form the
-    Pallas kernels use (``vlp_tpu/ops/fused_mlp.py:_erf``)."""
-    a = x.abs()
-    t = 1.0 / (1.0 + 0.3275911 * a)
-    poly = t * (0.254829592 + t * (-0.284496736 + t * (
-        1.421413741 + t * (-1.453152027 + t * 1.061405429))))
-    return torch.sign(x) * (1.0 - poly * torch.exp(-a * a))
-
-
-def gelu(z: torch.Tensor) -> torch.Tensor:
-    """Exact-erf GELU with the A&S erf, as the Pallas forward computes it;
-    within ~1e-7 of ``jax.nn.gelu(approximate=False)``."""
-    return 0.5 * z * (1.0 + _erf(z * _INV_SQRT2))
-
-
-def gelu_grad(z: torch.Tensor) -> torch.Tensor:
-    """d/dz [z * Phi(z)] = Phi(z) + z * phi(z)
-    (``vlp_tpu/ops/fused_mlp.py:_gelu_grad``)."""
-    return gelu_and_grad(z)[1]
-
-
-def gelu_and_grad(z: torch.Tensor):
-    """(gelu(z), gelu'(z)) from one erf, in the association of
-    ``vlp_tpu/ops/fused_mlp.py:_gelu_and_grad`` (the backward's form)."""
-    cdf = 0.5 * (1.0 + _erf(z * _INV_SQRT2))
-    phi = torch.exp(-0.5 * z * z) * _INV_SQRT_2PI
-    return z * cdf, cdf + z * phi
-
-
-def _acc(dt: torch.dtype) -> torch.dtype:
-    """Accumulation dtype: fp32, or fp64 for fp64 inputs (tests)."""
-    return torch.float64 if dt == torch.float64 else torch.float32
 
 
 def _ln_fwd(x: torch.Tensor):
@@ -87,51 +55,15 @@ def _ln_bwd_dx(dxh, xh, inv):
     return inv * (dxh - m1 - xh * m2)
 
 
-def _mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a @ b with an fp32 (fp64 for fp64) result, as
-    ``preferred_element_type=float32`` gives in the Pallas bodies."""
-    acc = _acc(a.dtype)
-    return torch.matmul(a.to(acc), b.to(acc))
-
-
-def _rows(t: torch.Tensor) -> torch.Tensor:
-    return t.reshape(-1, t.shape[-1])
-
-
-def _cast(dt, *, vectors=(), matrices=()):
-    """Weights to the activation dtype; gamma, beta and biases to fp32
-    ``[1, n]`` (``vlp_tpu/ops/fused_block.py:882-912``)."""
-    acc = _acc(dt)
-    return ([v.reshape(1, -1).to(acc).contiguous() for v in vectors],
-            [m.to(dt).contiguous() for m in matrices])
-
-
-def _heads(t: torch.Tensor, num_heads: int) -> torch.Tensor:
-    """[n, s, 3d] packed q | k | v -> q, k, v each [n, h, s, dh]."""
-    n, s, d3 = t.shape
-    return t.view(n, s, 3, num_heads, d3 // (3 * num_heads)).permute(
-        2, 0, 3, 1, 4)
-
-
-def _merge(t: torch.Tensor) -> torch.Tensor:
-    """[n, h, s, dh] -> [n, s, h * dh]."""
-    n, h, s, dh = t.shape
-    return t.transpose(1, 2).reshape(n, s, h * dh)
-
-
 def ln_attention_plain(x, gamma, beta, wqkv, bqkv, wout, bout,
                        num_heads: int) -> torch.Tensor:
     """Plain PyTorch ``ln_attention``; rounds where the Pallas body does."""
     dt = x.dtype
     (gamma, beta, bqkv, bout), (wqkv, wout) = _cast(
         dt, vectors=(gamma, beta, bqkv, bout), matrices=(wqkv, wout))
-    dh = x.shape[-1] // num_heads
     x32 = x.to(_acc(dt))
     ln = (_ln_fwd(x32)[0] * gamma + beta).to(dt)
-    q, k, v = _heads((_mm(ln, wqkv) + bqkv).to(dt), num_heads)
-    scores = _mm(q, k.transpose(-1, -2)) * dh ** -0.5      # [n, h, s, s]
-    p = torch.exp(scores - scores.amax(-1, keepdim=True))
-    o = _merge((_mm(p.to(dt), v) / p.sum(-1, keepdim=True)).to(dt))
+    o = attend_qkv_plain((_mm(ln, wqkv) + bqkv).to(dt), num_heads)
     return (x32 + (_mm(o, wout) + bout)).to(dt)
 
 
@@ -145,31 +77,17 @@ def ln_attention_bwd_plain(x, gamma, beta, wqkv, bqkv, wout, dy,
     dt = x.dtype
     (gamma, beta, bqkv), (wqkv, wout) = _cast(
         dt, vectors=(gamma, beta, bqkv), matrices=(wqkv, wout))
-    scale = (x.shape[-1] // num_heads) ** -0.5
     x32 = x.to(_acc(dt))
     xh, inv = _ln_fwd(x32)
     ln = (xh * gamma + beta).to(dt)
-    q, k, v = _heads((_mm(ln, wqkv) + bqkv).to(dt), num_heads)
+    qkv = (_mm(ln, wqkv) + bqkv).to(dt)
     dy32 = dy.to(_acc(dt))
     dyb = dy32.to(dt)
-    scores = _mm(q, k.transpose(-1, -2)) * scale
-    p = torch.exp(scores - scores.amax(-1, keepdim=True))
-    invl = 1.0 / p.sum(-1, keepdim=True)
-    pb = p.to(dt)
-    o = _merge((_mm(pb, v) / p.sum(-1, keepdim=True)).to(dt))
+    o = attend_qkv_plain(qkv, num_heads)
     dwout = _mm(_rows(o).T, _rows(dyb))
     dbout = _rows(dy32).sum(0, keepdim=True)
     do = _mm(dyb, wout.T)                                    # [n, s, d]
-    n, s, d = x.shape
-    doh = do.to(dt).view(n, s, num_heads, -1).transpose(1, 2)
-    dov = (doh.to(p.dtype) * invl).to(dt)
-    dv = _mm(pb.transpose(-1, -2), dov)
-    t = p * _mm(doh, v.transpose(-1, -2))
-    c = t.sum(-1, keepdim=True) * invl
-    dsb = ((t - p * c) * invl).to(dt)
-    dq = _mm(dsb, k) * scale
-    dk = _mm(dsb.transpose(-1, -2), q) * scale
-    dqkv = torch.cat([_merge(dq), _merge(dk), _merge(dv)], dim=-1)
+    dqkv = dqkv_f32(qkv, do.to(dt), num_heads)
     dqkvb = dqkv.to(dt)
     dwqkv = _mm(_rows(ln).T, _rows(dqkvb))
     dbqkv = _rows(dqkv).sum(0, keepdim=True)
@@ -202,14 +120,8 @@ def ln_mlp_bwd_plain(x, gamma, beta, w1, b1, w2, dy):
     x32 = x.to(_acc(dt))
     xh, inv = _ln_fwd(x32)
     ln = (xh * gamma + beta).to(dt)
-    h32, dgelu = gelu_and_grad(_mm(ln, w1) + b1)
-    h = h32.to(dt)
     dy32 = dy.to(_acc(dt))
-    dyb = dy32.to(dt)
-    dw2 = _mm(h.T, dyb)
-    dh32 = _mm(dyb, w2.T) * dgelu
-    dh = dh32.to(dt)
-    dw1 = _mm(ln.T, dh)
+    dh32, dh, dw1, dw2 = mlp_bwd_core(ln, w1, b1, w2, dy32.to(dt))
     dln = _mm(dh, w1.T)
     dx = (dy32 + _ln_bwd_dx(dln * gamma, xh, inv)).to(dt)
     return (dx, (dln * xh).sum(0, keepdim=True), dln.sum(0, keepdim=True),
@@ -217,29 +129,51 @@ def ln_mlp_bwd_plain(x, gamma, beta, w1, b1, w2, dy):
             dy32.sum(0, keepdim=True))
 
 
+# -- the reference's per-shape choice ---------------------------------------
+#
+# Copies of the TPU kernels' VMEM arithmetic (vlp_tpu/ops/fused_block.py
+# :452-473, :736-753, :861-869) at their default budgets. They say which of
+# two compositions the reference computes at a shape (the half-block kernel,
+# or LayerNorm and the unfused block), so that the port computes the same
+# one; they are not a statement about the H100's memory, where the kernels
+# would take more shapes.
+
+def _attn_group(n: int, s: int, d: int, heads: int, itemsize: int) -> int:
+    budget = 11 * 2 ** 20
+    weights = 4 * d * d * itemsize + 4 * d * d * 4
+    blocks = 2 * 3 * s * d * itemsize
+    scratch = (s * d * (2 * 4 + 5 * itemsize + 3 * 4 + 3 * 4)
+               + (heads + 2) * s * s * 4)
+    for g in (16, 8, 4, 2, 1):
+        if n % g == 0 and weights + g * (blocks + scratch) <= budget:
+            return g
+    return 0
+
+
+def _mlp_tile(m: int, d: int, f: int, itemsize: int) -> int:
+    budget = 15 * 1024 * 1024
+    resident = 2 * d * f * itemsize + 2 * d * f * 4
+    io_row = 2 * 3 * d * itemsize
+    scratch_row = d * (3 * 4 + 2 * itemsize) + f * (2 * 4 + itemsize)
+    for tm in (512, 256, 128, 64):
+        if m % tm == 0 and resident + tm * (io_row + scratch_row) <= budget:
+            return tm
+    return 0
+
+
+def supports_attn(n: int, s: int, d: int, num_heads: int,
+                  itemsize: int = 2) -> bool:
+    """Whether the reference runs ``ln_attention`` on [n, s, d] tokens."""
+    return d % num_heads == 0 and \
+        _attn_group(n, s, d, num_heads, itemsize) > 0
+
+
+def supports_mlp(m: int, d: int, f: int, itemsize: int = 2) -> bool:
+    """Whether the reference runs ``ln_mlp`` on [m, d] rows."""
+    return _mlp_tile(m, d, f, itemsize) > 0
+
+
 # -- CUDA wrappers ----------------------------------------------------------
-
-def _check_cuda(name: str, x: torch.Tensor, *tensors: torch.Tensor) -> None:
-    if x.dtype != torch.bfloat16:
-        raise TypeError(f"{name}: the CUDA kernel takes bfloat16, got "
-                        f"{x.dtype}")
-    for t in (x, *tensors):
-        if t.device != x.device:
-            raise ValueError(f"{name}: tensors on {t.device} and {x.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: operands must be contiguous")
-
-
-def _route(name: str, x: torch.Tensor) -> bool:
-    """True for the CUDA kernel, False for the plain version; raises for
-    any other device."""
-    if x.device.type == "cuda":
-        return True
-    if x.device.type == "cpu":
-        return False
-    raise ValueError(f"{name}: no kernel or plain version for device "
-                     f"{x.device}")
-
 
 def _check_attn(name, x, num_heads, gamma, beta, wqkv, bqkv, wout, *rest):
     n, s, d = x.shape
@@ -265,10 +199,6 @@ def _check_mlp(name, x, gamma, beta, w1, b1, w2, *rest):
         raise ValueError(f"{name}: parameter shapes do not match D={d}, "
                          f"F={f}")
     _check_cuda(name, x, gamma, beta, w1, b1, w2, *rest)
-
-
-def _stream():
-    return torch.cuda.current_stream().cuda_stream
 
 
 def _ln_attention_cuda(x, gamma, beta, wqkv, bqkv, wout, bout, num_heads):
@@ -438,10 +368,6 @@ class LnMlp(torch.autograd.Function):
         return ln_mlp_bwd(*ctx.saved_tensors, dy)
 
 
-def _records_grad(*tensors: torch.Tensor) -> bool:
-    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
-
-
 def ln_attention(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                  wqkv: torch.Tensor, bqkv: torch.Tensor, wout: torch.Tensor,
                  bout: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -479,10 +405,4 @@ ln_mlp.launches = 0
 ln_attention_bwd.launches = 0
 ln_mlp_bwd.launches = 0
 
-FORWARD_KERNELS = (ln_attention, ln_mlp)
 KERNELS = (ln_attention, ln_mlp, ln_attention_bwd, ln_mlp_bwd)
-
-
-def reset_launch_counts() -> None:
-    for k in KERNELS:
-        k.launches = 0

@@ -2,17 +2,26 @@
 ``vlp_tpu/serve.py``).
 
 Loads weights exported from a JAX checkpoint (``scripts/export_flax_params
-.py``), preprocesses raw images with the JAX package's deterministic host
-pipeline, and runs fixed-shape batches on one device: a directory of images
-through the CLI, or arrays through ``Predictor`` for embedding in a server.
+.py``), preprocesses raw images with the port's copy of the deterministic
+host pipeline (``vlp_tpu_torch.data.preprocess_host``), and runs
+fixed-shape batches on one device: a directory of images through the CLI,
+or arrays through ``Predictor`` for embedding in a server.
 
 Usage:
   python -m vlp_tpu_torch.serve --weights weights.npz --images dir/ \
-      --output preds.csv [experiment=... overrides] [--mean M --std S]
+      --output preds.csv [experiment=<name>] [overrides] [--mean M --std S]
+
+``experiment`` names an entry of ``vlp_tpu_torch.config.EXPERIMENTS``
+(``baseline_only_imaging_nest_small``, ``baseline_only_imaging_vit_base``,
+...); the overrides are those of the serving fields
+(``config.SERVE_OVERRIDES``: ``model.megakernel=false``,
+``model.fused_attention=...``, ``data.image_size=...``, ...). Any other
+override raises rather than being ignored.
 """
 from __future__ import annotations
 
 import argparse
+import sys
 import csv
 import glob
 import os
@@ -21,8 +30,9 @@ from typing import Dict, List, Optional, Sequence, Union
 import numpy as np
 import torch
 
-from vlp_tpu_torch.config import as_serve_config
+from vlp_tpu_torch.config import as_serve_config, serve_config
 from vlp_tpu_torch.convert import load_weights
+from vlp_tpu_torch.data.preprocess_host import preprocess_image
 from vlp_tpu_torch.models.tasks import TaskStatics, build_task
 from vlp_tpu_torch.models.vit import flax_init_
 
@@ -93,25 +103,18 @@ class Predictor:
         return 1.0 / (1.0 + np.exp(-logits))
 
     def predict_files(self, paths: Sequence[str]) -> np.ndarray:
-        # the host pipeline imports pandas/scikit-learn: only this path
-        # needs them
-        from vlp_tpu.data.preprocess_host import preprocess_image
-
+        """Image files -> [N] tumor probabilities (decoding needs cv2 or
+        PIL; ``predict_arrays`` needs neither)."""
         imgs = np.stack([
             preprocess_image(p, image_size=self.cfg.image_size,
-                             crop=self.cfg.crop,
-                             use_native=True)
+                             crop=self.cfg.crop)
             for p in paths])
         return self.predict_arrays(imgs)
 
 
-def main(argv: Optional[List[str]] = None) -> int:
-    import sys
-
-    # the experiment configs and their overrides (JAX-free): only the CLI
-    # needs them
-    from vlp_tpu.config import Config, apply_overrides
-
+def parse_args(argv: Optional[List[str]] = None):
+    """(arguments, the ``ServeConfig`` of ``experiment=`` and the
+    overrides) of a command line."""
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("--weights", required=True,
                         help=".npz from scripts/export_flax_params.py")
@@ -125,7 +128,11 @@ def main(argv: Optional[List[str]] = None) -> int:
     parser.add_argument("--device", default="cuda")
     args, overrides = parser.parse_known_args(
         argv if argv is not None else sys.argv[1:])
-    cfg = apply_overrides(Config(), overrides)
+    return args, serve_config(overrides)
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    args, cfg = parse_args(argv)
     if os.path.isdir(args.images):
         paths = sorted(
             glob.glob(os.path.join(args.images, "**", "*.png"),
