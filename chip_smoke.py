@@ -57,9 +57,29 @@ Phases, each printing its lines before the last line:
    backwards per step, none of the half-block kernels, and phase 6's
    checks.
 
+11. windowed kernels: ``ln_attention_windows`` (#5) and its backward (#6)
+   on NesT-Small's three level maps at batch 64 ([64, 56, 56, 96],
+   [64, 28, 28, 192], [64, 14, 14, 384], windows of 14) against their plain
+   versions in bf16 and fp32, every cotangent; against #1 and #3 on the
+   blockified map (y, dx and dbqkv bit-equal, the other weight gradients
+   within 2^-6); reruns of #6 bit-identical; timed as plain, kernel, kernel,
+   plain, with #1 and #3 on the blockified map timed in the same turns.
+12. NesT-Small serving with the backbone's ``nhwc_windows`` set (no config
+   key: the attribute of the built model): requests of 64, 64 and 37
+   images, 24 launches of #5 and 24 of ``ln_mlp`` per forward and none of
+   #1; logits against fp32 on the CPU with the same flag and against the
+   blockified path on the same weights on the card; whether the patch
+   convolution and the pools leave the map contiguous; request latency of
+   both paths in alternating turns.
+13. NesT-Small training with ``nhwc_windows`` set, batch 64, full depth:
+   24 launches each of #5, #6, ``ln_mlp`` and ``ln_mlp_bwd`` and 3 + 1
+   augmentation launches per step, none of #1 or #3, and phase 6's checks;
+   then the step of both paths on the same task in alternating turns.
+
 Then one JSON line with every kernel: its launches in the timed training
 steps of the path that runs it (NesT-Small's for #1-#4, #11, #12; ViT-B's
-for #7, #8; NesT unfused for #9, #10; ``other_launches`` adds the other
+for #7, #8; NesT unfused for #9, #10; NesT with ``nhwc_windows`` for #5,
+#6; ``other_launches`` adds the other
 paths, ``serve_launches`` the serving phases), its largest error against
 the plain bf16 version, and its times per training step of that path:
 ``ms`` and ``plain_ms`` (the sum over the path's calls of the median time
@@ -69,6 +89,10 @@ operations over 989 TFLOP/s bf16, or 67 TFLOP/s fp32 for shear and noise;
 ``bound_by`` says which), and ``library_ms`` (SDPA for #7 and #8, null
 where no single PyTorch call computes the function). Last ``{"ok": true,
 "device": {...}}``. Any failed check raises.
+
+The launch counts of each path are set to 0 just before that path's run and
+read just after; the launches that compare a kernel with its plain version
+fall outside those runs.
 """
 from __future__ import annotations
 
@@ -87,6 +111,7 @@ import torch.nn.functional as F
 
 from vlp_tpu_torch.config import EXPERIMENTS, NEST_UNFUSED, TRAIN_EXPERIMENTS
 from vlp_tpu_torch.models.tasks import build_task
+from vlp_tpu_torch.models.vit import conv_nhwc
 from vlp_tpu_torch.ops import _build
 from vlp_tpu_torch.ops import block_attention as BA
 from vlp_tpu_torch.ops import fused_block as FB
@@ -160,6 +185,12 @@ VIT_REQUESTS = (32, 32, 19)
 VIT_ATTN = ("ViT-B", VIT_BATCH, 197, 768, 12, 12)
 NEST_ATTN = tuple((f"NesT L{i}", BATCH * nb, SEQ, d, h, depth)
                   for i, (nb, d, h, depth) in enumerate(LEVELS))
+# NesT-Small's level maps (side at 224x224) and its window
+SIDES = (56, 28, 14)
+WINDOW = 14
+# serving and training of both NesT paths in alternating turns
+AB_ROUNDS = 4
+AB_STEPS = 5
 # Peak rates of one H100 SXM (NVIDIA's data sheet): device memory, dense
 # bf16 tensor cores, fp32 outside the tensor cores (shear, noise)
 HBM_BYTES_PER_S = 3.35e12
@@ -353,15 +384,20 @@ def _add(stat, calls, k_ms, p_ms, work, lib_ms=None):
         stat["library_ms"] = (stat["library_ms"] or 0.0) + calls * lib_ms
 
 
-def phase_serve(smi: str, key: str, batch: int, requests, per_forward):
+def phase_serve(smi: str, key: str, batch: int, requests, per_forward,
+                nhwc: bool = False):
     """``Predictor`` for ``experiment=key`` at ``batch`` answers
     ``requests``; every kernel launches ``per_forward[name]`` times per
-    forward (0 where unnamed); logits vs fp32 on the CPU; latency."""
+    forward (0 where unnamed); logits vs fp32 on the CPU; latency. With
+    ``nhwc`` the NesT backbone's ``nhwc_windows`` is set, and the logits and
+    latency are also held against the blockified path."""
     cfg = EXPERIMENTS[key]
     check(cfg.precision == "bf16" and cfg.image_size == 224,
           f"unexpected experiment config {cfg}")
     pred = Predictor(cfg, None, mean=128.0, std=64.0, batch_size=batch,
                      device="cuda")
+    if nhwc:
+        pred.task.model.backbone.nhwc_windows = True
     rng = np.random.default_rng(0)
     reqs = [rng.integers(0, 256, (k, 224, 224), dtype=np.uint8)
             for k in requests]
@@ -386,6 +422,8 @@ def phase_serve(smi: str, key: str, batch: int, requests, per_forward):
     ref = Predictor(dataclasses.replace(cfg, precision="fp32"), None,
                     mean=128.0, std=64.0, batch_size=8, device="cpu")
     ref.task.model.load_state_dict(pred.task.model.state_dict())
+    if nhwc:
+        ref.task.model.backbone.nhwc_windows = True
     ref_logits = ref.predict_logits(reqs[0][:8])
     err = float(np.abs(logits - ref_logits).max())
     bound = BOUND_LOGITS * max(1.0, float(np.abs(ref_logits).max()))
@@ -393,6 +431,9 @@ def phase_serve(smi: str, key: str, batch: int, requests, per_forward):
           f"{err:.6g} (bound {bound:.6g}); gpu {np.round(logits, 4).tolist()}"
           f" cpu {np.round(ref_logits, 4).tolist()}")
     check(err <= bound, f"logits differ by {err:.4g} > {bound:.4g}")
+
+    if nhwc:
+        _serve_vs_blockified(smi, key, pred, reqs[0], logits)
 
     times = []
     for _ in range(10):
@@ -402,13 +443,56 @@ def phase_serve(smi: str, key: str, batch: int, requests, per_forward):
     med = statistics.median(times)
     full = pred._batch(reqs[0], None)
     fwd_ms = _median_ms(lambda: pred.task.eval_fn(full))
-    print(f"serve {key}: batch-{batch} request latency median "
+    print(f"serve {key}{' nhwc_windows' if nhwc else ''}: batch-{batch} "
+          f"request latency median "
           f"{med * 1e3:.3f} ms (min {min(times) * 1e3:.3f}, max "
           f"{max(times) * 1e3:.3f}, n=10), {batch / med:.1f} images/s; "
           f"device forward {fwd_ms:.3f} ms; on {smi}")
     del pred, ref
     torch.cuda.empty_cache()
     return {k: v for k, v in launches.items() if v}
+
+
+def _serve_vs_blockified(smi, key, pred, request, logits):
+    """The windowed path's logits against the blockified path's on the same
+    weights on the card; whether the patch convolution and the pools leave
+    the map contiguous (else the level's ``.contiguous()`` copies); the
+    request latency of both paths in alternating turns."""
+    backbone = pred.task.model.backbone
+    backbone.nhwc_windows = False
+    blocked = pred.predict_logits(request[:8])
+    backbone.nhwc_windows = True
+    diff = float(np.abs(logits - blocked).max())
+    print(f"serve {key}: logits[:8] nhwc_windows vs blockified on the card: "
+          f"bit-equal {bool(np.array_equal(logits, blocked))}, max_abs "
+          f"{diff:.6g}")
+    check(diff <= BOUND_LOGITS * max(1.0, float(np.abs(blocked).max())),
+          f"nhwc_windows logits differ from the blockified path's by {diff}")
+    with torch.inference_mode():
+        x = pred.task._prep_eval(pred._batch(request, None))
+        x = conv_nhwc(x.to(backbone.dtype), backbone.patch_embed,
+                      backbone.patch_size, 0)
+        layout = [x.is_contiguous()]
+        for pool in backbone.pools:
+            x = pool(x)
+            layout.append(x.is_contiguous())
+    print(f"serve {key}: NHWC map contiguous after the patch conv, pool0, "
+          f"pool1: {layout}")
+    times = {False: [], True: []}
+    for r in range(AB_ROUNDS):
+        for flag in ((False, True) if r % 2 == 0 else (True, False)):
+            backbone.nhwc_windows = flag
+            for _ in range(AB_STEPS):
+                t0 = time.perf_counter()
+                pred.predict_arrays(request)
+                times[flag].append(time.perf_counter() - t0)
+    backbone.nhwc_windows = True
+    med = {k: statistics.median(v) * 1e3 for k, v in times.items()}
+    print(f"serve {key}: batch-{len(request)} request latency in alternating "
+          f"turns ({AB_ROUNDS} x {AB_STEPS} each): nhwc_windows median "
+          f"{med[True]:.3f} ms (min {min(times[True]) * 1e3:.3f}), "
+          f"blockified {med[False]:.3f} ms (min "
+          f"{min(times[False]) * 1e3:.3f}); on {smi}")
 
 
 KERNELS = (*FB.KERNELS, *BA.KERNELS, *FM.KERNELS, SH.shear_rows,
@@ -677,6 +761,131 @@ def phase_unfused_kernels():
     return stats
 
 
+def phase_window_kernels():
+    """Phase 11: #5 and #6 against their plain versions and against #1 and
+    #3 on the blockified map, at NesT-Small's level maps at batch 64, then
+    timed as plain, kernel, #1/#3, #1/#3, kernel, plain. Returns their
+    per-step totals on the NHWC training path."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    stats = {name: _stat() for name in ("ln_attention_windows",
+                                        "ln_attention_windows_bwd")}
+    names = BWD_NAMES["ln_attention_bwd"]
+    for (nb, d, heads, depth), side in zip(LEVELS, SIDES):
+        n = BATCH * nb  # windows
+        where = f"[{BATCH}, {side}, {side}, {d}] window {WINDOW}"
+        x, attn, _ = _inputs(gen, n, d)
+        x = x.reshape(BATCH, side, side, d)
+        dy = torch.randn(x.shape, generator=gen, device="cuda").bfloat16()
+        (g, b, bq, bo), (wq, wo) = FB._cast(
+            torch.bfloat16, vectors=(attn[0], attn[1], attn[3], attn[5]),
+            matrices=(attn[2], attn[4]))
+        bf = (g, b, wq, bq, wo, bo)
+        f32 = (g, b, wq.float(), bq, wo.float(), bo)
+        y, qkv, o = FB._ln_attention_windows_cuda(x, WINDOW, *bf, heads)
+        torch.cuda.synchronize()
+        _check_outputs(
+            "ln_attention_windows", where, (y,),
+            (FB.ln_attention_windows_plain(x, WINDOW, *bf, heads),),
+            (FB.ln_attention_windows_plain(x.float(), WINDOW, *f32, heads),),
+            ("y",), BOUND_VS_PLAIN_BF16, BOUND_VS_PLAIN_FP32,
+            stats["ln_attention_windows"])
+        outs = FB.ln_attention_windows_bwd(x, WINDOW, g, b, wq, bq, wo, dy,
+                                           heads, qkv, o)
+        torch.cuda.synchronize()
+        _check_outputs(
+            "ln_attention_windows_bwd", where, outs,
+            FB.ln_attention_windows_bwd_plain(x, WINDOW, g, b, wq, bq, wo, dy,
+                                              heads),
+            FB.ln_attention_windows_bwd_plain(x.float(), WINDOW, g, b,
+                                              wq.float(), bq, wo.float(),
+                                              dy.float(), heads),
+            names, BOUND_BWD_BF16, BOUND_BWD_FP32,
+            stats["ln_attention_windows_bwd"])
+        check(all(torch.equal(a, c) for a, c in zip(
+            outs, FB.ln_attention_windows_bwd(x, WINDOW, g, b, wq, bq, wo, dy,
+                                              heads, qkv, o))),
+            f"ln_attention_windows_bwd {where}: reruns differ")
+
+        # #1 and #3 on the blockified map: the same arithmetic per row and
+        # per window, so y, dx and dbqkv (per-window sums in blockify order)
+        # are bit-equal; the other weight gradients sum their rows in map
+        # order rather than blockify order
+        t, tdy = FB._windows(x, WINDOW), FB._windows(dy, WINDOW)
+        y1, qkv1, o1 = FB._ln_attention_cuda(t, *bf, heads)
+        blocked = FB.ln_attention_bwd(t, g, b, wq, bq, wo, tdy, heads, qkv1,
+                                      o1)
+        pairs = {"y": (y, FB._unwindows(y1, x, WINDOW)),
+                 "dx": (outs[0], FB._unwindows(blocked[0], x, WINDOW)),
+                 **{nm: (a, c) for nm, a, c in zip(names[1:], outs[1:],
+                                                   blocked[1:])}}
+        equal = [nm for nm, (a, c) in pairs.items() if torch.equal(a, c)]
+        rel = {nm: _err(a, c)[1] for nm, (a, c) in pairs.items()}
+        print(f"kernel ln_attention_windows{{,_bwd}} {where} vs #1/#3 on the "
+              f"blockified map: bit-equal {equal}; rel "
+              f"{', '.join(f'{nm} {r:.4g}' for nm, r in rel.items())}")
+        check({"y", "dx", "dbqkv"} <= set(equal),
+              f"{where}: y, dx or dbqkv differ from #1/#3's")
+        check(max(rel.values()) <= BOUND_BWD_BF16,
+              f"{where}: weight gradients differ from #3's beyond the bound")
+        del y, outs, blocked, pairs
+
+        for name, kern, plain, blk in (
+                ("ln_attention_windows",
+                 lambda: FB.ln_attention_windows(x, WINDOW, *bf, heads),
+                 lambda: FB.ln_attention_windows_plain(x, WINDOW, *bf, heads),
+                 lambda: FB.ln_attention(t, *bf, heads)),
+                ("ln_attention_windows_bwd",
+                 lambda: FB.ln_attention_windows_bwd(
+                     x, WINDOW, g, b, wq, bq, wo, dy, heads, qkv, o),
+                 lambda: FB.ln_attention_windows_bwd_plain(
+                     x, WINDOW, g, b, wq, bq, wo, dy, heads),
+                 lambda: FB.ln_attention_bwd(t, g, b, wq, bq, wo, tdy, heads,
+                                             qkv1, o1))):
+            p1, k1, b1, b2, k2, p2 = (_median_ms(fn) for fn in (
+                plain, kern, blk, blk, kern, plain))
+            k_ms, p_ms, b_ms = (k1 + k2) / 2, (p1 + p2) / 2, (b1 + b2) / 2
+            print(f"time {name} {where} (batch {BATCH}): kernel {k_ms:.4f} "
+                  f"ms, plain {p_ms:.4f} ms, "
+                  f"#{1 if name == 'ln_attention_windows' else 3} on the "
+                  f"blockified map {b_ms:.4f} ms per call (kernel / "
+                  f"blockified {k_ms / b_ms:.4f})")
+            _add(stats[name], depth, k_ms, p_ms,
+                 _work(name.replace("_windows", ""), n, SEQ, d))
+        del x, dy, t, tdy, qkv, o, qkv1, o1, y1
+        torch.cuda.empty_cache()
+    return stats
+
+
+def _train_vs_blockified(smi, key, task, step, state, batches, batch_size):
+    """The step of the NHWC and the blockified path on one task, in
+    alternating turns of ``AB_STEPS`` steps."""
+    backbone = task.model.backbone
+    times = {False: [], True: []}
+    peak = {False: 0, True: 0}
+    i = 0
+    for r in range(AB_ROUNDS):
+        for flag in ((False, True) if r % 2 == 0 else (True, False)):
+            backbone.nhwc_windows = flag
+            torch.cuda.reset_peak_memory_stats()
+            for _ in range(AB_STEPS):
+                batch = batches[i % len(batches)]
+                i += 1
+                t0 = time.perf_counter()
+                train_steps(step, state, [batch])
+                torch.cuda.synchronize()
+                times[flag].append(time.perf_counter() - t0)
+            peak[flag] = max(peak[flag], torch.cuda.max_memory_allocated())
+    backbone.nhwc_windows = True
+    for flag, label in ((True, "nhwc_windows"), (False, "blockified")):
+        med = statistics.median(times[flag])
+        print(f"train {key}: {label} step in alternating turns "
+              f"({AB_ROUNDS} x {AB_STEPS}): median {med * 1e3:.3f} ms (min "
+              f"{min(times[flag]) * 1e3:.3f}, max "
+              f"{max(times[flag]) * 1e3:.3f}), {batch_size / med:.1f} "
+              f"images/s, peak memory {peak[flag] / 2 ** 30:.3f} GiB; on "
+              f"{smi}")
+
+
 def _grads(task, batch, device):
     task.model.zero_grad(set_to_none=True)
     loss, _ = task.loss_fn({k: torch.from_numpy(v).to(device)
@@ -687,11 +896,13 @@ def _grads(task, batch, device):
 
 
 def phase_train_slice(smi: str, key: str, model: str, batch_size: int,
-                      per_step_want: dict):
+                      per_step_want: dict, nhwc: bool = False):
     """The training step of ``experiment=key`` at its batch from random
     weights: 3 warm-up and 10 timed steps; every kernel launches
     ``per_step_want[name]`` times per step (0 where unnamed); phase 6's
-    checks; latency, device span and peak memory."""
+    checks; latency, device span and peak memory. With ``nhwc`` the NesT
+    backbone's ``nhwc_windows`` is set, and the step is also timed against
+    the blockified path's in alternating turns."""
     tcfg = TRAIN_EXPERIMENTS[key]
     aug = tcfg.augment()
     check(tcfg.serve.model == model and tcfg.serve.precision == "bf16"
@@ -702,6 +913,8 @@ def phase_train_slice(smi: str, key: str, model: str, batch_size: int,
           f"unexpected training config {tcfg}")
     cuda = torch.device("cuda")
     task, state, step = build_training(tcfg, cuda, STEPS_PER_EPOCH)
+    if nhwc:
+        task.model.backbone.nhwc_windows = True
     rng = np.random.default_rng(1)
     batches = [random_batch(rng, batch_size, tcfg.serve.image_size)
                for _ in range(WARMUP_STEPS + TIMED_STEPS)]
@@ -776,6 +989,9 @@ def phase_train_slice(smi: str, key: str, model: str, batch_size: int,
           f"{batch_size / med:.1f} images/s; device step span "
           f"median {dev_ms:.3f} ms; peak memory {peak / 2 ** 30:.3f} GiB; "
           f"on {smi}")
+    if nhwc:
+        _train_vs_blockified(smi, key, task, step, state,
+                             batches[WARMUP_STEPS:], batch_size)
 
     # bf16 gradients on the card vs fp32 on the CPU, augmentation off
     noaug = dataclasses.replace(
@@ -785,6 +1001,9 @@ def phase_train_slice(smi: str, key: str, model: str, batch_size: int,
         tcfg.serve, precision="fp32")), noaug, torch.device("cpu"))
     gtask.model.load_state_dict(task.model.state_dict())
     ctask.model.load_state_dict(task.model.state_dict())
+    if nhwc:
+        for t in (gtask, ctask):
+            t.model.backbone.nhwc_windows = True
     gbatch = random_batch(np.random.default_rng(2), GRAD_BATCH,
                           tcfg.serve.image_size)
     g_gpu = _grads(gtask, gbatch, cuda)
@@ -829,7 +1048,15 @@ def main() -> int:
     unfused = phase_train_slice(smi, NEST_UNFUSED, "nest_small", BATCH, {
         "attend_qkv": 24, "attend_qkv_bwd": 24, "fused_mlp": 24,
         "fused_mlp_bwd": 24, "shear_rows": 3, "add_gaussian_noise": 1})
-    print(f"phases 3-10: {time.perf_counter() - t0:.1f} s")
+    stats.update(phase_window_kernels())
+    serve_nhwc = phase_serve(smi, NEST, BATCH, REQUESTS,
+                             {"ln_attention_windows": 24, "ln_mlp": 24},
+                             nhwc=True)
+    nhwc = phase_train_slice(smi, NEST, "nest_small", BATCH, {
+        "ln_attention_windows": 24, "ln_mlp": 24,
+        "ln_attention_windows_bwd": 24, "ln_mlp_bwd": 24, "shear_rows": 3,
+        "add_gaussian_noise": 1}, nhwc=True)
+    print(f"phases 3-13: {time.perf_counter() - t0:.1f} s")
     # kernel -> (source, the TPU kernel it replaces, the training path whose
     # launches and per-step times the line gives)
     sources = {
@@ -838,6 +1065,10 @@ def main() -> int:
         "ln_attention_bwd": ("ln_attention_bwd.cu", "fused_block.py:522",
                              nest),
         "ln_mlp_bwd": ("ln_mlp_bwd.cu", "fused_block.py:813", nest),
+        "ln_attention_windows": ("ln_attention_windows.cu",
+                                 "fused_block.py:1004", nhwc),
+        "ln_attention_windows_bwd": ("ln_attention_windows_bwd.cu",
+                                     "fused_block.py:1034", nhwc),
         "attend_qkv": ("block_attention.cu", "block_attention.py:175", vit),
         "attend_qkv_bwd": ("block_attention_bwd.cu", "block_attention.py:197",
                            vit),
@@ -846,8 +1077,9 @@ def main() -> int:
         "shear_rows": ("shear.cu", "pallas_shear.py:45", nest),
         "add_gaussian_noise": ("noise.cu", "pallas_noise.py:64", nest)}
     paths = {"nest_train": nest, "vit_b_train": vit,
-             "nest_unfused_train": unfused}
-    serves = {"nest_serve": serve, "vit_b_serve": serve_vit}
+             "nest_unfused_train": unfused, "nest_nhwc_train": nhwc}
+    serves = {"nest_serve": serve, "vit_b_serve": serve_vit,
+              "nest_nhwc_serve": serve_nhwc}
     kernels = []
     for name, (source, replaces, path) in sources.items():
         stat = _finish(stats[name], FP32_FLOPS if name in (

@@ -1,6 +1,7 @@
-"""The CUDA kernels (half blocks and their backwards, the packed-qkv
-attention and the fused MLP with their backwards, shear, noise) against
-their plain PyTorch versions, on the card. Marked ``gpu``: without a CUDA
+"""The CUDA kernels (half blocks and their backwards, the windowed half
+block on a NesT token map and its backward, the packed-qkv attention and
+the fused MLP with their backwards, shear, noise) against their plain
+PyTorch versions, on the card. Marked ``gpu``: without a CUDA
 device every test here skips. Needs no JAX, so it runs on a machine without
 it:
 
@@ -341,3 +342,101 @@ def test_unfused_autograd_runs_the_kernels_and_raises_on_what_they_refuse(
                      torch.zeros(256, device=cuda),
                      torch.zeros(256, 64, device=cuda),
                      torch.zeros(64, device=cuda))
+
+
+@pytest.mark.parametrize("b,h,w,d,block,heads", [
+    (2, 56, 56, 96, 14, 3),    # NesT-Small's levels, 4, 2 and 1 windows a
+    (3, 28, 28, 192, 14, 6),   # strip
+    (2, 14, 14, 384, 14, 12),
+    (4, 8, 12, 64, 4, 2),      # S 16
+    (2, 30, 45, 32, 15, 1),    # S 225: a ragged last 16-row tile
+])
+def test_ln_attention_windows_kernels_match_plain_and_blockified(
+        cuda, b, h, w, d, block, heads):
+    """#5 and #6 against their plain versions, every cotangent; against #1
+    and #3 on the blockified map, y, dx and dbqkv bit-equal (the same
+    arithmetic per row and per window; dbqkv sums the windows in blockify
+    order), the other weight gradients within the bound (their sums over
+    rows run in map order); reruns of #6 bit-identical."""
+    gen = torch.Generator(device=cuda).manual_seed(b * h * w + d)
+    x = _rand(gen, b, h, w, d).bfloat16()
+    dy = _rand(gen, b, h, w, d).bfloat16()
+    g, bt, wq, bq, wo, bo = _attn_params(gen, d, scale=3.0)
+    before = FB.ln_attention_windows.launches
+    y, qkv, o = FB._ln_attention_windows_cuda(x, block, g, bt, wq, bq, wo,
+                                              bo, heads)
+    torch.cuda.synchronize()
+    assert FB.ln_attention_windows.launches == before + 1
+    assert y.shape == x.shape and qkv.shape == (b, h, w, 3 * d)
+    assert _rel_err(y, FB.ln_attention_windows_plain(
+        x, block, g, bt, wq, bq, wo, bo, heads)) <= BOUND
+    t, tdy = FB._windows(x, block), FB._windows(dy, block)
+    y1, qkv1, o1 = FB._ln_attention_cuda(t, g, bt, wq, bq, wo, bo, heads)
+    assert torch.equal(y, FB._unwindows(y1, x, block))
+
+    before = FB.ln_attention_windows_bwd.launches
+    outs = FB.ln_attention_windows_bwd(x, block, g, bt, wq, bq, wo, dy,
+                                       heads, qkv, o)
+    torch.cuda.synchronize()
+    assert FB.ln_attention_windows_bwd.launches == before + 1
+    refs = FB.ln_attention_windows_bwd_plain(x, block, g, bt, wq, bq, wo, dy,
+                                             heads)
+    for out, ref in zip(outs, refs):
+        assert out.shape == ref.shape and out.dtype == ref.dtype
+        assert torch.isfinite(out.float()).all()
+        assert _rel_err(out, ref) <= BOUND
+    again = FB.ln_attention_windows_bwd(x, block, g, bt, wq, bq, wo, dy,
+                                        heads, qkv, o)
+    assert all(torch.equal(a, b) for a, b in zip(outs, again))  # no atomics
+    blocked = FB.ln_attention_bwd(t, g, bt, wq, bq, wo, tdy, heads, qkv1, o1)
+    assert torch.equal(outs[0], FB._unwindows(blocked[0], x, block))
+    assert torch.equal(outs[4], blocked[4])
+    for out, ref in zip(outs[1:], blocked[1:]):
+        assert _rel_err(out, ref) <= BOUND
+
+
+def test_ln_attention_windows_autograd_and_refusals(cuda):
+    """Autograd through ``ln_attention_windows`` on CUDA tensors launches
+    the backward kernel; a CUDA map the kernels do not take raises (head
+    dim other than 32, H or W not a multiple of the window, a
+    non-contiguous map, S above 240 backward)."""
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    b, h, w, d, block, heads = 2, 28, 28, 96, 14, 3
+    x = _rand(gen, b, h, w, d).bfloat16().requires_grad_()
+    leaves = [t.clone().requires_grad_() for t in (
+        1.0 + _rand(gen, d, scale=0.1), _rand(gen, d, scale=0.1),
+        _rand(gen, d, 3 * d, scale=d ** -0.5), _rand(gen, 3 * d, scale=0.02),
+        _rand(gen, d, d, scale=d ** -0.5), _rand(gen, d, scale=0.02))]
+    dy = _rand(gen, b, h, w, d).bfloat16()
+    before = FB.ln_attention_windows_bwd.launches
+    FB.ln_attention_windows(x, block, *leaves, heads).backward(dy)
+    assert FB.ln_attention_windows_bwd.launches == before + 1
+    want = FB.ln_attention_windows_bwd_plain(
+        x.detach(), block, *[t.detach() for t in leaves[:5]], dy, heads)
+    assert _rel_err(x.grad, want[0]) <= BOUND
+    for leaf, w_ in zip(leaves, want[1:]):
+        assert leaf.grad.dtype == torch.float32
+        assert _rel_err(leaf.grad, w_.reshape(leaf.shape)) <= BOUND
+
+    d = 64
+    g, bt, wq, bq, wo, bo = _attn_params(gen, d)
+    zeros = dict(device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim 32"):
+        FB.ln_attention_windows(torch.zeros(2, 8, 8, d, **zeros), 4, g, bt,
+                                wq, bq, wo, bo, 4)
+    for hh, ww in ((8, 10), (10, 8)):
+        with pytest.raises(ValueError, match="divisible by the window"):
+            FB.ln_attention_windows(torch.zeros(2, hh, ww, d, **zeros), 4,
+                                    g, bt, wq, bq, wo, bo, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        FB.ln_attention_windows(
+            torch.zeros(2, 8, d, 8, **zeros).transpose(2, 3), 4, g, bt, wq,
+            bq, wo, bo, 2)
+    with pytest.raises(TypeError, match="bfloat16"):
+        FB.ln_attention_windows(torch.zeros(2, 8, 8, d, device=cuda), 4, g,
+                                bt, wq, bq, wo, bo, 2)
+    xs = torch.zeros(1, 16, 16, d, **zeros)
+    with pytest.raises(ValueError, match="S <= 240"):
+        FB.ln_attention_windows_bwd(xs, 16, g, bt, wq, bq, wo, xs, 2,
+                                    torch.zeros(1, 16, 16, 3 * d, **zeros),
+                                    xs)

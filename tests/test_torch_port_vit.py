@@ -174,9 +174,21 @@ def test_converter_round_trip_and_refusals(tiny_vit):
 
 
 def test_unported_switches_raise():
-    with pytest.raises(NotImplementedError, match="#5/#6"):
-        from vlp_tpu_torch.models.nest import NesT
-        NesT(nhwc_windows=True)
+    """``fused_attention=False`` and ``remat=True`` still raise; NesT's
+    ``nhwc_windows=True`` (kernels #5/#6) is ported: it builds and runs a
+    tiny forward on the windowed path."""
+    from vlp_tpu_torch.models.nest import NesT
+    model = NesT(img_size=16, patch_size=2, embed_dims=(16, 32),
+                 num_heads=(2, 4), depths=(1, 1), block_size=4,
+                 dtype=torch.float32, nhwc_windows=True)
+    tvit.flax_init_(model, torch.Generator().manual_seed(0))
+    before = TFB.ln_attention_windows.launches
+    with torch.no_grad():
+        feats = model(torch.randn(2, 16, 16, 3,
+                                  generator=torch.Generator().manual_seed(1)))
+    assert feats.shape == (2, 32) and bool(torch.isfinite(feats).all())
+    assert TFB.ln_attention_windows.launches == before  # CPU: plain version
+    assert model._level_uses_nhwc(torch.zeros(2, 8, 8, 16), 0)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         tvit.EncoderBlock(64, 2, fused_attention=False)
     from vlp_tpu_torch.models.registry import create_backbone

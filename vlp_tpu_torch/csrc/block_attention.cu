@@ -31,8 +31,12 @@ extern "C" int vlp_attend_qkv(const void* qkv, void* o, int N, int S, int D,
   bf16* out = static_cast<bf16*>(o);
   if (H <= 0 || D % H) return (int)cudaErrorInvalidValue;
   switch (D / H) {
-    case 32: return (int)vlp::launch_mhsa<32>(in, out, N, S, D, H, scale, st);
-    case 64: return (int)vlp::launch_mhsa<64>(in, out, N, S, D, H, scale, st);
+    case 32:
+      return (int)vlp::launch_mhsa<32>(in, out, N, S, D, H, scale,
+                                       vlp::IdentityRows{S}, st);
+    case 64:
+      return (int)vlp::launch_mhsa<64>(in, out, N, S, D, H, scale,
+                                       vlp::IdentityRows{S}, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

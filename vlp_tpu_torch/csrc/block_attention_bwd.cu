@@ -36,10 +36,10 @@ extern "C" int vlp_attend_qkv_bwd(const void* qkv, const void* dout,
   switch (D / H) {
     case 32:
       return (int)vlp::launch_mhsa_bwd<32>(in, d, out, nullptr, N, S, D, H,
-                                           scale, st);
+                                           scale, vlp::IdentityRows{S}, st);
     case 64:
       return (int)vlp::launch_mhsa_bwd<64>(in, d, out, nullptr, N, S, D, H,
-                                           scale, st);
+                                           scale, vlp::IdentityRows{S}, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

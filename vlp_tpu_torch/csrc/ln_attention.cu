@@ -24,8 +24,9 @@
 // half block is bound by memory traffic first. The attention core
 // (mhsa.cuh, shared with block_attention.cu) is latency-bound in its simple
 // form. Fusing the three launches back into one persistent kernel (with the
-// projections) is later work.
-#include "mhsa.cuh"
+// projections) is later work. The sequence lives in ln_attention.cuh, which
+// the windowed forward (ln_attention_windows.cu) shares.
+#include "ln_attention.cuh"
 
 // x, y [N, S, D]; wqkv [D, 3D]; wout [D, D] (bf16, row-major, [in, out]);
 // gamma, beta, bout [D], bqkv [3D] (fp32). qkv [N, S, 3D] and o [N, S, D]
@@ -37,22 +38,13 @@ extern "C" int vlp_ln_attention(const void* x, const void* gamma,
                                 int N, int S, int D, int H, float scale,
                                 float eps, void* stream) {
   using vlp::bf16;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int M = N * S;
-  cudaError_t err = vlp::launch_gemm<true, vlp::kEpiBias>(
+  return (int)vlp::ln_attention_forward(
       static_cast<const bf16*>(x), static_cast<const float*>(gamma),
       static_cast<const float*>(beta), static_cast<const bf16*>(wqkv),
-      static_cast<const float*>(bqkv), nullptr, static_cast<bf16*>(qkv), M,
-      3 * D, D, eps, st);
-  if (err != cudaSuccess) return (int)err;
-  err = vlp::launch_mhsa<32>(static_cast<const bf16*>(qkv), static_cast<bf16*>(o),
-                         N, S, D, H, scale, st);
-  if (err != cudaSuccess) return (int)err;
-  err = vlp::launch_gemm<false, vlp::kEpiBiasResidual>(
-      static_cast<const bf16*>(o), nullptr, nullptr,
-      static_cast<const bf16*>(wout), static_cast<const float*>(bout),
-      static_cast<const bf16*>(x), static_cast<bf16*>(y), M, D, D, 0.f, st);
-  return (int)err;
+      static_cast<const float*>(bqkv), static_cast<const bf16*>(wout),
+      static_cast<const float*>(bout), static_cast<bf16*>(qkv),
+      static_cast<bf16*>(o), static_cast<bf16*>(y), N, S, D, H, scale, eps,
+      vlp::IdentityRows{S}, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* vlp_error_string(int err) {

@@ -1,0 +1,132 @@
+// The launch sequences of the half-block attention, forward and backward,
+// shared by ln_attention.cu / ln_attention_bwd.cu (#1, #3: N samples of S
+// tokens, [N, S, D]) and ln_attention_windows.cu /
+// ln_attention_windows_bwd.cu (#5, #6: the N block x block windows of a NesT
+// token map [B, H, W, D], S = block^2).
+//
+// LayerNorm, the projections, the biases, the residual and the LayerNorm
+// backward act on each row alone, so their kernels run over the M = N * S
+// rows in storage order whatever the layout; only the attention cores learn,
+// through a row map (attn_rows.cuh), which rows make up unit n. Each row and
+// each unit therefore goes through the same arithmetic in both layouts: y
+// and dx of a window equal, bit for bit, those of the same tokens
+// blockified, and so do the per-unit column sums behind dbqkv (reduced in
+// unit order, which for windows is blockify order). The sums over rows (the
+// split-K weight gradients, the 256-row partials of dgamma, dbeta and dbout)
+// run in storage order, so for windows they add the same terms in another
+// fp32 order.
+#pragma once
+
+#include "bwd_rows.cuh"
+#include "mhsa.cuh"
+#include "mhsa_bwd.cuh"
+
+namespace vlp {
+
+// qkv = bf16(LN(x) @ Wqkv + bqkv); o = the attention core per unit; y =
+// bf16(x + o @ Wout + bout). Three launches on one stream.
+template <class Rows>
+cudaError_t ln_attention_forward(const bf16* x, const float* gamma,
+                                 const float* beta, const bf16* wqkv,
+                                 const float* bqkv, const bf16* wout,
+                                 const float* bout, bf16* qkv, bf16* o,
+                                 bf16* y, int N, int S, int D, int H,
+                                 float scale, float eps, Rows rows,
+                                 cudaStream_t st) {
+  const int M = N * S;
+  cudaError_t err = launch_gemm<true, kEpiBias>(
+      x, gamma, beta, wqkv, bqkv, nullptr, qkv, M, 3 * D, D, eps, st);
+  if (err != cudaSuccess) return err;
+  err = launch_mhsa<32>(qkv, o, N, S, D, H, scale, rows, st);
+  if (err != cudaSuccess) return err;
+  return launch_gemm<false, kEpiBiasResidual>(o, nullptr, nullptr, wout, bout,
+                                              x, y, M, D, D, 0.f, st);
+}
+
+// Workspace pieces of the backward, in one order for the size query and the
+// launch.
+struct AttnBwdWs {
+  bf16* ln;
+  bf16* dout;
+  bf16* dqkv;
+  float* dln;
+  float* bpart;   // [N, 3D]
+  float* wpart;   // [splits, D, 3D] (dWout reuses it)
+  float* rpart;   // [row blocks, 3, D]
+  int s_out, s_qkv;
+  size_t bytes;
+
+  AttnBwdWs(void* base, int N, int S, int D) {
+    const int M = N * S;
+    s_out = weight_grad_splits(D, D, M);
+    s_qkv = weight_grad_splits(D, 3 * D, M);
+    const size_t wp = (size_t)D * D *
+                      (s_out > 3 * s_qkv ? s_out : 3 * (size_t)s_qkv);
+    Carver c{static_cast<char*>(base)};
+    ln = c.take<bf16>((size_t)M * D);
+    dout = c.take<bf16>((size_t)M * D);
+    dqkv = c.take<bf16>((size_t)M * 3 * D);
+    dln = c.take<float>((size_t)M * D);
+    bpart = c.take<float>((size_t)N * 3 * D);
+    wpart = c.take<float>(wp);
+    rpart = c.take<float>((size_t)ln_bwd_row_blocks(M) * 3 * D);
+    bytes = c.used;
+  }
+};
+
+// The backward's launches (ln_attention_bwd.cu lists them): all seven
+// cotangents from x, dy and the forward launch's qkv and o.
+template <class Rows>
+cudaError_t ln_attention_backward(
+    const bf16* x, const float* gamma, const float* beta, const bf16* wqkv,
+    const bf16* wout, const bf16* qkv, const bf16* o, const bf16* dy,
+    bf16* dx, float* dgamma, float* dbeta, bf16* dwqkv, float* dbqkv,
+    bf16* dwout, float* dbout, void* ws, int N, int S, int D, int H,
+    float scale, float eps, Rows rows, cudaStream_t st) {
+  const int M = N * S;
+  const AttnBwdWs w(ws, N, S, D);
+  cudaError_t err = launch_ln_rows(x, gamma, beta, w.ln, M, D, eps, st);
+  if (err != cudaSuccess) return err;
+  // do = dy @ Wout^T
+  err = launch_gemm_ex<false, false, true, kEpiBf16>(
+      dy, nullptr, nullptr, wout, nullptr, nullptr, nullptr, w.dout, nullptr,
+      M, D, D, 1, 0.f, st);
+  if (err != cudaSuccess) return err;
+  err = launch_mhsa_bwd<32>(qkv, w.dout, w.dqkv, w.bpart, N, S, D, H, scale,
+                            rows, st);
+  if (err != cudaSuccess) return err;
+  // dWout = o^T @ dy
+  err = launch_gemm_ex<false, true, false, kEpiF32>(
+      o, nullptr, nullptr, dy, nullptr, nullptr, nullptr, w.wpart, nullptr, D,
+      D, M, w.s_out, 0.f, st);
+  if (err != cudaSuccess) return err;
+  err = launch_reduce_rows(w.wpart, dwout, w.s_out, (size_t)D * D,
+                           (size_t)D * D, st);
+  if (err != cudaSuccess) return err;
+  // dWqkv = ln^T @ dqkv
+  err = launch_gemm_ex<false, true, false, kEpiF32>(
+      w.ln, nullptr, nullptr, w.dqkv, nullptr, nullptr, nullptr, w.wpart,
+      nullptr, D, 3 * D, M, w.s_qkv, 0.f, st);
+  if (err != cudaSuccess) return err;
+  err = launch_reduce_rows(w.wpart, dwqkv, w.s_qkv, (size_t)D * 3 * D,
+                           (size_t)D * 3 * D, st);
+  if (err != cudaSuccess) return err;
+  // dln = dqkv @ Wqkv^T
+  err = launch_gemm_ex<false, false, true, kEpiF32>(
+      w.dqkv, nullptr, nullptr, wqkv, nullptr, nullptr, nullptr, w.dln,
+      nullptr, M, D, 3 * D, 1, 0.f, st);
+  if (err != cudaSuccess) return err;
+  err = launch_ln_bwd_rows(x, gamma, w.dln, dy, dx, w.rpart, M, D, eps, st);
+  if (err != cudaSuccess) return err;
+  const int rb = ln_bwd_row_blocks(M);
+  float* outs[3] = {dgamma, dbeta, dbout};
+  for (int k = 0; k < 3; ++k) {
+    err = launch_reduce_rows(w.rpart + (size_t)k * D, outs[k], rb,
+                             (size_t)3 * D, (size_t)D, st);
+    if (err != cudaSuccess) return err;
+  }
+  return launch_reduce_rows(w.bpart, dbqkv, N, (size_t)3 * D, (size_t)3 * D,
+                            st);
+}
+
+}  // namespace vlp

@@ -41,42 +41,9 @@
 // at D = 96), so the backward is bound by memory traffic and by the
 // unpipelined GEMM's latency (gemm.cuh). Fusing the LN backward into the dln
 // GEMM and keeping dqkv on chip are later work.
-#include "bwd_rows.cuh"
-#include "mhsa_bwd.cuh"
-
-namespace vlp {
-
-// Workspace pieces, in one order for the size query and the launch.
-struct AttnBwdWs {
-  bf16* ln;
-  bf16* dout;
-  bf16* dqkv;
-  float* dln;
-  float* bpart;   // [N, 3D]
-  float* wpart;   // [splits, D, 3D] (dWout reuses it)
-  float* rpart;   // [row blocks, 3, D]
-  int s_out, s_qkv;
-  size_t bytes;
-
-  AttnBwdWs(void* base, int N, int S, int D) {
-    const int M = N * S;
-    s_out = weight_grad_splits(D, D, M);
-    s_qkv = weight_grad_splits(D, 3 * D, M);
-    const size_t wp = (size_t)D * D *
-                      (s_out > 3 * s_qkv ? s_out : 3 * (size_t)s_qkv);
-    Carver c{static_cast<char*>(base)};
-    ln = c.take<bf16>((size_t)M * D);
-    dout = c.take<bf16>((size_t)M * D);
-    dqkv = c.take<bf16>((size_t)M * 3 * D);
-    dln = c.take<float>((size_t)M * D);
-    bpart = c.take<float>((size_t)N * 3 * D);
-    wpart = c.take<float>(wp);
-    rpart = c.take<float>((size_t)ln_bwd_row_blocks(M) * 3 * D);
-    bytes = c.used;
-  }
-};
-
-}  // namespace vlp
+// The sequence lives in ln_attention.cuh, which the windowed backward
+// (ln_attention_windows_bwd.cu) shares.
+#include "ln_attention.cuh"
 
 extern "C" size_t vlp_ln_attention_bwd_workspace(int N, int S, int D, int H) {
   (void)H;
@@ -95,56 +62,14 @@ extern "C" int vlp_ln_attention_bwd(
     void* dwout, void* dbout, void* ws, int N, int S, int D, int H,
     float scale, float eps, void* stream) {
   using vlp::bf16;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int M = N * S;
-  const vlp::AttnBwdWs w(ws, N, S, D);
-  const bf16* xb = static_cast<const bf16*>(x);
-  const bf16* dyb = static_cast<const bf16*>(dy);
-  const float* g = static_cast<const float*>(gamma);
-  cudaError_t err = vlp::launch_ln_rows(xb, g, static_cast<const float*>(beta),
-                                        w.ln, M, D, eps, st);
-  if (err != cudaSuccess) return (int)err;
-  // do = dy @ Wout^T
-  err = vlp::launch_gemm_ex<false, false, true, vlp::kEpiBf16>(
-      dyb, nullptr, nullptr, static_cast<const bf16*>(wout), nullptr, nullptr,
-      nullptr, w.dout, nullptr, M, D, D, 1, 0.f, st);
-  if (err != cudaSuccess) return (int)err;
-  err = vlp::launch_mhsa_bwd<32>(static_cast<const bf16*>(qkv), w.dout, w.dqkv,
-                             w.bpart, N, S, D, H, scale, st);
-  if (err != cudaSuccess) return (int)err;
-  // dWout = o^T @ dy
-  err = vlp::launch_gemm_ex<false, true, false, vlp::kEpiF32>(
-      static_cast<const bf16*>(o), nullptr, nullptr, dyb, nullptr, nullptr,
-      nullptr, w.wpart, nullptr, D, D, M, w.s_out, 0.f, st);
-  if (err != cudaSuccess) return (int)err;
-  err = vlp::launch_reduce_rows(w.wpart, static_cast<bf16*>(dwout), w.s_out,
-                                (size_t)D * D, (size_t)D * D, st);
-  if (err != cudaSuccess) return (int)err;
-  // dWqkv = ln^T @ dqkv
-  err = vlp::launch_gemm_ex<false, true, false, vlp::kEpiF32>(
-      w.ln, nullptr, nullptr, w.dqkv, nullptr, nullptr, nullptr, w.wpart,
-      nullptr, D, 3 * D, M, w.s_qkv, 0.f, st);
-  if (err != cudaSuccess) return (int)err;
-  err = vlp::launch_reduce_rows(w.wpart, static_cast<bf16*>(dwqkv), w.s_qkv,
-                                (size_t)D * 3 * D, (size_t)D * 3 * D, st);
-  if (err != cudaSuccess) return (int)err;
-  // dln = dqkv @ Wqkv^T
-  err = vlp::launch_gemm_ex<false, false, true, vlp::kEpiF32>(
-      w.dqkv, nullptr, nullptr, static_cast<const bf16*>(wqkv), nullptr,
-      nullptr, nullptr, w.dln, nullptr, M, D, 3 * D, 1, 0.f, st);
-  if (err != cudaSuccess) return (int)err;
-  err = vlp::launch_ln_bwd_rows(xb, g, w.dln, dyb, static_cast<bf16*>(dx),
-                                w.rpart, M, D, eps, st);
-  if (err != cudaSuccess) return (int)err;
-  const int rb = vlp::ln_bwd_row_blocks(M);
-  float* outs[3] = {static_cast<float*>(dgamma), static_cast<float*>(dbeta),
-                    static_cast<float*>(dbout)};
-  for (int k = 0; k < 3; ++k) {
-    err = vlp::launch_reduce_rows(w.rpart + (size_t)k * D, outs[k], rb,
-                                  (size_t)3 * D, (size_t)D, st);
-    if (err != cudaSuccess) return (int)err;
-  }
-  err = vlp::launch_reduce_rows(w.bpart, static_cast<float*>(dbqkv), N,
-                                (size_t)3 * D, (size_t)3 * D, st);
-  return (int)err;
+  return (int)vlp::ln_attention_backward(
+      static_cast<const bf16*>(x), static_cast<const float*>(gamma),
+      static_cast<const float*>(beta), static_cast<const bf16*>(wqkv),
+      static_cast<const bf16*>(wout), static_cast<const bf16*>(qkv),
+      static_cast<const bf16*>(o), static_cast<const bf16*>(dy),
+      static_cast<bf16*>(dx), static_cast<float*>(dgamma),
+      static_cast<float*>(dbeta), static_cast<bf16*>(dwqkv),
+      static_cast<float*>(dbqkv), static_cast<bf16*>(dwout),
+      static_cast<float*>(dbout), ws, N, S, D, H, scale, eps,
+      vlp::IdentityRows{S}, static_cast<cudaStream_t>(stream));
 }

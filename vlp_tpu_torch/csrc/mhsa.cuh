@@ -6,7 +6,10 @@
 //
 // over a packed qkv [N, S, 3D] bf16 (q | k | v, heads packed inside each D
 // block) into o [N, S, D] bf16. The rounding points are those of the Pallas
-// bodies (vlp_tpu/ops/block_attention.py:75-85, fused_block.py:313-323).
+// bodies (vlp_tpu/ops/block_attention.py:75-85, fused_block.py:313-323). A
+// row map (attn_rows.cuh) says which rows of qkv and o make up unit n: a
+// sample (IdentityRows), or a NesT window of a [B, H, W, 3D] map
+// (WindowRows, ln_attention_windows.cu).
 //
 // One block per (sample, head) stages q, k and v in shared memory (rows
 // S..sp-1 zero, sp = S rounded up to 16), and each of its 4 warps takes
@@ -15,7 +18,8 @@
 // P @ V with wmma. HD (the head dim, 32 or 64) is a template parameter.
 // Shared memory: 3 * sp * (HD + 8) bf16 plus 4 warps' fp32 score rows:
 // 102 KB at S = 196, HD = 32 (two blocks per SM), 144 KB at S = 197,
-// HD = 64 (one block per SM). S <= 256 (8 keys per lane).
+// HD = 64 (one block per SM); a window map adds its row table (S ints).
+// S <= 256 (8 keys per lane).
 //
 // What bounds it on this card: 4 * S^2 * HD FLOPs per (sample, head) on
 // 8 * S * HD bytes of q, k, v and o, S / 2 = 98 FLOP/byte at S = 196, below
@@ -25,6 +29,7 @@
 // products).
 #pragma once
 
+#include "attn_rows.cuh"
 #include "gemm.cuh"
 
 namespace vlp {
@@ -40,19 +45,20 @@ __host__ __device__ inline int mhsa_lds(int S, int HD) {
   return (sp > HD ? sp : HD) + 4;
 }
 
-template <int HD>
+template <int HD, class Rows>
 inline size_t mhsa_smem_bytes(int S) {
   const int sp = (S + 15) / 16 * 16;
   return 3 * (size_t)sp * (HD + 8) * sizeof(bf16) +
          (size_t)kAttnWarps * 16 * mhsa_lds(S, HD) * sizeof(float) +
-         (size_t)kAttnWarps * 16 * sizeof(float);
+         (size_t)kAttnWarps * 16 * sizeof(float) + row_table_bytes<Rows>(S);
 }
 
-// grid (H, N); block kAttnWarps * 32 threads.
-template <int HD>
+// grid (H, N); block kAttnWarps * 32 threads. Token r of unit n is row
+// rows(n, r) of qkv and o.
+template <int HD, class Rows>
 __global__ void __launch_bounds__(kAttnWarps * 32)
     mhsa_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ o, int S,
-                int D, float scale) {
+                int D, float scale, Rows rows) {
   constexpr int ld = HD + 8;  // bf16 pitch of the staged q, k, v rows
   constexpr int kf = HD / 16;  // wmma fragments across the head dim
   extern __shared__ __align__(128) unsigned char smem[];
@@ -68,13 +74,16 @@ __global__ void __launch_bounds__(kAttnWarps * 32)
   bf16* Vs = Ks + sp * ld;
   float* Ss = reinterpret_cast<float*>(Vs + sp * ld);
   float* Ls = Ss + kAttnWarps * 16 * lds;
+  int* Rt = reinterpret_cast<int*>(Ls + kAttnWarps * 16);  // row table
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
   const size_t row_stride = 3 * (size_t)D;
-  const bf16* base = qkv + (size_t)n * S * row_stride + h * HD;
+  const bf16* base = qkv + h * HD;
   const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+  const UnitRows<Rows> row_of =
+      unit_rows(rows, n, S, Rt, tid, kAttnWarps * 32);
 
   // stage q, k, v of this (sample, head); rows S..sp-1 are zero
   constexpr int vecs = HD / 8;
@@ -85,7 +94,7 @@ __global__ void __launch_bounds__(kAttnWarps * 32)
     const int c = (rem % vecs) * 8;
     uint4 v = zero;
     if (r < S)
-      v = *reinterpret_cast<const uint4*>(base + (size_t)r * row_stride +
+      v = *reinterpret_cast<const uint4*>(base + row_of(r) * row_stride +
                                           mat * D + c);
     *reinterpret_cast<uint4*>(Qs + (size_t)mat * sp * ld + r * ld + c) = v;
   }
@@ -171,25 +180,25 @@ __global__ void __launch_bounds__(kAttnWarps * 32)
       const int c = i % HD;
       const int row = qt * 16 + r;
       if (row < S)
-        o[((size_t)n * S + row) * D + h * HD + c] =
+        o[row_of(row) * D + h * HD + c] =
             __float2bfloat16(S_w[r * lds + c] / L_w[r]);
     }
     __syncwarp();  // the next tile's scores overwrite S_w
   }
 }
 
-template <int HD>
+template <int HD, class Rows>
 cudaError_t launch_mhsa(const bf16* qkv, bf16* o, int N, int S, int D, int H,
-                        float scale, cudaStream_t stream) {
+                        float scale, Rows rows, cudaStream_t stream) {
   if (N <= 0 || S <= 0 || S > kMaxSeq || D != H * HD || N > 65535)
     return cudaErrorInvalidValue;
-  const size_t smem = mhsa_smem_bytes<HD>(S);
+  const size_t smem = mhsa_smem_bytes<HD, Rows>(S);
   cudaError_t err = cudaFuncSetAttribute(
-      mhsa_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      mhsa_kernel<HD, Rows>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
-  mhsa_kernel<HD><<<dim3(H, N), kAttnWarps * 32, smem, stream>>>(qkv, o, S, D,
-                                                                 scale);
+  mhsa_kernel<HD, Rows><<<dim3(H, N), kAttnWarps * 32, smem, stream>>>(
+      qkv, o, S, D, scale, rows);
   return cudaGetLastError();
 }
 

@@ -4,7 +4,10 @@
 // to dqkv = bf16([dq | dk | dv]) [N, S, 3D], the body of
 // vlp_tpu/ops/block_attention.py:109-144 (and fused_block.py's
 // _attn_block_bwd_rows_unified). Optionally per-sample fp32 column sums of
-// dq, dk, dv (the half block's dbqkv).
+// dq, dk, dv (the half block's dbqkv). A row map (attn_rows.cuh) says which
+// rows of qkv, do and dqkv make up unit n: a sample (IdentityRows), or a
+// NesT window of a [B, H, W, *] map (WindowRows, whose column sums then come
+// per window, in window order).
 //
 // One block per (sample, head) stages q, k, v and do (rows padded to sp, a
 // multiple of 16, with zeros). Phase A: each warp takes 16-query tiles,
@@ -22,7 +25,8 @@
 // fixed order, so reruns agree bit for bit.
 //
 // Shared memory: 5 staged matrices of sp x (HD + 8) bf16, and per warp an
-// fp32 score and a dp row block of 16 x lds. At HD = 32 four warps take
+// fp32 score and a dp row block of 16 x lds (a window map adds its row
+// table, S ints: 221 KB at S = 240). At HD = 32 four warps take
 // 196 KB at S = 196 (S <= 240). At HD = 64 the staged rows alone are 150 KB
 // at S = 197 and four warps' rows another 108 KB, 264 KB against the
 // 232,448 bytes a block may have; the kernel then runs two warps (207 KB,
@@ -38,6 +42,7 @@
 // is bound by latency.
 #pragma once
 
+#include "attn_rows.cuh"
 #include "gemm.cuh"
 
 namespace vlp {
@@ -58,24 +63,25 @@ __host__ __device__ inline int mhsa_bwd_lds(int S) {
   return sp + 4 > HD + 36 ? sp + 4 : HD + 36;
 }
 
-template <int HD>
+template <int HD, class Rows>
 inline size_t mhsa_bwd_smem_bytes(int S) {
   constexpr int warps = mhsa_bwd_warps<HD>();
   const int sp = (S + 15) / 16 * 16;
   return 5 * (size_t)sp * (HD + 8) * sizeof(bf16) +
          (size_t)warps * 2 * 16 * mhsa_bwd_lds<HD>(S) * sizeof(float) +
          3 * (size_t)sp * sizeof(float) +
-         3 * (size_t)warps * HD * sizeof(float);
+         3 * (size_t)warps * HD * sizeof(float) + row_table_bytes<Rows>(S);
 }
 
 // grid (H, N); block mhsa_bwd_warps<HD>() * 32 threads. qkv [N*S, 3D] and
 // dout (do) [N*S, D] bf16 -> dqkv [N*S, 3D] bf16; bpart [N, 3D] fp32 column
-// sums of this sample's fp32 dq, dk, dv, unless null.
-template <int HD>
+// sums of this unit's fp32 dq, dk, dv, unless null. Token r of unit n is row
+// rows(n, r) of qkv, dout and dqkv.
+template <int HD, class Rows>
 __global__ void __launch_bounds__(mhsa_bwd_warps<HD>() * 32)
     mhsa_bwd_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
                     bf16* __restrict__ dqkv, float* __restrict__ bpart, int S,
-                    int D, float scale) {
+                    int D, float scale, Rows rows) {
   constexpr int warps = mhsa_bwd_warps<HD>();
   constexpr int ld = HD + 8;   // bf16 pitch of a staged row
   constexpr int kf = HD / 16;  // wmma fragments across the head dim
@@ -98,13 +104,14 @@ __global__ void __launch_bounds__(mhsa_bwd_warps<HD>() * 32)
   float* Il = Mx + sp;                      // 1 / l
   float* Cr = Il + sp;                      // c = sum(p * dp) / l
   float* Col = Cr + sp;                     // [3][warps][HD]
+  int* Rt = reinterpret_cast<int*>(Col + 3 * warps * HD);  // row table
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
   const size_t row3 = 3 * (size_t)D;
-  const size_t row0 = (size_t)n * S;
   const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+  const UnitRows<Rows> row_of = unit_rows(rows, n, S, Rt, tid, warps * 32);
 
   // stage q, k, v and do of this (sample, head); rows S..sp-1 are zero
   constexpr int vecs = HD / 8;
@@ -115,9 +122,9 @@ __global__ void __launch_bounds__(mhsa_bwd_warps<HD>() * 32)
     const int c = (rem % vecs) * 8;
     uint4 v = zero;
     if (r < S) {
-      const bf16* src = mat < 3
-          ? qkv + (row0 + r) * row3 + mat * D + h * HD + c
-          : dout + (row0 + r) * D + h * HD + c;
+      const size_t g = row_of(r);
+      const bf16* src = mat < 3 ? qkv + g * row3 + mat * D + h * HD + c
+                                : dout + g * D + h * HD + c;
       v = *reinterpret_cast<const uint4*>(src);
     }
     *reinterpret_cast<uint4*>(Qs + (size_t)mat * sp * ld + r * ld + c) = v;
@@ -231,11 +238,12 @@ __global__ void __launch_bounds__(mhsa_bwd_warps<HD>() * 32)
     for (int r = 0; r < 16; ++r) {
       const int row = qt * 16 + r;
       if (row < S) {
+        bf16* dst = dqkv + row_of(row) * row3 + h * HD;
 #pragma unroll
         for (int j = 0; j < cl; ++j) {
           const int col = lane + 32 * j;
           const float v = DP_w[r * lds + col] * scale;
-          dqkv[(row0 + row) * row3 + h * HD + col] = __float2bfloat16(v);
+          dst[col] = __float2bfloat16(v);
           col_q[j] += v;
         }
       }
@@ -327,12 +335,13 @@ __global__ void __launch_bounds__(mhsa_bwd_warps<HD>() * 32)
     for (int r = 0; r < 16; ++r) {
       const int row = kt * 16 + r;
       if (row < S) {
+        bf16* dst_row = dqkv + row_of(row) * row3 + h * HD;
 #pragma unroll
         for (int j = 0; j < cl; ++j) {
           const int col = lane + 32 * j;
           const float dv = O1[r * ldo + col];
           const float dk = O2[r * ldo + col] * scale;
-          bf16* dst = dqkv + (row0 + row) * row3 + h * HD + col;
+          bf16* dst = dst_row + col;
           dst[D] = __float2bfloat16(dk);
           dst[2 * D] = __float2bfloat16(dv);
           col_k[j] += dk;
@@ -359,28 +368,30 @@ __global__ void __launch_bounds__(mhsa_bwd_warps<HD>() * 32)
 }
 
 // Largest S the kernel's shared memory takes at head dim HD: 240 at
-// HD = 32, 224 at HD = 64.
-template <int HD>
+// HD = 32, 224 at HD = 64 (a row table changes neither).
+template <int HD, class Rows>
 inline int mhsa_bwd_max_seq() {
   int s = 16;
-  while (s + 16 <= 256 && mhsa_bwd_smem_bytes<HD>(s + 16) <= 232448) s += 16;
+  while (s + 16 <= 256 && mhsa_bwd_smem_bytes<HD, Rows>(s + 16) <= 232448)
+    s += 16;
   return s;
 }
 
-template <int HD>
+template <int HD, class Rows>
 cudaError_t launch_mhsa_bwd(const bf16* qkv, const bf16* dout, bf16* dqkv,
                             float* bpart, int N, int S, int D, int H,
-                            float scale, cudaStream_t stream) {
-  if (N <= 0 || S <= 0 || S > mhsa_bwd_max_seq<HD>() || D != H * HD ||
+                            float scale, Rows rows, cudaStream_t stream) {
+  if (N <= 0 || S <= 0 || S > mhsa_bwd_max_seq<HD, Rows>() || D != H * HD ||
       N > 65535)
     return cudaErrorInvalidValue;
-  const size_t smem = mhsa_bwd_smem_bytes<HD>(S);
+  const size_t smem = mhsa_bwd_smem_bytes<HD, Rows>(S);
   cudaError_t err = cudaFuncSetAttribute(
-      mhsa_bwd_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      mhsa_bwd_kernel<HD, Rows>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
-  mhsa_bwd_kernel<HD><<<dim3(H, N), mhsa_bwd_warps<HD>() * 32, smem,
-                        stream>>>(qkv, dout, dqkv, bpart, S, D, scale);
+  mhsa_bwd_kernel<HD, Rows><<<dim3(H, N), mhsa_bwd_warps<HD>() * 32, smem,
+                              stream>>>(qkv, dout, dqkv, bpart, S, D, scale,
+                                        rows);
   return cudaGetLastError();
 }
 

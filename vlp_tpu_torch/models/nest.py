@@ -8,6 +8,13 @@ each block (``ln_attention`` / ``ln_mlp`` kernels by default; with
 and a ConvPool (3x3 conv, LayerNorm, 3x3/2 max pool) joins the levels. Head: fp32 LayerNorm
 and a global mean over H and W. Activations are NHWC, as in the JAX
 package; the convolutions (outside Pallas there too) go to ``F.conv2d``.
+
+With ``nhwc_windows`` (a plain attribute that ``forward`` reads, so a built
+model can be switched without touching its parameters) a level whose shape
+passes ``supports_window`` skips blockify and unblockify: the blocks run on
+the map itself, through ``ln_attention_windows`` (the reference's
+``_level_uses_nhwc`` branch). The JAX package's config has no key for it,
+and neither has the port's.
 """
 from __future__ import annotations
 
@@ -18,22 +25,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from vlp_tpu_torch.models.vit import EncoderBlock, LayerNorm, conv_nhwc
-
-
-def blockify(x: torch.Tensor, block: int) -> torch.Tensor:
-    """[B, H, W, C] -> [B, nb, block*block, C] with nb = (H/b)*(W/b)."""
-    b, h, w, c = x.shape
-    gh, gw = h // block, w // block
-    x = x.reshape(b, gh, block, gw, block, c).permute(0, 1, 3, 2, 4, 5)
-    return x.reshape(b, gh * gw, block * block, c)
-
-
-def unblockify(x: torch.Tensor, block: int, h: int, w: int) -> torch.Tensor:
-    """Inverse of blockify."""
-    b, _, _, c = x.shape
-    gh, gw = h // block, w // block
-    x = x.reshape(b, gh, gw, block, block, c).permute(0, 1, 3, 2, 4, 5)
-    return x.reshape(b, h, w, c)
+from vlp_tpu_torch.ops.fused_block import (blockify, supports_window,
+                                           unblockify)
 
 
 class ConvPool(nn.Module):
@@ -64,12 +57,11 @@ class NesT(nn.Module):
                  nhwc_windows: bool = False,
                  device: Optional[torch.device] = None) -> None:
         super().__init__()
-        if nhwc_windows:
-            raise NotImplementedError(
-                "nhwc_windows=True runs the windowed half-block kernels "
-                "_lnattn_nhwc_fwd/_lnattn_nhwc_bwd (#5/#6 in PERF.md), which "
-                "are not ported to vlp_tpu_torch yet; see ROADMAP.md")
         self.dtype = dtype
+        self.megakernel = megakernel
+        self.nhwc_windows = nhwc_windows
+        self.embed_dims = tuple(embed_dims)
+        self.num_heads = tuple(num_heads)
         self.patch_size = patch_size
         self.block_size = block_size
         self.num_features = embed_dims[-1]
@@ -86,7 +78,7 @@ class NesT(nn.Module):
             levels.append(nn.ModuleList(
                 EncoderBlock(dim, heads, device=device,
                              fused_attention=fused_attention,
-                             megakernel=megakernel)
+                             megakernel=megakernel, window=block_size)
                 for _ in range(depth)))
             if li < len(embed_dims) - 1:
                 pools.append(ConvPool(dim, embed_dims[li + 1], device))
@@ -95,19 +87,40 @@ class NesT(nn.Module):
         self.pools = nn.ModuleList(pools)
         self.final_norm = LayerNorm(embed_dims[-1], device)
 
+    def _level_uses_nhwc(self, x: torch.Tensor, li: int) -> bool:
+        """The reference's choice (``vlp_tpu/models/nest.py:127-148``) on
+        one device: the windowed kernels for level ``li`` of map x."""
+        if not (self.megakernel and self.nhwc_windows):
+            return False
+        b, h, w, d = x.shape
+        # by level, not by width: embed_dims may repeat
+        heads = self.num_heads[li] if d == self.embed_dims[li] else 0
+        return heads > 0 and supports_window(b, h, w, d, heads,
+                                             self.block_size,
+                                             x.element_size())
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """NHWC images in the compute dtype -> pooled fp32 features."""
         x = conv_nhwc(x.to(self.dtype), self.patch_embed, self.patch_size, 0)
         size = x.shape[1]
         for li, blocks in enumerate(self.levels):
-            pos = getattr(self, f"pos_embed_{li}")
-            t = blockify(x, self.block_size) + pos.to(self.dtype)
-            b, nb, s, d = t.shape
-            t = t.reshape(b * nb, s, d)
-            for blk in blocks:
-                t = blk(t)
-            x = unblockify(t.reshape(b, nb, s, d), self.block_size, size,
-                           size)
+            # stored blockified, [1, nb, S, D]
+            pos = getattr(self, f"pos_embed_{li}").to(self.dtype)
+            if self._level_uses_nhwc(x, li):
+                # the kernels take a contiguous map: a copy only where the
+                # convolution or the pool left another layout
+                x = (x + unblockify(pos, self.block_size, size, size)
+                     ).contiguous()
+                for blk in blocks:
+                    x = blk(x)
+            else:
+                t = blockify(x, self.block_size) + pos
+                b, nb, s, d = t.shape
+                t = t.reshape(b * nb, s, d)
+                for blk in blocks:
+                    t = blk(t)
+                x = unblockify(t.reshape(b, nb, s, d), self.block_size, size,
+                               size)
             if li < len(self.pools):
                 x = self.pools[li](x)
                 size //= 2

@@ -14,6 +14,12 @@ compositions per half block, by the same per-shape choice:
   residual. ViT-B/16 and ViT-L/16 take it at full width, NesT with
   ``megakernel=False``.
 
+On a NesT token map ``[B, H, W, D]`` (``window`` set, NesT with
+``nhwc_windows``) the attention half is ``ln_attention_windows`` straight
+on the map, and the MLP half ``ln_mlp`` on its rows where ``supports_mlp``
+holds, else ``LayerNorm`` -> ``MlpBlock`` -> residual (the reference's
+``_window_call``).
+
 The predicates are copies of the TPU kernels' VMEM arithmetic
 (``ops/fused_block.py``, ``ops/fused_mlp.py``): they say which composition
 the reference computes at a shape, and the port computes the same one.
@@ -33,7 +39,8 @@ from torch import nn
 
 from vlp_tpu_torch.ops import fused_mlp as FM
 from vlp_tpu_torch.ops.block_attention import attend_qkv
-from vlp_tpu_torch.ops.fused_block import (ln_attention, ln_mlp,
+from vlp_tpu_torch.ops.fused_block import (ln_attention,
+                                           ln_attention_windows, ln_mlp,
                                            supports_attn, supports_mlp)
 
 _LN_EPS = 1e-6
@@ -127,15 +134,17 @@ class MlpBlock(nn.Module):
 
 
 class EncoderBlock(nn.Module):
-    """Pre-LN transformer block on ``[N, S, D]`` tokens in the compute
-    dtype; parameter names follow the JAX block's tree (``ln1``,
-    ``attn/{qkv,out}``, ``ln2``, ``mlp/{fc1,fc2}``), the same on both
-    paths (module docstring)."""
+    """Pre-LN transformer block on ``[N, S, D]`` tokens, or on a
+    ``[B, H, W, D]`` token map with attention inside ``window`` x
+    ``window`` tiles, in the compute dtype; parameter names follow the JAX
+    block's tree (``ln1``, ``attn/{qkv,out}``, ``ln2``, ``mlp/{fc1,fc2}``),
+    the same on every path (module docstring)."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
                  device: Optional[torch.device] = None, *,
                  fused_attention: bool = True,
-                 megakernel: bool = True) -> None:
+                 megakernel: bool = True,
+                 window: Optional[int] = None) -> None:
         super().__init__()
         if not fused_attention:
             raise NotImplementedError(
@@ -144,30 +153,51 @@ class EncoderBlock(nn.Module):
                 "vlp_tpu_torch yet; see ROADMAP.md")
         self.num_heads = num_heads
         self.megakernel = megakernel
+        self.window = window
         self.ln1 = LayerNorm(dim, device)
         self.attn = FusedSelfAttention(dim, num_heads, device)
         self.ln2 = LayerNorm(dim, device)
         self.mlp = MlpBlock(dim, int(dim * mlp_ratio), device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dim() == 4:
+            return self._window_forward(x)
         n, s, d = x.shape
-        dt, itemsize = x.dtype, x.element_size()
         if self.megakernel and supports_attn(n, s, d, self.num_heads,
-                                             itemsize):
-            x = ln_attention(x, self.ln1.weight, self.ln1.bias,
-                             self.attn.qkv.weight, self.attn.qkv.bias,
-                             self.attn.out.weight, self.attn.out.bias,
-                             self.num_heads)
+                                             x.element_size()):
+            x = ln_attention(x, *self._attn_params(), self.num_heads)
         else:
-            x = x + self.attn(self.ln1(x).to(dt))
+            x = x + self.attn(self.ln1(x).to(x.dtype))
+        return self._mlp_half(x, self.megakernel)
+
+    def _window_forward(self, x: torch.Tensor) -> torch.Tensor:
+        """NesT's blockify-free path on the map [B, H, W, D]
+        (``vlp_tpu/models/vit.py:218-245``); the caller (NesT) checks
+        ``supports_window``."""
+        if not self.window:
+            raise ValueError("EncoderBlock: a [B, H, W, D] input needs "
+                             "window=")
+        x = ln_attention_windows(x, self.window, *self._attn_params(),
+                                 self.num_heads)
+        return self._mlp_half(x, True)
+
+    def _attn_params(self):
+        return (self.ln1.weight, self.ln1.bias, self.attn.qkv.weight,
+                self.attn.qkv.bias, self.attn.out.weight, self.attn.out.bias)
+
+    def _mlp_half(self, x: torch.Tensor, fused: bool) -> torch.Tensor:
+        """``ln_mlp`` on x's rows where ``fused`` and ``supports_mlp`` hold,
+        else LayerNorm -> MlpBlock -> residual."""
+        d = x.shape[-1]
+        m = x.numel() // d
         mlp = self.mlp
-        if self.megakernel and supports_mlp(n * s, d, mlp.fc1.weight.shape[1],
-                                            itemsize):
-            y = ln_mlp(x.reshape(n * s, d), self.ln2.weight, self.ln2.bias,
+        if fused and supports_mlp(m, d, mlp.fc1.weight.shape[1],
+                                  x.element_size()):
+            y = ln_mlp(x.reshape(m, d), self.ln2.weight, self.ln2.bias,
                        mlp.fc1.weight, mlp.fc1.bias, mlp.fc2.weight,
                        mlp.fc2.bias)
-            return y.view(n, s, d)
-        return x + mlp(self.ln2(x).to(dt))
+            return y.view(x.shape)
+        return x + mlp(self.ln2(x).to(x.dtype))
 
 
 def conv_nhwc(x: torch.Tensor, conv: nn.Conv2d, stride: int,

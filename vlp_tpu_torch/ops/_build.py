@@ -40,6 +40,13 @@ _SIGNATURES = {
     # x, gamma, beta, wqkv, wout, qkv, o, dy, dx, dgamma, dbeta, dwqkv,
     # dbqkv, dwout, dbout, ws, N, S, D, H, scale, eps, stream
     "vlp_ln_attention_bwd": ([_P] * 16 + [_I] * 4 + [_F, _F, _P], _I),
+    # x, gamma, beta, wqkv, bqkv, wout, bout, qkv, o, y, B, H, W, D, heads,
+    # block, scale, eps, stream
+    "vlp_ln_attention_windows": ([_P] * 10 + [_I] * 6 + [_F, _F, _P], _I),
+    # x, gamma, beta, wqkv, wout, qkv, o, dy, dx, dgamma, dbeta, dwqkv,
+    # dbqkv, dwout, dbout, ws, B, H, W, D, heads, block, scale, eps, stream
+    "vlp_ln_attention_windows_bwd": ([_P] * 16 + [_I] * 6 + [_F, _F, _P],
+                                     _I),
     # M, D, F -> bytes
     "vlp_ln_mlp_bwd_workspace": ([_I] * 3, _Z),
     # x, gamma, beta, w1, b1, w2, dy, dx, dgamma, dbeta, dw1, db1, dw2, db2,

@@ -1,11 +1,14 @@
 """Half-block kernels of the pre-LN transformer block, for Hopper, with
 their backwards.
 
-  ln_attention: y = x + OutProj(MHSA(LN(x)))     x [N, S, D]
-  ln_mlp:       y = x + fc2(gelu(fc1(LN(x))))    x [M, D] rows
+  ln_attention:         y = x + OutProj(MHSA(LN(x)))   x [N, S, D]
+  ln_attention_windows: the same within each block x block window of a
+                        NesT token map                  x [B, H, W, D]
+  ln_mlp:               y = x + fc2(gelu(fc1(LN(x))))  x [M, D] rows
 
 Counterparts of the Pallas kernels in ``vlp_tpu/ops/fused_block.py``
-(``_lnattn_fwd``/``_lnattn_bwd`` and ``_lnmlp_fwd``/``_lnmlp_bwd``). A CUDA
+(``_lnattn_fwd``/``_lnattn_bwd``, ``_lnattn_nhwc_fwd``/``_lnattn_nhwc_bwd``
+and ``_lnmlp_fwd``/``_lnmlp_bwd``). A CUDA
 tensor runs the hand-written CUDA kernels of ``vlp_tpu_torch/csrc`` (built
 at first use) or raises; a CPU tensor runs the plain PyTorch versions
 (``*_plain``), which are also the reference the kernels are held to. All
@@ -17,7 +20,8 @@ recompute the LayerNorm and return the seven cotangents of the Pallas VJPs:
 dx in the activation dtype, weight gradients accumulated in fp32 and cast
 once to the weights' dtype, the rest fp32 ``[1, n]``.
 
-Under autograd the public ``ln_attention`` and ``ln_mlp`` run as
+Under autograd the public ``ln_attention``, ``ln_attention_windows`` and
+``ln_mlp`` run as
 ``torch.autograd.Function``s whose backward is the backward kernel (CUDA)
 or the plain backward (CPU; never autograd through the plain forward, since
 the Pallas VJP's rounding is the reference). Weights are cast to the
@@ -173,10 +177,79 @@ def supports_mlp(m: int, d: int, f: int, itemsize: int = 2) -> bool:
     return _mlp_tile(m, d, f, itemsize) > 0
 
 
+def supports_window(b: int, h: int, w: int, d: int, num_heads: int,
+                    block: int, itemsize: int = 2) -> bool:
+    """Whether the reference runs ``ln_attention_windows`` on a [b, h, w, d]
+    map (``vlp_tpu/ops/fused_block.py:979-986``): the windows of one row
+    strip must fit one program."""
+    if d % num_heads or h % block or w % block:
+        return False
+    gw = w // block
+    return _attn_group(gw, block * block, d, num_heads, itemsize) == gw
+
+
+# -- NesT windows on the token map ------------------------------------------
+
+def blockify(x: torch.Tensor, block: int) -> torch.Tensor:
+    """[B, H, W, C] -> [B, nb, block*block, C] with nb = (H/b)*(W/b)."""
+    b, h, w, c = x.shape
+    gh, gw = h // block, w // block
+    x = x.reshape(b, gh, block, gw, block, c).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(b, gh * gw, block * block, c)
+
+
+def unblockify(x: torch.Tensor, block: int, h: int, w: int) -> torch.Tensor:
+    """Inverse of blockify."""
+    b, _, _, c = x.shape
+    gh, gw = h // block, w // block
+    x = x.reshape(b, gh, gw, block, block, c).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(b, h, w, c)
+
+
+def _windows(x: torch.Tensor, block: int) -> torch.Tensor:
+    """[B, H, W, D] -> the windows as samples, [B*nb, block^2, D]."""
+    return blockify(x, block).reshape(-1, block * block, x.shape[-1])
+
+
+def _unwindows(t: torch.Tensor, like: torch.Tensor, block: int
+               ) -> torch.Tensor:
+    b, h, w, d = like.shape
+    return unblockify(t.reshape(b, -1, block * block, d), block, h, w)
+
+
+def ln_attention_windows_plain(x, block: int, gamma, beta, wqkv, bqkv, wout,
+                               bout, num_heads: int) -> torch.Tensor:
+    """Plain ``ln_attention_windows`` on x [B, H, W, D]. The body
+    ``_lnattn_nhwc_fwd_kernel`` (``vlp_tpu/ops/fused_block.py:928-946``) is
+    ``_lnattn_fwd_kernel``'s per window, so this is ``ln_attention_plain``
+    on the blockified windows."""
+    return _unwindows(ln_attention_plain(_windows(x, block), gamma, beta,
+                                         wqkv, bqkv, wout, bout, num_heads),
+                      x, block)
+
+
+def ln_attention_windows_bwd_plain(x, block: int, gamma, beta, wqkv, bqkv,
+                                   wout, dy, num_heads: int):
+    """Plain backward of ``ln_attention_windows``. The body
+    ``_lnattn_nhwc_bwd_kernel`` (``:949-976``) runs
+    ``_attn_block_bwd_rows`` per window, strip by strip, which is blockify
+    order, so this is ``ln_attention_bwd_plain`` on the blockified windows.
+    Returns (dx [B, H, W, D], dgamma, dbeta, dwqkv, dbqkv, dwout, dbout)."""
+    dx, *rest = ln_attention_bwd_plain(
+        _windows(x, block), gamma, beta, wqkv, bqkv, wout,
+        _windows(dy, block), num_heads)
+    return (_unwindows(dx, x, block), *rest)
+
+
 # -- CUDA wrappers ----------------------------------------------------------
 
-def _check_attn(name, x, num_heads, gamma, beta, wqkv, bqkv, wout, *rest):
-    n, s, d = x.shape
+def _check_attn(name, x, num_heads, gamma, beta, wqkv, bqkv, wout, *rest,
+                s=None):
+    """Shapes the half-block attention kernels take; ``s``: tokens per
+    unit, x.shape[1] unless given (the windowed kernels' block^2)."""
+    d = x.shape[-1]
+    s = x.shape[1] if s is None else s
+    n = x.numel() // (s * d)
     if d % num_heads or d // num_heads != 32 or s > 256 or d > 1024:
         raise ValueError(
             f"{name}: the CUDA kernel takes head_dim 32, S <= 256 and "
@@ -221,6 +294,41 @@ def _ln_attention_cuda(x, gamma, beta, wqkv, bqkv, wout, bout, num_heads):
             (d // num_heads) ** -0.5, _EPS, _stream())
     _build.check(lib, err, "ln_attention")
     ln_attention.launches += 1
+    return y, qkv, o
+
+
+def _check_windows(name, x, block, num_heads, *params):
+    if x.dim() != 4:
+        raise ValueError(f"{name}: x must be a [B, H, W, D] map, got "
+                         f"{tuple(x.shape)}")
+    b, h, w, d = x.shape
+    if block <= 0 or h % block or w % block:
+        raise ValueError(f"{name}: the CUDA kernel takes H and W divisible "
+                         f"by the window {block}; got H={h}, W={w}")
+    _check_attn(name, x, num_heads, *params, s=block * block)
+
+
+def _ln_attention_windows_cuda(x, block, gamma, beta, wqkv, bqkv, wout, bout,
+                               num_heads):
+    """The windowed forward kernel on cast operands -> (y, qkv, o), qkv and
+    o in the map's row order, which the backward reads."""
+    _check_windows("ln_attention_windows", x, block, num_heads, gamma, beta,
+                   wqkv, bqkv, wout, bout)
+    if bout.shape[1] != x.shape[-1]:
+        raise ValueError("ln_attention_windows: bout does not match D")
+    b, h, w, d = x.shape
+    lib = _build.load_library()
+    qkv = torch.empty((b, h, w, 3 * d), dtype=x.dtype, device=x.device)
+    o = torch.empty_like(x)
+    y = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        err = lib.vlp_ln_attention_windows(
+            x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), wqkv.data_ptr(),
+            bqkv.data_ptr(), wout.data_ptr(), bout.data_ptr(),
+            qkv.data_ptr(), o.data_ptr(), y.data_ptr(), b, h, w, d,
+            num_heads, block, (d // num_heads) ** -0.5, _EPS, _stream())
+    _build.check(lib, err, "ln_attention_windows")
+    ln_attention_windows.launches += 1
     return y, qkv, o
 
 
@@ -295,6 +403,53 @@ def ln_attention_bwd(x, gamma, beta, wqkv, bqkv, wout, dy, num_heads: int,
     return dx, dg, db, dwqkv, dbqkv, dwout, dbout
 
 
+def ln_attention_windows_bwd(x, block, gamma, beta, wqkv, bqkv, wout, dy,
+                             num_heads: int, qkv=None, o=None):
+    """Backward of ``ln_attention_windows``: (dx, dgamma, dbeta, dwqkv,
+    dbqkv, dwout, dbout). A CUDA tensor runs
+    ``csrc/ln_attention_windows_bwd.cu`` and needs the forward launch's
+    ``qkv`` and ``o``; a CPU tensor takes
+    ``ln_attention_windows_bwd_plain``."""
+    if not _route("ln_attention_windows_bwd", x):
+        return ln_attention_windows_bwd_plain(x, block, gamma, beta, wqkv,
+                                              bqkv, wout, dy, num_heads)
+    dt = x.dtype
+    (gamma, beta, bqkv), (wqkv, wout) = _cast(
+        dt, vectors=(gamma, beta, bqkv), matrices=(wqkv, wout))
+    if qkv is None or o is None:
+        raise ValueError("ln_attention_windows_bwd: the CUDA kernel reads "
+                         "the forward's qkv and o")
+    dy = dy.contiguous()
+    _check_windows("ln_attention_windows_bwd", x, block, num_heads, gamma,
+                   beta, wqkv, bqkv, wout, dy, qkv, o)
+    b, h, w, d = x.shape
+    s = block * block
+    if s > 240:
+        raise ValueError(f"ln_attention_windows_bwd: the CUDA kernel takes "
+                         f"S <= 240 (its shared memory), got S={s}")
+    if dy.shape != x.shape or qkv.shape != (b, h, w, 3 * d) or \
+            o.shape != x.shape:
+        raise ValueError("ln_attention_windows_bwd: dy, qkv or o do not "
+                         "match x")
+    lib = _build.load_library()
+    dx, dg, db, dbqkv, dbout, dwqkv, dwout = _grads_like(
+        x, (d, d, 3 * d, d), ((d, 3 * d), (d, d)), dt)
+    ws = torch.empty(lib.vlp_ln_attention_bwd_workspace(
+        x.numel() // (s * d), s, d, num_heads), dtype=torch.uint8,
+        device=x.device)
+    with torch.cuda.device(x.device):
+        err = lib.vlp_ln_attention_windows_bwd(
+            x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), wqkv.data_ptr(),
+            wout.data_ptr(), qkv.data_ptr(), o.data_ptr(), dy.data_ptr(),
+            dx.data_ptr(), dg.data_ptr(), db.data_ptr(), dwqkv.data_ptr(),
+            dbqkv.data_ptr(), dwout.data_ptr(), dbout.data_ptr(),
+            ws.data_ptr(), b, h, w, d, num_heads, block,
+            (d // num_heads) ** -0.5, _EPS, _stream())
+    _build.check(lib, err, "ln_attention_windows_bwd")
+    ln_attention_windows_bwd.launches += 1
+    return dx, dg, db, dwqkv, dbqkv, dwout, dbout
+
+
 def ln_mlp_bwd(x, gamma, beta, w1, b1, w2, dy):
     """Backward of ``ln_mlp``: (dx, dgamma, dbeta, dw1, db1, dw2, db2). A
     CUDA tensor runs ``csrc/ln_mlp_bwd.cu``; a CPU tensor
@@ -352,6 +507,32 @@ class LnAttention(torch.autograd.Function):
                                   ctx.num_heads, qkv, o), None)
 
 
+class LnAttentionWindows(torch.autograd.Function):
+    """``ln_attention_windows`` on cast operands, with the backward
+    kernel."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, wqkv, bqkv, wout, bout, num_heads,
+                block):
+        if x.device.type == "cuda":
+            y, qkv, o = _ln_attention_windows_cuda(
+                x, block, gamma, beta, wqkv, bqkv, wout, bout, num_heads)
+        else:
+            y = ln_attention_windows_plain(x, block, gamma, beta, wqkv, bqkv,
+                                           wout, bout, num_heads)
+            qkv = o = None
+        ctx.num_heads, ctx.block = num_heads, block
+        ctx.save_for_backward(x, gamma, beta, wqkv, bqkv, wout, qkv, o)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, gamma, beta, wqkv, bqkv, wout, qkv, o = ctx.saved_tensors
+        return (*ln_attention_windows_bwd(x, ctx.block, gamma, beta, wqkv,
+                                          bqkv, wout, dy, ctx.num_heads, qkv,
+                                          o), None, None)
+
+
 class LnMlp(torch.autograd.Function):
     """``ln_mlp`` on cast operands, with the backward kernel."""
 
@@ -384,6 +565,24 @@ def ln_attention(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     return ln_attention_plain(x, *args, num_heads)
 
 
+def ln_attention_windows(x: torch.Tensor, block: int, gamma: torch.Tensor,
+                         beta: torch.Tensor, wqkv: torch.Tensor,
+                         bqkv: torch.Tensor, wout: torch.Tensor,
+                         bout: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """NesT's windowed y = x + OutProj(MHSA(LN(x))) straight on the token
+    map x [B, H, W, D]: attention within each block x block window, no
+    blockify or unblockify (the reference's signature, ``:1080``)."""
+    cuda = _route("ln_attention_windows", x)
+    (gamma, beta, bqkv, bout), (wqkv, wout) = _cast(
+        x.dtype, vectors=(gamma, beta, bqkv, bout), matrices=(wqkv, wout))
+    args = (gamma, beta, wqkv, bqkv, wout, bout)
+    if _records_grad(x, *args):
+        return LnAttentionWindows.apply(x, *args, num_heads, block)
+    if cuda:
+        return _ln_attention_windows_cuda(x, block, *args, num_heads)[0]
+    return ln_attention_windows_plain(x, block, *args, num_heads)
+
+
 def ln_mlp(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
            w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
            b2: torch.Tensor) -> torch.Tensor:
@@ -404,5 +603,8 @@ ln_attention.launches = 0
 ln_mlp.launches = 0
 ln_attention_bwd.launches = 0
 ln_mlp_bwd.launches = 0
+ln_attention_windows.launches = 0
+ln_attention_windows_bwd.launches = 0
 
-KERNELS = (ln_attention, ln_mlp, ln_attention_bwd, ln_mlp_bwd)
+KERNELS = (ln_attention, ln_mlp, ln_attention_bwd, ln_mlp_bwd,
+           ln_attention_windows, ln_attention_windows_bwd)
