@@ -76,19 +76,48 @@ Phases, each printing its lines before the last line:
    augmentation launches per step, none of #1 or #3, and phase 6's checks;
    then the step of both paths on the same task in alternating turns.
 
+14. probe kernels: ``conv3x3`` (#17) at ResNet34's stage-2/3 shapes
+   ([128, 28, 28, 128], [128, 14, 14, 256]) and ``bn_relu_gemm`` (#18) at
+   ResNet50's boundary shapes, and both at an odd batch with ragged tiles,
+   against their plain versions in bf16 and in fp32 (TF32 off for cuDNN and
+   cuBLAS), the map's edge pixels on their own; then the probe entry points
+   (``vlp_tpu_torch.probes.conv_probe.run``, ``bn_gemm_probe.run``) at
+   batch 128: kernel, plain version and ``F.conv2d`` or the two-op PyTorch
+   version in turns, and the stem max pool's first-max against its
+   equality-split backward.
+15. ResNet34 serving: ``Predictor`` for
+   ``experiment=baseline_only_imaging_resnet34`` (batch 64, BatchNorm in
+   eval mode) answers 64, 64 and 37 images with no kernel launch; logits
+   against fp32 on the CPU; an image's logit independent of its batch; the
+   running statistics untouched; latency.
+16. ResNet34 training at batch 64, full depth, CORAL (weight 1000) live on
+   batches that hold datasets 0 and 1: 3 + 1 augmentation launches per
+   step and no other kernel, phase 6's checks, the running statistics
+   moving from step 0 on, CORAL nonzero in every timed step; the 4-image
+   gradients in train-mode BatchNorm with both domains present: fp32 on
+   the card against fp32 on the CPU, and bf16 on the card against fp32 on
+   the CPU beside bf16 on the CPU against fp32 on the CPU.
+17. xrv-ResNet50 (``experiment=baseline_only_imaging_xrv_resnet50``:
+   1-channel input, intensity scaling, Bottleneck blocks): one serving
+   request of 32 and the training step at batch 32, with the checks of
+   phases 15 and 16.
+
 Then one JSON line with every kernel: its launches in the timed training
 steps of the path that runs it (NesT-Small's for #1-#4, #11, #12; ViT-B's
 for #7, #8; NesT unfused for #9, #10; NesT with ``nhwc_windows`` for #5,
 #6; ``other_launches`` adds the other
-paths, ``serve_launches`` the serving phases), its largest error against
-the plain bf16 version, and its times per training step of that path:
-``ms`` and ``plain_ms`` (the sum over the path's calls of the median time
-per call), ``bound_ms`` (the larger of the bytes the calls must move, each
-input read and each output written once, over 3.35 TB/s, and their
-operations over 989 TFLOP/s bf16, or 67 TFLOP/s fp32 for shear and noise;
-``bound_by`` says which), and ``library_ms`` (SDPA for #7 and #8, null
-where no single PyTorch call computes the function). Last ``{"ok": true,
-"device": {...}}``. Any failed check raises.
+paths, ``serve_launches`` the serving phases; #17 and #18 carry
+``"path": "probe"`` and the launches of the probes' runs), its largest
+error against the plain bf16 version, and its times per training step of
+that path (for #17 and #18: one call at each probe shape, summed, with
+``per_shape`` beside): ``ms`` and ``plain_ms`` (the sum over the path's
+calls of the median time per call), ``bound_ms`` (the larger of the bytes
+the calls must move, each input read and each output written once, over
+3.35 TB/s, and their operations over 989 TFLOP/s bf16, or 67 TFLOP/s fp32
+for shear and noise; ``bound_by`` says which), and ``library_ms`` (SDPA
+for #7 and #8, ``F.conv2d`` for #17, null where no single PyTorch call
+computes the function). Last ``{"ok": true, "device": {...}}``. Any failed
+check raises.
 
 The launch counts of each path are set to 0 just before that path's run and
 read just after; the launches that compare a kernel with its plain version
@@ -114,11 +143,16 @@ from vlp_tpu_torch.models.tasks import build_task
 from vlp_tpu_torch.models.vit import conv_nhwc
 from vlp_tpu_torch.ops import _build
 from vlp_tpu_torch.ops import block_attention as BA
+from vlp_tpu_torch.ops import bn_gemm as BG
+from vlp_tpu_torch.ops import conv3x3 as CV
 from vlp_tpu_torch.ops import fused_block as FB
 from vlp_tpu_torch.ops import fused_mlp as FM
 from vlp_tpu_torch.ops import noise as NZ
 from vlp_tpu_torch.ops import shear as SH
 from vlp_tpu_torch.ops.warp import default_max_shift
+from vlp_tpu_torch.probes import bn_gemm_probe, conv_probe
+from vlp_tpu_torch.probes._timing import BF16_FLOPS, HBM_BYTES_PER_S
+from vlp_tpu_torch.probes._timing import median_ms as _median_ms
 from vlp_tpu_torch.serve import Predictor
 from vlp_tpu_torch.train.setup import build_training, random_batch
 from vlp_tpu_torch.train.step import train_steps
@@ -191,10 +225,39 @@ WINDOW = 14
 # serving and training of both NesT paths in alternating turns
 AB_ROUNDS = 4
 AB_STEPS = 5
-# Peak rates of one H100 SXM (NVIDIA's data sheet): device memory, dense
-# bf16 tensor cores, fp32 outside the tensor cores (shear, noise)
-HBM_BYTES_PER_S = 3.35e12
-BF16_FLOPS = 989e12
+RESNET34 = "baseline_only_imaging_resnet34"
+XRV = "baseline_only_imaging_xrv_resnet50"
+XRV_BATCH = 32
+# an image's logit alone and inside a full batch (the same padded batch
+# shape, so the same kernels): BatchNorm in eval mode makes them equal up
+# to the convolution algorithms' summation order; a BatchNorm left in
+# training mode would move them by the batch's statistics
+BOUND_BATCH_INDEPENDENCE = 1e-3
+# The ResNets' gradients in train-mode BatchNorm, 4 images, both domains.
+# BatchNorm's backward subtracts nearly equal terms and magnifies any
+# rounding difference, so each comparison is scaled by the CPU's own:
+# - fp32 on the card (TF32 off) against fp32 on the CPU: the same
+#   arithmetic summed in other orders. On the CPU alone the same batch in
+#   reverse order (the same loss and gradients in exact arithmetic) moves
+#   the fp32 gradients by a share r of their norm; the card may differ by
+#   3 r, and every tensor's cosine must be 0.999 or more.
+# - bf16 against fp32: bf16's roundings (2^-9) move the gradients by a
+#   large share of their norm, on the CPU as much as on the card; the
+#   card's bf16 gradients may be at most twice as far from fp32 as the
+#   CPU's bf16 gradients are.
+BOUND_GRAD_FP32_VS_ORDER = 3.0
+BOUND_GRAD_COS_FP32 = 0.999
+BOUND_GRAD_BF16_VS_CPU = 2.0
+# probe kernels: the checks' shapes (B, H, W, C, K) and (M, C, K), the
+# probes' shapes and two odd ones (ragged M and N tiles, C not a multiple
+# of 32, a one-pixel-high map, an odd batch)
+CONV_CHECKS = ((128, 28, 28, 128, 128), (128, 14, 14, 256, 256),
+               (3, 7, 9, 48, 80), (5, 1, 33, 16, 144))
+GEMM_CHECKS = ((128 * 56 * 56, 256, 64), (128 * 28 * 28, 512, 128),
+               (128 * 56 * 56, 64, 256), (3 * 7 * 9, 48, 80))
+PROBE_BATCH = 128
+# Peak rate of one H100 SXM (NVIDIA's data sheet) of fp32 outside the
+# tensor cores (shear, noise); device memory and bf16 in probes/_timing.py
 FP32_FLOPS = 67e12
 
 
@@ -281,21 +344,6 @@ def _inputs(gen, n, d):
 def _err(out, ref):
     diff = (out.float() - ref.float()).abs().max().item()
     return diff, diff / ref.float().abs().max().item()
-
-
-def _median_ms(fn, iters=10, warmup=2):
-    for _ in range(warmup):
-        fn()
-    events = []
-    for _ in range(iters):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        events.append((start, end))
-    torch.cuda.synchronize()
-    return statistics.median(s.elapsed_time(e) for s, e in events)
 
 
 def _timed_pair(plain, kern):
@@ -418,7 +466,17 @@ def phase_serve(smi: str, key: str, batch: int, requests, per_forward,
               and bool(np.all((p >= 0) & (p <= 1))),
               "probabilities must be finite and in [0, 1]")
 
+    stats = _running_stats(pred.task.model)
     logits = pred.predict_logits(reqs[0][:8])
+    full = pred.predict_logits(reqs[0])[:8]
+    gap = float(np.abs(full - logits).max())
+    print(f"serve {key}: logits[:8] alone vs inside the full request: "
+          f"bit-equal {bool(np.array_equal(full, logits))}, max_abs {gap:.6g}")
+    check(gap <= BOUND_BATCH_INDEPENDENCE * max(1.0, float(np.abs(
+        full).max())), f"an image's logit depends on its batch by {gap}")
+    check(all(torch.equal(a, b) for a, b in zip(
+        stats, _running_stats(pred.task.model))),
+        "serving changed the running statistics")
     ref = Predictor(dataclasses.replace(cfg, precision="fp32"), None,
                     mean=128.0, std=64.0, batch_size=8, device="cpu")
     ref.task.model.load_state_dict(pred.task.model.state_dict())
@@ -496,7 +554,7 @@ def _serve_vs_blockified(smi, key, pred, request, logits):
 
 
 KERNELS = (*FB.KERNELS, *BA.KERNELS, *FM.KERNELS, SH.shear_rows,
-           NZ.add_gaussian_noise)
+           NZ.add_gaussian_noise, *CV.KERNELS, *BG.KERNELS)
 
 
 def _reset_counts() -> None:
@@ -886,6 +944,13 @@ def _train_vs_blockified(smi, key, task, step, state, batches, batch_size):
               f"{smi}")
 
 
+def _running_stats(model):
+    """Copies of the model's BatchNorm running statistics (none for NesT
+    and ViT)."""
+    return [b.detach().clone() for n, b in model.named_buffers()
+            if n.endswith(("running_mean", "running_var"))]
+
+
 def _grads(task, batch, device):
     task.model.zero_grad(set_to_none=True)
     loss, _ = task.loss_fn({k: torch.from_numpy(v).to(device)
@@ -895,20 +960,94 @@ def _grads(task, batch, device):
     return [p.grad.detach().float().cpu() for p in task.model.parameters()]
 
 
+def _grad_gap(a, b):
+    """(relative L2 of a against b over all tensors, cosine per tensor)."""
+    fa = torch.cat([g.reshape(-1) for g in a]).double()
+    fb = torch.cat([g.reshape(-1) for g in b]).double()
+    cos = [torch.nn.functional.cosine_similarity(
+        x.reshape(1, -1).double(), y.reshape(1, -1).double()).item()
+        for x, y in zip(a, b)]
+    return ((fa - fb).norm() / fb.norm()).item(), cos
+
+
+def _check_grads(key, task, tcfg, statics):
+    """The ``GRAD_BATCH``-image gradients, augmentation off, both domains:
+    bf16 on the card against fp32 on the CPU; with BatchNorm (train mode)
+    also fp32 on the card against fp32 on the CPU, with fp32 on the CPU on
+    the reversed batch and bf16 on the CPU as the yardsticks."""
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+
+    def built(precision, device):
+        t = build_task(dataclasses.replace(tcfg, serve=dataclasses.replace(
+            tcfg.serve, precision=precision)), statics, device)
+        t.model.load_state_dict(task.model.state_dict())
+        if hasattr(task.model.backbone, "nhwc_windows"):
+            t.model.backbone.nhwc_windows = task.model.backbone.nhwc_windows
+        return t
+
+    gbatch = random_batch(np.random.default_rng(2), GRAD_BATCH,
+                          tcfg.serve.image_size)
+    names = [n for n, _ in task.model.named_parameters()]
+    g_gpu = _grads(built(tcfg.serve.precision, cuda), gbatch, cuda)
+    g_cpu = _grads(built("fp32", cpu), gbatch, cpu)
+    rel, cos = _grad_gap(g_gpu, g_cpu)
+    worst = int(np.argmin(cos))
+    print(f"train {key}: {GRAD_BATCH}-image gradients bf16 on GPU vs fp32 "
+          f"on CPU: relative L2 {rel:.6g}; per-tensor cosine min "
+          f"{cos[worst]:.6g} at {names[worst]}, median "
+          f"{statistics.median(cos):.6g}")
+    if not _running_stats(task.model):
+        check(rel <= BOUND_GRAD_REL, f"gradient relative L2 {rel:.4g} > "
+              f"{BOUND_GRAD_REL}")
+        check(min(cos) >= BOUND_GRAD_COS, f"gradient cosine {min(cos):.4g}")
+        return
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g32 = _grads(built("fp32", cuda), gbatch, cuda)
+    rel32, cos32 = _grad_gap(g32, g_cpu)
+    worst32 = int(np.argmin(cos32))
+    reversed_batch = {k: np.ascontiguousarray(v[::-1])
+                      for k, v in gbatch.items()}
+    rel_order, _ = _grad_gap(_grads(built("fp32", cpu), reversed_batch, cpu),
+                             g_cpu)
+    rel_cpu, cos_cpu = _grad_gap(_grads(built(tcfg.serve.precision, cpu),
+                                        gbatch, cpu), g_cpu)
+    print(f"train {key}: fp32 on GPU (TF32 off) vs fp32 on CPU: relative "
+          f"L2 {rel32:.6g}, {rel32 / rel_order:.4g} times the CPU's own "
+          f"fp32 change on the reversed batch, {rel_order:.6g} (bound "
+          f"{BOUND_GRAD_FP32_VS_ORDER:g} times); cosine min "
+          f"{cos32[worst32]:.6g} at {names[worst32]} (bound "
+          f"{BOUND_GRAD_COS_FP32:g}); bf16 on CPU vs fp32 on CPU: relative "
+          f"L2 {rel_cpu:.6g}, cosine min {min(cos_cpu):.6g}, median "
+          f"{statistics.median(cos_cpu):.6g}; bf16 GPU gap / bf16 CPU gap "
+          f"{rel / rel_cpu:.4g} (bound {BOUND_GRAD_BF16_VS_CPU:g})")
+    check(rel32 <= BOUND_GRAD_FP32_VS_ORDER * rel_order,
+          f"fp32 gradient relative L2 {rel32:.4g}, the CPU's own on the "
+          f"reversed batch {rel_order:.4g}")
+    check(min(cos32) >= BOUND_GRAD_COS_FP32, f"fp32 gradient cosine "
+          f"{min(cos32):.4g}")
+    check(rel <= BOUND_GRAD_BF16_VS_CPU * rel_cpu,
+          f"bf16 gradients {rel:.4g} from fp32, bf16 on the CPU "
+          f"{rel_cpu:.4g}")
+
+
 def phase_train_slice(smi: str, key: str, model: str, batch_size: int,
-                      per_step_want: dict, nhwc: bool = False):
+                      per_step_want: dict, nhwc: bool = False,
+                      coral: float = 0.0):
     """The training step of ``experiment=key`` at its batch from random
-    weights: 3 warm-up and 10 timed steps; every kernel launches
-    ``per_step_want[name]`` times per step (0 where unnamed); phase 6's
-    checks; latency, device span and peak memory. With ``nhwc`` the NesT
-    backbone's ``nhwc_windows`` is set, and the step is also timed against
-    the blockified path's in alternating turns."""
+    weights, on batches that hold datasets 0 and 1: 3 warm-up and 10 timed
+    steps; every kernel launches ``per_step_want[name]`` times per step (0
+    where unnamed); phase 6's checks; with BatchNorm the running statistics
+    moving from step 0 on, with ``coral`` (the experiment's weight) CORAL
+    nonzero in every timed step; latency, device span and peak memory. With
+    ``nhwc`` the NesT backbone's ``nhwc_windows`` is set, and the step is
+    also timed against the blockified path's in alternating turns."""
     tcfg = TRAIN_EXPERIMENTS[key]
     aug = tcfg.augment()
     check(tcfg.serve.model == model and tcfg.serve.precision == "bf16"
           and tcfg.serve.image_size == 224 and tcfg.batch_size == batch_size
           and tcfg.optimizer == "adamw" and tcfg.scheduler == "cosine_warmup"
-          and tcfg.coral_lambda == 0 and aug.enabled
+          and tcfg.coral_lambda == coral and aug.enabled
           and aug.noise_prob == 0.5 and aug.shear_deg == 0.0,
           f"unexpected training config {tcfg}")
     cuda = torch.device("cuda")
@@ -929,9 +1068,11 @@ def phase_train_slice(smi: str, key: str, model: str, batch_size: int,
         return torch.cat([p.detach().reshape(-1) for p in
                           task.model.parameters()]).clone()
 
-    p0 = params()
+    p0, stats0 = params(), _running_stats(task.model)
     run(batches[0])
-    p1 = params()
+    p1, stats1 = params(), _running_stats(task.model)
+    check(all(not torch.equal(a, b) for a, b in zip(stats0, stats1)),
+          "a running statistic did not move at step 0")
     for batch in batches[1:WARMUP_STEPS]:
         run(batch)
     p_warm = params()
@@ -975,6 +1116,19 @@ def phase_train_slice(smi: str, key: str, model: str, batch_size: int,
           f"lr used per step {used_lrs}, expected {want_lrs}")
     check([a["lr"] for a in auxes] == used_lrs,
           "aux lr differs from the optimizer's")
+    if coral:
+        corals = torch.stack([a["coral"] for a in auxes]).float().cpu()
+        print(f"train {key}: CORAL (weight {coral:g}) per step "
+              f"{corals.tolist()}")
+        check(bool((corals[WARMUP_STEPS:] > 0).all())
+              and bool(torch.isfinite(corals).all()),
+              "CORAL must be finite and nonzero in the timed steps")
+    if stats0:
+        moved = sum(not torch.equal(a, b) for a, b in zip(
+            stats1, _running_stats(task.model)))
+        print(f"train {key}: {len(stats0)} running statistics, all moved at "
+              f"step 0, {moved} moved again after it")
+        check(moved == len(stats0), "running statistics stopped moving")
     print(f"train {key}: losses {[round(v, 5) for v in losses.tolist()]}; "
           f"lr used "
           f"{used_lrs[0]:.6g} -> {used_lrs[-1]:.6g} = base_lr x step / "
@@ -993,39 +1147,100 @@ def phase_train_slice(smi: str, key: str, model: str, batch_size: int,
         _train_vs_blockified(smi, key, task, step, state,
                              batches[WARMUP_STEPS:], batch_size)
 
-    # bf16 gradients on the card vs fp32 on the CPU, augmentation off
-    noaug = dataclasses.replace(
-        task.statics, augment=task.statics.augment._replace(enabled=False))
-    gtask = build_task(tcfg, noaug, cuda)
-    ctask = build_task(dataclasses.replace(tcfg, serve=dataclasses.replace(
-        tcfg.serve, precision="fp32")), noaug, torch.device("cpu"))
-    gtask.model.load_state_dict(task.model.state_dict())
-    ctask.model.load_state_dict(task.model.state_dict())
-    if nhwc:
-        for t in (gtask, ctask):
-            t.model.backbone.nhwc_windows = True
-    gbatch = random_batch(np.random.default_rng(2), GRAD_BATCH,
-                          tcfg.serve.image_size)
-    g_gpu = _grads(gtask, gbatch, cuda)
-    g_cpu = _grads(ctask, gbatch, torch.device("cpu"))
-    flat_g = torch.cat([g.reshape(-1) for g in g_gpu]).double()
-    flat_c = torch.cat([g.reshape(-1) for g in g_cpu]).double()
-    rel = ((flat_g - flat_c).norm() / flat_c.norm()).item()
-    cos = [torch.nn.functional.cosine_similarity(
-        a.reshape(1, -1).double(), b.reshape(1, -1).double()).item()
-        for a, b in zip(g_gpu, g_cpu)]
-    names = [n for n, _ in task.model.named_parameters()]
-    worst = int(np.argmin(cos))
-    print(f"train {key}: {GRAD_BATCH}-image gradients bf16 on GPU vs fp32 "
-          f"on CPU: "
-          f"relative L2 {rel:.6g} (bound {BOUND_GRAD_REL:g}); per-tensor "
-          f"cosine min {cos[worst]:.6g} at {names[worst]} (bound "
-          f"{BOUND_GRAD_COS:g}), median {statistics.median(cos):.6g}")
-    check(rel <= BOUND_GRAD_REL, f"gradient relative L2 {rel:.4g}")
-    check(min(cos) >= BOUND_GRAD_COS, f"gradient cosine {min(cos):.4g}")
-    del task, state, step, gtask, ctask
+    # gradients on the card vs fp32 on the CPU, augmentation off
+    _check_grads(key, task, tcfg, dataclasses.replace(
+        task.statics, augment=task.statics.augment._replace(enabled=False)))
+    del task, state, step
     torch.cuda.empty_cache()
     return {k: v for k, v in launches.items() if v}
+
+
+def _edge_err(y, ref, b, h, w):
+    """Relative error of y against ref [B*H*W, K] on the map's border
+    pixels (first and last row and column), where the halo is masked."""
+    y4 = y.float().view(b, h, w, -1)
+    r4 = ref.float().view(b, h, w, -1)
+    edge = torch.zeros(h, w, dtype=torch.bool, device=y.device)
+    edge[0], edge[-1], edge[:, 0], edge[:, -1] = True, True, True, True
+    diff = (y4 - r4)[:, edge].abs().max().item()
+    return diff / r4.abs().max().item()
+
+
+def phase_probe_kernels(smi: str):
+    """Phase 14: #17 and #18 against their plain versions (bf16, and fp32
+    with TF32 off) at the probe shapes and odd ones, then the probes' runs
+    at batch 128 with the launch counts set to 0 just before and read just
+    after. Returns (per-kernel totals over the probe shapes, launches)."""
+    torch.backends.cudnn.allow_tf32 = False  # the fp32 plain versions and
+    torch.backends.cuda.matmul.allow_tf32 = False  # cuDNN in full fp32
+    print("probe checks: TF32 off for cuDNN convolutions and cuBLAS "
+          "matmuls (cuDNN runs fp32 convolutions in TF32 by default)")
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    stats = {"conv3x3": _stat(), "bn_relu_gemm": _stat()}
+    for b, h, w, c, k in CONV_CHECKS:
+        x = torch.randn(b, h, w, c, generator=gen, device="cuda").bfloat16()
+        wt = (torch.randn(3, 3, c, k, generator=gen, device="cuda")
+              * (9 * c) ** -0.5).bfloat16()
+        y = CV.conv3x3(x, wt)
+        torch.cuda.synchronize()
+        ref = CV.conv3x3_plain(x, wt)
+        _check_outputs("conv3x3", f"[{b}, {h}, {w}, {c}] -> {k}", (y,),
+                       (ref,), (CV.conv3x3_plain(x.float(), wt.float()),),
+                       ("y",), BOUND_VS_PLAIN_BF16, BOUND_VS_PLAIN_FP32,
+                       stats["conv3x3"])
+        edge = _edge_err(y, ref, b, h, w)
+        print(f"kernel conv3x3 [{b}, {h}, {w}, {c}] -> {k}: edge pixels rel "
+              f"vs plain bf16 {edge:.6g} (bound {BOUND_VS_PLAIN_BF16:g})")
+        check(edge <= BOUND_VS_PLAIN_BF16, "conv3x3 edge pixels")
+        del x, wt, y, ref
+    for m, c, k in GEMM_CHECKS:
+        x = torch.randn(m, c, generator=gen, device="cuda").bfloat16()
+        a = torch.randn(1, c, generator=gen, device="cuda")
+        bb = torch.randn(1, c, generator=gen, device="cuda")
+        wt = (torch.randn(c, k, generator=gen, device="cuda")
+              * 0.05).bfloat16()
+        y = BG.bn_relu_gemm(x, a, bb, wt)
+        torch.cuda.synchronize()
+        _check_outputs("bn_relu_gemm", f"[{m}, {c}] -> {k}", (y,),
+                       (BG.bn_relu_gemm_plain(x, a, bb, wt),),
+                       (BG.bn_relu_gemm_plain(x.float(), a, bb,
+                                              wt.float()),),
+                       ("y",), BOUND_VS_PLAIN_BF16, BOUND_VS_PLAIN_FP32,
+                       stats["bn_relu_gemm"])
+        del x, a, bb, wt, y
+    torch.cuda.empty_cache()
+
+    _reset_counts()
+    records = conv_probe.run(PROBE_BATCH) + bn_gemm_probe.run(PROBE_BATCH)
+    launches = _counts()
+    print(f"probes at batch {PROBE_BATCH}: launches {launches}")
+    check(launches["conv3x3"] > 0 and launches["bn_relu_gemm"] > 0
+          and all(v == 0 for n, v in launches.items()
+                  if n not in ("conv3x3", "bn_relu_gemm")),
+          "the probes must launch #17 and #18 and nothing else")
+    for rec in records:
+        print(f"probe {json.dumps(rec)}")
+        name = rec["probe"]
+        if name == "stem_maxpool":
+            check(math.isclose(rec["grad_sum_first_max"],
+                               rec["grad_sum_eqsplit"], rel_tol=1e-5),
+                  "the two max-pool gradients must have one sum")
+            continue
+        st = stats[name]
+        lib = rec["library_ms"]
+        _add(st, 1, rec["kernel_ms"], rec["plain_ms"],
+             (rec["flops"], rec["bytes"]), lib)
+        st.setdefault("per_shape", {})[rec["shape"]] = {
+            k: rec[k] for k in ("kernel_ms", "plain_ms", "library_ms",
+                                "bound_ms", "bound_by") + (
+                ("two_op_ms",) if "two_op_ms" in rec else ())}
+        print(f"time {name} {rec['shape']} (batch {PROBE_BATCH}): kernel "
+              f"{rec['kernel_ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
+              + (f"F.conv2d {lib:.4f} ms" if lib is not None else
+                 f"two-op torch {rec['two_op_ms']:.4f} ms")
+              + f", bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}); "
+              f"on {smi}")
+    return stats, launches
 
 
 def main() -> int:
@@ -1056,7 +1271,15 @@ def main() -> int:
         "ln_attention_windows": 24, "ln_mlp": 24,
         "ln_attention_windows_bwd": 24, "ln_mlp_bwd": 24, "shear_rows": 3,
         "add_gaussian_noise": 1}, nhwc=True)
-    print(f"phases 3-13: {time.perf_counter() - t0:.1f} s")
+    probe_stats, probe = phase_probe_kernels(smi)
+    stats.update(probe_stats)
+    serve_r34 = phase_serve(smi, RESNET34, BATCH, REQUESTS, {})
+    r34 = phase_train_slice(smi, RESNET34, "resnet34", BATCH, {
+        "shear_rows": 3, "add_gaussian_noise": 1}, coral=1000.0)
+    serve_xrv = phase_serve(smi, XRV, XRV_BATCH, (XRV_BATCH,), {})
+    xrv = phase_train_slice(smi, XRV, "resnet50-res512-all", XRV_BATCH, {
+        "shear_rows": 3, "add_gaussian_noise": 1})
+    print(f"phases 3-17: {time.perf_counter() - t0:.1f} s")
     # kernel -> (source, the TPU kernel it replaces, the training path whose
     # launches and per-step times the line gives)
     sources = {
@@ -1075,22 +1298,30 @@ def main() -> int:
         "fused_mlp": ("fused_mlp.cu", "fused_mlp.py:137", unfused),
         "fused_mlp_bwd": ("fused_mlp_bwd.cu", "fused_mlp.py:164", unfused),
         "shear_rows": ("shear.cu", "pallas_shear.py:45", nest),
-        "add_gaussian_noise": ("noise.cu", "pallas_noise.py:64", nest)}
+        "add_gaussian_noise": ("noise.cu", "pallas_noise.py:64", nest),
+        "conv3x3": ("conv3x3.cu", "benchmarks/conv_probe.py:87", probe),
+        "bn_relu_gemm": ("bn_relu_gemm.cu", "benchmarks/bn_gemm_probe.py:74",
+                         probe)}
     paths = {"nest_train": nest, "vit_b_train": vit,
-             "nest_unfused_train": unfused, "nest_nhwc_train": nhwc}
+             "nest_unfused_train": unfused, "nest_nhwc_train": nhwc,
+             "resnet34_train": r34, "xrv_resnet50_train": xrv}
     serves = {"nest_serve": serve, "vit_b_serve": serve_vit,
-              "nest_nhwc_serve": serve_nhwc}
+              "nest_nhwc_serve": serve_nhwc, "resnet34_serve": serve_r34,
+              "xrv_resnet50_serve": serve_xrv}
     kernels = []
     for name, (source, replaces, path) in sources.items():
         stat = _finish(stats[name], FP32_FLOPS if name in (
             "shear_rows", "add_gaussian_noise") else BF16_FLOPS)
         entry = {"name": name, "route": "cuda",
                  "source": f"vlp_tpu_torch/csrc/{source}",
-                 "replaces": f"vlp_tpu/ops/{replaces}",
+                 "replaces": replaces if replaces.startswith("benchmarks/")
+                 else f"vlp_tpu/ops/{replaces}",
                  "launches": path[name],
                  **{k: stat[k] for k in ("max_abs_err", "ms", "plain_ms",
                                          "bound_ms", "bound_by",
                                          "library_ms")}}
+        if path is probe:
+            entry.update(path="probe", per_shape=stat["per_shape"])
         other = {p: c[name] for p, c in paths.items()
                  if c is not path and name in c}
         if other:

@@ -3,8 +3,11 @@ on one CUDA card.
 
 ``--experiment`` names an entry of ``vlp_tpu_torch.config
 .TRAIN_EXPERIMENTS`` (default ``baseline_only_imaging_nest_small``; also
-``baseline_only_imaging_vit_base`` and the NesT-Small entry with
-``model.megakernel=false``), at that entry's batch. ``--mode serve``
+``baseline_only_imaging_vit_base``, the NesT-Small entry with
+``model.megakernel=false``, ``baseline_only_imaging_resnet34`` and
+``baseline_only_imaging_xrv_resnet50``), at that entry's batch; training
+batches hold datasets 0 and 1 in turn, so CORAL runs where the experiment
+sets it. ``--mode serve``
 (default) drives ``vlp_tpu_torch.serve.Predictor`` (224x224, bf16, random
 weights) with full-batch requests; ``--mode train`` drives the
 experiment's training step (``vlp_tpu_torch.train.step.make_train_step``:
@@ -12,9 +15,14 @@ augmentation, forward, weighted BCE, backward, AdamW under cosine_warmup)
 on seeded uint8 batches. Under ``torch.profiler``: ``--warmup``
 iterations first, then ``--requests`` profiled ones. Prints, per iteration,
 the device time of each kernel (summed over its launches), the busy time
-(the union of all device intervals: kernels, copies, memsets) and the
+(the union of all device intervals: kernels, copies, memsets; the
+GPU-side ranges of ``record_function`` annotations such as the optimizer
+step are printed as spans and left out, since they cover idle gaps) and the
 window (host clock from the first profiled iteration's start to the last
-one's end, after a synchronize), and the idle share 1 - busy / window.
+one's end, after a synchronize), the idle share 1 - busy / window, and the
+kernel time by group (``GROUPS``: the port's hand-written kernels, cuDNN
+and cuBLAS convolutions and GEMMs, the optimizer, reductions, elementwise
+passes and copies; the first pattern that a kernel's name matches).
 ``--output`` also writes the table as JSON.
 
 Usage:
@@ -27,6 +35,7 @@ import argparse
 import itertools
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -45,6 +54,16 @@ from vlp_tpu_torch.train.setup import build_training, random_batch  # noqa: E402
 from vlp_tpu_torch.train.step import train_steps  # noqa: E402
 
 EXPERIMENT = "baseline_only_imaging_nest_small"
+# (group, pattern searched in a kernel's name), first match wins
+GROUPS = (
+    ("hand-written", r"vlp::|shear_kernel|noise_kernel|philox_kernel"),
+    ("conv and GEMM (cuDNN, cuBLAS)",
+     r"cudnn|xmma|cutlass|gemm|Gemm|conv|Conv|wgrad|dgrad|sm90_|sm80_"),
+    ("optimizer", r"multi_tensor|[Aa]dam"),
+    ("reductions", r"[Rr]educe"),
+    ("elementwise and copies",
+     r"elementwise|[Cc]opy|Memcpy|Memset|index|fill|cat|pool|max_pool"),
+    ("other", r""))
 STEPS_PER_EPOCH = 10      # the schedule's epoch length, as in chip_smoke.py
 
 
@@ -112,11 +131,16 @@ def main(argv: Optional[List[str]] = None) -> int:
         window_ms = (time.perf_counter() - t0) * 1e3 / args.requests
 
     per_kernel = defaultdict(float)
+    spans = defaultdict(float)  # annotated ranges, not device work
     intervals = []
     for e in prof.events():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
-        per_kernel[e.name] += (e.time_range.end - e.time_range.start) / 1e3
+        ms = (e.time_range.end - e.time_range.start) / 1e3
+        if e.is_user_annotation:
+            spans[e.name] += ms / args.requests
+            continue
+        per_kernel[e.name] += ms
         intervals.append((e.time_range.start, e.time_range.end))
     if not intervals:
         raise RuntimeError("the profiler recorded no device activity")
@@ -130,6 +154,14 @@ def main(argv: Optional[List[str]] = None) -> int:
           f"{args.requests}: window "
           f"{window_ms:.4f} ms, device busy {busy_ms:.4f} ms, idle "
           f"{1 - busy_ms / window_ms:.4f}")
+    groups = defaultdict(float)
+    for name, ms in rows:
+        groups[next(g for g, pat in GROUPS if re.search(pat, name))] += ms
+    for group, ms in sorted(groups.items(), key=lambda r: -r[1]):
+        print(f"group {group}: {ms:.4f} ms, {ms / busy_ms:.2%} of busy")
+    for name, ms in spans.items():
+        print(f"span {name} (annotated range, outside busy and the "
+              f"groups): {ms:.4f} ms")
     for name, ms in rows:
         print(f"{ms:10.4f} ms  {ms / busy_ms:7.2%}  {name[:140]}")
     if args.output:
@@ -139,7 +171,8 @@ def main(argv: Optional[List[str]] = None) -> int:
             json.dump({"card": card, "experiment": args.experiment,
                        "mode": args.mode, "batch": batch,
                        "requests": args.requests, "window_ms": window_ms,
-                       "busy_ms": busy_ms,
+                       "busy_ms": busy_ms, "group_ms": dict(groups),
+                       "annotated_span_ms": dict(spans),
                        "per_kernel_ms": dict(rows)}, fh, indent=1)
     return 0
 

@@ -45,6 +45,20 @@ def test_the_slice_entries_say_what_the_slice_runs():
     assert unfused.serve.model == "nest_small"
 
 
+def test_the_resnet_entries_say_what_the_slice_runs():
+    r34 = TRAIN_EXPERIMENTS["baseline_only_imaging_resnet34"]
+    assert r34.serve.model == "resnet34" and r34.serve.crop
+    assert r34.coral_lambda == 1000.0 and r34.batch_size == 64
+    assert r34.lr == 1.2925748253710286e-4
+    assert r34.scheduler == "cosine_warmup" and r34.optimizer == "adamw"
+    assert (r34.serve.stem, r34.serve.bn_dtype) == ("conv7", "fp32")
+    xrv = TRAIN_EXPERIMENTS["baseline_only_imaging_xrv_resnet50"]
+    assert xrv.serve.model == "resnet50-res512-all"
+    assert xrv.serve.in_channels == 1 and xrv.serve.scale_intensity
+    assert xrv.batch_size == 32 and xrv.lr == 9.142907e-4
+    assert xrv.coral_lambda == 0.0 and not xrv.serve.crop
+
+
 @pytest.mark.parametrize("overrides", [
     ["experiment=baseline_only_imaging_vit_base"],
     ["experiment=baseline_only_imaging_nest_small", "model.megakernel=false"],
@@ -52,6 +66,9 @@ def test_the_slice_entries_say_what_the_slice_runs():
      "model.fused_attention=true", "data.image_size=16",
      "trainer.precision=fp32"],
     ["model.model=nest_small"],
+    ["experiment=baseline_only_imaging_resnet34", "model.stem=s2d",
+     "trainer.bn_dtype=bf16"],
+    ["experiment=baseline_only_imaging_xrv_resnet50", "data.image_size=64"],
 ])
 def test_command_line_resolves_as_apply_overrides(overrides):
     want = ServeConfig.from_config(apply_overrides(Config(), overrides))
@@ -63,7 +80,7 @@ def test_command_line_refuses_what_the_port_would_ignore():
         serve_config(["experiment=baseline_only_imaging_vit_base",
                       "optimizer.lr=0.1"])
     with pytest.raises(KeyError, match="not ported"):
-        serve_config(["experiment=baseline_only_imaging_resnet34"])
+        serve_config(["experiment=baseline_fusion_resnet34"])
     assert serve_config(["experiment=baseline_only_imaging_nest_small",
                          "model.megakernel=false"]) == \
         EXPERIMENTS[NEST_UNFUSED]

@@ -1,7 +1,8 @@
 """The CUDA kernels (half blocks and their backwards, the windowed half
 block on a NesT token map and its backward, the packed-qkv attention and
-the fused MLP with their backwards, shear, noise) against their plain
-PyTorch versions, on the card. Marked ``gpu``: without a CUDA
+the fused MLP with their backwards, shear, noise, and the ResNet probe
+kernels conv3x3 and bn_relu_gemm) against their plain PyTorch versions, on
+the card. Marked ``gpu``: without a CUDA
 device every test here skips. Needs no JAX, so it runs on a machine without
 it:
 
@@ -19,6 +20,8 @@ import pytest
 import torch
 
 from vlp_tpu_torch.ops import block_attention as BA
+from vlp_tpu_torch.ops import bn_gemm as BG
+from vlp_tpu_torch.ops import conv3x3 as CV
 from vlp_tpu_torch.ops import fused_block as FB
 from vlp_tpu_torch.ops import fused_mlp as FM
 from vlp_tpu_torch.ops import noise as NZ
@@ -440,3 +443,65 @@ def test_ln_attention_windows_autograd_and_refusals(cuda):
         FB.ln_attention_windows_bwd(xs, 16, g, bt, wq, bq, wo, xs, 2,
                                     torch.zeros(1, 16, 16, 3 * d, **zeros),
                                     xs)
+
+
+# conv3x3 and bn_relu_gemm round once, at the output, from fp32 sums taken
+# in another order than the plain version's: one bf16 step (2^-8 of the
+# largest output) plus the sums' difference; BOUND covers it.
+@pytest.mark.parametrize("b,h,w,c,k", [(3, 7, 9, 48, 80), (1, 1, 1, 16, 16),
+                                       (5, 4, 33, 16, 144),
+                                       (2, 28, 28, 128, 128)])
+def test_conv3x3_kernel_matches_plain_at_the_edges(cuda, b, h, w, c, k):
+    gen = torch.Generator(device=cuda).manual_seed(b * h * w + c)
+    x = _rand(gen, b, h, w, c).bfloat16()
+    wt = _rand(gen, 3, 3, c, k, scale=(9 * c) ** -0.5).bfloat16()
+    before = CV.conv3x3.launches
+    y = CV.conv3x3(x, wt)
+    torch.cuda.synchronize()
+    assert CV.conv3x3.launches == before + 1
+    ref = CV.conv3x3_plain(x, wt)
+    assert y.shape == (b * h * w, k) and torch.isfinite(y.float()).all()
+    assert _rel_err(y, ref) <= BOUND
+    y4, r4 = y.view(b, h, w, k), ref.view(b, h, w, k)
+    for edge in (y4[:, 0] - r4[:, 0], y4[:, -1] - r4[:, -1],
+                 y4[:, :, 0] - r4[:, :, 0], y4[:, :, -1] - r4[:, :, -1]):
+        assert edge.float().abs().max() <= BOUND * r4.float().abs().max()
+
+
+@pytest.mark.parametrize("m,c,k", [(189, 48, 80), (1, 16, 16),
+                                   (4097, 256, 64), (1000, 64, 256)])
+def test_bn_relu_gemm_kernel_matches_plain(cuda, m, c, k):
+    gen = torch.Generator(device=cuda).manual_seed(m + c + k)
+    x = _rand(gen, m, c).bfloat16()
+    a, b = _rand(gen, 1, c), _rand(gen, 1, c)
+    wt = _rand(gen, c, k, scale=0.05).bfloat16()
+    before = BG.bn_relu_gemm.launches
+    y = BG.bn_relu_gemm(x, a, b, wt)
+    torch.cuda.synchronize()
+    assert BG.bn_relu_gemm.launches == before + 1
+    assert y.shape == (m, k) and torch.isfinite(y.float()).all()
+    assert _rel_err(y, BG.bn_relu_gemm_plain(x, a, b, wt)) <= BOUND
+
+
+def test_probe_kernels_raise_on_what_they_refuse(cuda):
+    x = torch.zeros(2, 4, 4, 16, device=cuda, dtype=torch.bfloat16)
+    wt = torch.zeros(3, 3, 16, 16, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(TypeError, match="bfloat16"):
+        CV.conv3x3(x.float(), wt)
+    with pytest.raises(TypeError, match="bfloat16 weights"):
+        CV.conv3x3(x, wt.float())
+    with pytest.raises(ValueError, match="contiguous"):
+        CV.conv3x3(x.transpose(1, 2), wt)
+    with pytest.raises(ValueError, match="stride"):
+        CV.conv3x3(x, wt, stride=2)
+    with pytest.raises(ValueError, match="multiples of 16"):
+        CV.conv3x3(torch.zeros(2, 4, 4, 8, device=cuda, dtype=torch.bfloat16),
+                   torch.zeros(3, 3, 8, 16, device=cuda,
+                               dtype=torch.bfloat16))
+    rows = torch.zeros(8, 16, device=cuda, dtype=torch.bfloat16)
+    vec = torch.zeros(16, device=cuda)
+    w16 = torch.zeros(16, 16, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(TypeError, match="fp32 a, b"):
+        BG.bn_relu_gemm(rows, vec.bfloat16(), vec, w16)
+    with pytest.raises(ValueError, match="tensors on"):
+        BG.bn_relu_gemm(rows, vec.cpu(), vec, w16)

@@ -25,7 +25,9 @@ IMPORTS_VLP_TPU = re.compile(r"^\s*(import|from)\s+vlp_tpu(?![\w])",
 
 def test_serve_and_chip_smoke_import_without_jax_or_host_pipeline():
     code = ("import sys; import vlp_tpu_torch.serve, "
-            "vlp_tpu_torch.train.step, chip_smoke; "
+            "vlp_tpu_torch.train.step, vlp_tpu_torch.models.resnet, "
+            "vlp_tpu_torch.probes.conv_probe, "
+            "vlp_tpu_torch.probes.bn_gemm_probe, chip_smoke; "
             f"print([m for m in {FORBIDDEN!r} if m in sys.modules] + "
             "[m for m in sys.modules if m.split('.')[0] == 'vlp_tpu'])")
     env = dict(os.environ, PYTHONPATH=REPO)

@@ -117,8 +117,10 @@ def test_unported_backbones_and_tasks_raise():
     from vlp_tpu_torch.models.tasks import TaskStatics as TStatics
     from vlp_tpu_torch.models.tasks import build_task as tbuild
 
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        create_backbone("resnet34")
+    # every backbone of the reference's allowlist is ported; another name
+    # is refused as the JAX registry refuses it
+    with pytest.raises(ValueError, match="Unknown backbone"):
+        create_backbone("resnet101")
     for task in ("fusion", "vision_language"):
         cfg = apply_overrides(
             get_experiment("baseline_only_imaging_nest_small"),

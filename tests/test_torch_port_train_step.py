@@ -274,12 +274,19 @@ def test_train_experiment_matches_jax_experiment():
 
 
 def test_coral_and_param_groups_raise_instead_of_being_ignored(tiny_port):
+    """CORAL is ported: with ``coral_lambda`` set the loss carries it (it
+    is not ignored; ``test_torch_port_resnet.py`` holds its value to the
+    JAX task's); parameter groups still raise."""
     cfg = tiny_port
     cfg.model.coral_lambda = 10.0
     task, _, _ = _torch_task(cfg)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        task.loss_fn(to_device(_batch(0), torch.device("cpu")),
-                     torch.Generator())
+    batch = _batch(0)
+    batch["dataset_id"] = np.asarray([0, 1, 0, 1, 0, 1], np.int32)
+    loss, aux = task.loss_fn(to_device(batch, torch.device("cpu")),
+                             torch.Generator())
+    assert aux["coral"].item() > 0
+    assert loss.item() == pytest.approx(
+        aux["bce"].item() + 10.0 * aux["coral"].item(), rel=1e-6)
     cfg.model.vision_encoder_lr = 1e-5
     with pytest.raises(NotImplementedError, match="parameter groups"):
         make_optimizer(TrainConfig.from_config(cfg), task.model.parameters(),

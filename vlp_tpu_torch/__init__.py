@@ -12,5 +12,8 @@ Ported so far: the NesT-Small classifier's serving path
 kernels ``shear_rows`` and ``add_gaussian_noise``; and the unfused block
 path of ViT-B/16, ViT-L/16 and NesT-Small with ``megakernel=False``, with
 the packed-qkv attention ``attend_qkv`` and the fused MLP ``fused_mlp`` and
-their backwards. ROADMAP.md lists what follows.
+their backwards; NesT-Small on its token map (``ln_attention_windows`` and
+its backward); the ResNets with BatchNorm and CORAL (cuDNN convolutions,
+no kernel of their own); and the ResNet probes ``conv3x3`` and
+``bn_relu_gemm`` (``vlp_tpu_torch.probes``). ROADMAP.md lists what follows.
 """

@@ -1,7 +1,7 @@
 """What the port's serving and training paths read of an experiment config.
 
 The experiment configs live in the JAX package (``vlp_tpu.config``). The
-serving path needs only ten of their fields, so it takes them as a
+serving path needs only twelve of their fields, so it takes them as a
 ``ServeConfig``, and the training step adds the optimizer, schedule and
 augmentation fields in a ``TrainConfig``; neither imports anything of
 ``vlp_tpu``: the machine with the card runs without the JAX package.
@@ -33,6 +33,8 @@ class ServeConfig:
     fused_attention: Optional[bool] = None  # cfg.model.fused_attention
     megakernel: bool = True               # cfg.model.megakernel
     remat: bool = False                   # cfg.model.remat
+    stem: str = "conv7"                   # cfg.model.stem
+    bn_dtype: str = "fp32"                # cfg.trainer.bn_dtype
 
     @classmethod
     def from_config(cls, cfg: Any) -> "ServeConfig":
@@ -44,7 +46,8 @@ class ServeConfig:
                    scale_intensity=cfg.data.scale_intensity_normalization,
                    crop=cfg.data.crop_larger_dimension,
                    fused_attention=cfg.model.fused_attention,
-                   megakernel=cfg.model.megakernel, remat=cfg.model.remat)
+                   megakernel=cfg.model.megakernel, remat=cfg.model.remat,
+                   stem=cfg.model.stem, bn_dtype=cfg.trainer.bn_dtype)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -112,7 +115,8 @@ SERVE_OVERRIDES = {
     "data.scale_intensity_normalization": "scale_intensity",
     "data.crop_larger_dimension": "crop",
     "model.fused_attention": "fused_attention",
-    "model.megakernel": "megakernel", "model.remat": "remat"}
+    "model.megakernel": "megakernel", "model.remat": "remat",
+    "model.stem": "stem", "trainer.bn_dtype": "bn_dtype"}
 
 
 def _parse_value(raw: str) -> Any:
@@ -168,6 +172,14 @@ EXPERIMENTS: Dict[str, ServeConfig] = {
         model="vit_base_patch16_224", crop=True),
     "baseline_only_imaging_vit_large": ServeConfig(
         model="vit_large_patch16_224", crop=True),
+    # :16-32
+    "baseline_only_imaging_resnet34": ServeConfig(model="resnet34",
+                                                  crop=True),
+    # :43-57: the torchxrayvision ResNet50 on 1-channel images with the
+    # intensity scaling; the port runs it from random init (pretrained=True
+    # needs weights that are not in the repository)
+    "baseline_only_imaging_xrv_resnet50": ServeConfig(
+        model="resnet50-res512-all", in_channels=1, scale_intensity=True),
 }
 
 _LR = 1.2925748253710286e-4
@@ -188,4 +200,11 @@ TRAIN_EXPERIMENTS: Dict[str, TrainConfig] = {
     "baseline_only_imaging_vit_large": TrainConfig(
         serve=EXPERIMENTS["baseline_only_imaging_vit_large"], lr=_LR,
         scheduler="cosine_warmup", batch_size=64),
+    # CORAL between dataset 0 and dataset 1 with weight 1000 (:22)
+    "baseline_only_imaging_resnet34": TrainConfig(
+        serve=EXPERIMENTS["baseline_only_imaging_resnet34"], lr=_LR,
+        scheduler="cosine_warmup", batch_size=64, coral_lambda=1000.0),
+    "baseline_only_imaging_xrv_resnet50": TrainConfig(
+        serve=EXPERIMENTS["baseline_only_imaging_xrv_resnet50"],
+        lr=9.142907e-4, scheduler="cosine_warmup", batch_size=32),
 }

@@ -12,13 +12,17 @@ onto the port's module tree:
   params/backbone/cls_token, pos_embed -> backbone.cls_token, pos_embed (ViT)
   params/backbone/block{i}/...        -> backbone.blocks.{i}... (ViT)
   params/backbone/final_ln/...        -> backbone.final_ln... (ViT)
+  params/backbone/stage{i}_block{j}/... -> backbone.stages.{i}.{j}... (ResNet)
+  params/backbone/stem_conv_s2d/...   -> backbone.stem_conv... (ResNet s2d)
   .../kernel (Dense, [in, out]), .../scale -> ....weight
+  batch_stats/.../mean, .../var       -> ....running_mean, ....running_var
   params/head/...                     -> head...
 
 A key the model lacks, a key the tree lacks, or a shape that differs
 raises, naming the key. ``load_optimizer_state`` maps an optax ``adamw``
 state (``mu``, ``nu``, ``count``) onto ``torch.optim.AdamW``'s per-parameter
-state the same way, so weights and moments carry over together.
+state the same way (parameters only), so weights and moments carry over
+together.
 """
 from __future__ import annotations
 
@@ -33,7 +37,12 @@ _COMPONENT_RULES = (
     (re.compile(r"^l(\d+)_block(\d+)$"), r"levels.\1.\2"),
     (re.compile(r"^pool(\d+)$"), r"pools.\1"),
     (re.compile(r"^block(\d+)$"), r"blocks.\1"),
+    (re.compile(r"^stage(\d+)_block(\d+)$"), r"stages.\1.\2"),
+    (re.compile(r"^stem_conv_s2d$"), "stem_conv"),
 )
+# the last component of each collection's leaves
+_LEAF_NAMES = {"params": {"kernel": "weight", "scale": "weight"},
+               "batch_stats": {"mean": "running_mean", "var": "running_var"}}
 
 
 def flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
@@ -55,26 +64,31 @@ def load_npz(path: str) -> Dict[str, np.ndarray]:
 
 def torch_key(flax_key: str) -> str:
     """'params/backbone/l0_block1/attn/qkv/kernel' ->
-    'backbone.levels.0.1.attn.qkv.weight'."""
+    'backbone.levels.0.1.attn.qkv.weight';
+    'batch_stats/backbone/stage0_block1/bn1/var' ->
+    'backbone.stages.0.1.bn1.running_var'."""
     parts = flax_key.split("/")
-    if parts[0] != "params" or len(parts) < 2:
-        raise KeyError(f"{flax_key!r}: only 'params/...' variables map onto "
-                       "the port")
+    if parts[0] not in _LEAF_NAMES or len(parts) < 2:
+        raise KeyError(f"{flax_key!r}: only 'params/...' and "
+                       "'batch_stats/...' variables map onto the port")
     out = []
     for i, part in enumerate(parts[1:]):
         for pattern, repl in _COMPONENT_RULES:
             part = pattern.sub(repl, part)
-        if i == len(parts) - 2 and part in ("kernel", "scale"):
-            part = "weight"
+        if i == len(parts) - 2:
+            part = _LEAF_NAMES[parts[0]].get(part, part)
         out.append(part)
     return ".".join(out)
 
 
-def state_dict_from_flax(variables: Mapping[str, Any], model: nn.Module
+def state_dict_from_flax(variables: Mapping[str, Any], model: nn.Module,
+                         params_only: bool = False
                          ) -> Dict[str, torch.Tensor]:
-    """Maps JAX variables onto ``model``'s state_dict keys and shapes."""
+    """Maps JAX variables onto ``model``'s state_dict keys and shapes (its
+    parameters alone with ``params_only``)."""
     flat = flatten(variables)
-    expected = model.state_dict()
+    expected = dict(model.named_parameters()) if params_only \
+        else model.state_dict()
     out = {}
     for fkey, value in flat.items():
         arr = np.asarray(value)
@@ -111,8 +125,8 @@ def load_optimizer_state(optimizer: torch.optim.Optimizer, model: nn.Module,
     of numpy arrays, without the ``params`` level; ``count`` the updates
     taken) -> ``exp_avg``, ``exp_avg_sq`` and ``step`` of every parameter of
     ``model`` in ``optimizer`` (``torch.optim.AdamW``/``Adam``)."""
-    moments = [state_dict_from_flax({"params": tree}, model)
-               for tree in (mu, nu)]
+    moments = [state_dict_from_flax({"params": tree}, model,
+                                    params_only=True) for tree in (mu, nu)]
     owned = {id(p) for g in optimizer.param_groups for p in g["params"]}
     for name, p in model.named_parameters():
         if id(p) not in owned:

@@ -1,8 +1,12 @@
 """The imaging-only classifier task (counterpart of the ``OnlyImaging``
 parts of ``vlp_tpu/models/tasks.py``): augmentation or normalisation,
-backbone, a 1-logit head, the weighted masked BCE of ``loss_fn`` and the
-per-sample outputs of ``eval_fn``. CORAL, fusion and vision-language tasks
-are not ported yet (ROADMAP.md)."""
+backbone, a 1-logit head, the weighted masked BCE of ``loss_fn`` with the
+CORAL term between the features of dataset 0 (source) and dataset 1
+(target) when ``coral_lambda > 0``, and the per-sample outputs of
+``eval_fn``. The task sets the model's mode as the JAX task passes
+``train=``: ``loss_fn`` in training mode (BatchNorm on batch statistics,
+running statistics updated), ``eval_fn`` and ``features_fn`` in eval mode.
+Fusion and vision-language tasks are not ported yet (ROADMAP.md)."""
 from __future__ import annotations
 
 import dataclasses
@@ -34,7 +38,7 @@ class TaskStatics:
 class OnlyImagingModel(nn.Module):
     """Backbone + 1-logit fp32 head; returns (logits [B], features).
     ``backbone_kw`` go to ``create_backbone`` (``fused_attention``,
-    ``megakernel``, ``remat``)."""
+    ``megakernel``, ``remat``, ``norm_dtype``, ``stem``)."""
 
     def __init__(self, backbone_name: str, dtype: torch.dtype,
                  in_chans: int = 3,
@@ -62,7 +66,9 @@ class OnlyImagingTask:
         self.model = OnlyImagingModel(
             cfg.model, self.dtype, statics.out_channels, device,
             fused_attention=cfg.fused_attention, megakernel=cfg.megakernel,
-            remat=cfg.remat)
+            remat=cfg.remat, stem=cfg.stem,
+            norm_dtype=torch.bfloat16 if cfg.bn_dtype == "bf16"
+            else torch.float32)
 
     def _prep_train(self, batch: Dict[str, torch.Tensor],
                     gen: torch.Generator) -> torch.Tensor:
@@ -81,24 +87,32 @@ class OnlyImagingTask:
     def loss_fn(self, batch: Dict[str, torch.Tensor], gen: torch.Generator
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Train-mode loss with the aux keys of the JAX ``loss_fn``:
-        augment (advancing ``gen``) -> backbone -> head -> weighted masked
-        BCE. Returns (loss, {logits, labels, mask, bce, loss})."""
-        if self.coral_lambda > 0:
-            raise NotImplementedError(
-                f"coral_lambda={self.coral_lambda}: the CORAL loss is not "
-                "ported yet (ROADMAP.md Queue 1 item 3)")
-        logits, _ = self.model(self._prep_train(batch, gen))
+        augment (advancing ``gen``) -> backbone (training mode) -> head ->
+        weighted masked BCE, plus ``coral_lambda`` times the CORAL loss
+        between the features of dataset 0 and dataset 1. Returns (loss,
+        {logits, labels, mask, bce, [coral,] loss})."""
+        self.model.train()
+        logits, feats = self.model(self._prep_train(batch, gen))
         labels = batch["label"].float()
         mask = batch.get("mask", torch.ones_like(labels))
         w = losses.per_sample_class_weights(labels,
                                             self.statics.class_weights)
         loss = losses.bce_with_logits(logits, labels, w, mask)
+        aux = {"bce": loss}
+        if self.coral_lambda > 0:
+            domain = batch["dataset_id"]
+            cl = losses.coral_loss(feats, feats, mask * (domain == 0),
+                                   mask * (domain == 1))
+            loss = loss + self.coral_lambda * cl
+            aux["coral"] = cl
         return loss, {"logits": logits, "labels": labels, "mask": mask,
-                      "bce": loss, "loss": loss}
+                      **aux, "loss": loss}
 
     @torch.inference_mode()
     def eval_fn(self, batch: Dict[str, torch.Tensor]
                 ) -> Dict[str, torch.Tensor]:
+        """Eval mode (running statistics, nothing updated)."""
+        self.model.eval()
         logits, _ = self.model(self._prep_eval(batch))
         labels = batch["label"].float()
         mask = batch.get("mask", torch.ones_like(labels))
@@ -110,7 +124,8 @@ class OnlyImagingTask:
 
     @torch.inference_mode()
     def features_fn(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-        """Pooled backbone features."""
+        """Pooled backbone features, in eval mode."""
+        self.model.eval()
         _, feats = self.model(self._prep_eval(batch))
         return feats
 

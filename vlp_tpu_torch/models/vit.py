@@ -44,6 +44,7 @@ from vlp_tpu_torch.ops.fused_block import (ln_attention,
                                            supports_attn, supports_mlp)
 
 _LN_EPS = 1e-6
+_BN_EPS = 1e-5
 # flax lecun_normal: a normal truncated at two standard deviations, rescaled
 # so that the truncated distribution's std is sqrt(1 / fan_in)
 _TRUNC_STD_CORRECTION = 0.87962566103423978
@@ -83,6 +84,43 @@ class LayerNorm(nn.Module):
         var = ((x * x).mean(-1, keepdim=True) - mu * mu).clamp(min=0.0)
         return (x - mu) * (torch.rsqrt(var + _LN_EPS) * self.weight) \
             + self.bias
+
+
+class BatchNorm(nn.Module):
+    """flax ``nn.BatchNorm(momentum=0.9, epsilon=1e-5, dtype=dtype,
+    param_dtype=float32)`` over axis 1 of an NCHW tensor. Statistics in
+    fp32 with the fast variance ``E[x^2] - E[x]^2`` clipped at 0; in
+    training mode (``self.training``) it normalises with the batch
+    statistics and updates ``running = 0.9 running + 0.1 batch`` with the
+    biased batch variance (no ``num_batches_tracked``), in eval mode it
+    normalises with the running statistics; the result is cast to
+    ``dtype``. ``torch.nn.BatchNorm2d`` differs: it keeps the unbiased
+    variance as its running one."""
+
+    def __init__(self, dim: int, dtype: torch.dtype = torch.float32,
+                 device: Optional[torch.device] = None) -> None:
+        super().__init__()
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.ones(dim, device=device))
+        self.bias = nn.Parameter(torch.zeros(dim, device=device))
+        self.register_buffer("running_mean", torch.zeros(dim, device=device))
+        self.register_buffer("running_var", torch.ones(dim, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.float()
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        if self.training:
+            axes = (0, *range(2, x.dim()))
+            mean = x.mean(axes)
+            var = ((x * x).mean(axes) - mean * mean).clamp(min=0.0)
+            with torch.no_grad():
+                self.running_mean.copy_(0.9 * self.running_mean + 0.1 * mean)
+                self.running_var.copy_(0.9 * self.running_var + 0.1 * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + _BN_EPS) * self.weight
+        y = (x - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
+        return y.to(self.dtype)
 
 
 def gelu_exact(h: torch.Tensor) -> torch.Tensor:
@@ -203,11 +241,12 @@ class EncoderBlock(nn.Module):
 def conv_nhwc(x: torch.Tensor, conv: nn.Conv2d, stride: int,
               padding: int) -> torch.Tensor:
     """flax ``nn.Conv`` in the activation dtype on NHWC: the convolution
-    without bias, then the bias added in that dtype."""
+    without bias, then the bias, where the conv has one, added in that
+    dtype."""
     dt = x.dtype
     y = F.conv2d(x.permute(0, 3, 1, 2), conv.weight.to(dt), None,
-                 stride=stride, padding=padding)
-    return y.permute(0, 2, 3, 1) + conv.bias.to(dt)
+                 stride=stride, padding=padding).permute(0, 2, 3, 1)
+    return y if conv.bias is None else y + conv.bias.to(dt)
 
 
 class ViT(nn.Module):
@@ -272,8 +311,10 @@ def _lecun_normal_(w: torch.Tensor, fan_in: int,
 @torch.no_grad()
 def flax_init_(model: nn.Module, generator: torch.Generator) -> None:
     """Random weights at the scales of the JAX package's flax initializers:
-    Dense and Conv kernels lecun-normal with zero biases, LayerNorm ones
-    and zeros, position embeddings N(0, 0.02), the class token zeros."""
+    Dense and Conv kernels lecun-normal with zero biases (a conv may have
+    none), LayerNorm and BatchNorm ones and zeros, BatchNorm's running mean
+    0 and variance 1, position embeddings N(0, 0.02), the class token
+    zeros."""
     for module in model.modules():
         if isinstance(module, Dense):
             _lecun_normal_(module.weight, module.weight.shape[0], generator)
@@ -282,10 +323,14 @@ def flax_init_(model: nn.Module, generator: torch.Generator) -> None:
             w = module.weight
             _lecun_normal_(w, w.shape[1] * w.shape[2] * w.shape[3],
                            generator)
-            module.bias.zero_()
-        elif isinstance(module, LayerNorm):
+            if module.bias is not None:
+                module.bias.zero_()
+        elif isinstance(module, (LayerNorm, BatchNorm)):
             module.weight.fill_(1.0)
             module.bias.zero_()
+            if isinstance(module, BatchNorm):
+                module.running_mean.zero_()
+                module.running_var.fill_(1.0)
         for name, p in module.named_parameters(recurse=False):
             if name.startswith("pos_embed"):
                 nn.init.normal_(p, 0.0, 0.02, generator=generator)

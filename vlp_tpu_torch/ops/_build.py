@@ -68,6 +68,10 @@ _SIGNATURES = {
     "vlp_add_gaussian_noise": ([_P] * 4 + [_I] * 3 + [_P], _I),
     # ctr, key, out, n, stream
     "vlp_philox4x32": ([_P] * 3 + [_I, _P], _I),
+    # x, wt, y, B, H, W, C, K, stream
+    "vlp_conv3x3": ([_P] * 3 + [_I] * 5 + [_P], _I),
+    # x, a, b, w, out, M, C, K, stream
+    "vlp_bn_relu_gemm": ([_P] * 5 + [_I] * 3 + [_P], _I),
     "vlp_error_string": ([_I], ctypes.c_char_p),
 }
 

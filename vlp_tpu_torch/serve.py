@@ -61,7 +61,6 @@ class Predictor:
                        torch.Generator(device=self.device).manual_seed(0))
         else:
             load_weights(self.task.model, weights)
-        self.task.model.eval()
 
     def _batch(self, images_u8: np.ndarray,
                clinical: Optional[np.ndarray]) -> Dict[str, torch.Tensor]:

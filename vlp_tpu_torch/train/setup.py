@@ -1,5 +1,6 @@
 """A training run of one ported experiment from random weights, on seeded
-uint8 batches: the run that ``chip_smoke.py`` (phase 6) times and
+uint8 batches: the run that ``chip_smoke.py`` (phases 6, 9, 10, 13, 16
+and 17) times and
 ``scripts/profile_slice.py --mode train`` profiles, built here once so that
 both drive the same step.
 """
@@ -35,7 +36,6 @@ def build_training(tcfg: TrainConfig, device: torch.device,
                           augment=tcfg.augment())
     task = build_task(tcfg, statics, device)
     flax_init_(task.model, torch.Generator(device=device).manual_seed(seed))
-    task.model.train()
     opt, schedule = make_optimizer(tcfg, task.model.parameters(),
                                    steps_per_epoch)
     state = TrainState.create(task.model, opt, schedule, seed=seed)
@@ -45,9 +45,10 @@ def build_training(tcfg: TrainConfig, device: torch.device,
 def random_batch(rng: np.random.Generator, batch: int,
                  image_size: int) -> Dict[str, np.ndarray]:
     """``batch`` uint8 images with random binary labels, all unmasked, of
-    dataset 0."""
+    datasets 0 and 1 in turn (CORAL's source and target each hold half the
+    batch)."""
     return {"image_u8": rng.integers(0, 256, (batch, image_size, image_size),
                                      dtype=np.uint8),
             "label": rng.integers(0, 2, batch).astype(np.int32),
             "mask": np.ones(batch, np.float32),
-            "dataset_id": np.zeros(batch, np.int32)}
+            "dataset_id": (np.arange(batch) % 2).astype(np.int32)}
