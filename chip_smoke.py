@@ -101,22 +101,36 @@ Phases, each printing its lines before the last line:
    1-channel input, intensity scaling, Bottleneck blocks): one serving
    request of 32 and the training step at batch 32, with the checks of
    phases 15 and 16.
+18. MLP probe kernels: ``mlp_tile`` (#13, and its no-GELU and no-LN
+   ablations), ``mlp_tile_bwd`` (#14, every cotangent, reruns
+   bit-identical), ``mlp_chain`` (#19a, each stage set) and ``mlp_single``
+   (#19b) at every (TM, FS) instance, at NesT-Small level 3's width (D 384,
+   F 1536) on the rows of batch 16 and on a ragged M (last tile partial),
+   against their plain versions in bf16 and in fp32 (TF32 off); then the
+   probe entry points (``vlp_tpu_torch.probes.mega_probe.run``,
+   ``mlp_probe.run``) at batch 128: each instance, the shipped #2/#4, the
+   plain versions, ``torch.matmul`` and the two-matmul chain in turns,
+   each instance's error against the plain bf16 version held to the same
+   bound as at the smaller shapes.
 
 Then one JSON line with every kernel: its launches in the timed training
 steps of the path that runs it (NesT-Small's for #1-#4, #11, #12; ViT-B's
 for #7, #8; NesT unfused for #9, #10; NesT with ``nhwc_windows`` for #5,
 #6; ``other_launches`` adds the other
 paths, ``serve_launches`` the serving phases; #17 and #18 carry
-``"path": "probe"`` and the launches of the probes' runs), its largest
+``"path": "probe"`` and the launches of the probes' runs, as do #13,
+#14, #19a and #19b), its largest
 error against the plain bf16 version, and its times per training step of
 that path (for #17 and #18: one call at each probe shape, summed, with
-``per_shape`` beside): ``ms`` and ``plain_ms`` (the sum over the path's
+``per_shape`` beside; for #13, #14, #19a and #19b: one call of the fastest
+instance, with every instance, ablation, the shipped #2/#4 and the
+two-matmul chain in ``per_shape``): ``ms`` and ``plain_ms`` (the sum over the path's
 calls of the median time per call), ``bound_ms`` (the larger of the bytes
 the calls must move, each input read and each output written once, over
 3.35 TB/s, and their operations over 989 TFLOP/s bf16, or 67 TFLOP/s fp32
 for shear and noise; ``bound_by`` says which), and ``library_ms`` (SDPA
-for #7 and #8, ``F.conv2d`` for #17, null where no single PyTorch call
-computes the function). Last ``{"ok": true, "device": {...}}``. Any failed
+for #7 and #8, ``F.conv2d`` for #17, ``torch.matmul`` for #19b, null
+where no single PyTorch call computes the function). Last ``{"ok": true, "device": {...}}``. Any failed
 check raises.
 
 The launch counts of each path are set to 0 just before that path's run and
@@ -147,10 +161,12 @@ from vlp_tpu_torch.ops import bn_gemm as BG
 from vlp_tpu_torch.ops import conv3x3 as CV
 from vlp_tpu_torch.ops import fused_block as FB
 from vlp_tpu_torch.ops import fused_mlp as FM
+from vlp_tpu_torch.ops import mlp_tile as MT
 from vlp_tpu_torch.ops import noise as NZ
 from vlp_tpu_torch.ops import shear as SH
 from vlp_tpu_torch.ops.warp import default_max_shift
-from vlp_tpu_torch.probes import bn_gemm_probe, conv_probe
+from vlp_tpu_torch.probes import (bn_gemm_probe, conv_probe, mega_probe,
+                                  mlp_probe)
 from vlp_tpu_torch.probes._timing import BF16_FLOPS, HBM_BYTES_PER_S
 from vlp_tpu_torch.probes._timing import median_ms as _median_ms
 from vlp_tpu_torch.serve import Predictor
@@ -256,6 +272,10 @@ CONV_CHECKS = ((128, 28, 28, 128, 128), (128, 14, 14, 256, 256),
 GEMM_CHECKS = ((128 * 56 * 56, 256, 64), (128 * 28 * 28, 512, 128),
                (128 * 56 * 56, 64, 256), (3 * 7 * 9, 48, 80))
 PROBE_BATCH = 128
+# MLP probe kernels: the checks' row counts (batch 16 at level 3, and a
+# ragged M whose last tile is partial at TM 32 and 64) at level 3's width
+MLP_CHECK_ROWS = (16 * SEQ, 1037)
+MLP_D, MLP_F = 384, 1536
 # Peak rate of one H100 SXM (NVIDIA's data sheet) of fp32 outside the
 # tensor cores (shear, noise); device memory and bf16 in probes/_timing.py
 FP32_FLOPS = 67e12
@@ -554,7 +574,7 @@ def _serve_vs_blockified(smi, key, pred, request, logits):
 
 
 KERNELS = (*FB.KERNELS, *BA.KERNELS, *FM.KERNELS, SH.shear_rows,
-           NZ.add_gaussian_noise, *CV.KERNELS, *BG.KERNELS)
+           NZ.add_gaussian_noise, *CV.KERNELS, *BG.KERNELS, *MT.KERNELS)
 
 
 def _reset_counts() -> None:
@@ -1243,6 +1263,157 @@ def phase_probe_kernels(smi: str):
     return stats, launches
 
 
+MLP_BWD_NAMES = ("dx", "dgamma", "dbeta", "dw1", "db1", "dw2", "db2")
+
+
+def _mlp_probe_checks(gen, m, stats):
+    """Every instance of #13 (and its ablations), #19a (each stage set),
+    #19b and #14 at M rows of level 3's width against the plain versions in
+    bf16 and fp32; #14's reruns bit-identical. b1 and b2 are drawn at scale
+    1, so that a dropped or misindexed bias moves y by about as much as the
+    MLP branch does, far past the bounds."""
+    d, f = MLP_D, MLP_F
+
+    def rand(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device="cuda") * scale
+
+    x = rand(m, d).bfloat16()
+    params = (1.0 + rand(d, scale=0.1), rand(d, scale=0.1),
+              rand(d, f, scale=d ** -0.5).bfloat16(), rand(f),
+              rand(f, d, scale=f ** -0.5).bfloat16(), rand(d))
+    p32 = [t.float() for t in params]
+    dy = rand(m, d).bfloat16()
+    w1, w2 = params[2], params[4]
+    where = f"M={m} D={d} F={f}"
+    for tm, fs in MT.TILES:
+        at = f"{where} tm={tm} fs={fs}"
+        for flags in ({}, {"gelu": False}, {"ln": False}):
+            y = MT.mlp_tile(x, *params, tm=tm, fs=fs, **flags)
+            torch.cuda.synchronize()
+            _check_outputs("mlp_tile", f"{at} {flags or 'full'}", (y,),
+                           (MT.mlp_tile_plain(x, *params, **flags),),
+                           (MT.mlp_tile_plain(x.float(), *p32, **flags),),
+                           ("y",), BOUND_VS_PLAIN_BF16, BOUND_VS_PLAIN_FP32,
+                           stats["mlp_tile"])
+        for stages in MT.CHAIN_STAGES:
+            y = MT.mlp_chain(x, w1, w2, stages, tm=tm, fs=fs)
+            torch.cuda.synchronize()
+            _check_outputs("mlp_chain", f"{at} stages {stages}", (y,),
+                           (MT.mlp_chain_plain(x, w1, w2, stages),),
+                           (MT.mlp_chain_plain(x.float(), w1.float(),
+                                               w2.float(), stages),),
+                           ("y",), BOUND_VS_PLAIN_BF16, BOUND_VS_PLAIN_FP32,
+                           stats["mlp_chain"])
+        z = MT.mlp_single(x, w1, tm=tm, fs=fs)
+        torch.cuda.synchronize()
+        _check_outputs("mlp_single", at, (z,), (MT.mlp_single_plain(x, w1),),
+                       (MT.mlp_single_plain(x.float(), w1.float()),), ("z",),
+                       BOUND_VS_PLAIN_BF16, BOUND_VS_PLAIN_FP32,
+                       stats["mlp_single"])
+    refs = MT.mlp_tile_bwd_plain(x, *params[:5], dy)
+    refs32 = MT.mlp_tile_bwd_plain(x.float(), *p32[:5], dy.float())
+    for tm, fs in MT.BWD_TILES:
+        outs = MT.mlp_tile_bwd(x, *params[:5], dy, tm=tm, fs=fs)
+        torch.cuda.synchronize()
+        _check_outputs("mlp_tile_bwd", f"{where} tm={tm} fs={fs}", outs,
+                       refs, refs32, MLP_BWD_NAMES, BOUND_BWD_BF16,
+                       BOUND_BWD_FP32, stats["mlp_tile_bwd"])
+        again = MT.mlp_tile_bwd(x, *params[:5], dy, tm=tm, fs=fs)
+        check(all(torch.equal(a, b) for a, b in zip(outs, again)),
+              f"mlp_tile_bwd {where} tm={tm} fs={fs}: a rerun differs")
+
+
+def _best(stat, records, is_call, yardsticks=()):
+    """The fastest of the ``records`` for which ``is_call`` holds (the
+    kernel's instances) as the kernel's call: its ms, plain ms and work;
+    every record in ``per_shape``."""
+    best = min(filter(is_call, records), key=lambda r: r["kernel_ms"])
+    stat.update(ms=best["kernel_ms"], plain_ms=best["plain_ms"],
+                flops=best["flops"], bytes=best["bytes"],
+                best=best["variant"])
+    if "library_ms" in best:
+        stat["library_ms"] = best["library_ms"]
+    stat["per_shape"] = {
+        r["variant"]: {k: r[k] for k in ("kernel_ms", "plain_ms", "bound_ms",
+                                         "bound_by", *yardsticks) if k in r}
+        for r in records}
+
+
+def phase_mlp_probe_kernels(smi: str):
+    """Phase 18: #13, #14, #19a and #19b against their plain versions (bf16,
+    and fp32 with TF32 off) at every instance, on batch 16's rows and a
+    ragged M; then the probes' runs at batch 128 with the launch counts set
+    to 0 just before and read just after, each instance's error there
+    against the plain bf16 version held to the same bound. Returns
+    (per-kernel stats, launches)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    names = tuple(k.__name__ for k in MT.KERNELS)
+    stats = {name: _stat() for name in names}
+    t0 = time.perf_counter()
+    for m in MLP_CHECK_ROWS:
+        _mlp_probe_checks(gen, m, stats)
+        torch.cuda.empty_cache()
+    t_checks = time.perf_counter() - t0
+
+    _reset_counts()
+    records = mega_probe.run(PROBE_BATCH) + mlp_probe.run(PROBE_BATCH)
+    launches = _counts()
+    print(f"MLP probes at batch {PROBE_BATCH}: launches {launches}")
+    shipped = ("ln_mlp", "ln_mlp_bwd")
+    check(all(launches[n] > 0 for n in names + shipped)
+          and all(v == 0 for n, v in launches.items()
+                  if n not in names + shipped),
+          "the MLP probes must launch #13, #14, #19a, #19b and the shipped "
+          "#2/#4, and nothing else")
+    by_probe = {p: [r for r in records if r["probe"] == p] for p in
+                ("mlp_fwd", "mlp_bwd", "mlp_chain", "mlp_single")}
+
+    def instance(r):  # not an ablation or the shipped kernel
+        return r["variant"].startswith("tile ")
+
+    for rec in records:
+        print(f"probe {json.dumps(rec)}")
+        yard = {k: v for k, v in rec.items() if k.endswith("_ms") and k not in
+                ("kernel_ms", "plain_ms", "bound_ms")}
+        err = rec.get("max_abs_err")
+        name = {"mlp_fwd": "mlp_tile", "mlp_bwd": "mlp_tile_bwd"}.get(
+            rec["probe"], rec["probe"])
+        if name in names and (instance(rec) or rec["probe"] in (
+                "mlp_chain", "mlp_single")):
+            bound = (BOUND_BWD_BF16 if name == "mlp_tile_bwd"
+                     else BOUND_VS_PLAIN_BF16)
+            rel = rec["max_rel_err"]
+            print(f"kernel {name} {rec['variant']} (batch {PROBE_BATCH}): "
+                  f"rel vs plain bf16 {rel:.6g} (bound {bound:g})")
+            check(rel <= bound, f"{name} {rec['variant']} at batch "
+                  f"{PROBE_BATCH}: {rel:.3g} > {bound}")
+            stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], err)
+        print(f"time {rec['probe']} {rec['variant']} (batch {PROBE_BATCH}): "
+              f"kernel {rec['kernel_ms']:.4f} ms, plain {rec['plain_ms']:.4f} "
+              f"ms, {rec['tflops']:.1f} TFLOP/s, bound {rec['bound_ms']:.4f} "
+              f"ms ({rec['bound_by']}), "
+              + "".join(f"{k[:-3]} {v:.4f} ms, " for k, v in yard.items())
+              + (f"max|d| vs plain {err:.4g}; " if err is not None else "")
+              + f"on {smi}")
+    _best(stats["mlp_tile"], by_probe["mlp_fwd"], instance)
+    _best(stats["mlp_tile_bwd"], by_probe["mlp_bwd"], instance)
+    # the pure chain is #19a's call; its GELU and LN stages in per_shape
+    _best(stats["mlp_chain"], by_probe["mlp_chain"],
+          lambda r: not r["stages"], ("two_matmuls_ms",))
+    _best(stats["mlp_single"], by_probe["mlp_single"], lambda r: True,
+          ("library_ms",))
+    for name in names:
+        st = stats[name]
+        print(f"time {name} fastest ({st['best']}): kernel {st['ms']:.4f} ms "
+              f"per call, plain {st['plain_ms']:.4f} ms"
+              + (f", torch.matmul {st['library_ms']:.4f} ms"
+                 if st["library_ms"] is not None else ""))
+    print(f"MLP probe phase: checks {t_checks:.1f} s, probes "
+          f"{time.perf_counter() - t0 - t_checks:.1f} s")
+    return stats, launches
+
+
 def main() -> int:
     smi = phase_device()
     phase_build()
@@ -1279,7 +1450,9 @@ def main() -> int:
     serve_xrv = phase_serve(smi, XRV, XRV_BATCH, (XRV_BATCH,), {})
     xrv = phase_train_slice(smi, XRV, "resnet50-res512-all", XRV_BATCH, {
         "shear_rows": 3, "add_gaussian_noise": 1})
-    print(f"phases 3-17: {time.perf_counter() - t0:.1f} s")
+    mlp_stats, mlp_probes = phase_mlp_probe_kernels(smi)
+    stats.update(mlp_stats)
+    print(f"phases 3-18: {time.perf_counter() - t0:.1f} s")
     # kernel -> (source, the TPU kernel it replaces, the training path whose
     # launches and per-step times the line gives)
     sources = {
@@ -1301,7 +1474,15 @@ def main() -> int:
         "add_gaussian_noise": ("noise.cu", "pallas_noise.py:64", nest),
         "conv3x3": ("conv3x3.cu", "benchmarks/conv_probe.py:87", probe),
         "bn_relu_gemm": ("bn_relu_gemm.cu", "benchmarks/bn_gemm_probe.py:74",
-                         probe)}
+                         probe),
+        "mlp_tile": ("mlp_tile.cu", "benchmarks/mega_variants.py:150",
+                     mlp_probes),
+        "mlp_tile_bwd": ("mlp_tile_bwd.cu", "benchmarks/mega_variants.py:297",
+                         mlp_probes),
+        "mlp_chain": ("mlp_tile.cu", "benchmarks/mlp_probe.py:72",
+                      mlp_probes),
+        "mlp_single": ("mlp_tile.cu", "benchmarks/mlp_probe.py:92",
+                       mlp_probes)}
     paths = {"nest_train": nest, "vit_b_train": vit,
              "nest_unfused_train": unfused, "nest_nhwc_train": nhwc,
              "resnet34_train": r34, "xrv_resnet50_train": xrv}
@@ -1320,8 +1501,10 @@ def main() -> int:
                  **{k: stat[k] for k in ("max_abs_err", "ms", "plain_ms",
                                          "bound_ms", "bound_by",
                                          "library_ms")}}
-        if path is probe:
+        if path is probe or path is mlp_probes:
             entry.update(path="probe", per_shape=stat["per_shape"])
+        if "best" in stat:
+            entry["fastest"] = stat["best"]
         other = {p: c[name] for p, c in paths.items()
                  if c is not path and name in c}
         if other:

@@ -227,3 +227,62 @@ def test_augment_with_explicit_params_matches_jax(monkeypatch, method):
     # the warp's bound in intensity units, divided by std 50
     atol = {"shear": 1e-3, "gather": 5e-3}[method] / 50
     np.testing.assert_allclose(got.numpy(), want, atol=atol, rtol=0)
+
+
+def _identity_params(b, sigma):
+    zero = torch.zeros(b)
+    return (zero, zero, zero, zero + 1.0, zero, torch.zeros(b, dtype=bool),
+            torch.as_tensor(sigma, dtype=torch.float32))
+
+
+def test_odd_width_takes_the_dense_draw_with_the_given_sigma(monkeypatch):
+    """At an odd width the kernel (which pairs columns) is never called: the
+    reference's dense normal draw is added, ``noise_std`` per sample. With
+    the warp the identity, the noise is the difference from sigma 0, whose
+    draw adds exactly 0. Square, as an odd ``data.image_size`` gives (the
+    zoom, here and in the reference, takes square images)."""
+    b, h, w = 8, 35, 35
+    imgs = torch.from_numpy(_images(12, b, h, w).astype(np.uint8))
+
+    def refuse(*a, **k):
+        raise AssertionError("add_gaussian_noise called at an odd width")
+
+    monkeypatch.setattr(TA, "add_gaussian_noise", refuse)
+    sigma = np.array([0.0, 0.5, 1.0, 2.0, 4.0, 8.0, 16.0, 3.0], np.float32)
+    out = {}
+    for key, s in (("noisy", sigma), ("clean", np.zeros(b, np.float32))):
+        monkeypatch.setattr(TA, "_sample_params",
+                            lambda *a, s=s: _identity_params(b, s))
+        before = TN.add_gaussian_noise.launches
+        out[key] = TA.augment_and_normalize(
+            imgs, torch.Generator().manual_seed(0), 0.0, 1.0,
+            out_channels=1, dtype=torch.float32)[..., 0]
+        assert TN.add_gaussian_noise.launches == before
+        assert out[key].shape == (b, h, w)
+    noise = (out["noisy"] - out["clean"]).reshape(b, -1).double()
+    assert torch.equal(noise[0], torch.zeros_like(noise[0]))
+    n = h * w
+    for i in range(1, b):
+        # mean within 5 standard errors; the standard deviation within
+        # 5 of its standard errors (sigma / sqrt(2 n)), about 10%
+        assert abs(noise[i].mean().item()) <= 5 * sigma[i] / n ** 0.5
+        assert noise[i].std().item() == pytest.approx(
+            sigma[i], rel=5 / (2 * n) ** 0.5)
+
+
+def test_even_width_still_takes_the_noise_kernel(monkeypatch):
+    b = 3
+    imgs = torch.from_numpy(_images(13, b, 34, 34).astype(np.uint8))
+    calls = []
+
+    def record(x, seeds, sigma):
+        calls.append((tuple(x.shape), tuple(seeds.shape)))
+        return TN.add_gaussian_noise(x, seeds, sigma)
+
+    monkeypatch.setattr(TA, "add_gaussian_noise", record)
+    monkeypatch.setattr(TA, "_sample_params",
+                        lambda *a: _identity_params(b, [1.0, 0.0, 2.0]))
+    got = TA.augment_and_normalize(imgs, torch.Generator().manual_seed(0),
+                                   0.0, 1.0, dtype=torch.float32)
+    assert calls == [((b, 34, 34), (b, 2))]
+    assert got.shape == (b, 34, 34, 3) and bool(torch.isfinite(got).all())

@@ -1,8 +1,9 @@
 """The CUDA kernels (half blocks and their backwards, the windowed half
 block on a NesT token map and its backward, the packed-qkv attention and
-the fused MLP with their backwards, shear, noise, and the ResNet probe
-kernels conv3x3 and bn_relu_gemm) against their plain PyTorch versions, on
-the card. Marked ``gpu``: without a CUDA
+the fused MLP with their backwards, shear, noise, the ResNet probe
+kernels conv3x3 and bn_relu_gemm, and the MLP probe kernels mlp_tile, its
+backward, mlp_chain and mlp_single) against their plain PyTorch versions,
+on the card. Marked ``gpu``: without a CUDA
 device every test here skips. Needs no JAX, so it runs on a machine without
 it:
 
@@ -24,6 +25,7 @@ from vlp_tpu_torch.ops import bn_gemm as BG
 from vlp_tpu_torch.ops import conv3x3 as CV
 from vlp_tpu_torch.ops import fused_block as FB
 from vlp_tpu_torch.ops import fused_mlp as FM
+from vlp_tpu_torch.ops import mlp_tile as MT
 from vlp_tpu_torch.ops import noise as NZ
 from vlp_tpu_torch.ops import shear as SH
 
@@ -505,3 +507,83 @@ def test_probe_kernels_raise_on_what_they_refuse(cuda):
         BG.bn_relu_gemm(rows, vec.bfloat16(), vec, w16)
     with pytest.raises(ValueError, match="tensors on"):
         BG.bn_relu_gemm(rows, vec.cpu(), vec, w16)
+
+
+def _mlp_tile_params(gen, d, f):
+    # b1 and b2 at scale 1: a dropped or misindexed bias moves y by about as
+    # much as the MLP branch does, far past BOUND
+    return (1.0 + _rand(gen, d, scale=0.1), _rand(gen, d, scale=0.1),
+            _rand(gen, d, f, scale=d ** -0.5).bfloat16(), _rand(gen, f),
+            _rand(gen, f, d, scale=f ** -0.5).bfloat16(), _rand(gen, d))
+
+
+# The MLP tile engine: every instance, every flag combination. Rows past a
+# whole tile (M = 1037, 77) and widths below the probe's (D 64, 192).
+@pytest.mark.parametrize("m,d,f", [(3136, 384, 1536), (1037, 384, 1536),
+                                   (77, 192, 768), (100, 64, 256)])
+def test_mlp_tile_forward_kernels_match_plain(cuda, m, d, f):
+    gen = torch.Generator(device=cuda).manual_seed(m + d)
+    x = _rand(gen, m, d).bfloat16()
+    g, b, w1, b1, w2, b2 = _mlp_tile_params(gen, d, f)
+    for tm, fs in MT.TILES:
+        for ln, gelu in ((True, True), (True, False), (False, True)):
+            before = MT.mlp_tile.launches
+            y = MT.mlp_tile(x, g, b, w1, b1, w2, b2, ln=ln, gelu=gelu, tm=tm,
+                            fs=fs)
+            torch.cuda.synchronize()
+            assert MT.mlp_tile.launches == before + 1
+            ref = MT.mlp_tile_plain(x, g, b, w1, b1, w2, b2, ln=ln,
+                                    gelu=gelu)
+            assert y.shape == (m, d) and torch.isfinite(y.float()).all()
+            assert _rel_err(y, ref) <= BOUND, (tm, fs, ln, gelu)
+        for stages in MT.CHAIN_STAGES:
+            y = MT.mlp_chain(x, w1, w2, stages, tm=tm, fs=fs)
+            torch.cuda.synchronize()
+            assert _rel_err(y, MT.mlp_chain_plain(x, w1, w2, stages)) \
+                <= BOUND, (tm, fs, stages)
+        z = MT.mlp_single(x, w1, tm=tm, fs=fs)
+        torch.cuda.synchronize()
+        assert z.shape == (m, f)
+        assert _rel_err(z, MT.mlp_single_plain(x, w1)) <= BOUND, (tm, fs)
+
+
+@pytest.mark.parametrize("m,d,f", [(3136, 384, 1536), (1037, 384, 1536),
+                                   (77, 192, 768), (100, 64, 256)])
+def test_mlp_tile_bwd_kernel_matches_plain_and_reruns_bit_equal(cuda, m, d,
+                                                                 f):
+    gen = torch.Generator(device=cuda).manual_seed(m + d + 1)
+    x = _rand(gen, m, d).bfloat16()
+    g, b, w1, b1, w2, _ = _mlp_tile_params(gen, d, f)
+    dy = _rand(gen, m, d).bfloat16()
+    refs = MT.mlp_tile_bwd_plain(x, g, b, w1, b1, w2, dy)
+    for tm, fs in MT.BWD_TILES:
+        before = MT.mlp_tile_bwd.launches
+        outs = MT.mlp_tile_bwd(x, g, b, w1, b1, w2, dy, tm=tm, fs=fs)
+        torch.cuda.synchronize()
+        assert MT.mlp_tile_bwd.launches == before + 1
+        again = MT.mlp_tile_bwd(x, g, b, w1, b1, w2, dy, tm=tm, fs=fs)
+        for name, out, ref, rerun in zip(
+                ("dx", "dgamma", "dbeta", "dw1", "db1", "dw2", "db2"), outs,
+                refs, again):
+            assert out.shape == ref.shape and out.dtype == ref.dtype, name
+            assert torch.isfinite(out.float()).all(), name
+            assert _rel_err(out, ref) <= BOUND, (tm, fs, name)
+            assert torch.equal(out, rerun), (tm, fs, name)
+
+
+def test_mlp_probe_kernels_raise_on_what_they_refuse(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    x = _rand(gen, 64, 64).bfloat16()
+    g, b, w1, b1, w2, b2 = _mlp_tile_params(gen, 64, 256)
+    with pytest.raises(TypeError, match="bfloat16"):
+        MT.mlp_tile(x.float(), g, b, w1, b1, w2, b2)
+    with pytest.raises(TypeError, match="bfloat16 weights"):
+        MT.mlp_tile(x, g, b, w1.float(), b1, w2, b2)
+    with pytest.raises(TypeError, match="fp32 vectors"):
+        MT.mlp_tile_bwd(x, g.bfloat16(), b, w1, b1, w2, x)
+    with pytest.raises(ValueError, match="contiguous"):
+        MT.mlp_chain(x, w1.t().contiguous().t(), w2)
+    with pytest.raises(ValueError, match="tensors on"):
+        MT.mlp_single(x, w1.cpu())
+    with pytest.raises(ValueError, match="instances"):
+        MT.mlp_tile_bwd(x, g, b, w1, b1, w2, x, tm=64, fs=128)

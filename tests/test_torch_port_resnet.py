@@ -412,3 +412,23 @@ def test_flax_init_takes_bias_free_convs_and_batchnorm():
     x = torch.randn(2, 5, 5, 64)
     y = conv_nhwc(x, model.stages[0][0].conv1, 1, 1)
     assert y.shape == (2, 5, 5, 64)
+
+
+def test_remat_builds_a_resnet_and_still_raises_for_the_transformers():
+    """``remat`` reaches only ViT and NesT in the reference's registry, so a
+    ResNet takes ``remat=True`` and ignores it: the same module, the same
+    forward. The transformers still raise until remat is ported."""
+    plain, _ = create_backbone("resnet34", dtype=torch.float32)
+    flax_init_(plain, torch.Generator().manual_seed(0))
+    remat, dim = create_backbone("resnet34", dtype=torch.float32, remat=True)
+    assert dim == 512
+    remat.load_state_dict(plain.state_dict())
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (2, 32, 32, 3)).astype(np.float32))
+    plain.eval()
+    remat.eval()
+    with torch.no_grad():
+        assert torch.equal(remat(x), plain(x))
+    for name in ("vit_base_patch16_224", "nest_small"):
+        with pytest.raises(NotImplementedError, match="remat"):
+            create_backbone(name, remat=True)

@@ -30,10 +30,10 @@
 // is 8 * M * F bytes plus the partials: 617 MB at level 0 of NesT-Small at
 // batch 64 (M = 200,704, F = 384), reused by every block.
 //
-// What bounds it on this card: 12 * M * D * F FLOPs (89 GFLOP per call at
-// every level of NesT-Small at batch 64, 90 us at 989 TFLOP/s) against
+// What bounds it on this card: 10 * M * D * F FLOPs (74 GFLOP per call at
+// every level of NesT-Small at batch 64, 75 us at 989 TFLOP/s) against
 // 6 * M * D bytes of x, do and dx (116 MB at level 0, 35 us at 3.35 TB/s):
-// the ideal kernel is bound by the tensor cores, and the four GEMMs of the
+// the ideal kernel is bound by the tensor cores, and the five GEMMs of the
 // unpipelined form of gemm.cuh run far below them, plus the F-wide fp32
 // gelu' round trip through device memory. Keeping h, gelu' and dh on chip
 // and a wgmma/TMA pipeline are later work.

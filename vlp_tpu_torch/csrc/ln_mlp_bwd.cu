@@ -32,8 +32,8 @@
 // level 0 of NesT-Small at batch 64 (M = 200,704, D = 96), reused by every
 // block.
 //
-// What bounds it on this card: 12 * M * D * F FLOPs (89 GFLOP per call at
-// every level of NesT-Small at batch 64) in four GEMMs of the unpipelined
+// What bounds it on this card: 10 * M * D * F FLOPs (74 GFLOP per call at
+// every level of NesT-Small at batch 64) in five GEMMs of the unpipelined
 // form of gemm.cuh, which runs far below the bf16 roofline, plus the
 // F-wide fp32 gelu' round trip through device memory (8 bytes per element
 // of h). Keeping h, gelu' and dh on chip (a fused per-row-tile kernel with

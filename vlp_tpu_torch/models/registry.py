@@ -4,8 +4,10 @@ reference's allowlist, ``resnet18``, ``resnet34``, ``resnet50``,
 1-channel input), ``resnet_micro``, ``nest_small``,
 ``vit_base_patch16_224`` and ``vit_large_patch16_224``. ``stem`` and
 ``norm_dtype`` reach the ResNets, ``fused_attention`` and ``megakernel``
-the transformers, as in the JAX registry; ``remat=True`` raises
-``NotImplementedError`` until it is ported (ROADMAP.md)."""
+the transformers, as in the JAX registry. ``remat`` reaches only the
+transformers there too, so a ResNet takes ``remat=True`` and ignores it; for
+ViT and NesT it raises ``NotImplementedError`` until it is ported
+(ROADMAP.md)."""
 from __future__ import annotations
 
 from typing import Optional, Tuple
@@ -39,11 +41,11 @@ def create_backbone(name: str, dtype: torch.dtype = torch.bfloat16,
     if name not in _BACKBONES:
         raise ValueError(f"Unknown backbone {name!r}; allowed: "
                          f"{sorted(_BACKBONES)}")
-    if remat:
+    module, fn = _BACKBONES[name]
+    if remat and module is not resnet:
         raise NotImplementedError(
             "remat=True (per-block rematerialization) is not ported to "
             "vlp_tpu_torch yet; see ROADMAP.md")
-    module, fn = _BACKBONES[name]
     kw = dict(in_chans=in_chans, dtype=dtype, device=device)
     if module is resnet:
         kw.update(norm_dtype=norm_dtype, stem=stem)

@@ -72,6 +72,14 @@ _SIGNATURES = {
     "vlp_conv3x3": ([_P] * 3 + [_I] * 5 + [_P], _I),
     # x, a, b, w, out, M, C, K, stream
     "vlp_bn_relu_gemm": ([_P] * 5 + [_I] * 3 + [_P], _I),
+    # x, gamma, beta, w1, b1, w2, b2, out, M, D, F, tm, fs, ln, gelu, bias,
+    # second, eps, stream
+    "vlp_mlp_tile": ([_P] * 8 + [_I] * 9 + [_F, _P], _I),
+    # M, D, F, tm -> bytes
+    "vlp_mlp_tile_bwd_workspace": ([_I] * 4, _Z),
+    # x, gamma, beta, w1, b1, w2, dy, dx, dgamma, dbeta, dw1, db1, dw2, db2,
+    # ws, M, D, F, tm, fs, eps, stream
+    "vlp_mlp_tile_bwd": ([_P] * 15 + [_I] * 5 + [_F, _P], _I),
     "vlp_error_string": ([_I], ctypes.c_char_p),
 }
 

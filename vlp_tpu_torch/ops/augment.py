@@ -7,7 +7,9 @@ composed into one inverse affine map and applied by the 3-shear warp
 (``ops/warp.py``, three ``shear_rows`` launches; the gather warp
 ``_warp_one`` is its plain numerical reference, for the tests); a vertical
 flip; Gaussian noise (one ``add_gaussian_noise``
-launch per batch, sigma 0 for samples that draw none, as on the TPU); then
+launch per batch, sigma 0 for samples that draw none, as on the TPU; at an
+odd width, which the kernel's column pairs do not take, one dense normal
+draw, the reference's branch ``vlp_tpu/ops/augment.py:209-211``); then
 ``(x - mean) / std`` or the torchxrayvision scaling, the channel repeat and
 one cast. Eval path: ``normalize_only``. The generator streams differ from
 ``jax.random``'s, so the same seed gives other draws (ROADMAP.md Queue 3).
@@ -128,7 +130,8 @@ def augment_and_normalize(images_u8: torch.Tensor, gen: torch.Generator,
                           scale_intensity: bool = False) -> torch.Tensor:
     """[B, H, W] uint8 -> augmented, normalised [B, H, W, C] in ``dtype``.
     ``gen`` lives on the images' device; each call advances it by eleven
-    parameter draws and one pair of noise seeds per sample."""
+    parameter draws and one pair of noise seeds per sample (at an odd
+    width: one normal draw per pixel in place of the seeds)."""
     x = images_u8.float()
     if cfg.enabled:
         b = x.shape[0]
@@ -138,9 +141,14 @@ def augment_and_normalize(images_u8: torch.Tensor, gen: torch.Generator,
         x = torch.where(flip[:, None, None], x.flip(1), x)
         # sigma in raw intensity units, as MONAI RandGaussianNoised adds
         # N(0, sigma <= 0.01) to the unnormalised 0..255 image
-        seeds = torch.randint(-2 ** 31, 2 ** 31 - 1, (b, 2), generator=gen,
-                              device=x.device, dtype=torch.int32)
-        x = add_gaussian_noise(x.contiguous(), seeds, noise_std)
+        if x.shape[-1] % 2 == 0:
+            seeds = torch.randint(-2 ** 31, 2 ** 31 - 1, (b, 2),
+                                  generator=gen, device=x.device,
+                                  dtype=torch.int32)
+            x = add_gaussian_noise(x.contiguous(), seeds, noise_std)
+        else:  # the kernel pairs columns: a dense draw, as the reference
+            x = x + torch.randn(x.shape, generator=gen, device=x.device) \
+                * noise_std[:, None, None]
     return _normalize(x, mean, std, out_channels, dtype, scale_intensity)
 
 
