@@ -112,6 +112,17 @@ Phases, each printing its lines before the last line:
    plain versions, ``torch.matmul`` and the two-matmul chain in turns,
    each instance's error against the plain bf16 version held to the same
    bound as at the smaller shapes.
+19. attention probe kernels: ``attn_sched`` (#15) in every mode (v0, the
+   nosm bound against its own plain version, pipe, pipe2, stage), its core
+   alone, ``attn_sched_bwd`` (#16, every cotangent) and its core in every
+   mode (v0, stage2, uni), at NesT-Small level 3's width (D 384, 12 heads)
+   on 4 samples of S 196 and of a ragged S 37, biases and beta drawn at
+   scale 1 and gamma not 1, against their plain versions in bf16 and in
+   fp32 (TF32 off); the softmax modes' y bit-equal, every backward mode
+   bit-identical on a rerun; then the probe entry point
+   (``vlp_tpu_torch.probes.attn_probe.run``) at batch 128: each mode, its
+   core, SDPA on the same q, k, v, the shipped #1/#3 and the plain versions
+   in turns, each mode's error there held to the same bound.
 
 Then one JSON line with every kernel: its launches in the timed training
 steps of the path that runs it (NesT-Small's for #1-#4, #11, #12; ViT-B's
@@ -119,12 +130,15 @@ for #7, #8; NesT unfused for #9, #10; NesT with ``nhwc_windows`` for #5,
 #6; ``other_launches`` adds the other
 paths, ``serve_launches`` the serving phases; #17 and #18 carry
 ``"path": "probe"`` and the launches of the probes' runs, as do #13,
-#14, #19a and #19b), its largest
+#14, #19a, #19b, #15 and #16, whose ``core_launches`` count the launches
+of their cores alone), its largest
 error against the plain bf16 version, and its times per training step of
 that path (for #17 and #18: one call at each probe shape, summed, with
 ``per_shape`` beside; for #13, #14, #19a and #19b: one call of the fastest
 instance, with every instance, ablation, the shipped #2/#4 and the
-two-matmul chain in ``per_shape``): ``ms`` and ``plain_ms`` (the sum over the path's
+two-matmul chain in ``per_shape``; for #15 and #16: one call of the fastest
+mode, every mode (core and SDPA times beside) and the shipped #1/#3 in
+``per_shape``): ``ms`` and ``plain_ms`` (the sum over the path's
 calls of the median time per call), ``bound_ms`` (the larger of the bytes
 the calls must move, each input read and each output written once, over
 3.35 TB/s, and their operations over 989 TFLOP/s bf16, or 67 TFLOP/s fp32
@@ -156,6 +170,7 @@ from vlp_tpu_torch.config import EXPERIMENTS, NEST_UNFUSED, TRAIN_EXPERIMENTS
 from vlp_tpu_torch.models.tasks import build_task
 from vlp_tpu_torch.models.vit import conv_nhwc
 from vlp_tpu_torch.ops import _build
+from vlp_tpu_torch.ops import attn_sched as AS
 from vlp_tpu_torch.ops import block_attention as BA
 from vlp_tpu_torch.ops import bn_gemm as BG
 from vlp_tpu_torch.ops import conv3x3 as CV
@@ -165,8 +180,8 @@ from vlp_tpu_torch.ops import mlp_tile as MT
 from vlp_tpu_torch.ops import noise as NZ
 from vlp_tpu_torch.ops import shear as SH
 from vlp_tpu_torch.ops.warp import default_max_shift
-from vlp_tpu_torch.probes import (bn_gemm_probe, conv_probe, mega_probe,
-                                  mlp_probe)
+from vlp_tpu_torch.probes import (attn_probe, bn_gemm_probe, conv_probe,
+                                  mega_probe, mlp_probe)
 from vlp_tpu_torch.probes._timing import BF16_FLOPS, HBM_BYTES_PER_S
 from vlp_tpu_torch.probes._timing import median_ms as _median_ms
 from vlp_tpu_torch.serve import Predictor
@@ -276,6 +291,9 @@ PROBE_BATCH = 128
 # ragged M whose last tile is partial at TM 32 and 64) at level 3's width
 MLP_CHECK_ROWS = (16 * SEQ, 1037)
 MLP_D, MLP_F = 384, 1536
+# attention probe kernels: the checks' (N, S) at level 3's width, 12 heads
+ATTN_CHECKS = ((4, SEQ), (4, 37))
+ATTN_D, ATTN_HEADS = 384, 12
 # Peak rate of one H100 SXM (NVIDIA's data sheet) of fp32 outside the
 # tensor cores (shear, noise); device memory and bf16 in probes/_timing.py
 FP32_FLOPS = 67e12
@@ -574,7 +592,8 @@ def _serve_vs_blockified(smi, key, pred, request, logits):
 
 
 KERNELS = (*FB.KERNELS, *BA.KERNELS, *FM.KERNELS, SH.shear_rows,
-           NZ.add_gaussian_noise, *CV.KERNELS, *BG.KERNELS, *MT.KERNELS)
+           NZ.add_gaussian_noise, *CV.KERNELS, *BG.KERNELS, *MT.KERNELS,
+           *AS.KERNELS)
 
 
 def _reset_counts() -> None:
@@ -1414,6 +1433,132 @@ def phase_mlp_probe_kernels(smi: str):
     return stats, launches
 
 
+def _attn_probe_checks(gen, n, s, stats):
+    """#15 in every mode (and its core) and #16 in every mode (and its core)
+    on n samples of s tokens at level 3's width against the plain versions
+    in bf16 and fp32; the softmax modes' y bit-equal; #16's reruns
+    bit-identical. The biases and beta are drawn at scale 1 and gamma is
+    not 1, so a dropped bias or affine moves the outputs far past the
+    bounds."""
+    d, heads = ATTN_D, ATTN_HEADS
+
+    def rand(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device="cuda") * scale
+
+    x = rand(n, s, d).bfloat16()
+    params = (1.0 + rand(d, scale=0.2), rand(d),
+              rand(d, 3 * d, scale=d ** -0.5).bfloat16(), rand(3 * d),
+              rand(d, d, scale=d ** -0.5).bfloat16(), rand(d))
+    p32 = [t.float() for t in params]
+    dy = rand(n, s, d).bfloat16()
+    where = f"N={n} S={s} D={d}"
+    qkv = AS.ln_qkv_plain(x, *params[:4])[-1]
+    ys = {}
+    for mode in AS.MODES:
+        y = AS.attn_sched(x, *params, heads, mode)
+        o = AS.attn_sched_core(qkv, heads, mode)
+        torch.cuda.synchronize()
+        _check_outputs("attn_sched", f"{where} {mode}", (y, o),
+                       (AS.attn_sched_plain(x, *params, heads, mode),
+                        AS.attn_sched_core_plain(qkv, heads, mode)),
+                       (AS.attn_sched_plain(x.float(), *p32, heads, mode),
+                        AS.attn_sched_core_plain(qkv.float(), heads, mode)),
+                       ("y", "core o"), BOUND_VS_PLAIN_BF16,
+                       BOUND_VS_PLAIN_FP32, stats["attn_sched"])
+        ys[mode] = y
+    check(all(torch.equal(ys[m], ys["v0"]) for m in ("pipe", "pipe2",
+                                                     "stage")),
+          f"attn_sched {where}: the softmax modes' y differ")
+    print(f"kernel attn_sched {where}: v0, pipe, pipe2, stage y bit-equal; "
+          f"v0 bit-equal to #1 ln_attention: "
+          f"{torch.equal(ys['v0'], FB.ln_attention(x, *params, heads))}")
+    refs = AS.attn_sched_bwd_plain(x, *params[:5], dy, heads)
+    refs32 = AS.attn_sched_bwd_plain(x.float(), *p32[:5], dy.float(), heads)
+    core_refs = AS.attn_sched_bwd_core_plain(qkv, dy, heads)
+    core_refs32 = AS.attn_sched_bwd_core_plain(qkv.float(), dy.float(),
+                                               heads)
+    outs = {}
+    for mode in AS.BWD_MODES:
+        outs[mode] = AS.attn_sched_bwd(x, *params[:5], dy, heads, mode)
+        core = AS.attn_sched_bwd_core(qkv, dy, heads, mode)
+        torch.cuda.synchronize()
+        _check_outputs("attn_sched_bwd", f"{where} {mode}", outs[mode] + core,
+                       refs + core_refs, refs32 + core_refs32,
+                       BWD_NAMES["ln_attention_bwd"] + ("core o",
+                                                        "core dqkv"),
+                       BOUND_BWD_BF16, BOUND_BWD_FP32,
+                       stats["attn_sched_bwd"])
+        again = AS.attn_sched_bwd(x, *params[:5], dy, heads, mode)
+        check(all(torch.equal(a, b) for a, b in zip(outs[mode], again)),
+              f"attn_sched_bwd {where} {mode}: a rerun differs")
+    same = [m for m in AS.BWD_MODES[1:] if all(
+        torch.equal(a, b) for a, b in zip(outs[m], outs["v0"]))]
+    print(f"kernel attn_sched_bwd {where}: reruns bit-identical; modes "
+          f"bit-equal to v0: {same}")
+
+
+def phase_attn_probe_kernels(smi: str):
+    """Phase 19: #15 and #16 in every mode against their plain versions
+    (bf16, and fp32 with TF32 off) at 4 samples of S 196 and of a ragged S;
+    then the probe's run at batch 128 with the launch counts set to 0 just
+    before and read just after, each mode's error there against the plain
+    bf16 version held to the same bound. Returns (per-kernel stats,
+    launches)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    stats = {"attn_sched": _stat(), "attn_sched_bwd": _stat()}
+    t0 = time.perf_counter()
+    for n, s in ATTN_CHECKS:
+        _attn_probe_checks(gen, n, s, stats)
+        torch.cuda.empty_cache()
+    t_checks = time.perf_counter() - t0
+
+    _reset_counts()
+    records = attn_probe.run(PROBE_BATCH)
+    launches = _counts()
+    print(f"attention probe at batch {PROBE_BATCH}: launches {launches}")
+    ours = tuple(k.__name__ for k in AS.KERNELS)
+    shipped = ("ln_attention", "ln_attention_bwd")
+    check(all(launches[n] > 0 for n in ours + shipped)
+          and all(v == 0 for n, v in launches.items()
+                  if n not in ours + shipped),
+          "the attention probe must launch #15, #16 (and their cores) and "
+          "the shipped #1/#3, and nothing else")
+    for rec in records:
+        print(f"probe {json.dumps(rec)}")
+        name = {"attn_fwd": "attn_sched", "attn_bwd": "attn_sched_bwd"}[
+            rec["probe"]]
+        err = rec["max_abs_err"]
+        if "#" not in rec["variant"] and err is not None:
+            bound = (BOUND_BWD_BF16 if name == "attn_sched_bwd"
+                     else BOUND_VS_PLAIN_BF16)
+            rel = rec["max_rel_err"]
+            print(f"kernel {name} {rec['variant']} (batch {PROBE_BATCH}): "
+                  f"rel vs plain bf16 {rel:.6g} (bound {bound:g})")
+            check(rel <= bound, f"{name} {rec['variant']} at batch "
+                  f"{PROBE_BATCH}: {rel:.3g} > {bound}")
+            stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], err)
+        print(f"time {rec['probe']} {rec['variant']} (batch {PROBE_BATCH}): "
+              f"kernel {rec['kernel_ms']:.4f} ms, plain {rec['plain_ms']:.4f} "
+              f"ms, {rec['tflops']:.1f} TFLOP/s, bound {rec['bound_ms']:.4f} "
+              f"ms ({rec['bound_by']})"
+              + (f", core {rec['core_ms']:.4f} ms, SDPA {rec['sdpa_ms']:.4f} "
+                 "ms" if "core_ms" in rec else "")
+              + f"; on {smi}")
+    for name, probe in (("attn_sched", "attn_fwd"),
+                        ("attn_sched_bwd", "attn_bwd")):
+        # the fastest mode that computes the function (not nosm, a bound)
+        _best(stats[name], [r for r in records if r["probe"] == probe],
+              lambda r: "#" not in r["variant"] and r["variant"] != "nosm",
+              ("core_ms", "sdpa_ms"))
+        st = stats[name]
+        print(f"time {name} fastest ({st['best']}): kernel {st['ms']:.4f} ms "
+              f"per call, plain {st['plain_ms']:.4f} ms")
+    print(f"attention probe phase: checks {t_checks:.1f} s, probe "
+          f"{time.perf_counter() - t0 - t_checks:.1f} s")
+    return stats, launches
+
+
 def main() -> int:
     smi = phase_device()
     phase_build()
@@ -1452,7 +1597,9 @@ def main() -> int:
         "shear_rows": 3, "add_gaussian_noise": 1})
     mlp_stats, mlp_probes = phase_mlp_probe_kernels(smi)
     stats.update(mlp_stats)
-    print(f"phases 3-18: {time.perf_counter() - t0:.1f} s")
+    attn_stats, attn_probes = phase_attn_probe_kernels(smi)
+    stats.update(attn_stats)
+    print(f"phases 3-19: {time.perf_counter() - t0:.1f} s")
     # kernel -> (source, the TPU kernel it replaces, the training path whose
     # launches and per-step times the line gives)
     sources = {
@@ -1482,7 +1629,11 @@ def main() -> int:
         "mlp_chain": ("mlp_tile.cu", "benchmarks/mlp_probe.py:72",
                       mlp_probes),
         "mlp_single": ("mlp_tile.cu", "benchmarks/mlp_probe.py:92",
-                       mlp_probes)}
+                       mlp_probes),
+        "attn_sched": ("attn_sched.cu", "benchmarks/mega_variants.py:617",
+                       attn_probes),
+        "attn_sched_bwd": ("attn_sched_bwd.cu",
+                           "benchmarks/mega_variants.py:589", attn_probes)}
     paths = {"nest_train": nest, "vit_b_train": vit,
              "nest_unfused_train": unfused, "nest_nhwc_train": nhwc,
              "resnet34_train": r34, "xrv_resnet50_train": xrv}
@@ -1501,8 +1652,10 @@ def main() -> int:
                  **{k: stat[k] for k in ("max_abs_err", "ms", "plain_ms",
                                          "bound_ms", "bound_by",
                                          "library_ms")}}
-        if path is probe or path is mlp_probes:
+        if path is probe or path is mlp_probes or path is attn_probes:
             entry.update(path="probe", per_shape=stat["per_shape"])
+        if path is attn_probes:
+            entry["core_launches"] = path[f"{name}_core"]
         if "best" in stat:
             entry["fastest"] = stat["best"]
         other = {p: c[name] for p, c in paths.items()

@@ -1,8 +1,10 @@
 """The CUDA kernels (half blocks and their backwards, the windowed half
 block on a NesT token map and its backward, the packed-qkv attention and
 the fused MLP with their backwards, shear, noise, the ResNet probe
-kernels conv3x3 and bn_relu_gemm, and the MLP probe kernels mlp_tile, its
-backward, mlp_chain and mlp_single) against their plain PyTorch versions,
+kernels conv3x3 and bn_relu_gemm, the MLP probe kernels mlp_tile, its
+backward, mlp_chain and mlp_single, and the attention schedule probes
+attn_sched and its backward in every mode) against their plain PyTorch
+versions,
 on the card. Marked ``gpu``: without a CUDA
 device every test here skips. Needs no JAX, so it runs on a machine without
 it:
@@ -20,6 +22,7 @@ backward; shear is exact; noise within 2^-13 (chip_smoke.BOUND_NOISE).
 import pytest
 import torch
 
+from vlp_tpu_torch.ops import attn_sched as AS
 from vlp_tpu_torch.ops import block_attention as BA
 from vlp_tpu_torch.ops import bn_gemm as BG
 from vlp_tpu_torch.ops import conv3x3 as CV
@@ -587,3 +590,99 @@ def test_mlp_probe_kernels_raise_on_what_they_refuse(cuda):
         MT.mlp_single(x, w1.cpu())
     with pytest.raises(ValueError, match="instances"):
         MT.mlp_tile_bwd(x, g, b, w1, b1, w2, x, tm=64, fs=128)
+
+
+def _attn_sched_params(gen, d):
+    # biases and beta at scale 1, gamma not 1: a dropped bias or affine
+    # moves y and the cotangents far past BOUND
+    return (1.0 + _rand(gen, d, scale=0.2), _rand(gen, d),
+            _rand(gen, d, 3 * d, scale=d ** -0.5).bfloat16(),
+            _rand(gen, 3 * d), _rand(gen, d, d, scale=d ** -0.5).bfloat16(),
+            _rand(gen, d))
+
+
+# The attention schedule probes: every mode at the probe's width (D 384, 12
+# heads) at S 196 and a ragged S, and a narrow one.
+@pytest.mark.parametrize("n,s,d", [(4, 196, 384), (4, 37, 384), (3, 208, 64)])
+def test_attn_sched_kernels_match_plain_and_agree_across_modes(cuda, n, s, d):
+    heads = d // 32
+    gen = torch.Generator(device=cuda).manual_seed(n + s + d)
+    x = _rand(gen, n, s, d).bfloat16()
+    params = _attn_sched_params(gen, d)
+    p32 = [t.float() for t in params]
+    ys = {}
+    for mode in AS.MODES:
+        before = AS.attn_sched.launches
+        y = AS.attn_sched(x, *params, heads, mode)
+        torch.cuda.synchronize()
+        assert AS.attn_sched.launches == before + 1
+        assert y.shape == x.shape and torch.isfinite(y.float()).all()
+        assert _rel_err(y, AS.attn_sched_plain(x, *params, heads, mode)) \
+            <= BOUND, mode
+        assert _rel_err(y, AS.attn_sched_plain(x.float(), *p32, heads,
+                                               mode)) <= 2 * BOUND, mode
+        qkv = AS.ln_qkv_plain(x, *params[:4])[-1]
+        assert _rel_err(AS.attn_sched_core(qkv, heads, mode),
+                        AS.attn_sched_core_plain(qkv, heads, mode)) \
+            <= BOUND, mode
+        ys[mode] = y
+    for mode in ("pipe", "pipe2", "stage"):
+        assert torch.equal(ys[mode], ys["v0"]), mode
+
+
+@pytest.mark.parametrize("n,s,d", [(4, 196, 384), (4, 37, 384), (3, 208, 64)])
+def test_attn_sched_bwd_kernels_match_plain_and_rerun_bit_equal(cuda, n, s,
+                                                                d):
+    heads = d // 32
+    gen = torch.Generator(device=cuda).manual_seed(n + s + d + 1)
+    x = _rand(gen, n, s, d).bfloat16()
+    params = _attn_sched_params(gen, d)[:5]
+    dy = _rand(gen, n, s, d).bfloat16()
+    refs = AS.attn_sched_bwd_plain(x, *params, dy, heads)
+    qkv = AS.ln_qkv_plain(x, *params[:4])[-1]
+    core_refs = AS.attn_sched_bwd_core_plain(qkv, dy, heads)
+    for mode in AS.BWD_MODES:
+        before = AS.attn_sched_bwd.launches
+        outs = AS.attn_sched_bwd(x, *params, dy, heads, mode)
+        torch.cuda.synchronize()
+        assert AS.attn_sched_bwd.launches == before + 1
+        again = AS.attn_sched_bwd(x, *params, dy, heads, mode)
+        for name, out, ref, rerun in zip(
+                ("dx", "dgamma", "dbeta", "dwqkv", "dbqkv", "dwout", "dbout"),
+                outs, refs, again):
+            assert out.shape == ref.shape and out.dtype == ref.dtype, name
+            assert torch.isfinite(out.float()).all(), (mode, name)
+            assert _rel_err(out, ref) <= BOUND, (mode, name)
+            assert torch.equal(out, rerun), (mode, name)
+        core = AS.attn_sched_bwd_core(qkv, dy, heads, mode)
+        for name, out, ref in zip(("o", "dqkv"), core, core_refs):
+            assert _rel_err(out, ref) <= BOUND, (mode, name)
+
+
+def test_attn_sched_cuda_never_takes_the_plain_path(cuda, monkeypatch):
+    def no_plain(*args, **kwargs):
+        raise AssertionError("a CUDA tensor took the plain path")
+
+    for name in ("attn_sched_plain", "attn_sched_core_plain",
+                 "attn_sched_bwd_plain", "attn_sched_bwd_core_plain"):
+        monkeypatch.setattr(AS, name, no_plain)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    x = _rand(gen, 2, 40, 64).bfloat16()
+    params = _attn_sched_params(gen, 64)
+    qkv = _rand(gen, 2, 40, 192).bfloat16()
+    for mode in AS.MODES:
+        AS.attn_sched(x, *params, 2, mode)
+        AS.attn_sched_core(qkv, 2, mode)
+    for mode in AS.BWD_MODES:
+        AS.attn_sched_bwd(x, *params[:5], x, 2, mode)
+        AS.attn_sched_bwd_core(qkv, x, 2, mode)
+    torch.cuda.synchronize()
+    with pytest.raises(TypeError, match="bfloat16"):
+        AS.attn_sched(x.float(), *params, 2)
+    with pytest.raises(TypeError, match="fp32 vectors"):
+        AS.attn_sched_bwd(x, params[0].bfloat16(), *params[1:5], x, 2)
+    with pytest.raises(ValueError, match="tensors on"):
+        AS.attn_sched_bwd_core(qkv, x.cpu(), 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        AS.attn_sched_core(qkv.transpose(0, 1).contiguous().transpose(0, 1),
+                           2)

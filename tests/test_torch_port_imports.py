@@ -29,7 +29,8 @@ def test_serve_and_chip_smoke_import_without_jax_or_host_pipeline():
             "vlp_tpu_torch.probes.conv_probe, "
             "vlp_tpu_torch.probes.bn_gemm_probe, "
             "vlp_tpu_torch.probes.mega_probe, "
-            "vlp_tpu_torch.probes.mlp_probe, chip_smoke; "
+            "vlp_tpu_torch.probes.mlp_probe, "
+            "vlp_tpu_torch.probes.attn_probe, chip_smoke; "
             f"print([m for m in {FORBIDDEN!r} if m in sys.modules] + "
             "[m for m in sys.modules if m.split('.')[0] == 'vlp_tpu'])")
     env = dict(os.environ, PYTHONPATH=REPO)

@@ -2,7 +2,8 @@
 // shared by ln_attention.cu / ln_attention_bwd.cu (#1, #3: N samples of S
 // tokens, [N, S, D]) and ln_attention_windows.cu /
 // ln_attention_windows_bwd.cu (#5, #6: the N block x block windows of a NesT
-// token map [B, H, W, D], S = block^2).
+// token map [B, H, W, D], S = block^2); the backward's tail after the
+// attention core also by the probe #16 (attn_sched_bwd.cu).
 //
 // LayerNorm, the projections, the biases, the residual and the LayerNorm
 // backward act on each row alone, so their kernels run over the M = N * S
@@ -74,29 +75,20 @@ struct AttnBwdWs {
   }
 };
 
-// The backward's launches (ln_attention_bwd.cu lists them): all seven
-// cotangents from x, dy and the forward launch's qkv and o.
-template <class Rows>
-cudaError_t ln_attention_backward(
-    const bf16* x, const float* gamma, const float* beta, const bf16* wqkv,
-    const bf16* wout, const bf16* qkv, const bf16* o, const bf16* dy,
-    bf16* dx, float* dgamma, float* dbeta, bf16* dwqkv, float* dbqkv,
-    bf16* dwout, float* dbout, void* ws, int N, int S, int D, int H,
-    float scale, float eps, Rows rows, cudaStream_t st) {
+// The backward's launches after the attention core (ln_attention_bwd.cu
+// lists them, steps 4-8): dWout and dWqkv (split-K partials reduced in a
+// fixed order into WT: bf16 like the weights for #3 and #6, fp32 for the
+// probe #16), dln, the LN backward and the vector gradients, from x, dy, o
+// and the workspace's ln, dqkv and per-unit column sums.
+template <class WT>
+cudaError_t attn_bwd_tail(const bf16* x, const float* gamma, const bf16* wqkv,
+                          const bf16* o, const bf16* dy, const AttnBwdWs& w,
+                          bf16* dx, float* dgamma, float* dbeta, WT* dwqkv,
+                          float* dbqkv, WT* dwout, float* dbout, int N, int S,
+                          int D, float eps, cudaStream_t st) {
   const int M = N * S;
-  const AttnBwdWs w(ws, N, S, D);
-  cudaError_t err = launch_ln_rows(x, gamma, beta, w.ln, M, D, eps, st);
-  if (err != cudaSuccess) return err;
-  // do = dy @ Wout^T
-  err = launch_gemm_ex<false, false, true, kEpiBf16>(
-      dy, nullptr, nullptr, wout, nullptr, nullptr, nullptr, w.dout, nullptr,
-      M, D, D, 1, 0.f, st);
-  if (err != cudaSuccess) return err;
-  err = launch_mhsa_bwd<32>(qkv, w.dout, w.dqkv, w.bpart, N, S, D, H, scale,
-                            rows, st);
-  if (err != cudaSuccess) return err;
   // dWout = o^T @ dy
-  err = launch_gemm_ex<false, true, false, kEpiF32>(
+  cudaError_t err = launch_gemm_ex<false, true, false, kEpiF32>(
       o, nullptr, nullptr, dy, nullptr, nullptr, nullptr, w.wpart, nullptr, D,
       D, M, w.s_out, 0.f, st);
   if (err != cudaSuccess) return err;
@@ -127,6 +119,31 @@ cudaError_t ln_attention_backward(
   }
   return launch_reduce_rows(w.bpart, dbqkv, N, (size_t)3 * D, (size_t)3 * D,
                             st);
+}
+
+// The backward's launches (ln_attention_bwd.cu lists them): all seven
+// cotangents from x, dy and the forward launch's qkv and o.
+template <class Rows>
+cudaError_t ln_attention_backward(
+    const bf16* x, const float* gamma, const float* beta, const bf16* wqkv,
+    const bf16* wout, const bf16* qkv, const bf16* o, const bf16* dy,
+    bf16* dx, float* dgamma, float* dbeta, bf16* dwqkv, float* dbqkv,
+    bf16* dwout, float* dbout, void* ws, int N, int S, int D, int H,
+    float scale, float eps, Rows rows, cudaStream_t st) {
+  const int M = N * S;
+  const AttnBwdWs w(ws, N, S, D);
+  cudaError_t err = launch_ln_rows(x, gamma, beta, w.ln, M, D, eps, st);
+  if (err != cudaSuccess) return err;
+  // do = dy @ Wout^T
+  err = launch_gemm_ex<false, false, true, kEpiBf16>(
+      dy, nullptr, nullptr, wout, nullptr, nullptr, nullptr, w.dout, nullptr,
+      M, D, D, 1, 0.f, st);
+  if (err != cudaSuccess) return err;
+  err = launch_mhsa_bwd<32>(qkv, w.dout, w.dqkv, w.bpart, N, S, D, H, scale,
+                            rows, st);
+  if (err != cudaSuccess) return err;
+  return attn_bwd_tail(x, gamma, wqkv, o, dy, w, dx, dgamma, dbeta, dwqkv,
+                       dbqkv, dwout, dbout, N, S, D, eps, st);
 }
 
 }  // namespace vlp

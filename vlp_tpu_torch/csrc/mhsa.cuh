@@ -15,7 +15,8 @@
 // S..sp-1 zero, sp = S rounded up to 16), and each of its 4 warps takes
 // 16-query tiles: the 16 x S fp32 score rows with wmma, the softmax from
 // shared memory, P (bf16, unnormalised) written over its own score row, and
-// P @ V with wmma. HD (the head dim, 32 or 64) is a template parameter.
+// P @ V with wmma. These steps are device functions that the probe #15's
+// schedules (attn_sched.cuh) order otherwise. HD (the head dim, 32 or 64) is a template parameter.
 // Shared memory: 3 * sp * (HD + 8) bf16 plus 4 warps' fp32 score rows:
 // 102 KB at S = 196, HD = 32 (two blocks per SM), 144 KB at S = 197,
 // HD = 64 (one block per SM); a window map adds its row table (S ints).
@@ -53,6 +54,156 @@ inline size_t mhsa_smem_bytes(int S) {
          (size_t)kAttnWarps * 16 * sizeof(float) + row_table_bytes<Rows>(S);
 }
 
+// The pieces of the core, shared with the schedule variants of the probe
+// kernel #15 (attn_sched.cuh), which order the same per-tile work otherwise.
+
+// Stages q, k, v of head h of one unit ([sp, HD + 8] bf16 each, rows
+// S..sp-1 zero); every thread of the block calls it.
+template <int HD, class Rows>
+__device__ __forceinline__ void mhsa_stage(const bf16* __restrict__ qkv,
+                                           bf16* Qs, int S, int sp, int D,
+                                           int h, const UnitRows<Rows>& row_of,
+                                           int tid, int threads) {
+  constexpr int ld = HD + 8;
+  constexpr int vecs = HD / 8;
+  const bf16* base = qkv + h * HD;
+  const size_t row_stride = 3 * (size_t)D;
+  for (int i = tid; i < 3 * sp * vecs; i += threads) {
+    const int mat = i / (sp * vecs);
+    const int rem = i % (sp * vecs);
+    const int r = rem / vecs;
+    const int c = (rem % vecs) * 8;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (r < S)
+      v = *reinterpret_cast<const uint4*>(base + row_of(r) * row_stride +
+                                          mat * D + c);
+    *reinterpret_cast<uint4*>(Qs + (size_t)mat * sp * ld + r * ld + c) = v;
+  }
+}
+
+// S_t[16, sp] = Q[qt] @ K^T in fp32 (unscaled), fp32 pitch lds; one warp.
+template <int HD>
+__device__ __forceinline__ void mhsa_scores(const bf16* Qs, const bf16* Ks,
+                                            int qt, int tiles, float* S_t,
+                                            int lds) {
+  constexpr int ld = HD + 8;
+  constexpr int kf = HD / 16;
+  wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> qa[kf];
+#pragma unroll
+  for (int kk = 0; kk < kf; ++kk)
+    wmma::load_matrix_sync(qa[kk], Qs + qt * 16 * ld + kk * 16, ld);
+  for (int kt = 0; kt < tiles; ++kt) {
+    wmma::fragment<wmma::accumulator, 16, 16, 16, float> sc;
+    wmma::fill_fragment(sc, 0.f);
+#pragma unroll
+    for (int kk = 0; kk < kf; ++kk) {
+      // col_major B: element (k, j) = K[kt*16 + j][kk*16 + k] = (K^T)[k][j]
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> kb;
+      wmma::load_matrix_sync(kb, Ks + kt * 16 * ld + kk * 16, ld);
+      wmma::mma_sync(sc, qa[kk], kb, sc);
+    }
+    wmma::store_matrix_sync(S_t + kt * 16, sc, lds, wmma::mem_row_major);
+  }
+  __syncwarp();
+}
+
+// One score row -> bf16 p = exp(s * scale - max) written over it (keys
+// S..sp-1 zero, unnormalised) and l = sum(p) in fp32; one warp. kNosm (the
+// probe's bound): p = bf16(s * scale * 0.01), l = 1.
+template <bool kNosm>
+__device__ __forceinline__ void mhsa_softmax_row(float* srow, float* l_out,
+                                                 int S, int sp, float scale,
+                                                 int lane) {
+  float v[kKeysPerLane];
+  float l = 1.f;
+  if (kNosm) {
+#pragma unroll
+    for (int i = 0; i < kKeysPerLane; ++i) {
+      const int j = lane + 32 * i;
+      v[i] = j < S ? (srow[j] * scale) * 0.01f : 0.f;
+    }
+  } else {
+    const float neg_inf = __int_as_float(0xff800000);
+    float m = neg_inf;
+#pragma unroll
+    for (int i = 0; i < kKeysPerLane; ++i) {
+      const int j = lane + 32 * i;
+      v[i] = j < S ? srow[j] * scale : neg_inf;
+      m = fmaxf(m, v[i]);
+    }
+    m = warp_max(m);
+    l = 0.f;
+#pragma unroll
+    for (int i = 0; i < kKeysPerLane; ++i) {
+      const int j = lane + 32 * i;
+      v[i] = j < S ? expf(v[i] - m) : 0.f;
+      l += v[i];
+    }
+    l = warp_sum(l);
+  }
+  __syncwarp();  // every lane has read the row before p overwrites it
+  bf16* prow = reinterpret_cast<bf16*>(srow);
+#pragma unroll
+  for (int i = 0; i < kKeysPerLane; ++i) {
+    const int j = lane + 32 * i;
+    if (j < sp) prow[j] = __float2bfloat16(v[i]);
+  }
+  if (lane == 0) *l_out = l;
+}
+
+// The 16 score rows of one tile at S_t -> p over them, l into L_t[16].
+template <bool kNosm>
+__device__ __forceinline__ void mhsa_softmax_tile(float* S_t, float* L_t,
+                                                  int lds, int S, int sp,
+                                                  float scale, int lane) {
+  for (int r = 0; r < 16; ++r)
+    mhsa_softmax_row<kNosm>(S_t + r * lds, L_t + r, S, sp, scale, lane);
+  __syncwarp();
+}
+
+// o rows of tile qt = bf16((P @ V) / l) (kRecip: * (1 / l)), P the bf16
+// rows written over S_t (pitch 2 * lds); the accumulators are staged
+// through S_t; one warp.
+template <int HD, bool kRecip, class Rows>
+__device__ __forceinline__ void mhsa_pv(float* S_t, const float* L_t,
+                                        int lds, const bf16* Vs, int qt,
+                                        int tiles, int S, bf16* o, int D,
+                                        int h, const UnitRows<Rows>& row_of,
+                                        int lane) {
+  constexpr int ld = HD + 8;
+  constexpr int kf = HD / 16;
+  const bf16* P_t = reinterpret_cast<const bf16*>(S_t);
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> oc[kf];
+#pragma unroll
+  for (int j = 0; j < kf; ++j) wmma::fill_fragment(oc[j], 0.f);
+  for (int kt = 0; kt < tiles; ++kt) {
+    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> pa;
+    wmma::load_matrix_sync(pa, P_t + kt * 16, 2 * lds);
+#pragma unroll
+    for (int j = 0; j < kf; ++j) {
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> vb;
+      wmma::load_matrix_sync(vb, Vs + kt * 16 * ld + j * 16, ld);
+      wmma::mma_sync(oc[j], pa, vb, oc[j]);
+    }
+  }
+  __syncwarp();
+#pragma unroll
+  for (int j = 0; j < kf; ++j)
+    wmma::store_matrix_sync(S_t + j * 16, oc[j], lds, wmma::mem_row_major);
+  __syncwarp();
+  for (int i = lane; i < 16 * HD; i += 32) {
+    const int r = i / HD;
+    const int c = i % HD;
+    const int row = qt * 16 + r;
+    if (row < S) {
+      const float a = S_t[r * lds + c];
+      o[row_of(row) * D + h * HD + c] =
+          __float2bfloat16(kRecip ? a * (1.0f / L_t[r]) : a / L_t[r]);
+    }
+  }
+  __syncwarp();  // the next tile's scores overwrite S_t
+}
+
 // grid (H, N); block kAttnWarps * 32 threads. Token r of unit n is row
 // rows(n, r) of qkv and o.
 template <int HD, class Rows>
@@ -60,15 +211,12 @@ __global__ void __launch_bounds__(kAttnWarps * 32)
     mhsa_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ o, int S,
                 int D, float scale, Rows rows) {
   constexpr int ld = HD + 8;  // bf16 pitch of the staged q, k, v rows
-  constexpr int kf = HD / 16;  // wmma fragments across the head dim
   extern __shared__ __align__(128) unsigned char smem[];
   const int h = blockIdx.x;
   const int n = blockIdx.y;
   const int tiles = (S + 15) / 16;
   const int sp = tiles * 16;
   const int lds = mhsa_lds(S, HD);  // fp32 pitch of a score row
-  const int ldp = 2 * lds;          // bf16 pitch of P: row r of P starts where
-                                    // row r of the scores starts
   bf16* Qs = reinterpret_cast<bf16*>(smem);
   bf16* Ks = Qs + sp * ld;
   bf16* Vs = Ks + sp * ld;
@@ -79,111 +227,18 @@ __global__ void __launch_bounds__(kAttnWarps * 32)
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
-  const size_t row_stride = 3 * (size_t)D;
-  const bf16* base = qkv + h * HD;
-  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
   const UnitRows<Rows> row_of =
       unit_rows(rows, n, S, Rt, tid, kAttnWarps * 32);
-
-  // stage q, k, v of this (sample, head); rows S..sp-1 are zero
-  constexpr int vecs = HD / 8;
-  for (int i = tid; i < 3 * sp * vecs; i += kAttnWarps * 32) {
-    const int mat = i / (sp * vecs);
-    const int rem = i % (sp * vecs);
-    const int r = rem / vecs;
-    const int c = (rem % vecs) * 8;
-    uint4 v = zero;
-    if (r < S)
-      v = *reinterpret_cast<const uint4*>(base + row_of(r) * row_stride +
-                                          mat * D + c);
-    *reinterpret_cast<uint4*>(Qs + (size_t)mat * sp * ld + r * ld + c) = v;
-  }
+  mhsa_stage<HD>(qkv, Qs, S, sp, D, h, row_of, tid, kAttnWarps * 32);
   __syncthreads();
 
   float* S_w = Ss + warp * 16 * lds;
-  bf16* P_w = reinterpret_cast<bf16*>(S_w);
   float* L_w = Ls + warp * 16;
-  const float neg_inf = __int_as_float(0xff800000);
-
   for (int qt = warp; qt < tiles; qt += kAttnWarps) {
-    // scores: S_w[16, sp] = Q[qt] @ K^T, fp32
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> qa[kf];
-#pragma unroll
-    for (int kk = 0; kk < kf; ++kk)
-      wmma::load_matrix_sync(qa[kk], Qs + qt * 16 * ld + kk * 16, ld);
-    for (int kt = 0; kt < tiles; ++kt) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> sc;
-      wmma::fill_fragment(sc, 0.f);
-#pragma unroll
-      for (int kk = 0; kk < kf; ++kk) {
-        // col_major B: element (k, j) = K[kt*16 + j][kk*16 + k] = (K^T)[k][j]
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> kb;
-        wmma::load_matrix_sync(kb, Ks + kt * 16 * ld + kk * 16, ld);
-        wmma::mma_sync(sc, qa[kk], kb, sc);
-      }
-      wmma::store_matrix_sync(S_w + kt * 16, sc, lds, wmma::mem_row_major);
-    }
-    __syncwarp();
-
-    // softmax rows; p = exp(s - max) kept unnormalised, l = sum(p) in fp32
-    for (int r = 0; r < 16; ++r) {
-      const float* srow = S_w + r * lds;
-      float v[kKeysPerLane];
-      float m = neg_inf;
-#pragma unroll
-      for (int i = 0; i < kKeysPerLane; ++i) {
-        const int j = lane + 32 * i;
-        v[i] = j < S ? srow[j] * scale : neg_inf;
-        m = fmaxf(m, v[i]);
-      }
-      m = warp_max(m);
-      float l = 0.f;
-#pragma unroll
-      for (int i = 0; i < kKeysPerLane; ++i) {
-        const int j = lane + 32 * i;
-        v[i] = j < S ? expf(v[i] - m) : 0.f;
-        l += v[i];
-      }
-      l = warp_sum(l);
-      __syncwarp();  // every lane has read score row r before P overwrites it
-      bf16* prow = P_w + r * ldp;
-#pragma unroll
-      for (int i = 0; i < kKeysPerLane; ++i) {
-        const int j = lane + 32 * i;
-        if (j < sp) prow[j] = __float2bfloat16(v[i]);
-      }
-      if (lane == 0) L_w[r] = l;
-    }
-    __syncwarp();
-
-    // o[16, HD] = P @ V
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> oc[kf];
-#pragma unroll
-    for (int j = 0; j < kf; ++j) wmma::fill_fragment(oc[j], 0.f);
-    for (int kt = 0; kt < tiles; ++kt) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> pa;
-      wmma::load_matrix_sync(pa, P_w + kt * 16, ldp);
-#pragma unroll
-      for (int j = 0; j < kf; ++j) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> vb;
-        wmma::load_matrix_sync(vb, Vs + kt * 16 * ld + j * 16, ld);
-        wmma::mma_sync(oc[j], pa, vb, oc[j]);
-      }
-    }
-    __syncwarp();
-#pragma unroll
-    for (int j = 0; j < kf; ++j)
-      wmma::store_matrix_sync(S_w + j * 16, oc[j], lds, wmma::mem_row_major);
-    __syncwarp();
-    for (int i = lane; i < 16 * HD; i += 32) {
-      const int r = i / HD;
-      const int c = i % HD;
-      const int row = qt * 16 + r;
-      if (row < S)
-        o[row_of(row) * D + h * HD + c] =
-            __float2bfloat16(S_w[r * lds + c] / L_w[r]);
-    }
-    __syncwarp();  // the next tile's scores overwrite S_w
+    mhsa_scores<HD>(Qs, Ks, qt, tiles, S_w, lds);
+    mhsa_softmax_tile<false>(S_w, L_w, lds, S, sp, scale, lane);
+    mhsa_pv<HD, false>(S_w, L_w, lds, Vs, qt, tiles, S, o, D, h, row_of,
+                       lane);
   }
 }
 

@@ -10,7 +10,8 @@
 // per window, in window order).
 //
 // One block per (sample, head) stages q, k, v and do (rows padded to sp, a
-// multiple of 16, with zeros). Phase A: each warp takes 16-query tiles,
+// multiple of 16, with zeros; the steps it shares with the probe #16's
+// single-softmax core are device functions below). Phase A: each warp takes 16-query tiles,
 // computes the fp32 score and dp = do v^T rows with wmma into its own shared
 // buffers, then per row p = exp(s - max), l, c = sum(p * dp) / l and
 // ds = (p * dp - p * c) / l, written as bf16 over its own score row;
@@ -73,6 +74,158 @@ inline size_t mhsa_bwd_smem_bytes(int S) {
          3 * (size_t)warps * HD * sizeof(float) + row_table_bytes<Rows>(S);
 }
 
+// The pieces of the backward core, shared with the probe #16's
+// single-softmax core (attn_sched_bwd.cu:mhsa_uni_bwd_kernel).
+
+// Stages q, k, v and do of head h of one unit ([sp, HD + 8] bf16 each, rows
+// S..sp-1 zero); every thread of the block calls it.
+template <int HD, class Rows>
+__device__ __forceinline__ void mhsa_bwd_stage(
+    const bf16* __restrict__ qkv, const bf16* __restrict__ dout, bf16* Qs,
+    int S, int sp, int D, int h, const UnitRows<Rows>& row_of, int tid,
+    int threads) {
+  constexpr int ld = HD + 8;
+  constexpr int vecs = HD / 8;
+  const size_t row3 = 3 * (size_t)D;
+  for (int i = tid; i < 4 * sp * vecs; i += threads) {
+    const int mat = i / (sp * vecs);
+    const int rem = i % (sp * vecs);
+    const int r = rem / vecs;
+    const int c = (rem % vecs) * 8;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (r < S) {
+      const size_t g = row_of(r);
+      const bf16* src = mat < 3 ? qkv + g * row3 + mat * D + h * HD + c
+                                : dout + g * D + h * HD + c;
+      v = *reinterpret_cast<const uint4*>(src);
+    }
+    *reinterpret_cast<uint4*>(Qs + (size_t)mat * sp * ld + r * ld + c) = v;
+  }
+}
+
+// The fp32 score rows S_w[16, sp] = Q[qt] K^T and DP_w[16, sp] = do[qt] V^T
+// of one query tile (unscaled), pitch lds; one warp.
+template <int HD>
+__device__ __forceinline__ void mhsa_bwd_scores(const bf16* Qs,
+                                                const bf16* Ks,
+                                                const bf16* Vs,
+                                                const bf16* Ds, int qt,
+                                                int tiles, float* S_w,
+                                                float* DP_w, int lds) {
+  constexpr int ld = HD + 8;
+  constexpr int kf = HD / 16;
+  wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> qa[kf],
+      da[kf];
+#pragma unroll
+  for (int kk = 0; kk < kf; ++kk) {
+    wmma::load_matrix_sync(qa[kk], Qs + qt * 16 * ld + kk * 16, ld);
+    wmma::load_matrix_sync(da[kk], Ds + qt * 16 * ld + kk * 16, ld);
+  }
+  for (int kt = 0; kt < tiles; ++kt) {
+    wmma::fragment<wmma::accumulator, 16, 16, 16, float> sc, dc;
+    wmma::fill_fragment(sc, 0.f);
+    wmma::fill_fragment(dc, 0.f);
+#pragma unroll
+    for (int kk = 0; kk < kf; ++kk) {
+      // col_major B: element (k, j) = K[kt*16 + j][kk*16 + k]
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> kb,
+          vb;
+      wmma::load_matrix_sync(kb, Ks + kt * 16 * ld + kk * 16, ld);
+      wmma::load_matrix_sync(vb, Vs + kt * 16 * ld + kk * 16, ld);
+      wmma::mma_sync(sc, qa[kk], kb, sc);
+      wmma::mma_sync(dc, da[kk], vb, dc);
+    }
+    wmma::store_matrix_sync(S_w + kt * 16, sc, lds, wmma::mem_row_major);
+    wmma::store_matrix_sync(DP_w + kt * 16, dc, lds, wmma::mem_row_major);
+  }
+  __syncwarp();
+}
+
+// One row's softmax and its backward statistics, by one warp: lane's keys
+// j = lane + 32 i get p[i] = exp(s * scale - m) and t[i] = p[i] * dp (0 for
+// j >= S); invl = 1 / sum(p), c = sum(t) * invl. ds = (t - p * c) * invl.
+struct BwdRow {
+  float p[kBwdKeysPerLane], t[kBwdKeysPerLane];
+  float m, invl, c;
+};
+
+__device__ __forceinline__ BwdRow mhsa_bwd_row(const float* srow,
+                                               const float* dprow, int S,
+                                               float scale, int lane) {
+  BwdRow b;
+  b.m = __int_as_float(0xff800000);
+#pragma unroll
+  for (int i = 0; i < kBwdKeysPerLane; ++i) {
+    const int j = lane + 32 * i;
+    b.p[i] = j < S ? srow[j] * scale : __int_as_float(0xff800000);
+    b.m = fmaxf(b.m, b.p[i]);
+  }
+  b.m = warp_max(b.m);
+  float l = 0.f;
+#pragma unroll
+  for (int i = 0; i < kBwdKeysPerLane; ++i) {
+    const int j = lane + 32 * i;
+    b.p[i] = j < S ? expf(b.p[i] - b.m) : 0.f;
+    l += b.p[i];
+  }
+  b.invl = 1.0f / warp_sum(l);
+  float c = 0.f;
+#pragma unroll
+  for (int i = 0; i < kBwdKeysPerLane; ++i) {
+    const int j = lane + 32 * i;
+    b.t[i] = j < S ? b.p[i] * dprow[j] : 0.f;
+    c += b.t[i];
+  }
+  b.c = warp_sum(c) * b.invl;
+  return b;
+}
+
+// dk = dk_t * scale and dv = dv_t (fp32 16 x HD tiles at pitch ldt) of key
+// tile kt -> bf16 into dqkv's k and v parts, their column sums into col_k,
+// col_v; one warp.
+template <int HD, class Rows>
+__device__ __forceinline__ void mhsa_bwd_store_kv(
+    const float* dv_t, const float* dk_t, int ldt, int kt, int S,
+    bf16* __restrict__ dqkv, int D, int h, float scale,
+    const UnitRows<Rows>& row_of, int lane, float* col_k, float* col_v) {
+  constexpr int cl = HD / 32;
+  const size_t row3 = 3 * (size_t)D;
+  for (int r = 0; r < 16; ++r) {
+    const int row = kt * 16 + r;
+    if (row < S) {
+      bf16* dst_row = dqkv + row_of(row) * row3 + h * HD;
+#pragma unroll
+      for (int j = 0; j < cl; ++j) {
+        const int col = lane + 32 * j;
+        const float dv = dv_t[r * ldt + col];
+        const float dk = dk_t[r * ldt + col] * scale;
+        bf16* dst = dst_row + col;
+        dst[D] = __float2bfloat16(dk);
+        dst[2 * D] = __float2bfloat16(dv);
+        col_k[j] += dk;
+        col_v[j] += dv;
+      }
+    }
+  }
+  __syncwarp();
+}
+
+// The unit's column sums of dq, dk, dv, from each warp's in Col
+// [3][warps][HD], in warp order, into bpart[n] ([3D] fp32).
+template <int HD>
+__device__ __forceinline__ void mhsa_bwd_bias_parts(const float* Col,
+                                                    float* __restrict__ bpart,
+                                                    int n, int D, int h,
+                                                    int warps, int tid) {
+  for (int i = tid; i < 3 * HD; i += warps * 32) {
+    const int part = i / HD;  // 0: q, 1: k, 2: v
+    const int c = i % HD;
+    float s = 0.f;
+    for (int w = 0; w < warps; ++w) s += Col[(part * warps + w) * HD + c];
+    bpart[(size_t)n * 3 * D + part * D + h * HD + c] = s;
+  }
+}
+
 // grid (H, N); block mhsa_bwd_warps<HD>() * 32 threads. qkv [N*S, 3D] and
 // dout (do) [N*S, D] bf16 -> dqkv [N*S, 3D] bf16; bpart [N, 3D] fp32 column
 // sums of this unit's fp32 dq, dk, dv, unless null. Token r of unit n is row
@@ -110,109 +263,43 @@ __global__ void __launch_bounds__(mhsa_bwd_warps<HD>() * 32)
   const int warp = tid >> 5;
   const int lane = tid & 31;
   const size_t row3 = 3 * (size_t)D;
-  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
   const UnitRows<Rows> row_of = unit_rows(rows, n, S, Rt, tid, warps * 32);
 
-  // stage q, k, v and do of this (sample, head); rows S..sp-1 are zero
-  constexpr int vecs = HD / 8;
-  for (int i = tid; i < 4 * sp * vecs; i += warps * 32) {
-    const int mat = i / (sp * vecs);
-    const int rem = i % (sp * vecs);
-    const int r = rem / vecs;
-    const int c = (rem % vecs) * 8;
-    uint4 v = zero;
-    if (r < S) {
-      const size_t g = row_of(r);
-      const bf16* src = mat < 3 ? qkv + g * row3 + mat * D + h * HD + c
-                                : dout + g * D + h * HD + c;
-      v = *reinterpret_cast<const uint4*>(src);
-    }
-    *reinterpret_cast<uint4*>(Qs + (size_t)mat * sp * ld + r * ld + c) = v;
-  }
+  mhsa_bwd_stage<HD>(qkv, dout, Qs, S, sp, D, h, row_of, tid, warps * 32);
   __syncthreads();
 
   float* S_w = Wbuf + warp * 2 * 16 * lds;
   float* DP_w = S_w + 16 * lds;
   bf16* P_w = reinterpret_cast<bf16*>(S_w);
-  const float neg_inf = __int_as_float(0xff800000);
   float col_q[cl];
 #pragma unroll
   for (int j = 0; j < cl; ++j) col_q[j] = 0.f;
 
   // ---- phase A: query tiles -> row statistics, dov, dq ----
   for (int qt = warp; qt < tiles; qt += warps) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> qa[kf],
-        da[kf];
-#pragma unroll
-    for (int kk = 0; kk < kf; ++kk) {
-      wmma::load_matrix_sync(qa[kk], Qs + qt * 16 * ld + kk * 16, ld);
-      wmma::load_matrix_sync(da[kk], Ds + qt * 16 * ld + kk * 16, ld);
-    }
-    for (int kt = 0; kt < tiles; ++kt) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> sc, dc;
-      wmma::fill_fragment(sc, 0.f);
-      wmma::fill_fragment(dc, 0.f);
-#pragma unroll
-      for (int kk = 0; kk < kf; ++kk) {
-        // col_major B: element (k, j) = K[kt*16 + j][kk*16 + k]
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> kb,
-            vb;
-        wmma::load_matrix_sync(kb, Ks + kt * 16 * ld + kk * 16, ld);
-        wmma::load_matrix_sync(vb, Vs + kt * 16 * ld + kk * 16, ld);
-        wmma::mma_sync(sc, qa[kk], kb, sc);
-        wmma::mma_sync(dc, da[kk], vb, dc);
-      }
-      wmma::store_matrix_sync(S_w + kt * 16, sc, lds, wmma::mem_row_major);
-      wmma::store_matrix_sync(DP_w + kt * 16, dc, lds, wmma::mem_row_major);
-    }
-    __syncwarp();
-
+    mhsa_bwd_scores<HD>(Qs, Ks, Vs, Ds, qt, tiles, S_w, DP_w, lds);
     for (int r = 0; r < 16; ++r) {
       const int row = qt * 16 + r;
-      const float* srow = S_w + r * lds;
-      const float* dprow = DP_w + r * lds;
-      float p[kBwdKeysPerLane], t[kBwdKeysPerLane];
-      float m = neg_inf;
-#pragma unroll
-      for (int i = 0; i < kBwdKeysPerLane; ++i) {
-        const int j = lane + 32 * i;
-        p[i] = j < S ? srow[j] * scale : neg_inf;
-        m = fmaxf(m, p[i]);
-      }
-      m = warp_max(m);
-      float l = 0.f;
-#pragma unroll
-      for (int i = 0; i < kBwdKeysPerLane; ++i) {
-        const int j = lane + 32 * i;
-        p[i] = j < S ? expf(p[i] - m) : 0.f;
-        l += p[i];
-      }
-      const float invl = 1.0f / warp_sum(l);
-      float c = 0.f;
-#pragma unroll
-      for (int i = 0; i < kBwdKeysPerLane; ++i) {
-        const int j = lane + 32 * i;
-        t[i] = j < S ? p[i] * dprow[j] : 0.f;
-        c += t[i];
-      }
-      c = warp_sum(c) * invl;
+      const BwdRow b = mhsa_bwd_row(S_w + r * lds, DP_w + r * lds, S, scale,
+                                    lane);
       __syncwarp();  // every lane has read score row r before ds overwrites it
       bf16* dsrow = P_w + r * ldp;
 #pragma unroll
       for (int i = 0; i < kBwdKeysPerLane; ++i) {
         const int j = lane + 32 * i;
-        if (j < sp) dsrow[j] = __float2bfloat16((t[i] - p[i] * c) * invl);
+        if (j < sp)
+          dsrow[j] = __float2bfloat16((b.t[i] - b.p[i] * b.c) * b.invl);
       }
 #pragma unroll
       for (int j = 0; j < cl; ++j) {
         const int col = lane + 32 * j;
         DOVs[row * ld + col] = __float2bfloat16(
-            __bfloat162float(Ds[row * ld + col]) * invl);
+            __bfloat162float(Ds[row * ld + col]) * b.invl);
       }
       if (lane == 0) {
-        Mx[row] = m;
-        Il[row] = invl;
-        Cr[row] = c;
+        Mx[row] = b.m;
+        Il[row] = b.invl;
+        Cr[row] = b.c;
       }
     }
     __syncwarp();
@@ -332,24 +419,8 @@ __global__ void __launch_bounds__(mhsa_bwd_warps<HD>() * 32)
       wmma::store_matrix_sync(O2 + j * 16, dka[j], ldo, wmma::mem_row_major);
     }
     __syncwarp();
-    for (int r = 0; r < 16; ++r) {
-      const int row = kt * 16 + r;
-      if (row < S) {
-        bf16* dst_row = dqkv + row_of(row) * row3 + h * HD;
-#pragma unroll
-        for (int j = 0; j < cl; ++j) {
-          const int col = lane + 32 * j;
-          const float dv = O1[r * ldo + col];
-          const float dk = O2[r * ldo + col] * scale;
-          bf16* dst = dst_row + col;
-          dst[D] = __float2bfloat16(dk);
-          dst[2 * D] = __float2bfloat16(dv);
-          col_k[j] += dk;
-          col_v[j] += dv;
-        }
-      }
-    }
-    __syncwarp();
+    mhsa_bwd_store_kv<HD>(O1, O2, ldo, kt, S, dqkv, D, h, scale, row_of,
+                          lane, col_k, col_v);
   }
 #pragma unroll
   for (int j = 0; j < cl; ++j) {
@@ -357,14 +428,8 @@ __global__ void __launch_bounds__(mhsa_bwd_warps<HD>() * 32)
     Col[(2 * warps + warp) * HD + lane + 32 * j] = col_v[j];
   }
   __syncthreads();
-  if (bpart == nullptr) return;
-  for (int i = tid; i < 3 * HD; i += warps * 32) {
-    const int part = i / HD;  // 0: q, 1: k, 2: v
-    const int c = i % HD;
-    float s = 0.f;
-    for (int w = 0; w < warps; ++w) s += Col[(part * warps + w) * HD + c];
-    bpart[(size_t)n * row3 + part * D + h * HD + c] = s;
-  }
+  if (bpart != nullptr)
+    mhsa_bwd_bias_parts<HD>(Col, bpart, n, D, h, warps, tid);
 }
 
 // Largest S the kernel's shared memory takes at head dim HD: 240 at

@@ -80,6 +80,20 @@ _SIGNATURES = {
     # x, gamma, beta, w1, b1, w2, dy, dx, dgamma, dbeta, dw1, db1, dw2, db2,
     # ws, M, D, F, tm, fs, eps, stream
     "vlp_mlp_tile_bwd": ([_P] * 15 + [_I] * 5 + [_F, _P], _I),
+    # x, gamma, beta, wqkv, bqkv, wout, bout, qkv, o, y, N, S, D, H, scale,
+    # eps, mode, stream
+    "vlp_attn_sched": ([_P] * 10 + [_I] * 4 + [_F, _F, _I, _P], _I),
+    # qkv, o, N, S, D, H, scale, mode, stream
+    "vlp_attn_sched_core": ([_P] * 2 + [_I] * 4 + [_F, _I, _P], _I),
+    # N, S, D, H, mode -> bytes
+    "vlp_attn_sched_bwd_workspace": ([_I] * 5, _Z),
+    # x, gamma, beta, wqkv, bqkv, wout, dy, dx, dgamma, dbeta, dwqkv, dbqkv,
+    # dwout, dbout, ws, N, S, D, H, scale, eps, mode, stream
+    "vlp_attn_sched_bwd": ([_P] * 15 + [_I] * 4 + [_F, _F, _I, _P], _I),
+    # N, S, H, mode -> bytes
+    "vlp_attn_sched_bwd_core_workspace": ([_I] * 4, _Z),
+    # qkv, dout, o, dqkv, ws, N, S, D, H, scale, mode, stream
+    "vlp_attn_sched_bwd_core": ([_P] * 5 + [_I] * 4 + [_F, _I, _P], _I),
     "vlp_error_string": ([_I], ctypes.c_char_p),
 }
 

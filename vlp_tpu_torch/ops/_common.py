@@ -1,8 +1,8 @@
 """Helpers shared by the kernel modules (``fused_block``,
-``block_attention``, ``fused_mlp``): the exact-erf GELU of the Pallas
-bodies, products with an fp32 result, the casts the Pallas wrappers apply to
-their operands, the packed-head views, and the routing and checks of the
-CUDA wrappers (a CUDA tensor launches the kernel or raises; a CPU tensor
+``block_attention``, ``fused_mlp``, ``mlp_tile``, ``attn_sched``): the
+exact-erf GELU of the Pallas bodies, products with an fp32 result, the
+casts the Pallas wrappers apply to their operands, the packed-head views,
+and the routing and checks of the CUDA wrappers (a CUDA tensor launches the kernel or raises; a CPU tensor
 takes the plain version; any other device raises).
 """
 from __future__ import annotations
@@ -90,6 +90,18 @@ def _check_cuda(name: str, x: torch.Tensor, *tensors: torch.Tensor) -> None:
             raise ValueError(f"{name}: tensors on {t.device} and {x.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: operands must be contiguous")
+
+
+def _cuda_operands(name, x, mats, vecs):
+    """Checks and flattens the operands of a CUDA launch: bf16 contiguous
+    x and matrices on x's device, fp32 vectors."""
+    vecs = [v.reshape(-1).contiguous() for v in vecs]
+    _check_cuda(name, x, *mats, *vecs)
+    if any(m.dtype != torch.bfloat16 for m in mats) or any(
+            v.dtype != torch.float32 for v in vecs):
+        raise TypeError(f"{name}: the CUDA kernel takes bfloat16 weights and "
+                        "fp32 vectors")
+    return vecs
 
 
 def _route(name: str, x: torch.Tensor) -> bool:

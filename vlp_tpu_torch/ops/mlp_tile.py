@@ -45,7 +45,7 @@ from typing import Sequence
 import torch
 
 from vlp_tpu_torch.ops import _build
-from vlp_tpu_torch.ops._common import (_acc, _check_cuda, _mm, _route,
+from vlp_tpu_torch.ops._common import (_acc, _cuda_operands, _mm, _route,
                                        _stream, gelu_grad)
 from vlp_tpu_torch.ops._common import gelu as _gelu
 from vlp_tpu_torch.ops.fused_block import _EPS, _ln_bwd_dx, _ln_fwd
@@ -136,18 +136,6 @@ def _check_shapes(name, x, w1, w2, tm, fs, tiles, vectors=()):
         raise ValueError(f"{name}: the kernel takes D a multiple of 64 up to "
                          f"{MAX_D} and F a multiple of fs = {fs}; got D={d}, "
                          f"F={f}")
-
-
-def _cuda_operands(name, x, mats, vecs):
-    """Checks and flattens the operands of a CUDA launch: bf16 contiguous
-    x and matrices on x's device, fp32 vectors."""
-    vecs = [v.reshape(-1).contiguous() for v in vecs]
-    _check_cuda(name, x, *mats, *vecs)
-    if any(m.dtype != torch.bfloat16 for m in mats) or any(
-            v.dtype != torch.float32 for v in vecs):
-        raise TypeError(f"{name}: the CUDA kernel takes bfloat16 weights and "
-                        "fp32 vectors")
-    return vecs
 
 
 def mlp_tile(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
