@@ -41,10 +41,12 @@ Phases, each printing its lines before the last line:
    shape (N 32, S 197, 12 heads of 64) and NesT-Small's three levels at
    batch 64 (heads of 32), ``fused_mlp`` and its backward at NesT-Small's
    three levels, against their plain versions in bf16 and fp32, every
-   output and cotangent; then kernel and plain version timed as plain,
-   kernel, kernel, plain, and ``scaled_dot_product_attention`` (forward,
-   and its autograd backward) on the same q, k, v views as the yardstick
-   of #7 and #8 (the port never calls it).
+   output and cotangent; the backwards' reruns bit-equal, and #8's
+   recompute check (the p and ds that its phase B recomputes bit-equal to
+   phase A's); then kernel and plain version timed
+   as plain, kernel, kernel, plain, and ``scaled_dot_product_attention``
+   (forward, and its autograd backward) on the same q, k, v views as the
+   yardstick of #7 and #8 (the port never calls it).
 8. ViT-B/16 serving: ``Predictor`` for
    ``experiment=baseline_only_imaging_vit_base`` (batch 32) answers 32, 32
    and 19 images with 12 launches of ``attend_qkv`` per forward and none
@@ -779,7 +781,15 @@ def phase_unfused_kernels():
             tot["attend_qkv_bwd"])
         check(torch.equal(dqkv, BA.attend_qkv_bwd(qkv, do, heads)),
               f"attend_qkv_bwd {where}: reruns differ")
-        del out, dqkv
+        checked, mismatches = BA.attend_qkv_bwd_checked(qkv, do, heads)
+        check(torch.equal(checked, dqkv), f"attend_qkv_bwd {where}: the "
+              "checked run differs")
+        check(mismatches == 0, f"attend_qkv_bwd {where}: the recomputed p "
+              f"and ds differ from phase A's in {mismatches} elements")
+        print(f"kernel attend_qkv_bwd {where}: reruns bit-equal; the "
+              "recomputed p and ds bit-equal to phase A's")
+        del out, dqkv, checked
+        torch.cuda.empty_cache()
         # the library's yardstick on the same q, k, v views: SDPA forward,
         # and its autograd backward alone
         ql, kl, vl = qkv.detach().requires_grad_().view(

@@ -8,9 +8,12 @@ the values' scale, the JAX package's own kernel-vs-plain bound
 (tests/test_fused_block.py); bf16 cases allow 2^-5 (two bf16 ulps at
 values below 4): both sides round at the same points and differ only in
 the order of the fp32 sums, which can flip a rounding. Head dims 32 and
-64, S of 17, NesT's 196 and ViT's 197; N 1 and 2 give the Pallas grid one
-and two samples per program.
+64, S of 1, 16, 17, NesT's 196 and ViT's 197; N 1 and 2 give the Pallas
+grid one and two samples per program.
 """
+import importlib.util
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -38,6 +41,8 @@ def _jax_attend(qkv, heads, do):
     (1, 196, 64, 1, "fp32"),     # Dh 64 at S 196
     (2, 197, 128, 2, "bf16"),
     (1, 17, 96, 3, "bf16"),
+    (1, 1, 128, 2, "fp32"),      # S 1: one key, the CUDA kernels' edge
+    (2, 16, 128, 4, "bf16"),     # S 16: one 16-key tile, Dh 32
 ])
 def test_attend_plain_matches_jax_kernel(n, s, d, heads, dtype):
     rng = np.random.default_rng(n * 1000 + s + d)
@@ -96,3 +101,28 @@ def test_unsupported_device_raises_instead_of_falling_back():
         BA.attend_qkv(qkv, 1)
     with pytest.raises(ValueError, match="no kernel or plain version"):
         BA.attend_qkv_bwd(qkv, torch.zeros(2, 16, 32, device="meta"), 1)
+
+
+def test_phase_check_is_a_cuda_kernel_check():
+    """The backward kernel's phase-B check has no plain version: a CPU
+    tensor raises instead of returning the plain backward."""
+    qkv = torch.zeros(2, 16, 96)
+    with pytest.raises(ValueError, match="checks the CUDA kernel"):
+        BA.attend_qkv_bwd_checked(qkv, torch.zeros(2, 16, 32), 1)
+
+
+def test_ab_script_swaps_only_the_library_and_needs_a_card(monkeypatch):
+    """``scripts/ab_attention.py`` serves the parent's library to this
+    tree's wrappers (with this tree's error check) and, like the probes,
+    exits with code 2 where there is no CUDA device."""
+    path = Path(__file__).resolve().parents[1] / "scripts" / "ab_attention.py"
+    spec = importlib.util.spec_from_file_location("ab_attention", path)
+    ab = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ab)
+    lib = object()
+    shim = ab._Library(lib)
+    assert shim.load_library() is lib and shim.check is ab._build.check
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit) as exc:
+        ab.main(["--parent", str(path.parent)])
+    assert exc.value.code == 2

@@ -48,8 +48,10 @@ def _rand(gen, *shape, scale=1.0):
 
 
 def _rel_err(out, ref):
+    """max |out - ref| over max |ref|; where ref is all zeros (dq and dk at
+    S = 1, a softmax over one key), any nonzero out is an infinite error."""
     return ((out.float() - ref.float()).abs().max()
-            / ref.float().abs().max()).item()
+            / ref.float().abs().max().clamp_min(torch.finfo().tiny)).item()
 
 
 @pytest.mark.parametrize("n,s,d,heads", [(3, 196, 64, 2), (5, 17, 32, 1),
@@ -251,33 +253,65 @@ def test_backward_and_augmentation_kernels_raise_on_cuda(cuda):
                               torch.zeros(2, device=cuda))
 
 
-@pytest.mark.parametrize("n,s,d,heads", [(2, 197, 768, 12), (3, 196, 96, 3),
-                                         (5, 17, 128, 2), (2, 256, 64, 1),
-                                         (2, 224, 128, 2), (2, 240, 64, 2)])
+@pytest.mark.parametrize("n,s,d,heads", [
+    (2, 197, 768, 12), (3, 196, 96, 3), (5, 17, 128, 2), (2, 256, 64, 1),
+    (2, 224, 128, 2), (2, 240, 64, 2),
+    # the register-resident kernels' edges: S 1 and one 16-key tile, no
+    # ragged tile (S 208), 16 tiles at head dim 32, ViT-L/16's width
+    (3, 1, 64, 1), (3, 1, 96, 3), (2, 16, 128, 2), (2, 16, 64, 2),
+    (2, 208, 128, 2), (2, 256, 128, 4), (2, 197, 1024, 16)])
 def test_attend_qkv_kernels_match_plain(cuda, n, s, d, heads):
     """Forward and backward of the packed-qkv attention (#7, #8) at head
-    dims 64 and 32, ragged S and the largest S each takes; reruns of the
-    backward are bit-identical."""
+    dims 64 and 32, ragged S and the largest S (256) both take, with one
+    query row scaled x8 so that the max subtraction matters; reruns of the
+    backward are bit-identical, and the p and ds that its phase B
+    recomputes are phase A's bit for bit."""
     gen = torch.Generator(device=cuda).manual_seed(n * s + d + 2)
     # 3x a unit scale: peaked softmax rows
-    qkv = _rand(gen, n, s, 3 * d, scale=3.0).bfloat16()
+    qkv = _rand(gen, n, s, 3 * d, scale=3.0)
+    qkv[:, s // 2, :d] *= 8.0
+    qkv = qkv.bfloat16()
     do = _rand(gen, n, s, d).bfloat16()
     before = BA.attend_qkv.launches
     out = BA.attend_qkv(qkv, heads)
     torch.cuda.synchronize()
     assert BA.attend_qkv.launches == before + 1
+    assert torch.isfinite(out.float()).all()
     assert _rel_err(out, BA.attend_qkv_plain(qkv, heads)) <= BOUND
-    if s > BA.MAX_SEQ_BWD[d // heads]:
-        return
     before = BA.attend_qkv_bwd.launches
     dqkv = BA.attend_qkv_bwd(qkv, do, heads)
     torch.cuda.synchronize()
     assert BA.attend_qkv_bwd.launches == before + 1
+    assert torch.isfinite(dqkv.float()).all()
     ref = BA.attend_qkv_bwd_plain(qkv, do, heads)
     for part in range(3):  # dq, dk, dv each against its own largest value
         sl = slice(part * d, (part + 1) * d)
         assert _rel_err(dqkv[..., sl], ref[..., sl]) <= BOUND
     assert torch.equal(dqkv, BA.attend_qkv_bwd(qkv, do, heads))
+    checked, mismatches = BA.attend_qkv_bwd_checked(qkv, do, heads)
+    assert mismatches == 0
+    assert torch.equal(checked, dqkv)
+
+
+@pytest.mark.parametrize("s,d,heads", [(197, 768, 12), (196, 96, 3),
+                                       (17, 128, 2), (256, 64, 1)])
+def test_attend_qkv_kernels_keep_units_apart(cuda, s, d, heads):
+    """o and dqkv of the first units do not change when more units (other
+    samples) join the launch: nothing leaks between the units and heads
+    that share a block or an SM."""
+    gen = torch.Generator(device=cuda).manual_seed(s + d)
+    qkv = _rand(gen, 7, s, 3 * d, scale=3.0).bfloat16()
+    do = _rand(gen, 7, s, d).bfloat16()
+    o_small = BA.attend_qkv(qkv[:2].contiguous(), heads)
+    dqkv_small = BA.attend_qkv_bwd(qkv[:2].contiguous(), do[:2].contiguous(),
+                                   heads)
+    o_all = BA.attend_qkv(qkv, heads)
+    dqkv_all = BA.attend_qkv_bwd(qkv, do, heads)
+    assert torch.equal(o_all[:2], o_small)
+    assert torch.equal(dqkv_all[:2], dqkv_small)
+    assert torch.equal(o_all[5:], BA.attend_qkv(qkv[5:].contiguous(), heads))
+    assert torch.equal(dqkv_all[5:], BA.attend_qkv_bwd(
+        qkv[5:].contiguous(), do[5:].contiguous(), heads))
 
 
 @pytest.mark.parametrize("m,d,f", [(1568, 96, 384), (100, 64, 256),
@@ -337,10 +371,10 @@ def test_unfused_autograd_runs_the_kernels_and_raises_on_what_they_refuse(
     with pytest.raises(ValueError, match="S <= 256"):
         BA.attend_qkv(torch.zeros(2, 257, 3 * 64, device=cuda,
                                   dtype=torch.bfloat16), 1)
-    with pytest.raises(ValueError, match="S <= 224"):
-        BA.attend_qkv_bwd(torch.zeros(2, 240, 3 * 64, device=cuda,
+    with pytest.raises(ValueError, match="S <= 256"):
+        BA.attend_qkv_bwd(torch.zeros(2, 257, 3 * 64, device=cuda,
                                       dtype=torch.bfloat16),
-                          torch.zeros(2, 240, 64, device=cuda,
+                          torch.zeros(2, 257, 64, device=cuda,
                                       dtype=torch.bfloat16), 1)
     with pytest.raises(TypeError, match="bfloat16"):
         BA.attend_qkv(torch.zeros(2, 16, 3 * 64, device=cuda), 1)

@@ -8,18 +8,19 @@
 // model.megakernel=false: S = 196, Dh = 32).
 //
 // The TPU kernel keeps a group of samples' [S, S] scores in VMEM, one head
-// after another. Here the kernel is the attention core of the half-block
-// forward (mhsa.cuh: one block per (sample, head), scores and P in shared
-// memory, never in device memory), launched on its own and templated on the
-// head dim; its rounding points are block_attention.py:75-85's.
+// after another. Here one block per (sample, head) runs the register-resident
+// core of mhsa_reg.cuh: each warp's 16 score rows stay in registers from the
+// QK^T product through the softmax into the A fragments of PV, and shared
+// memory holds only k and v; its rounding points are
+// block_attention.py:75-85's.
 //
 // What bounds it on this card: 4 * N * S^2 * D FLOPs over 4 * N * S * D
 // bf16 bytes read and written once (ViT-B at batch 32: 3.8 GFLOP, 38.7 MB),
 // S / 2 FLOP per byte, below the bf16 ridge (~295 FLOP/byte): device memory
-// bounds the ideal kernel (11.6 us at 3.35 TB/s for ViT-B). This simple
-// form is latency-bound (mhsa.cuh); at Dh = 64 its 144 KB of shared memory
-// leave one block per SM.
-#include "mhsa.cuh"
+// bounds the ideal kernel (11.6 us at 3.35 TB/s for ViT-B). This one is
+// bound by the warps an SM holds (the score rows' registers: three blocks
+// of 4 warps) and the exp of every score (mhsa_reg.cuh).
+#include "mhsa_reg.cuh"
 
 // qkv [N, S, 3D] and o [N, S, D] bf16 row-major; H heads of D / H in
 // {32, 64}; S <= 256. Returns the launch's cudaError_t.
@@ -32,11 +33,11 @@ extern "C" int vlp_attend_qkv(const void* qkv, void* o, int N, int S, int D,
   if (H <= 0 || D % H) return (int)cudaErrorInvalidValue;
   switch (D / H) {
     case 32:
-      return (int)vlp::launch_mhsa<32>(in, out, N, S, D, H, scale,
-                                       vlp::IdentityRows{S}, st);
+      return (int)vlp::launch_mhsa_reg<32>(in, out, N, S, D, H, scale,
+                                           vlp::IdentityRows{S}, st);
     case 64:
-      return (int)vlp::launch_mhsa<64>(in, out, N, S, D, H, scale,
-                                       vlp::IdentityRows{S}, st);
+      return (int)vlp::launch_mhsa_reg<64>(in, out, N, S, D, H, scale,
+                                           vlp::IdentityRows{S}, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

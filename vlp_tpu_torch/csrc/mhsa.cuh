@@ -1,5 +1,7 @@
-// The attention core shared by ln_attention.cu (half-block kernel #1) and
-// block_attention.cu (the standalone packed-qkv attention, kernel #7):
+// The attention core of the half-block kernels ln_attention.cu (#1) and
+// ln_attention_windows.cu (#5), and of the probe #15 (attn_sched.cuh); the
+// standalone packed-qkv attention #7 runs the register-resident core of
+// mhsa_reg.cuh instead:
 //
 //   o = bf16((bf16(p) @ v) / l) per (sample, head), with s = (q @ k^T) *
 //   scale in fp32, p = exp(s - rowmax(s)), l = sum(p)
@@ -16,10 +18,10 @@
 // 16-query tiles: the 16 x S fp32 score rows with wmma, the softmax from
 // shared memory, P (bf16, unnormalised) written over its own score row, and
 // P @ V with wmma. These steps are device functions that the probe #15's
-// schedules (attn_sched.cuh) order otherwise. HD (the head dim, 32 or 64) is a template parameter.
-// Shared memory: 3 * sp * (HD + 8) bf16 plus 4 warps' fp32 score rows:
-// 102 KB at S = 196, HD = 32 (two blocks per SM), 144 KB at S = 197,
-// HD = 64 (one block per SM); a window map adds its row table (S ints).
+// schedules (attn_sched.cuh) order otherwise. HD (the head dim) is a
+// template parameter; its users run HD = 32. Shared memory: 3 * sp *
+// (HD + 8) bf16 plus 4 warps' fp32 score rows: 102 KB at S = 196, HD = 32
+// (two blocks per SM); a window map adds its row table (S ints).
 // S <= 256 (8 keys per lane).
 //
 // What bounds it on this card: 4 * S^2 * HD FLOPs per (sample, head) on

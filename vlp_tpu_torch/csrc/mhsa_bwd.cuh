@@ -1,6 +1,8 @@
-// The attention-core backward shared by ln_attention_bwd.cu (half-block
-// kernel #3) and block_attention_bwd.cu (the standalone packed-qkv
-// attention backward, kernel #8): from qkv [N, S, 3D] and do [N, S, D] bf16
+// The attention-core backward of the half-block backwards
+// ln_attention_bwd.cu (#3) and ln_attention_windows_bwd.cu (#6) and of the
+// probe #16 (attn_sched_bwd.cu); the standalone packed-qkv attention
+// backward #8 runs the register-resident core of mhsa_reg_bwd.cuh instead.
+// From qkv [N, S, 3D] and do [N, S, D] bf16
 // to dqkv = bf16([dq | dk | dv]) [N, S, 3D], the body of
 // vlp_tpu/ops/block_attention.py:109-144 (and fused_block.py's
 // _attn_block_bwd_rows_unified). Optionally per-sample fp32 column sums of
@@ -27,13 +29,9 @@
 //
 // Shared memory: 5 staged matrices of sp x (HD + 8) bf16, and per warp an
 // fp32 score and a dp row block of 16 x lds (a window map adds its row
-// table, S ints: 221 KB at S = 240). At HD = 32 four warps take
-// 196 KB at S = 196 (S <= 240). At HD = 64 the staged rows alone are 150 KB
-// at S = 197 and four warps' rows another 108 KB, 264 KB against the
-// 232,448 bytes a block may have; the kernel then runs two warps (207 KB,
-// S <= 224). Fewer warps keep one launch, the rounding points and the
-// summation order of the HD = 32 form, at the price of half the warps per
-// SM: the kernel is latency-bound at either width.
+// table, S ints: 221 KB at S = 240). Its users run HD = 32, where four
+// warps take 196 KB at S = 196 (S <= 240); at HD = 64 the staged rows and
+// four warps' rows would not fit the 232,448 bytes a block may have.
 //
 // What bounds it on this card: 8 * S^2 * HD FLOPs (plus the phase-B
 // recompute, another 4 * S^2 * HD) per (sample, head) on 14 * S * HD bytes
@@ -50,10 +48,9 @@ namespace vlp {
 
 constexpr int kBwdKeysPerLane = 256 / 32;
 
-// Warps per block of the backward core: 4 at HD = 32, 2 at HD = 64 (the
-// shared-memory budget above).
+// Warps per block of the backward core.
 template <int HD>
-__host__ __device__ constexpr int mhsa_bwd_warps() { return HD == 32 ? 4 : 2; }
+__host__ __device__ constexpr int mhsa_bwd_warps() { return 4; }
 
 // fp32 pitch of a warp's score and dp rows; at least HD + 36 so that phase
 // B's scratch (two 16 x 20 fp32 tiles, two 16 x 24 bf16 tiles and two
@@ -433,7 +430,7 @@ __global__ void __launch_bounds__(mhsa_bwd_warps<HD>() * 32)
 }
 
 // Largest S the kernel's shared memory takes at head dim HD: 240 at
-// HD = 32, 224 at HD = 64 (a row table changes neither).
+// HD = 32 (a row table does not change it).
 template <int HD, class Rows>
 inline int mhsa_bwd_max_seq() {
   int s = 16;

@@ -56,6 +56,8 @@ _SIGNATURES = {
     "vlp_attend_qkv": ([_P] * 2 + [_I] * 4 + [_F, _P], _I),
     # qkv, dout, dqkv, N, S, D, H, scale, stream
     "vlp_attend_qkv_bwd": ([_P] * 3 + [_I] * 4 + [_F, _P], _I),
+    # qkv, dout, dqkv, check, bad, N, S, D, H, scale, stream
+    "vlp_attend_qkv_bwd_checked": ([_P] * 5 + [_I] * 4 + [_F, _P], _I),
     # x, w1, b1, w2, b2, h, y, M, D, F, stream
     "vlp_fused_mlp": ([_P] * 7 + [_I] * 3 + [_P], _I),
     # M, D, F -> bytes

@@ -9,13 +9,14 @@ The kernel of the reference's unfused block path (``FusedSelfAttention``
 in ``models/vit.py``): ViT-B/16 and ViT-L/16 (S = 197, Dh = 64), NesT with
 ``megakernel=False`` (S = 196, Dh = 32). A CUDA tensor runs
 ``csrc/block_attention.cu`` (forward) and ``csrc/block_attention_bwd.cu``
-(backward), built at first use, or raises; a CPU tensor runs the plain
-versions (``attend_qkv_plain``, ``attend_qkv_bwd_plain``), which are also
-the reference the kernels are held to. Both round where the Pallas bodies
-do: scores in fp32, p = exp(s - max) unnormalised and cast to the
-activation dtype for the PV product, the normalisation deferred past it;
-backward bf16(p), bf16(do / l), bf16(ds), dq and dk scaled in fp32, one
-cast of dqkv.
+(backward), the register-resident cores ``csrc/mhsa_reg.cuh`` and
+``csrc/mhsa_reg_bwd.cuh`` (head dim 32 or 64, S <= 256), built at first
+use, or raises; a CPU tensor runs the plain versions (``attend_qkv_plain``,
+``attend_qkv_bwd_plain``), which are also the reference the kernels are
+held to. Both round where the Pallas bodies do: scores in fp32, p =
+exp(s - max) unnormalised and cast to the activation dtype for the PV
+product, the normalisation deferred past it; backward bf16(p),
+bf16(do / l), bf16(ds), dq and dk scaled in fp32, one cast of dqkv.
 
 Under autograd ``attend_qkv`` runs as a ``torch.autograd.Function`` whose
 backward is the backward kernel (CUDA) or the plain backward (CPU). Each
@@ -30,9 +31,7 @@ from vlp_tpu_torch.ops._common import (_check_cuda, _heads, _merge, _mm,
                                        _records_grad, _route, _stream)
 
 HEAD_DIMS = (32, 64)
-MAX_SEQ = 256
-# the backward kernel's shared memory (csrc/mhsa_bwd.cuh) per head dim
-MAX_SEQ_BWD = {32: 240, 64: 224}
+MAX_SEQ = 256  # both kernels: 16 key tiles of scores in registers
 
 
 def _scale(qkv: torch.Tensor, num_heads: int) -> float:
@@ -112,6 +111,30 @@ def _attend_cuda(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
     return o
 
 
+def _attend_bwd_cuda(qkv: torch.Tensor, do: torch.Tensor, num_heads: int,
+                     check: torch.Tensor = None,
+                     bad: torch.Tensor = None) -> torch.Tensor:
+    do = do.contiguous()
+    n, s, d3 = qkv.shape
+    _check("attend_qkv_bwd", qkv, num_heads, MAX_SEQ, do)
+    if do.shape != (n, s, d3 // 3) or do.dtype != qkv.dtype:
+        raise ValueError(f"attend_qkv_bwd: do {do.dtype}{tuple(do.shape)} "
+                         f"does not match qkv {qkv.dtype}{tuple(qkv.shape)}")
+    lib = _build.load_library()
+    dqkv = torch.empty_like(qkv)
+    ptrs = [qkv.data_ptr(), do.data_ptr(), dqkv.data_ptr()]
+    launch = lib.vlp_attend_qkv_bwd
+    if check is not None:
+        ptrs += [check.data_ptr(), bad.data_ptr()]
+        launch = lib.vlp_attend_qkv_bwd_checked
+    with torch.cuda.device(qkv.device):
+        err = launch(*ptrs, n, s, d3 // 3, num_heads, _scale(qkv, num_heads),
+                     _stream())
+    _build.check(lib, err, "attend_qkv_bwd")
+    attend_qkv_bwd.launches += 1
+    return dqkv
+
+
 def attend_qkv_bwd(qkv: torch.Tensor, do: torch.Tensor,
                    num_heads: int) -> torch.Tensor:
     """Backward of ``attend_qkv``: the packed dqkv [N, S, 3D]. A CUDA tensor
@@ -119,23 +142,27 @@ def attend_qkv_bwd(qkv: torch.Tensor, do: torch.Tensor,
     ``attend_qkv_bwd_plain``."""
     if not _route("attend_qkv_bwd", qkv):
         return attend_qkv_bwd_plain(qkv, do, num_heads)
-    do = do.contiguous()
+    return _attend_bwd_cuda(qkv, do, num_heads)
+
+
+def attend_qkv_bwd_checked(qkv: torch.Tensor, do: torch.Tensor,
+                           num_heads: int):
+    """(dqkv, mismatches): the backward kernel with its recompute check
+    (``csrc/mhsa_reg_bwd.cuh``). Phase A writes its fp32 p and ds to a
+    scratch buffer, and ``mismatches`` counts the elements of the p and ds
+    that phase B recomputes which differ from them in any bit: 0 when
+    phase B sees phase A's p. CUDA tensors only (the plain version has no
+    phases)."""
+    if qkv.device.type != "cuda":
+        raise ValueError("attend_qkv_bwd_checked: checks the CUDA kernel; "
+                         f"got a tensor on {qkv.device}")
     n, s, d3 = qkv.shape
-    dh = d3 // 3 // num_heads
-    _check("attend_qkv_bwd", qkv, num_heads, MAX_SEQ_BWD.get(dh, 0), do)
-    if do.shape != (n, s, d3 // 3) or do.dtype != qkv.dtype:
-        raise ValueError(f"attend_qkv_bwd: do {do.dtype}{tuple(do.shape)} "
-                         f"does not match qkv {qkv.dtype}{tuple(qkv.shape)}")
-    lib = _build.load_library()
-    dqkv = torch.empty_like(qkv)
-    with torch.cuda.device(qkv.device):
-        err = lib.vlp_attend_qkv_bwd(qkv.data_ptr(), do.data_ptr(),
-                                     dqkv.data_ptr(), n, s, d3 // 3,
-                                     num_heads, _scale(qkv, num_heads),
-                                     _stream())
-    _build.check(lib, err, "attend_qkv_bwd")
-    attend_qkv_bwd.launches += 1
-    return dqkv
+    sp = -(-s // 16) * 16
+    check = torch.empty(n * num_heads * 2 * sp * sp, dtype=torch.float32,
+                        device=qkv.device)
+    bad = torch.zeros(1, dtype=torch.int32, device=qkv.device)
+    dqkv = _attend_bwd_cuda(qkv, do, num_heads, check, bad)
+    return dqkv, int(bad.item())
 
 
 # -- autograd ---------------------------------------------------------------
