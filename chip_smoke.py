@@ -6,7 +6,12 @@ Phases, each printing its lines before the last line:
 
 1. device: torch/CUDA versions and the card's name and power limit
    (``nvidia-smi``); exits nonzero when no CUDA device is present.
-2. build: compiles ``vlp_tpu_torch/csrc`` with nvcc (sm_90a) and loads it.
+2. build: compiles ``vlp_tpu_torch/csrc`` with nvcc (sm_90a) and loads it;
+   then checks that the kernels on the wgmma + TMA mainloop
+   (``csrc/wgmma_gemm.cuh``: #19b, and #17 at both tile widths) reach
+   Hopper's units: ``cuobjdump --dump-sass`` of the library shows HGMMA and
+   UTMALDG in each, and the build's ``-Xptxas -v`` report shows 0 spill
+   bytes for each and no serialized wgmma.
 3. kernels: ``ln_attention`` and ``ln_mlp`` against their plain PyTorch
    versions at the shapes serving gives them, NesT-Small's three levels at
    batch 64 (bf16 inputs from a seeded CUDA generator), against the plain
@@ -82,11 +87,12 @@ Phases, each printing its lines before the last line:
    ([128, 28, 28, 128], [128, 14, 14, 256]) and ``bn_relu_gemm`` (#18) at
    ResNet50's boundary shapes, and both at an odd batch with ragged tiles,
    against their plain versions in bf16 and in fp32 (TF32 off for cuDNN and
-   cuBLAS), the map's edge pixels on their own; then the probe entry points
-   (``vlp_tpu_torch.probes.conv_probe.run``, ``bn_gemm_probe.run``) at
-   batch 128: kernel, plain version and ``F.conv2d`` or the two-op PyTorch
-   version in turns, and the stem max pool's first-max against its
-   equality-split backward.
+   cuBLAS), the map's edge pixels on their own, #17's reruns bit-equal;
+   then the probe entry points (``vlp_tpu_torch.probes.conv_probe.run``,
+   ``bn_gemm_probe.run``) at batch 128: kernel, plain version and
+   ``F.conv2d`` or the two-op PyTorch version in turns, #17 and cuDNN also
+   as device time alone (calls queued behind a spin kernel), and the stem
+   max pool's first-max against its equality-split backward.
 15. ResNet34 serving: ``Predictor`` for
    ``experiment=baseline_only_imaging_resnet34`` (batch 64, BatchNorm in
    eval mode) answers 64, 64 and 37 images with no kernel launch; logits
@@ -105,15 +111,17 @@ Phases, each printing its lines before the last line:
    phases 15 and 16.
 18. MLP probe kernels: ``mlp_tile`` (#13, and its no-GELU and no-LN
    ablations), ``mlp_tile_bwd`` (#14, every cotangent, reruns
-   bit-identical), ``mlp_chain`` (#19a, each stage set) and ``mlp_single``
-   (#19b) at every (TM, FS) instance, at NesT-Small level 3's width (D 384,
-   F 1536) on the rows of batch 16 and on a ragged M (last tile partial),
-   against their plain versions in bf16 and in fp32 (TF32 off); then the
-   probe entry points (``vlp_tpu_torch.probes.mega_probe.run``,
-   ``mlp_probe.run``) at batch 128: each instance, the shipped #2/#4, the
-   plain versions, ``torch.matmul`` and the two-matmul chain in turns,
-   each instance's error against the plain bf16 version held to the same
-   bound as at the smaller shapes.
+   bit-identical) and ``mlp_chain`` (#19a, each stage set) at every (TM,
+   FS) instance, and ``mlp_single`` (#19b, the wgmma + TMA kernel, reruns
+   bit-identical), at NesT-Small level 3's width (D 384, F 1536) on the
+   rows of batch 16 and on a ragged M (last tile partial), against their
+   plain versions in bf16 and in fp32 (TF32 off); then the probe entry
+   points (``vlp_tpu_torch.probes.mega_probe.run``, ``mlp_probe.run``) at
+   batch 128: each instance, the shipped #2/#4, the plain versions,
+   ``torch.matmul`` and the two-matmul chain in turns, #19b and
+   ``torch.matmul`` also as device time alone, each instance's error
+   against the plain bf16 version held to the same bound as at the
+   smaller shapes.
 19. attention probe kernels: ``attn_sched`` (#15) in every mode (v0, the
    nosm bound against its own plain version, pipe, pipe2, stage), its core
    alone, ``attn_sched_bwd`` (#16, every cotangent) and its core in every
@@ -146,8 +154,9 @@ the calls must move, each input read and each output written once, over
 3.35 TB/s, and their operations over 989 TFLOP/s bf16, or 67 TFLOP/s fp32
 for shear and noise; ``bound_by`` says which), and ``library_ms`` (SDPA
 for #7 and #8, ``F.conv2d`` for #17, ``torch.matmul`` for #19b, null
-where no single PyTorch call computes the function). Last ``{"ok": true, "device": {...}}``. Any failed
-check raises.
+where no single PyTorch call computes the function); #17 and #19b add
+``device_ms`` and ``library_device_ms``, the same calls' device time
+alone. Last ``{"ok": true, "device": {...}}``. Any failed check raises.
 
 The launch counts of each path are set to 0 just before that path's run and
 read just after; the launches that compare a kernel with its plain version
@@ -162,6 +171,7 @@ import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -289,6 +299,9 @@ CONV_CHECKS = ((128, 28, 28, 128, 128), (128, 14, 14, 256, 256),
 GEMM_CHECKS = ((128 * 56 * 56, 256, 64), (128 * 28 * 28, 512, 128),
                (128 * 56 * 56, 64, 256), (3 * 7 * 9, 48, 80))
 PROBE_BATCH = 128
+# the device-time fields of the #17 and #19b records (calls queued behind a
+# spin kernel: no host time)
+DEVICE_KEYS = ("kernel_device_ms", "library_device_ms")
 # MLP probe kernels: the checks' row counts (batch 16 at level 3, and a
 # ragged M whose last tile is partial at TM 32 and 64) at level 3's width
 MLP_CHECK_ROWS = (16 * SEQ, 1037)
@@ -363,6 +376,83 @@ def phase_build() -> None:
     _build.load_library()
     print(f"build: {time.perf_counter() - t0:.1f} s "
           f"({_build.library_path().name})")
+    _check_hopper_units()
+
+
+# the kernels on the wgmma + TMA mainloop (csrc/wgmma_gemm.cuh): #19b, and
+# #17 at 128 and 256 output channels a block
+WGMMA_KERNEL = "wgmma_gemm_kernel"
+WGMMA_INSTANCES = 3
+
+
+def _ptxas_report(log: str):
+    """{kernel: (registers, spill store bytes, spill load bytes)} and the
+    ptxas lines that name a serialized wgmma, from the build's
+    ``-Xptxas -v`` log."""
+    regs, spills, serial = {}, {}, []
+    current = props = None
+    for line in log.splitlines():
+        if "Compiling entry function '" in line:
+            current = line.split("'")[1]
+        elif "Function properties for " in line:
+            props = line.split("Function properties for ")[1].strip()
+        elif "bytes spill stores" in line and props is not None:
+            words = line.replace(",", "").split()
+            spills[props] = (int(words[words.index("spill") - 2]),
+                             int(words[-4]))
+            props = None
+        elif "Used " in line and " registers" in line and current:
+            regs[current] = int(line.split("Used ")[1].split()[0])
+        if "serialized" in line:
+            serial.append(line.strip())
+    return {k: (regs.get(k), *spills.get(k, (None, None))) for k in regs}, \
+        serial
+
+
+def _sass_functions(sass: str):
+    """{function name: its SASS text} from ``cuobjdump --dump-sass``."""
+    funcs, name, body = {}, None, []
+    for line in sass.splitlines():
+        if "Function : " in line:
+            if name is not None:
+                funcs[name] = "\n".join(body)
+            name, body = line.split("Function : ")[1].strip(), []
+        elif name is not None:
+            body.append(line)
+    if name is not None:
+        funcs[name] = "\n".join(body)
+    return funcs
+
+
+def _check_hopper_units() -> None:
+    """The wgmma + TMA kernels reach Hopper's units: their SASS holds HGMMA
+    (wgmma) and UTMALDG (TMA loads), ptxas reports 0 spill bytes for every
+    instance and serializes none of their wgmma."""
+    report, serial = _ptxas_report(_build.build_log().read_text())
+    mine = {k: v for k, v in report.items() if WGMMA_KERNEL in k}
+    for name, (nreg, st, ld) in sorted(mine.items()):
+        print(f"ptxas {name}: {nreg} registers, spill stores {st} bytes, "
+              f"spill loads {ld} bytes")
+    check(len(mine) == WGMMA_INSTANCES,
+          f"ptxas reported {len(mine)} {WGMMA_KERNEL} instances, expected "
+          f"{WGMMA_INSTANCES}")
+    check(all(st == 0 and ld == 0 for _, st, ld in mine.values()),
+          "a wgmma_gemm_kernel instance spills")
+    bad = [line for line in serial if WGMMA_KERNEL in line]
+    check(not bad, f"ptxas serializes wgmma: {bad}")
+    cuobjdump = str(Path(_build.find_nvcc()).parent / "cuobjdump")
+    sass = subprocess.run([cuobjdump, "--dump-sass",
+                           str(_build.library_path())], capture_output=True,
+                          text=True, check=True, timeout=600).stdout
+    funcs = {k: v for k, v in _sass_functions(sass).items()
+             if WGMMA_KERNEL in k}
+    check(len(funcs) == WGMMA_INSTANCES,
+          f"SASS holds {len(funcs)} {WGMMA_KERNEL} instances, expected "
+          f"{WGMMA_INSTANCES}")
+    for name, body in sorted(funcs.items()):
+        hgmma, utma = body.count("HGMMA"), body.count("UTMALDG")
+        print(f"sass {name}: {hgmma} HGMMA, {utma} UTMALDG")
+        check(hgmma > 0 and utma > 0, f"{name}: no HGMMA or no UTMALDG")
 
 
 def _inputs(gen, n, d):
@@ -1238,9 +1328,12 @@ def phase_probe_kernels(smi: str):
                        ("y",), BOUND_VS_PLAIN_BF16, BOUND_VS_PLAIN_FP32,
                        stats["conv3x3"])
         edge = _edge_err(y, ref, b, h, w)
+        again = torch.equal(CV.conv3x3(x, wt), y)
         print(f"kernel conv3x3 [{b}, {h}, {w}, {c}] -> {k}: edge pixels rel "
-              f"vs plain bf16 {edge:.6g} (bound {BOUND_VS_PLAIN_BF16:g})")
+              f"vs plain bf16 {edge:.6g} (bound {BOUND_VS_PLAIN_BF16:g}); "
+              f"rerun bit-equal {again}")
         check(edge <= BOUND_VS_PLAIN_BF16, "conv3x3 edge pixels")
+        check(again, f"conv3x3 [{b}, {h}, {w}, {c}] -> {k}: a rerun differs")
         del x, wt, y, ref
     for m, c, k in GEMM_CHECKS:
         x = torch.randn(m, c, generator=gen, device="cuda").bfloat16()
@@ -1279,13 +1372,18 @@ def phase_probe_kernels(smi: str):
         lib = rec["library_ms"]
         _add(st, 1, rec["kernel_ms"], rec["plain_ms"],
              (rec["flops"], rec["bytes"]), lib)
+        for key in DEVICE_KEYS:
+            if key in rec:
+                st[key] = st.get(key, 0.0) + rec[key]
         st.setdefault("per_shape", {})[rec["shape"]] = {
             k: rec[k] for k in ("kernel_ms", "plain_ms", "library_ms",
-                                "bound_ms", "bound_by") + (
-                ("two_op_ms",) if "two_op_ms" in rec else ())}
+                                *DEVICE_KEYS, "bound_ms", "bound_by",
+                                "two_op_ms") if k in rec}
         print(f"time {name} {rec['shape']} (batch {PROBE_BATCH}): kernel "
               f"{rec['kernel_ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
-              + (f"F.conv2d {lib:.4f} ms" if lib is not None else
+              + (f"F.conv2d {lib:.4f} ms; device alone kernel "
+                 f"{rec['kernel_device_ms']:.4f} ms, F.conv2d "
+                 f"{rec['library_device_ms']:.4f} ms" if lib is not None else
                  f"two-op torch {rec['two_op_ms']:.4f} ms")
               + f", bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}); "
               f"on {smi}")
@@ -1298,9 +1396,9 @@ MLP_BWD_NAMES = ("dx", "dgamma", "dbeta", "dw1", "db1", "dw2", "db2")
 def _mlp_probe_checks(gen, m, stats):
     """Every instance of #13 (and its ablations), #19a (each stage set),
     #19b and #14 at M rows of level 3's width against the plain versions in
-    bf16 and fp32; #14's reruns bit-identical. b1 and b2 are drawn at scale
-    1, so that a dropped or misindexed bias moves y by about as much as the
-    MLP branch does, far past the bounds."""
+    bf16 and fp32; #14's and #19b's reruns bit-identical. b1 and b2 are
+    drawn at scale 1, so that a dropped or misindexed bias moves y by about
+    as much as the MLP branch does, far past the bounds."""
     d, f = MLP_D, MLP_F
 
     def rand(*shape, scale=1.0):
@@ -1333,12 +1431,14 @@ def _mlp_probe_checks(gen, m, stats):
                                                w2.float(), stages),),
                            ("y",), BOUND_VS_PLAIN_BF16, BOUND_VS_PLAIN_FP32,
                            stats["mlp_chain"])
-        z = MT.mlp_single(x, w1, tm=tm, fs=fs)
-        torch.cuda.synchronize()
-        _check_outputs("mlp_single", at, (z,), (MT.mlp_single_plain(x, w1),),
-                       (MT.mlp_single_plain(x.float(), w1.float()),), ("z",),
-                       BOUND_VS_PLAIN_BF16, BOUND_VS_PLAIN_FP32,
-                       stats["mlp_single"])
+    z = MT.mlp_single(x, w1)
+    torch.cuda.synchronize()
+    _check_outputs("mlp_single", where, (z,), (MT.mlp_single_plain(x, w1),),
+                   (MT.mlp_single_plain(x.float(), w1.float()),), ("z",),
+                   BOUND_VS_PLAIN_BF16, BOUND_VS_PLAIN_FP32,
+                   stats["mlp_single"])
+    check(torch.equal(MT.mlp_single(x, w1), z),
+          f"mlp_single {where}: a rerun differs")
     refs = MT.mlp_tile_bwd_plain(x, *params[:5], dy)
     refs32 = MT.mlp_tile_bwd_plain(x.float(), *p32[:5], dy.float())
     for tm, fs in MT.BWD_TILES:
@@ -1360,8 +1460,9 @@ def _best(stat, records, is_call, yardsticks=()):
     stat.update(ms=best["kernel_ms"], plain_ms=best["plain_ms"],
                 flops=best["flops"], bytes=best["bytes"],
                 best=best["variant"])
-    if "library_ms" in best:
-        stat["library_ms"] = best["library_ms"]
+    for key in ("library_ms", *DEVICE_KEYS):
+        if key in best:
+            stat[key] = best[key]
     stat["per_shape"] = {
         r["variant"]: {k: r[k] for k in ("kernel_ms", "plain_ms", "bound_ms",
                                          "bound_by", *yardsticks) if k in r}
@@ -1431,12 +1532,14 @@ def phase_mlp_probe_kernels(smi: str):
     _best(stats["mlp_chain"], by_probe["mlp_chain"],
           lambda r: not r["stages"], ("two_matmuls_ms",))
     _best(stats["mlp_single"], by_probe["mlp_single"], lambda r: True,
-          ("library_ms",))
+          ("library_ms", *DEVICE_KEYS))
     for name in names:
         st = stats[name]
         print(f"time {name} fastest ({st['best']}): kernel {st['ms']:.4f} ms "
               f"per call, plain {st['plain_ms']:.4f} ms"
-              + (f", torch.matmul {st['library_ms']:.4f} ms"
+              + (f", torch.matmul {st['library_ms']:.4f} ms; device alone "
+                 f"kernel {st['kernel_device_ms']:.4f} ms, torch.matmul "
+                 f"{st['library_device_ms']:.4f} ms"
                  if st["library_ms"] is not None else ""))
     print(f"MLP probe phase: checks {t_checks:.1f} s, probes "
           f"{time.perf_counter() - t0 - t_checks:.1f} s")
@@ -1638,7 +1741,7 @@ def main() -> int:
                          mlp_probes),
         "mlp_chain": ("mlp_tile.cu", "benchmarks/mlp_probe.py:72",
                       mlp_probes),
-        "mlp_single": ("mlp_tile.cu", "benchmarks/mlp_probe.py:92",
+        "mlp_single": ("gemm_single.cu", "benchmarks/mlp_probe.py:92",
                        mlp_probes),
         "attn_sched": ("attn_sched.cu", "benchmarks/mega_variants.py:617",
                        attn_probes),
@@ -1668,6 +1771,9 @@ def main() -> int:
             entry["core_launches"] = path[f"{name}_core"]
         if "best" in stat:
             entry["fastest"] = stat["best"]
+        if "kernel_device_ms" in stat:  # #17 and #19b: device time alone
+            entry.update(device_ms=stat["kernel_device_ms"],
+                         library_device_ms=stat["library_device_ms"])
         other = {p: c[name] for p, c in paths.items()
                  if c is not path and name in c}
         if other:

@@ -57,7 +57,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from vlp_tpu_torch.config import EXPERIMENTS, TRAIN_EXPERIMENTS  # noqa: E402
 from vlp_tpu_torch.ops import _build  # noqa: E402
 from vlp_tpu_torch.ops import block_attention as BA  # noqa: E402
-from vlp_tpu_torch.probes._timing import require_cuda  # noqa: E402
+from vlp_tpu_torch.probes._timing import (  # noqa: E402
+    device_ms, require_cuda)
 from vlp_tpu_torch.serve import Predictor  # noqa: E402
 from vlp_tpu_torch.train.setup import build_training, random_batch  # noqa: E402
 from vlp_tpu_torch.train.step import train_steps  # noqa: E402
@@ -90,22 +91,6 @@ class _Library:
         return self.lib
 
     check = staticmethod(_build.check)
-
-
-def _device_ms(fn, calls=20):
-    """Device ms per call of ``calls`` back-to-back calls of ``fn``, queued
-    behind a spin kernel so that the card never waits for the host."""
-    fn()
-    torch.cuda.synchronize()
-    torch.cuda._sleep(50_000_000)  # ~25 ms: the host queues the calls
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(calls):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / calls
 
 
 def _host_ms(fn, reps):
@@ -172,12 +157,12 @@ def main(argv=None) -> int:
         out["launches"] = [BA.attend_qkv.launches - before[0],
                            BA.attend_qkv_bwd.launches - before[1]]
         for shape, (qkv, do, heads, qkv_views) in inputs.items():
-            out[f"{shape}_attend_ms"] = _device_ms(
+            out[f"{shape}_attend_ms"] = device_ms(
                 lambda: BA.attend_qkv(qkv, heads))
-            out[f"{shape}_attend_bwd_ms"] = _device_ms(
+            out[f"{shape}_attend_bwd_ms"] = device_ms(
                 lambda: BA.attend_qkv_bwd(qkv, do, heads))
             with torch.no_grad():
-                out[f"{shape}_sdpa_ms"] = _device_ms(
+                out[f"{shape}_sdpa_ms"] = device_ms(
                     lambda: F.scaled_dot_product_attention(*qkv_views))
         return out
 

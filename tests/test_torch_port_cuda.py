@@ -2,7 +2,8 @@
 block on a NesT token map and its backward, the packed-qkv attention and
 the fused MLP with their backwards, shear, noise, the ResNet probe
 kernels conv3x3 and bn_relu_gemm, the MLP probe kernels mlp_tile, its
-backward, mlp_chain and mlp_single, and the attention schedule probes
+backward, mlp_chain and mlp_single (the last and conv3x3 on the wgmma
+mainloop, reruns bit-equal), and the attention schedule probes
 attn_sched and its backward in every mode) against their plain PyTorch
 versions,
 on the card. Marked ``gpu``: without a CUDA
@@ -487,9 +488,13 @@ def test_ln_attention_windows_autograd_and_refusals(cuda):
 # conv3x3 and bn_relu_gemm round once, at the output, from fp32 sums taken
 # in another order than the plain version's: one bf16 step (2^-8 of the
 # largest output) plus the sums' difference; BOUND covers it.
+# The four edge shapes (C and K not multiples of the 64-wide slice and the
+# 128-wide tile, a one-pixel map, a one-pixel-high map) and the probe's two.
 @pytest.mark.parametrize("b,h,w,c,k", [(3, 7, 9, 48, 80), (1, 1, 1, 16, 16),
                                        (5, 4, 33, 16, 144),
-                                       (2, 28, 28, 128, 128)])
+                                       (2, 28, 28, 128, 128),
+                                       (128, 28, 28, 128, 128),
+                                       (128, 14, 14, 256, 256)])
 def test_conv3x3_kernel_matches_plain_at_the_edges(cuda, b, h, w, c, k):
     gen = torch.Generator(device=cuda).manual_seed(b * h * w + c)
     x = _rand(gen, b, h, w, c).bfloat16()
@@ -505,6 +510,7 @@ def test_conv3x3_kernel_matches_plain_at_the_edges(cuda, b, h, w, c, k):
     for edge in (y4[:, 0] - r4[:, 0], y4[:, -1] - r4[:, -1],
                  y4[:, :, 0] - r4[:, :, 0], y4[:, :, -1] - r4[:, :, -1]):
         assert edge.float().abs().max() <= BOUND * r4.float().abs().max()
+    assert torch.equal(CV.conv3x3(x, wt), y)
 
 
 @pytest.mark.parametrize("m,c,k", [(189, 48, 80), (1, 16, 16),
@@ -578,10 +584,25 @@ def test_mlp_tile_forward_kernels_match_plain(cuda, m, d, f):
             torch.cuda.synchronize()
             assert _rel_err(y, MT.mlp_chain_plain(x, w1, w2, stages)) \
                 <= BOUND, (tm, fs, stages)
-        z = MT.mlp_single(x, w1, tm=tm, fs=fs)
-        torch.cuda.synchronize()
-        assert z.shape == (m, f)
-        assert _rel_err(z, MT.mlp_single_plain(x, w1)) <= BOUND, (tm, fs)
+
+
+# The single product on the wgmma mainloop: M of one row, ragged and the
+# probe's 25088, and K and N that are not multiples of the 64-deep slice or
+# the 128-wide tile.
+@pytest.mark.parametrize("m,k,n", [(1, 384, 1536), (77, 384, 1536),
+                                   (1037, 384, 1536), (25088, 384, 1536),
+                                   (77, 200, 264), (1037, 8, 72)])
+def test_mlp_single_kernel_matches_plain_and_reruns_bit_equal(cuda, m, k, n):
+    gen = torch.Generator(device=cuda).manual_seed(m + k + n)
+    x = _rand(gen, m, k).bfloat16()
+    w1 = _rand(gen, k, n, scale=k ** -0.5).bfloat16()
+    before = MT.mlp_single.launches
+    z = MT.mlp_single(x, w1)
+    torch.cuda.synchronize()
+    assert MT.mlp_single.launches == before + 1
+    assert z.shape == (m, n) and torch.isfinite(z.float()).all()
+    assert _rel_err(z, MT.mlp_single_plain(x, w1)) <= BOUND
+    assert torch.equal(MT.mlp_single(x, w1), z)
 
 
 @pytest.mark.parametrize("m,d,f", [(3136, 384, 1536), (1037, 384, 1536),
@@ -622,6 +643,9 @@ def test_mlp_probe_kernels_raise_on_what_they_refuse(cuda):
         MT.mlp_chain(x, w1.t().contiguous().t(), w2)
     with pytest.raises(ValueError, match="tensors on"):
         MT.mlp_single(x, w1.cpu())
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        MT.mlp_single(torch.zeros(64 * 64 + 4, device=cuda,
+                                  dtype=torch.bfloat16)[4:].view(64, 64), w1)
     with pytest.raises(ValueError, match="instances"):
         MT.mlp_tile_bwd(x, g, b, w1, b1, w2, x, tm=64, fs=128)
 

@@ -207,12 +207,12 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
     w1 = torch.zeros(64, 256, dtype=torch.bfloat16)
     w2 = torch.zeros(256, 64, dtype=torch.bfloat16)
     b1 = torch.zeros(256)
-    with pytest.raises(ValueError, match="multiple of 64"):
-        MT.mlp_single(torch.zeros(8, 96), torch.zeros(96, 384))
-    with pytest.raises(ValueError, match="up to 384"):
-        MT.mlp_single(torch.zeros(8, 448), torch.zeros(448, 1792))
-    with pytest.raises(ValueError, match="multiple of fs"):
-        MT.mlp_single(x, torch.zeros(64, 96, dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="multiples of 8"):
+        MT.mlp_single(torch.zeros(8, 100), torch.zeros(100, 384))
+    with pytest.raises(ValueError, match="multiples of 8"):
+        MT.mlp_single(torch.zeros(8, 448), torch.zeros(448, 1796))
+    with pytest.raises(ValueError, match="M >= 1"):
+        MT.mlp_single(x[:0], w1)
     with pytest.raises(ValueError, match="instances"):
         MT.mlp_tile_bwd(x, g, b, w1, b1, w2, x, tm=64, fs=128)
     with pytest.raises(ValueError, match="instances"):
@@ -245,15 +245,25 @@ def test_probe_entry_points_need_a_card(monkeypatch, probe):
     assert exc.value.code == 2
 
 
-@pytest.mark.parametrize("probe,count", [(mega_probe, 11), (mlp_probe, 16)])
+def _one_call_each(**fns):
+    return {k: float(fn() is not None) for k, fn in fns.items()}
+
+
+@pytest.mark.parametrize("probe,count", [(mega_probe, 11), (mlp_probe, 13)])
 def test_probe_runs_every_variant(monkeypatch, probe, count):
     """The control flow at batch 1 on the CPU (the kernels' plain versions,
     one call each in place of the card's timing): one record per variant,
-    each with its times, bound and error."""
-    monkeypatch.setattr(probe, "in_turns", lambda **fns: {
-        k: float(fn() is not None) for k, fn in fns.items()})
+    each with its times, bound and error; the single product's records
+    with the kernel's and torch.matmul's device times."""
+    monkeypatch.setattr(probe, "in_turns", _one_call_each)
+    if probe is mlp_probe:
+        monkeypatch.setattr(probe, "device_in_turns", _one_call_each)
     records = probe.run(1, device="cpu")
     assert len(records) == count
+    singles = [r for r in records if r["probe"] == "mlp_single"]
+    assert len(singles) == (probe is mlp_probe)
+    for rec in singles:
+        assert rec["kernel_device_ms"] == rec["library_device_ms"] == 1.0
     for rec in records:
         assert rec["kernel_ms"] == rec["plain_ms"] == 1.0
         assert rec["bound_ms"] > 0 and rec["flops"] > 0
@@ -268,3 +278,75 @@ def test_probe_errors_are_absolute_and_relative_to_each_reference():
     outs = (torch.tensor([1.0, -3.0]), torch.tensor([0.25, 0.25]))
     err = mega_probe.errors(outs, refs)
     assert err == {"max_abs_err": 1.0, "max_rel_err": 0.5}
+
+
+@pytest.mark.parametrize("x_shape,w_shape,match", [
+    ((8, 100), (100, 384), "multiples of 8"),   # K: TMA's 16-byte rows
+    ((8, 64), (64, 260), "multiples of 8"),     # N
+    ((8, 4), (4, 256), "multiples of 8"),
+    ((0, 64), (64, 256), "M >= 1"),
+    ((8, 64), (32, 256), r"\[M, D\], \[D, F\]"),
+    ((8, 64, 1), (64, 256), r"\[M, D\], \[D, F\]"),
+])
+def test_mlp_single_refuses_what_its_kernel_does_not_take(x_shape, w_shape,
+                                                          match):
+    """The wgmma kernel's limits, raised whatever the device: K and N
+    multiples of 8, at least one row."""
+    before = MT.mlp_single.launches
+    with pytest.raises(ValueError, match=match):
+        MT.mlp_single(torch.zeros(x_shape, dtype=torch.bfloat16),
+                      torch.zeros(w_shape, dtype=torch.bfloat16))
+    assert MT.mlp_single.launches == before
+
+
+@pytest.mark.parametrize("m,k,n", [(1, 8, 8), (77, 200, 264), (5, 384, 1536)])
+def test_mlp_single_takes_any_rows_and_ragged_tiles_on_the_cpu(m, k, n):
+    """Shapes the old tile engine refused (K not a multiple of 64, N not a
+    multiple of the tile): the CPU runs the plain version, bit for bit,
+    and launches nothing."""
+    rng = np.random.default_rng(m + k + n)
+    x = torch.from_numpy(rng.standard_normal((m, k), np.float32)).bfloat16()
+    w = torch.from_numpy(rng.standard_normal((k, n), np.float32)).bfloat16()
+    before = MT.mlp_single.launches
+    assert torch.equal(MT.mlp_single(x, w), MT.mlp_single_plain(x, w))
+    assert MT.mlp_single.launches == before
+
+
+class _FakeLibrary:
+    """Records ``vlp_gemm_single``'s arguments in place of the card."""
+
+    def __init__(self):
+        self.calls = []
+
+    def vlp_gemm_single(self, *args):
+        self.calls.append(args)
+        return 0
+
+
+def test_mlp_single_passes_its_operands_to_the_wgmma_entry(monkeypatch):
+    """The CUDA route's marshalling, with the library and the stream
+    replaced: one call of ``vlp_gemm_single`` with the operands' pointers,
+    M, K and N, one launch counted, a [M, N] output; an
+    operand 16 bytes off its alignment is refused before any call."""
+    import contextlib
+
+    fake = _FakeLibrary()
+    monkeypatch.setattr(MT, "_route", lambda name, x: True)
+    monkeypatch.setattr(MT, "_stream", lambda: 7)
+    monkeypatch.setattr(MT._build, "load_library", lambda: fake)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    x = torch.zeros(77, 200, dtype=torch.bfloat16)
+    w = torch.zeros(200, 264, dtype=torch.bfloat16)
+    before = MT.mlp_single.launches
+    z = MT.mlp_single(x, w)
+    assert z.shape == (77, 264) and z.dtype == torch.bfloat16
+    assert MT.mlp_single.launches == before + 1
+    assert fake.calls == [(x.data_ptr(), w.data_ptr(), z.data_ptr(), 77, 200,
+                           264, 7)]
+    flat = torch.zeros(77 * 200 + 4, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        MT.mlp_single(flat[4:].view(77, 200), w)
+    with pytest.raises(TypeError, match="bfloat16"):
+        MT.mlp_single(x.float(), w)
+    assert len(fake.calls) == 1 and MT.mlp_single.launches == before + 1

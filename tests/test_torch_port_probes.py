@@ -184,3 +184,29 @@ def test_probe_entry_points_need_a_card(monkeypatch, probe):
     with pytest.raises(SystemExit) as exc:
         probe.main([])
     assert exc.value.code == 2
+
+
+def test_conv_probe_runs_every_shape_with_device_times(monkeypatch):
+    """The conv probe's control flow at batch 1 on the CPU (the plain
+    versions and F.conv2d, one call each in place of the card's timing):
+    one record per conv shape with its event and device times, bound and
+    error, and the max-pool record."""
+    def one_call_each(**fns):
+        return {k: float(fn() is not None) for k, fn in fns.items()}
+
+    monkeypatch.setattr(conv_probe, "in_turns", one_call_each)
+    monkeypatch.setattr(conv_probe, "device_in_turns", one_call_each)
+    before = CV.conv3x3.launches
+    records = conv_probe.run(1, device="cpu")
+    assert CV.conv3x3.launches == before
+    assert [r["shape"] for r in records[:2]] == [s[0] for s in
+                                                  conv_probe.SHAPES]
+    for rec in records[:2]:
+        assert rec["kernel_ms"] == rec["library_ms"] == 1.0
+        assert rec["kernel_device_ms"] == rec["library_device_ms"] == 1.0
+        assert rec["max_abs_err"] == 0.0  # the CPU ran the plain version
+        assert rec["bound_ms"] > 0 and rec["flops"] > 0
+        assert rec["library_max_abs_err"] < 0.1
+    assert records[2]["probe"] == "stem_maxpool"
+    assert records[2]["grad_sum_first_max"] == pytest.approx(
+        records[2]["grad_sum_eqsplit"], rel=1e-5)

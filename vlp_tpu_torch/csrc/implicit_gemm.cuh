@@ -1,7 +1,9 @@
-// A bf16 tensor-core GEMM whose A tile is gathered by a source policy, shared
-// by the ResNet probe kernels (conv3x3.cu: the 9 shifted taps of a 3x3
-// convolution, halo masked; bn_relu_gemm.cu: rows with a BatchNorm affine and
-// ReLU applied as they arrive):
+// A bf16 tensor-core GEMM whose A tile is gathered by a source policy, the
+// engine of the ResNet probe kernel bn_relu_gemm.cu (#18: rows with a
+// BatchNorm affine and ReLU applied as they arrive); its cp.async helpers
+// also serve mlp_tile.cuh and mhsa_reg.cuh. The 3x3 convolution #17
+// (conv3x3.cu) runs on the wgmma mainloop of wgmma_gemm.cuh. This one
+// computes
 //
 //   out[M, N] = bf16( sum over the source's K slices of A_s[M, 32] @ B_s[32, N] )
 //
@@ -11,9 +13,9 @@
 // 4x2 grid each own 32x64 (2x4 wmma 16x16x16 bf16 fragments). Each K slice
 // stages a 128x32 A tile and a 32x128 B tile in shared memory through
 // cp.async, two stages deep, so the next slice's loads are in flight while
-// the tensor cores work on this one. An element the source masks (a halo
-// pixel, a row past M, a channel past C or a column past N) is zero-filled
-// by cp.async itself (source size 0), so nothing is padded in device memory.
+// the tensor cores work on this one. An element the source masks (a row
+// past M, a channel past C or a column past N) is zero-filled by cp.async
+// itself (source size 0), so nothing is padded in device memory.
 // A source with kTransform rewrites the vectors its thread loaded once they
 // have arrived, before the block's barrier. The fp32 accumulators go through
 // shared memory (reusing the stages) so that each thread stores 8 bf16 at a

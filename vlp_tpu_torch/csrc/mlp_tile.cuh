@@ -1,24 +1,22 @@
 // The MLP tile engine: one launch computes the whole MLP of a block's row
 // tile, with the hidden activation kept on chip. Shared by mlp_tile.cu (the
-// probe kernels #13, benchmarks/mega_variants.py:make_mlp, and #19,
-// benchmarks/mlp_probe.py:make_chain and make_single) and, for its helpers,
-// mlp_tile_bwd.cu (#14).
+// probe kernels #13, benchmarks/mega_variants.py:make_mlp, and #19a,
+// benchmarks/mlp_probe.py:make_chain) and, for its helpers, mlp_tile_bwd.cu
+// (#14). The single product #19b runs on wgmma_gemm.cuh (gemm_single.cu).
 //
 //   ln  = LN ? bf16(LN(x) * gamma + beta) : x                 [TM, D]
 //   for each F slice s of FS columns:
 //     z_s = ln @ W1[:, s] (+ b1[s] with BIAS)                  fp32 [TM, FS]
 //     h_s = bf16(GELU ? gelu(z_s) : z_s)
-//     SECOND:  acc += h_s @ W2[s, :]                            fp32 [TM, D]
-//     !SECOND: out[:, s] = h_s                                  ([M, F])
-//   SECOND: out = BIAS ? bf16(x + (acc + b2)) : bf16(acc)       [M, D]
+//     acc += h_s @ W2[s, :]                                     fp32 [TM, D]
+//   out = BIAS ? bf16(x + (acc + b2)) : bf16(acc)               [M, D]
 //
 // LN is the Pallas bodies' (fp32, two-pass variance); GELU the exact-erf form
-// with the A&S erf (gemm.cuh). #13 runs with BIAS and SECOND (its ablations
-// turn LN or GELU off); #19's chain with SECOND and neither bias nor residual
-// (its "ln" stage is LN without affine: null gamma and beta); #19's
-// single product with SECOND off. The rounding points are those of the
-// Pallas bodies: ln, h and the output are rounded to bf16 once each, every
-// product accumulates in fp32.
+// with the A&S erf (gemm.cuh). #13 runs with BIAS (its ablations turn LN or
+// GELU off); #19a's chain with neither bias nor residual (its "ln" stage is
+// LN without affine: null gamma and beta). The rounding points are those of
+// the Pallas bodies: ln, h and the output are rounded to bf16 once each,
+// every product accumulates in fp32.
 //
 // Design: a block of 256 threads (8 warps: 2 row groups x 4 column groups)
 // owns TM rows. It stages x (cp.async, rows past M zero-filled), normalises
@@ -48,8 +46,8 @@
 // L2 M / TM times (925 MB at TM = 64): TM FLOP per byte of L2 traffic, half
 // as much at TM = 32. wmma (mma.sync) reaches a fraction of the rate of
 // wgmma, and one block of 8 warps per SM waits at a barrier per step.
-// wgmma with TMA, and weight chunks multicast to the blocks of a cluster,
-// are the later steps.
+// The mainloop of wgmma_gemm.cuh (wgmma with TMA), and weight chunks
+// multicast to the blocks of a cluster, are the later steps.
 //
 // Requirements (checked by the launchers): D % 64 == 0, D <= 384,
 // F % FS == 0, 16-byte aligned contiguous row-major operands.
@@ -144,20 +142,20 @@ __device__ __forceinline__ void ln_tile(bf16* t, int ld,
 }
 
 // bf16 elements of one ring stage of the forward
-__host__ __device__ inline int fwd_stage_elems(int FS, int D, bool second) {
+__host__ __device__ inline int fwd_stage_elems(int FS, int D) {
   const int a = kBK1 * (FS + 8);
-  const int b = second ? kBK2 * (D + 8) : 0;
+  const int b = kBK2 * (D + 8);
   return a > b ? a : b;
 }
 
-inline size_t fwd_smem_bytes(int TM, int FS, int D, bool second) {
+inline size_t fwd_smem_bytes(int TM, int FS, int D) {
   return (size_t)TM * (D + 8) * sizeof(bf16) +
-         (size_t)kStages * fwd_stage_elems(FS, D, second) * sizeof(bf16) +
+         (size_t)kStages * fwd_stage_elems(FS, D) * sizeof(bf16) +
          (size_t)TM * (FS + 4) * sizeof(float) +
-         (second ? (size_t)TM * (FS + 8) * sizeof(bf16) : 0);
+         (size_t)TM * (FS + 8) * sizeof(bf16);
 }
 
-template <int TM, int FS, bool LN, bool GELU, bool BIAS, bool SECOND>
+template <int TM, int FS, bool LN, bool GELU, bool BIAS>
 __global__ void __launch_bounds__(kThreads, 1)
     mlp_tile_kernel(const bf16* __restrict__ x,
                     const float* __restrict__ gamma,
@@ -174,7 +172,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   constexpr int LDH = FS + 8;   // hS [TM][FS] bf16
   const int ldx = D + 8;        // ln tile [TM][D], W2 chunk [kBK2][D]
   const int nf2 = D / 64;
-  const int stage = fwd_stage_elems(FS, D, SECOND);
+  const int stage = fwd_stage_elems(FS, D);
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* lnS = reinterpret_cast<bf16*>(smem);
   bf16* ring = lnS + TM * ldx;
@@ -191,7 +189,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   load_tile_rows(lnS, ldx, x, m0, M, D, TM);
   cp_async_commit();
   const int k1 = D / kBK1;
-  const int per = k1 + (SECOND ? FS / kBK2 : 0);  // steps per slice
+  const int per = k1 + FS / kBK2;  // steps per slice
   const int steps = F / FS * per;
   auto load = [&](int t) {
     bf16* st = ring + (t % kStages) * stage;
@@ -224,12 +222,10 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   wmma::fragment<wmma::accumulator, 16, 16, 16, float> zf[MF][NF1];
   wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[MF][kMaxNF];
-  if (SECOND) {
 #pragma unroll
-    for (int i = 0; i < MF; ++i)
+  for (int i = 0; i < MF; ++i)
 #pragma unroll
-      for (int j = 0; j < kMaxNF; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-  }
+    for (int j = 0; j < kMaxNF; ++j) wmma::fill_fragment(acc[i][j], 0.f);
 
   for (int t = 0; t < steps; ++t) {
     cp_async_wait<kStages - 2>();  // step t has arrived
@@ -285,15 +281,11 @@ __global__ void __launch_bounds__(kThreads, 1)
             if (BIAS) z += b1[f0 + c + e];
             v[e] = GELU ? gelu_erf(z) : z;
           }
-          const uint4 p = pack8(v);
-          if (SECOND)
-            *reinterpret_cast<uint4*>(hS + r * LDH + c) = p;
-          else if (m0 + r < M)
-            *reinterpret_cast<uint4*>(out + (size_t)(m0 + r) * F + f0 + c) = p;
+          *reinterpret_cast<uint4*>(hS + r * LDH + c) = pack8(v);
         }
         // the next step's barrier makes hS visible to the second product
       }
-    } else if (SECOND) {
+    } else {
       const int kc = (u - k1) * kBK2;
 #pragma unroll
       for (int kk = 0; kk < kBK2; kk += 16) {
@@ -319,38 +311,36 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
   }
 
-  if (SECOND) {
-    cp_async_wait<0>();
-    __syncthreads();  // the ring is free: each warp stages its fragments
-    float* scr = reinterpret_cast<float*>(ring) + warp * 16 * kLdScratch;
-    const int rr = lane >> 1;
-    const int cc = (lane & 1) * 8;
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is free: each warp stages its fragments
+  float* scr = reinterpret_cast<float*>(ring) + warp * 16 * kLdScratch;
+  const int rr = lane >> 1;
+  const int cc = (lane & 1) * 8;
 #pragma unroll
-    for (int i = 0; i < MF; ++i)
+  for (int i = 0; i < MF; ++i)
 #pragma unroll
-      for (int j = 0; j < kMaxNF; ++j) {
-        if (j >= nf2) continue;
-        wmma::store_matrix_sync(scr, acc[i][j], kLdScratch,
-                                wmma::mem_row_major);
-        __syncwarp();
-        const int gr = m0 + row0 + 16 * i + rr;
-        const int gc = wc * (D / 4) + 16 * j + cc;
-        if (gr < M) {
-          float v[8];
+    for (int j = 0; j < kMaxNF; ++j) {
+      if (j >= nf2) continue;
+      wmma::store_matrix_sync(scr, acc[i][j], kLdScratch,
+                              wmma::mem_row_major);
+      __syncwarp();
+      const int gr = m0 + row0 + 16 * i + rr;
+      const int gc = wc * (D / 4) + 16 * j + cc;
+      if (gr < M) {
+        float v[8];
 #pragma unroll
-          for (int e = 0; e < 8; ++e) v[e] = scr[rr * kLdScratch + cc + e];
-          if (BIAS) {
-            float xv[8];
-            unpack8(*reinterpret_cast<const uint4*>(x + (size_t)gr * D + gc),
-                    xv);
+        for (int e = 0; e < 8; ++e) v[e] = scr[rr * kLdScratch + cc + e];
+        if (BIAS) {
+          float xv[8];
+          unpack8(*reinterpret_cast<const uint4*>(x + (size_t)gr * D + gc),
+                  xv);
 #pragma unroll
-            for (int e = 0; e < 8; ++e) v[e] = xv[e] + (v[e] + b2[gc + e]);
-          }
-          *reinterpret_cast<uint4*>(out + (size_t)gr * D + gc) = pack8(v);
+          for (int e = 0; e < 8; ++e) v[e] = xv[e] + (v[e] + b2[gc + e]);
         }
-        __syncwarp();
+        *reinterpret_cast<uint4*>(out + (size_t)gr * D + gc) = pack8(v);
       }
-  }
+      __syncwarp();
+    }
 }
 
 struct TileArgs {
@@ -367,13 +357,13 @@ struct TileArgs {
   cudaStream_t stream;
 };
 
-template <int TM, int FS, bool LN, bool GELU, bool BIAS, bool SECOND>
+template <int TM, int FS, bool LN, bool GELU, bool BIAS>
 cudaError_t launch_mlp_tile(const TileArgs& a) {
   if (a.M <= 0 || a.D <= 0 || a.D % 64 || a.D > kMaxD || a.F <= 0 ||
       a.F % FS)
     return cudaErrorInvalidValue;
-  const size_t smem = fwd_smem_bytes(TM, FS, a.D, SECOND);
-  auto kernel = mlp_tile_kernel<TM, FS, LN, GELU, BIAS, SECOND>;
+  const size_t smem = fwd_smem_bytes(TM, FS, a.D);
+  auto kernel = mlp_tile_kernel<TM, FS, LN, GELU, BIAS>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -384,16 +374,16 @@ cudaError_t launch_mlp_tile(const TileArgs& a) {
 }
 
 // The forward instances, (TM, FS): (64, 64), (64, 128), (32, 64), (32, 128)
-template <bool LN, bool GELU, bool BIAS, bool SECOND>
+template <bool LN, bool GELU, bool BIAS>
 cudaError_t launch_mlp_tile_at(const TileArgs& a, int tm, int fs) {
   if (tm == 64 && fs == 64)
-    return launch_mlp_tile<64, 64, LN, GELU, BIAS, SECOND>(a);
+    return launch_mlp_tile<64, 64, LN, GELU, BIAS>(a);
   if (tm == 64 && fs == 128)
-    return launch_mlp_tile<64, 128, LN, GELU, BIAS, SECOND>(a);
+    return launch_mlp_tile<64, 128, LN, GELU, BIAS>(a);
   if (tm == 32 && fs == 64)
-    return launch_mlp_tile<32, 64, LN, GELU, BIAS, SECOND>(a);
+    return launch_mlp_tile<32, 64, LN, GELU, BIAS>(a);
   if (tm == 32 && fs == 128)
-    return launch_mlp_tile<32, 128, LN, GELU, BIAS, SECOND>(a);
+    return launch_mlp_tile<32, 128, LN, GELU, BIAS>(a);
   return cudaErrorInvalidValue;
 }
 

@@ -5,8 +5,10 @@ per source, all started together, and links the objects into one shared
 library with a plain C interface under ``build/vlp_tpu_torch/`` at the root
 of the checkout, which ``ctypes`` loads. The library's file name carries a
 hash of the sources and flags, so an edited source builds anew and an
-unchanged one is reused. Nothing here runs at import time; a failed build
-raises with nvcc's output, and there is no fallback.
+unchanged one is reused. ptxas reports each kernel's registers and spills
+(``-Xptxas -v``) into a log beside the library (``build_log``). Nothing
+here runs at import time; a failed build raises with nvcc's output, and
+there is no fallback.
 """
 from __future__ import annotations
 
@@ -22,7 +24,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "vlp_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -72,11 +74,13 @@ _SIGNATURES = {
     "vlp_philox4x32": ([_P] * 3 + [_I, _P], _I),
     # x, wt, y, B, H, W, C, K, stream
     "vlp_conv3x3": ([_P] * 3 + [_I] * 5 + [_P], _I),
+    # x, w, z, M, K, N, stream
+    "vlp_gemm_single": ([_P] * 3 + [_I] * 3 + [_P], _I),
     # x, a, b, w, out, M, C, K, stream
     "vlp_bn_relu_gemm": ([_P] * 5 + [_I] * 3 + [_P], _I),
     # x, gamma, beta, w1, b1, w2, b2, out, M, D, F, tm, fs, ln, gelu, bias,
-    # second, eps, stream
-    "vlp_mlp_tile": ([_P] * 8 + [_I] * 9 + [_F, _P], _I),
+    # eps, stream
+    "vlp_mlp_tile": ([_P] * 8 + [_I] * 8 + [_F, _P], _I),
     # M, D, F, tm -> bytes
     "vlp_mlp_tile_bwd_workspace": ([_I] * 4, _Z),
     # x, gamma, beta, w1, b1, w2, dy, dx, dgamma, dbeta, dw1, db1, dw2, db2,
@@ -121,6 +125,12 @@ def library_path() -> Path:
     return BUILD_DIR / f"libvlp_tpu_torch_{digest.hexdigest()[:16]}.so"
 
 
+def build_log() -> Path:
+    """ptxas's report (``-Xptxas -v``) of the library's build, one section
+    per source: each kernel's registers, stack frame and spill bytes."""
+    return library_path().with_suffix(".log")
+
+
 def build() -> Path:
     """Compiles the library unless this version of the sources is built."""
     path = library_path()
@@ -136,9 +146,10 @@ def build() -> Path:
             jobs.append((cmd, obj, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True)))
-        failed = []
+        failed, log = [], []
         for cmd, _, proc in jobs:  # wait for every job, even after a failure
             out, _ = proc.communicate()
+            log.append(f"== {' '.join(cmd)}\n{out}")
             if proc.returncode != 0:
                 failed.append(f"nvcc failed with exit code {proc.returncode}: "
                               f"{' '.join(cmd)}\n{out}")
@@ -153,6 +164,8 @@ def build() -> Path:
             raise RuntimeError(
                 f"nvcc failed with exit code {proc.returncode}: "
                 f"{' '.join(cmd)}\n{proc.stderr}{proc.stdout}")
+        Path(tmp).with_suffix(".log").write_text("\n".join(log))
+        os.replace(Path(tmp).with_suffix(".log"), build_log())
         os.replace(tmp, path)  # atomic: a loader never sees half a file
     return path
 

@@ -8,8 +8,8 @@
 It lies on no model path: the ResNets convolve through ``F.conv2d``, as the
 JAX package left its convolutions to XLA; ``vlp_tpu_torch.probes
 .conv_probe`` times it at ResNet34's stage-2/3 shapes beside cuDNN. A CUDA
-tensor runs ``csrc/conv3x3.cu`` or raises; a CPU tensor runs
-``conv3x3_plain``. The wrapper counts its launches in
+tensor runs ``csrc/conv3x3.cu`` (on the wgmma + TMA mainloop
+``csrc/wgmma_gemm.cuh``) or raises; a CPU tensor runs ``conv3x3_plain``. The wrapper counts its launches in
 ``conv3x3.launches``.
 """
 from __future__ import annotations
@@ -56,6 +56,8 @@ def conv3x3(x: torch.Tensor, w: torch.Tensor, stride: int = 1
     if w.dtype != torch.bfloat16:
         raise TypeError(f"conv3x3: the CUDA kernel takes bfloat16 weights, "
                         f"got {w.dtype}")
+    if (x.data_ptr() | w.data_ptr()) % 16:
+        raise ValueError("conv3x3: the kernel takes 16-byte aligned operands")
     lib = _build.load_library()
     y = torch.empty((b * h * wd, k), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):

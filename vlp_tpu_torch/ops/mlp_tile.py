@@ -22,10 +22,12 @@ them only in its probe scripts); ``vlp_tpu_torch.probes.mega_probe`` and
 ``.mlp_probe`` time them beside the shipped ``ln_mlp`` (#2) and
 ``ln_mlp_bwd`` (#4) and cuBLAS.
 
-A CUDA tensor runs ``csrc/mlp_tile.cu`` (the forward, the chain and the
-single product) or ``mlp_tile_bwd.cu`` (one engine, ``mlp_tile.cuh``) or
-raises; a CPU tensor runs the ``*_plain`` version, which rounds where the Pallas bodies round. Each
-wrapper counts its launches in ``<wrapper>.launches``.
+A CUDA tensor runs ``csrc/mlp_tile.cu`` (the forward and the chain) or
+``mlp_tile_bwd.cu`` (one engine, ``mlp_tile.cuh``), or, for the single
+product, ``csrc/gemm_single.cu`` (the wgmma + TMA mainloop
+``wgmma_gemm.cuh``), or raises; a CPU tensor runs the ``*_plain`` version,
+which rounds where the Pallas bodies round. Each wrapper counts its
+launches in ``<wrapper>.launches``.
 
 Schedule knobs: ``tm`` rows per block and ``fs`` columns per F slice, the
 counterparts of the TPU scripts' ``tm`` and ``parts``. The Mosaic bodies
@@ -36,7 +38,9 @@ here each is a tiling of the on-chip h: ``fs`` < F is the F-slice walk
 that splitN and fsplit make (h and dh never leave the block), and
 ``tm`` 32 against 64 is the smaller row tile of rowpipe, each at two slice
 widths. Forward instances ``TILES``, backward ``BWD_TILES`` (TM 64 with
-FS 128 does not fit the backward's shared memory).
+FS 128 does not fit the backward's shared memory). The single product
+has one instance (128 x 128 output tiles, two blocks an SM): tiles 64 and
+256 columns wide were slower at the probe's shape.
 """
 from __future__ import annotations
 
@@ -116,14 +120,14 @@ def mlp_single_plain(x, w1) -> torch.Tensor:
 
 def _check_shapes(name, x, w1, w2, tm, fs, tiles, vectors=()):
     """ValueError on what the kernel does not take, whatever the device:
-    x [M, D], w1 [D, F], w2 [F, D] (None for the single product), D a
-    multiple of 64 up to 384, F a multiple of fs, (tm, fs) an instance;
-    ``vectors`` are (tensor, length) pairs."""
+    x [M, D], w1 [D, F], w2 [F, D], D a multiple of 64 up to 384, F a
+    multiple of fs, (tm, fs) an instance; ``vectors`` are (tensor, length)
+    pairs."""
     if x.dim() != 2 or w1.dim() != 2 or w1.shape[0] != x.shape[1] or (
-            w2 is not None and tuple(w2.shape) != (w1.shape[1], x.shape[1])):
+            tuple(w2.shape) != (w1.shape[1], x.shape[1])):
         raise ValueError(f"{name}: x {tuple(x.shape)}, w1 {tuple(w1.shape)}"
-                         + ("" if w2 is None else f", w2 {tuple(w2.shape)}")
-                         + " are not [M, D], [D, F], [F, D]")
+                         f", w2 {tuple(w2.shape)} are not [M, D], [D, F], "
+                         "[F, D]")
     d, f = w1.shape
     for v, n in vectors:
         if v.numel() != n:
@@ -200,18 +204,16 @@ def mlp_tile_bwd(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
 def _tile_cuda(name, x, w1, w2, vecs, *, ln, gelu, tm, fs):
     """One launch of ``vlp_mlp_tile``: with ``vecs`` = (gamma, beta, b1, b2)
     the forward with bias and residual, with ``vecs`` None the chain (its
-    LayerNorm affine-free) or, ``w2`` None, the single product."""
+    LayerNorm affine-free)."""
     (m, d), f = x.shape, w1.shape[1]
     gamma, beta, b1, b2 = (v.data_ptr() for v in vecs) if vecs else (0,) * 4
     lib = _build.load_library()
-    out = torch.empty((m, d if w2 is not None else f), dtype=x.dtype,
-                      device=x.device)
+    out = torch.empty((m, d), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
         err = lib.vlp_mlp_tile(
-            x.data_ptr(), gamma, beta, w1.data_ptr(), b1,
-            0 if w2 is None else w2.data_ptr(), b2, out.data_ptr(), m, d, f,
-            tm, fs, int(ln), int(gelu), int(bool(vecs)), int(w2 is not None),
-            _EPS, _stream())
+            x.data_ptr(), gamma, beta, w1.data_ptr(), b1, w2.data_ptr(), b2,
+            out.data_ptr(), m, d, f, tm, fs, int(ln), int(gelu),
+            int(bool(vecs)), _EPS, _stream())
     _build.check(lib, err, name)
     return out
 
@@ -234,15 +236,29 @@ def mlp_chain(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
     return out
 
 
-def mlp_single(x: torch.Tensor, w1: torch.Tensor, *, tm: int = 64,
-               fs: int = 64) -> torch.Tensor:
-    """x [M, D] -> bf16(x @ w1) [M, F]."""
-    _check_shapes("mlp_single", x, w1, None, tm, fs, TILES)
+def mlp_single(x: torch.Tensor, w1: torch.Tensor) -> torch.Tensor:
+    """x [M, D] -> bf16(x @ w1) [M, F] in x's dtype. Raises, whatever the
+    device, unless x is [M, D] and w1 [D, F] with M >= 1 and D and F
+    multiples of 8 (the 16-byte rows TMA reads)."""
+    if x.dim() != 2 or w1.dim() != 2 or w1.shape[0] != x.shape[1]:
+        raise ValueError(f"mlp_single: x {tuple(x.shape)} and w1 "
+                         f"{tuple(w1.shape)} are not [M, D], [D, F]")
+    (m, d), f = x.shape, w1.shape[1]
+    if m == 0 or d == 0 or f == 0 or d % 8 or f % 8:
+        raise ValueError(f"mlp_single: the kernel takes M >= 1 and D and F "
+                         f"multiples of 8; got M={m}, D={d}, F={f}")
     if not _route("mlp_single", x):
         return mlp_single_plain(x, w1)
     _cuda_operands("mlp_single", x, (w1,), ())
-    out = _tile_cuda("mlp_single", x, w1, None, None, ln=False, gelu=False,
-                     tm=tm, fs=fs)
+    if (x.data_ptr() | w1.data_ptr()) % 16:
+        raise ValueError("mlp_single: the kernel takes 16-byte aligned "
+                         "operands")
+    out = torch.empty((m, f), dtype=x.dtype, device=x.device)
+    lib = _build.load_library()
+    with torch.cuda.device(x.device):
+        err = lib.vlp_gemm_single(x.data_ptr(), w1.data_ptr(), out.data_ptr(),
+                                  m, d, f, _stream())
+    _build.check(lib, err, "mlp_single")
     mlp_single.launches += 1
     return out
 

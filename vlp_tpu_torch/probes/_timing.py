@@ -1,5 +1,5 @@
-"""CUDA-event timing and the card's peak rates, shared by the probes and
-``chip_smoke.py``."""
+"""CUDA-event timing and the card's peak rates, shared by the probes,
+``chip_smoke.py`` and ``scripts/ab_attention.py``."""
 from __future__ import annotations
 
 import statistics
@@ -53,6 +53,33 @@ def in_turns(**fns: Callable[[], object]) -> Dict[str, float]:
     times = {n: [] for n in names}
     for n in names + names[::-1]:
         times[n].append(median_ms(fns[n]))
+    return {n: statistics.mean(t) for n, t in times.items()}
+
+
+def device_ms(fn: Callable[[], object], calls: int = 20) -> float:
+    """Device ms per call of ``calls`` back-to-back calls of ``fn``, queued
+    behind a spin kernel so that the card never waits for the host: the
+    kernels' time without the wrappers' host time."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(50_000_000)  # ~25 ms: the host queues the calls
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / calls
+
+
+def device_in_turns(**fns: Callable[[], object]) -> Dict[str, float]:
+    """``device_ms`` of each function, taken in the order of ``fns`` and
+    then reversed, averaged (kernel, library, library, kernel)."""
+    names = list(fns)
+    times = {n: [] for n in names}
+    for n in names + names[::-1]:
+        times[n].append(device_ms(fns[n]))
     return {n: statistics.mean(t) for n, t in times.items()}
 
 

@@ -6,7 +6,10 @@
    ``[128, 28, 28, 128]`` and ``[128, 14, 14, 256]`` bf16, beside its plain
    version and ``F.conv2d`` (cuDNN, channels-last bf16, the call the
    ResNets make), timed in turns (plain, kernel, cuDNN, cuDNN, kernel,
-   plain), with its error against the plain version.
+   plain) on CUDA events around each call, then kernel and cuDNN again as
+   device time alone (``kernel_device_ms``, ``library_device_ms``: calls
+   queued behind a spin kernel, so the wrappers' host time does not count),
+   with its error against the plain version.
 2. ``stem_maxpool``: the gradient of the stem max pool (3x3/2, pad 1, on a
    ReLU'd ``[128, 112, 112, 64]`` bf16 map, where zeros tie) through
    ``F.max_pool2d``'s backward, which gives a window's gradient to its first
@@ -29,7 +32,8 @@ import torch
 import torch.nn.functional as F
 
 from vlp_tpu_torch.ops.conv3x3 import conv3x3, conv3x3_plain
-from vlp_tpu_torch.probes._timing import bound_ms, in_turns, require_cuda
+from vlp_tpu_torch.probes._timing import (bound_ms, device_in_turns,
+                                          in_turns, require_cuda)
 
 BATCH = 128
 # (label, side, channels) of ResNet34's stage-2 and stage-3 3x3 convs at 224
@@ -79,14 +83,17 @@ def measure_conv(label: str, hw: int, c: int, batch: int,
     t = in_turns(plain=lambda: conv3x3_plain(x, w),
                  kernel=lambda: conv3x3(x, w),
                  library=lambda: conv_library(x, w_cl))
+    dev = device_in_turns(kernel=lambda: conv3x3(x, w),
+                          library=lambda: conv_library(x, w_cl))
     flops, nbytes = conv_work(batch, hw, c, c)
     return {"probe": "conv3x3", "shape": label, "batch": batch, "hw": hw,
             "c": c, "k": c, "kernel_ms": t["kernel"], "plain_ms": t["plain"],
-            "library_ms": t["library"], "max_abs_err": err,
+            "library_ms": t["library"], "kernel_device_ms": dev["kernel"],
+            "library_device_ms": dev["library"], "max_abs_err": err,
             "library_max_abs_err": lib_err, "flops": flops, "bytes": nbytes,
             **bound_ms(flops, nbytes),
-            "kernel_tflops": flops / t["kernel"] / 1e9,
-            "library_tflops": flops / t["library"] / 1e9}
+            "kernel_tflops": flops / dev["kernel"] / 1e9,
+            "library_tflops": flops / dev["library"] / 1e9}
 
 
 def maxpool(x: torch.Tensor) -> torch.Tensor:
@@ -176,9 +183,11 @@ def measure_maxpool(batch: int, gen: torch.Generator) -> Dict:
             "grad_sum_first_max": sums[0], "grad_sum_eqsplit": sums[1]}
 
 
-def run(batch: int = BATCH, seed: int = 0) -> List[Dict]:
-    """Both questions on the current CUDA device; one record per shape."""
-    gen = torch.Generator(device="cuda").manual_seed(seed)
+def run(batch: int = BATCH, seed: int = 0, device: str = "cuda"
+        ) -> List[Dict]:
+    """Both questions on ``device`` (a CPU device runs the plain versions;
+    the tests use it for the control flow); one record per shape."""
+    gen = torch.Generator(device=device).manual_seed(seed)
     records = [measure_conv(label, hw, c, batch, gen)
                for label, hw, c in SHAPES]
     torch.cuda.empty_cache()

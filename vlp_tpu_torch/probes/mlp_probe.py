@@ -6,12 +6,15 @@ W1 [384, 1536], W2 [1536, 384]).
 
 ``mlp_chain`` (#19a, ``ops/mlp_tile.py``) with stages ``()``, ``("gelu",)``
 and ``("ln", "gelu")`` at each ``(tm, fs)`` instance, and ``mlp_single``
-(#19b) at each instance, each timed in turns with its plain version and
-its yardstick (plain, kernel, yardstick, yardstick, kernel, plain):
+(#19b, the wgmma + TMA kernel, one instance), each timed
+in turns with its plain version and its yardstick (plain, kernel,
+yardstick, yardstick, kernel, plain) on CUDA events around each call:
 ``torch.matmul(x, w1)`` for the single product (the one PyTorch call
 computing the same function: the library time), two bf16 ``torch.matmul``
 calls for the pure chain (the script's "XLA chain" line; no single call
-computes a chain). Each record has the kernel's largest error against the
+computes a chain). The single product and ``torch.matmul`` are timed again
+as device time alone (``kernel_device_ms``, ``library_device_ms``: calls
+queued behind a spin kernel, so the wrappers' host time does not count). Each record has the kernel's largest error against the
 plain version, absolute and relative to the plain output's largest
 |value|, its bound (``probes/_timing.bound_ms``) and TFLOP/s.
 
@@ -34,7 +37,8 @@ from typing import Dict, List, Tuple
 import torch
 
 from vlp_tpu_torch.ops import mlp_tile as MT
-from vlp_tpu_torch.probes._timing import in_turns, require_cuda
+from vlp_tpu_torch.probes._timing import (device_in_turns, in_turns,
+                                          require_cuda)
 from vlp_tpu_torch.probes.mega_probe import (BATCH, D, F, SEQ, errors,
                                              mlp_inputs, record)
 
@@ -93,17 +97,17 @@ def run(batch: int = BATCH, seed: int = 0, device: str = "cuda"
 
     ref = splain()
     lib_err = errors((torch.matmul(x, w1),), (ref,))["max_abs_err"]
-    for tm, fs in MT.TILES:
-        def skern(tm=tm, fs=fs):
-            return MT.mlp_single(x, w1, tm=tm, fs=fs)
+    def skern():
+        return MT.mlp_single(x, w1)
 
-        err = errors((skern(),), (ref,))
-        t = in_turns(plain=splain, kernel=skern,
-                     library=lambda: torch.matmul(x, w1))
-        records.append(record(
-            "mlp_single", f"tm={tm} fs={fs}", t,
-            chain_work(m, D, F, single=True), tm=tm, fs=fs,
-            library_max_abs_err=lib_err, **err))
+    err = errors((skern(),), (ref,))
+    t = in_turns(plain=splain, kernel=skern,
+                 library=lambda: torch.matmul(x, w1))
+    dev = device_in_turns(kernel=skern, library=lambda: torch.matmul(x, w1))
+    records.append(record(
+        "mlp_single", "128x128", t, chain_work(m, D, F, single=True),
+        kernel_device_ms=dev["kernel"], library_device_ms=dev["library"],
+        library_max_abs_err=lib_err, **err))
     return records
 
 
