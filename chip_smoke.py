@@ -8,10 +8,14 @@ Phases, each printing its lines before the last line:
    (``nvidia-smi``); exits nonzero when no CUDA device is present.
 2. build: compiles ``vlp_tpu_torch/csrc`` with nvcc (sm_90a) and loads it;
    then checks that the kernels on the wgmma + TMA mainloop
-   (``csrc/wgmma_gemm.cuh``: #19b, and #17 at both tile widths) reach
-   Hopper's units: ``cuobjdump --dump-sass`` of the library shows HGMMA and
-   UTMALDG in each, and the build's ``-Xptxas -v`` report shows 0 spill
-   bytes for each and no serialized wgmma.
+   (``csrc/wgmma_gemm.cuh``: #19b, #17 at both tile widths, and the four
+   products of #3/#6's sequence in its three instances) reach Hopper's
+   units: ``cuobjdump --dump-sass`` of the library shows HGMMA and UTMALDG
+   in each, and the build's ``-Xptxas -v`` report shows 0 spill bytes for
+   each and no serialized wgmma; and that every instance of the
+   register-resident attention-core backward (``csrc/mhsa_reg_bwd.cuh``,
+   #3's and #6's at head dim 32 and 13 key tiles among them) spills
+   nothing.
 3. kernels: ``ln_attention`` and ``ln_mlp`` against their plain PyTorch
    versions at the shapes serving gives them, NesT-Small's three levels at
    batch 64 (bf16 inputs from a seeded CUDA generator), against the plain
@@ -379,10 +383,20 @@ def phase_build() -> None:
     _check_hopper_units()
 
 
-# the kernels on the wgmma + TMA mainloop (csrc/wgmma_gemm.cuh): #19b, and
-# #17 at 128 and 256 output channels a block
+# the kernels on the wgmma + TMA mainloop (csrc/wgmma_gemm.cuh): #19b
+# (DenseRows), #17 at 128 and 256 output channels a block (ConvTaps), and
+# the four products of #3/#6's sequence (RowsNT to bf16 and to fp32, ColsTN
+# to fp32 split-K partials)
 WGMMA_KERNEL = "wgmma_gemm_kernel"
-WGMMA_INSTANCES = 3
+WGMMA_INSTANCES = 6
+WGMMA_FORMS = ("DenseRows", "ConvTaps", "RowsNT", "ColsTN")
+# the register-resident attention-core backward (csrc/mhsa_reg_bwd.cuh):
+# every instance of both row maps must keep 0 spill bytes, and #3's and
+# #6's at NesT's S = 196 (head dim 32, 13 key tiles, with the column sums:
+# <32, 13, row map, true>, in ptxas's mangled names) must be built
+REG_BWD_KERNEL = "mhsa_reg_bwd_kernel"
+REG_BWD_NEST = ("IdentityRows", "WindowRows")
+REG_BWD_NEST_ARGS = ("ILi32ELi13E", "Lb1E")
 
 
 def _ptxas_report(log: str):
@@ -427,7 +441,9 @@ def _sass_functions(sass: str):
 def _check_hopper_units() -> None:
     """The wgmma + TMA kernels reach Hopper's units: their SASS holds HGMMA
     (wgmma) and UTMALDG (TMA loads), ptxas reports 0 spill bytes for every
-    instance and serializes none of their wgmma."""
+    instance and serializes none of their wgmma; every instance of the
+    register-resident attention-core backward keeps 0 spill bytes, #3's
+    and #6's among them."""
     report, serial = _ptxas_report(_build.build_log().read_text())
     mine = {k: v for k, v in report.items() if WGMMA_KERNEL in k}
     for name, (nreg, st, ld) in sorted(mine.items()):
@@ -436,8 +452,23 @@ def _check_hopper_units() -> None:
     check(len(mine) == WGMMA_INSTANCES,
           f"ptxas reported {len(mine)} {WGMMA_KERNEL} instances, expected "
           f"{WGMMA_INSTANCES}")
+    check(all(any(f in k for k in mine) for f in WGMMA_FORMS),
+          f"a form of {WGMMA_FORMS} has no {WGMMA_KERNEL} instance")
     check(all(st == 0 and ld == 0 for _, st, ld in mine.values()),
           "a wgmma_gemm_kernel instance spills")
+    core = {k: v for k, v in report.items() if REG_BWD_KERNEL in k}
+    for rows in REG_BWD_NEST:
+        found = [v for k, v in core.items()
+                 if rows in k and all(a in k for a in REG_BWD_NEST_ARGS)]
+        check(len(found) == 1,
+              f"ptxas reported no {REG_BWD_KERNEL}<32, 13, {rows}, true>")
+        nreg, st, ld = found[0]
+        print(f"ptxas {REG_BWD_KERNEL}<32, 13, {rows}, true>: {nreg} "
+              f"registers, spill stores {st} bytes, spill loads {ld} bytes")
+    spilling = sorted(k for k, (_, st, ld) in core.items() if st or ld)
+    print(f"ptxas {REG_BWD_KERNEL}: {len(core)} instances, "
+          f"{len(spilling)} spilling")
+    check(not spilling, f"{REG_BWD_KERNEL} instances spill: {spilling}")
     bad = [line for line in serial if WGMMA_KERNEL in line]
     check(not bad, f"ptxas serializes wgmma: {bad}")
     cuobjdump = str(Path(_build.find_nvcc()).parent / "cuobjdump")

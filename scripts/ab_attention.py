@@ -1,17 +1,20 @@
-"""Before and after of the packed-qkv attention kernels (#7 ``attend_qkv``,
-#8 ``attend_qkv_bwd``) on the paths that launch them, in one process on one
-CUDA card.
+"""Before and after of the attention kernels (#7 ``attend_qkv``, #8
+``attend_qkv_bwd``, and the half-block backwards #3 ``ln_attention_bwd``
+and #6 ``ln_attention_windows_bwd``) on the paths that launch them, in one
+process on one CUDA card.
 
 ``--parent DIR`` is a second checkout of the repository, for example an
 earlier commit unpacked with ``git archive`` into a directory that
 ``.gitignore`` lists. Its kernels are built from its own
 ``vlp_tpu_torch/csrc`` by its own ``_build.py`` into its own build
-directory. In the parent's turns this tree's ``attend_qkv`` and
-``attend_qkv_bwd`` wrappers launch that library's ``vlp_attend_qkv`` and
-``vlp_attend_qkv_bwd`` (whose C signatures must be this tree's); every
-other kernel and all the code around them are this tree's. The turns
-alternate (parent, change, change, parent, ...) after one warm-up turn of
-each, and each turn times:
+directory. In the parent's turns this tree's ``attend_qkv``,
+``attend_qkv_bwd``, ``ln_attention_bwd`` and ``ln_attention_windows_bwd``
+wrappers launch that library's ``vlp_attend_qkv``, ``vlp_attend_qkv_bwd``,
+``vlp_ln_attention_bwd`` and ``vlp_ln_attention_windows_bwd``, with its
+own workspace query ``vlp_ln_attention_bwd_workspace`` (their C signatures
+must be this tree's); every other kernel and all the code around them are
+this tree's. The turns alternate (parent, change, change, parent, ...)
+after one warm-up turn of each, and each turn times:
 
   vit_serve_ms        a request of 32 images to the ViT-B/16 ``Predictor``
                       (host clock to a synchronize, median of --reps)
@@ -20,6 +23,10 @@ each, and each turn times:
                       synchronize, median of --reps)
   nest_unfused_train_ms  one NesT-Small ``model.megakernel=false`` training
                       step at batch 64, the same way
+  nest_train_ms       one NesT-Small training step at batch 64 (24 #3
+                      launches), the same way
+  nest_nhwc_train_ms  the same with the backbone's ``nhwc_windows`` set (24
+                      #6 launches)
   <shape>_attend_ms, <shape>_attend_bwd_ms, <shape>_sdpa_ms  the device
                       time per call of #7, #8 and SDPA's forward (on the
                       same q, k, v views, the yardstick) at ViT-B's shape
@@ -27,11 +34,28 @@ each, and each turn times:
                       levels at batch 64 (heads of 32): 20 back-to-back
                       calls queued behind a spin kernel, so that the host's
                       launch time does not show, between CUDA events
+  nest_l<i>_ln_attention_bwd_ms, nest_l<i>_ln_attention_windows_bwd_ms
+                      the device time per call of #3 at NesT-Small's level
+                      i at batch 64 ([64 * 16 / 4 / 1, 196, D]) and of #6 on
+                      that level's map ([64, 56 / 28 / 14, .., D], windows
+                      of 14), the same way, on the forward kernels' qkv
+                      and o
+  nest_l<i>_ln_attention_bwd_host_ms  the host time per call of #3 there:
+                      20 calls issued while a spin kernel holds the card,
+                      so that the host never waits for it (the wrapper's
+                      Python, the library's launches and, on this tree's
+                      side, the eight tensor maps it encodes)
+
+After the turns, each side's #3 and #6 run once more per level under
+``torch.profiler``: the device time of every kernel of the call, summed by
+name and weighted by the level's blocks per NesT-Small step (2, 2, 20), is
+the ``split`` of the summary (ms per training step), with the kernels
+grouped into the attention core, the four products and the row passes.
 
 Random weights and batches from fixed seeds, the same on both sides. Prints
 one JSON line per turn, then one with each side's median of every metric
-over its turns and the card's name and power limit (``nvidia-smi``). Exits
-with code 2 without a CUDA device.
+over its turns, the splits, and the card's name and power limit
+(``nvidia-smi``). Exits with code 2 without a CUDA device.
 
 Usage:
   python scripts/ab_attention.py --parent DIR [--rounds 3] [--reps 5] \
@@ -44,6 +68,7 @@ import concurrent.futures
 import importlib.util
 import json
 import os
+import re
 import statistics
 import sys
 import time
@@ -57,6 +82,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from vlp_tpu_torch.config import EXPERIMENTS, TRAIN_EXPERIMENTS  # noqa: E402
 from vlp_tpu_torch.ops import _build  # noqa: E402
 from vlp_tpu_torch.ops import block_attention as BA  # noqa: E402
+from vlp_tpu_torch.ops import fused_block as FB  # noqa: E402
 from vlp_tpu_torch.probes._timing import (  # noqa: E402
     device_ms, require_cuda)
 from vlp_tpu_torch.serve import Predictor  # noqa: E402
@@ -64,10 +90,30 @@ from vlp_tpu_torch.train.setup import build_training, random_batch  # noqa: E402
 from vlp_tpu_torch.train.step import train_steps  # noqa: E402
 
 VIT = "baseline_only_imaging_vit_base"
+NEST = "baseline_only_imaging_nest_small"
 NEST_UNFUSED = "baseline_only_imaging_nest_small model.megakernel=false"
 # (N, S, D, heads) of #7/#8 on the two paths
 KERNEL_SHAPES = {"vit_b": (32, 197, 768, 12), "nest_l0": (1024, 196, 96, 3),
                  "nest_l1": (256, 196, 192, 6), "nest_l2": (64, 196, 384, 12)}
+# NesT-Small's levels at batch 64: (map side, D, heads, blocks per step)
+NEST_LEVELS = ((56, 96, 3, 2), (28, 192, 6, 2), (14, 384, 12, 20))
+WINDOW = 14
+# the entry points that the parent's library serves in its turns, beside
+# #7/#8 (whose module reads a library of its own)
+PARENT_HALF_BLOCK = ("vlp_ln_attention_bwd", "vlp_ln_attention_windows_bwd",
+                     "vlp_ln_attention_bwd_workspace")
+# (part, pattern searched in a kernel's name) of the split, first match
+# wins: the old engines' names (gemm.cuh's <LN, TA, TB, epilogue>,
+# mhsa_bwd.cuh) and the new ones (wgmma_gemm.cuh's forms, mhsa_reg_bwd.cuh)
+SPLIT_PARTS = (
+    ("attention core", r"mhsa"),
+    ("do GEMM", r"gemm_kernel<false, false, true, 4>|RowsNT, 128, 3, 2, "
+                r"__nv_bfloat16"),
+    ("dWout + dWqkv GEMMs", r"gemm_kernel<false, true, false, 3>|ColsTN"),
+    ("dln GEMM", r"gemm_kernel<false, false, true, 3>|RowsNT, 128, 3, 2, "
+                 r"float"),
+    ("row passes", r"ln_rows|ln_bwd_rows|reduce_rows"),
+    ("other", r""))
 
 
 def _load_parent_build(root: str):
@@ -81,8 +127,8 @@ def _load_parent_build(root: str):
 
 
 class _Library:
-    """What ``block_attention`` reads of ``_build`` (``load_library``,
-    ``check``), serving another build's library."""
+    """What ``block_attention`` and ``fused_block`` read of ``_build``
+    (``load_library``, ``check``), serving another build's library."""
 
     def __init__(self, lib):
         self.lib = lib
@@ -91,6 +137,56 @@ class _Library:
         return self.lib
 
     check = staticmethod(_build.check)
+
+
+class _Mixed:
+    """A library whose entry points ``names`` are another build's."""
+
+    def __init__(self, own, other, names):
+        self._own, self._other, self._names = own, other, names
+
+    def __getattr__(self, name):
+        return getattr(self._other if name in self._names else self._own,
+                       name)
+
+
+def _host_call_ms(fn, calls=20):
+    """Host ms per call of ``calls`` calls of ``fn`` issued behind a spin
+    kernel (the card busy, so no call waits for it)."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(100_000_000)  # ~50 ms
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    ms = (time.perf_counter() - t0) * 1e3 / calls
+    torch.cuda.synchronize()
+    return ms
+
+
+def _split(fns_per_level):
+    """{part: ms per NesT-Small step} and {kernel: ms per step} of one call
+    of each level's function under torch.profiler, weighted by the level's
+    blocks per step."""
+    from torch.profiler import ProfilerActivity, profile
+    per_kernel = {}
+    for fn, blocks in fns_per_level:
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        for e in prof.events():
+            if e.device_type != torch.autograd.DeviceType.CUDA or \
+                    e.is_user_annotation:
+                continue
+            ms = (e.time_range.end - e.time_range.start) / 1e3 * blocks
+            per_kernel[e.name] = per_kernel.get(e.name, 0.0) + ms
+    parts = {}
+    for name, ms in per_kernel.items():
+        part = next(p for p, pat in SPLIT_PARTS if re.search(pat, name))
+        parts[part] = parts.get(part, 0.0) + ms
+    return parts, {k[:120]: v for k, v in per_kernel.items()}
 
 
 def _host_ms(fn, reps):
@@ -117,7 +213,11 @@ def main(argv=None) -> int:
                 pool.submit(parent_build.load_library)]
         parent_lib = libs[1].result()
         libs[0].result()
-    sides = {"change": _build, "parent": _Library(parent_lib)}
+    own_lib = _build.load_library()
+    sides = {"change": (_build, _build),
+             "parent": (_Library(parent_lib),
+                        _Library(_Mixed(own_lib, parent_lib,
+                                        PARENT_HALF_BLOCK)))}
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cuda = torch.device("cuda")
@@ -127,11 +227,17 @@ def main(argv=None) -> int:
                      batch_size=32, device="cuda")
     request = rng.integers(0, 256, (32, 224, 224), dtype=np.uint8)
     runs = {}
-    for key, batch in ((VIT, 32), (NEST_UNFUSED, 64)):
+    for label, key, batch, nhwc in (
+            ("vit_train_ms", VIT, 32, False),
+            ("nest_unfused_train_ms", NEST_UNFUSED, 64, False),
+            ("nest_train_ms", NEST, 64, False),
+            ("nest_nhwc_train_ms", NEST, 64, True)):
         tcfg = TRAIN_EXPERIMENTS[key]
-        _, state, step = build_training(tcfg, cuda, 10)
+        task, state, step = build_training(tcfg, cuda, 10)
+        if nhwc:
+            task.model.backbone.nhwc_windows = True
         batches = [random_batch(rng, batch, 224) for _ in range(4)]
-        runs[key] = (step, state, batches)
+        runs[label] = (step, state, batches)
     gen = torch.Generator(device="cuda").manual_seed(2)
     inputs = {}
     for shape, (n, s, d, heads) in KERNEL_SHAPES.items():
@@ -140,22 +246,48 @@ def main(argv=None) -> int:
         do = torch.randn(n, s, d, generator=gen, device="cuda").bfloat16()
         q, k, v = qkv.view(n, s, 3, heads, d // heads).permute(2, 0, 3, 1, 4)
         inputs[shape] = (qkv, do, heads, (q, k, v))
+    half = {}  # level -> (#3's call, #6's call)
+    for i, (width, d, heads, _) in enumerate(NEST_LEVELS):
+        mp = torch.randn(64, width, width, d, generator=gen,
+                         device="cuda").bfloat16()
+        dy = torch.randn(64, width, width, d, generator=gen,
+                         device="cuda").bfloat16()
+        (g, b, bq, bo), (wq, wo) = FB._cast(torch.bfloat16, vectors=(
+            1.0 + 0.1 * torch.randn(d, generator=gen, device="cuda"),
+            0.1 * torch.randn(d, generator=gen, device="cuda"),
+            0.02 * torch.randn(3 * d, generator=gen, device="cuda"),
+            0.02 * torch.randn(d, generator=gen, device="cuda")), matrices=(
+            torch.randn(d, 3 * d, generator=gen, device="cuda") * d ** -0.5,
+            torch.randn(d, d, generator=gen, device="cuda") * d ** -0.5))
+        x, tdy = FB._windows(mp, WINDOW), FB._windows(dy, WINDOW)
+        _, qkv, o = FB._ln_attention_cuda(x, g, b, wq, bq, wo, bo, heads)
+        _, mqkv, mo = FB._ln_attention_windows_cuda(mp, WINDOW, g, b, wq, bq,
+                                                    wo, bo, heads)
+        half[i] = (
+            lambda x=x, tdy=tdy, g=g, b=b, wq=wq, bq=bq, wo=wo, h=heads,
+            qkv=qkv, o=o: FB.ln_attention_bwd(x, g, b, wq, bq, wo, tdy, h,
+                                              qkv, o),
+            lambda mp=mp, dy=dy, g=g, b=b, wq=wq, bq=bq, wo=wo, h=heads,
+            qkv=mqkv, o=mo: FB.ln_attention_windows_bwd(
+                mp, WINDOW, g, b, wq, bq, wo, dy, h, qkv, o))
+
+    def use(side):
+        BA._build, FB._build = sides[side]
 
     def turn(side):
-        BA._build = sides[side]
+        use(side)
         out = {"side": side}
-        before = (BA.attend_qkv.launches, BA.attend_qkv_bwd.launches)
+        counted = (BA.attend_qkv, BA.attend_qkv_bwd, FB.ln_attention_bwd,
+                   FB.ln_attention_windows_bwd)
+        before = [k.launches for k in counted]
         out["vit_serve_ms"] = _host_ms(lambda: pred.predict_arrays(request),
                                        args.reps)
-        for key, label in ((VIT, "vit_train_ms"),
-                           (NEST_UNFUSED, "nest_unfused_train_ms")):
-            step, state, batches = runs[key]
+        for label, (step, state, batches) in runs.items():
             it = iter(range(args.reps))
             out[label] = _host_ms(lambda: train_steps(
                 step, state, [batches[next(it) % len(batches)]]), args.reps)
-        # #7 and #8 launches of the serving and training steps above
-        out["launches"] = [BA.attend_qkv.launches - before[0],
-                           BA.attend_qkv_bwd.launches - before[1]]
+        # #7, #8, #3 and #6 launches of the serving and training steps above
+        out["launches"] = [k.launches - n for k, n in zip(counted, before)]
         for shape, (qkv, do, heads, qkv_views) in inputs.items():
             out[f"{shape}_attend_ms"] = device_ms(
                 lambda: BA.attend_qkv(qkv, heads))
@@ -164,6 +296,11 @@ def main(argv=None) -> int:
             with torch.no_grad():
                 out[f"{shape}_sdpa_ms"] = device_ms(
                     lambda: F.scaled_dot_product_attention(*qkv_views))
+        for i, (bwd, windows_bwd) in half.items():
+            out[f"nest_l{i}_ln_attention_bwd_ms"] = device_ms(bwd)
+            out[f"nest_l{i}_ln_attention_bwd_host_ms"] = _host_call_ms(bwd)
+            out[f"nest_l{i}_ln_attention_windows_bwd_ms"] = device_ms(
+                windows_bwd)
         return out
 
     for side in ("parent", "change"):  # warm-up: plans, allocator, caches
@@ -178,15 +315,25 @@ def main(argv=None) -> int:
     sides_of = {side: [x for x in records if x["side"] == side]
                 for side in ("parent", "change")}
     metrics = [k for k in records[0] if k.endswith("_ms")]
+    splits = {}
+    for side in ("parent", "change"):
+        use(side)
+        for which, name in ((0, "ln_attention_bwd"),
+                            (1, "ln_attention_windows_bwd")):
+            parts, kernels = _split(
+                [(half[i][which], blocks)
+                 for i, (_, _, _, blocks) in enumerate(NEST_LEVELS)])
+            splits[f"{side} {name}"] = {"parts": parts, "kernels": kernels}
     summary = {"card": smi, "rounds": args.rounds, "reps": args.reps,
                "median": {side: {m: statistics.median(x[m] for x in recs)
                                  for m in metrics}
-                          for side, recs in sides_of.items()}}
+                          for side, recs in sides_of.items()},
+               "split_ms_per_step": splits}
     print(json.dumps(summary), flush=True)
     if args.output:
         with open(args.output, "w") as f:
             json.dump({"turns": records, "summary": summary}, f, indent=1)
-    BA._build = _build
+    use("change")
     return 0
 
 

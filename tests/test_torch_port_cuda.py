@@ -116,15 +116,29 @@ def _attn_params(gen, d, scale=1.0):
     return g, b, wq, bq, wo, bo
 
 
+def _forward_scratch(x, g, b, wq, bq, wo, bo, heads):
+    """The forward's qkv and o, which the backward kernel reads: the
+    forward kernel's up to S 240, the plain version's pieces above (the
+    backward takes S <= 256, the forward kernel S <= 240)."""
+    if x.shape[1] <= 240:
+        return FB._ln_attention_cuda(x, g, b, wq, bq, wo, bo, heads)[1:]
+    ln = (FB._ln_fwd(x.float())[0] * g + b).bfloat16()
+    qkv = (FB._mm(ln, wq) + bq).bfloat16()
+    return qkv, BA.attend_qkv_plain(qkv, heads)
+
+
 @pytest.mark.parametrize("n,s,d,heads", [(3, 196, 64, 2), (5, 17, 32, 1),
                                          (2, 64, 384, 12), (7, 200, 96, 3),
-                                         (2, 240, 64, 2)])  # largest S
+                                         (2, 240, 64, 2),
+                                         (2, 256, 64, 2),   # largest S
+                                         (3, 1, 64, 2),     # one token
+                                         (4, 16, 32, 1)])   # one key tile
 def test_ln_attention_bwd_kernel_matches_plain(cuda, n, s, d, heads):
     gen = torch.Generator(device=cuda).manual_seed(n * s + d + 1)
     x = _rand(gen, n, s, d).bfloat16()
     dy = _rand(gen, n, s, d).bfloat16()
     g, b, wq, bq, wo, bo = _attn_params(gen, d, scale=3.0)
-    _, qkv, o = FB._ln_attention_cuda(x, g, b, wq, bq, wo, bo, heads)
+    qkv, o = _forward_scratch(x, g, b, wq, bq, wo, bo, heads)
     before = FB.ln_attention_bwd.launches
     outs = FB.ln_attention_bwd(x, g, b, wq, bq, wo, dy, heads, qkv, o)
     torch.cuda.synchronize()
@@ -186,6 +200,69 @@ def test_autograd_runs_the_backward_kernels(cuda):
         assert _rel_err(leaf.grad, w.reshape(leaf.shape)) <= BOUND
 
 
+def _gemm_form(form, a, b, m, n, k, fp32, splits):
+    """One launch of #3/#6's product ``form`` (0: a @ b^T, 1: split-K
+    partials of a^T @ b) through ``vlp_attn_bwd_gemm``."""
+    from vlp_tpu_torch.ops import _build
+    lib = _build.load_library()
+    shape = (splits, m, n) if form == 1 else (m, n)
+    out = torch.empty(shape, device=a.device,
+                      dtype=torch.float32 if fp32 else torch.bfloat16)
+    err = lib.vlp_attn_bwd_gemm(a.data_ptr(), b.data_ptr(), out.data_ptr(),
+                                m, n, k, form, fp32, splits, FB._stream())
+    _build.check(lib, err, "attn_bwd_gemm")
+    torch.cuda.synchronize()
+    return out
+
+
+# #3/#6's products on the wgmma mainloop, each form on its own: K-major B
+# (the weights read as they lie) to bf16 (do) and to fp32 (dln), and M-major
+# A with split-K fp32 partials (dWout, dWqkv), at M of 1, 77 and 1037 rows,
+# widths 96 and 288, and split counts that do not divide the 64-row steps.
+# Against torch.matmul in fp32 (TF32 off) of the same bf16 operands: fp32
+# outputs differ by summation order alone (1e-5 of the largest |value|);
+# bf16 outputs add one rounding (BOUND).
+@pytest.mark.parametrize("m,n,k,fp32", [
+    (1, 96, 96, 0), (77, 96, 96, 0), (1037, 288, 96, 0), (1037, 96, 96, 0),
+    (1, 96, 288, 1), (77, 288, 288, 1), (1037, 96, 288, 1)])
+def test_backward_gemm_k_major_b_matches_matmul(cuda, m, n, k, fp32):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=cuda).manual_seed(m + n + k)
+    a = _rand(gen, m, k).bfloat16()
+    w = _rand(gen, n, k, scale=k ** -0.5).bfloat16()
+    ref = a.float() @ w.float().T
+    out = _gemm_form(0, a, w, m, n, k, fp32, 1)
+    assert out.shape == (m, n) and torch.isfinite(out.float()).all()
+    assert _rel_err(out, ref) <= (1e-5 if fp32 else BOUND)
+    assert torch.equal(_gemm_form(0, a, w, m, n, k, fp32, 1), out)
+
+
+@pytest.mark.parametrize("rows,m,n,splits", [
+    (1, 96, 96, 1), (77, 96, 288, 2), (1037, 96, 96, 3), (1037, 288, 96, 5),
+    (1037, 288, 288, 17), (1037, 96, 288, None)])
+def test_backward_gemm_m_major_a_split_k_matches_matmul(cuda, rows, m, n,
+                                                        splits):
+    """a [rows, m]^T @ b [rows, n]: split z sums the rows of its 64-row
+    steps [z * per, (z + 1) * per), per = ceil(steps / splits), each partial
+    held on its own; None: the sequence's own split count."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from vlp_tpu_torch.ops import _build
+    if splits is None:
+        splits = _build.load_library().vlp_attn_bwd_splits(m, n, rows)
+    gen = torch.Generator(device=cuda).manual_seed(rows + m + n)
+    a = _rand(gen, rows, m).bfloat16()
+    b = _rand(gen, rows, n).bfloat16()
+    out = _gemm_form(1, a, b, m, n, rows, 1, splits)
+    steps = -(-rows // 64)
+    per = -(-steps // splits)
+    for z in range(splits):
+        lo, hi = 64 * per * z, min(rows, 64 * per * (z + 1))
+        ref = a[lo:hi].float().T @ b[lo:hi].float()
+        assert _rel_err(out[z], ref) <= 1e-5, z
+    assert _rel_err(out.sum(0), a.float().T @ b.float()) <= 1e-5
+    assert torch.equal(_gemm_form(1, a, b, m, n, rows, 1, splits), out)
+
+
 @pytest.mark.parametrize("b,h,w,axis", [(3, 17, 30, 1), (3, 17, 30, 0),
                                         (2, 224, 224, 0)])
 def test_shear_kernel_equals_plain(cuda, b, h, w, axis):
@@ -229,14 +306,14 @@ def test_backward_and_augmentation_kernels_raise_on_cuda(cuda):
         FB.ln_attention_bwd(x, vec, vec, torch.zeros(d, 3 * d, device=cuda),
                             torch.zeros(1, 3 * d, device=cuda),
                             torch.zeros(d, d, device=cuda), x, 2, x, x)
-    xb = torch.zeros(2, 256, d, device=cuda, dtype=torch.bfloat16)
+    xb = torch.zeros(2, 257, d, device=cuda, dtype=torch.bfloat16)
     wb = torch.zeros(d, 3 * d, device=cuda, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="S <= 240"):
+    with pytest.raises(ValueError, match="S <= 256"):
         FB.ln_attention_bwd(xb, vec, vec, wb,
                             torch.zeros(1, 3 * d, device=cuda),
                             torch.zeros(d, d, device=cuda,
                                         dtype=torch.bfloat16),
-                            xb, 2, torch.zeros(2, 256, 3 * d, device=cuda,
+                            xb, 2, torch.zeros(2, 257, 3 * d, device=cuda,
                                                dtype=torch.bfloat16), xb)
     rows = torch.zeros(8, d, device=cuda)
     with pytest.raises(TypeError, match="bfloat16"):
@@ -442,7 +519,7 @@ def test_ln_attention_windows_autograd_and_refusals(cuda):
     """Autograd through ``ln_attention_windows`` on CUDA tensors launches
     the backward kernel; a CUDA map the kernels do not take raises (head
     dim other than 32, H or W not a multiple of the window, a
-    non-contiguous map, S above 240 backward)."""
+    non-contiguous map, S above 256 backward)."""
     gen = torch.Generator(device=cuda).manual_seed(6)
     b, h, w, d, block, heads = 2, 28, 28, 96, 14, 3
     x = _rand(gen, b, h, w, d).bfloat16().requires_grad_()
@@ -478,10 +555,10 @@ def test_ln_attention_windows_autograd_and_refusals(cuda):
     with pytest.raises(TypeError, match="bfloat16"):
         FB.ln_attention_windows(torch.zeros(2, 8, 8, d, device=cuda), 4, g,
                                 bt, wq, bq, wo, bo, 2)
-    xs = torch.zeros(1, 16, 16, d, **zeros)
-    with pytest.raises(ValueError, match="S <= 240"):
-        FB.ln_attention_windows_bwd(xs, 16, g, bt, wq, bq, wo, xs, 2,
-                                    torch.zeros(1, 16, 16, 3 * d, **zeros),
+    xs = torch.zeros(1, 17, 17, d, **zeros)
+    with pytest.raises(ValueError, match="S <= 256"):
+        FB.ln_attention_windows_bwd(xs, 17, g, bt, wq, bq, wo, xs, 2,
+                                    torch.zeros(1, 17, 17, 3 * d, **zeros),
                                     xs)
 
 

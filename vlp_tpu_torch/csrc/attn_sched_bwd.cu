@@ -6,9 +6,10 @@
 // returns all seven cotangents, the weight gradients in fp32 (:603-609).
 // Modes: v0 (two passes over the heads, each with its own softmax
 // recompute), stage2 (the same, each pass grouped by stage), uni (the
-// softmax computed once). On an H100 every mode runs #3's sequence
-// (ln_attention_bwd.cu) plus the recompute that the probe's signature
-// forces, on one stream:
+// softmax computed once). On an H100 every mode runs #3's sequence as it
+// stood before #3's core moved to mhsa_reg_bwd.cuh (its own cores below;
+// #3's tail) plus the recompute that the probe's signature forces, on one
+// stream:
 //
 //   1. ln_rows:             ln  = bf16(LN(x) * gamma + beta)
 //   2. gemm <LN, bias>:     qkv = bf16(LN(x) @ Wqkv + bqkv) (the forward's)
@@ -22,9 +23,9 @@
 //                buffers of 176 KB, more than a block has; so on this card
 //                stage2 differs from v0 in pass 1 only
 //        uni     mhsa_uni_bwd_kernel: the scores once per (sample, head)
-//   5-8. ln_attention.cuh's attn_bwd_tail: dWout = o^T dy, dWqkv =
-//        ln^T dqkv (split-K, reduced in a fixed order into fp32), dln, the
-//        LN backward, the vector gradients
+//   5-8. ln_attention.cuh's attn_bwd_tail, shared with #3: dWout = o^T dy,
+//        dWqkv = ln^T dqkv (wgmma_gemm.cuh, split-K, reduced in a fixed
+//        order into fp32), dln, the LN backward, the vector gradients
 //
 // The Pallas body's dov = bf16(do * (1/l)) rounds the fp32 do; the kernels
 // stage do in bf16 (step 3, as #3 does), one bf16 rounding of do apart.
@@ -49,10 +50,11 @@
 // What bounds it on this card: 104 GFLOP at the probe's batch 128 (uni's
 // products; the two-pass modes recompute QK and PV once more), 0.105 ms at
 // the bf16 peak, against 61 MB that must move: operations in the ideal;
-// these simple forms are bound by the unpipelined wmma GEMMs' and the
-// cores' latency.
+// these forms are bound by the wmma cores' and the unpipelined wmma GEMMs'
+// (steps 2 and 3) latency.
 #include "attn_sched.cuh"
 #include "ln_attention.cuh"
+#include "mhsa_bwd.cuh"
 
 namespace vlp {
 

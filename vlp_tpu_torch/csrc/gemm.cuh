@@ -1,5 +1,8 @@
-// Tiled bf16 tensor-core GEMM shared by the half-block kernels and their
-// backwards (ln_attention.cu, ln_mlp.cu, ln_attention_bwd.cu, ln_mlp_bwd.cu):
+// Tiled bf16 tensor-core GEMM of the half-block forwards and the MLP
+// backwards (ln_attention.cu, ln_attention_windows.cu, ln_mlp.cu,
+// ln_mlp_bwd.cu, fused_mlp.cu, fused_mlp_bwd.cu, and the probes'
+// attn_sched*.cu and mlp_tile_bwd.cu); the attention backwards' products
+// run on wgmma_gemm.cuh:
 //
 //   out[M, N] = epilogue(op(A) @ op(W) + bias[N])
 //

@@ -25,47 +25,13 @@
 // persistent grid is the other way to overlap the store.)
 #include "wgmma_gemm.cuh"
 
-namespace {
-
-using vlp::wg::kBK;
-
-// A [M, K] by TMA; B [K, N] in 64 x 64 boxes at (n, k)
-struct DenseRows {
-  int K;
-
-  __device__ int steps() const { return (K + kBK - 1) / kBK; }
-
-  __device__ void load_a(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                         int step, int m0) const {
-    vlp::wg::tma_load_2d(dst, map, bar, step * kBK, m0);
-  }
-
-  __device__ void load_b(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                         int step, int n) const {
-    vlp::wg::tma_load_2d(dst, map, bar, n, step * kBK);
-  }
-};
-
-}  // namespace
-
 // x [M, K], w [K, N], z [M, N], bf16, 16-byte aligned; K and N multiples of
 // 8 (16-byte rows for TMA), any M. Returns the launch's cudaError_t.
 extern "C" int vlp_gemm_single(const void* x, const void* w, void* z, int M,
                                int K, int N, void* stream) {
   namespace wg = vlp::wg;
-  if (M <= 0 || K <= 0 || N <= 0 || K % 8 || N % 8 ||
-      (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w) |
-       reinterpret_cast<uintptr_t>(z)) % 16)
-    return (int)cudaErrorInvalidValue;
-  CUtensorMap map_x, map_w;
-  const uint64_t x_dims[2] = {(uint64_t)K, (uint64_t)M};
-  const uint32_t x_box[2] = {kBK, wg::kBM};
-  const uint64_t w_dims[2] = {(uint64_t)N, (uint64_t)K};
-  const uint32_t w_box[2] = {64, kBK};
-  cudaError_t err = wg::encode_bf16(&map_x, x, 2, x_dims, x_box);
-  if (err == cudaSuccess) err = wg::encode_bf16(&map_w, w, 2, w_dims, w_box);
-  if (err != cudaSuccess) return (int)err;
-  return (int)wg::launch_wgmma_gemm<DenseRows, 128, 3, 2>(
-      map_x, map_w, DenseRows{K}, static_cast<wg::bf16*>(z), M, N,
+  return (int)wg::launch_dense<wg::DenseRows>(
+      static_cast<const wg::bf16*>(x), static_cast<const wg::bf16*>(w),
+      static_cast<wg::bf16*>(z), M, N, K, 1,
       static_cast<cudaStream_t>(stream));
 }

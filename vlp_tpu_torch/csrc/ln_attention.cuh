@@ -3,7 +3,10 @@
 // tokens, [N, S, D]) and ln_attention_windows.cu /
 // ln_attention_windows_bwd.cu (#5, #6: the N block x block windows of a NesT
 // token map [B, H, W, D], S = block^2); the backward's tail after the
-// attention core also by the probe #16 (attn_sched_bwd.cu).
+// attention core also by the probe #16 (attn_sched_bwd.cu). The forward
+// runs gemm.cuh's LN-prologue GEMM and mhsa.cuh's core; the backward
+// mhsa_reg_bwd.cuh's register-resident core (with its per-unit column
+// sums) and its four products on wgmma_gemm.cuh's TMA + wgmma mainloop.
 //
 // LayerNorm, the projections, the biases, the residual and the LayerNorm
 // backward act on each row alone, so their kernels run over the M = N * S
@@ -15,12 +18,15 @@
 // unit order, which for windows is blockify order). The sums over rows (the
 // split-K weight gradients, the 256-row partials of dgamma, dbeta and dbout)
 // run in storage order, so for windows they add the same terms in another
-// fp32 order.
+// fp32 order. A product's sum for one row runs the same K steps in the same
+// order whatever tile the row lands in, so the per-row results (dx) stay
+// position-independent.
 #pragma once
 
 #include "bwd_rows.cuh"
 #include "mhsa.cuh"
-#include "mhsa_bwd.cuh"
+#include "mhsa_reg_bwd.cuh"
+#include "wgmma_gemm.cuh"
 
 namespace vlp {
 
@@ -52,15 +58,15 @@ struct AttnBwdWs {
   bf16* dqkv;
   float* dln;
   float* bpart;   // [N, 3D]
-  float* wpart;   // [splits, D, 3D] (dWout reuses it)
+  float* wpart;   // [s_qkv, D, 3D] or [s_out, D, D], whichever is larger
   float* rpart;   // [row blocks, 3, D]
   int s_out, s_qkv;
   size_t bytes;
 
   AttnBwdWs(void* base, int N, int S, int D) {
     const int M = N * S;
-    s_out = weight_grad_splits(D, D, M);
-    s_qkv = weight_grad_splits(D, 3 * D, M);
+    s_out = wg::split_count(D, D, M);
+    s_qkv = wg::split_count(D, 3 * D, M);
     const size_t wp = (size_t)D * D *
                       (s_out > 3 * s_qkv ? s_out : 3 * (size_t)s_qkv);
     Carver c{static_cast<char*>(base)};
@@ -88,25 +94,21 @@ cudaError_t attn_bwd_tail(const bf16* x, const float* gamma, const bf16* wqkv,
                           int D, float eps, cudaStream_t st) {
   const int M = N * S;
   // dWout = o^T @ dy
-  cudaError_t err = launch_gemm_ex<false, true, false, kEpiF32>(
-      o, nullptr, nullptr, dy, nullptr, nullptr, nullptr, w.wpart, nullptr, D,
-      D, M, w.s_out, 0.f, st);
+  cudaError_t err =
+      wg::launch_dense<wg::ColsTN>(o, dy, w.wpart, D, D, M, w.s_out, st);
   if (err != cudaSuccess) return err;
   err = launch_reduce_rows(w.wpart, dwout, w.s_out, (size_t)D * D,
                            (size_t)D * D, st);
   if (err != cudaSuccess) return err;
   // dWqkv = ln^T @ dqkv
-  err = launch_gemm_ex<false, true, false, kEpiF32>(
-      w.ln, nullptr, nullptr, w.dqkv, nullptr, nullptr, nullptr, w.wpart,
-      nullptr, D, 3 * D, M, w.s_qkv, 0.f, st);
+  err = wg::launch_dense<wg::ColsTN>(w.ln, w.dqkv, w.wpart, D, 3 * D, M,
+                                     w.s_qkv, st);
   if (err != cudaSuccess) return err;
   err = launch_reduce_rows(w.wpart, dwqkv, w.s_qkv, (size_t)D * 3 * D,
                            (size_t)D * 3 * D, st);
   if (err != cudaSuccess) return err;
   // dln = dqkv @ Wqkv^T
-  err = launch_gemm_ex<false, false, true, kEpiF32>(
-      w.dqkv, nullptr, nullptr, wqkv, nullptr, nullptr, nullptr, w.dln,
-      nullptr, M, D, 3 * D, 1, 0.f, st);
+  err = wg::launch_dense<wg::RowsNT>(w.dqkv, wqkv, w.dln, M, D, 3 * D, 1, st);
   if (err != cudaSuccess) return err;
   err = launch_ln_bwd_rows(x, gamma, w.dln, dy, dx, w.rpart, M, D, eps, st);
   if (err != cudaSuccess) return err;
@@ -135,12 +137,10 @@ cudaError_t ln_attention_backward(
   cudaError_t err = launch_ln_rows(x, gamma, beta, w.ln, M, D, eps, st);
   if (err != cudaSuccess) return err;
   // do = dy @ Wout^T
-  err = launch_gemm_ex<false, false, true, kEpiBf16>(
-      dy, nullptr, nullptr, wout, nullptr, nullptr, nullptr, w.dout, nullptr,
-      M, D, D, 1, 0.f, st);
+  err = wg::launch_dense<wg::RowsNT>(dy, wout, w.dout, M, D, D, 1, st);
   if (err != cudaSuccess) return err;
-  err = launch_mhsa_bwd<32>(qkv, w.dout, w.dqkv, w.bpart, N, S, D, H, scale,
-                            rows, st);
+  err = launch_mhsa_reg_bwd_sums<32>(qkv, w.dout, w.dqkv, w.bpart, N, S, D, H,
+                                     scale, rows, st);
   if (err != cudaSuccess) return err;
   return attn_bwd_tail(x, gamma, wqkv, o, dy, w, dx, dgamma, dbeta, dwqkv,
                        dbqkv, dwout, dbout, N, S, D, eps, st);

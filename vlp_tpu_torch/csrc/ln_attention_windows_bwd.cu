@@ -11,25 +11,29 @@
 // The TPU kernel walks the row strips in order and carries the weight
 // gradients across its sequential grid. Here the launches of
 // ln_attention_bwd.cu (ln_attention.cuh) run as they are on the map's rows
-// in storage order (LN rows, the do GEMM, the split-K weight-gradient GEMMs,
-// the dln GEMM, the LN-backward rows, the fixed-order reductions: all
-// row-wise or sums over rows), and the attention-core backward
-// mhsa_bwd_kernel<WindowRows> gathers each window's block^2 rows of qkv and
-// do and scatters its dqkv rows back (attn_rows.cuh). qkv and o come from
-// the forward launch, in the map's row order.
+// in storage order (LN rows, the do product, the split-K weight-gradient
+// products, the dln product, the LN-backward rows, the fixed-order
+// reductions: all row-wise or sums over rows, the products on
+// wgmma_gemm.cuh), and the register-resident attention-core backward
+// mhsa_reg_bwd_kernel<32, KT, WindowRows, true> gathers each window's
+// block^2 rows of qkv and do and scatters its dqkv rows back
+// (attn_rows.cuh). qkv and o come from the forward launch, in the map's row
+// order.
 //
 // Sums and their order: dx goes through #3's arithmetic row by row and
-// window by window, so it equals #3 on the blockified map bit for bit. The
-// per-window column sums behind dbqkv come in window order, which is
-// blockify order, so dbqkv does too. The split-K weight gradients and the
-// 256-row partials of dgamma, dbeta and dbout sum the same rows in the map's
-// order instead of blockify order: the same terms in another fp32 order. No
-// float atomics: reruns are bit-identical.
+// window by window (a product's sum for one row runs the same K order in
+// whatever tile the row lands), so it equals #3 on the blockified map bit
+// for bit. The per-window column sums behind dbqkv (per 16-row tile, then
+// over the tiles in order) come in window order, which is blockify order,
+// so dbqkv does too. The split-K weight gradients and the 256-row partials
+// of dgamma, dbeta and dbout sum the same rows in the map's order instead
+// of blockify order: the same terms in another fp32 order. No float
+// atomics: reruns are bit-identical.
 //
 // What bounds it on this card: the work and bytes of #3 on the same tokens
-// (ln_attention_bwd.cu): memory traffic and the unpipelined GEMM's latency,
-// with the attention-core backward latency-bound. block^2 <= 240 (the
-// core's shared memory at head dim 32).
+// (ln_attention_bwd.cu): memory traffic, with the core (one block per SM)
+// and the row passes setting the time. block^2 <= 256 (the core's 16 key
+// tiles).
 #include "ln_attention.cuh"
 
 // x, dy, dx [B, H, W, D] bf16; wqkv [D, 3D], wout [D, D] bf16 ([in, out]);

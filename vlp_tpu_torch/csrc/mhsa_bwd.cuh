@@ -1,7 +1,7 @@
-// The attention-core backward of the half-block backwards
-// ln_attention_bwd.cu (#3) and ln_attention_windows_bwd.cu (#6) and of the
-// probe #16 (attn_sched_bwd.cu); the standalone packed-qkv attention
-// backward #8 runs the register-resident core of mhsa_reg_bwd.cuh instead.
+// The wmma attention-core backward of the probe #16 (attn_sched_bwd.cu,
+// modes v0 and stage2) alone; the half-block backwards #3 and #6 and the
+// standalone packed-qkv attention backward #8 run the register-resident
+// core of mhsa_reg_bwd.cuh instead.
 // From qkv [N, S, 3D] and do [N, S, D] bf16
 // to dqkv = bf16([dq | dk | dv]) [N, S, 3D], the body of
 // vlp_tpu/ops/block_attention.py:109-144 (and fused_block.py's

@@ -1,5 +1,7 @@
 // The register-resident attention-core backward of the standalone
-// packed-qkv attention, kernel #8 (block_attention_bwd.cu): from qkv
+// packed-qkv attention, kernel #8 (block_attention_bwd.cu), and of the
+// half-block backwards #3 and #6 (ln_attention.cuh, with the per-unit
+// column sums of dq, dk, dv behind their dbqkv: kSums): from qkv
 // [M, 3D] and do [M, D] bf16 to dqkv = bf16([dq | dk | dv]) [M, 3D], the
 // body of vlp_tpu/ops/block_attention.py:109-144, the rows of unit n given
 // by a row map (attn_rows.cuh). Its rounding points are the body's:
@@ -119,14 +121,19 @@ __device__ __forceinline__ float ds_of(float p, float dp, float c,
   return __fmul_rn(__fsub_rn(__fmul_rn(p, dp), __fmul_rn(p, c)), invl);
 }
 
-// Stores the fp32 16 x HD tile acc (rows r0 = tile * 16 + g and r0 + 8) *
-// mul as bf16 at column col of dqkv's rows.
+// Stores the fp32 16 x HD tile v = acc * mul (rows r0 = tile * 16 + g and
+// r0 + 8) as bf16 at column col of dqkv's rows; with part non-null, also
+// the tile's column sums of v over its rows < S into part[HD]: each lane
+// adds its two rows, then the eight lanes of a column in a fixed butterfly,
+// so the sums depend only on the tile's values. Every lane of the warp
+// calls it.
 template <int HD, class Rows>
 __device__ __forceinline__ void store_rows(const float (&acc)[HD / 8][4],
                                            float mul, bf16* dqkv, size_t row3,
                                            int col, int r0, int S,
                                            const UnitRows<Rows>& row_of,
-                                           int t) {
+                                           int lane, float* part) {
+  const int t = lane & 3;
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int r = r0 + 8 * half;
@@ -138,19 +145,40 @@ __device__ __forceinline__ void store_rows(const float (&acc)[HD / 8][4],
           pack_bf16(__fmul_rn(acc[j][2 * half], mul),
                     __fmul_rn(acc[j][2 * half + 1], mul));
   }
+  if (part == nullptr) return;  // a constant where it is inlined
+#pragma unroll
+  for (int j = 0; j < HD / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float v = (r0 < S ? __fmul_rn(acc[j][e], mul) : 0.f) +
+                (r0 + 8 < S ? __fmul_rn(acc[j][2 + e], mul) : 0.f);
+      v += __shfl_xor_sync(0xffffffffu, v, 4);
+      v += __shfl_xor_sync(0xffffffffu, v, 8);
+      v += __shfl_xor_sync(0xffffffffu, v, 16);
+      if (lane < 4) part[j * 8 + 2 * t + e] = v;
+    }
 }
 
 // grid (H, N); block bwd_warps<KT>() * 32 threads. qkv [M, 3D] and dout (do)
 // [M, D] bf16 -> dqkv [M, 3D] bf16; token r of unit n is row rows(n, r) of
-// each. check: null, or [N * H][2][16 KT][16 KT] fp32 (phase A's p, ds) and
-// bad, the count of recomputed elements that differ from them. The check's
-// branches stay in the model path's code (check null): they too bound
-// ptxas's scheduling regions, and the kernel spills without them.
-template <int HD, int KT, class Rows>
+// each. With kSums, bpart [N, 3D] fp32 receives the unit's column sums of
+// the fp32 dq, dk, dv that dqkv rounds (the half block's dbqkv before the
+// sum over units): per 16-row tile at the store (store_rows), staged
+// [KT][3][HD] in shared memory, then added over the tiles in tile order, so
+// they depend on S and the unit's values alone (a template switch, so that
+// #8's instances, which take none, keep their registers: at HD 64 and 16
+// key tiles a runtime switch cost 4 bytes of spill). check: null, or
+// [N * H][2][16 KT][16 KT]
+// fp32 (phase A's p, ds) and bad, the count of recomputed elements that
+// differ from them. The check's branches stay in the model path's code
+// (check null): they too bound ptxas's scheduling regions, and the kernel
+// spills without them.
+template <int HD, int KT, class Rows, bool kSums>
 __global__ void __launch_bounds__(bwd_warps<KT>() * 32, 1)
     mhsa_reg_bwd_kernel(const bf16* __restrict__ qkv,
                         const bf16* __restrict__ dout,
-                        bf16* __restrict__ dqkv, float* __restrict__ check,
+                        bf16* __restrict__ dqkv, float* __restrict__ bpart,
+                        float* __restrict__ check,
                         unsigned* __restrict__ bad, int S, int D,
                         float scale, Rows rows) {
   constexpr int W = bwd_warps<KT>();
@@ -168,7 +196,8 @@ __global__ void __launch_bounds__(bwd_warps<KT>() * 32, 1)
   float* Mx = reinterpret_cast<float*>(DOVs + SP * ld);  // row max of s
   float* Il = Mx + SP;                                   // 1 / l
   float* Cr = Il + SP;                                   // c
-  int* Rt = reinterpret_cast<int*>(Cr + SP);             // row table
+  float* Bp = Cr + SP;  // the tiles' column sums, [KT][3][HD] (kSums)
+  int* Rt = reinterpret_cast<int*>(Bp + (kSums ? 3 * KT * HD : 0));
   const int h = blockIdx.x;
   const int n = blockIdx.y;
   const int tid = threadIdx.x;
@@ -274,7 +303,8 @@ __global__ void __launch_bounds__(bwd_warps<KT>() * 32, 1)
       }
     }
     const int r0 = qt * 16 + g;
-    store_rows<HD>(dq, scale, dqkv, row3, h * HD, r0, S, row_of, t);
+    store_rows<HD>(dq, scale, dqkv, row3, h * HD, r0, S, row_of, lane,
+                   kSums ? Bp + 3 * qt * HD : nullptr);
     // dov = bf16(do / l) (rows past S hold zeros) and the row statistics
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
@@ -365,38 +395,52 @@ __global__ void __launch_bounds__(bwd_warps<KT>() * 32, 1)
       }
     }
     const int r0 = kt * 16 + g;
-    store_rows<HD>(dk, scale, dqkv, row3, D + h * HD, r0, S, row_of, t);
-    store_rows<HD>(dv, 1.0f, dqkv, row3, 2 * D + h * HD, r0, S, row_of, t);
+    store_rows<HD>(dk, scale, dqkv, row3, D + h * HD, r0, S, row_of, lane,
+                   kSums ? Bp + (3 * kt + 1) * HD : nullptr);
+    store_rows<HD>(dv, 1.0f, dqkv, row3, 2 * D + h * HD, r0, S, row_of, lane,
+                   kSums ? Bp + (3 * kt + 2) * HD : nullptr);
+  }
+  if constexpr (!kSums) return;
+  __syncthreads();  // every tile's sums are in place
+  for (int i = tid; i < 3 * HD; i += kThreads) {
+    const int part = i / HD;  // 0: q, 1: k, 2: v
+    const int c = i - part * HD;
+    float sum = 0.f;
+    for (int tile = 0; tile < KT; ++tile) sum += Bp[(3 * tile + part) * HD + c];
+    bpart[(size_t)n * row3 + part * D + h * HD + c] = sum;
   }
 }
 
-template <int HD, int KT, class Rows>
+template <int HD, int KT, class Rows, bool kSums>
 inline size_t mhsa_reg_bwd_smem_bytes(int S) {
   return 5 * (size_t)KT * 16 * (HD + 8) * sizeof(bf16) +
-         3 * (size_t)KT * 16 * sizeof(float) + row_table_bytes<Rows>(S);
+         3 * (size_t)KT * 16 * sizeof(float) +
+         (kSums ? 3 * (size_t)KT * HD * sizeof(float) : 0) +
+         row_table_bytes<Rows>(S);
 }
 
 // Launches the instance with KT = ceil(S / 16) key tiles.
-template <int HD, class Rows, int KT = 1>
+template <int HD, class Rows, bool kSums, int KT = 1>
 cudaError_t launch_mhsa_reg_bwd_tiles(const bf16* qkv, const bf16* dout,
-                                      bf16* dqkv, float* check, unsigned* bad,
-                                      int N, int S, int D, int H, float scale,
-                                      Rows rows, cudaStream_t stream) {
+                                      bf16* dqkv, float* bpart, float* check,
+                                      unsigned* bad, int N, int S, int D,
+                                      int H, float scale, Rows rows,
+                                      cudaStream_t stream) {
   if constexpr (KT < kMaxTiles) {
     if ((S + 15) / 16 > KT)
-      return launch_mhsa_reg_bwd_tiles<HD, Rows, KT + 1>(
-          qkv, dout, dqkv, check, bad, N, S, D, H, scale, rows, stream);
+      return launch_mhsa_reg_bwd_tiles<HD, Rows, kSums, KT + 1>(
+          qkv, dout, dqkv, bpart, check, bad, N, S, D, H, scale, rows,
+          stream);
   }
+  auto kernel = mhsa_reg_bwd_kernel<HD, KT, Rows, kSums>;
   // set at the instance's first launch only, as in mhsa_reg.cuh
   static const cudaError_t configured = cudaFuncSetAttribute(
-      mhsa_reg_bwd_kernel<HD, KT, Rows>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)mhsa_reg_bwd_smem_bytes<HD, KT, Rows>(16 * KT));
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)mhsa_reg_bwd_smem_bytes<HD, KT, Rows, kSums>(16 * KT));
   if (configured != cudaSuccess) return configured;
-  mhsa_reg_bwd_kernel<HD, KT, Rows>
-      <<<dim3(H, N), bwd_warps<KT>() * 32,
-         mhsa_reg_bwd_smem_bytes<HD, KT, Rows>(S), stream>>>(
-          qkv, dout, dqkv, check, bad, S, D, scale, rows);
+  kernel<<<dim3(H, N), bwd_warps<KT>() * 32,
+           mhsa_reg_bwd_smem_bytes<HD, KT, Rows, kSums>(S), stream>>>(
+      qkv, dout, dqkv, bpart, check, bad, S, D, scale, rows);
   return cudaGetLastError();
 }
 
@@ -412,8 +456,23 @@ cudaError_t launch_mhsa_reg_bwd(const bf16* qkv, const bf16* dout,
   if (N <= 0 || S <= 0 || S > 16 * reg::kMaxTiles || D != H * HD ||
       N > 65535 || (check == nullptr) != (bad == nullptr))
     return cudaErrorInvalidValue;
-  return reg::launch_mhsa_reg_bwd_tiles<HD, Rows>(
-      qkv, dout, dqkv, check, bad, N, S, D, H, scale, rows, stream);
+  return reg::launch_mhsa_reg_bwd_tiles<HD, Rows, false>(
+      qkv, dout, dqkv, nullptr, check, bad, N, S, D, H, scale, rows, stream);
+}
+
+// The same with the units' column sums into bpart [N, 3D] fp32 (the half
+// block's backward, ln_attention.cuh).
+template <int HD, class Rows>
+cudaError_t launch_mhsa_reg_bwd_sums(const bf16* qkv, const bf16* dout,
+                                     bf16* dqkv, float* bpart, int N, int S,
+                                     int D, int H, float scale, Rows rows,
+                                     cudaStream_t stream) {
+  if (N <= 0 || S <= 0 || S > 16 * reg::kMaxTiles || D != H * HD ||
+      N > 65535 || bpart == nullptr)
+    return cudaErrorInvalidValue;
+  return reg::launch_mhsa_reg_bwd_tiles<HD, Rows, true>(
+      qkv, dout, dqkv, bpart, nullptr, nullptr, N, S, D, H, scale, rows,
+      stream);
 }
 
 }  // namespace vlp

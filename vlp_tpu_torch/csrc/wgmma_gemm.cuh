@@ -2,13 +2,16 @@
 // 128-byte-swizzled shared-memory stages, one producer warp, and two
 // consumer warpgroups running wgmma out of shared memory:
 //
-//   out[M, N] = bf16( sum over k of A[M, k] * B[k, N] )
+//   out[M, N] = sum over k of A[M, k] * B[k, N]
 //
-// with fp32 accumulation, rounded once. Shared by the probe kernels
-// gemm_single.cu (#19b, benchmarks/mlp_probe.py:make_single: A = x [M, K]
-// by a tiled TMA map) and conv3x3.cu (#17,
-// benchmarks/conv_probe.py:pallas_conv3x3: A = the 3x3 taps of an NHWC
-// map by an im2col TMA map); B, the weights, by a tiled map in both.
+// with fp32 accumulation, rounded once to bf16 or stored as fp32 (whole,
+// or as split-K partials). Shared by the probe kernels gemm_single.cu
+// (#19b, benchmarks/mlp_probe.py:make_single: DenseRows, x @ w) and
+// conv3x3.cu (#17, benchmarks/conv_probe.py:pallas_conv3x3: A = the 3x3
+// taps of an NHWC map by an im2col TMA map), and by the half-block
+// attention backwards #3 and #6 (ln_attention.cuh: RowsNT, dy @ Wout^T to
+// bf16 and dqkv @ Wqkv^T to fp32; ColsTN, o^T @ dy and ln^T @ dqkv to
+// split-K fp32 partials). Every operand is read by a TMA map as it lies.
 //
 // What bounds a GEMM on this card: the bf16 tensor cores (989 TFLOP/s) once
 // a tile does ~300 operations per byte it brings from device memory, and
@@ -35,20 +38,28 @@
 //   release the previous stage on its empty barrier once its group has
 //   completed (wgmma.wait_group 1). No thread writes the ring, so no proxy
 //   fence is needed.
-// - A is K-major; B is [K, N] row-major, i.e. N-major, and is read as it
-//   lies through wgmma's transpose bit: each 64-column box of a stage is a
-//   column of 8-row swizzle atoms (LBO = the box's 8 KB, SBO = 1 KB), so
-//   the weights are never copied into a transposed buffer.
+// - Operand forms, set by the policy: a K-major operand (A [M, K], or B
+//   stored [N, K], as the weights of dy @ W^T lie) is read without a
+//   transpose bit, 128-byte rows of 8-row swizzle atoms (SBO = 1 KB); an
+//   M-major A (stored [K, M], the activations of X^T dY) or N-major B
+//   (stored [K, N]) is read through wgmma's transpose bit: each 64-wide box
+//   of a stage is a column of 8-row swizzle atoms (LBO = the box's 8 KB,
+//   SBO = 1 KB), so nothing is copied into a transposed buffer.
+// - Split-K: block (tile, z) walks its own range of the K steps and stores
+//   its fp32 sum as partial z; the caller reduces the partials in a fixed
+//   order (no float atomics, so reruns are bit-identical).
 // - Epilogue in registers: fp32 -> bf16 pairs, transposed within each quad
 //   of lanes by shuffles so that every thread stores 16-byte vectors
-//   (64 contiguous bytes a row per quad), masked at M and N. Two blocks
-//   share an SM at BN = 128 (~97 KB of shared memory each), so one block's
-//   epilogue and prologue overlap the other's products; BN = 256 runs one
-//   block with four stages.
+//   (64 contiguous bytes a row per quad); fp32 pairs swapped between the
+//   two lanes of a quad's halves into float4s (64 contiguous bytes a row
+//   per quad as well); masked at M and N. Two blocks share an SM at BN =
+//   128 (~97 KB of shared memory each), so one block's epilogue and
+//   prologue overlap the other's products; BN = 256 runs one block with
+//   four stages.
 //
-// Requirements: N a multiple of 8 (16-byte rows for TMA and the vector
-// stores); the policy's tensor maps describe its operands; 16-byte aligned
-// pointers. Not done here (later steps): a persistent grid whose producer
+// Requirements: N and every operand's row a multiple of 8 elements
+// (16-byte rows for TMA and the vector stores); the policy's tensor maps
+// describe its operands; 16-byte aligned pointers. Not done here (later steps): a persistent grid whose producer
 // runs on into the next tile (at K = 384 a tile's six steps leave the ring's
 // latency exposed), clusters with multicast of B, setmaxnreg, a TMA store.
 #pragma once
@@ -181,13 +192,14 @@ __device__ __forceinline__ void fence_acc(float (&d)[R]) {
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// d[64 x N] += A[64 x 16] (K-major, descriptor da) * B[16 x N] (N-major,
-// descriptor db, transpose bit set); scale_d 0 ignores d
-template <int N>
+// d[64 x N] += A[64 x 16] (descriptor da; TA = 1: M-major, read through
+// the transpose bit) * B[16 x N] (descriptor db; TB = 1: N-major, read
+// through the transpose bit); scale_d 0 ignores d
+template <int N, int TA, int TB>
 struct Mma;
 
-template <>
-struct Mma<128> {
+template <int TA, int TB>
+struct Mma<128, TA, TB> {
   __device__ __forceinline__ static void run(float (&d)[64], uint64_t da,
                                              uint64_t db, int scale_d) {
     asm volatile(
@@ -197,7 +209,7 @@ struct Mma<128> {
         "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
         "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
         "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-        "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+        "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
           "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
           "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
@@ -209,12 +221,12 @@ struct Mma<128> {
           "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
           "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
           "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "l"(da), "l"(db), "r"(scale_d));
+        : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
   }
 };
 
-template <>
-struct Mma<256> {
+template <int TA, int TB>
+struct Mma<256, TA, TB> {
   __device__ __forceinline__ static void run(float (&d)[128], uint64_t da,
                                              uint64_t db, int scale_d) {
     asm volatile(
@@ -228,7 +240,7 @@ struct Mma<256> {
         "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
         "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
         "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
-        "}, %128, %129, p, 1, 1, 0, 1;\n}\n"
+        "}, %128, %129, p, 1, 1, %131, %132;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
           "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
           "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
@@ -251,7 +263,7 @@ struct Mma<256> {
           "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
           "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
           "+f"(d[126]), "+f"(d[127])
-        : "l"(da), "l"(db), "r"(scale_d));
+        : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
   }
 };
 
@@ -288,16 +300,27 @@ struct Layout {
 };
 
 // Policy (a struct passed by value), its loads issued by one thread:
+//   kTnspA                              // 0: A K-major; 1: M-major
+//   kTnspB                              // 0: B K-major; 1: N-major
 //   int steps() const;                  // 64-deep K slices
 //   void load_a(uint32_t dst, const CUtensorMap*, uint32_t bar, int step,
-//               int m0) const;          // the [128 x 64] A tile by TMA
+//               int m0) const;          // the 128 x 64 A tile (16 KB)
 //   void load_b(uint32_t dst, const CUtensorMap*, uint32_t bar, int step,
-//               int n) const;           // one 64 x 64 box of B by TMA
-template <class Src, int BN, int STAGES, int MINB>
+//               int n) const;           // B's 64 columns from n (8 KB)
+// A K-major tile is 128 rows of 128 bytes; an M-major one two 64 x 64
+// boxes, [64 k][64 m] each, one per warpgroup. B's boxes lie in column
+// order: K-major they are the tile's BN rows of 128 bytes, N-major [64 k]
+// [64 n] each.
+//
+// Block (x, z) owns output tile x and K steps [z * split_steps, (z + 1) *
+// split_steps); with gridDim.y > 1 its fp32 sum goes to its own partial,
+// out + z * M * N.
+template <class Src, int BN, int STAGES, int MINB, class Out>
 __global__ void __launch_bounds__(kThreads, MINB)
     wgmma_gemm_kernel(const __grid_constant__ CUtensorMap map_a,
                       const __grid_constant__ CUtensorMap map_b,
-                      const Src src, bf16* __restrict__ out, int M, int N) {
+                      const Src src, Out* __restrict__ out, int M, int N,
+                      int split_steps) {
   using L = Layout<BN, STAGES>;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t ring = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -307,7 +330,9 @@ __global__ void __launch_bounds__(kThreads, MINB)
   const int n_tiles = (N + BN - 1) / BN;
   const int m0 = (blockIdx.x / n_tiles) * kBM;
   const int n0 = (blockIdx.x % n_tiles) * BN;
-  const int steps = src.steps();
+  const int t0 = blockIdx.y * split_steps;
+  const int t1 = min(src.steps(), t0 + split_steps);
+  const int steps = t1 > t0 ? t1 - t0 : 0;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
 
@@ -330,15 +355,23 @@ __global__ void __launch_bounds__(kThreads, MINB)
       const uint32_t a_st = ring + s * L::kStage;
       if (t >= STAGES) mbar_wait(empty0 + 8 * s, ((t / STAGES) + 1) & 1);
       mbar_arrive_expect_tx(full0 + 8 * s, tx);
-      src.load_a(a_st, &map_a, full0 + 8 * s, t, m0);
+      src.load_a(a_st, &map_a, full0 + 8 * s, t0 + t, m0);
       for (int j = 0; j < boxes; ++j)
-        src.load_b(a_st + kABytes + j * kBoxBytes, &map_b, full0 + 8 * s, t,
-                   n0 + 64 * j);
+        src.load_b(a_st + kABytes + j * kBoxBytes, &map_b, full0 + 8 * s,
+                   t0 + t, n0 + 64 * j);
     }
     return;
   }
 
-  // the consumers: warpgroup g owns rows [64 g, 64 g + 64) of the tile
+  // the consumers: warpgroup g owns rows [64 g, 64 g + 64) of the tile.
+  // A k16 slice of a K-major operand lies 32 bytes on within each 128-byte
+  // row (SBO = 1 KB between 8-row swizzle atoms); of an M- or N-major one
+  // 16 rows of 128 bytes on, 2 KB (LBO = the 8 KB between 64-wide boxes,
+  // SBO = 1 KB between 8-row atoms along K).
+  constexpr uint32_t kStepA = Src::kTnspA ? 2048 : 32;
+  constexpr uint32_t kLboA = Src::kTnspA ? kBoxBytes : 16;
+  constexpr uint32_t kStepB = Src::kTnspB ? 2048 : 32;
+  constexpr uint32_t kLboB = Src::kTnspB ? kBoxBytes : 16;
   const int g = warp >> 2;
   float acc[BN / 2];
 #pragma unroll
@@ -352,8 +385,9 @@ __global__ void __launch_bounds__(kThreads, MINB)
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kBK / 16; ++kk)
-      Mma<BN>::run(acc, desc_sw128(a_st + 32 * kk, 16, 1024),
-                   desc_sw128(b_st + 2048 * kk, kBoxBytes, 1024), 1);
+      Mma<BN, Src::kTnspA, Src::kTnspB>::run(
+          acc, desc_sw128(a_st + kStepA * kk, kLboA, 1024),
+          desc_sw128(b_st + kStepB * kk, kLboB, 1024), 1);
     wgmma_commit();
     fence_acc(acc);
     wgmma_wait<1>();  // step t - 1's products are done: free its stage
@@ -366,45 +400,74 @@ __global__ void __launch_bounds__(kThreads, MINB)
   // acc[4j + {0, 1}]: row lane / 4, columns 8j + 2 (lane % 4) + {0, 1};
   // acc[4j + {2, 3}]: the same columns 8 rows lower
   const int row = m0 + 64 * g + 16 * (warp & 3) + (lane >> 2);
+  out += (size_t)blockIdx.y * M * N;
+  if constexpr (sizeof(Out) == 2) {
 #pragma unroll
-  for (int c4 = 0; c4 < BN / 32; ++c4) {
-    uint32_t lo[4], hi[4];
+    for (int c4 = 0; c4 < BN / 32; ++c4) {
+      uint32_t lo[4], hi[4];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int i = 4 * (4 * c4 + j);
-      lo[j] = pack_bf16x2(acc[i], acc[i + 1]);
-      hi[j] = pack_bf16x2(acc[i + 2], acc[i + 3]);
+      for (int j = 0; j < 4; ++j) {
+        const int i = 4 * (4 * c4 + j);
+        lo[j] = pack_bf16x2(acc[i], acc[i + 1]);
+        hi[j] = pack_bf16x2(acc[i + 2], acc[i + 3]);
+      }
+      const uint4 vlo = quad_transpose(lo, lane);
+      const uint4 vhi = quad_transpose(hi, lane);
+      const int col = n0 + 32 * c4 + 8 * (lane & 3);
+      if (col < N) {
+        if (row < M)
+          *reinterpret_cast<uint4*>(out + (size_t)row * N + col) = vlo;
+        if (row + 8 < M)
+          *reinterpret_cast<uint4*>(out + (size_t)(row + 8) * N + col) = vhi;
+      }
     }
-    const uint4 vlo = quad_transpose(lo, lane);
-    const uint4 vhi = quad_transpose(hi, lane);
-    const int col = n0 + 32 * c4 + 8 * (lane & 3);
-    if (col < N) {
-      if (row < M)
-        *reinterpret_cast<uint4*>(out + (size_t)row * N + col) = vlo;
-      if (row + 8 < M)
-        *reinterpret_cast<uint4*>(out + (size_t)(row + 8) * N + col) = vhi;
+  } else {
+    // fp32: lanes 2p and 2p + 1 of a quad swap pairs, so that the even
+    // lane holds columns 4p..4p+3 of chunk j and the odd one those of
+    // chunk j + 1, one float4 each (64 contiguous bytes a row per quad)
+    const bool odd = lane & 1;
+#pragma unroll
+    for (int j = 0; j < BN / 8; j += 2) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int a = 4 * j + 2 * h;  // chunk j's pair; chunk j + 1's at a + 4
+        const float r0 =
+            __shfl_xor_sync(0xffffffffu, odd ? acc[a] : acc[a + 4], 1);
+        const float r1 =
+            __shfl_xor_sync(0xffffffffu, odd ? acc[a + 1] : acc[a + 5], 1);
+        const float4 v = odd ? make_float4(r0, r1, acc[a + 4], acc[a + 5])
+                             : make_float4(acc[a], acc[a + 1], r0, r1);
+        const int col = n0 + 8 * (j + odd) + 4 * ((lane & 3) >> 1);
+        const int r = row + 8 * h;
+        if (col < N && r < M)
+          *reinterpret_cast<float4*>(out + (size_t)r * N + col) = v;
+      }
     }
   }
 }
 
-// Launches wgmma_gemm_kernel on `stream`, one block per output tile; returns
-// the launch's cudaError_t.
-template <class Src, int BN, int STAGES, int MINB>
+// Launches wgmma_gemm_kernel on `stream`, one block per output tile and
+// split; returns the launch's cudaError_t. splits > 1 (fp32 partials
+// only): split z takes K steps [z * split_steps, (z + 1) * split_steps).
+template <class Src, int BN, int STAGES, int MINB, class Out>
 cudaError_t launch_wgmma_gemm(const CUtensorMap& map_a,
                               const CUtensorMap& map_b, const Src& src,
-                              bf16* out, int M, int N, cudaStream_t stream) {
+                              Out* out, int M, int N, cudaStream_t stream,
+                              int splits = 1, int split_steps = INT_MAX) {
   static_assert(BN == 128 || BN == 256, "the Mma instances");
-  auto kernel = wgmma_gemm_kernel<Src, BN, STAGES, MINB>;
+  static_assert(sizeof(Out) == 2 || sizeof(Out) == 4, "bf16 or fp32 out");
+  auto kernel = wgmma_gemm_kernel<Src, BN, STAGES, MINB, Out>;
   constexpr size_t smem = Layout<BN, STAGES>::kBytes;
   static const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (attr != cudaSuccess) return attr;
   const long long tiles =
       (long long)((M + kBM - 1) / kBM) * ((N + BN - 1) / BN);
-  if (M <= 0 || N <= 0 || N % 8 || tiles > INT_MAX)
+  if (M <= 0 || N <= 0 || N % 8 || tiles > INT_MAX || splits < 1 ||
+      splits > 65535 || split_steps < 1 || (splits > 1 && sizeof(Out) != 4))
     return cudaErrorInvalidValue;
-  kernel<<<(unsigned)tiles, kThreads, smem, stream>>>(map_a, map_b, src, out,
-                                                      M, N);
+  kernel<<<dim3((unsigned)tiles, splits), kThreads, smem, stream>>>(
+      map_a, map_b, src, out, M, N, split_steps);
   return cudaGetLastError();
 }
 
@@ -493,6 +556,124 @@ inline cudaError_t encode_bf16(CUtensorMap* map, const void* base, int rank,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The three dense forms, all operands row-major bf16 and read by tiled
+// maps as they lie. Each gives its loads and its tensor maps for
+// out[M, N] = sum over k < K of A(m, k) * B(k, n).
+
+// x @ w: A = x [M, K] K-major, B = w [K, N] N-major (#19b).
+struct DenseRows {
+  static constexpr int kTnspA = 0, kTnspB = 1;
+  int K;
+
+  __device__ int steps() const { return (K + kBK - 1) / kBK; }
+  __device__ void load_a(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                         int step, int m0) const {
+    tma_load_2d(dst, map, bar, step * kBK, m0);
+  }
+  __device__ void load_b(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                         int step, int n) const {
+    tma_load_2d(dst, map, bar, n, step * kBK);
+  }
+  static cudaError_t encode(CUtensorMap* ma, CUtensorMap* mb, const void* a,
+                            const void* b, int M, int N, int K) {
+    const uint64_t a_dims[2] = {(uint64_t)K, (uint64_t)M};
+    const uint64_t b_dims[2] = {(uint64_t)N, (uint64_t)K};
+    const uint32_t a_box[2] = {kBK, kBM}, b_box[2] = {64, kBK};
+    const cudaError_t err = encode_bf16(ma, a, 2, a_dims, a_box);
+    return err != cudaSuccess ? err : encode_bf16(mb, b, 2, b_dims, b_box);
+  }
+};
+
+// a @ w^T: A = a [M, K] K-major, B = w [N, K] K-major, the weights read as
+// they lie (the input gradients dy @ W^T).
+struct RowsNT {
+  static constexpr int kTnspA = 0, kTnspB = 0;
+  int K;
+
+  __device__ int steps() const { return (K + kBK - 1) / kBK; }
+  __device__ void load_a(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                         int step, int m0) const {
+    tma_load_2d(dst, map, bar, step * kBK, m0);
+  }
+  __device__ void load_b(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                         int step, int n) const {
+    tma_load_2d(dst, map, bar, step * kBK, n);
+  }
+  static cudaError_t encode(CUtensorMap* ma, CUtensorMap* mb, const void* a,
+                            const void* b, int M, int N, int K) {
+    const uint64_t a_dims[2] = {(uint64_t)K, (uint64_t)M};
+    const uint64_t b_dims[2] = {(uint64_t)K, (uint64_t)N};
+    const uint32_t a_box[2] = {kBK, kBM}, b_box[2] = {kBK, 64};
+    const cudaError_t err = encode_bf16(ma, a, 2, a_dims, a_box);
+    return err != cudaSuccess ? err : encode_bf16(mb, b, 2, b_dims, b_box);
+  }
+};
+
+// a^T @ b over K rows: A = a [K, M] M-major, B = b [K, N] N-major (the
+// weight gradients X^T dY, K = the activation rows).
+struct ColsTN {
+  static constexpr int kTnspA = 1, kTnspB = 1;
+  int K;
+
+  __device__ int steps() const { return (K + kBK - 1) / kBK; }
+  __device__ void load_a(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                         int step, int m0) const {
+    tma_load_2d(dst, map, bar, m0, step * kBK);
+    tma_load_2d(dst + kBoxBytes, map, bar, m0 + 64, step * kBK);
+  }
+  __device__ void load_b(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                         int step, int n) const {
+    tma_load_2d(dst, map, bar, n, step * kBK);
+  }
+  static cudaError_t encode(CUtensorMap* ma, CUtensorMap* mb, const void* a,
+                            const void* b, int M, int N, int K) {
+    const uint64_t a_dims[2] = {(uint64_t)M, (uint64_t)K};
+    const uint64_t b_dims[2] = {(uint64_t)N, (uint64_t)K};
+    const uint32_t box[2] = {64, kBK};
+    const cudaError_t err = encode_bf16(ma, a, 2, a_dims, box);
+    return err != cudaSuccess ? err : encode_bf16(mb, b, 2, b_dims, box);
+  }
+};
+
+// Split count of a split-K product [M, N] over K: about two blocks per SM
+// of the 132 in all, at least eight 64-deep steps a split, and no split
+// empty (so launch_dense with this count writes every partial).
+inline int split_count(int M, int N, int K) {
+  const int steps = (K + kBK - 1) / kBK;
+  const int tiles = ((M + kBM - 1) / kBM) * ((N + 127) / 128);
+  int s = (2 * 132 + tiles - 1) / tiles;
+  if (s > steps / 8) s = steps / 8;
+  if (s < 1) s = 1;
+  const int per = (steps + s - 1) / s;
+  return (steps + per - 1) / per;
+}
+
+// out = the product of form Src (DenseRows, RowsNT, ColsTN) on 128 x 128
+// tiles, three stages, two blocks an SM. Out bf16 or fp32; splits > 1
+// (fp32 only): `splits` partials [M, N] from out on, split z summing the
+// K steps [z * per, (z + 1) * per), per = ceil(steps / splits). N and the
+// row strides multiples of 8 elements (16 bytes for TMA and the vector
+// stores), 16-byte aligned operands. Encodes the two tensor maps on the
+// host and launches once; returns the first failing cudaError_t.
+template <class Src, class Out>
+cudaError_t launch_dense(const bf16* a, const bf16* b, Out* out, int M,
+                         int N, int K, int splits, cudaStream_t stream) {
+  const int a_row = Src::kTnspA ? M : K;
+  const int b_row = Src::kTnspB ? N : K;
+  if (M <= 0 || N <= 0 || K <= 0 || splits < 1 || N % 8 || a_row % 8 ||
+      b_row % 8 ||
+      (reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b) |
+       reinterpret_cast<uintptr_t>(out)) % 16)
+    return cudaErrorInvalidValue;
+  CUtensorMap map_a, map_b;
+  const cudaError_t err = Src::encode(&map_a, &map_b, a, b, M, N, K);
+  if (err != cudaSuccess) return err;
+  const int steps = (K + kBK - 1) / kBK;
+  const int per = (steps + splits - 1) / splits;
+  return launch_wgmma_gemm<Src, 128, 3, 2>(map_a, map_b, Src{K}, out, M, N,
+                                           stream, splits, per);
 }
 
 }  // namespace wg

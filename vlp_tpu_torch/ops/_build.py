@@ -23,8 +23,15 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "vlp_tpu_torch"
+# -fno-gnu-unique: the launchers' function-local statics (each kernel's
+# "shared memory attribute set" flag) stay this library's own. As
+# STB_GNU_UNIQUE symbols the dynamic linker would bind them to another
+# loaded build's copies (scripts/ab_attention.py loads a parent checkout's
+# library beside this one), and a library whose flag another had set
+# launched without its attribute and failed with an invalid argument.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xcompiler", "-fno-gnu-unique",
+              "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -42,6 +49,10 @@ _SIGNATURES = {
     # x, gamma, beta, wqkv, wout, qkv, o, dy, dx, dgamma, dbeta, dwqkv,
     # dbqkv, dwout, dbout, ws, N, S, D, H, scale, eps, stream
     "vlp_ln_attention_bwd": ([_P] * 16 + [_I] * 4 + [_F, _F, _P], _I),
+    # a, b, out, M, N, K, form, fp32, splits, stream
+    "vlp_attn_bwd_gemm": ([_P] * 3 + [_I] * 6 + [_P], _I),
+    # M, N, K -> split count
+    "vlp_attn_bwd_splits": ([_I] * 3, _I),
     # x, gamma, beta, wqkv, bqkv, wout, bout, qkv, o, y, B, H, W, D, heads,
     # block, scale, eps, stream
     "vlp_ln_attention_windows": ([_P] * 10 + [_I] * 6 + [_F, _F, _P], _I),

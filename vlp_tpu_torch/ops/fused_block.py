@@ -261,6 +261,18 @@ def _check_attn(name, x, num_heads, gamma, beta, wqkv, bqkv, wout, *rest,
     _check_cuda(name, x, gamma, beta, wqkv, bqkv, wout, *rest)
 
 
+def _check_attn_bwd(name, units, *tensors):
+    """What the backward sequence takes beyond ``_check_attn``: at most
+    65535 units (the attention core's grid) and 16-byte aligned operands
+    (its GEMMs read them by TMA)."""
+    if units > 65535:
+        raise ValueError(f"{name}: the CUDA kernel takes at most 65535 "
+                         f"attention units, got {units}")
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{name}: the CUDA kernel takes 16-byte aligned "
+                         "operands")
+
+
 def _check_mlp(name, x, gamma, beta, w1, b1, w2, *rest):
     m, d = x.shape
     f = w1.shape[-1]
@@ -379,12 +391,10 @@ def ln_attention_bwd(x, gamma, beta, wqkv, bqkv, wout, dy, num_heads: int,
     _check_attn("ln_attention_bwd", x, num_heads, gamma, beta, wqkv, bqkv,
                 wout, dy, qkv, o)
     n, s, d = x.shape
-    if s > 240:
-        raise ValueError(f"ln_attention_bwd: the CUDA kernel takes S <= 240 "
-                         f"(its shared memory), got S={s}")
     if dy.shape != x.shape or qkv.shape != (n, s, 3 * d) or \
             o.shape != x.shape:
         raise ValueError("ln_attention_bwd: dy, qkv or o do not match x")
+    _check_attn_bwd("ln_attention_bwd", n, x, dy, qkv, o, wqkv, wout)
     lib = _build.load_library()
     dx, dg, db, dbqkv, dbout, dwqkv, dwout = _grads_like(
         x, (d, d, 3 * d, d), ((d, 3 * d), (d, d)), dt)
@@ -424,13 +434,12 @@ def ln_attention_windows_bwd(x, block, gamma, beta, wqkv, bqkv, wout, dy,
                    beta, wqkv, bqkv, wout, dy, qkv, o)
     b, h, w, d = x.shape
     s = block * block
-    if s > 240:
-        raise ValueError(f"ln_attention_windows_bwd: the CUDA kernel takes "
-                         f"S <= 240 (its shared memory), got S={s}")
     if dy.shape != x.shape or qkv.shape != (b, h, w, 3 * d) or \
             o.shape != x.shape:
         raise ValueError("ln_attention_windows_bwd: dy, qkv or o do not "
                          "match x")
+    _check_attn_bwd("ln_attention_windows_bwd", x.numel() // (s * d), x, dy,
+                    qkv, o, wqkv, wout)
     lib = _build.load_library()
     dx, dg, db, dbqkv, dbout, dwqkv, dwout = _grads_like(
         x, (d, d, 3 * d, d), ((d, 3 * d), (d, d)), dt)
