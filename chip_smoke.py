@@ -8,10 +8,11 @@ Phases, each printing its lines before the last line:
    (``nvidia-smi``); exits nonzero when no CUDA device is present.
 2. build: compiles ``vlp_tpu_torch/csrc`` with nvcc (sm_90a) and loads it;
    then checks that the kernels on the wgmma + TMA mainloop
-   (``csrc/wgmma_gemm.cuh``: #19b, #17 at both tile widths, and the four
-   products of #3/#6's sequence in its three instances) reach Hopper's
-   units: ``cuobjdump --dump-sass`` of the library shows HGMMA and UTMALDG
-   in each, and the build's ``-Xptxas -v`` report shows 0 spill bytes for
+   (``csrc/wgmma_gemm.cuh``: #19b, #17 at both tile widths, the four
+   products of #3/#6's sequence in its three instances, and the dual tile
+   of #4/#10 (``csrc/mlp_bwd.cuh``), whose registers it prints) reach
+   Hopper's units: ``cuobjdump --dump-sass`` of the library shows HGMMA
+   and UTMALDG in each, and the build's ``-Xptxas -v`` report shows 0 spill bytes for
    each and no serialized wgmma; and that every instance of the
    register-resident attention-core backward (``csrc/mhsa_reg_bwd.cuh``,
    #3's and #6's at head dim 32 and 13 key tiles among them) spills
@@ -30,7 +31,8 @@ Phases, each printing its lines before the last line:
 
 5. training kernels: the backward kernels ``ln_attention_bwd`` and
    ``ln_mlp_bwd`` against their plain versions (bf16 and fp32) at
-   NesT-Small's three levels at batch 64, every cotangent; ``shear_rows``
+   NesT-Small's three levels at batch 64, every cotangent, reruns
+   bit-equal; ``shear_rows``
    at [64, 224, 224] along rows and columns; ``add_gaussian_noise``: the
    Philox words against Random123's known answers and the plain version's
    words, values within a stated bound, sigma 0 the identity, the moments
@@ -384,12 +386,14 @@ def phase_build() -> None:
 
 
 # the kernels on the wgmma + TMA mainloop (csrc/wgmma_gemm.cuh): #19b
-# (DenseRows), #17 at 128 and 256 output channels a block (ConvTaps), and
-# the four products of #3/#6's sequence (RowsNT to bf16 and to fp32, ColsTN
-# to fp32 split-K partials)
+# (DenseRows), #17 at 128 and 256 output channels a block (ConvTaps), the
+# four products of #3/#6's sequence (RowsNT to bf16 and to fp32, ColsTN to
+# fp32 split-K partials; #4/#10's weight gradients, dln and dx run on the
+# same three), and #4/#10's dual tile (DualMlp, 64 columns a block)
 WGMMA_KERNEL = "wgmma_gemm_kernel"
-WGMMA_INSTANCES = 6
-WGMMA_FORMS = ("DenseRows", "ConvTaps", "RowsNT", "ColsTN")
+WGMMA_INSTANCES = 7
+WGMMA_FORMS = ("DenseRows", "ConvTaps", "RowsNT", "ColsTN", "DualMlp")
+WGMMA_DUAL = "DualMlp"
 # the register-resident attention-core backward (csrc/mhsa_reg_bwd.cuh):
 # every instance of both row maps must keep 0 spill bytes, and #3's and
 # #6's at NesT's S = 196 (head dim 32, 13 key tiles, with the column sums:
@@ -456,6 +460,10 @@ def _check_hopper_units() -> None:
           f"a form of {WGMMA_FORMS} has no {WGMMA_KERNEL} instance")
     check(all(st == 0 and ld == 0 for _, st, ld in mine.values()),
           "a wgmma_gemm_kernel instance spills")
+    dual = [v[0] for k, v in mine.items() if WGMMA_DUAL in k]
+    check(len(dual) == 1, f"ptxas reported {len(dual)} {WGMMA_DUAL} "
+          "instances, expected 1")
+    print(f"ptxas dual tile (#4/#10): {dual[0]} registers, 0 spill bytes")
     core = {k: v for k, v in report.items() if REG_BWD_KERNEL in k}
     for rows in REG_BWD_NEST:
         found = [v for k, v in core.items()
@@ -771,9 +779,13 @@ def phase_train_kernels():
                                                      mlp, dy):
             outs = kern()
             torch.cuda.synchronize()
-            _check_outputs(name, f"N={n} S={SEQ} D={d}", outs, plain(),
-                           plain32(), BWD_NAMES[name], BOUND_BWD_BF16,
-                           BOUND_BWD_FP32, stats[name])
+            where = f"N={n} S={SEQ} D={d}"
+            _check_outputs(name, where, outs, plain(), plain32(),
+                           BWD_NAMES[name], BOUND_BWD_BF16, BOUND_BWD_FP32,
+                           stats[name])
+            check(all(torch.equal(a, b) for a, b in zip(outs, kern())),
+                  f"{name} {where}: reruns differ")
+            print(f"kernel {name} {where}: reruns bit-equal")
             del outs
             k_ms, p_ms = _timed_pair(plain, kern)
             print(f"time {name} N={n} S={SEQ} D={d} (batch {BATCH}): kernel "

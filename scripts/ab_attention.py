@@ -1,17 +1,19 @@
 """Before and after of the attention kernels (#7 ``attend_qkv``, #8
 ``attend_qkv_bwd``, and the half-block backwards #3 ``ln_attention_bwd``
-and #6 ``ln_attention_windows_bwd``) on the paths that launch them, in one
-process on one CUDA card.
+and #6 ``ln_attention_windows_bwd``) and the MLP backwards (#4
+``ln_mlp_bwd``, #10 ``fused_mlp_bwd``) on the paths that launch them, in
+one process on one CUDA card.
 
 ``--parent DIR`` is a second checkout of the repository, for example an
 earlier commit unpacked with ``git archive`` into a directory that
 ``.gitignore`` lists. Its kernels are built from its own
 ``vlp_tpu_torch/csrc`` by its own ``_build.py`` into its own build
 directory. In the parent's turns this tree's ``attend_qkv``,
-``attend_qkv_bwd``, ``ln_attention_bwd`` and ``ln_attention_windows_bwd``
-wrappers launch that library's ``vlp_attend_qkv``, ``vlp_attend_qkv_bwd``,
-``vlp_ln_attention_bwd`` and ``vlp_ln_attention_windows_bwd``, with its
-own workspace query ``vlp_ln_attention_bwd_workspace`` (their C signatures
+``attend_qkv_bwd``, ``ln_attention_bwd``, ``ln_attention_windows_bwd``,
+``ln_mlp_bwd`` and ``fused_mlp_bwd`` wrappers launch that library's
+``vlp_attend_qkv``, ``vlp_attend_qkv_bwd``, ``vlp_ln_attention_bwd``,
+``vlp_ln_attention_windows_bwd``, ``vlp_ln_mlp_bwd`` and
+``vlp_fused_mlp_bwd``, with its own workspace queries (their C signatures
 must be this tree's); every other kernel and all the code around them are
 this tree's. The turns alternate (parent, change, change, parent, ...)
 after one warm-up turn of each, and each turn times:
@@ -27,6 +29,8 @@ after one warm-up turn of each, and each turn times:
                       launches), the same way
   nest_nhwc_train_ms  the same with the backbone's ``nhwc_windows`` set (24
                       #6 launches)
+  <step>_peak_mib     each training step's peak device memory above what
+                      was allocated before it (``max_memory_allocated``)
   <shape>_attend_ms, <shape>_attend_bwd_ms, <shape>_sdpa_ms  the device
                       time per call of #7, #8 and SDPA's forward (on the
                       same q, k, v views, the yardstick) at ViT-B's shape
@@ -45,12 +49,19 @@ after one warm-up turn of each, and each turn times:
                       so that the host never waits for it (the wrapper's
                       Python, the library's launches and, on this tree's
                       side, the eight tensor maps it encodes)
+  nest_l<i>_ln_mlp_bwd_ms, nest_l<i>_fused_mlp_bwd_ms
+                      the device time per call of #4 and #10 at level i's
+                      rows at batch 64 ([64 * 56^2 / 28^2 / 14^2, D], F =
+                      4D), the same way
 
-After the turns, each side's #3 and #6 run once more per level under
-``torch.profiler``: the device time of every kernel of the call, summed by
-name and weighted by the level's blocks per NesT-Small step (2, 2, 20), is
-the ``split`` of the summary (ms per training step), with the kernels
-grouped into the attention core, the four products and the row passes.
+After the turns, each side's #3, #6, #4 and #10 run once more per level
+under ``torch.profiler``: the device time of every kernel of the call,
+summed by name and weighted by the level's blocks per NesT-Small step (2,
+2, 20), is the ``split`` of the summary (ms per training step), with the
+kernels grouped into the attention core, the four products and the row
+passes (#3, #6), or into the dual tile (on the parent's side its two
+products with gelu' between them), the weight gradients, dln or dx and
+the row passes (#4, #10).
 
 Random weights and batches from fixed seeds, the same on both sides. Prints
 one JSON line per turn, then one with each side's median of every metric
@@ -83,8 +94,8 @@ from vlp_tpu_torch.config import EXPERIMENTS, TRAIN_EXPERIMENTS  # noqa: E402
 from vlp_tpu_torch.ops import _build  # noqa: E402
 from vlp_tpu_torch.ops import block_attention as BA  # noqa: E402
 from vlp_tpu_torch.ops import fused_block as FB  # noqa: E402
-from vlp_tpu_torch.probes._timing import (  # noqa: E402
-    device_ms, require_cuda)
+from vlp_tpu_torch.ops import fused_mlp as FM  # noqa: E402
+from vlp_tpu_torch.probes._timing import device_ms, require_cuda  # noqa: E402
 from vlp_tpu_torch.serve import Predictor  # noqa: E402
 from vlp_tpu_torch.train.setup import build_training, random_batch  # noqa: E402
 from vlp_tpu_torch.train.step import train_steps  # noqa: E402
@@ -102,6 +113,9 @@ WINDOW = 14
 # #7/#8 (whose module reads a library of its own)
 PARENT_HALF_BLOCK = ("vlp_ln_attention_bwd", "vlp_ln_attention_windows_bwd",
                      "vlp_ln_attention_bwd_workspace")
+PARENT_MLP_BWD = ("vlp_ln_mlp_bwd", "vlp_ln_mlp_bwd_workspace",
+                  "vlp_fused_mlp_bwd", "vlp_fused_mlp_bwd_workspace")
+PARENT_ENTRY_POINTS = PARENT_HALF_BLOCK + PARENT_MLP_BWD
 # (part, pattern searched in a kernel's name) of the split, first match
 # wins: the old engines' names (gemm.cuh's <LN, TA, TB, epilogue>,
 # mhsa_bwd.cuh) and the new ones (wgmma_gemm.cuh's forms, mhsa_reg_bwd.cuh)
@@ -113,6 +127,15 @@ SPLIT_PARTS = (
     ("dln GEMM", r"gemm_kernel<false, false, true, 3>|RowsNT, 128, 3, 2, "
                  r"float"),
     ("row passes", r"ln_rows|ln_bwd_rows|reduce_rows"),
+    ("other", r""))
+# the same for #4 and #10: the parent's gemm.cuh epilogues 5 (bias + GELU
+# and its derivative) and 6 (the product with it), this tree's dual tile
+MLP_SPLIT_PARTS = (
+    ("dual tile", r"gemm_kernel<false, false, false, 5>|"
+                  r"gemm_kernel<false, false, true, 6>|DualMlp"),
+    ("dW1 + dW2 GEMMs", r"gemm_kernel<false, true, false, 3>|ColsTN"),
+    ("dln / dx GEMM", r"gemm_kernel<false, false, true, [34]>|RowsNT"),
+    ("row passes", r"ln_rows|ln_bwd_rows|reduce_rows|col_partials"),
     ("other", r""))
 
 
@@ -127,7 +150,8 @@ def _load_parent_build(root: str):
 
 
 class _Library:
-    """What ``block_attention`` and ``fused_block`` read of ``_build``
+    """What ``block_attention``, ``fused_block`` and ``fused_mlp`` read of
+    ``_build``
     (``load_library``, ``check``), serving another build's library."""
 
     def __init__(self, lib):
@@ -164,10 +188,10 @@ def _host_call_ms(fn, calls=20):
     return ms
 
 
-def _split(fns_per_level):
+def _split(fns_per_level, parts_of=SPLIT_PARTS):
     """{part: ms per NesT-Small step} and {kernel: ms per step} of one call
     of each level's function under torch.profiler, weighted by the level's
-    blocks per step."""
+    blocks per step; ``parts_of`` groups the kernels."""
     from torch.profiler import ProfilerActivity, profile
     per_kernel = {}
     for fn, blocks in fns_per_level:
@@ -184,7 +208,7 @@ def _split(fns_per_level):
             per_kernel[e.name] = per_kernel.get(e.name, 0.0) + ms
     parts = {}
     for name, ms in per_kernel.items():
-        part = next(p for p, pat in SPLIT_PARTS if re.search(pat, name))
+        part = next(p for p, pat in parts_of if re.search(pat, name))
         parts[part] = parts.get(part, 0.0) + ms
     return parts, {k[:120]: v for k, v in per_kernel.items()}
 
@@ -217,7 +241,7 @@ def main(argv=None) -> int:
     sides = {"change": (_build, _build),
              "parent": (_Library(parent_lib),
                         _Library(_Mixed(own_lib, parent_lib,
-                                        PARENT_HALF_BLOCK)))}
+                                        PARENT_ENTRY_POINTS)))}
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cuda = torch.device("cuda")
@@ -246,7 +270,7 @@ def main(argv=None) -> int:
         do = torch.randn(n, s, d, generator=gen, device="cuda").bfloat16()
         q, k, v = qkv.view(n, s, 3, heads, d // heads).permute(2, 0, 3, 1, 4)
         inputs[shape] = (qkv, do, heads, (q, k, v))
-    half = {}  # level -> (#3's call, #6's call)
+    half = {}  # level -> (#3, #6, #4 and #10 calls)
     for i, (width, d, heads, _) in enumerate(NEST_LEVELS):
         mp = torch.randn(64, width, width, d, generator=gen,
                          device="cuda").bfloat16()
@@ -263,30 +287,48 @@ def main(argv=None) -> int:
         _, qkv, o = FB._ln_attention_cuda(x, g, b, wq, bq, wo, bo, heads)
         _, mqkv, mo = FB._ln_attention_windows_cuda(mp, WINDOW, g, b, wq, bq,
                                                     wo, bo, heads)
+        rows, drows = mp.reshape(-1, d), dy.reshape(-1, d)
+        (b1,), (w1, w2) = FB._cast(torch.bfloat16, vectors=(
+            0.02 * torch.randn(4 * d, generator=gen, device="cuda"),),
+            matrices=(
+            torch.randn(d, 4 * d, generator=gen, device="cuda") * d ** -0.5,
+            torch.randn(4 * d, d, generator=gen, device="cuda")
+            * (4 * d) ** -0.5))
         half[i] = (
             lambda x=x, tdy=tdy, g=g, b=b, wq=wq, bq=bq, wo=wo, h=heads,
             qkv=qkv, o=o: FB.ln_attention_bwd(x, g, b, wq, bq, wo, tdy, h,
                                               qkv, o),
             lambda mp=mp, dy=dy, g=g, b=b, wq=wq, bq=bq, wo=wo, h=heads,
             qkv=mqkv, o=mo: FB.ln_attention_windows_bwd(
-                mp, WINDOW, g, b, wq, bq, wo, dy, h, qkv, o))
+                mp, WINDOW, g, b, wq, bq, wo, dy, h, qkv, o),
+            lambda x=rows, dy=drows, g=g, b=b, w1=w1, b1=b1, w2=w2:
+            FB.ln_mlp_bwd(x, g, b, w1, b1, w2, dy),
+            lambda x=rows, dy=drows, w1=w1, b1=b1, w2=w2:
+            FM.fused_mlp_bwd(x, w1, b1, w2, dy))
 
     def use(side):
         BA._build, FB._build = sides[side]
+        FM._build = FB._build
 
     def turn(side):
         use(side)
         out = {"side": side}
         counted = (BA.attend_qkv, BA.attend_qkv_bwd, FB.ln_attention_bwd,
-                   FB.ln_attention_windows_bwd)
+                   FB.ln_attention_windows_bwd, FB.ln_mlp_bwd,
+                   FM.fused_mlp_bwd)
         before = [k.launches for k in counted]
         out["vit_serve_ms"] = _host_ms(lambda: pred.predict_arrays(request),
                                        args.reps)
         for label, (step, state, batches) in runs.items():
             it = iter(range(args.reps))
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
             out[label] = _host_ms(lambda: train_steps(
                 step, state, [batches[next(it) % len(batches)]]), args.reps)
-        # #7, #8, #3 and #6 launches of the serving and training steps above
+            out[label[:-3] + "_peak_mib"] = (
+                torch.cuda.max_memory_allocated() - base) / 2 ** 20
+        # #7, #8, #3, #6, #4 and #10 launches of the serving and training
+        # steps above
         out["launches"] = [k.launches - n for k, n in zip(counted, before)]
         for shape, (qkv, do, heads, qkv_views) in inputs.items():
             out[f"{shape}_attend_ms"] = device_ms(
@@ -296,11 +338,13 @@ def main(argv=None) -> int:
             with torch.no_grad():
                 out[f"{shape}_sdpa_ms"] = device_ms(
                     lambda: F.scaled_dot_product_attention(*qkv_views))
-        for i, (bwd, windows_bwd) in half.items():
+        for i, (bwd, windows_bwd, mlp_bwd, fused_bwd) in half.items():
             out[f"nest_l{i}_ln_attention_bwd_ms"] = device_ms(bwd)
             out[f"nest_l{i}_ln_attention_bwd_host_ms"] = _host_call_ms(bwd)
             out[f"nest_l{i}_ln_attention_windows_bwd_ms"] = device_ms(
                 windows_bwd)
+            out[f"nest_l{i}_ln_mlp_bwd_ms"] = device_ms(mlp_bwd)
+            out[f"nest_l{i}_fused_mlp_bwd_ms"] = device_ms(fused_bwd)
         return out
 
     for side in ("parent", "change"):  # warm-up: plans, allocator, caches
@@ -314,15 +358,19 @@ def main(argv=None) -> int:
             print(json.dumps(rec), flush=True)
     sides_of = {side: [x for x in records if x["side"] == side]
                 for side in ("parent", "change")}
-    metrics = [k for k in records[0] if k.endswith("_ms")]
+    metrics = [k for k in records[0] if k.endswith(("_ms", "_mib"))]
     splits = {}
     for side in ("parent", "change"):
         use(side)
-        for which, name in ((0, "ln_attention_bwd"),
-                            (1, "ln_attention_windows_bwd")):
+        for which, name, parts_of in (
+                (0, "ln_attention_bwd", SPLIT_PARTS),
+                (1, "ln_attention_windows_bwd", SPLIT_PARTS),
+                (2, "ln_mlp_bwd", MLP_SPLIT_PARTS),
+                (3, "fused_mlp_bwd", MLP_SPLIT_PARTS)):
             parts, kernels = _split(
                 [(half[i][which], blocks)
-                 for i, (_, _, _, blocks) in enumerate(NEST_LEVELS)])
+                 for i, (_, _, _, blocks) in enumerate(NEST_LEVELS)],
+                parts_of)
             splits[f"{side} {name}"] = {"parts": parts, "kernels": kernels}
     summary = {"card": smi, "rounds": args.rounds, "reps": args.reps,
                "median": {side: {m: statistics.median(x[m] for x in recs)

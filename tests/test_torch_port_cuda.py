@@ -1,6 +1,8 @@
 """The CUDA kernels (half blocks and their backwards, the windowed half
 block on a NesT token map and its backward, the packed-qkv attention and
-the fused MLP with their backwards, shear, noise, the ResNet probe
+the fused MLP with their backwards, the products of the backwards on the
+wgmma mainloop each on its own (the MLP backwards' dual tile at both
+widths among them), shear, noise, the ResNet probe
 kernels conv3x3 and bn_relu_gemm, the MLP probe kernels mlp_tile, its
 backward, mlp_chain and mlp_single (the last and conv3x3 on the wgmma
 mainloop, reruns bit-equal), and the attention schedule probes
@@ -56,7 +58,8 @@ def _rel_err(out, ref):
 
 
 @pytest.mark.parametrize("n,s,d,heads", [(3, 196, 64, 2), (5, 17, 32, 1),
-                                         (2, 64, 384, 12), (7, 200, 96, 3)])
+                                         (2, 64, 384, 12), (7, 200, 96, 3),
+                                         (2, 256, 64, 2)])  # largest S
 def test_ln_attention_kernel_matches_plain(cuda, n, s, d, heads):
     gen = torch.Generator(device=cuda).manual_seed(n * s + d)
     x = _rand(gen, n, s, d).bfloat16()
@@ -117,14 +120,9 @@ def _attn_params(gen, d, scale=1.0):
 
 
 def _forward_scratch(x, g, b, wq, bq, wo, bo, heads):
-    """The forward's qkv and o, which the backward kernel reads: the
-    forward kernel's up to S 240, the plain version's pieces above (the
-    backward takes S <= 256, the forward kernel S <= 240)."""
-    if x.shape[1] <= 240:
-        return FB._ln_attention_cuda(x, g, b, wq, bq, wo, bo, heads)[1:]
-    ln = (FB._ln_fwd(x.float())[0] * g + b).bfloat16()
-    qkv = (FB._mm(ln, wq) + bq).bfloat16()
-    return qkv, BA.attend_qkv_plain(qkv, heads)
+    """The forward kernel's qkv and o, which the backward kernel reads (both
+    take S <= 256)."""
+    return FB._ln_attention_cuda(x, g, b, wq, bq, wo, bo, heads)[1:]
 
 
 @pytest.mark.parametrize("n,s,d,heads", [(3, 196, 64, 2), (5, 17, 32, 1),
@@ -153,7 +151,8 @@ def test_ln_attention_bwd_kernel_matches_plain(cuda, n, s, d, heads):
 
 
 @pytest.mark.parametrize("m,d,f", [(100, 64, 256), (1568, 96, 384),
-                                   (33, 384, 1536)])
+                                   (33, 384, 1536),
+                                   (200704, 96, 384)])  # NesT level 0
 def test_ln_mlp_bwd_kernel_matches_plain(cuda, m, d, f):
     gen = torch.Generator(device=cuda).manual_seed(m + d + 1)
     x = _rand(gen, m, d).bfloat16()
@@ -224,7 +223,10 @@ def _gemm_form(form, a, b, m, n, k, fp32, splits):
 # bf16 outputs add one rounding (BOUND).
 @pytest.mark.parametrize("m,n,k,fp32", [
     (1, 96, 96, 0), (77, 96, 96, 0), (1037, 288, 96, 0), (1037, 96, 96, 0),
-    (1, 96, 288, 1), (77, 288, 288, 1), (1037, 96, 288, 1)])
+    (1, 96, 288, 1), (77, 288, 288, 1), (1037, 96, 288, 1),
+    # #10's dx = bf16(dh @ W1^T) and #4's dln at NesT's widths (K = F = 4D)
+    (1037, 96, 384, 0), (77, 192, 768, 0), (1, 384, 1536, 0),
+    (1037, 96, 384, 1)])
 def test_backward_gemm_k_major_b_matches_matmul(cuda, m, n, k, fp32):
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device=cuda).manual_seed(m + n + k)
@@ -393,7 +395,8 @@ def test_attend_qkv_kernels_keep_units_apart(cuda, s, d, heads):
 
 
 @pytest.mark.parametrize("m,d,f", [(1568, 96, 384), (100, 64, 256),
-                                   (512, 384, 1536)])
+                                   (512, 384, 1536),
+                                   (200704, 96, 384)])  # NesT level 0
 def test_fused_mlp_kernels_match_plain(cuda, m, d, f):
     """Forward and backward of the fused MLP (#9, #10), every cotangent,
     ragged rows included; reruns of the backward are bit-identical."""
@@ -420,6 +423,54 @@ def test_fused_mlp_kernels_match_plain(cuda, m, d, f):
         assert _rel_err(got, ref) <= BOUND
     again = FM.fused_mlp_bwd(x, w1, b1, w2, dy)
     assert all(torch.equal(a, b) for a, b in zip(outs, again))
+
+
+def _mlp_dual(a, w1, b1, dy, w2):
+    """One launch of #4/#10's dual tile through ``vlp_mlp_dual``: (h, dh,
+    the column sums of dh32 per 128-row tile)."""
+    from vlp_tpu_torch.ops import _build
+    lib = _build.load_library()
+    m, f = a.shape[0], w1.shape[1]
+    h = torch.empty(m, f, device=a.device, dtype=torch.bfloat16)
+    dh = torch.empty_like(h)
+    col = torch.empty(-(-m // 128), f, device=a.device)
+    err = lib.vlp_mlp_dual(a.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+                           dy.data_ptr(), w2.data_ptr(), h.data_ptr(),
+                           dh.data_ptr(), col.data_ptr(), m, a.shape[1], f,
+                           FB._stream())
+    _build.check(lib, err, "mlp_dual")
+    torch.cuda.synchronize()
+    return h, dh, col
+
+
+# #4/#10's dual tile on its own: h = bf16(z * cdf) and dh =
+# bf16((dy @ W2^T) * gelu'(z)), z = a @ W1 + b1, against torch.matmul
+# pieces in fp32 (TF32 off) on the same bf16 operands (one rounding apart:
+# BOUND), and the fp32 column sums of dh32 over each 128-row tile (the same
+# terms in another order: 1e-4 of the largest). Ragged M (1, 77, 1037 rows:
+# a partial last tile, its rows masked out of the sums), D 96/192/384 (D 96
+# a ragged 64-deep step) at F = 4D, and F 352 and 160, which end inside a
+# 64-wide tile; reruns bit-equal.
+@pytest.mark.parametrize("m,d,f", [(1, 96, 384), (77, 192, 768),
+                                   (1037, 384, 1536), (1037, 96, 384),
+                                   (1037, 96, 352), (77, 64, 160)])
+def test_mlp_dual_tile_matches_matmul_pieces(cuda, m, d, f):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=cuda).manual_seed(m + d + f)
+    a = _rand(gen, m, d).bfloat16()
+    dy = _rand(gen, m, d).bfloat16()
+    w1 = _rand(gen, d, f, scale=d ** -0.5).bfloat16()
+    w2 = _rand(gen, f, d, scale=f ** -0.5).bfloat16()
+    b1 = _rand(gen, f, scale=0.5)  # a dropped bias shows
+    h, dh, col = _mlp_dual(a, w1, b1, dy, w2)
+    h32, dgelu = FM.gelu_and_grad(a.float() @ w1.float() + b1)
+    dh32 = (dy.float() @ w2.float().T) * dgelu
+    assert _rel_err(h, h32.bfloat16()) <= BOUND
+    assert _rel_err(dh, dh32.bfloat16()) <= BOUND
+    tiles = torch.stack([t.sum(0) for t in dh32.split(128)])
+    assert col.shape == tiles.shape and _rel_err(col, tiles) <= 1e-4
+    again = _mlp_dual(a, w1, b1, dy, w2)
+    assert all(torch.equal(x, y) for x, y in zip((h, dh, col), again))
 
 
 def test_unfused_autograd_runs_the_kernels_and_raises_on_what_they_refuse(
@@ -470,6 +521,7 @@ def test_unfused_autograd_runs_the_kernels_and_raises_on_what_they_refuse(
     (2, 14, 14, 384, 14, 12),
     (4, 8, 12, 64, 4, 2),      # S 16
     (2, 30, 45, 32, 15, 1),    # S 225: a ragged last 16-row tile
+    (2, 32, 16, 64, 16, 2),    # S 256: the largest window
 ])
 def test_ln_attention_windows_kernels_match_plain_and_blockified(
         cuda, b, h, w, d, block, heads):

@@ -373,7 +373,7 @@ extern "C" int vlp_attn_sched_bwd(
   // do = dy @ Wout^T
   err = vlp::launch_gemm_ex<false, false, true, vlp::kEpiBf16>(
       dyb, nullptr, nullptr, static_cast<const bf16*>(wout), nullptr,
-      nullptr, nullptr, w.base.dout, nullptr, M, D, D, 1, 0.f, st);
+      nullptr, w.base.dout, M, D, D, 1, 0.f, st);
   if (err != cudaSuccess) return (int)err;
   err = vlp::attn_sched_bwd_core(w.qkv, w.base.dout, w.o, w.base.dqkv,
                                  w.base.bpart, w.scratch, N, S, D, H, scale,

@@ -1,12 +1,13 @@
-// Row kernels and the deterministic reduction shared by the two half-block
-// backwards (ln_attention_bwd.cu, ln_mlp_bwd.cu).
+// Row kernels and the deterministic reduction shared by the backwards
+// (ln_attention_bwd.cu, ln_mlp_bwd.cu, fused_mlp_bwd.cu).
 //
 //   ln_rows_kernel:      ln = bf16(LN(x) * gamma + beta), one warp per row
 //   ln_bwd_rows_kernel:  dx = bf16(dy + LN_bwd(dln * gamma)), with the
 //                        block's column partial sums of dln * x_hat, dln
 //                        and dy (for dgamma, dbeta and the output bias)
 //   col_partials_kernel: part[b, c] = sum of x[r, c] over the rows r of
-//                        row block b, in order (for a bias gradient)
+//                        row block b, in a fixed order (for a bias
+//                        gradient)
 //   reduce_rows_kernel:  out[c] = sum over p of part[p * stride + c], p in
 //                        order: partials -> fp32 vector or bf16 weight
 //
@@ -143,21 +144,45 @@ __global__ void __launch_bounds__(kRowWarps * 32)
   }
 }
 
-// grid (ceil(D / 128), col_row_blocks(M)); block 128 threads, one column
-// each: neighbouring threads read neighbouring elements of a row. (A
-// template, as every kernel in these headers, so that each object file's
-// copy links as one.)
-template <typename T>
-__global__ void __launch_bounds__(128)
-    col_partials_kernel(const T* __restrict__ x, float* __restrict__ part,
+// grid (ceil(D / 64), col_row_blocks(M)); block kColWarps warps. Lane l
+// of warp w sums columns 2l, 2l + 1 of the block's 64 (a bf16 pair: a
+// warp reads 128 contiguous bytes of a row) over rows w, w + kColWarps,
+// ... of the block's kRowsPerBlock, in order; the warps' sums are then
+// added in warp order. Each thread walks 32 rows, not 256, so the pass is
+// not bound by one thread's chain of loads when M is small (a few blocks
+// a column). D even. (A template, as every kernel in these headers, so
+// that each object file's copy links as one.)
+template <int kColWarps>
+__global__ void __launch_bounds__(kColWarps * 32)
+    col_partials_kernel(const bf16* __restrict__ x, float* __restrict__ part,
                         int M, int D) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= D) return;
+  __shared__ float2 red[kColWarps][32];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int c = blockIdx.x * 64 + 2 * lane;
   const int r_end = min(M, (int)(blockIdx.y + 1) * kRowsPerBlock);
-  float s = 0.f;
-  for (int r = blockIdx.y * kRowsPerBlock; r < r_end; ++r)
-    s += static_cast<float>(x[(size_t)r * D + c]);
-  part[(size_t)blockIdx.y * D + c] = s;
+  float2 s = make_float2(0.f, 0.f);
+  if (c < D) {
+    for (int r = blockIdx.y * kRowsPerBlock + warp; r < r_end;
+         r += kColWarps) {
+      const __nv_bfloat162 v =
+          *reinterpret_cast<const __nv_bfloat162*>(x + (size_t)r * D + c);
+      s.x += __low2float(v);
+      s.y += __high2float(v);
+    }
+  }
+  red[warp][lane] = s;
+  __syncthreads();
+  if (warp == 0 && c < D) {
+    float2 t = red[0][lane];
+#pragma unroll
+    for (int w = 1; w < kColWarps; ++w) {
+      t.x += red[w][lane].x;
+      t.y += red[w][lane].y;
+    }
+    part[(size_t)blockIdx.y * D + c] = t.x;
+    part[(size_t)blockIdx.y * D + c + 1] = t.y;
+  }
 }
 
 template <typename T>
@@ -265,12 +290,16 @@ inline int col_row_blocks(int M) {
   return (M + kRowsPerBlock - 1) / kRowsPerBlock;
 }
 
+// x [M, D] bf16, 4-byte aligned rows (D even).
 inline cudaError_t launch_col_partials(const bf16* x, float* part, int M,
                                        int D, cudaStream_t st) {
-  if (M <= 0 || D <= 0 || col_row_blocks(M) > 65535)
+  constexpr int kWarps = 8;
+  if (M <= 0 || D <= 0 || D % 2 || col_row_blocks(M) > 65535 ||
+      reinterpret_cast<uintptr_t>(x) % 4)
     return cudaErrorInvalidValue;
-  col_partials_kernel<bf16><<<dim3((D + 127) / 128, col_row_blocks(M)), 128, 0,
-                        st>>>(x, part, M, D);
+  col_partials_kernel<kWarps>
+      <<<dim3((D + 63) / 64, col_row_blocks(M)), kWarps * 32, 0, st>>>(
+          x, part, M, D);
   return cudaGetLastError();
 }
 

@@ -40,6 +40,7 @@ using vlp::wg::bf16;
 using vlp::wg::kBK;
 
 struct ConvTaps {
+  static constexpr int kProducts = 1;
   static constexpr int kTnspA = 0, kTnspB = 1;  // A K-major, B N-major
   int H, W, slices;  // slices = ceil(C / 64) per tap
 

@@ -9,58 +9,42 @@
 // The TPU kernel keeps a row tile's z, h and dh [tm, F] in VMEM and carries
 // the weight gradients across its sequential grid. Here it is the launch
 // sequence of the half-block MLP backward (ln_mlp_bwd.cu) without the
-// LayerNorm and without the residual, every product a wmma GEMM of
-// gemm.cuh:
+// LayerNorm and without the residual:
 //
-//   1. gemm NN, epilogue: z = x @ W1 + b1 -> h = bf16(z * cdf) [M, F] and
-//                         gelu'(z) = cdf + z * phi fp32 [M, F]
-//                         (fused_mlp.py:_gelu_and_grad, the backward's form)
-//   2. gemm TN, split-K:  dW2 = h^T @ do              (fp32 partials)
-//   3. gemm NT, epilogue: dh32 = (do @ W2^T) * gelu'(z); dh = bf16(dh32)
-//                         [M, F]; fp32 column sums of dh32 per 64-row tile
-//   4. gemm TN, split-K:  dW1 = x^T @ dh              (fp32 partials)
-//   5. gemm NT:           dx = bf16(dh @ W1^T)                       [M, D]
-//   6. col_partials:      column sums of do per 256 rows (fp32)
-//   7. reduce_rows:       the partials in a fixed order -> dW1, dW2 (bf16),
-//                         db1, db2 (fp32)
+//   1-4. mlp_bwd.cuh's products on wgmma_gemm.cuh: the dual tile (h and
+//        dh [M, F] from z = x @ W1 + b1 and do @ W2^T, gelu'(z) kept in
+//        registers, fp32 column sums of dh32 per 128-row tile), dW2 = h^T
+//        @ do and dW1 = x^T @ dh (split-K fp32 partials), dx = bf16(dh @
+//        W1^T) [M, D]
+//   5. col_partials:  column sums of do per 256 rows (fp32)
+//   6. reduce_rows:   the partials in a fixed order -> dW1, dW2 (bf16),
+//                     db1, db2 (fp32)
 //
 // Nothing is saved from the forward but x: h is recomputed as
 // bf16(z * cdf), the Pallas backward's association. No float atomics, so
-// reruns agree bit for bit. The workspace (h, gelu', dh and the partials)
-// is 8 * M * F bytes plus the partials: 617 MB at level 0 of NesT-Small at
+// reruns agree bit for bit. The workspace (h, dh and the partials) is
+// 4 * M * F bytes plus the partials: ~325 MB at level 0 of NesT-Small at
 // batch 64 (M = 200,704, F = 384), reused by every block.
 //
 // What bounds it on this card: 10 * M * D * F FLOPs (74 GFLOP per call at
 // every level of NesT-Small at batch 64, 75 us at 989 TFLOP/s) against
 // 6 * M * D bytes of x, do and dx (116 MB at level 0, 35 us at 3.35 TB/s):
-// the ideal kernel is bound by the tensor cores, and the five GEMMs of the
-// unpipelined form of gemm.cuh run far below them, plus the F-wide fp32
-// gelu' round trip through device memory. Keeping h, gelu' and dh on chip
-// and a wgmma/TMA pipeline are later work.
-#include "bwd_rows.cuh"
+// the ideal kernel is bound by the tensor cores, but h and dh [M, F] go
+// through device memory between the products (about 1.0 GB of traffic a
+// call at level 0, mlp_bwd.cuh), so this sequence is bound by bytes.
+// Keeping h and dh on chip across the weight gradients is later work.
+#include "mlp_bwd.cuh"
 
 namespace vlp {
 
 struct FusedMlpBwdWs {
-  bf16* h;
-  float* dgelu;
-  bf16* dh;
-  float* b1part;  // [m tiles, F]
-  float* wpart;   // [splits, D, F] (dW2 reuses it)
+  MlpGradWs g;    // h, dh, the column sums and the weight partials
   float* b2part;  // [row blocks, D]
-  int s_w1, s_w2, m_tiles;
   size_t bytes;
 
   FusedMlpBwdWs(void* base, int M, int D, int F) {
-    s_w2 = weight_grad_splits(F, D, M);
-    s_w1 = weight_grad_splits(D, F, M);
-    m_tiles = (M + kBM - 1) / kBM;
     Carver c{static_cast<char*>(base)};
-    h = c.take<bf16>((size_t)M * F);
-    dgelu = c.take<float>((size_t)M * F);
-    dh = c.take<bf16>((size_t)M * F);
-    b1part = c.take<float>((size_t)m_tiles * F);
-    wpart = c.take<float>((size_t)D * F * (s_w1 > s_w2 ? s_w1 : s_w2));
+    g = MlpGradWs(c, M, D, F);
     b2part = c.take<float>((size_t)col_row_blocks(M) * D);
     bytes = c.used;
   }
@@ -86,41 +70,11 @@ extern "C" int vlp_fused_mlp_bwd(const void* x, const void* w1,
   const vlp::FusedMlpBwdWs w(ws, M, D, F);
   const bf16* xb = static_cast<const bf16*>(x);
   const bf16* dyb = static_cast<const bf16*>(dy);
-  // h = bf16(z * cdf), gelu'(z), z = x @ W1 + b1
-  cudaError_t err = vlp::launch_gemm_ex<false, false, false,
-                                        vlp::kEpiBiasGeluGrad>(
-      xb, nullptr, nullptr, static_cast<const bf16*>(w1),
-      static_cast<const float*>(b1), nullptr, w.dgelu, w.h, nullptr, M, F, D,
-      1, 0.f, st);
-  if (err != cudaSuccess) return (int)err;
-  // dW2 = h^T @ dy
-  err = vlp::launch_gemm_ex<false, true, false, vlp::kEpiF32>(
-      w.h, nullptr, nullptr, dyb, nullptr, nullptr, nullptr, w.wpart, nullptr,
-      F, D, M, w.s_w2, 0.f, st);
-  if (err != cudaSuccess) return (int)err;
-  err = vlp::launch_reduce_rows(w.wpart, static_cast<bf16*>(dw2), w.s_w2,
-                                (size_t)F * D, (size_t)F * D, st);
-  if (err != cudaSuccess) return (int)err;
-  // dh = bf16((dy @ W2^T) * gelu'(z)), column sums of the fp32 product
-  err = vlp::launch_gemm_ex<false, false, true, vlp::kEpiMulAux>(
-      dyb, nullptr, nullptr, static_cast<const bf16*>(w2), nullptr, nullptr,
-      w.dgelu, w.dh, w.b1part, M, F, D, 1, 0.f, st);
-  if (err != cudaSuccess) return (int)err;
-  // dW1 = x^T @ dh
-  err = vlp::launch_gemm_ex<false, true, false, vlp::kEpiF32>(
-      xb, nullptr, nullptr, w.dh, nullptr, nullptr, nullptr, w.wpart,
-      nullptr, D, F, M, w.s_w1, 0.f, st);
-  if (err != cudaSuccess) return (int)err;
-  err = vlp::launch_reduce_rows(w.wpart, static_cast<bf16*>(dw1), w.s_w1,
-                                (size_t)D * F, (size_t)D * F, st);
-  if (err != cudaSuccess) return (int)err;
-  // dx = bf16(dh @ W1^T)
-  err = vlp::launch_gemm_ex<false, false, true, vlp::kEpiBf16>(
-      w.dh, nullptr, nullptr, static_cast<const bf16*>(w1), nullptr, nullptr,
-      nullptr, dx, nullptr, M, D, F, 1, 0.f, st);
-  if (err != cudaSuccess) return (int)err;
-  err = vlp::launch_reduce_rows(w.b1part, static_cast<float*>(db1), w.m_tiles,
-                                (size_t)F, (size_t)F, st);
+  cudaError_t err = vlp::mlp_bwd_products(
+      xb, static_cast<const bf16*>(w1), static_cast<const float*>(b1),
+      static_cast<const bf16*>(w2), dyb, w.g, static_cast<bf16*>(dx),
+      static_cast<bf16*>(dw1), static_cast<float*>(db1),
+      static_cast<bf16*>(dw2), M, D, F, st);
   if (err != cudaSuccess) return (int)err;
   // db2 = sum of dy over the rows
   err = vlp::launch_col_partials(dyb, w.b2part, M, D, st);
@@ -129,4 +83,20 @@ extern "C" int vlp_fused_mlp_bwd(const void* x, const void* w1,
                                 vlp::col_row_blocks(M), (size_t)D, (size_t)D,
                                 st);
   return (int)err;
+}
+
+// The dual tile by itself, for checks against plain products and for
+// timing: h, dh [M, F] bf16 and colsum [ceil(M / 128), F] fp32 (the column
+// sums of dh32 over each 128-row tile) from a, dy [M, D], w1 [D, F], w2
+// [F, D] bf16 and b1 [F] fp32. Returns the launch's cudaError_t.
+extern "C" int vlp_mlp_dual(const void* a, const void* w1, const void* b1,
+                            const void* dy, const void* w2, void* h, void* dh,
+                            void* colsum, int M, int D, int F, void* stream) {
+  using vlp::bf16;
+  return (int)vlp::wg::launch_mlp_dual(
+      static_cast<const bf16*>(a), static_cast<const bf16*>(w1),
+      static_cast<const float*>(b1), static_cast<const bf16*>(dy),
+      static_cast<const bf16*>(w2), static_cast<bf16*>(h),
+      static_cast<bf16*>(dh), static_cast<float*>(colsum), M, D, F,
+      static_cast<cudaStream_t>(stream));
 }

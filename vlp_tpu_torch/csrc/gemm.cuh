@@ -1,8 +1,7 @@
-// Tiled bf16 tensor-core GEMM of the half-block forwards and the MLP
-// backwards (ln_attention.cu, ln_attention_windows.cu, ln_mlp.cu,
-// ln_mlp_bwd.cu, fused_mlp.cu, fused_mlp_bwd.cu, and the probes'
-// attn_sched*.cu and mlp_tile_bwd.cu); the attention backwards' products
-// run on wgmma_gemm.cuh:
+// Tiled bf16 tensor-core GEMM of the half-block and MLP forwards
+// (ln_attention.cu, ln_attention_windows.cu, ln_mlp.cu, fused_mlp.cu) and
+// of the probes' attn_sched*.cu and mlp_tile_bwd.cu; the attention and MLP
+// backwards' products run on wgmma_gemm.cuh:
 //
 //   out[M, N] = epilogue(op(A) @ op(W) + bias[N])
 //
@@ -12,10 +11,9 @@
 // (the input gradients dY W^T). Without TA, A' may instead be
 // bf16(LN(A)*gamma + beta) computed in fp32 per row (two-pass variance, as
 // the Pallas kernels in vlp_tpu/ops/fused_block.py do). The epilogues are:
-// bias; bias + exact-erf GELU; bias + residual; raw fp32; raw bf16;
-// bias + GELU and its derivative (two outputs); product with an fp32 operand
-// plus the tile's fp32 column sums. Products accumulate in fp32 and round
-// once, at the same points as the Pallas bodies.
+// bias; bias + exact-erf GELU; bias + residual; raw fp32; raw bf16.
+// Products accumulate in fp32 and round once, at the same points as the
+// Pallas bodies.
 //
 // Design: one 128-thread block computes a 64x64 output tile; 4 warps in a 2x2
 // grid each own a 32x32 sub-tile (2x2 wmma 16x16x16 fragments). The operands
@@ -67,8 +65,6 @@ enum Epilogue {
   kEpiBiasResidual = 2,  // bf16(R + (acc + bias))
   kEpiF32 = 3,           // fp32 acc (split-K partials, dln)
   kEpiBf16 = 4,          // bf16(acc)
-  kEpiBiasGeluGrad = 5,  // z = acc + bias: bf16(z * cdf), aux = gelu'(z)
-  kEpiMulAux = 6,        // v = acc * aux: bf16(v), colsum[tile row] += v
 };
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -122,8 +118,7 @@ __global__ void __launch_bounds__(kGemmThreads)
     gemm_kernel(const bf16* __restrict__ A, const float* __restrict__ gamma,
                 const float* __restrict__ beta, const bf16* __restrict__ W,
                 const float* __restrict__ bias, const bf16* __restrict__ R,
-                float* __restrict__ aux, void* __restrict__ out_ptr,
-                float* __restrict__ colsum, int M, int N, int K, int k_chunk,
+                void* __restrict__ out_ptr, int M, int N, int K, int k_chunk,
                 float eps) {
   static_assert(!(LN && TA), "the LayerNorm prologue reads A row-major");
   static_assert(!(TA && TB), "TB stages whole K slices: K % 32 == 0");
@@ -287,32 +282,11 @@ __global__ void __launch_bounds__(kGemmThreads)
       static_cast<float*>(out_ptr)[(size_t)blockIdx.z * M * N + o] = v;
     } else if (EPI == kEpiBf16) {
       out[o] = __float2bfloat16(v);
-    } else if (EPI == kEpiBiasGeluGrad) {
-      // fused_mlp.py:_gelu_and_grad: h = z * cdf, gelu' = cdf + z * phi
-      const float z = v + bias[gn];
-      const float cdf = 0.5f * (1.0f + erf_as(z * 0.7071067811865476f));
-      const float phi = expf(-0.5f * z * z) * 0.3989422804014327f;
-      out[o] = __float2bfloat16(z * cdf);
-      aux[o] = cdf + z * phi;
-    } else if (EPI == kEpiMulAux) {
-      v = v * aux[o];
-      out[o] = __float2bfloat16(v);
-      Cs[r * ldc + c] = v;
     } else {
       v += bias[gn];
       if (EPI == kEpiBiasGelu) v = gelu_erf(v);
       if (EPI == kEpiBiasResidual) v = __bfloat162float(R[o]) + v;
       out[o] = __float2bfloat16(v);
-    }
-  }
-  if (EPI == kEpiMulAux) {
-    // this tile's column sums of the fp32 product, rows in order
-    __syncthreads();
-    for (int c = tid; c < kBN; c += kGemmThreads) {
-      if (n0 + c >= N) continue;
-      float s = 0.f;
-      for (int r = 0; r < kBM && m0 + r < M; ++r) s += Cs[r * ldc + c];
-      colsum[(size_t)blockIdx.y * N + n0 + c] = s;
     }
   }
 }
@@ -322,9 +296,8 @@ __global__ void __launch_bounds__(kGemmThreads)
 template <bool LN, bool TA, bool TB, int EPI>
 cudaError_t launch_gemm_ex(const bf16* A, const float* gamma,
                            const float* beta, const bf16* W, const float* bias,
-                           const bf16* R, float* aux, void* out, float* colsum,
-                           int M, int N, int K, int splits, float eps,
-                           cudaStream_t stream) {
+                           const bf16* R, void* out, int M, int N, int K,
+                           int splits, float eps, cudaStream_t stream) {
   const int m_tiles = (M + kBM - 1) / kBM;
   if (M <= 0 || N <= 0 || K <= 0 || splits <= 0 || N % 32 ||
       (!TA && K % 32) || (TA && M % 8) || m_tiles > 65535 || splits > 65535 ||
@@ -338,7 +311,7 @@ cudaError_t launch_gemm_ex(const bf16* A, const float* gamma,
   if (err != cudaSuccess) return err;
   const dim3 grid((N + kBN - 1) / kBN, m_tiles, splits);
   gemm_kernel<LN, TA, TB, EPI><<<grid, kGemmThreads, smem, stream>>>(
-      A, gamma, beta, W, bias, R, aux, out, colsum, M, N, K, k_chunk, eps);
+      A, gamma, beta, W, bias, R, out, M, N, K, k_chunk, eps);
   return cudaGetLastError();
 }
 
@@ -349,8 +322,7 @@ cudaError_t launch_gemm(const bf16* A, const float* gamma, const float* beta,
                         bf16* out, int M, int N, int K, float eps,
                         cudaStream_t stream) {
   return launch_gemm_ex<LN, false, false, EPI>(A, gamma, beta, W, bias, R,
-                                               nullptr, out, nullptr, M, N, K,
-                                               1, eps, stream);
+                                               out, M, N, K, 1, eps, stream);
 }
 
 }  // namespace vlp

@@ -34,11 +34,11 @@
 //      into fp32 partials, each reduced in a fixed order.
 //   3. the partials of dgamma, dbeta, db2 and db1 reduced in tile order.
 //
-// No float atomics: reruns agree bit for bit. Compared with the shipped #4
-// (ln_mlp_bwd.cu) this drops the fp32 gelu'(z) round trip through device
-// memory (8 * M * F bytes, 308 MB at the probe's M = 25088), the fp32 dln
-// round trip (8 * M * D bytes) and the separate ln, z, dh, dln and LN
-// backward launches, which fold into step 1.
+// No float atomics: reruns agree bit for bit. Like the shipped #4
+// (ln_mlp_bwd.cu, whose dual tile keeps gelu'(z) in registers) it never
+// stores gelu'(z); beyond #4 it also drops the fp32 dln round trip
+// (8 * M * D bytes) and the separate ln, dln and LN backward launches,
+// which fold into step 1.
 //
 // Budget at TM = 64, FS = 64, D = 384: registers hold dln (64 x 384 fp32,
 // 96 a thread) and the slice's z and dy W2^T fragments (32 a thread).
@@ -463,16 +463,16 @@ extern "C" int vlp_mlp_tile_bwd(const void* x, const void* gamma,
   if (err != cudaSuccess) return (int)err;
   // dW2 = h^T @ dy
   err = vlp::launch_gemm_ex<false, true, false, vlp::kEpiF32>(
-      w.h, nullptr, nullptr, dyb, nullptr, nullptr, nullptr, w.wpart, nullptr,
-      F, D, M, w.s_w2, 0.f, st);
+      w.h, nullptr, nullptr, dyb, nullptr, nullptr, w.wpart, F, D, M, w.s_w2,
+      0.f, st);
   if (err != cudaSuccess) return (int)err;
   err = vlp::launch_reduce_rows(w.wpart, static_cast<float*>(dw2), w.s_w2,
                                 (size_t)F * D, (size_t)F * D, st);
   if (err != cudaSuccess) return (int)err;
   // dW1 = ln^T @ dh
   err = vlp::launch_gemm_ex<false, true, false, vlp::kEpiF32>(
-      w.ln, nullptr, nullptr, w.dh, nullptr, nullptr, nullptr, w.wpart,
-      nullptr, D, F, M, w.s_w1, 0.f, st);
+      w.ln, nullptr, nullptr, w.dh, nullptr, nullptr, w.wpart, D, F, M,
+      w.s_w1, 0.f, st);
   if (err != cudaSuccess) return (int)err;
   err = vlp::launch_reduce_rows(w.wpart, static_cast<float*>(dw1), w.s_w1,
                                 (size_t)D * F, (size_t)D * F, st);

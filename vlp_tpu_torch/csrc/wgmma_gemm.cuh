@@ -8,10 +8,13 @@
 // or as split-K partials). Shared by the probe kernels gemm_single.cu
 // (#19b, benchmarks/mlp_probe.py:make_single: DenseRows, x @ w) and
 // conv3x3.cu (#17, benchmarks/conv_probe.py:pallas_conv3x3: A = the 3x3
-// taps of an NHWC map by an im2col TMA map), and by the half-block
-// attention backwards #3 and #6 (ln_attention.cuh: RowsNT, dy @ Wout^T to
-// bf16 and dqkv @ Wqkv^T to fp32; ColsTN, o^T @ dy and ln^T @ dqkv to
-// split-K fp32 partials). Every operand is read by a TMA map as it lies.
+// taps of an NHWC map by an im2col TMA map), by the half-block attention
+// backwards #3 and #6 (ln_attention.cuh: RowsNT, dy @ Wout^T to bf16 and
+// dqkv @ Wqkv^T to fp32; ColsTN, o^T @ dy and ln^T @ dqkv to split-K fp32
+// partials) and by the MLP backwards #4 and #10 (mlp_bwd.cuh: the dual
+// form DualMlp, two products of one output tile in one K loop with an
+// epilogue of its own; ColsTN for dW1 and dW2; RowsNT for dln to fp32 and
+// dx to bf16). Every operand is read by a TMA map as it lies.
 //
 // What bounds a GEMM on this card: the bf16 tensor cores (989 TFLOP/s) once
 // a tile does ~300 operations per byte it brings from device memory, and
@@ -56,6 +59,13 @@
 //   128 (~97 KB of shared memory each), so one block's epilogue and
 //   prologue overlap the other's products; BN = 256 runs one block with
 //   four stages.
+// - Two products (a policy with kProducts = 2): each stage also holds a
+//   second A tile and its B boxes, all four loads complete one full
+//   barrier, and a second accumulator of the same m64nBNk16 shape takes
+//   the second product, so element i of one lies at element i of the
+//   other whatever the transpose bits; the policy's epilogue gets both,
+//   and an [8 warps x BN] fp32 scratch in shared memory, in place of the
+//   store.
 //
 // Requirements: N and every operand's row a multiple of 8 elements
 // (16-byte rows for TMA and the vector stores); the policy's tensor maps
@@ -199,6 +209,26 @@ template <int N, int TA, int TB>
 struct Mma;
 
 template <int TA, int TB>
+struct Mma<64, TA, TB> {
+  __device__ __forceinline__ static void run(float (&d)[32], uint64_t da,
+                                             uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+  }
+};
+
+template <int TA, int TB>
 struct Mma<128, TA, TB> {
   __device__ __forceinline__ static void run(float (&d)[64], uint64_t da,
                                              uint64_t db, int scale_d) {
@@ -290,16 +320,78 @@ __device__ __forceinline__ uint4 quad_transpose(const uint32_t (&w)[4],
                     pick4(r, (2 - q) & 3), pick4(r, (3 - q) & 3));
 }
 
-template <int BN, int STAGES>
+// Stores columns [n0 + 32 c4, n0 + 32 c4 + 32) of a thread's two rows (row,
+// row + 8) of a consumer warp's accumulators, masked at M and N.
+// acc[4j + {0, 1}]: row lane / 4, columns 8j + 2 (lane % 4) + {0, 1};
+// acc[4j + {2, 3}]: the same columns 8 rows lower.
+template <int BN, class Out>
+__device__ __forceinline__ void store_group(const float (&acc)[BN / 2],
+                                            int c4, Out* __restrict__ out,
+                                            int row, int n0, int M, int N,
+                                            int lane) {
+  if constexpr (sizeof(Out) == 2) {
+    uint32_t lo[4], hi[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int i = 4 * (4 * c4 + j);
+      lo[j] = pack_bf16x2(acc[i], acc[i + 1]);
+      hi[j] = pack_bf16x2(acc[i + 2], acc[i + 3]);
+    }
+    const uint4 vlo = quad_transpose(lo, lane);
+    const uint4 vhi = quad_transpose(hi, lane);
+    const int col = n0 + 32 * c4 + 8 * (lane & 3);
+    if (col < N) {
+      if (row < M)
+        *reinterpret_cast<uint4*>(out + (size_t)row * N + col) = vlo;
+      if (row + 8 < M)
+        *reinterpret_cast<uint4*>(out + (size_t)(row + 8) * N + col) = vhi;
+    }
+  } else {
+    // fp32: lanes 2p and 2p + 1 of a quad swap pairs, so that the even
+    // lane holds columns 4p..4p+3 of chunk j and the odd one those of
+    // chunk j + 1, one float4 each (64 contiguous bytes a row per quad)
+    const bool odd = lane & 1;
+#pragma unroll
+    for (int j = 4 * c4; j < 4 * c4 + 4; j += 2) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int a = 4 * j + 2 * h;  // chunk j's pair; chunk j + 1's at a + 4
+        const float r0 =
+            __shfl_xor_sync(0xffffffffu, odd ? acc[a] : acc[a + 4], 1);
+        const float r1 =
+            __shfl_xor_sync(0xffffffffu, odd ? acc[a + 1] : acc[a + 5], 1);
+        const float4 v = odd ? make_float4(r0, r1, acc[a + 4], acc[a + 5])
+                             : make_float4(acc[a], acc[a + 1], r0, r1);
+        const int col = n0 + 8 * (j + odd) + 4 * ((lane & 3) >> 1);
+        const int r = row + 8 * h;
+        if (col < N && r < M)
+          *reinterpret_cast<float4*>(out + (size_t)r * N + col) = v;
+      }
+    }
+  }
+}
+
+// The 256 consumer threads wait for each other (named barrier 1; the
+// producer warp has left).
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(32 * kConsumerWarps) : "memory");
+}
+
+template <int BN, int STAGES, int PRODUCTS>
 struct Layout {
   static constexpr int kBBytes = (BN / 64) * kBoxBytes;
-  static constexpr int kStage = kABytes + kBBytes;
+  static constexpr int kHalf = kABytes + kBBytes;  // one product's share
+  static constexpr int kStage = PRODUCTS * kHalf;
   static constexpr int kBars = STAGES * kStage;  // offset of the barriers
+  // the two-product epilogue's [warps][BN] fp32 scratch, after the barriers
+  static constexpr int kSums = kBars + 16 * STAGES;
+  static constexpr int kSumBytes = PRODUCTS > 1 ? kConsumerWarps * BN * 4 : 0;
   // + 1024 for aligning the ring to the 128-byte swizzle's 1 KB atoms
-  static constexpr size_t kBytes = 1024 + kBars + 16 * STAGES;
+  static constexpr size_t kBytes = 1024 + kSums + kSumBytes;
 };
 
 // Policy (a struct passed by value), its loads issued by one thread:
+//   kProducts                           // 1, or 2 (below)
 //   kTnspA                              // 0: A K-major; 1: M-major
 //   kTnspB                              // 0: B K-major; 1: N-major
 //   int steps() const;                  // 64-deep K slices
@@ -310,7 +402,14 @@ struct Layout {
 // A K-major tile is 128 rows of 128 bytes; an M-major one two 64 x 64
 // boxes, [64 k][64 m] each, one per warpgroup. B's boxes lie in column
 // order: K-major they are the tile's BN rows of 128 bytes, N-major [64 k]
-// [64 n] each.
+// [64 n] each. With kProducts = 2 also kTnspA2, kTnspB2 and
+//   void load_a2(uint32_t dst, uint32_t bar, int step, int m0) const;
+//   void load_b2(uint32_t dst, uint32_t bar, int step, int n) const;
+// (the second product's tiles, from tensor maps the policy holds), and
+//   template <int BN> void epilogue(float (&acc)[BN / 2],
+//       float (&acc2)[BN / 2], Out* out, int M, int N, int m0, int n0,
+//       int row, int warp, int lane, float* sums) const;
+// which every consumer thread calls once in place of the store.
 //
 // Block (x, z) owns output tile x and K steps [z * split_steps, (z + 1) *
 // split_steps); with gridDim.y > 1 its fp32 sum goes to its own partial,
@@ -319,9 +418,10 @@ template <class Src, int BN, int STAGES, int MINB, class Out>
 __global__ void __launch_bounds__(kThreads, MINB)
     wgmma_gemm_kernel(const __grid_constant__ CUtensorMap map_a,
                       const __grid_constant__ CUtensorMap map_b,
-                      const Src src, Out* __restrict__ out, int M, int N,
-                      int split_steps) {
-  using L = Layout<BN, STAGES>;
+                      const __grid_constant__ Src src,
+                      Out* __restrict__ out, int M, int N, int split_steps) {
+  constexpr int P = Src::kProducts;
+  using L = Layout<BN, STAGES, P>;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t ring = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t full0 = ring + L::kBars;
@@ -349,7 +449,7 @@ __global__ void __launch_bounds__(kThreads, MINB)
     if (lane != 0) return;
     const int left = (N - n0 + 63) / 64;
     const int boxes = left < BN / 64 ? left : BN / 64;  // B boxes inside N
-    const uint32_t tx = kABytes + boxes * kBoxBytes;
+    const uint32_t tx = P * (kABytes + boxes * kBoxBytes);
     for (int t = 0; t < steps; ++t) {
       const int s = t % STAGES;
       const uint32_t a_st = ring + s * L::kStage;
@@ -359,6 +459,13 @@ __global__ void __launch_bounds__(kThreads, MINB)
       for (int j = 0; j < boxes; ++j)
         src.load_b(a_st + kABytes + j * kBoxBytes, &map_b, full0 + 8 * s,
                    t0 + t, n0 + 64 * j);
+      if constexpr (P == 2) {
+        const uint32_t a2_st = a_st + L::kHalf;
+        src.load_a2(a2_st, full0 + 8 * s, t0 + t, m0);
+        for (int j = 0; j < boxes; ++j)
+          src.load_b2(a2_st + kABytes + j * kBoxBytes, full0 + 8 * s, t0 + t,
+                      n0 + 64 * j);
+      }
     }
     return;
   }
@@ -374,75 +481,60 @@ __global__ void __launch_bounds__(kThreads, MINB)
   constexpr uint32_t kLboB = Src::kTnspB ? kBoxBytes : 16;
   const int g = warp >> 2;
   float acc[BN / 2];
+  float acc2[P == 2 ? BN / 2 : 1];  // the second product's
 #pragma unroll
   for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+  if constexpr (P == 2) {
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc2[i] = 0.f;
+  }
   for (int t = 0; t < steps; ++t) {
     const int s = t % STAGES;
     const uint32_t a_st = ring + s * L::kStage + g * (64 * 128);
     const uint32_t b_st = ring + s * L::kStage + kABytes;
     mbar_wait(full0 + 8 * s, (t / STAGES) & 1);
     fence_acc(acc);
+    if constexpr (P == 2) fence_acc(acc2);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kBK / 16; ++kk)
       Mma<BN, Src::kTnspA, Src::kTnspB>::run(
           acc, desc_sw128(a_st + kStepA * kk, kLboA, 1024),
           desc_sw128(b_st + kStepB * kk, kLboB, 1024), 1);
+    if constexpr (P == 2) {
+      constexpr uint32_t kStepA2 = Src::kTnspA2 ? 2048 : 32;
+      constexpr uint32_t kLboA2 = Src::kTnspA2 ? kBoxBytes : 16;
+      constexpr uint32_t kStepB2 = Src::kTnspB2 ? 2048 : 32;
+      constexpr uint32_t kLboB2 = Src::kTnspB2 ? kBoxBytes : 16;
+#pragma unroll
+      for (int kk = 0; kk < kBK / 16; ++kk)
+        Mma<BN, Src::kTnspA2, Src::kTnspB2>::run(
+            acc2, desc_sw128(a_st + L::kHalf + kStepA2 * kk, kLboA2, 1024),
+            desc_sw128(b_st + L::kHalf + kStepB2 * kk, kLboB2, 1024), 1);
+    }
     wgmma_commit();
     fence_acc(acc);
+    if constexpr (P == 2) fence_acc(acc2);
     wgmma_wait<1>();  // step t - 1's products are done: free its stage
     fence_acc(acc);
+    if constexpr (P == 2) fence_acc(acc2);
     if (t > 0 && lane == 0) mbar_arrive(empty0 + 8 * ((t - 1) % STAGES));
   }
   wgmma_wait<0>();
   fence_acc(acc);
 
-  // acc[4j + {0, 1}]: row lane / 4, columns 8j + 2 (lane % 4) + {0, 1};
-  // acc[4j + {2, 3}]: the same columns 8 rows lower
   const int row = m0 + 64 * g + 16 * (warp & 3) + (lane >> 2);
-  out += (size_t)blockIdx.y * M * N;
-  if constexpr (sizeof(Out) == 2) {
-#pragma unroll
-    for (int c4 = 0; c4 < BN / 32; ++c4) {
-      uint32_t lo[4], hi[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int i = 4 * (4 * c4 + j);
-        lo[j] = pack_bf16x2(acc[i], acc[i + 1]);
-        hi[j] = pack_bf16x2(acc[i + 2], acc[i + 3]);
-      }
-      const uint4 vlo = quad_transpose(lo, lane);
-      const uint4 vhi = quad_transpose(hi, lane);
-      const int col = n0 + 32 * c4 + 8 * (lane & 3);
-      if (col < N) {
-        if (row < M)
-          *reinterpret_cast<uint4*>(out + (size_t)row * N + col) = vlo;
-        if (row + 8 < M)
-          *reinterpret_cast<uint4*>(out + (size_t)(row + 8) * N + col) = vhi;
-      }
-    }
+  if constexpr (P == 2) {
+    fence_acc(acc2);
+    float* sums = reinterpret_cast<float*>(
+        smem_raw + (ring - smem_u32(smem_raw)) + L::kSums);
+    src.template epilogue<BN>(acc, acc2, out, M, N, m0, n0, row, warp, lane,
+                              sums);
   } else {
-    // fp32: lanes 2p and 2p + 1 of a quad swap pairs, so that the even
-    // lane holds columns 4p..4p+3 of chunk j and the odd one those of
-    // chunk j + 1, one float4 each (64 contiguous bytes a row per quad)
-    const bool odd = lane & 1;
+    out += (size_t)blockIdx.y * M * N;
 #pragma unroll
-    for (int j = 0; j < BN / 8; j += 2) {
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int a = 4 * j + 2 * h;  // chunk j's pair; chunk j + 1's at a + 4
-        const float r0 =
-            __shfl_xor_sync(0xffffffffu, odd ? acc[a] : acc[a + 4], 1);
-        const float r1 =
-            __shfl_xor_sync(0xffffffffu, odd ? acc[a + 1] : acc[a + 5], 1);
-        const float4 v = odd ? make_float4(r0, r1, acc[a + 4], acc[a + 5])
-                             : make_float4(acc[a], acc[a + 1], r0, r1);
-        const int col = n0 + 8 * (j + odd) + 4 * ((lane & 3) >> 1);
-        const int r = row + 8 * h;
-        if (col < N && r < M)
-          *reinterpret_cast<float4*>(out + (size_t)r * N + col) = v;
-      }
-    }
+    for (int c4 = 0; c4 < BN / 32; ++c4)
+      store_group<BN>(acc, c4, out, row, n0, M, N, lane);
   }
 }
 
@@ -454,10 +546,10 @@ cudaError_t launch_wgmma_gemm(const CUtensorMap& map_a,
                               const CUtensorMap& map_b, const Src& src,
                               Out* out, int M, int N, cudaStream_t stream,
                               int splits = 1, int split_steps = INT_MAX) {
-  static_assert(BN == 128 || BN == 256, "the Mma instances");
+  static_assert(BN == 64 || BN == 128 || BN == 256, "the Mma instances");
   static_assert(sizeof(Out) == 2 || sizeof(Out) == 4, "bf16 or fp32 out");
   auto kernel = wgmma_gemm_kernel<Src, BN, STAGES, MINB, Out>;
-  constexpr size_t smem = Layout<BN, STAGES>::kBytes;
+  constexpr size_t smem = Layout<BN, STAGES, Src::kProducts>::kBytes;
   static const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (attr != cudaSuccess) return attr;
@@ -564,6 +656,7 @@ inline cudaError_t encode_bf16(CUtensorMap* map, const void* base, int rank,
 
 // x @ w: A = x [M, K] K-major, B = w [K, N] N-major (#19b).
 struct DenseRows {
+  static constexpr int kProducts = 1;
   static constexpr int kTnspA = 0, kTnspB = 1;
   int K;
 
@@ -589,6 +682,7 @@ struct DenseRows {
 // a @ w^T: A = a [M, K] K-major, B = w [N, K] K-major, the weights read as
 // they lie (the input gradients dy @ W^T).
 struct RowsNT {
+  static constexpr int kProducts = 1;
   static constexpr int kTnspA = 0, kTnspB = 0;
   int K;
 
@@ -614,6 +708,7 @@ struct RowsNT {
 // a^T @ b over K rows: A = a [K, M] M-major, B = b [K, N] N-major (the
 // weight gradients X^T dY, K = the activation rows).
 struct ColsTN {
+  static constexpr int kProducts = 1;
   static constexpr int kTnspA = 1, kTnspB = 1;
   int K;
 

@@ -77,6 +77,8 @@ _SIGNATURES = {
     "vlp_fused_mlp_bwd_workspace": ([_I] * 3, _Z),
     # x, w1, b1, w2, dy, dx, dw1, db1, dw2, db2, ws, M, D, F, stream
     "vlp_fused_mlp_bwd": ([_P] * 11 + [_I] * 3 + [_P], _I),
+    # a, w1, b1, dy, w2, h, dh, colsum, M, D, F, stream
+    "vlp_mlp_dual": ([_P] * 8 + [_I] * 3 + [_P], _I),
     # img, shift, out, B, H, W, max_shift, axis, stream
     "vlp_shear_rows": ([_P] * 3 + [_I] * 5 + [_P], _I),
     # x, seeds, sigma, out, B, H, W, stream

@@ -41,7 +41,7 @@ from vlp_tpu_torch.ops._common import (  # noqa: F401 (the gelu family:
     _acc, _cast, _check_cuda, _mm, _records_grad,  # this module's API)
     _route, _rows, _stream, gelu, gelu_and_grad, gelu_grad)
 from vlp_tpu_torch.ops.block_attention import attend_qkv_plain, dqkv_f32
-from vlp_tpu_torch.ops.fused_mlp import mlp_bwd_core
+from vlp_tpu_torch.ops.fused_mlp import check_bwd_operands, mlp_bwd_core
 
 _EPS = 1e-6
 
@@ -461,7 +461,8 @@ def ln_attention_windows_bwd(x, block, gamma, beta, wqkv, bqkv, wout, dy,
 
 def ln_mlp_bwd(x, gamma, beta, w1, b1, w2, dy):
     """Backward of ``ln_mlp``: (dx, dgamma, dbeta, dw1, db1, dw2, db2). A
-    CUDA tensor runs ``csrc/ln_mlp_bwd.cu``; a CPU tensor
+    CUDA tensor runs ``csrc/ln_mlp_bwd.cu`` or raises
+    (``fused_mlp.check_bwd_operands``); a CPU tensor
     ``ln_mlp_bwd_plain``."""
     if not _route("ln_mlp_bwd", x):
         return ln_mlp_bwd_plain(x, gamma, beta, w1, b1, w2, dy)
@@ -474,6 +475,7 @@ def ln_mlp_bwd(x, gamma, beta, w1, b1, w2, dy):
         raise ValueError("ln_mlp_bwd: dy does not match x")
     m, d = x.shape
     f = w1.shape[1]
+    check_bwd_operands("ln_mlp_bwd", m, x, dy, w1, w2)
     lib = _build.load_library()
     dx, dg, db, db1, db2, dw1, dw2 = _grads_like(
         x, (d, d, f, d), ((d, f), (f, d)), dt)

@@ -104,6 +104,19 @@ def _check(name, x, w1, b1, w2, *rest):
     _check_cuda(name, x, w1, b1, w2, *rest)
 
 
+def check_bwd_operands(name, m, *tensors):
+    """What the MLP backward sequence (``csrc/mlp_bwd.cuh``, shared with
+    ``fused_block.ln_mlp_bwd``) takes beyond the shapes: at most 65535
+    blocks of 256 rows (the grid of its row partials) and 16-byte aligned
+    operands (its products read them by TMA). Raises before any launch."""
+    if -(-m // 256) > 65535:
+        raise ValueError(f"{name}: the CUDA kernel takes at most "
+                         f"{65535 * 256} rows, got {m}")
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{name}: the CUDA kernel takes 16-byte aligned "
+                         "operands")
+
+
 def _fused_mlp_cuda(x, w1, b1, w2, b2):
     _check("fused_mlp", x, w1, b1, w2, b2)
     m, d = x.shape
@@ -124,7 +137,8 @@ def _fused_mlp_cuda(x, w1, b1, w2, b2):
 
 def fused_mlp_bwd(x, w1, b1, w2, dy):
     """Backward of ``fused_mlp``: (dx, dw1, db1, dw2, db2). A CUDA tensor
-    runs ``csrc/fused_mlp_bwd.cu``; a CPU tensor ``fused_mlp_bwd_plain``."""
+    runs ``csrc/fused_mlp_bwd.cu`` or raises (``check_bwd_operands``); a
+    CPU tensor ``fused_mlp_bwd_plain``."""
     if not _route("fused_mlp_bwd", x):
         return fused_mlp_bwd_plain(x, w1, b1, w2, dy)
     dt = x.dtype
@@ -135,6 +149,7 @@ def fused_mlp_bwd(x, w1, b1, w2, dy):
         raise ValueError("fused_mlp_bwd: dy does not match x")
     m, d = x.shape
     f = w1.shape[1]
+    check_bwd_operands("fused_mlp_bwd", m, x, dy, w1, w2)
     lib = _build.load_library()
     f32 = dict(dtype=torch.float32, device=x.device)
     dx = torch.empty_like(x)
