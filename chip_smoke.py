@@ -9,8 +9,10 @@ Phases, each printing its lines before the last line:
 2. build: compiles ``vlp_tpu_torch/csrc`` with nvcc (sm_90a) and loads it;
    then checks that the kernels on the wgmma + TMA mainloop
    (``csrc/wgmma_gemm.cuh``: #19b, #17 at both tile widths, the four
-   products of #3/#6's sequence in its three instances, and the dual tile
-   of #4/#10 (``csrc/mlp_bwd.cuh``), whose registers it prints) reach
+   products of #3/#6's sequence in its three instances, the dual tile of
+   #4/#10 (``csrc/mlp_bwd.cuh``) and the two products of #2/#9
+   (``csrc/mlp_fwd.cuh``: the bias + GELU and the bias (+ residual)
+   epilogue at both tile widths), whose registers it prints) reach
    Hopper's units: ``cuobjdump --dump-sass`` of the library shows HGMMA
    and UTMALDG in each, and the build's ``-Xptxas -v`` report shows 0 spill bytes for
    each and no serialized wgmma; and that every instance of the
@@ -20,8 +22,10 @@ Phases, each printing its lines before the last line:
 3. kernels: ``ln_attention`` and ``ln_mlp`` against their plain PyTorch
    versions at the shapes serving gives them, NesT-Small's three levels at
    batch 64 (bf16 inputs from a seeded CUDA generator), against the plain
-   version in bf16 and in fp32; then the median time of kernel and plain
-   version at the same shapes.
+   version in bf16 and in fp32; ``ln_mlp`` also at a ragged request of 37
+   images (reruns bit-equal), and its h against the h that #4's dual tile
+   recomputes from the same ln (bf16 ulps apart, printed); then the median
+   time of kernel and plain version at the same shapes.
 4. slice: ``Predictor`` for ``experiment=baseline_only_imaging_nest_small``
    (NesT-Small, 224x224, bf16, batch 64, random weights at the flax
    initializers' scales) answers requests of 64, 64 and 37 images; the
@@ -51,8 +55,9 @@ Phases, each printing its lines before the last line:
 7. unfused-path kernels: ``attend_qkv`` and its backward at ViT-B/16's
    shape (N 32, S 197, 12 heads of 64) and NesT-Small's three levels at
    batch 64 (heads of 32), ``fused_mlp`` and its backward at NesT-Small's
-   three levels, against their plain versions in bf16 and fp32, every
-   output and cotangent; the backwards' reruns bit-equal, and #8's
+   three levels (and ``fused_mlp`` at a ragged request of 37 images),
+   against their plain versions in bf16 and fp32, every output and
+   cotangent; the forward's and the backwards' reruns bit-equal, and #8's
    recompute check (the p and ds that its phase B recomputes bit-equal to
    phase A's); then kernel and plain version timed
    as plain, kernel, kernel, plain, and ``scaled_dot_product_attention``
@@ -223,6 +228,7 @@ BOUND_VS_PLAIN_FP32 = 2.0 ** -5
 BOUND_LOGITS = 0.05
 REQUESTS = (64, 64, 37)
 BATCH = 64
+RAGGED = REQUESTS[-1]  # images of the ragged request
 # Backward kernel vs plain backward, each of the seven cotangents, as a
 # share of the reference's largest |value|. Against plain bf16: both round
 # at the same points (ln, qkv, p, do/l, ds, dqkv; h, dh; dx and the weight
@@ -389,10 +395,15 @@ def phase_build() -> None:
 # (DenseRows), #17 at 128 and 256 output channels a block (ConvTaps), the
 # four products of #3/#6's sequence (RowsNT to bf16 and to fp32, ColsTN to
 # fp32 split-K partials; #4/#10's weight gradients, dln and dx run on the
-# same three), and #4/#10's dual tile (DualMlp, 64 columns a block)
+# same three), #4/#10's dual tile (DualMlp, 64 columns a block), and
+# #2/#9's two products (DenseEpi<true> bias + GELU at 128 columns a block,
+# <false> bias and residual at 64: csrc/mlp_fwd.cuh's kFc1Width, kFc2Width)
 WGMMA_KERNEL = "wgmma_gemm_kernel"
-WGMMA_INSTANCES = 7
-WGMMA_FORMS = ("DenseRows", "ConvTaps", "RowsNT", "ColsTN", "DualMlp")
+WGMMA_FWD = "DenseEpi"
+WGMMA_FWD_INSTANCES = 2
+WGMMA_INSTANCES = 7 + WGMMA_FWD_INSTANCES
+WGMMA_FORMS = ("DenseRows", "ConvTaps", "RowsNT", "ColsTN", "DualMlp",
+               WGMMA_FWD)
 WGMMA_DUAL = "DualMlp"
 # the register-resident attention-core backward (csrc/mhsa_reg_bwd.cuh):
 # every instance of both row maps must keep 0 spill bytes, and #3's and
@@ -464,6 +475,11 @@ def _check_hopper_units() -> None:
     check(len(dual) == 1, f"ptxas reported {len(dual)} {WGMMA_DUAL} "
           "instances, expected 1")
     print(f"ptxas dual tile (#4/#10): {dual[0]} registers, 0 spill bytes")
+    fwd = sorted(v[0] for k, v in mine.items() if WGMMA_FWD in k)
+    check(len(fwd) == WGMMA_FWD_INSTANCES, f"ptxas reported {len(fwd)} "
+          f"{WGMMA_FWD} instances, expected {WGMMA_FWD_INSTANCES}")
+    print(f"ptxas forward products (#2/#9): {len(fwd)} instances, "
+          f"{fwd[0]}-{fwd[-1]} registers, 0 spill bytes")
     core = {k: v for k, v in report.items() if REG_BWD_KERNEL in k}
     for rows in REG_BWD_NEST:
         found = [v for k, v in core.items()
@@ -564,6 +580,43 @@ def _calls(n, d, heads, x, attn, mlp):
     )
 
 
+def _bf16_ulps(a, b):
+    """Distance of two bf16 tensors in steps of the format."""
+    def ordered(t):
+        k = t.view(torch.int16).to(torch.int32)
+        return torch.where(k < 0, -(k & 0x7FFF), k)
+    return (ordered(a) - ordered(b)).abs()
+
+
+def _h_vs_dual_tile(rows, mlp):
+    """#2's h (its forward's bias + GELU epilogue) and the h that #4's dual
+    tile recomputes from #2's ln on the same rows: (largest distance in
+    bf16 ulps, elements apart, elements)."""
+    lib = _build.load_library()
+    m, d = rows.shape
+    f = 4 * d
+    (g, b, b1, b2), (w1, w2) = FB._cast(
+        torch.bfloat16, vectors=(mlp[0], mlp[1], mlp[3], mlp[5]),
+        matrices=(mlp[2], mlp[4]))
+    ln, y, dy = (torch.empty_like(rows) for _ in range(3))
+    h, h_dual, dh = (torch.empty(m, f, dtype=torch.bfloat16, device="cuda")
+                     for _ in range(3))
+    col = torch.empty(-(-m // 128), f, device="cuda")
+    err = lib.vlp_ln_mlp(rows.data_ptr(), g.data_ptr(), b.data_ptr(),
+                         w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+                         b2.data_ptr(), ln.data_ptr(), h.data_ptr(),
+                         y.data_ptr(), m, d, f, 1e-6, FB._stream())
+    _build.check(lib, err, "ln_mlp")
+    dy.copy_(rows)
+    err = lib.vlp_mlp_dual(ln.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+                           dy.data_ptr(), w2.data_ptr(), h_dual.data_ptr(),
+                           dh.data_ptr(), col.data_ptr(), m, d, f,
+                           FB._stream())
+    _build.check(lib, err, "mlp_dual")
+    ulps = _bf16_ulps(h, h_dual)
+    return ulps.max().item(), int((ulps > 0).sum().item()), ulps.numel()
+
+
 def phase_kernels():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -585,6 +638,26 @@ def phase_kernels():
             _add(stats[name], depth, k_ms, p_ms,
                  _work(name, n, SEQ, d) if name == "ln_attention"
                  else _work(name, n * SEQ, 1, d))
+        # the ragged request's rows, and #2's h against #4's
+        rows = x[:RAGGED * nb].reshape(-1, d)
+        f32m = [t.float() for t in mlp]
+        out = FB.ln_mlp(rows, *mlp)
+        torch.cuda.synchronize()
+        where = f"M={rows.shape[0]} D={d} ({RAGGED} images)"
+        _check_outputs("ln_mlp", where, (out,), (FB.ln_mlp_plain(rows, *mlp),),
+                       (FB.ln_mlp_plain(rows.float(), *f32m),), ("y",),
+                       BOUND_VS_PLAIN_BF16, BOUND_VS_PLAIN_FP32,
+                       stats["ln_mlp"])
+        check(torch.equal(out, FB.ln_mlp(rows, *mlp)),
+              f"ln_mlp {where}: reruns differ")
+        most, apart, total = _h_vs_dual_tile(x.reshape(-1, d), mlp)
+        check(most <= 1, f"ln_mlp D={d}: h {most} bf16 ulps from the dual "
+              "tile's")
+        same = "bit-equal" if apart == 0 else \
+            f"{apart} of {total} elements 1 bf16 ulp apart"
+        print(f"kernel ln_mlp D={d}: h against #4's dual tile on the same "
+              f"ln: {same}")
+        del out, rows
         del x, attn, mlp
         torch.cuda.empty_cache()
     return stats
@@ -967,6 +1040,15 @@ def phase_unfused_kernels():
         _check_outputs("fused_mlp", where, (out,),
                        (FM.fused_mlp_plain(x, w1, b1, w2, b2),),
                        (FM.fused_mlp_plain(x.float(), *f32),), ("y",),
+                       BOUND_VS_PLAIN_BF16, BOUND_VS_PLAIN_FP32,
+                       stats["fused_mlp"])
+        check(torch.equal(out, FM.fused_mlp(x, w1, b1, w2, b2)),
+              f"fused_mlp {where}: reruns differ")
+        x37 = x[:m * RAGGED // BATCH]
+        _check_outputs("fused_mlp", f"M={x37.shape[0]} D={d} ({RAGGED} "
+                       "images)", (FM.fused_mlp(x37, w1, b1, w2, b2),),
+                       (FM.fused_mlp_plain(x37, w1, b1, w2, b2),),
+                       (FM.fused_mlp_plain(x37.float(), *f32),), ("y",),
                        BOUND_VS_PLAIN_BF16, BOUND_VS_PLAIN_FP32,
                        stats["fused_mlp"])
         outs = FM.fused_mlp_bwd(x, w1, b1, w2, dy)

@@ -1,8 +1,9 @@
 """Before and after of the attention kernels (#7 ``attend_qkv``, #8
 ``attend_qkv_bwd``, and the half-block backwards #3 ``ln_attention_bwd``
-and #6 ``ln_attention_windows_bwd``) and the MLP backwards (#4
-``ln_mlp_bwd``, #10 ``fused_mlp_bwd``) on the paths that launch them, in
-one process on one CUDA card.
+and #6 ``ln_attention_windows_bwd``), the MLP forwards (#2 ``ln_mlp``, #9
+``fused_mlp``) and the MLP backwards (#4 ``ln_mlp_bwd``, #10
+``fused_mlp_bwd``) on the paths that launch them, in one process on one
+CUDA card.
 
 ``--parent DIR`` is a second checkout of the repository, for example an
 earlier commit unpacked with ``git archive`` into a directory that
@@ -10,16 +11,23 @@ earlier commit unpacked with ``git archive`` into a directory that
 ``vlp_tpu_torch/csrc`` by its own ``_build.py`` into its own build
 directory. In the parent's turns this tree's ``attend_qkv``,
 ``attend_qkv_bwd``, ``ln_attention_bwd``, ``ln_attention_windows_bwd``,
-``ln_mlp_bwd`` and ``fused_mlp_bwd`` wrappers launch that library's
-``vlp_attend_qkv``, ``vlp_attend_qkv_bwd``, ``vlp_ln_attention_bwd``,
-``vlp_ln_attention_windows_bwd``, ``vlp_ln_mlp_bwd`` and
+``ln_mlp``, ``fused_mlp``, ``ln_mlp_bwd`` and ``fused_mlp_bwd`` wrappers
+launch that library's ``vlp_attend_qkv``, ``vlp_attend_qkv_bwd``,
+``vlp_ln_attention_bwd``, ``vlp_ln_attention_windows_bwd``,
+``vlp_ln_mlp``, ``vlp_fused_mlp``, ``vlp_ln_mlp_bwd`` and
 ``vlp_fused_mlp_bwd``, with its own workspace queries (their C signatures
-must be this tree's); every other kernel and all the code around them are
-this tree's. The turns alternate (parent, change, change, parent, ...)
-after one warm-up turn of each, and each turn times:
+must be this tree's, except that a parent's ``vlp_ln_mlp`` that takes
+no ln scratch, its #2 normalising inside its first GEMM, gets this tree's
+arguments without ln); every other kernel and all the code around them
+are this tree's. The turns alternate (parent, change, change,
+parent, ...) after one warm-up turn of each, and each turn times:
 
   vit_serve_ms        a request of 32 images to the ViT-B/16 ``Predictor``
                       (host clock to a synchronize, median of --reps)
+  nest_serve_ms       a request of 64 images to the NesT-Small
+                      ``Predictor`` (24 #2 launches), the same way, and
+                      nest_serve_peak_mib its peak device memory above what
+                      was allocated before it
   vit_train_ms        one ViT-B/16 training step at batch 32 (the
                       experiment's ``train_steps``, host clock to a
                       synchronize, median of --reps)
@@ -49,17 +57,19 @@ after one warm-up turn of each, and each turn times:
                       so that the host never waits for it (the wrapper's
                       Python, the library's launches and, on this tree's
                       side, the eight tensor maps it encodes)
-  nest_l<i>_ln_mlp_bwd_ms, nest_l<i>_fused_mlp_bwd_ms
-                      the device time per call of #4 and #10 at level i's
-                      rows at batch 64 ([64 * 56^2 / 28^2 / 14^2, D], F =
-                      4D), the same way
+  nest_l<i>_ln_mlp_ms, nest_l<i>_fused_mlp_ms, nest_l<i>_ln_mlp_bwd_ms,
+  nest_l<i>_fused_mlp_bwd_ms
+                      the device time per call of #2, #9, #4 and #10 at
+                      level i's rows at batch 64 ([64 * 56^2 / 28^2 / 14^2,
+                      D], F = 4D), the same way
 
-After the turns, each side's #3, #6, #4 and #10 run once more per level
-under ``torch.profiler``: the device time of every kernel of the call,
-summed by name and weighted by the level's blocks per NesT-Small step (2,
-2, 20), is the ``split`` of the summary (ms per training step), with the
-kernels grouped into the attention core, the four products and the row
-passes (#3, #6), or into the dual tile (on the parent's side its two
+After the turns, each side's #3, #6, #2, #9, #4 and #10 run once more per
+level under ``torch.profiler``: the device time of every kernel of the
+call, summed by name and weighted by the level's blocks per NesT-Small
+step (2, 2, 20), is the ``split`` of the summary (ms per training step),
+with the kernels grouped into the attention core, the four products and
+the row passes (#3, #6), into the LN rows, fc1 + GELU and fc2 + bias or
+residual (#2, #9), or into the dual tile (on the parent's side its two
 products with gelu' between them), the weight gradients, dln or dx and
 the row passes (#4, #10).
 
@@ -113,9 +123,10 @@ WINDOW = 14
 # #7/#8 (whose module reads a library of its own)
 PARENT_HALF_BLOCK = ("vlp_ln_attention_bwd", "vlp_ln_attention_windows_bwd",
                      "vlp_ln_attention_bwd_workspace")
+PARENT_MLP_FWD = ("vlp_ln_mlp", "vlp_fused_mlp")
 PARENT_MLP_BWD = ("vlp_ln_mlp_bwd", "vlp_ln_mlp_bwd_workspace",
                   "vlp_fused_mlp_bwd", "vlp_fused_mlp_bwd_workspace")
-PARENT_ENTRY_POINTS = PARENT_HALF_BLOCK + PARENT_MLP_BWD
+PARENT_ENTRY_POINTS = PARENT_HALF_BLOCK + PARENT_MLP_FWD + PARENT_MLP_BWD
 # (part, pattern searched in a kernel's name) of the split, first match
 # wins: the old engines' names (gemm.cuh's <LN, TA, TB, epilogue>,
 # mhsa_bwd.cuh) and the new ones (wgmma_gemm.cuh's forms, mhsa_reg_bwd.cuh)
@@ -136,6 +147,17 @@ MLP_SPLIT_PARTS = (
     ("dW1 + dW2 GEMMs", r"gemm_kernel<false, true, false, 3>|ColsTN"),
     ("dln / dx GEMM", r"gemm_kernel<false, false, true, [34]>|RowsNT"),
     ("row passes", r"ln_rows|ln_bwd_rows|reduce_rows|col_partials"),
+    ("other", r""))
+# the same for #2 and #9: the parent's gemm.cuh epilogues 1 (bias + GELU,
+# with the LN prologue for #2), 2 (bias + residual) and 0 (bias), this
+# tree's DenseEpi<true> (bias + GELU) and <false> (bias, + residual for #2)
+# after ln_rows
+MLP_FWD_SPLIT_PARTS = (
+    ("LN rows", r"ln_rows"),
+    ("fc1 + GELU", r"gemm_kernel<(true|false), false, false, 1>|"
+                   r"DenseEpi<true>"),
+    ("fc2 + bias or residual", r"gemm_kernel<false, false, false, [02]>|"
+                               r"DenseEpi<false>"),
     ("other", r""))
 
 
@@ -164,14 +186,28 @@ class _Library:
 
 
 class _Mixed:
-    """A library whose entry points ``names`` are another build's."""
+    """A library whose entry points ``names`` are another build's, each
+    through ``adapt[name]`` where it has one."""
 
-    def __init__(self, own, other, names):
+    def __init__(self, own, other, names, adapt=None):
         self._own, self._other, self._names = own, other, names
+        self._adapt = adapt or {}
 
     def __getattr__(self, name):
-        return getattr(self._other if name in self._names else self._own,
-                       name)
+        fn = getattr(self._other if name in self._names else self._own,
+                     name)
+        return self._adapt.get(name, lambda f: f)(fn)
+
+
+def _ln_mlp_adapter(signatures):
+    """``vlp_ln_mlp`` of a library with these C signatures, called with
+    this tree's arguments (x, gamma, beta, w1, b1, w2, b2, ln, h, y, M, D,
+    F, eps, stream): as it is where the signatures agree, else without ln
+    (a library whose #2 normalises inside its first GEMM)."""
+    own = _build._SIGNATURES["vlp_ln_mlp"][0]
+    if len(signatures["vlp_ln_mlp"][0]) == len(own):
+        return lambda fn: fn
+    return lambda fn: lambda *args: fn(*args[:7], *args[8:])
 
 
 def _host_call_ms(fn, calls=20):
@@ -241,7 +277,9 @@ def main(argv=None) -> int:
     sides = {"change": (_build, _build),
              "parent": (_Library(parent_lib),
                         _Library(_Mixed(own_lib, parent_lib,
-                                        PARENT_ENTRY_POINTS)))}
+                                        PARENT_ENTRY_POINTS, {
+                                            "vlp_ln_mlp": _ln_mlp_adapter(
+                                                parent_build._SIGNATURES)})))}
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cuda = torch.device("cuda")
@@ -250,6 +288,9 @@ def main(argv=None) -> int:
     pred = Predictor(EXPERIMENTS[VIT], None, mean=128.0, std=64.0,
                      batch_size=32, device="cuda")
     request = rng.integers(0, 256, (32, 224, 224), dtype=np.uint8)
+    nest_pred = Predictor(EXPERIMENTS[NEST], None, mean=128.0, std=64.0,
+                          batch_size=64, device="cuda")
+    nest_request = rng.integers(0, 256, (64, 224, 224), dtype=np.uint8)
     runs = {}
     for label, key, batch, nhwc in (
             ("vit_train_ms", VIT, 32, False),
@@ -270,7 +311,7 @@ def main(argv=None) -> int:
         do = torch.randn(n, s, d, generator=gen, device="cuda").bfloat16()
         q, k, v = qkv.view(n, s, 3, heads, d // heads).permute(2, 0, 3, 1, 4)
         inputs[shape] = (qkv, do, heads, (q, k, v))
-    half = {}  # level -> (#3, #6, #4 and #10 calls)
+    half = {}  # level -> (#3, #6, #4, #10, #2 and #9 calls)
     for i, (width, d, heads, _) in enumerate(NEST_LEVELS):
         mp = torch.randn(64, width, width, d, generator=gen,
                          device="cuda").bfloat16()
@@ -288,9 +329,9 @@ def main(argv=None) -> int:
         _, mqkv, mo = FB._ln_attention_windows_cuda(mp, WINDOW, g, b, wq, bq,
                                                     wo, bo, heads)
         rows, drows = mp.reshape(-1, d), dy.reshape(-1, d)
-        (b1,), (w1, w2) = FB._cast(torch.bfloat16, vectors=(
-            0.02 * torch.randn(4 * d, generator=gen, device="cuda"),),
-            matrices=(
+        (b1, b2), (w1, w2) = FB._cast(torch.bfloat16, vectors=(
+            0.02 * torch.randn(4 * d, generator=gen, device="cuda"),
+            0.02 * torch.randn(d, generator=gen, device="cuda")), matrices=(
             torch.randn(d, 4 * d, generator=gen, device="cuda") * d ** -0.5,
             torch.randn(4 * d, d, generator=gen, device="cuda")
             * (4 * d) ** -0.5))
@@ -304,7 +345,11 @@ def main(argv=None) -> int:
             lambda x=rows, dy=drows, g=g, b=b, w1=w1, b1=b1, w2=w2:
             FB.ln_mlp_bwd(x, g, b, w1, b1, w2, dy),
             lambda x=rows, dy=drows, w1=w1, b1=b1, w2=w2:
-            FM.fused_mlp_bwd(x, w1, b1, w2, dy))
+            FM.fused_mlp_bwd(x, w1, b1, w2, dy),
+            lambda x=rows, g=g, b=b, w1=w1, b1=b1, w2=w2, b2=b2:
+            FB.ln_mlp(x, g, b, w1, b1, w2, b2),
+            lambda x=rows, w1=w1, b1=b1, w2=w2, b2=b2:
+            FM.fused_mlp(x, w1, b1, w2, b2))
 
     def use(side):
         BA._build, FB._build = sides[side]
@@ -314,11 +359,17 @@ def main(argv=None) -> int:
         use(side)
         out = {"side": side}
         counted = (BA.attend_qkv, BA.attend_qkv_bwd, FB.ln_attention_bwd,
-                   FB.ln_attention_windows_bwd, FB.ln_mlp_bwd,
-                   FM.fused_mlp_bwd)
+                   FB.ln_attention_windows_bwd, FB.ln_mlp, FM.fused_mlp,
+                   FB.ln_mlp_bwd, FM.fused_mlp_bwd)
         before = [k.launches for k in counted]
         out["vit_serve_ms"] = _host_ms(lambda: pred.predict_arrays(request),
                                        args.reps)
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out["nest_serve_ms"] = _host_ms(
+            lambda: nest_pred.predict_arrays(nest_request), args.reps)
+        out["nest_serve_peak_mib"] = (
+            torch.cuda.max_memory_allocated() - base) / 2 ** 20
         for label, (step, state, batches) in runs.items():
             it = iter(range(args.reps))
             base = torch.cuda.memory_allocated()
@@ -327,8 +378,8 @@ def main(argv=None) -> int:
                 step, state, [batches[next(it) % len(batches)]]), args.reps)
             out[label[:-3] + "_peak_mib"] = (
                 torch.cuda.max_memory_allocated() - base) / 2 ** 20
-        # #7, #8, #3, #6, #4 and #10 launches of the serving and training
-        # steps above
+        # #7, #8, #3, #6, #2, #9, #4 and #10 launches of the serving and
+        # training steps above
         out["launches"] = [k.launches - n for k, n in zip(counted, before)]
         for shape, (qkv, do, heads, qkv_views) in inputs.items():
             out[f"{shape}_attend_ms"] = device_ms(
@@ -338,11 +389,14 @@ def main(argv=None) -> int:
             with torch.no_grad():
                 out[f"{shape}_sdpa_ms"] = device_ms(
                     lambda: F.scaled_dot_product_attention(*qkv_views))
-        for i, (bwd, windows_bwd, mlp_bwd, fused_bwd) in half.items():
+        for i, (bwd, windows_bwd, mlp_bwd, fused_bwd, mlp,
+                fused) in half.items():
             out[f"nest_l{i}_ln_attention_bwd_ms"] = device_ms(bwd)
             out[f"nest_l{i}_ln_attention_bwd_host_ms"] = _host_call_ms(bwd)
             out[f"nest_l{i}_ln_attention_windows_bwd_ms"] = device_ms(
                 windows_bwd)
+            out[f"nest_l{i}_ln_mlp_ms"] = device_ms(mlp)
+            out[f"nest_l{i}_fused_mlp_ms"] = device_ms(fused)
             out[f"nest_l{i}_ln_mlp_bwd_ms"] = device_ms(mlp_bwd)
             out[f"nest_l{i}_fused_mlp_bwd_ms"] = device_ms(fused_bwd)
         return out
@@ -366,7 +420,9 @@ def main(argv=None) -> int:
                 (0, "ln_attention_bwd", SPLIT_PARTS),
                 (1, "ln_attention_windows_bwd", SPLIT_PARTS),
                 (2, "ln_mlp_bwd", MLP_SPLIT_PARTS),
-                (3, "fused_mlp_bwd", MLP_SPLIT_PARTS)):
+                (3, "fused_mlp_bwd", MLP_SPLIT_PARTS),
+                (4, "ln_mlp", MLP_FWD_SPLIT_PARTS),
+                (5, "fused_mlp", MLP_FWD_SPLIT_PARTS)):
             parts, kernels = _split(
                 [(half[i][which], blocks)
                  for i, (_, _, _, blocks) in enumerate(NEST_LEVELS)],

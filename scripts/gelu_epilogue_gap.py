@@ -1,12 +1,12 @@
 """How far the dual tile's GELU epilogue lies from the accurate one, on one
 CUDA card.
 
-#4/#10's dual tile (``csrc/mlp_bwd.cuh:gelu_cdf_pdf``) forms cdf = Phi(z)
-by the Abramowitz & Stegun erf of ``fused_mlp.py:_erf`` and phi = the
-normal density from one ``__expf`` and one ``__fdividef``. The accurate
-form (``csrc/gemm.cuh:erf_as``: ``expf`` and a division, then a second
-``expf`` for phi) is what the wmma epilogue of the same function computed
-before it. Both keep the Pallas backward's rounding points: h = bf16(z *
+#4/#10's dual tile and the forwards #2/#9 (``csrc/gelu.cuh:gelu_cdf_pdf``)
+form cdf = Phi(z) by the Abramowitz & Stegun erf of ``fused_mlp.py:_erf``
+and phi = the normal density from one ``__expf`` and one ``__fdividef``.
+The accurate form (``csrc/gelu.cuh:erf_as``: ``expf`` and a division, then
+a second ``expf`` for phi) is what the wmma epilogue of the same function
+computed before it. Both keep the Pallas backward's rounding points: h = bf16(z *
 cdf), dh32 = g * (cdf + z * phi), dh = bf16(dh32), with g = dy @ W2^T.
 
 For NesT-Small's three levels at batch 64 (M = 64 * 56^2, 64 * 28^2 and
@@ -46,7 +46,9 @@ from vlp_tpu_torch.probes._timing import require_cuda  # noqa: E402
 LEVELS = ((64 * 56 * 56, 96), (64 * 28 * 28, 192), (64 * 14 * 14, 384))
 
 SOURCE = r"""
-#include "mlp_bwd.cuh"
+#include <cuda_bf16.h>
+
+#include "gelu.cuh"
 
 // Both GELU forms on every element: [0, n) of h, dh, dh32 the dual tile's,
 // [n, 2n) the accurate one's.
@@ -57,7 +59,7 @@ __global__ void gelu_forms_kernel(const float* z, const float* g, long n,
        i += (long)gridDim.x * blockDim.x) {
     const float zz = z[i], gg = g[i];
     float cdf, phi;
-    vlp::wg::gelu_cdf_pdf(zz, cdf, phi);
+    vlp::gelu_cdf_pdf(zz, cdf, phi);
     float d = gg * (cdf + zz * phi);
     h[i] = __float2bfloat16(zz * cdf);
     dh[i] = __float2bfloat16(d);

@@ -5,7 +5,9 @@ wgmma mainloop each on its own (the MLP backwards' dual tile at both
 widths among them), shear, noise, the ResNet probe
 kernels conv3x3 and bn_relu_gemm, the MLP probe kernels mlp_tile, its
 backward, mlp_chain and mlp_single (the last and conv3x3 on the wgmma
-mainloop, reruns bit-equal), and the attention schedule probes
+mainloop, reruns bit-equal), the MLP forwards' products on the wgmma
+mainloop each on its own and #2/#9 at serving's ragged rows, #2's h
+against #4's dual tile's, and the attention schedule probes
 attn_sched and its backward in every mode) against their plain PyTorch
 versions,
 on the card. Marked ``gpu``: without a CUDA
@@ -471,6 +473,126 @@ def test_mlp_dual_tile_matches_matmul_pieces(cuda, m, d, f):
     assert col.shape == tiles.shape and _rel_err(col, tiles) <= 1e-4
     again = _mlp_dual(a, w1, b1, dy, w2)
     assert all(torch.equal(x, y) for x, y in zip((h, dh, col), again))
+
+
+def _mlp_gemm(a, w, bias, res, gelu):
+    """One product of the MLP forwards (#2, #9) through ``vlp_mlp_gemm``:
+    bf16(gelu(a @ w + bias)) where ``gelu``, else bf16(a @ w + bias), or
+    bf16(res + (a @ w + bias)) where ``res`` is given."""
+    from vlp_tpu_torch.ops import _build
+    lib = _build.load_library()
+    m, k = a.shape
+    n = w.shape[1]
+    out = torch.empty(m, n, device=a.device, dtype=torch.bfloat16)
+    err = lib.vlp_mlp_gemm(a.data_ptr(), w.data_ptr(), bias.data_ptr(),
+                           0 if res is None else res.data_ptr(),
+                           out.data_ptr(), m, n, k, int(gelu), FB._stream())
+    _build.check(lib, err, "mlp_gemm")
+    torch.cuda.synchronize()
+    return out
+
+
+# The forwards' products on the wgmma mainloop, each on its own, against
+# torch.matmul pieces in fp32 (TF32 off) on the same bf16 operands, rounded
+# once (BOUND): fc1 (N = F = 4D, K = D, bias + GELU) and fc2 (N = D, K = F,
+# bias, or bias + the residual added in fp32 before the rounding) at ragged
+# M (1, 77, 1037 rows: a partial last tile) and D 96/192/384 (D 96 a ragged
+# 64-deep step for fc1 and a quarter-empty 128-wide tile for fc2); biases
+# drawn at scale 1 so a dropped bias shows; reruns bit-equal. epi 0 is fc1,
+# 1 fc2 without the residual (#9), 2 fc2 with it (#2).
+@pytest.mark.parametrize("epi", [0, 1, 2])
+@pytest.mark.parametrize("d", [96, 192, 384])
+@pytest.mark.parametrize("m", [1, 77, 1037])
+def test_mlp_forward_products_match_matmul_pieces(cuda, m, d, epi):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=cuda).manual_seed(m + d + epi)
+    f = 4 * d
+    x = _rand(gen, m, d).bfloat16()
+    if epi == 0:
+        a, w, bias = x, _rand(gen, d, f, scale=d ** -0.5).bfloat16(), \
+            _rand(gen, f)
+    else:
+        a, w, bias = _rand(gen, m, f).bfloat16(), \
+            _rand(gen, f, d, scale=f ** -0.5).bfloat16(), _rand(gen, d)
+    res = x if epi == 2 else None
+    out = _mlp_gemm(a, w, bias, res, epi == 0)
+    z = a.float() @ w.float() + bias
+    ref = (FM.gelu(z) if epi == 0 else z + x.float() if epi == 2
+           else z).bfloat16()
+    assert out.shape == ref.shape
+    assert torch.isfinite(out.float()).all()
+    assert _rel_err(out, ref) <= BOUND
+    assert torch.equal(out, _mlp_gemm(a, w, bias, res, epi == 0))
+
+
+# #2 and #9 at serving's ragged rows: a request of 37 images at each NesT
+# level (37 * 56^2, 37 * 28^2, 37 * 14^2 rows; none a multiple of 128)
+@pytest.mark.parametrize("m,d", [(37 * 3136, 96), (37 * 784, 192),
+                                 (37 * 196, 384)])
+def test_mlp_forwards_match_plain_at_serving_rows(cuda, m, d):
+    gen = torch.Generator(device=cuda).manual_seed(m + d)
+    f = 4 * d
+    x = _rand(gen, m, d).bfloat16()
+    g, b = 1.0 + _rand(gen, d, scale=0.1), _rand(gen, d, scale=0.1)
+    (b1, b2), (w1, w2) = FB._cast(
+        torch.bfloat16, vectors=(_rand(gen, f, scale=0.02),
+                                 _rand(gen, d, scale=0.02)),
+        matrices=(_rand(gen, d, f, scale=d ** -0.5),
+                  _rand(gen, f, d, scale=f ** -0.5)))
+    for name, kern, plain in (
+            ("ln_mlp", lambda: FB.ln_mlp(x, g, b, w1, b1, w2, b2),
+             lambda: FB.ln_mlp_plain(x, g, b, w1, b1, w2, b2)),
+            ("fused_mlp", lambda: FM.fused_mlp(x, w1, b1, w2, b2),
+             lambda: FM.fused_mlp_plain(x, w1, b1, w2, b2))):
+        counter = FB.ln_mlp if name == "ln_mlp" else FM.fused_mlp
+        before = counter.launches
+        out = kern()
+        torch.cuda.synchronize()
+        assert counter.launches == before + 1, name
+        assert torch.isfinite(out.float()).all(), name
+        assert _rel_err(out, plain()) <= BOUND, name
+        assert torch.equal(out, kern()), name
+
+
+def _bf16_ulps(a, b):
+    """Distance of two bf16 tensors in steps of the format."""
+    def ordered(x):
+        k = x.view(torch.int16).to(torch.int32)
+        return torch.where(k < 0, -(k & 0x7FFF), k)
+    return (ordered(a) - ordered(b)).abs()
+
+
+# #2's h (the forward's bias + GELU epilogue, gelu.cuh) against the h that
+# #4's dual tile recomputes from the same ln (mlp_bwd.cuh): one GELU
+# function on the same z, so at most one bf16 ulp apart (the two products
+# may contract the epilogue's arithmetic differently); NesT's three levels
+# at 8 images and a ragged row count
+@pytest.mark.parametrize("m,d", [(8 * 3136, 96), (8 * 784, 192),
+                                 (8 * 196 + 37, 384)])
+def test_ln_mlp_h_is_the_dual_tiles_h(cuda, m, d):
+    from vlp_tpu_torch.ops import _build
+    gen = torch.Generator(device=cuda).manual_seed(m)
+    f = 4 * d
+    x = _rand(gen, m, d).bfloat16()
+    dy = _rand(gen, m, d).bfloat16()
+    (g, b, b1, b2), (w1, w2) = FB._cast(
+        torch.bfloat16, vectors=(1.0 + _rand(gen, d, scale=0.1),
+                                 _rand(gen, d, scale=0.1), _rand(gen, f),
+                                 _rand(gen, d, scale=0.02)),
+        matrices=(_rand(gen, d, f, scale=d ** -0.5),
+                  _rand(gen, f, d, scale=f ** -0.5)))
+    lib = _build.load_library()
+    ln, h, y = (torch.empty(m, n, device=cuda, dtype=torch.bfloat16)
+                for n in (d, f, d))
+    err = lib.vlp_ln_mlp(x.data_ptr(), g.data_ptr(), b.data_ptr(),
+                         w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+                         b2.data_ptr(), ln.data_ptr(), h.data_ptr(),
+                         y.data_ptr(), m, d, f, 1e-6, FB._stream())
+    _build.check(lib, err, "ln_mlp")
+    torch.cuda.synchronize()
+    assert torch.equal(y, FB.ln_mlp(x, g, b, w1, b1, w2, b2))
+    h_dual = _mlp_dual(ln, w1, b1, dy, w2)[0]
+    assert _bf16_ulps(h, h_dual).max().item() <= 1
 
 
 def test_unfused_autograd_runs_the_kernels_and_raises_on_what_they_refuse(

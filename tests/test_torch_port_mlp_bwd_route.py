@@ -1,5 +1,7 @@
 """The CUDA route of the MLP backwards #4 (``ln_mlp_bwd``) and #10
-(``fused_mlp_bwd``) without a card, and the tile sums behind their ``db1``.
+(``fused_mlp_bwd``) without a card, the tile sums behind their ``db1``,
+and ``scripts/ab_attention.py``'s handling of the MLP kernels (#2, #9, #4,
+#10) on both sides.
 
 The route: with the library and the stream replaced by a recorder, each
 wrapper asks the library for its workspace at (M, D, F), makes one call of
@@ -279,19 +281,62 @@ def _ab_script():
 def test_ab_script_serves_the_parents_mlp_backwards():
     """In the parent's turns ``scripts/ab_attention.py`` takes #4's and
     #10's entry points and their workspace queries from the parent's
-    library, beside #3's and #6's, and every other entry point (the
-    forwards, the dual tile alone) from this tree's."""
+    library, beside #3's and #6's and the forwards #2 and #9, and every
+    other entry point (the dual tile and the forwards' products alone) from
+    this tree's."""
     ab = _ab_script()
     names = ("vlp_ln_mlp_bwd", "vlp_ln_mlp_bwd_workspace",
              "vlp_fused_mlp_bwd", "vlp_fused_mlp_bwd_workspace",
-             "vlp_ln_attention_bwd")
+             "vlp_ln_attention_bwd", "vlp_ln_mlp", "vlp_fused_mlp")
     own = type("Own", (), {n: "own" for n in names + (
-        "vlp_ln_mlp", "vlp_fused_mlp", "vlp_mlp_dual")})()
+        "vlp_mlp_dual", "vlp_mlp_gemm")})()
     other = type("Other", (), {n: "parent" for n in names})()
     mixed = ab._Mixed(own, other, ab.PARENT_ENTRY_POINTS)
     assert all(getattr(mixed, n) == "parent" for n in names)
-    assert mixed.vlp_ln_mlp == mixed.vlp_fused_mlp == "own"
-    assert mixed.vlp_mlp_dual == "own"
+    assert mixed.vlp_mlp_dual == mixed.vlp_mlp_gemm == "own"
+
+
+@pytest.mark.parametrize("parent_pointers,passed", [
+    (10, tuple(range(15))),  # this tree's signature: as it is
+    (9, tuple(range(7)) + tuple(range(8, 15)))])  # no ln scratch
+def test_ab_script_calls_the_parents_ln_mlp_in_its_signature(parent_pointers,
+                                                             passed):
+    """The parent's ``vlp_ln_mlp`` gets this tree's arguments where the C
+    signatures agree, and the same without the ln scratch (argument 7)
+    where the parent's takes none."""
+    ab = _ab_script()
+    sig = {"vlp_ln_mlp": ([None] * (parent_pointers + 5), None)}
+    seen = []
+    parent = type("Parent", (), {
+        "vlp_ln_mlp": staticmethod(lambda *a: seen.append(a) or 0)})()
+    mixed = ab._Mixed(None, parent, ab.PARENT_ENTRY_POINTS,
+                      {"vlp_ln_mlp": ab._ln_mlp_adapter(sig)})
+    assert mixed.vlp_ln_mlp(*range(15)) == 0
+    assert seen == [passed]
+
+
+@pytest.mark.parametrize("name,part", [
+    ("void vlp::ln_rows_kernel<4>(...)", "LN rows"),
+    ("void vlp::gemm_kernel<true, false, false, 1>(...)", "fc1 + GELU"),
+    ("void vlp::gemm_kernel<false, false, false, 1>(...)", "fc1 + GELU"),
+    ("void vlp::wg::wgmma_gemm_kernel<vlp::wg::DenseEpi<true>, 128, 3, 2, "
+     "__nv_bfloat16>(...)", "fc1 + GELU"),
+    ("void vlp::gemm_kernel<false, false, false, 2>(...)",
+     "fc2 + bias or residual"),
+    ("void vlp::gemm_kernel<false, false, false, 0>(...)",
+     "fc2 + bias or residual"),
+    ("void vlp::wg::wgmma_gemm_kernel<vlp::wg::DenseEpi<false>, 64, 4, 2, "
+     "__nv_bfloat16>(...)", "fc2 + bias or residual"),
+    ("Memset (Device)", "other"),
+])
+def test_ab_script_splits_both_sides_mlp_forwards_into_the_same_parts(name,
+                                                                     part):
+    """The MLP forwards' split names the same work in the parent's kernels
+    (gemm.cuh's <LN, TA, TB, epilogue>: 1 bias + GELU, 2 bias + residual,
+    0 bias) and in this tree's (ln_rows, then DenseEpi<GELU or not>)."""
+    ab = _ab_script()
+    assert next(p for p, pat in ab.MLP_FWD_SPLIT_PARTS
+                if re.search(pat, name)) == part
 
 
 @pytest.mark.parametrize("name,part", [

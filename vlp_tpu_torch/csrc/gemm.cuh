@@ -1,7 +1,7 @@
-// Tiled bf16 tensor-core GEMM of the half-block and MLP forwards
-// (ln_attention.cu, ln_attention_windows.cu, ln_mlp.cu, fused_mlp.cu) and
-// of the probes' attn_sched*.cu and mlp_tile_bwd.cu; the attention and MLP
-// backwards' products run on wgmma_gemm.cuh:
+// Tiled bf16 tensor-core GEMM of the half-block attention forwards
+// (ln_attention.cu and ln_attention_windows.cu, through ln_attention.cuh)
+// and of the probes' attn_sched*.cu and mlp_tile_bwd.cu; the shipped MLP
+// forwards and backwards run their products on wgmma_gemm.cuh:
 //
 //   out[M, N] = epilogue(op(A) @ op(W) + bias[N])
 //
@@ -11,7 +11,7 @@
 // (the input gradients dY W^T). Without TA, A' may instead be
 // bf16(LN(A)*gamma + beta) computed in fp32 per row (two-pass variance, as
 // the Pallas kernels in vlp_tpu/ops/fused_block.py do). The epilogues are:
-// bias; bias + exact-erf GELU; bias + residual; raw fp32; raw bf16.
+// bias; bias + residual; raw fp32; raw bf16.
 // Products accumulate in fp32 and round once, at the same points as the
 // Pallas bodies.
 //
@@ -59,9 +59,10 @@ constexpr int kAPad = 8;   // bf16 elements of padding per shared row
 constexpr int kBPad = 8;
 constexpr int kCPad = 4;   // fp32 elements
 
+// The values appear in the kernels' names, gemm_kernel<LN, TA, TB, EPI>,
+// which profiles of several versions are read by (1 is unused).
 enum Epilogue {
   kEpiBias = 0,          // bf16(acc + bias)
-  kEpiBiasGelu = 1,      // bf16(gelu(acc + bias))
   kEpiBiasResidual = 2,  // bf16(R + (acc + bias))
   kEpiF32 = 3,           // fp32 acc (split-K partials, dln)
   kEpiBf16 = 4,          // bf16(acc)
@@ -78,23 +79,6 @@ __device__ __forceinline__ float warp_max(float v) {
   for (int o = 16; o > 0; o >>= 1)
     v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
-}
-
-// erf by Abramowitz & Stegun 7.1.26, the form vlp_tpu/ops/fused_mlp.py:_erf
-// uses inside the Pallas kernels (|error| <= 1.5e-7).
-__device__ __forceinline__ float erf_as(float x) {
-  const float s = x > 0.f ? 1.f : (x < 0.f ? -1.f : 0.f);
-  const float a = fabsf(x);
-  const float t = 1.0f / (1.0f + 0.3275911f * a);
-  const float poly =
-      t * (0.254829592f +
-           t * (-0.284496736f +
-                t * (1.421413741f + t * (-1.453152027f + t * 1.061405429f))));
-  return s * (1.0f - poly * expf(-a * a));
-}
-
-__device__ __forceinline__ float gelu_erf(float z) {
-  return 0.5f * z * (1.0f + erf_as(z * 0.7071067811865476f));
 }
 
 // Shared-memory elements of the A and B staging areas.
@@ -284,7 +268,6 @@ __global__ void __launch_bounds__(kGemmThreads)
       out[o] = __float2bfloat16(v);
     } else {
       v += bias[gn];
-      if (EPI == kEpiBiasGelu) v = gelu_erf(v);
       if (EPI == kEpiBiasResidual) v = __bfloat162float(R[o]) + v;
       out[o] = __float2bfloat16(v);
     }

@@ -4,9 +4,10 @@
 //
 //   1. dual tile (wgmma_gemm.cuh, form DualMlp): over one 128 x BN tile of
 //      [M, F], acc = a @ W1 and acc2 = dy @ W2^T in one K loop over D; in
-//      registers z = acc + b1, h = bf16(z * cdf), dh32 = acc2 * gelu'(z)
-//      with gelu'(z) = cdf + z * phi (fused_mlp.py:_gelu_and_grad, the
-//      Pallas backward's association), dh = bf16(dh32); stores h and dh
+//      registers z = acc + b1, h = bf16(z * cdf) (gelu.cuh, the forwards'
+//      own h), dh32 = acc2 * gelu'(z) with gelu'(z) = cdf + z * phi
+//      (fused_mlp.py:_gelu_and_grad, the Pallas backward's association),
+//      dh = bf16(dh32); stores h and dh
 //      [M, F] and the fp32 column sums of dh32 over the tile's 128 rows
 //   2. ColsTN, split-K:  dW2 = h^T @ dy   (fp32 partials)
 //   3. ColsTN, split-K:  dW1 = a^T @ dh   (fp32 partials)
@@ -42,30 +43,11 @@
 #pragma once
 
 #include "bwd_rows.cuh"
+#include "gelu.cuh"
 #include "wgmma_gemm.cuh"
 
 namespace vlp {
 namespace wg {
-
-// cdf = Phi(z) by the A&S erf of fused_mlp.py:_erf and phi = the normal
-// density, from one exp: the erf's exp(-(z / sqrt 2)^2) is phi's
-// exp(-z^2 / 2). The reciprocal and the exp are the hardware's
-// approximations (a few fp32 ulps, far below the bf16 rounding of h and
-// dh): the epilogue's arithmetic per element of [M, F] is about half of
-// what two accurate expf and a division cost, and it runs once per
-// element of h and dh.
-__device__ __forceinline__ void gelu_cdf_pdf(float z, float& cdf,
-                                             float& phi) {
-  const float e = __expf(-0.5f * z * z);
-  const float t =
-      __fdividef(1.0f, 1.0f + 0.3275911f * (fabsf(z) * 0.7071067811865476f));
-  const float poly =
-      t * (0.254829592f +
-           t * (-0.284496736f +
-                t * (1.421413741f + t * (-1.453152027f + t * 1.061405429f))));
-  cdf = 0.5f + copysignf(0.5f - 0.5f * poly * e, z);
-  phi = e * 0.3989422804014327f;
-}
 
 // The dual form: acc = a @ W1 with a [M, D] K-major and W1 [D, F] N-major
 // through the transpose bit (as DenseRows reads B), acc2 = dy @ W2^T with

@@ -12,8 +12,8 @@
 //   out = BIAS ? bf16(x + (acc + b2)) : bf16(acc)               [M, D]
 //
 // LN is the Pallas bodies' (fp32, two-pass variance); GELU the exact-erf form
-// with the A&S erf (gemm.cuh). #13 runs with BIAS (its ablations turn LN or
-// GELU off); #19a's chain with neither bias nor residual (its "ln" stage is
+// with the A&S erf (gelu.cuh: gelu_erf). #13 runs with BIAS (its ablations
+// turn LN or GELU off); #19a's chain with neither bias nor residual (its "ln" stage is
 // LN without affine: null gamma and beta). The rounding points are those of
 // the Pallas bodies: ln, h and the output are rounded to bf16 once each,
 // every product accumulates in fp32.
@@ -53,7 +53,8 @@
 // F % FS == 0, 16-byte aligned contiguous row-major operands.
 #pragma once
 
-#include "gemm.cuh"           // bf16, wmma, warp_sum, erf_as, gelu_erf
+#include "gemm.cuh"           // bf16, wmma, warp_sum
+#include "gelu.cuh"           // erf_as, gelu_erf
 #include "implicit_gemm.cuh"  // cp_async16, cp_async_commit, cp_async_wait
 
 namespace vlp {

@@ -14,7 +14,9 @@
 // partials) and by the MLP backwards #4 and #10 (mlp_bwd.cuh: the dual
 // form DualMlp, two products of one output tile in one K loop with an
 // epilogue of its own; ColsTN for dW1 and dW2; RowsNT for dln to fp32 and
-// dx to bf16). Every operand is read by a TMA map as it lies.
+// dx to bf16) and forwards #2 and #9 (mlp_fwd.cuh: DenseEpi, x @ w with an
+// epilogue of its own, bias + GELU, or bias and a residual). Every operand
+// is read by a TMA map as it lies.
 //
 // What bounds a GEMM on this card: the bf16 tensor cores (989 TFLOP/s) once
 // a tile does ~300 operations per byte it brings from device memory, and
@@ -66,6 +68,11 @@
 //   other whatever the transpose bits; the policy's epilogue gets both,
 //   and an [8 warps x BN] fp32 scratch in shared memory, in place of the
 //   store.
+// - One product with an epilogue of its own (a policy with kEpilogue):
+//   the policy gets the accumulator in place of the store, in the fragment
+//   layout, and finishes it element by element (bias, GELU, a residual
+//   read as bf16 pairs) before it calls store_group. The policies without
+//   it (DenseRows, RowsNT, ColsTN, ConvTaps) take the store as before.
 //
 // Requirements: N and every operand's row a multiple of 8 elements
 // (16-byte rows for TMA and the vector stores); the policy's tensor maps
@@ -80,6 +87,8 @@
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace vlp {
 namespace wg {
@@ -390,6 +399,15 @@ struct Layout {
   static constexpr size_t kBytes = 1024 + kSums + kSumBytes;
 };
 
+// Whether a single-product policy finishes its tile itself: it declares
+// kEpilogue = true (a policy without kEpilogue, or with it false, gets the
+// store of the raw accumulator).
+template <class Src, class = void>
+struct OwnEpilogue : std::false_type {};
+template <class Src>
+struct OwnEpilogue<Src, std::void_t<decltype(Src::kEpilogue)>>
+    : std::bool_constant<Src::kEpilogue> {};
+
 // Policy (a struct passed by value), its loads issued by one thread:
 //   kProducts                           // 1, or 2 (below)
 //   kTnspA                              // 0: A K-major; 1: M-major
@@ -409,7 +427,11 @@ struct Layout {
 //   template <int BN> void epilogue(float (&acc)[BN / 2],
 //       float (&acc2)[BN / 2], Out* out, int M, int N, int m0, int n0,
 //       int row, int warp, int lane, float* sums) const;
-// which every consumer thread calls once in place of the store.
+// which every consumer thread calls once in place of the store. A
+// single-product policy may declare kEpilogue (any value) and
+//   template <int BN> void epilogue(float (&acc)[BN / 2], Out* out, int M,
+//       int N, int n0, int row, int lane) const;
+// which every consumer thread calls once in place of the store; no split.
 //
 // Block (x, z) owns output tile x and K steps [z * split_steps, (z + 1) *
 // split_steps); with gridDim.y > 1 its fp32 sum goes to its own partial,
@@ -530,6 +552,8 @@ __global__ void __launch_bounds__(kThreads, MINB)
         smem_raw + (ring - smem_u32(smem_raw)) + L::kSums);
     src.template epilogue<BN>(acc, acc2, out, M, N, m0, n0, row, warp, lane,
                               sums);
+  } else if constexpr (OwnEpilogue<Src>::value) {
+    src.template epilogue<BN>(acc, out, M, N, n0, row, lane);
   } else {
     out += (size_t)blockIdx.y * M * N;
 #pragma unroll
@@ -548,6 +572,7 @@ cudaError_t launch_wgmma_gemm(const CUtensorMap& map_a,
                               int splits = 1, int split_steps = INT_MAX) {
   static_assert(BN == 64 || BN == 128 || BN == 256, "the Mma instances");
   static_assert(sizeof(Out) == 2 || sizeof(Out) == 4, "bf16 or fp32 out");
+  if (splits > 1 && OwnEpilogue<Src>::value) return cudaErrorInvalidValue;
   auto kernel = wgmma_gemm_kernel<Src, BN, STAGES, MINB, Out>;
   constexpr size_t smem = Layout<BN, STAGES, Src::kProducts>::kBytes;
   static const cudaError_t attr = cudaFuncSetAttribute(

@@ -42,8 +42,8 @@ _SIGNATURES = {
     # x, gamma, beta, wqkv, bqkv, wout, bout, qkv, o, y, N, S, D, H, scale,
     # eps, stream
     "vlp_ln_attention": ([_P] * 10 + [_I] * 4 + [_F, _F, _P], _I),
-    # x, gamma, beta, w1, b1, w2, b2, h, y, M, D, F, eps, stream
-    "vlp_ln_mlp": ([_P] * 9 + [_I] * 3 + [_F, _P], _I),
+    # x, gamma, beta, w1, b1, w2, b2, ln, h, y, M, D, F, eps, stream
+    "vlp_ln_mlp": ([_P] * 10 + [_I] * 3 + [_F, _P], _I),
     # N, S, D, H -> bytes
     "vlp_ln_attention_bwd_workspace": ([_I] * 4, _Z),
     # x, gamma, beta, wqkv, wout, qkv, o, dy, dx, dgamma, dbeta, dwqkv,
@@ -73,6 +73,8 @@ _SIGNATURES = {
     "vlp_attend_qkv_bwd_checked": ([_P] * 5 + [_I] * 4 + [_F, _P], _I),
     # x, w1, b1, w2, b2, h, y, M, D, F, stream
     "vlp_fused_mlp": ([_P] * 7 + [_I] * 3 + [_P], _I),
+    # a, w, bias, res, out, M, N, K, gelu, stream
+    "vlp_mlp_gemm": ([_P] * 5 + [_I] * 4 + [_P], _I),
     # M, D, F -> bytes
     "vlp_fused_mlp_bwd_workspace": ([_I] * 3, _Z),
     # x, w1, b1, w2, dy, dx, dw1, db1, dw2, db2, ws, M, D, F, stream

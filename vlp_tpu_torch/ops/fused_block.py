@@ -41,7 +41,8 @@ from vlp_tpu_torch.ops._common import (  # noqa: F401 (the gelu family:
     _acc, _cast, _check_cuda, _mm, _records_grad,  # this module's API)
     _route, _rows, _stream, gelu, gelu_and_grad, gelu_grad)
 from vlp_tpu_torch.ops.block_attention import attend_qkv_plain, dqkv_f32
-from vlp_tpu_torch.ops.fused_mlp import check_bwd_operands, mlp_bwd_core
+from vlp_tpu_torch.ops.fused_mlp import (check_aligned, check_bwd_operands,
+                                         mlp_bwd_core)
 
 _EPS = 1e-6
 
@@ -345,19 +346,23 @@ def _ln_attention_windows_cuda(x, block, gamma, beta, wqkv, bqkv, wout, bout,
 
 
 def _ln_mlp_cuda(x, gamma, beta, w1, b1, w2, b2):
+    """The forward kernel (``csrc/ln_mlp.cu``) on cast operands; ln [M, D]
+    and h [M, F] are the scratch of its three launches."""
     _check_mlp("ln_mlp", x, gamma, beta, w1, b1, w2, b2)
     if b2.shape[1] != x.shape[1]:
         raise ValueError("ln_mlp: b2 does not match D")
+    check_aligned("ln_mlp", x, w1, w2)
     m, d = x.shape
     f = w1.shape[-1]
     lib = _build.load_library()
+    ln = torch.empty_like(x)
     h = torch.empty((m, f), dtype=x.dtype, device=x.device)
     y = torch.empty_like(x)
     with torch.cuda.device(x.device):
         err = lib.vlp_ln_mlp(
             x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), w1.data_ptr(),
-            b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), h.data_ptr(),
-            y.data_ptr(), m, d, f, _EPS, _stream())
+            b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), ln.data_ptr(),
+            h.data_ptr(), y.data_ptr(), m, d, f, _EPS, _stream())
     _build.check(lib, err, "ln_mlp")
     ln_mlp.launches += 1
     return y

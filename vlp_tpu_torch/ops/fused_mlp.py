@@ -104,25 +104,35 @@ def _check(name, x, w1, b1, w2, *rest):
     _check_cuda(name, x, w1, b1, w2, *rest)
 
 
-def check_bwd_operands(name, m, *tensors):
-    """What the MLP backward sequence (``csrc/mlp_bwd.cuh``, shared with
-    ``fused_block.ln_mlp_bwd``) takes beyond the shapes: at most 65535
-    blocks of 256 rows (the grid of its row partials) and 16-byte aligned
-    operands (its products read them by TMA). Raises before any launch."""
-    if -(-m // 256) > 65535:
-        raise ValueError(f"{name}: the CUDA kernel takes at most "
-                         f"{65535 * 256} rows, got {m}")
+def check_aligned(name, *tensors):
+    """The MLP kernels' products (``csrc/mlp_fwd.cuh``, ``csrc/mlp_bwd.cuh``)
+    read their operands by TMA: 16-byte aligned operands, or raise before
+    any launch."""
     if any(t.data_ptr() % 16 for t in tensors):
         raise ValueError(f"{name}: the CUDA kernel takes 16-byte aligned "
                          "operands")
 
 
+def check_bwd_operands(name, m, *tensors):
+    """What the MLP backward sequence (``csrc/mlp_bwd.cuh``, shared with
+    ``fused_block.ln_mlp_bwd``) takes beyond the shapes: at most 65535
+    blocks of 256 rows (the grid of its row partials) and 16-byte aligned
+    operands (``check_aligned``). Raises before any launch."""
+    if -(-m // 256) > 65535:
+        raise ValueError(f"{name}: the CUDA kernel takes at most "
+                         f"{65535 * 256} rows, got {m}")
+    check_aligned(name, *tensors)
+
+
 def _fused_mlp_cuda(x, w1, b1, w2, b2):
+    """The forward kernel (``csrc/fused_mlp.cu``) on cast operands; h [M, F]
+    is the scratch its first product writes and its second reads."""
     _check("fused_mlp", x, w1, b1, w2, b2)
     m, d = x.shape
     f = w1.shape[1]
     if b2.shape != (1, d):
         raise ValueError("fused_mlp: b2 does not match D")
+    check_aligned("fused_mlp", x, w1, w2)
     lib = _build.load_library()
     h = torch.empty((m, f), dtype=x.dtype, device=x.device)
     y = torch.empty_like(x)
