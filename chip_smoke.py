@@ -10,22 +10,29 @@ Phases, each printing its lines before the last line:
    then checks that the kernels on the wgmma + TMA mainloop
    (``csrc/wgmma_gemm.cuh``: #19b, #17 at both tile widths, the four
    products of #3/#6's sequence in its three instances, the dual tile of
-   #4/#10 (``csrc/mlp_bwd.cuh``) and the two products of #2/#9
-   (``csrc/mlp_fwd.cuh``: the bias + GELU and the bias (+ residual)
-   epilogue at both tile widths), whose registers it prints) reach
+   #4/#10 (``csrc/mlp_bwd.cuh``) and the forwards' products
+   (``csrc/dense_epi.cuh``: #2/#9's fc1 with its bias + GELU epilogue, and
+   the bias (+ residual) epilogue that #2/#9's fc2 and #1/#5's qkv product
+   and out-projection share), whose registers it prints) reach
    Hopper's units: ``cuobjdump --dump-sass`` of the library shows HGMMA
    and UTMALDG in each, and the build's ``-Xptxas -v`` report shows 0 spill bytes for
-   each and no serialized wgmma; and that every instance of the
-   register-resident attention-core backward (``csrc/mhsa_reg_bwd.cuh``,
-   #3's and #6's at head dim 32 and 13 key tiles among them) spills
-   nothing.
+   each and no serialized wgmma; that #1's and #5's forward core
+   (``csrc/mhsa_reg.cuh`` at head dim 32 and 13 key tiles, both row maps)
+   spills nothing, with its registers printed; and that every instance of
+   the register-resident attention-core backward
+   (``csrc/mhsa_reg_bwd.cuh``, #3's and #6's at head dim 32 and 13 key
+   tiles among them) spills nothing.
 3. kernels: ``ln_attention`` and ``ln_mlp`` against their plain PyTorch
    versions at the shapes serving gives them, NesT-Small's three levels at
    batch 64 (bf16 inputs from a seeded CUDA generator), against the plain
-   version in bf16 and in fp32; ``ln_mlp`` also at a ragged request of 37
-   images (reruns bit-equal), and its h against the h that #4's dual tile
-   recomputes from the same ln (bf16 ulps apart, printed); then the median
-   time of kernel and plain version at the same shapes.
+   version in bf16 and in fp32, and both also at a ragged request of 37
+   images, reruns bit-equal; ``ln_attention``'s y and the qkv and o it
+   leaves for the backward, against the plain pieces (qkv = bf16(ln @
+   Wqkv + bqkv), o = ``attend_qkv_plain(qkv)``), and its o bit-equal to
+   #7 ``attend_qkv`` on the same qkv (one core); ``ln_mlp``'s h against
+   the h that #4's dual tile recomputes from the same ln (bf16 ulps apart,
+   printed); then the median time of kernel and plain version at the same
+   shapes.
 4. slice: ``Predictor`` for ``experiment=baseline_only_imaging_nest_small``
    (NesT-Small, 224x224, bf16, batch 64, random weights at the flax
    initializers' scales) answers requests of 64, 64 and 37 images; the
@@ -79,9 +86,10 @@ Phases, each printing its lines before the last line:
    on NesT-Small's three level maps at batch 64 ([64, 56, 56, 96],
    [64, 28, 28, 192], [64, 14, 14, 384], windows of 14) against their plain
    versions in bf16 and fp32, every cotangent; against #1 and #3 on the
-   blockified map (y, dx and dbqkv bit-equal, the other weight gradients
-   within 2^-6); reruns of #6 bit-identical; timed as plain, kernel, kernel,
-   plain, with #1 and #3 on the blockified map timed in the same turns.
+   blockified map (y, qkv, o, dx and dbqkv bit-equal, the other weight
+   gradients within 2^-6), #5 also on a ragged request's 37 maps; reruns
+   of #5 and #6 bit-identical; timed as plain, kernel, kernel, plain, with
+   #1 and #3 on the blockified map timed in the same turns.
 12. NesT-Small serving with the backbone's ``nhwc_windows`` set (no config
    key: the attribute of the built model): requests of 64, 64 and 37
    images, 24 launches of #5 and 24 of ``ln_mlp`` per forward and none of
@@ -395,9 +403,11 @@ def phase_build() -> None:
 # (DenseRows), #17 at 128 and 256 output channels a block (ConvTaps), the
 # four products of #3/#6's sequence (RowsNT to bf16 and to fp32, ColsTN to
 # fp32 split-K partials; #4/#10's weight gradients, dln and dx run on the
-# same three), #4/#10's dual tile (DualMlp, 64 columns a block), and
-# #2/#9's two products (DenseEpi<true> bias + GELU at 128 columns a block,
-# <false> bias and residual at 64: csrc/mlp_fwd.cuh's kFc1Width, kFc2Width)
+# same three), #4/#10's dual tile (DualMlp, 64 columns a block), and the
+# forwards' products (csrc/dense_epi.cuh): DenseEpi<true> bias + GELU at
+# 128 columns a block (#2/#9's fc1), <false> bias (+ residual) at 64
+# (#2/#9's fc2, #1/#5's qkv and out-projection: csrc/mlp_fwd.cuh's
+# kFc2Width, csrc/ln_attention.cuh's kQkvWidth, kOutWidth)
 WGMMA_KERNEL = "wgmma_gemm_kernel"
 WGMMA_FWD = "DenseEpi"
 WGMMA_FWD_INSTANCES = 2
@@ -410,8 +420,12 @@ WGMMA_DUAL = "DualMlp"
 # #6's at NesT's S = 196 (head dim 32, 13 key tiles, with the column sums:
 # <32, 13, row map, true>, in ptxas's mangled names) must be built
 REG_BWD_KERNEL = "mhsa_reg_bwd_kernel"
-REG_BWD_NEST = ("IdentityRows", "WindowRows")
+NEST_ROW_MAPS = ("IdentityRows", "WindowRows")
 REG_BWD_NEST_ARGS = ("ILi32ELi13E", "Lb1E")
+# the register-resident forward core (csrc/mhsa_reg.cuh) of #1 and #5 at
+# NesT's S = 196: <32, 13, row map> must be built and keep 0 spill bytes
+REG_FWD_KERNEL = "mhsa_reg_kernel"
+REG_FWD_NEST_ARGS = ("ILi32ELi13E",)
 
 
 def _ptxas_report(log: str):
@@ -478,10 +492,22 @@ def _check_hopper_units() -> None:
     fwd = sorted(v[0] for k, v in mine.items() if WGMMA_FWD in k)
     check(len(fwd) == WGMMA_FWD_INSTANCES, f"ptxas reported {len(fwd)} "
           f"{WGMMA_FWD} instances, expected {WGMMA_FWD_INSTANCES}")
-    print(f"ptxas forward products (#2/#9): {len(fwd)} instances, "
+    print(f"ptxas forward products (#2/#9, #1/#5): {len(fwd)} instances, "
           f"{fwd[0]}-{fwd[-1]} registers, 0 spill bytes")
+    for rows in NEST_ROW_MAPS:
+        found = [v for k, v in report.items()
+                 if REG_FWD_KERNEL in k and rows in k and
+                 all(a in k for a in REG_FWD_NEST_ARGS)]
+        check(len(found) == 1,
+              f"ptxas reported no {REG_FWD_KERNEL}<32, 13, {rows}>")
+        nreg, st, ld = found[0]
+        print(f"ptxas {REG_FWD_KERNEL}<32, 13, {rows}> (#1/#5's core): "
+              f"{nreg} registers, spill stores {st} bytes, spill loads {ld} "
+              "bytes")
+        check(st == 0 and ld == 0,
+              f"{REG_FWD_KERNEL}<32, 13, {rows}> spills")
     core = {k: v for k, v in report.items() if REG_BWD_KERNEL in k}
-    for rows in REG_BWD_NEST:
+    for rows in NEST_ROW_MAPS:
         found = [v for k, v in core.items()
                  if rows in k and all(a in k for a in REG_BWD_NEST_ARGS)]
         check(len(found) == 1,
@@ -617,6 +643,30 @@ def _h_vs_dual_tile(rows, mlp):
     return ulps.max().item(), int((ulps > 0).sum().item()), ulps.numel()
 
 
+def _ln_attention_parts(where, x, attn, heads, stat):
+    """#1's y and the qkv and o it leaves for the backward against the
+    plain pieces (bf16 and fp32), its o bit-equal to #7 ``attend_qkv`` on
+    the same qkv (one core), and a rerun bit-equal."""
+    (g, b, bq, bo), (wq, wo) = FB._cast(
+        torch.bfloat16, vectors=(attn[0], attn[1], attn[3], attn[5]),
+        matrices=(attn[2], attn[4]))
+    outs = FB._ln_attention_cuda(x, g, b, wq, bq, wo, bo, heads)
+    torch.cuda.synchronize()
+    _check_outputs("ln_attention", where, outs,
+                   FB.ln_attention_plain_parts(x, *attn, heads),
+                   FB.ln_attention_plain_parts(
+                       x.float(), *[t.float() for t in attn], heads),
+                   ("y", "qkv", "o"), BOUND_VS_PLAIN_BF16,
+                   BOUND_VS_PLAIN_FP32, stat)
+    check(torch.equal(outs[2], BA.attend_qkv(outs[1], heads)),
+          f"ln_attention {where}: o differs from attend_qkv on its qkv")
+    again = FB._ln_attention_cuda(x, g, b, wq, bq, wo, bo, heads)
+    check(all(torch.equal(a, c) for a, c in zip(outs, again)),
+          f"ln_attention {where}: reruns differ")
+    print(f"kernel ln_attention {where}: o bit-equal to attend_qkv on its "
+          "qkv; y, qkv and o bit-equal on a rerun")
+
+
 def phase_kernels():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -626,19 +676,27 @@ def phase_kernels():
         n = BATCH * nb
         x, attn, mlp = _inputs(gen, n, d)
         for name, kern, plain, plain32 in _calls(n, d, heads, x, attn, mlp):
-            out = kern()
-            torch.cuda.synchronize()
-            _check_outputs(name, f"N={n} S={SEQ} D={d}", (out,), (plain(),),
-                           (plain32(),), ("y",), BOUND_VS_PLAIN_BF16,
-                           BOUND_VS_PLAIN_FP32, stats[name])
-            del out
+            if name == "ln_attention":
+                _ln_attention_parts(f"N={n} S={SEQ} D={d}", x, attn, heads,
+                                    stats[name])
+            else:
+                out = kern()
+                torch.cuda.synchronize()
+                _check_outputs(name, f"N={n} S={SEQ} D={d}", (out,),
+                               (plain(),), (plain32(),), ("y",),
+                               BOUND_VS_PLAIN_BF16, BOUND_VS_PLAIN_FP32,
+                               stats[name])
+                del out
             k_ms, p_ms = _timed_pair(plain, kern)
             print(f"time {name} N={n} S={SEQ} D={d} (batch {BATCH}): kernel "
                   f"{k_ms:.4f} ms, plain {p_ms:.4f} ms per call")
             _add(stats[name], depth, k_ms, p_ms,
                  _work(name, n, SEQ, d) if name == "ln_attention"
                  else _work(name, n * SEQ, 1, d))
-        # the ragged request's rows, and #2's h against #4's
+        # the ragged request's samples and rows, and #2's h against #4's
+        _ln_attention_parts(f"N={RAGGED * nb} S={SEQ} D={d} ({RAGGED} "
+                            "images)", x[:RAGGED * nb], attn, heads,
+                            stats["ln_attention"])
         rows = x[:RAGGED * nb].reshape(-1, d)
         f32m = [t.float() for t in mlp]
         out = FB.ln_mlp(rows, *mlp)
@@ -1137,6 +1195,8 @@ def phase_window_kernels():
         blocked = FB.ln_attention_bwd(t, g, b, wq, bq, wo, tdy, heads, qkv1,
                                       o1)
         pairs = {"y": (y, FB._unwindows(y1, x, WINDOW)),
+                 "qkv": (qkv, FB._unwindows(qkv1, qkv, WINDOW)),
+                 "o": (o, FB._unwindows(o1, x, WINDOW)),
                  "dx": (outs[0], FB._unwindows(blocked[0], x, WINDOW)),
                  **{nm: (a, c) for nm, a, c in zip(names[1:], outs[1:],
                                                    blocked[1:])}}
@@ -1145,11 +1205,31 @@ def phase_window_kernels():
         print(f"kernel ln_attention_windows{{,_bwd}} {where} vs #1/#3 on the "
               f"blockified map: bit-equal {equal}; rel "
               f"{', '.join(f'{nm} {r:.4g}' for nm, r in rel.items())}")
-        check({"y", "dx", "dbqkv"} <= set(equal),
-              f"{where}: y, dx or dbqkv differ from #1/#3's")
+        check({"y", "qkv", "o", "dx", "dbqkv"} <= set(equal),
+              f"{where}: y, qkv, o, dx or dbqkv differ from #1/#3's")
         check(max(rel.values()) <= BOUND_BWD_BF16,
               f"{where}: weight gradients differ from #3's beyond the bound")
-        del y, outs, blocked, pairs
+        check(all(torch.equal(a, c) for a, c in zip(
+            (y, qkv, o), FB._ln_attention_windows_cuda(x, WINDOW, *bf,
+                                                       heads))),
+              f"ln_attention_windows {where}: reruns differ")
+        # the ragged request's maps: #5 against plain and against #1 on the
+        # blockified map
+        xr = x[:RAGGED]
+        yr = FB.ln_attention_windows(xr, WINDOW, *bf, heads)
+        torch.cuda.synchronize()
+        _check_outputs(
+            "ln_attention_windows", f"{where} ({RAGGED} images)", (yr,),
+            (FB.ln_attention_windows_plain(xr, WINDOW, *bf, heads),),
+            (FB.ln_attention_windows_plain(xr.float(), WINDOW, *f32,
+                                           heads),),
+            ("y",), BOUND_VS_PLAIN_BF16, BOUND_VS_PLAIN_FP32,
+            stats["ln_attention_windows"])
+        check(torch.equal(yr, FB._unwindows(FB.ln_attention(
+            FB._windows(xr, WINDOW), *bf, heads), xr, WINDOW)),
+            f"ln_attention_windows {where} ({RAGGED} images): y differs "
+            "from #1's on the blockified map")
+        del y, outs, blocked, pairs, xr, yr
 
         for name, kern, plain, blk in (
                 ("ln_attention_windows",

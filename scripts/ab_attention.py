@@ -1,6 +1,7 @@
 """Before and after of the attention kernels (#7 ``attend_qkv``, #8
-``attend_qkv_bwd``, and the half-block backwards #3 ``ln_attention_bwd``
-and #6 ``ln_attention_windows_bwd``), the MLP forwards (#2 ``ln_mlp``, #9
+``attend_qkv_bwd``, the half-block forwards #1 ``ln_attention`` and #5
+``ln_attention_windows`` and their backwards #3 ``ln_attention_bwd`` and
+#6 ``ln_attention_windows_bwd``), the MLP forwards (#2 ``ln_mlp``, #9
 ``fused_mlp``) and the MLP backwards (#4 ``ln_mlp_bwd``, #10
 ``fused_mlp_bwd``) on the paths that launch them, in one process on one
 CUDA card.
@@ -10,22 +11,20 @@ earlier commit unpacked with ``git archive`` into a directory that
 ``.gitignore`` lists. Its kernels are built from its own
 ``vlp_tpu_torch/csrc`` by its own ``_build.py`` into its own build
 directory. In the parent's turns this tree's ``attend_qkv``,
-``attend_qkv_bwd``, ``ln_attention_bwd``, ``ln_attention_windows_bwd``,
-``ln_mlp``, ``fused_mlp``, ``ln_mlp_bwd`` and ``fused_mlp_bwd`` wrappers
-launch that library's ``vlp_attend_qkv``, ``vlp_attend_qkv_bwd``,
-``vlp_ln_attention_bwd``, ``vlp_ln_attention_windows_bwd``,
-``vlp_ln_mlp``, ``vlp_fused_mlp``, ``vlp_ln_mlp_bwd`` and
-``vlp_fused_mlp_bwd``, with its own workspace queries (their C signatures
-must be this tree's, except that a parent's ``vlp_ln_mlp`` that takes
-no ln scratch, its #2 normalising inside its first GEMM, gets this tree's
-arguments without ln); every other kernel and all the code around them
-are this tree's. The turns alternate (parent, change, change,
-parent, ...) after one warm-up turn of each, and each turn times:
+``attend_qkv_bwd``, ``ln_attention``, ``ln_attention_windows``,
+``ln_attention_bwd``, ``ln_attention_windows_bwd``, ``ln_mlp``,
+``fused_mlp``, ``ln_mlp_bwd`` and ``fused_mlp_bwd`` wrappers launch that
+library's entry points of the same names (``vlp_attend_qkv``, ...), with
+its own workspace queries (their C signatures must be this tree's); every
+other kernel and all the code around them are this tree's. The turns
+alternate (parent, change, change, parent, ...) after one warm-up turn of
+each, and each turn times:
 
   vit_serve_ms        a request of 32 images to the ViT-B/16 ``Predictor``
                       (host clock to a synchronize, median of --reps)
   nest_serve_ms       a request of 64 images to the NesT-Small
-                      ``Predictor`` (24 #2 launches), the same way, and
+                      ``Predictor`` (24 #1 and 24 #2 launches), the same
+                      way, and
                       nest_serve_peak_mib its peak device memory above what
                       was allocated before it
   vit_train_ms        one ViT-B/16 training step at batch 32 (the
@@ -33,10 +32,10 @@ parent, ...) after one warm-up turn of each, and each turn times:
                       synchronize, median of --reps)
   nest_unfused_train_ms  one NesT-Small ``model.megakernel=false`` training
                       step at batch 64, the same way
-  nest_train_ms       one NesT-Small training step at batch 64 (24 #3
-                      launches), the same way
+  nest_train_ms       one NesT-Small training step at batch 64 (24 each
+                      of #1-#4), the same way
   nest_nhwc_train_ms  the same with the backbone's ``nhwc_windows`` set (24
-                      #6 launches)
+                      each of #5, #6, #2 and #4)
   <step>_peak_mib     each training step's peak device memory above what
                       was allocated before it (``max_memory_allocated``)
   <shape>_attend_ms, <shape>_attend_bwd_ms, <shape>_sdpa_ms  the device
@@ -46,12 +45,14 @@ parent, ...) after one warm-up turn of each, and each turn times:
                       levels at batch 64 (heads of 32): 20 back-to-back
                       calls queued behind a spin kernel, so that the host's
                       launch time does not show, between CUDA events
-  nest_l<i>_ln_attention_bwd_ms, nest_l<i>_ln_attention_windows_bwd_ms
-                      the device time per call of #3 at NesT-Small's level
-                      i at batch 64 ([64 * 16 / 4 / 1, 196, D]) and of #6 on
+  nest_l<i>_ln_attention_ms, nest_l<i>_ln_attention_windows_ms
+                      the device time per call of #1 at NesT-Small's level
+                      i at batch 64 ([64 * 16 / 4 / 1, 196, D]) and of #5 on
                       that level's map ([64, 56 / 28 / 14, .., D], windows
-                      of 14), the same way, on the forward kernels' qkv
-                      and o
+                      of 14), the same way
+  nest_l<i>_ln_attention_bwd_ms, nest_l<i>_ln_attention_windows_bwd_ms
+                      the same of #3 and #6, on this tree's forward
+                      kernels' qkv and o
   nest_l<i>_ln_attention_bwd_host_ms  the host time per call of #3 there:
                       20 calls issued while a spin kernel holds the card,
                       so that the host never waits for it (the wrapper's
@@ -63,15 +64,17 @@ parent, ...) after one warm-up turn of each, and each turn times:
                       level i's rows at batch 64 ([64 * 56^2 / 28^2 / 14^2,
                       D], F = 4D), the same way
 
-After the turns, each side's #3, #6, #2, #9, #4 and #10 run once more per
-level under ``torch.profiler``: the device time of every kernel of the
-call, summed by name and weighted by the level's blocks per NesT-Small
-step (2, 2, 20), is the ``split`` of the summary (ms per training step),
-with the kernels grouped into the attention core, the four products and
-the row passes (#3, #6), into the LN rows, fc1 + GELU and fc2 + bias or
-residual (#2, #9), or into the dual tile (on the parent's side its two
-products with gelu' between them), the weight gradients, dln or dx and
-the row passes (#4, #10).
+After the turns, each side's #1, #5, #3, #6, #2, #9, #4 and #10 run once
+more per level under ``torch.profiler``: the device time of every kernel
+of the call, summed by name and weighted by the level's blocks per
+NesT-Small step (2, 2, 20), is the ``split`` of the summary (ms per
+training step), with the kernels grouped into the LN rows, the qkv
+product, the attention core and the out-projection (#1, #5; two launches
+of one instance split by their order in the call), into the attention
+core, the four products and the row passes (#3, #6), into the LN rows,
+fc1 + GELU and fc2 + bias or residual (#2, #9), or into the dual tile (on
+the parent's side its two products with gelu' between them), the weight
+gradients, dln or dx and the row passes (#4, #10).
 
 Random weights and batches from fixed seeds, the same on both sides. Prints
 one JSON line per turn, then one with each side's median of every metric
@@ -121,7 +124,8 @@ NEST_LEVELS = ((56, 96, 3, 2), (28, 192, 6, 2), (14, 384, 12, 20))
 WINDOW = 14
 # the entry points that the parent's library serves in its turns, beside
 # #7/#8 (whose module reads a library of its own)
-PARENT_HALF_BLOCK = ("vlp_ln_attention_bwd", "vlp_ln_attention_windows_bwd",
+PARENT_HALF_BLOCK = ("vlp_ln_attention", "vlp_ln_attention_windows",
+                     "vlp_ln_attention_bwd", "vlp_ln_attention_windows_bwd",
                      "vlp_ln_attention_bwd_workspace")
 PARENT_MLP_FWD = ("vlp_ln_mlp", "vlp_fused_mlp")
 PARENT_MLP_BWD = ("vlp_ln_mlp_bwd", "vlp_ln_mlp_bwd_workspace",
@@ -159,6 +163,19 @@ MLP_FWD_SPLIT_PARTS = (
     ("fc2 + bias or residual", r"gemm_kernel<false, false, false, [02]>|"
                                r"DenseEpi<false>"),
     ("other", r""))
+# the same for #1 and #5: the parent's gemm.cuh LN-prologue qkv GEMM
+# (epilogue 0, bias), mhsa.cuh's core and the residual out-projection
+# (epilogue 2); this tree's ln_rows, DenseEpi<false> (qkv), mhsa_reg.cuh's
+# core and DenseEpi<false> (+ residual). A part of ONCE_A_CALL takes one
+# kernel a call, so two launches of one instance split by their order.
+ATTN_FWD_SPLIT_PARTS = (
+    ("LN rows", r"ln_rows"),
+    ("qkv product", r"gemm_kernel<true, false, false, 0>|DenseEpi<false>"),
+    ("attention core", r"mhsa"),
+    ("out-projection", r"gemm_kernel<false, false, false, 2>|"
+                       r"DenseEpi<false>"),
+    ("other", r""))
+ONCE_A_CALL = frozenset({"qkv product"})
 
 
 def _load_parent_build(root: str):
@@ -186,28 +203,14 @@ class _Library:
 
 
 class _Mixed:
-    """A library whose entry points ``names`` are another build's, each
-    through ``adapt[name]`` where it has one."""
+    """A library whose entry points ``names`` are another build's."""
 
-    def __init__(self, own, other, names, adapt=None):
+    def __init__(self, own, other, names):
         self._own, self._other, self._names = own, other, names
-        self._adapt = adapt or {}
 
     def __getattr__(self, name):
-        fn = getattr(self._other if name in self._names else self._own,
-                     name)
-        return self._adapt.get(name, lambda f: f)(fn)
-
-
-def _ln_mlp_adapter(signatures):
-    """``vlp_ln_mlp`` of a library with these C signatures, called with
-    this tree's arguments (x, gamma, beta, w1, b1, w2, b2, ln, h, y, M, D,
-    F, eps, stream): as it is where the signatures agree, else without ln
-    (a library whose #2 normalises inside its first GEMM)."""
-    own = _build._SIGNATURES["vlp_ln_mlp"][0]
-    if len(signatures["vlp_ln_mlp"][0]) == len(own):
-        return lambda fn: fn
-    return lambda fn: lambda *args: fn(*args[:7], *args[8:])
+        return getattr(self._other if name in self._names else self._own,
+                       name)
 
 
 def _host_call_ms(fn, calls=20):
@@ -224,28 +227,42 @@ def _host_call_ms(fn, calls=20):
     return ms
 
 
+def _call_parts(names, parts_of):
+    """The part of each kernel of one call, in launch order: the first part
+    of ``parts_of`` whose pattern the name matches, passing over a part of
+    ``ONCE_A_CALL`` that an earlier kernel of the call took."""
+    taken, parts = set(), []
+    for name in names:
+        part = next(p for p, pat in parts_of
+                    if p not in taken and re.search(pat, name))
+        if part in ONCE_A_CALL:
+            taken.add(part)
+        parts.append(part)
+    return parts
+
+
 def _split(fns_per_level, parts_of=SPLIT_PARTS):
     """{part: ms per NesT-Small step} and {kernel: ms per step} of one call
     of each level's function under torch.profiler, weighted by the level's
-    blocks per step; ``parts_of`` groups the kernels."""
+    blocks per step; ``parts_of`` groups the kernels (``_call_parts``)."""
     from torch.profiler import ProfilerActivity, profile
-    per_kernel = {}
+    per_kernel, parts = {}, {}
     for fn, blocks in fns_per_level:
         fn()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
-        for e in prof.events():
-            if e.device_type != torch.autograd.DeviceType.CUDA or \
-                    e.is_user_annotation:
-                continue
+        kernels = sorted(
+            (e for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA and
+             not e.is_user_annotation),
+            key=lambda e: e.time_range.start)
+        for e, part in zip(kernels, _call_parts([e.name for e in kernels],
+                                                parts_of)):
             ms = (e.time_range.end - e.time_range.start) / 1e3 * blocks
             per_kernel[e.name] = per_kernel.get(e.name, 0.0) + ms
-    parts = {}
-    for name, ms in per_kernel.items():
-        part = next(p for p, pat in parts_of if re.search(pat, name))
-        parts[part] = parts.get(part, 0.0) + ms
+            parts[part] = parts.get(part, 0.0) + ms
     return parts, {k[:120]: v for k, v in per_kernel.items()}
 
 
@@ -277,9 +294,7 @@ def main(argv=None) -> int:
     sides = {"change": (_build, _build),
              "parent": (_Library(parent_lib),
                         _Library(_Mixed(own_lib, parent_lib,
-                                        PARENT_ENTRY_POINTS, {
-                                            "vlp_ln_mlp": _ln_mlp_adapter(
-                                                parent_build._SIGNATURES)})))}
+                                        PARENT_ENTRY_POINTS)))}
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cuda = torch.device("cuda")
@@ -311,7 +326,7 @@ def main(argv=None) -> int:
         do = torch.randn(n, s, d, generator=gen, device="cuda").bfloat16()
         q, k, v = qkv.view(n, s, 3, heads, d // heads).permute(2, 0, 3, 1, 4)
         inputs[shape] = (qkv, do, heads, (q, k, v))
-    half = {}  # level -> (#3, #6, #4, #10, #2 and #9 calls)
+    half = {}  # level -> (#3, #6, #4, #10, #2, #9, #1 and #5 calls)
     for i, (width, d, heads, _) in enumerate(NEST_LEVELS):
         mp = torch.randn(64, width, width, d, generator=gen,
                          device="cuda").bfloat16()
@@ -349,7 +364,11 @@ def main(argv=None) -> int:
             lambda x=rows, g=g, b=b, w1=w1, b1=b1, w2=w2, b2=b2:
             FB.ln_mlp(x, g, b, w1, b1, w2, b2),
             lambda x=rows, w1=w1, b1=b1, w2=w2, b2=b2:
-            FM.fused_mlp(x, w1, b1, w2, b2))
+            FM.fused_mlp(x, w1, b1, w2, b2),
+            lambda x=x, g=g, b=b, wq=wq, bq=bq, wo=wo, bo=bo, h=heads:
+            FB.ln_attention(x, g, b, wq, bq, wo, bo, h),
+            lambda mp=mp, g=g, b=b, wq=wq, bq=bq, wo=wo, bo=bo, h=heads:
+            FB.ln_attention_windows(mp, WINDOW, g, b, wq, bq, wo, bo, h))
 
     def use(side):
         BA._build, FB._build = sides[side]
@@ -358,7 +377,8 @@ def main(argv=None) -> int:
     def turn(side):
         use(side)
         out = {"side": side}
-        counted = (BA.attend_qkv, BA.attend_qkv_bwd, FB.ln_attention_bwd,
+        counted = (BA.attend_qkv, BA.attend_qkv_bwd, FB.ln_attention,
+                   FB.ln_attention_windows, FB.ln_attention_bwd,
                    FB.ln_attention_windows_bwd, FB.ln_mlp, FM.fused_mlp,
                    FB.ln_mlp_bwd, FM.fused_mlp_bwd)
         before = [k.launches for k in counted]
@@ -378,8 +398,8 @@ def main(argv=None) -> int:
                 step, state, [batches[next(it) % len(batches)]]), args.reps)
             out[label[:-3] + "_peak_mib"] = (
                 torch.cuda.max_memory_allocated() - base) / 2 ** 20
-        # #7, #8, #3, #6, #2, #9, #4 and #10 launches of the serving and
-        # training steps above
+        # #7, #8, #1, #5, #3, #6, #2, #9, #4 and #10 launches of the
+        # serving and training steps above
         out["launches"] = [k.launches - n for k, n in zip(counted, before)]
         for shape, (qkv, do, heads, qkv_views) in inputs.items():
             out[f"{shape}_attend_ms"] = device_ms(
@@ -389,8 +409,10 @@ def main(argv=None) -> int:
             with torch.no_grad():
                 out[f"{shape}_sdpa_ms"] = device_ms(
                     lambda: F.scaled_dot_product_attention(*qkv_views))
-        for i, (bwd, windows_bwd, mlp_bwd, fused_bwd, mlp,
-                fused) in half.items():
+        for i, (bwd, windows_bwd, mlp_bwd, fused_bwd, mlp, fused, fwd,
+                windows) in half.items():
+            out[f"nest_l{i}_ln_attention_ms"] = device_ms(fwd)
+            out[f"nest_l{i}_ln_attention_windows_ms"] = device_ms(windows)
             out[f"nest_l{i}_ln_attention_bwd_ms"] = device_ms(bwd)
             out[f"nest_l{i}_ln_attention_bwd_host_ms"] = _host_call_ms(bwd)
             out[f"nest_l{i}_ln_attention_windows_bwd_ms"] = device_ms(
@@ -422,7 +444,9 @@ def main(argv=None) -> int:
                 (2, "ln_mlp_bwd", MLP_SPLIT_PARTS),
                 (3, "fused_mlp_bwd", MLP_SPLIT_PARTS),
                 (4, "ln_mlp", MLP_FWD_SPLIT_PARTS),
-                (5, "fused_mlp", MLP_FWD_SPLIT_PARTS)):
+                (5, "fused_mlp", MLP_FWD_SPLIT_PARTS),
+                (6, "ln_attention", ATTN_FWD_SPLIT_PARTS),
+                (7, "ln_attention_windows", ATTN_FWD_SPLIT_PARTS)):
             parts, kernels = _split(
                 [(half[i][which], blocks)
                  for i, (_, _, _, blocks) in enumerate(NEST_LEVELS)],

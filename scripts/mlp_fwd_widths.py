@@ -1,17 +1,23 @@
-"""Tile widths of the MLP forwards' two products (#2 ``ln_mlp``, #9
-``fused_mlp``) on one CUDA card.
+"""Tile widths of the dense products with an epilogue (``csrc/dense_epi.cuh``)
+on one CUDA card: the MLP forwards' two (#2 ``ln_mlp``, #9 ``fused_mlp``)
+and the half-block attention forwards' two (#1 ``ln_attention``, #5
+``ln_attention_windows``).
 
-Each product of ``csrc/mlp_fwd.cuh`` runs on 128 x BN tiles of the wgmma
-mainloop, fc1 at BN = 128 and fc2 at 64 (``kFc1Width``, ``kFc2Width``);
-the library builds only those two instances. This script builds a small
-library of its own from the same headers with ``launch_dense_epi`` at
-both widths for both forms (``mlp_gemm_width``), and times each width for
-each form at NesT-Small's three levels at batch 64 (M = 64 * 56^2,
-64 * 28^2 and 64 * 14^2 rows; D 96, 192, 384; F = 4D):
+Each product runs on 128 x BN tiles of the wgmma mainloop, at the width its
+sequence ships: fc1 at BN = 128 and fc2 at 64 (``csrc/mlp_fwd.cuh``'s
+``kFc1Width``, ``kFc2Width``), qkv and the out-projection at
+``csrc/ln_attention.cuh``'s ``kQkvWidth``, ``kOutWidth``; the library builds
+only those instances. This script builds a small library of its own from
+the same headers with ``launch_dense_epi`` at both widths for both
+epilogues (``mlp_gemm_width``), and times each width for each form at
+NesT-Small's three levels at batch 64 (M = 64 * 56^2, 64 * 28^2 and 64 *
+14^2 rows; D 96, 192, 384; F = 4D):
 
   fc1       h = bf16(gelu(ln @ W1 + b1)), N = F, K = D
   fc2_res   y = bf16(x + (h @ W2 + b2)), N = D, K = F   (#2)
   fc2       y = bf16(h @ W2 + b2)                        (#9)
+  qkv       qkv = bf16(ln @ Wqkv + bqkv), N = 3D, K = D  (#1, #5)
+  out_res   y = bf16(x + (o @ Wout + bout)), N = D, K = D  (#1, #5)
 
 as device time alone per call (``probes/_timing.device_in_turns``: 20 calls
 queued behind a spin kernel, the widths in turns, then reversed), checks
@@ -47,20 +53,22 @@ from vlp_tpu_torch.probes._timing import (device_in_turns,  # noqa: E402
 LEVELS = ((64 * 56 * 56, 96, 2), (64 * 28 * 28, 192, 2),
           (64 * 14 * 14, 384, 20))
 WIDTHS = (64, 128)
-# form -> (whether it is fc1: N = F and GELU, else N = D; whether it adds
-# the residual; the shipped width: csrc/mlp_fwd.cuh's kFc1Width, kFc2Width)
-FORMS = {"fc1": (True, False, 128), "fc2_res": (False, True, 64),
-         "fc2": (False, False, 64)}
+# form -> (N / D, K / D, GELU, whether it adds the residual x, the shipped
+# width: csrc/mlp_fwd.cuh's kFc1Width, kFc2Width, csrc/ln_attention.cuh's
+# kQkvWidth, kOutWidth)
+FORMS = {"fc1": (4, 1, True, False, 128), "fc2_res": (1, 4, False, True, 64),
+         "fc2": (1, 4, False, False, 64), "qkv": (3, 1, False, False, 64),
+         "out_res": (1, 1, False, True, 64)}
 
 SOURCE = r"""
-#include "mlp_fwd.cuh"
+#include "dense_epi.cuh"
 
 // out = the epilogue of a @ w as vlp_mlp_gemm computes it, at tile width
 // bn (64 or 128; any other returns cudaErrorInvalidValue)
 extern "C" int mlp_gemm_width(const void* a, const void* w, const void* bias,
                               const void* res, void* out, int M, int N, int K,
                               int gelu, int bn, void* stream) {
-  using vlp::bf16;
+  using vlp::wg::bf16;
   using vlp::wg::launch_dense_epi;
   const bf16* ab = static_cast<const bf16*>(a);
   const bf16* wb = static_cast<const bf16*>(w);
@@ -128,33 +136,30 @@ def main(argv=None) -> int:
         return torch.randn(*shape, generator=gen, device="cuda") * scale
 
     times, fastest, picked_total, fastest_total = {}, {}, {}, {}
-    for m, d, blocks in LEVELS:
-        f = 4 * d
+    for level, (m, d, blocks) in enumerate(LEVELS):
         x = rand(m, d).bfloat16()
-        h = rand(m, f).bfloat16()
-        w1 = rand(d, f, scale=d ** -0.5).bfloat16()
-        w2 = rand(f, d, scale=f ** -0.5).bfloat16()
-        b1, b2 = rand(f, scale=0.5), rand(d, scale=0.5)
-        for form, (wide, residual, pick) in FORMS.items():
-            a, w, bias = (x, w1, b1) if wide else (h, w2, b2)
+        for form, (n_of, k_of, gelu, residual, pick) in FORMS.items():
+            n, k = n_of * d, k_of * d
+            a = rand(m, k).bfloat16()
+            w = rand(k, n, scale=k ** -0.5).bfloat16()
+            bias = rand(n, scale=0.5)
             res = x if residual else None
-            n = w.shape[1]
             shipped = torch.empty(m, n, dtype=torch.bfloat16, device="cuda")
-            _launch(lib.vlp_mlp_gemm, lib, a, w, bias, res, shipped, wide)
+            _launch(lib.vlp_mlp_gemm, lib, a, w, bias, res, shipped, gelu)
             outs = {bn: torch.empty(m, n, dtype=torch.bfloat16, device="cuda")
                     for bn in WIDTHS}
             for bn, out in outs.items():
-                _launch(widths, lib, a, w, bias, res, out, wide, bn)
+                _launch(widths, lib, a, w, bias, res, out, gelu, bn)
             torch.cuda.synchronize()
             for bn, out in outs.items():
                 if not torch.equal(out, shipped):
                     raise SystemExit(f"{form} D={d}: width {bn} differs from "
-                                     f"the library's width {pick}")
+                                     "the library's vlp_mlp_gemm")
             ms = device_in_turns(**{
                 str(bn): (lambda bn=bn, out=outs[bn]: _launch(
-                    widths, lib, a, w, bias, res, out, wide, bn))
+                    widths, lib, a, w, bias, res, out, gelu, bn))
                 for bn in WIDTHS})
-            key = f"nest_l{LEVELS.index((m, d, blocks))}_{form}"
+            key = f"nest_l{level}_{form}"
             times[key] = ms
             best = min(ms, key=ms.get)
             fastest[key] = int(best)
@@ -162,11 +167,11 @@ def main(argv=None) -> int:
                 blocks * ms[str(pick)]
             fastest_total[form] = fastest_total.get(form, 0.0) + \
                 blocks * ms[best]
-            print(f"{key} M={m} N={n} K={w.shape[0]}: " + ", ".join(
+            print(f"{key} M={m} N={n} K={k}: " + ", ".join(
                 f"BN {bn} {t:.4f} ms" for bn, t in ms.items()) +
                 f" (shipped {pick})", flush=True)
-            del outs, shipped
-        del x, h
+            del outs, shipped, a
+        del x
         torch.cuda.empty_cache()
     record = {"card": smi, "device_ms_per_call": times, "fastest": fastest,
               "step_ms_shipped": picked_total,

@@ -19,6 +19,7 @@ and with ``jax.vjp`` of the JAX package's ``ln_attention`` and
 tolerances of ``test_torch_port_fused_block_bwd.py``.
 """
 import contextlib
+import re
 
 import jax
 import jax.numpy as jnp
@@ -276,23 +277,28 @@ def _ab_script():
 
 
 def test_ab_script_serves_the_parents_half_block_backwards():
-    """In the parent's turns ``scripts/ab_attention.py`` takes #3's and
-    #6's entry points and their workspace query from the parent's library
-    and every other entry point from this tree's."""
+    """In the parent's turns ``scripts/ab_attention.py`` takes #1's, #5's,
+    #3's and #6's entry points and the backwards' workspace query from the
+    parent's library and every other entry point from this tree's."""
     ab = _ab_script()
     own = type("Own", (), {"vlp_ln_attention": "own fwd",
                            "vlp_ln_attention_bwd": "own bwd",
-                           "vlp_ln_mlp_bwd": "own mlp"})()
+                           "vlp_ln_mlp_bwd": "own mlp",
+                           "vlp_attend_qkv": "own core"})()
     other = type("Other", (), {
+        "vlp_ln_attention": "parent fwd",
+        "vlp_ln_attention_windows": "parent windows fwd",
         "vlp_ln_attention_bwd": "parent bwd",
         "vlp_ln_attention_windows_bwd": "parent windows bwd",
         "vlp_ln_attention_bwd_workspace": "parent workspace"})()
     mixed = ab._Mixed(own, other, ab.PARENT_HALF_BLOCK)
+    assert mixed.vlp_ln_attention == "parent fwd"
+    assert mixed.vlp_ln_attention_windows == "parent windows fwd"
     assert mixed.vlp_ln_attention_bwd == "parent bwd"
     assert mixed.vlp_ln_attention_windows_bwd == "parent windows bwd"
     assert mixed.vlp_ln_attention_bwd_workspace == "parent workspace"
-    assert mixed.vlp_ln_attention == "own fwd"
     assert mixed.vlp_ln_mlp_bwd == "own mlp"
+    assert mixed.vlp_attend_qkv == "own core"
 
 
 @pytest.mark.parametrize("name,part", [
@@ -320,7 +326,55 @@ def test_ab_script_splits_both_sides_kernels_into_the_same_parts(name,
     """The split's parts name the same work in the parent's kernels
     (gemm.cuh, mhsa_bwd.cuh) and in this tree's (wgmma_gemm.cuh,
     mhsa_reg_bwd.cuh)."""
-    import re
     ab = _ab_script()
     assert next(p for p, pat in ab.SPLIT_PARTS if re.search(pat, name)) \
         == part
+
+
+_ROWS = "void vlp::ln_rows_kernel<4>(...)"
+_DENSE64 = ("void vlp::wg::wgmma_gemm_kernel<vlp::wg::DenseEpi<false>, 64, "
+            "4, 2, __nv_bfloat16>(...)")
+_DENSE128 = ("void vlp::wg::wgmma_gemm_kernel<vlp::wg::DenseEpi<false>, 128, "
+             "3, 2, __nv_bfloat16>(...)")
+_REG = "void vlp::reg::mhsa_reg_kernel<32, 13, vlp::{}>(...)"
+_OLD_QKV = "void vlp::gemm_kernel<true, false, false, 0>(...)"
+_OLD_CORE = "void vlp::mhsa_kernel<32, vlp::{}>(...)"
+_OLD_OUT = "void vlp::gemm_kernel<false, false, false, 2>(...)"
+_FWD_PARTS = ["LN rows", "qkv product", "attention core", "out-projection"]
+
+
+@pytest.mark.parametrize("names,parts", [
+    # this tree: one DenseEpi<false> instance for both products, either map
+    ([_ROWS, _DENSE64, _REG.format("IdentityRows"), _DENSE64], _FWD_PARTS),
+    ([_ROWS, _DENSE64, _REG.format("WindowRows"), _DENSE64], _FWD_PARTS),
+    # two widths, two instances
+    ([_ROWS, _DENSE128, _REG.format("IdentityRows"), _DENSE64], _FWD_PARTS),
+    ([_ROWS, _DENSE64, _REG.format("WindowRows"), _DENSE128], _FWD_PARTS),
+    # the parent: gemm.cuh's LN-prologue GEMM, mhsa.cuh's core, gemm.cuh's
+    # residual GEMM
+    ([_OLD_QKV, _OLD_CORE.format("IdentityRows"), _OLD_OUT],
+     _FWD_PARTS[1:]),
+    ([_OLD_QKV, _OLD_CORE.format("WindowRows"), _OLD_OUT], _FWD_PARTS[1:]),
+    # anything else the profiler records
+    ([_ROWS, "Memset (Device)", _DENSE64, _REG.format("IdentityRows"),
+      _DENSE64], ["LN rows", "other"] + _FWD_PARTS[1:]),
+])
+def test_ab_script_splits_the_forwards_by_launch_order(names, parts):
+    """#1's and #5's four launches on this tree's side and three on the
+    parent's fall into the same parts; two launches of one product
+    instance split by their order in the call (the first is qkv)."""
+    ab = _ab_script()
+    assert ab._call_parts(names, ab.ATTN_FWD_SPLIT_PARTS) == parts
+
+
+@pytest.mark.parametrize("parts_of", ["SPLIT_PARTS", "MLP_SPLIT_PARTS",
+                                      "MLP_FWD_SPLIT_PARTS"])
+def test_ab_script_order_rule_leaves_the_other_splits_by_name(parts_of):
+    """Only the forwards' qkv part takes one kernel a call: in the other
+    splits a repeated kernel keeps its part."""
+    ab = _ab_script()
+    table = getattr(ab, parts_of)
+    names = [_ROWS, _DENSE64, _DENSE64, _ROWS]
+    want = [next(p for p, pat in table if re.search(pat, n))
+            for n in names]
+    assert ab._call_parts(names, table) == want

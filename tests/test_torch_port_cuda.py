@@ -63,6 +63,9 @@ def _rel_err(out, ref):
                                          (2, 64, 384, 12), (7, 200, 96, 3),
                                          (2, 256, 64, 2)])  # largest S
 def test_ln_attention_kernel_matches_plain(cuda, n, s, d, heads):
+    """#1's y, and the qkv and o it leaves for the backward, against the
+    plain pieces; o bit-equal to #7 ``attend_qkv`` on the same qkv (one
+    core); a rerun bit-equal."""
     gen = torch.Generator(device=cuda).manual_seed(n * s + d)
     x = _rand(gen, n, s, d).bfloat16()
     params = (1.0 + _rand(gen, d, scale=0.1), _rand(gen, d, scale=0.1),
@@ -77,6 +80,18 @@ def test_ln_attention_kernel_matches_plain(cuda, n, s, d, heads):
     ref = FB.ln_attention_plain(x, *params, heads)
     assert torch.isfinite(out.float()).all()
     assert _rel_err(out, ref) <= BOUND
+    (g, b, bq, bo), (wq, wo) = FB._cast(
+        torch.bfloat16, vectors=(params[0], params[1], params[3], params[5]),
+        matrices=(params[2], params[4]))
+    parts = FB._ln_attention_cuda(x, g, b, wq, bq, wo, bo, heads)
+    assert torch.equal(parts[0], out)
+    for got, want in zip(parts, FB.ln_attention_plain_parts(x, *params,
+                                                            heads)):
+        assert got.shape == want.shape and got.dtype == want.dtype
+        assert _rel_err(got, want) <= BOUND
+    assert torch.equal(parts[2], BA.attend_qkv(parts[1], heads))
+    again = FB._ln_attention_cuda(x, g, b, wq, bq, wo, bo, heads)
+    assert all(torch.equal(a, c) for a, c in zip(parts, again))
 
 
 @pytest.mark.parametrize("m,d,f", [(100, 64, 256), (1568, 96, 384),
@@ -648,10 +663,10 @@ def test_unfused_autograd_runs_the_kernels_and_raises_on_what_they_refuse(
 def test_ln_attention_windows_kernels_match_plain_and_blockified(
         cuda, b, h, w, d, block, heads):
     """#5 and #6 against their plain versions, every cotangent; against #1
-    and #3 on the blockified map, y, dx and dbqkv bit-equal (the same
-    arithmetic per row and per window; dbqkv sums the windows in blockify
-    order), the other weight gradients within the bound (their sums over
-    rows run in map order); reruns of #6 bit-identical."""
+    and #3 on the blockified map, y, qkv, o, dx and dbqkv bit-equal (the
+    same arithmetic per row and per window; dbqkv sums the windows in
+    blockify order), the other weight gradients within the bound (their
+    sums over rows run in map order); reruns of #6 bit-identical."""
     gen = torch.Generator(device=cuda).manual_seed(b * h * w + d)
     x = _rand(gen, b, h, w, d).bfloat16()
     dy = _rand(gen, b, h, w, d).bfloat16()
@@ -667,6 +682,8 @@ def test_ln_attention_windows_kernels_match_plain_and_blockified(
     t, tdy = FB._windows(x, block), FB._windows(dy, block)
     y1, qkv1, o1 = FB._ln_attention_cuda(t, g, bt, wq, bq, wo, bo, heads)
     assert torch.equal(y, FB._unwindows(y1, x, block))
+    assert torch.equal(qkv, FB._unwindows(qkv1, qkv, block))
+    assert torch.equal(o, FB._unwindows(o1, x, block))
 
     before = FB.ln_attention_windows_bwd.launches
     outs = FB.ln_attention_windows_bwd(x, block, g, bt, wq, bq, wo, dy,

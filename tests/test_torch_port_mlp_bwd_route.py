@@ -296,25 +296,6 @@ def test_ab_script_serves_the_parents_mlp_backwards():
     assert mixed.vlp_mlp_dual == mixed.vlp_mlp_gemm == "own"
 
 
-@pytest.mark.parametrize("parent_pointers,passed", [
-    (10, tuple(range(15))),  # this tree's signature: as it is
-    (9, tuple(range(7)) + tuple(range(8, 15)))])  # no ln scratch
-def test_ab_script_calls_the_parents_ln_mlp_in_its_signature(parent_pointers,
-                                                             passed):
-    """The parent's ``vlp_ln_mlp`` gets this tree's arguments where the C
-    signatures agree, and the same without the ln scratch (argument 7)
-    where the parent's takes none."""
-    ab = _ab_script()
-    sig = {"vlp_ln_mlp": ([None] * (parent_pointers + 5), None)}
-    seen = []
-    parent = type("Parent", (), {
-        "vlp_ln_mlp": staticmethod(lambda *a: seen.append(a) or 0)})()
-    mixed = ab._Mixed(None, parent, ab.PARENT_ENTRY_POINTS,
-                      {"vlp_ln_mlp": ab._ln_mlp_adapter(sig)})
-    assert mixed.vlp_ln_mlp(*range(15)) == 0
-    assert seen == [passed]
-
-
 @pytest.mark.parametrize("name,part", [
     ("void vlp::ln_rows_kernel<4>(...)", "LN rows"),
     ("void vlp::gemm_kernel<true, false, false, 1>(...)", "fc1 + GELU"),

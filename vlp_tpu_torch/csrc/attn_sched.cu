@@ -4,9 +4,9 @@
 // Replaces the Pallas TPU probe kernel benchmarks/mega_variants.py:make_attn
 // (body attn_fwd_kernel, :331-398): one sample per grid step, its 12-head
 // loop in the order of the mode (v0, nosm, pipe, pipe2, stage). On an H100
-// the half block runs as #1's three launches (ln_attention.cu) with the
-// core in the mode's order (attn_sched.cuh says how the modes map onto the
-// card):
+// the half block runs as three launches, the sequence #1 ran before its
+// redesign (gemm.cuh's products, mhsa.cuh's core), with the core in the
+// mode's order (attn_sched.cuh says how the modes map onto the card):
 //
 //   1. gemm_kernel<LN, bias>:     qkv = bf16(LN(x) @ Wqkv + bqkv)  [N*S, 3D]
 //   2. mhsa_sched_kernel<mode>:   o   = bf16((bf16(p) @ v) / l)    [N*S, D]

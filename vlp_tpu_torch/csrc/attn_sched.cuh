@@ -29,7 +29,7 @@
 // Every mode runs mhsa.cuh's steps (stage, scores, softmax, PV): each
 // row's softmax is one warp's, in the same lane order, and each tile's
 // products are the same wmma sums, so v0, pipe, pipe2 and stage give
-// bit-equal o, and equal mhsa_kernel's.
+// bit-equal o (v0 is the order of the half-block forwards' first core).
 //
 // Shared memory at HD = 32 (staged q, k, v: 3 * sp * 40 bf16; a score row
 // lds = max(sp, HD) + 4 fp32), S = 196 (sp 208, lds 212): v0 and nosm

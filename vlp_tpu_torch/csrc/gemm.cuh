@@ -1,7 +1,9 @@
-// Tiled bf16 tensor-core GEMM of the half-block attention forwards
-// (ln_attention.cu and ln_attention_windows.cu, through ln_attention.cuh)
-// and of the probes' attn_sched*.cu and mlp_tile_bwd.cu; the shipped MLP
-// forwards and backwards run their products on wgmma_gemm.cuh:
+// Tiled bf16 tensor-core GEMM of the probes: #15's LN-qkv and residual
+// out-projection (attn_sched.cu), #16's LN-qkv and do prologue
+// (attn_sched_bwd.cu) and #14's split-K weight gradients (mlp_tile_bwd.cu).
+// No model path launches it: every shipped kernel runs its products on
+// wgmma_gemm.cuh. Its bf16 type and warp_sum are what the other headers
+// include it for.
 //
 //   out[M, N] = epilogue(op(A) @ op(W) + bias[N])
 //

@@ -3,10 +3,11 @@
 // tokens, [N, S, D]) and ln_attention_windows.cu /
 // ln_attention_windows_bwd.cu (#5, #6: the N block x block windows of a NesT
 // token map [B, H, W, D], S = block^2); the backward's tail after the
-// attention core also by the probe #16 (attn_sched_bwd.cu). The forward
-// runs gemm.cuh's LN-prologue GEMM and mhsa.cuh's core; the backward
-// mhsa_reg_bwd.cuh's register-resident core (with its per-unit column
-// sums) and its four products on wgmma_gemm.cuh's TMA + wgmma mainloop.
+// attention core also by the probe #16 (attn_sched_bwd.cu). Both directions
+// run bwd_rows.cuh's LayerNorm rows, the register-resident attention cores
+// (mhsa_reg.cuh forward, mhsa_reg_bwd.cuh backward with its per-unit column
+// sums) and their products on wgmma_gemm.cuh's TMA + wgmma mainloop
+// (dense_epi.cuh's DenseEpi forward, RowsNT and ColsTN backward).
 //
 // LayerNorm, the projections, the biases, the residual and the LayerNorm
 // backward act on each row alone, so their kernels run over the M = N * S
@@ -19,19 +20,35 @@
 // split-K weight gradients, the 256-row partials of dgamma, dbeta and dbout)
 // run in storage order, so for windows they add the same terms in another
 // fp32 order. A product's sum for one row runs the same K steps in the same
-// order whatever tile the row lands in, so the per-row results (dx) stay
-// position-independent.
+// order whatever tile the row lands in, so the per-row results (y, qkv, dx)
+// stay position-independent.
 #pragma once
 
 #include "bwd_rows.cuh"
-#include "mhsa.cuh"
+#include "dense_epi.cuh"
+#include "mhsa_reg.cuh"
 #include "mhsa_reg_bwd.cuh"
 #include "wgmma_gemm.cuh"
 
 namespace vlp {
 
-// qkv = bf16(LN(x) @ Wqkv + bqkv); o = the attention core per unit; y =
-// bf16(x + o @ Wout + bout). Three launches on one stream.
+namespace wg {
+
+// The forward's tile widths, measured at NesT-Small's levels
+// (scripts/mlp_fwd_widths.py, forms qkv and out_res): the out-projection
+// with the residual (N = D, K = D) is fastest at 64 where most of a step's
+// calls run (levels 1 and 2); the qkv product (N = 3D, K = D) runs within
+// 2% at 64 and 128 at every level, so it shares the 64-wide instance with
+// the out-projection and the MLP's fc2 rather than add one of its own.
+constexpr int kQkvWidth = 64, kOutWidth = 64;
+
+}  // namespace wg
+
+// The forward, four launches on one stream (ln_attention.cu lists them):
+// ln = bf16(LN(x) * gamma + beta), written into o's buffer (the qkv product
+// reads it before the core writes o); qkv = bf16(ln @ Wqkv + bqkv); o = the
+// attention core per unit; y = bf16(x + (o @ Wout + bout)). Returns the
+// first failing cudaError_t.
 template <class Rows>
 cudaError_t ln_attention_forward(const bf16* x, const float* gamma,
                                  const float* beta, const bf16* wqkv,
@@ -41,13 +58,15 @@ cudaError_t ln_attention_forward(const bf16* x, const float* gamma,
                                  float scale, float eps, Rows rows,
                                  cudaStream_t st) {
   const int M = N * S;
-  cudaError_t err = launch_gemm<true, kEpiBias>(
-      x, gamma, beta, wqkv, bqkv, nullptr, qkv, M, 3 * D, D, eps, st);
+  cudaError_t err = launch_ln_rows(x, gamma, beta, o, M, D, eps, st);
   if (err != cudaSuccess) return err;
-  err = launch_mhsa<32>(qkv, o, N, S, D, H, scale, rows, st);
+  err = wg::launch_dense_epi<false, wg::kQkvWidth>(o, wqkv, bqkv, nullptr,
+                                                   qkv, M, 3 * D, D, st);
   if (err != cudaSuccess) return err;
-  return launch_gemm<false, kEpiBiasResidual>(o, nullptr, nullptr, wout, bout,
-                                              x, y, M, D, D, 0.f, st);
+  err = launch_mhsa_reg<32>(qkv, o, N, S, D, H, scale, rows, st);
+  if (err != cudaSuccess) return err;
+  return wg::launch_dense_epi<false, wg::kOutWidth>(o, wout, bout, x, y, M, D,
+                                                    D, st);
 }
 
 // Workspace pieces of the backward, in one order for the size query and the

@@ -9,37 +9,37 @@
 // The TPU kernel takes one row strip (block x W tokens) per program through
 // its BlockSpec index map and walks the strip's windows one after another,
 // so the map never goes through a transpose. On an H100 nothing ties a
-// block to a strip. The three launches of ln_attention.cu (ln_attention.cuh)
+// block to a strip. The four launches of ln_attention.cu (ln_attention.cuh)
 // run as they are:
 //
-//   1. gemm_kernel<LN, bias>:  qkv = bf16(LN(x) @ Wqkv + bqkv)  [B*H*W, 3D]
-//   2. mhsa_kernel<WindowRows>: o = attention within each window [B*H*W, D]
-//   3. gemm_kernel<residual>:  y   = bf16(x + o @ Wout + bout)
+//   1. ln_rows:                   ln  = bf16(LN(x) * gamma + beta) (in o)
+//   2. DenseEpi<false>:           qkv = bf16(ln @ Wqkv + bqkv)  [B*H*W, 3D]
+//   3. mhsa_reg_kernel<WindowRows>: o = attention within each window
+//   4. DenseEpi<false>:           y   = bf16(x + (o @ Wout + bout))
 //
 // LN, the projections, the bias and the residual are row-wise, so launches
-// 1 and 3 run on the map's rows in storage order; qkv and o stay in the
+// 1, 2 and 4 run on the map's rows in storage order; qkv and o stay in the
 // map's row order. Only the attention core, one block per (window, head),
 // gathers a window's block^2 rows through WindowRows (attn_rows.cuh; the
 // rows are worked out once per block into a table in shared memory): it
 // reads one head's 64-byte slice of each row, as it does on blockified
 // samples. The rounding points are those of _lnattn_fwd_kernel, and every
-// row and window goes through #1's arithmetic, so y equals #1 on the
-// blockified map bit for bit.
+// row and window goes through #1's arithmetic, so y, qkv and o equal #1's
+// on the blockified map bit for bit.
 //
 // What bounds it on this card: the work and bytes of #1 on the same tokens
-// (ln_attention.cu): the projections stream qkv through device memory and
-// the attention core is latency-bound in its simple form. What the window
-// path saves is the blockify and unblockify copies around each level (two
-// passes over the map per level and direction), not work inside the kernel.
-// Measured at NesT-Small's maps at batch 64 it runs 2-5% slower than #1 on
-// the blockified map (PERF.md).
+// (ln_attention.cu): the launches are bound by their bytes, qkv's round
+// trip most. What the window path saves is the blockify and unblockify
+// copies around each level (two passes over the map per level and
+// direction), not work inside the kernel.
 #include "ln_attention.cuh"
 
 // x, y [B, H, W, D]; wqkv [D, 3D]; wout [D, D] (bf16, row-major, [in, out]);
 // gamma, beta, bout [D], bqkv [3D] (fp32); `heads` heads of 32; H and W
-// multiples of `block`, block^2 <= 256. qkv [B, H, W, 3D] and o [B, H, W, D]
-// are scratch the caller allocates, in the map's row order. Returns the first
-// failing cudaError_t.
+// multiples of `block`, block^2 <= 256, at most 65535 windows; 16-byte
+// aligned bf16 operands. qkv [B, H, W, 3D] and o [B, H, W, D] are scratch
+// the caller allocates, in the map's row order. Returns the first failing
+// cudaError_t.
 extern "C" int vlp_ln_attention_windows(
     const void* x, const void* gamma, const void* beta, const void* wqkv,
     const void* bqkv, const void* wout, const void* bout, void* qkv, void* o,

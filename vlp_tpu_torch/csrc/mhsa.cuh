@@ -1,7 +1,7 @@
-// The attention core of the half-block kernels ln_attention.cu (#1) and
-// ln_attention_windows.cu (#5), and of the probe #15 (attn_sched.cuh); the
-// standalone packed-qkv attention #7 runs the register-resident core of
-// mhsa_reg.cuh instead:
+// The pieces of the port's first attention core, which the half-block
+// forwards #1 and #5 ran before they moved to mhsa_reg.cuh's register core:
+// the schedule variants of the probe kernels #15 (attn_sched.cuh) order
+// them, and no model path launches them.
 //
 //   o = bf16((bf16(p) @ v) / l) per (sample, head), with s = (q @ k^T) *
 //   scale in fp32, p = exp(s - rowmax(s)), l = sum(p)
@@ -9,27 +9,21 @@
 // over a packed qkv [N, S, 3D] bf16 (q | k | v, heads packed inside each D
 // block) into o [N, S, D] bf16. The rounding points are those of the Pallas
 // bodies (vlp_tpu/ops/block_attention.py:75-85, fused_block.py:313-323). A
-// row map (attn_rows.cuh) says which rows of qkv and o make up unit n: a
-// sample (IdentityRows), or a NesT window of a [B, H, W, 3D] map
-// (WindowRows, ln_attention_windows.cu).
+// row map (attn_rows.cuh) says which rows of qkv and o make up unit n.
 //
 // One block per (sample, head) stages q, k and v in shared memory (rows
 // S..sp-1 zero, sp = S rounded up to 16), and each of its 4 warps takes
 // 16-query tiles: the 16 x S fp32 score rows with wmma, the softmax from
 // shared memory, P (bf16, unnormalised) written over its own score row, and
-// P @ V with wmma. These steps are device functions that the probe #15's
-// schedules (attn_sched.cuh) order otherwise. HD (the head dim) is a
-// template parameter; its users run HD = 32. Shared memory: 3 * sp *
-// (HD + 8) bf16 plus 4 warps' fp32 score rows: 102 KB at S = 196, HD = 32
-// (two blocks per SM); a window map adds its row table (S ints).
-// S <= 256 (8 keys per lane).
+// P @ V with wmma. HD (the head dim) is a template parameter; its users run
+// HD = 32. S <= 256 (8 keys per lane).
 //
 // What bounds it on this card: 4 * S^2 * HD FLOPs per (sample, head) on
 // 8 * S * HD bytes of q, k, v and o, S / 2 = 98 FLOP/byte at S = 196, below
 // the bf16 ridge (~295 FLOP/byte), so the ideal kernel is bound by device
 // memory; this simple form is latency-bound instead (one pass per tile,
 // the softmax through shared memory, no overlap of the staging with the
-// products).
+// products), which is what the probe's schedules vary.
 #pragma once
 
 #include "attn_rows.cuh"
@@ -48,16 +42,8 @@ __host__ __device__ inline int mhsa_lds(int S, int HD) {
   return (sp > HD ? sp : HD) + 4;
 }
 
-template <int HD, class Rows>
-inline size_t mhsa_smem_bytes(int S) {
-  const int sp = (S + 15) / 16 * 16;
-  return 3 * (size_t)sp * (HD + 8) * sizeof(bf16) +
-         (size_t)kAttnWarps * 16 * mhsa_lds(S, HD) * sizeof(float) +
-         (size_t)kAttnWarps * 16 * sizeof(float) + row_table_bytes<Rows>(S);
-}
-
-// The pieces of the core, shared with the schedule variants of the probe
-// kernel #15 (attn_sched.cuh), which order the same per-tile work otherwise.
+// The pieces of the core, which the schedule variants of the probe kernel
+// #15 (attn_sched.cuh) order in their own ways.
 
 // Stages q, k, v of head h of one unit ([sp, HD + 8] bf16 each, rows
 // S..sp-1 zero); every thread of the block calls it.
@@ -204,59 +190,6 @@ __device__ __forceinline__ void mhsa_pv(float* S_t, const float* L_t,
     }
   }
   __syncwarp();  // the next tile's scores overwrite S_t
-}
-
-// grid (H, N); block kAttnWarps * 32 threads. Token r of unit n is row
-// rows(n, r) of qkv and o.
-template <int HD, class Rows>
-__global__ void __launch_bounds__(kAttnWarps * 32)
-    mhsa_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ o, int S,
-                int D, float scale, Rows rows) {
-  constexpr int ld = HD + 8;  // bf16 pitch of the staged q, k, v rows
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int h = blockIdx.x;
-  const int n = blockIdx.y;
-  const int tiles = (S + 15) / 16;
-  const int sp = tiles * 16;
-  const int lds = mhsa_lds(S, HD);  // fp32 pitch of a score row
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* Ks = Qs + sp * ld;
-  bf16* Vs = Ks + sp * ld;
-  float* Ss = reinterpret_cast<float*>(Vs + sp * ld);
-  float* Ls = Ss + kAttnWarps * 16 * lds;
-  int* Rt = reinterpret_cast<int*>(Ls + kAttnWarps * 16);  // row table
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const UnitRows<Rows> row_of =
-      unit_rows(rows, n, S, Rt, tid, kAttnWarps * 32);
-  mhsa_stage<HD>(qkv, Qs, S, sp, D, h, row_of, tid, kAttnWarps * 32);
-  __syncthreads();
-
-  float* S_w = Ss + warp * 16 * lds;
-  float* L_w = Ls + warp * 16;
-  for (int qt = warp; qt < tiles; qt += kAttnWarps) {
-    mhsa_scores<HD>(Qs, Ks, qt, tiles, S_w, lds);
-    mhsa_softmax_tile<false>(S_w, L_w, lds, S, sp, scale, lane);
-    mhsa_pv<HD, false>(S_w, L_w, lds, Vs, qt, tiles, S, o, D, h, row_of,
-                       lane);
-  }
-}
-
-template <int HD, class Rows>
-cudaError_t launch_mhsa(const bf16* qkv, bf16* o, int N, int S, int D, int H,
-                        float scale, Rows rows, cudaStream_t stream) {
-  if (N <= 0 || S <= 0 || S > kMaxSeq || D != H * HD || N > 65535)
-    return cudaErrorInvalidValue;
-  const size_t smem = mhsa_smem_bytes<HD, Rows>(S);
-  cudaError_t err = cudaFuncSetAttribute(
-      mhsa_kernel<HD, Rows>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return err;
-  mhsa_kernel<HD, Rows><<<dim3(H, N), kAttnWarps * 32, smem, stream>>>(
-      qkv, o, S, D, scale, rows);
-  return cudaGetLastError();
 }
 
 }  // namespace vlp

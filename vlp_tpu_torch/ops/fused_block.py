@@ -60,16 +60,25 @@ def _ln_bwd_dx(dxh, xh, inv):
     return inv * (dxh - m1 - xh * m2)
 
 
-def ln_attention_plain(x, gamma, beta, wqkv, bqkv, wout, bout,
-                       num_heads: int) -> torch.Tensor:
-    """Plain PyTorch ``ln_attention``; rounds where the Pallas body does."""
+def ln_attention_plain_parts(x, gamma, beta, wqkv, bqkv, wout, bout,
+                             num_heads: int):
+    """Plain PyTorch ``ln_attention`` -> (y, qkv, o), rounded where the
+    Pallas body rounds; qkv and o are what the CUDA forward also returns."""
     dt = x.dtype
     (gamma, beta, bqkv, bout), (wqkv, wout) = _cast(
         dt, vectors=(gamma, beta, bqkv, bout), matrices=(wqkv, wout))
     x32 = x.to(_acc(dt))
     ln = (_ln_fwd(x32)[0] * gamma + beta).to(dt)
-    o = attend_qkv_plain((_mm(ln, wqkv) + bqkv).to(dt), num_heads)
-    return (x32 + (_mm(o, wout) + bout)).to(dt)
+    qkv = (_mm(ln, wqkv) + bqkv).to(dt)
+    o = attend_qkv_plain(qkv, num_heads)
+    return (x32 + (_mm(o, wout) + bout)).to(dt), qkv, o
+
+
+def ln_attention_plain(x, gamma, beta, wqkv, bqkv, wout, bout,
+                       num_heads: int) -> torch.Tensor:
+    """Plain PyTorch ``ln_attention``; rounds where the Pallas body does."""
+    return ln_attention_plain_parts(x, gamma, beta, wqkv, bqkv, wout, bout,
+                                    num_heads)[0]
 
 
 def ln_attention_bwd_plain(x, gamma, beta, wqkv, bqkv, wout, dy,
@@ -262,16 +271,14 @@ def _check_attn(name, x, num_heads, gamma, beta, wqkv, bqkv, wout, *rest,
     _check_cuda(name, x, gamma, beta, wqkv, bqkv, wout, *rest)
 
 
-def _check_attn_bwd(name, units, *tensors):
-    """What the backward sequence takes beyond ``_check_attn``: at most
-    65535 units (the attention core's grid) and 16-byte aligned operands
-    (its GEMMs read them by TMA)."""
+def _check_attn_launch(name, units, *tensors):
+    """What the forward and backward sequences take beyond ``_check_attn``:
+    at most 65535 units (the attention cores' grid) and 16-byte aligned
+    operands (their products read them by TMA)."""
     if units > 65535:
         raise ValueError(f"{name}: the CUDA kernel takes at most 65535 "
                          f"attention units, got {units}")
-    if any(t.data_ptr() % 16 for t in tensors):
-        raise ValueError(f"{name}: the CUDA kernel takes 16-byte aligned "
-                         "operands")
+    check_aligned(name, *tensors)
 
 
 def _check_mlp(name, x, gamma, beta, w1, b1, w2, *rest):
@@ -289,12 +296,14 @@ def _check_mlp(name, x, gamma, beta, w1, b1, w2, *rest):
 
 def _ln_attention_cuda(x, gamma, beta, wqkv, bqkv, wout, bout, num_heads):
     """The forward kernel on cast operands -> (y, qkv, o); qkv and o are
-    the scratch the launch writes, which the backward reads."""
+    the scratch the launch writes (o's buffer holds LN(x) until the core
+    writes o), which the backward reads."""
     _check_attn("ln_attention", x, num_heads, gamma, beta, wqkv, bqkv, wout,
                 bout)
     if bout.shape[1] != x.shape[-1]:
         raise ValueError("ln_attention: bout does not match D")
     n, s, d = x.shape
+    _check_attn_launch("ln_attention", n, x, wqkv, wout)
     lib = _build.load_library()
     qkv = torch.empty((n, s, 3 * d), dtype=x.dtype, device=x.device)
     o = torch.empty((n, s, d), dtype=x.dtype, device=x.device)
@@ -330,6 +339,8 @@ def _ln_attention_windows_cuda(x, block, gamma, beta, wqkv, bqkv, wout, bout,
     if bout.shape[1] != x.shape[-1]:
         raise ValueError("ln_attention_windows: bout does not match D")
     b, h, w, d = x.shape
+    _check_attn_launch("ln_attention_windows",
+                       x.numel() // (block * block * d), x, wqkv, wout)
     lib = _build.load_library()
     qkv = torch.empty((b, h, w, 3 * d), dtype=x.dtype, device=x.device)
     o = torch.empty_like(x)
@@ -399,7 +410,7 @@ def ln_attention_bwd(x, gamma, beta, wqkv, bqkv, wout, dy, num_heads: int,
     if dy.shape != x.shape or qkv.shape != (n, s, 3 * d) or \
             o.shape != x.shape:
         raise ValueError("ln_attention_bwd: dy, qkv or o do not match x")
-    _check_attn_bwd("ln_attention_bwd", n, x, dy, qkv, o, wqkv, wout)
+    _check_attn_launch("ln_attention_bwd", n, x, dy, qkv, o, wqkv, wout)
     lib = _build.load_library()
     dx, dg, db, dbqkv, dbout, dwqkv, dwout = _grads_like(
         x, (d, d, 3 * d, d), ((d, 3 * d), (d, d)), dt)
@@ -443,7 +454,7 @@ def ln_attention_windows_bwd(x, block, gamma, beta, wqkv, bqkv, wout, dy,
             o.shape != x.shape:
         raise ValueError("ln_attention_windows_bwd: dy, qkv or o do not "
                          "match x")
-    _check_attn_bwd("ln_attention_windows_bwd", x.numel() // (s * d), x, dy,
+    _check_attn_launch("ln_attention_windows_bwd", x.numel() // (s * d), x, dy,
                     qkv, o, wqkv, wout)
     lib = _build.load_library()
     dx, dg, db, dbqkv, dbout, dwqkv, dwout = _grads_like(

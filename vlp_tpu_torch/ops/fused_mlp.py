@@ -105,7 +105,8 @@ def _check(name, x, w1, b1, w2, *rest):
 
 
 def check_aligned(name, *tensors):
-    """The MLP kernels' products (``csrc/mlp_fwd.cuh``, ``csrc/mlp_bwd.cuh``)
+    """The products of the MLP and half-block attention kernels
+    (``csrc/dense_epi.cuh``, ``csrc/mlp_bwd.cuh``, ``csrc/ln_attention.cuh``)
     read their operands by TMA: 16-byte aligned operands, or raise before
     any launch."""
     if any(t.data_ptr() % 16 for t in tensors):

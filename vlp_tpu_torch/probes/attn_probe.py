@@ -4,7 +4,7 @@ what each schedule of one sample's attention costs, at NesT-Small level 3
 (S 196, D 384, 12 heads of 32; ``--batch`` 128).
 
 Forward (#15): ``attn_sched`` (``ops/attn_sched.py``) in each mode (v0,
-the nosm bound, pipe, pipe2, stage) beside the shipped three-launch
+the nosm bound, pipe, pipe2, stage) beside the shipped four-launch
 ``ln_attention`` (#1). Backward (#16): ``attn_sched_bwd`` in each mode
 (v0, stage2, uni), which recomputes LN, qkv and o from x as the Pallas
 body does, beside the shipped ``ln_attention_bwd`` (#3), which reads the
