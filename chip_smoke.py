@@ -43,11 +43,19 @@ Phases, each printing its lines before the last line:
 5. training kernels: the backward kernels ``ln_attention_bwd`` and
    ``ln_mlp_bwd`` against their plain versions (bf16 and fp32) at
    NesT-Small's three levels at batch 64, every cotangent, reruns
-   bit-equal; ``shear_rows``
-   at [64, 224, 224] along rows and columns; ``add_gaussian_noise``: the
-   Philox words against Random123's known answers and the plain version's
-   words, values within a stated bound, sigma 0 the identity, the moments
-   of one sigma-1 draw; then the median time of kernel and plain version.
+   bit-equal; ``shear_rows`` bit-equal to its plain version along rows
+   and columns at [64, 224, 224] and [128, 224, 224] at the warp's ramp
+   shifts and at random ones, at widths that are not a multiple of 4
+   ([3, 17, 30], [2, 224, 225]), with max_shift beyond the line, and with
+   shifts of exactly +-max_shift and integral ones (fraction 0), one
+   launch a call; ``add_gaussian_noise`` at W 224 (the 16-byte path) and
+   226 (the scalar path): the Philox words against Random123's known
+   answers and the plain version's words, values within a stated bound,
+   sigma 0 the identity, the moments of one sigma-1 draw; then the median
+   time of kernel and plain version on the warp's shifts and the step's
+   sigmas, and ``probes/augment_probe.py`` at batch 64 and 128: device time
+   alone (warm and with the L2 flushed) of every case beside
+   ``F.grid_sample`` and ``torch.normal``, with the shares of the bound.
 6. training slice: ``make_train_step`` for
    ``experiment=baseline_only_imaging_nest_small`` (NesT-Small, 224x224
    uint8 batches of 64, bf16, AdamW under cosine_warmup, the experiment's
@@ -172,10 +180,14 @@ calls of the median time per call), ``bound_ms`` (the larger of the bytes
 the calls must move, each input read and each output written once, over
 3.35 TB/s, and their operations over 989 TFLOP/s bf16, or 67 TFLOP/s fp32
 for shear and noise; ``bound_by`` says which), and ``library_ms`` (SDPA
-for #7 and #8, ``F.conv2d`` for #17, ``torch.matmul`` for #19b, null
-where no single PyTorch call computes the function); #17 and #19b add
+for #7 and #8, ``F.conv2d`` for #17, ``torch.matmul`` for #19b,
+``F.grid_sample`` for #11 and ``torch.normal`` for #12, null where no
+single PyTorch call computes the function); #11, #12, #17 and #19b add
 ``device_ms`` and ``library_device_ms``, the same calls' device time
-alone. Last ``{"ok": true, "device": {...}}``. Any failed check raises.
+alone, and #11 and #12 also ``device_cold_ms`` and
+``library_device_cold_ms`` (the L2 flushed before each call) and each
+probe case at batch 64 and 128 in ``per_shape``. Last ``{"ok": true,
+"device": {...}}``. Any failed check raises.
 
 The launch counts of each path are set to 0 just before that path's run and
 read just after; the launches that compare a kernel with its plain version
@@ -210,9 +222,9 @@ from vlp_tpu_torch.ops import fused_mlp as FM
 from vlp_tpu_torch.ops import mlp_tile as MT
 from vlp_tpu_torch.ops import noise as NZ
 from vlp_tpu_torch.ops import shear as SH
-from vlp_tpu_torch.ops.warp import default_max_shift
-from vlp_tpu_torch.probes import (attn_probe, bn_gemm_probe, conv_probe,
-                                  mega_probe, mlp_probe)
+from vlp_tpu_torch.ops.warp import default_max_shift, shear_shifts
+from vlp_tpu_torch.probes import (attn_probe, augment_probe, bn_gemm_probe,
+                                  conv_probe, mega_probe, mlp_probe)
 from vlp_tpu_torch.probes._timing import BF16_FLOPS, HBM_BYTES_PER_S
 from vlp_tpu_torch.probes._timing import median_ms as _median_ms
 from vlp_tpu_torch.serve import Predictor
@@ -927,31 +939,79 @@ def phase_train_kernels():
         del x, attn, mlp, dy
         torch.cuda.empty_cache()
 
-    # shear_rows at the warp's shapes, rows and columns
-    img = torch.randint(0, 256, (BATCH, 224, 224), generator=gen,
-                        device="cuda").float()
-    shift = torch.randn(BATCH, 224, generator=gen, device="cuda") * 60.0
-    ms = default_max_shift(224, 224)
-    for axis in (1, 0):
-        out = SH.shear_rows(img, shift, ms, axis)
-        ref = SH.shear_rows_plain(img, shift, ms, axis)
-        a = (out - ref).abs().max().item()
-        print(f"kernel shear_rows [64, 224, 224] axis {axis} max_shift {ms}: "
-              f"max_abs vs plain {a:.6g} (bound {BOUND_SHEAR:g})")
-        check(a <= BOUND_SHEAR, f"shear_rows axis {axis}: {a:.3g}")
-        stats["shear_rows"]["max_abs_err"] = max(
-            stats["shear_rows"]["max_abs_err"], a)
-    k_ms, p_ms = _timed_pair(lambda: SH.shear_rows_plain(img, shift, ms),
-                             lambda: SH.shear_rows(img, shift, ms))
-    print(f"time shear_rows [64, 224, 224]: kernel {k_ms:.4f} ms, plain "
-          f"{p_ms:.4f} ms per call")
-    # per pass: the fp32 image read and written, one shift per line; a
-    # lerp (3 operations) per pixel
-    px = img.numel()
-    _add(stats["shear_rows"], 3, k_ms, p_ms,
-         (3 * px, 8 * px + 4 * shift.numel()))
+    stats["shear_rows"].update(_check_shear(gen))
+    stats["add_gaussian_noise"].update(_check_noise(gen))
+    _augment_times(stats)
+    return stats
 
-    # add_gaussian_noise: Philox known answers, words, values, moments
+
+# shear_rows' exactness checks: (label, B, H, W, max_shift, shifts), each
+# on both axes; shifts "warp" are the warp's ramps at the augmentation's
+# full ranges, "random" N(0, 60^2), "wide" N(0, (2 max_shift)^2) (beyond
+# the clip), "edge" exactly +-max_shift and integers in between (fraction
+# 0); max_shift 40 > W = 30 and 250 > W = 225 reach past the line
+SHEAR_CHECKS = (
+    ("warp", 64, 224, 224, None, "warp"),
+    ("random", 64, 224, 224, None, "random"),
+    ("warp", 128, 224, 224, None, "warp"),
+    ("random", 128, 224, 224, None, "random"),
+    ("ragged", 3, 17, 30, 10, "random"),
+    ("ragged", 2, 224, 225, None, "warp"),
+    ("beyond", 3, 17, 30, 40, "wide"),
+    ("beyond", 2, 224, 225, 250, "wide"),
+    ("edge", 64, 224, 224, None, "edge"),
+    ("edge", 3, 17, 30, 10, "edge"))
+# add_gaussian_noise's widths: 224 (112 words a row: the 16-byte path) and
+# 226 (113: four words may cross a row's end, the scalar path)
+NOISE_WIDTHS = (224, 226)
+
+
+def _shear_shift(gen, kind, b, n, axis, ms):
+    """[b, n] shifts of one check along ``axis`` (n lines)."""
+    if kind == "warp":  # the x-shear's row ramp, the y-shear's column ramp
+        params = augment_probe.warp_params(b, gen)
+        return shear_shifts(*params, n, n)[1 - axis]
+    scale = {"random": augment_probe.RANDOM_SHIFT, "wide": 2.0 * ms}
+    if kind in scale:
+        return torch.randn(b, n, generator=gen, device="cuda") * scale[kind]
+    ints = torch.randint(-ms, ms + 1, (b, n), generator=gen,
+                         device="cuda").float()
+    ints[:, 0::3] = float(ms)
+    ints[:, 1::3] = -float(ms)
+    return ints
+
+
+def _check_shear(gen):
+    """Each of SHEAR_CHECKS on both axes bit-equal to the plain version,
+    one launch a call; returns the largest error."""
+    worst = 0.0
+    for label, b, h, w, ms, kind in SHEAR_CHECKS:
+        ms = default_max_shift(h, w) if ms is None else ms
+        img = torch.randint(0, 256, (b, h, w), generator=gen,
+                            device="cuda").float()
+        for axis in (1, 0):
+            n = h if axis == 1 else w
+            shift = _shear_shift(gen, kind, b, n, axis, ms).contiguous()
+            before = SH.shear_rows.launches
+            out = SH.shear_rows(img, shift, ms, axis)
+            check(SH.shear_rows.launches == before + 1,
+                  "shear_rows: one launch a call")
+            a = (out - SH.shear_rows_plain(img, shift, ms, axis)).abs() \
+                .max().item()
+            print(f"kernel shear_rows [{b}, {h}, {w}] axis {axis} "
+                  f"max_shift {ms} {label} shifts ({kind}): max_abs vs "
+                  f"plain {a:.6g} (bound {BOUND_SHEAR:g})")
+            check(a <= BOUND_SHEAR, f"shear_rows [{b}, {h}, {w}] axis "
+                  f"{axis} {kind}: {a:.3g}")
+            worst = max(worst, a)
+    return {"max_abs_err": worst}
+
+
+def _check_noise(gen):
+    """Philox's known answers; at each of NOISE_WIDTHS the kernel's words
+    equal to the plain version's, values within BOUND_NOISE, sigma 0 the
+    identity; the moments of one sigma-1 draw. Returns the largest
+    error."""
     kat = ((0, 0, 0, 0), (0, 0), "6627e8d5 e169c58d bc57ac4c 9b00dbd8"), \
         ((0xFFFFFFFF,) * 4, (0xFFFFFFFF,) * 2,
          "408f276d 41c83b0e a20bc7c6 6d5451fd"), \
@@ -965,47 +1025,108 @@ def phase_train_kernels():
     print("kernel philox4x32: Random123 known-answer vectors equal")
     seeds = torch.randint(-2 ** 31, 2 ** 31 - 1, (BATCH, 2), generator=gen,
                           device="cuda", dtype=torch.int32)
-    groups = 224 * 112 // 4
-    ctr = torch.zeros(BATCH * groups, 4, dtype=torch.long, device="cuda")
-    ctr[:, 0] = torch.arange(groups, device="cuda").repeat(BATCH)
-    key = (seeds.long() & 0xFFFFFFFF).repeat_interleave(groups, 0)
-    words = NZ.philox4x32(ctr, key).reshape(BATCH, 224, 112)
-    check(torch.equal(words, NZ.noise_words_plain(seeds, 224, 224)),
-          "noise words differ from the plain version's")
-    print(f"kernel philox4x32: the {words.numel()} words of a [64, 224, 224] "
-          "draw equal the plain version's")
-    x = torch.rand(BATCH, 224, 224, generator=gen, device="cuda") * 256.0
     ones = torch.ones(BATCH, device="cuda")
-    out = NZ.add_gaussian_noise(x, seeds, ones)
-    a = (out - NZ.add_gaussian_noise_plain(x, seeds, ones)).abs().max().item()
-    print(f"kernel add_gaussian_noise [64, 224, 224] sigma 1: max_abs vs "
-          f"plain {a:.6g} (bound {BOUND_NOISE:g})")
-    check(a <= BOUND_NOISE, f"add_gaussian_noise: {a:.3g} > {BOUND_NOISE}")
-    stats["add_gaussian_noise"]["max_abs_err"] = a
-    check(torch.equal(NZ.add_gaussian_noise(x, seeds, torch.zeros_like(ones)),
-                      x), "sigma 0 must leave x unchanged")
-    z = NZ.add_gaussian_noise(torch.zeros_like(x), seeds, ones).double()
-    mean, var = z.mean().item(), z.var().item()
-    # 3.2M draws: the mean within 4 standard errors; the variance within
-    # 1% (its standard error is sqrt(2 / n) = 0.08%)
-    print(f"kernel add_gaussian_noise sigma 1: mean {mean:.6g}, var "
-          f"{var:.6g} over {z.numel()} draws")
-    check(abs(mean) < 4 / z.numel() ** 0.5 and abs(var - 1) < 0.01,
-          "noise moments off")
-    sig = torch.rand(BATCH, generator=gen, device="cuda") * 0.01
-    k_ms, p_ms = _timed_pair(
-        lambda: NZ.add_gaussian_noise_plain(x, seeds, sig),
-        lambda: NZ.add_gaussian_noise(x, seeds, sig))
-    print(f"time add_gaussian_noise [64, 224, 224]: kernel {k_ms:.4f} ms, "
-          f"plain {p_ms:.4f} ms per call")
-    # x read and written (fp32), the seeds and sigmas; about 10 fp32
-    # operations per value (Box-Muller's log, sqrt, cos or sin, and the
-    # scaling), Philox's integer products not counted
-    _add(stats["add_gaussian_noise"], 1, k_ms, p_ms,
-         (10 * x.numel(), 8 * x.numel() + 12 * BATCH))
-    del img, shift, x, out, z, words, ctr, key
+    worst = 0.0
+    for w in NOISE_WIDTHS:
+        half = w // 2
+        groups = -(-224 * half // 4)
+        ctr = torch.zeros(BATCH * groups, 4, dtype=torch.long, device="cuda")
+        ctr[:, 0] = torch.arange(groups, device="cuda").repeat(BATCH)
+        key = (seeds.long() & 0xFFFFFFFF).repeat_interleave(groups, 0)
+        words = NZ.philox4x32(ctr, key).reshape(BATCH, -1)[:, :224 * half]
+        check(torch.equal(words.reshape(BATCH, 224, half),
+                          NZ.noise_words_plain(seeds, 224, w)),
+              f"noise words at W {w} differ from the plain version's")
+        print(f"kernel philox4x32: the {words.numel()} words of a "
+              f"[64, 224, {w}] draw equal the plain version's")
+        del ctr, key, words
+        x = torch.rand(BATCH, 224, w, generator=gen, device="cuda") * 256.0
+        before = NZ.add_gaussian_noise.launches
+        out = NZ.add_gaussian_noise(x, seeds, ones)
+        check(NZ.add_gaussian_noise.launches == before + 1,
+              "add_gaussian_noise: one launch a call")
+        a = (out - NZ.add_gaussian_noise_plain(x, seeds, ones)).abs() \
+            .max().item()
+        print(f"kernel add_gaussian_noise [64, 224, {w}] sigma 1: max_abs "
+              f"vs plain {a:.6g} (bound {BOUND_NOISE:g})")
+        check(a <= BOUND_NOISE, f"add_gaussian_noise W {w}: {a:.3g} > "
+              f"{BOUND_NOISE}")
+        worst = max(worst, a)
+        check(torch.equal(NZ.add_gaussian_noise(x, seeds,
+                                                torch.zeros_like(ones)), x),
+              f"sigma 0 must leave x unchanged (W {w})")
+        z = NZ.add_gaussian_noise(torch.zeros_like(x), seeds, ones).double()
+        mean, var = z.mean().item(), z.var().item()
+        # 3.2M draws: the mean within 4 standard errors; the variance
+        # within 1% (its standard error is sqrt(2 / n) = 0.08%)
+        print(f"kernel add_gaussian_noise [64, 224, {w}] sigma 1: mean "
+              f"{mean:.6g}, var {var:.6g} over {z.numel()} draws")
+        check(abs(mean) < 4 / z.numel() ** 0.5 and abs(var - 1) < 0.01,
+              f"noise moments off (W {w})")
+        del x, out, z
+    return {"max_abs_err": worst}
+
+
+def _augment_times(stats):
+    """#11 and #12 per training step at batch 64 (three shears: rows,
+    columns, rows at the warp's ramps; one noise call at the step's
+    sigmas): kernel and plain in turns on CUDA events; then the augment
+    probe at batch 64 and 128, device time alone warm and cold beside
+    ``F.grid_sample`` and ``torch.normal``."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    cases = augment_probe.cases(BATCH, gen)
+    per_step = {"shear_rows": (("shear_ax1_ramp", 2), ("shear_ax0_ramp", 1)),
+                "add_gaussian_noise": (("noise", 1),)}
+    for name, parts in per_step.items():
+        for case_name, calls in parts:
+            case = cases[case_name]
+            k_ms, p_ms = _timed_pair(case.plain, case.kernel)
+            print(f"time {name} {case_name} [64, 224, 224]: kernel "
+                  f"{k_ms:.4f} ms, plain {p_ms:.4f} ms per call")
+            px = BATCH * 224 * 224
+            # shear: the fp32 image read and written, one shift a line, a
+            # lerp (3 operations) a pixel; noise: x read and written, the
+            # seeds and sigmas, about 10 fp32 operations a value
+            # (Box-Muller's log, sqrt, cos or sin, and the scaling),
+            # Philox's integer products not counted
+            work = ((3 * px, 8 * px + 4 * BATCH * 224)
+                    if name == "shear_rows" else
+                    (10 * px, 8 * px + 12 * BATCH))
+            _add(stats[name], calls, k_ms, p_ms, work)
+    del cases
+    records = augment_probe.run(augment_probe.BATCHES, seed=4)
+    for name, parts in per_step.items():
+        at64 = {r["case"]: r for r in records if r["batch"] == BATCH}
+        for key, field in (("library_ms", "library_event_ms"),
+                           ("kernel_device_ms", "kernel_warm_ms"),
+                           ("library_device_ms", "library_warm_ms"),
+                           ("kernel_device_cold_ms", "kernel_cold_ms"),
+                           ("library_device_cold_ms", "library_cold_ms")):
+            stats[name][key] = sum(calls * at64[c][field]
+                                   for c, calls in parts)
+        stats[name]["per_shape"] = {}
+    for r in records:
+        name = "add_gaussian_noise" if r["case"] == "noise" else "shear_rows"
+        bound = (BOUND_NOISE if r["case"] == "noise" else BOUND_SHEAR)
+        check(r["max_abs_err"] <= bound, f"augment probe {r['case']} batch "
+              f"{r['batch']}: {r['max_abs_err']:.3g} > {bound}")
+        print(f"device {r['case']} [{r['batch']}, 224, 224]: kernel warm "
+              f"{r['kernel_warm_ms'] * 1e3:.2f} us "
+              f"({100 * r['kernel_share_warm']:.1f}% of the bound), cold "
+              f"{r['kernel_cold_ms'] * 1e3:.2f} us "
+              f"({100 * r['kernel_share_cold']:.1f}%), event "
+              f"{r['kernel_event_ms'] * 1e3:.2f} us (host "
+              f"{r['host_ms'] * 1e3:.2f} us); library warm "
+              f"{r['library_warm_ms'] * 1e3:.2f} us, cold "
+              f"{r['library_cold_ms'] * 1e3:.2f} us "
+              f"({100 * r['library_share_cold']:.1f}%); bound "
+              f"{r['bound_ms'] * 1e3:.2f} us")
+        stats[name]["per_shape"][f"{r['case']}_b{r['batch']}"] = {
+            k: r[k] for k in ("kernel_warm_ms", "kernel_cold_ms",
+                              "kernel_event_ms", "host_ms",
+                              "library_warm_ms", "library_cold_ms",
+                              "library_event_ms", "bound_ms")}
     torch.cuda.empty_cache()
-    return stats
 
 
 def _dqkv_parts(t, d):
@@ -1976,9 +2097,14 @@ def main() -> int:
             entry["core_launches"] = path[f"{name}_core"]
         if "best" in stat:
             entry["fastest"] = stat["best"]
-        if "kernel_device_ms" in stat:  # #17 and #19b: device time alone
+        if "kernel_device_ms" in stat:  # device time alone
             entry.update(device_ms=stat["kernel_device_ms"],
                          library_device_ms=stat["library_device_ms"])
+        if "kernel_device_cold_ms" in stat:  # #11, #12: with the L2 flushed
+            entry.update(
+                device_cold_ms=stat["kernel_device_cold_ms"],
+                library_device_cold_ms=stat["library_device_cold_ms"],
+                per_shape=stat["per_shape"])
         other = {p: c[name] for p, c in paths.items()
                  if c is not path and name in c}
         if other:

@@ -34,7 +34,12 @@ def _images(seed, b, h, w):
         0, 256, (b, h, w)).astype(np.float32)
 
 
-@pytest.mark.parametrize("b,h,w,max_shift", [(3, 16, 24, 9), (2, 64, 64, 26)])
+@pytest.mark.parametrize("b,h,w,max_shift", [
+    (3, 16, 24, 9), (2, 64, 64, 26),
+    # W % 4 in {1, 2, 3}: the widths the CUDA row kernel takes 4 bytes at a
+    # time; max_shift >= W: taps reach past both ends of the line
+    (2, 9, 29, 7), (2, 11, 30, 7), (3, 8, 31, 12), (2, 10, 20, 24),
+    (2, 6, 13, 13)])
 def test_shear_rows_plain_matches_jax_kernel(b, h, w, max_shift):
     img = _images(b + h, b, h, w)
     rng = np.random.default_rng(w)
@@ -49,6 +54,29 @@ def test_shear_rows_plain_matches_jax_kernel(b, h, w, max_shift):
     # a CPU tensor routes the public wrapper to the plain version
     assert torch.equal(TS.shear_rows(torch.from_numpy(img),
                                      torch.from_numpy(shift), max_shift), got)
+
+
+@pytest.mark.parametrize("axis", [1, 0])
+@pytest.mark.parametrize("b,h,w,max_shift", [(2, 7, 30, 9), (2, 13, 225, 20),
+                                             (1, 5, 6, 8)])
+def test_shear_rows_plain_matches_jax_at_edge_shifts(b, h, w, max_shift,
+                                                     axis):
+    """Shifts of exactly +-max_shift and integral ones (fraction 0), along
+    rows and (against the JAX kernel on the transpose) along columns."""
+    img = _images(b * w + axis, b, h, w)
+    n = h if axis == 1 else w
+    shift = np.random.default_rng(n).integers(
+        -max_shift, max_shift + 1, (b, n)).astype(np.float32)
+    shift[:, 0::3], shift[:, 1::3] = max_shift, -max_shift
+    rows = img if axis == 1 else np.ascontiguousarray(img.transpose(0, 2, 1))
+    want = np.asarray(JS.shear_axis1_batched(
+        jnp.asarray(rows), jnp.asarray(shift), max_shift, interpret=True))
+    if axis == 0:
+        want = want.transpose(0, 2, 1)
+    got = TS.shear_rows_plain(torch.from_numpy(img), torch.from_numpy(shift),
+                              max_shift, axis)
+    # fraction 0: each output is one tap times 1 plus the next times 0
+    np.testing.assert_array_equal(got.numpy(), want)
 
 
 def test_shear_columns_equal_rows_of_the_transpose():
@@ -152,6 +180,98 @@ def test_noise_layout_identity_and_moments():
     assert abs(zz.var() - 1) < 0.2
     with pytest.raises(ValueError, match="even width"):
         TN.add_gaussian_noise(x[:, :, :47].contiguous(), seeds, sigma)
+
+
+@pytest.mark.parametrize("b,h,w", [(2, 16, 226), (2, 7, 30), (3, 4, 6),
+                                   (1, 3, 10)])
+def test_noise_plain_placement_matches_jax_pairs(b, h, w):
+    """At W/2 % 4 != 0 (113, 15, 3, 5 words a row, so a Philox call's four
+    words cross rows) the plain version puts word (y, x)'s pair, by JAX's
+    ``bits_to_gaussian_pair`` on the same words, at (y, x) and (y, x +
+    W/2). Bound 2^-13 as on the card: the pairs within 2e-6 of each other
+    and one rounding of x + z at |x| < 256."""
+    x = torch.from_numpy(_images(w, b, h, w))
+    seeds = torch.from_numpy(np.random.default_rng(h).integers(
+        -2 ** 31, 2 ** 31, (b, 2)).astype(np.int32))
+    sigma = torch.tensor([1.0, 0.5, 2.0][:b])
+    words = TN.noise_words_plain(seeds, h, w)
+    half = w // 2
+    # the counter layout across a row's end: words 4g..4g+3 are the four
+    # outputs of counter g, wherever the rows break
+    flat = words.reshape(b, -1)
+    g = half // 4 + 1 if half > 4 else 1
+    key = (seeds.long() & 0xFFFFFFFF)[:1]
+    ctr = torch.tensor([[g, 0, 0, 0]], dtype=torch.long)
+    assert torch.equal(flat[0, 4 * g:4 * g + 4],
+                       TN.philox4x32_plain(ctr, key)[0][:flat.shape[1]
+                                                        - 4 * g])
+    zc, zs = JN.bits_to_gaussian_pair(jnp.asarray(
+        words.numpy().astype(np.uint32).view(np.int32)))
+    z = np.concatenate([np.asarray(zc), np.asarray(zs)], axis=-1)
+    want = x.numpy() + sigma.numpy()[:, None, None] * z
+    got = TN.add_gaussian_noise_plain(x, seeds, sigma)
+    np.testing.assert_allclose(got.numpy(), want, atol=2.0 ** -13, rtol=0)
+
+
+def _refuse_allocation(monkeypatch, module):
+    def refuse(*a, **k):
+        raise AssertionError("allocated or loaded")
+
+    for name in ("empty", "empty_like"):
+        monkeypatch.setattr(torch, name, refuse)
+    monkeypatch.setattr(module._build, "load_library", refuse)
+
+
+@pytest.mark.parametrize("axis", [1, 0])
+def test_shear_refuses_2_31_elements_before_any_allocation(monkeypatch,
+                                                           axis):
+    """B * H * W >= 2^31 is refused on any device before a tensor is made
+    or the library loaded (the kernel indexes in 32 bits): meta tensors,
+    and a CPU view of one element that the plain version would otherwise
+    take; one column fewer passes that check and meets the device's."""
+    img = torch.zeros(2048, 1024, 1024, device="meta")
+    shift = torch.zeros(2048, 1024, device="meta")
+    view = torch.zeros(1, 1, 1).expand(2048, 1024, 1024)
+    cpu_shift = torch.zeros(1, 1).expand(2048, 1024)
+    smaller = torch.zeros(2048, 1024, 1023, device="meta")
+    small_shift = shift[:, :1024 if axis else 1023]
+    _refuse_allocation(monkeypatch, TS)
+    before = TS.shear_rows.launches
+    for im, sh in ((img, shift), (view, cpu_shift)):
+        with pytest.raises(ValueError, match="2\\^31"):
+            TS.shear_rows(im, sh, 8, axis)
+    with pytest.raises(ValueError, match="no kernel or plain version"):
+        TS.shear_rows(smaller, small_shift, 8, axis)
+    assert TS.shear_rows.launches == before
+
+
+def test_noise_refuses_2_31_elements_before_any_allocation(monkeypatch):
+    seeds = torch.zeros(2048, 2, dtype=torch.int32, device="meta")
+    sigma = torch.zeros(2048, device="meta")
+    big = torch.zeros(2048, 1024, 1024, device="meta")
+    smaller = torch.zeros(2048, 1024, 1022, device="meta")
+    _refuse_allocation(monkeypatch, TN)
+    before = TN.add_gaussian_noise.launches
+    with pytest.raises(ValueError, match="2\\^31"):
+        TN.add_gaussian_noise(big, seeds, sigma)
+    with pytest.raises(ValueError, match="no kernel or plain version"):
+        TN.add_gaussian_noise(smaller, seeds, sigma)
+    assert TN.add_gaussian_noise.launches == before
+
+
+def test_augmentation_wrappers_count_no_launch_off_the_card():
+    """A CPU tensor runs the plain version and counts no launch; a device
+    with neither a kernel nor a plain version raises."""
+    img = torch.zeros(2, 8, 12)
+    before = (TS.shear_rows.launches, TN.add_gaussian_noise.launches)
+    TS.shear_rows(img, torch.zeros(2, 8), 4, 1)
+    TN.add_gaussian_noise(img, torch.zeros(2, 2, dtype=torch.int32),
+                          torch.ones(2))
+    with pytest.raises(ValueError, match="no kernel or plain version"):
+        TS.shear_rows(img.to("meta"), torch.zeros(2, 12, device="meta"), 4,
+                      0)
+    assert (TS.shear_rows.launches,
+            TN.add_gaussian_noise.launches) == before
 
 
 def test_sample_params_rates_ranges_and_shear_on_translate():
@@ -286,3 +406,108 @@ def test_even_width_still_takes_the_noise_kernel(monkeypatch):
                                    0.0, 1.0, dtype=torch.float32)
     assert calls == [((b, 34, 34), (b, 2))]
     assert got.shape == (b, 34, 34, 3) and bool(torch.isfinite(got).all())
+
+
+def test_augment_probe_runs_every_case_on_the_cpu(monkeypatch):
+    """``probes/augment_probe.py``'s control flow at batch 2 on a 32-pixel
+    image (the plain versions, ``F.grid_sample`` and ``torch.normal``, one
+    call each in place of the card's timing): every case with its times,
+    host time, bound and shares; the grid_sample yardstick computes the
+    shear's function (within 1e-2 on values up to 255)."""
+    from vlp_tpu_torch.probes import augment_probe as AP
+
+    def one_call_each(**fns):
+        return {k: float(fn() is not None) for k, fn in fns.items()}
+
+    for name in ("in_turns", "device_in_turns", "cold_in_turns"):
+        monkeypatch.setattr(AP, name, one_call_each)
+    before = (TS.shear_rows.launches, TN.add_gaussian_noise.launches)
+    records = AP.run((2,), device="cpu", size=32)
+    assert (TS.shear_rows.launches,
+            TN.add_gaussian_noise.launches) == before
+    assert [r["case"] for r in records] == [
+        "shear_ax1_ramp", "shear_ax0_ramp", "shear_ax1_random",
+        "shear_ax0_random", "noise"]
+    for rec in records:
+        assert rec["shape"] == [2, 32, 32] and rec["max_abs_err"] == 0.0
+        for who in ("kernel", "library"):
+            for how in ("event", "warm", "cold"):
+                assert rec[f"{who}_{how}_ms"] == 1.0
+        assert rec["host_ms"] == 0.0
+        lines = 2 * 32 if rec["case"] != "noise" else 0
+        extra = 4 * lines if lines else 12 * 2
+        assert rec["bytes"] == 8 * 2 * 32 * 32 + extra
+        assert rec["bound_ms"] == pytest.approx(rec["bytes"] / 3.35e9)
+        assert rec["kernel_share_cold"] == rec["bound_ms"]
+        if rec["case"] == "noise":
+            assert rec["library_max_abs_err"] is None
+        else:
+            assert rec["library_max_abs_err"] < 1e-2
+
+
+def test_augment_probe_warp_shifts_are_the_warps_ramps():
+    """The probe's ramp cases are ``shear_shifts`` of draws over the
+    augmentation's ranges: |rows' slope| <= tan(15 deg) + tan(5 deg),
+    |columns' slope| <= sin(30 deg)."""
+    from vlp_tpu_torch.probes import augment_probe as AP
+    gen = torch.Generator().manual_seed(0)
+    theta, tx, ty, shear = AP.warp_params(256, gen)
+    assert theta.abs().max() <= np.pi / 6 and tx.abs().max() <= 20
+    s1, s2, s3 = TW.shear_shifts(theta, tx, ty, shear, 224, 224)
+    assert s1.shape == s3.shape == s2.shape == (256, 224)
+    slope = lambda s: (s[:, 1:] - s[:, :-1]).abs().max().item()  # noqa: E731
+    assert slope(s2) <= 0.5 + 1e-5
+    assert slope(s1) <= np.tan(np.pi / 12) + np.tan(np.pi / 36) + 1e-5
+    assert slope(s3) <= np.tan(np.pi / 12) + 1e-5
+
+
+def test_augment_probe_and_ab_script_need_a_card(monkeypatch):
+    """The probe and ``scripts/ab_augment.py`` exit with code 2 without a
+    CUDA device; in the parent's turns the A/B script takes only
+    ``vlp_shear_rows`` and ``vlp_add_gaussian_noise`` from the parent's
+    library."""
+    import importlib.util
+    from pathlib import Path
+    from vlp_tpu_torch.probes import augment_probe as AP
+    path = Path(__file__).resolve().parents[1] / "scripts" / "ab_augment.py"
+    spec = importlib.util.spec_from_file_location("ab_augment", path)
+    ab = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ab)
+    own = type("Own", (), {"vlp_shear_rows": "own shear",
+                           "vlp_add_gaussian_noise": "own noise",
+                           "vlp_error_string": "own errors"})()
+    other = type("Other", (), {"vlp_shear_rows": "parent shear",
+                               "vlp_add_gaussian_noise": "parent noise"})()
+    mixed = ab._Library(ab._Mixed(own, other, ab.PARENT_ENTRY_POINTS))
+    lib = mixed.load_library()
+    assert lib.vlp_shear_rows == "parent shear"
+    assert lib.vlp_add_gaussian_noise == "parent noise"
+    assert lib.vlp_error_string == "own errors"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for main, argv in ((AP.main, []), (ab.main, ["--parent", "."])):
+        with pytest.raises(SystemExit) as exc:
+            main(argv)
+        assert exc.value.code == 2
+
+
+def test_variant_script_builds_on_the_shipped_sources(monkeypatch):
+    """``scripts/augment_variants.py`` compiles the shipped ``shear.cu`` and
+    ``noise.cu`` into its library (variant 0 of each family is the shipped
+    kernel) and, like the probes, exits with code 2 without a CUDA
+    device."""
+    import importlib.util
+    from pathlib import Path
+    path = (Path(__file__).resolve().parents[1] / "scripts"
+            / "augment_variants.py")
+    spec = importlib.util.spec_from_file_location("augment_variants", path)
+    av = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(av)
+    assert '#include "shear.cu"' in av.SOURCE
+    assert '#include "noise.cu"' in av.SOURCE
+    assert "return vlp_shear_rows(" in av.SOURCE
+    assert "return vlp_add_gaussian_noise(" in av.SOURCE
+    assert (av.ROWS[0], av.COLS[0], av.NOISE[0]) == ("r1w8", "w8u4", "p1")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit) as exc:
+        av.main([])
+    assert exc.value.code == 2

@@ -282,8 +282,13 @@ def test_backward_gemm_m_major_a_split_k_matches_matmul(cuda, rows, m, n,
     assert torch.equal(_gemm_form(1, a, b, m, n, rows, 1, splits), out)
 
 
-@pytest.mark.parametrize("b,h,w,axis", [(3, 17, 30, 1), (3, 17, 30, 0),
-                                        (2, 224, 224, 0)])
+@pytest.mark.parametrize("b,h,w,axis", [
+    (3, 17, 30, 1), (3, 17, 30, 0), (2, 224, 224, 0), (2, 224, 224, 1),
+    # the training steps' and the VLP bench's batches, one image, H != W,
+    # widths that are not a multiple of 4 (the scalar row path)
+    (64, 224, 224, 1), (128, 224, 224, 0), (1, 224, 224, 1),
+    (1, 224, 224, 0), (2, 96, 160, 1), (2, 96, 160, 0), (2, 224, 225, 1),
+    (2, 224, 225, 0), (2, 5, 33, 1), (2, 9, 31, 1), (2, 31, 9, 0)])
 def test_shear_kernel_equals_plain(cuda, b, h, w, axis):
     gen = torch.Generator(device=cuda).manual_seed(b + h + w + axis)
     img = _rand(gen, b, h, w) * 100.0
@@ -294,7 +299,49 @@ def test_shear_kernel_equals_plain(cuda, b, h, w, axis):
     assert torch.equal(out, SH.shear_rows_plain(img, shift, 10, axis))
 
 
-def test_noise_kernel_words_values_and_identity(cuda):
+@pytest.mark.parametrize("axis", [1, 0])
+@pytest.mark.parametrize("kind", ["warp", "edge", "beyond", "misaligned"])
+def test_shear_kernel_equals_plain_at_the_warps_and_edge_shifts(cuda, axis,
+                                                                 kind):
+    """The warp's own ramps (``warp.shear_shifts``), shifts of exactly
+    +-max_shift and integral ones (fraction 0), max_shift beyond the line,
+    and an image off 16-byte alignment (the row kernel's 4-byte path):
+    bit-equal to the plain version, one launch a call."""
+    from vlp_tpu_torch.ops.warp import default_max_shift, shear_shifts
+    gen = torch.Generator(device=cuda).manual_seed(axis)
+    b, h, w = 4, 224, 224
+    ms = default_max_shift(h, w)
+    img = torch.randint(0, 256, (b, h, w), generator=gen,
+                        device=cuda).float()
+    if kind == "warp":
+        theta = (torch.rand(b, generator=gen, device=cuda) - 0.5) * 1.05
+        t = (torch.rand(2, b, generator=gen, device=cuda) - 0.5) * 40.0
+        shift = shear_shifts(theta, t[0], t[1], theta * 0.1, h, w)[1 - axis]
+    elif kind == "edge":
+        shift = torch.randint(-ms, ms + 1, (b, h), generator=gen,
+                              device=cuda).float()
+        shift[:, 0::3], shift[:, 1::3] = float(ms), -float(ms)
+    else:
+        shift = _rand(gen, b, h, scale=2.0 * ms)
+    if kind == "beyond":
+        ms = w + 17
+    if kind == "misaligned":
+        flat = torch.empty(b * h * w + 1, device=cuda)
+        flat[1:] = img.reshape(-1)
+        img = flat[1:].view(b, h, w)
+        assert img.data_ptr() % 16
+    before = SH.shear_rows.launches
+    out = SH.shear_rows(img, shift, ms, axis)
+    assert SH.shear_rows.launches == before + 1
+    assert torch.equal(out, SH.shear_rows_plain(img, shift, ms, axis))
+
+
+@pytest.mark.parametrize("b,h,w", [
+    (3, 33, 46),      # h * w / 2 = 759 words: a ragged last group
+    (2, 224, 224),    # 112 words a row: the 16-byte path
+    (2, 224, 226),    # 113 words a row: words cross rows, the scalar path
+    (1, 8, 8), (1, 7, 16), (65, 2, 24)])
+def test_noise_kernel_words_values_and_identity(cuda, b, h, w):
     got = NZ.philox4x32(torch.tensor([[0x243f6a88, 0x85a308d3, 0x13198a2e,
                                        0x03707344]], device=cuda),
                         torch.tensor([[0xa4093822, 0x299f31d0]],
@@ -302,17 +349,54 @@ def test_noise_kernel_words_values_and_identity(cuda):
     assert [int(v) for v in got[0]] == [0xd16cfe09, 0x94fdcceb, 0x5001e420,
                                         0x24126ea1]
     gen = torch.Generator(device=cuda).manual_seed(4)
-    b, h, w = 3, 33, 46          # h * w / 2 = 759 words: a ragged last group
     x = torch.rand(b, h, w, generator=gen, device=cuda) * 255.0
     seeds = torch.randint(-2 ** 31, 2 ** 31 - 1, (b, 2), generator=gen,
                           device=cuda, dtype=torch.int32)
-    sigma = torch.tensor([0.0, 1.0, 0.01], device=cuda)
+    sigma = torch.rand(b, generator=gen, device=cuda)
+    sigma[0] = 0.0
     before = NZ.add_gaussian_noise.launches
     out = NZ.add_gaussian_noise(x, seeds, sigma)
     assert NZ.add_gaussian_noise.launches == before + 1
     assert torch.equal(out[0], x[0])
     ref = NZ.add_gaussian_noise_plain(x, seeds, sigma)
     assert (out - ref).abs().max().item() <= 2.0 ** -13
+
+
+def test_noise_kernel_off_alignment_takes_the_scalar_path(cuda):
+    """x off 16-byte alignment at W 224 runs the 4-byte path, with the
+    same values."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    b, h, w = 2, 224, 224
+    flat = torch.rand(b * h * w + 1, generator=gen, device=cuda) * 255.0
+    x = flat[1:].view(b, h, w)
+    assert x.data_ptr() % 16
+    seeds = torch.randint(-2 ** 31, 2 ** 31 - 1, (b, 2), generator=gen,
+                          device=cuda, dtype=torch.int32)
+    sigma = torch.ones(b, device=cuda)
+    out = NZ.add_gaussian_noise(x, seeds, sigma)
+    assert (out - NZ.add_gaussian_noise_plain(x, seeds, sigma)).abs() \
+        .max().item() <= 2.0 ** -13
+    assert torch.equal(out, NZ.add_gaussian_noise(x.contiguous().clone(),
+                                                  seeds, sigma))
+
+
+def test_shear_kernel_refuses_lines_longer_than_shared_memory(cuda):
+    img = torch.zeros(1, SH.MAX_COLUMN + 1, 4, device=cuda)
+    before = SH.shear_rows.launches
+    with pytest.raises(ValueError, match="stages lines"):
+        SH.shear_rows(img, torch.zeros(1, 4, device=cuda), 3, 0)
+    with pytest.raises(ValueError, match="stages lines"):
+        SH.shear_rows(torch.zeros(1, 2, SH.MAX_ROW + 4, device=cuda),
+                      torch.zeros(1, 2, device=cuda), 3, 1)
+    assert SH.shear_rows.launches == before
+    # the longest lines run, bit-equal
+    for axis, shape in ((0, (1, SH.MAX_COLUMN, 36)),
+                        (1, (1, 3, SH.MAX_ROW))):
+        gen = torch.Generator(device=cuda).manual_seed(axis)
+        img = torch.rand(*shape, generator=gen, device=cuda)
+        shift = _rand(gen, 1, shape[2 - axis], scale=50.0)
+        assert torch.equal(SH.shear_rows(img, shift, 60, axis),
+                           SH.shear_rows_plain(img, shift, 60, axis))
 
 
 def test_backward_and_augmentation_kernels_raise_on_cuda(cuda):

@@ -11,15 +11,22 @@
 // uint32. Each word gives one Box-Muller pair, exactly the JAX formula
 // (bits_to_gaussian_pair): u1 = lo16 * 2^-16 + 2^-17, u2 = hi16 * 2^-16,
 // r = sqrt(-2 log u1), cos branch at (y, x), sin branch at (y, x + W/2).
-// logf, sqrtf, cosf and sinf are the accurate library forms (no fast-math
-// intrinsics); x + sigma * z is written with __fmul_rn/__fadd_rn so that it
-// rounds as the plain PyTorch version does.
+// logf, sqrtf and sincosf are the accurate library forms (no fast-math
+// intrinsics; sincosf's sine and cosine are within 2 ulps, as sinf and cosf
+// are); x + sigma * z is written with __fmul_rn/__fadd_rn so that it rounds
+// as the plain PyTorch version does.
 //
 // What bounds it on this card: 8 bytes of x and out per pixel, and per word
-// 10 Philox rounds (20 32x32 multiplies) plus log, sqrt, sin and cos for two
-// pixels: roughly 60 instructions per pixel against 8 bytes, so near the
-// H100's compute-to-bandwidth balance; one thread per Philox call (four
-// words, eight pixels) amortises the rounds. [64, 224, 224] moves 25.7 MB.
+// 10 Philox rounds (20 32x32 multiplies) plus log, sqrt and a sine-cosine
+// pair for two pixels: near the H100's compute-to-bandwidth balance.
+// [128, 224, 224] moves 51.4 MB, 15.3 us at 3.35 TB/s. One thread takes one
+// Philox call (four words, eight pixels), which amortises the rounds; one
+// sincosf shares the range reduction of both branches. Where W/2 % 4 == 0
+// (W = 224: 112 words a row) a thread's four words are four neighbouring
+// columns of one row, so it reads the cos half and the sin half of x as two
+// 16-byte loads and writes two 16-byte stores; other even widths (226: 113
+// words a row, so four words may cross a row's end) take a scalar path of
+// eight 4-byte accesses.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -47,37 +54,64 @@ __device__ __forceinline__ void box_muller(uint32_t bits, float& zc,
                    7.62939453125e-06f;  // * 2^-16 + 2^-17, both exact
   const float u2 = (float)(bits >> 16) * 1.52587890625e-05f;
   const float r = sqrtf(-2.0f * logf(u1));
-  const float t = 6.283185307179586f * u2;
-  zc = r * cosf(t);
-  zs = r * sinf(t);
+  float sn, cs;
+  sincosf(6.283185307179586f * u2, &sn, &cs);
+  zc = r * cs;
+  zs = r * sn;
 }
 
-// grid (ceil(groups / 256), B), groups = ceil(H * W / 2 / 4).
-__global__ void noise_kernel(const float* __restrict__ x,
-                             const int32_t* __restrict__ seeds,
-                             const float* __restrict__ sigma,
-                             float* __restrict__ out, int H, int W) {
+__device__ __forceinline__ uint32_t word(uint4 w4, int q) {
+  return q == 0 ? w4.x : q == 1 ? w4.y : q == 2 ? w4.z : w4.w;
+}
+
+__device__ __forceinline__ float add_noise(float x, float s, float z) {
+  return __fadd_rn(x, __fmul_rn(s, z));
+}
+
+// grid (ceil(groups / 256), B), groups = ceil(H * W / 2 / 4); kVec needs
+// W/2 % 4 == 0 and 16-byte aligned x and out.
+template <bool kVec>
+__global__ void __launch_bounds__(256)
+    noise_kernel(const float* __restrict__ x, const int32_t* __restrict__ seeds,
+                 const float* __restrict__ sigma, float* __restrict__ out,
+                 int H, int W) {
   const int b = blockIdx.y;
   const int half = W / 2;
   const int nwords = H * half;
   const int g = blockIdx.x * blockDim.x + threadIdx.x;
   if (4 * g >= nwords) return;
-  const uint2 key = make_uint2((uint32_t)seeds[2 * b], (uint32_t)seeds[2 * b + 1]);
+  const uint2 key =
+      make_uint2((uint32_t)seeds[2 * b], (uint32_t)seeds[2 * b + 1]);
   const uint4 w4 = philox4x32_10(make_uint4((uint32_t)g, 0u, 0u, 0u), key);
-  const uint32_t words[4] = {w4.x, w4.y, w4.z, w4.w};
   const float s = sigma[b];
-  const size_t base = (size_t)b * H * W;
+  const int base = b * H * W;
+  if (kVec) {
+    const int y = 4 * g / half;
+    const int lo = base + y * W + (4 * g - y * half);
+    const float4 xc = *reinterpret_cast<const float4*>(x + lo);
+    const float4 xs = *reinterpret_cast<const float4*>(x + lo + half);
+    float zc[4], zs[4];
 #pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    const int w = 4 * g + q;
-    if (w >= nwords) break;
-    const int y = w / half;
-    const int xx = w % half;
-    float zc, zs;
-    box_muller(words[q], zc, zs);
-    const size_t lo = base + (size_t)y * W + xx;
-    out[lo] = __fadd_rn(x[lo], __fmul_rn(s, zc));
-    out[lo + half] = __fadd_rn(x[lo + half], __fmul_rn(s, zs));
+    for (int q = 0; q < 4; ++q) box_muller(word(w4, q), zc[q], zs[q]);
+    *reinterpret_cast<float4*>(out + lo) =
+        make_float4(add_noise(xc.x, s, zc[0]), add_noise(xc.y, s, zc[1]),
+                    add_noise(xc.z, s, zc[2]), add_noise(xc.w, s, zc[3]));
+    *reinterpret_cast<float4*>(out + lo + half) =
+        make_float4(add_noise(xs.x, s, zs[0]), add_noise(xs.y, s, zs[1]),
+                    add_noise(xs.z, s, zs[2]), add_noise(xs.w, s, zs[3]));
+  } else {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int w = 4 * g + q;
+      if (w < nwords) {
+        const int y = w / half;
+        const int lo = base + y * W + (w - y * half);
+        float zc, zs;
+        box_muller(word(w4, q), zc, zs);
+        out[lo] = add_noise(x[lo], s, zc);
+        out[lo + half] = add_noise(x[lo + half], s, zs);
+      }
+    }
   }
 }
 
@@ -99,16 +133,22 @@ __global__ void philox_kernel(const int32_t* __restrict__ ctr,
 }  // namespace
 
 // x, out [B, H, W] fp32 (W even); seeds [B, 2] int32; sigma [B] fp32.
-// Returns the launch's cudaError_t.
+// Returns the launch's cudaError_t; cudaErrorInvalidValue for B * H * W >=
+// 2^31 (the kernel's index arithmetic is 32-bit) or B > 65535.
 extern "C" int vlp_add_gaussian_noise(const void* x, const void* seeds,
                                       const void* sigma, void* out, int B,
                                       int H, int W, void* stream) {
-  if (B <= 0 || H <= 0 || W <= 0 || W % 2 || B > 65535)
+  if (B <= 0 || H <= 0 || W <= 0 || W % 2 || B > 65535 ||
+      (int64_t)B * H * W >= (int64_t(1) << 31))
     return (int)cudaErrorInvalidValue;
   const int groups = (H * (W / 2) + 3) / 4;
   const int threads = 256;
-  noise_kernel<<<dim3((groups + threads - 1) / threads, B), threads, 0,
-                 static_cast<cudaStream_t>(stream)>>>(
+  const dim3 grid((groups + threads - 1) / threads, B);
+  const bool vec = (W / 2) % 4 == 0 &&
+                   ((reinterpret_cast<uintptr_t>(x) |
+                     reinterpret_cast<uintptr_t>(out)) & 15) == 0;
+  const auto kernel = vec ? &noise_kernel<true> : &noise_kernel<false>;
+  kernel<<<grid, threads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<const int32_t*>(seeds),
       static_cast<const float*>(sigma), static_cast<float*>(out), H, W);
   return (int)cudaGetLastError();

@@ -73,6 +73,9 @@ def _check(x: torch.Tensor, seeds: torch.Tensor, sigma: torch.Tensor):
     b, _, w = x.shape
     if w % 2:
         raise ValueError(f"add_gaussian_noise needs an even width, got {w}")
+    if x.numel() >= 2 ** 31:
+        raise ValueError(f"add_gaussian_noise: x {tuple(x.shape)} has 2^31 "
+                         "or more elements; the kernel indexes in 32 bits")
     if seeds.shape != (b, 2) or sigma.shape != (b,):
         raise ValueError(f"add_gaussian_noise: seeds must be [{b}, 2] and "
                          f"sigma [{b}], got {tuple(seeds.shape)} and "

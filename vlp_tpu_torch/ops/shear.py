@@ -15,13 +15,21 @@ without a transpose.
 A CUDA tensor runs ``csrc/shear.cu`` or raises; a CPU tensor runs
 ``shear_rows_plain``. The kernel rounds each of ``a * (1 - f)``, ``b * f``
 and their sum separately (no FMA contraction), as the plain version does,
-so the two agree exactly.
+so the two agree exactly. The kernel's index arithmetic is 32-bit, so any
+device refuses ``B * H * W >= 2^31``; it stages whole lines in shared
+memory, so it takes rows of at most ``MAX_ROW`` pixels (axis 1) and
+columns of at most ``MAX_COLUMN`` (axis 0).
 """
 from __future__ import annotations
 
 import torch
 
 from vlp_tpu_torch.ops import _build
+
+# the longest lines whose blocks fit the card's 227 KB of shared memory a
+# block (csrc/shear.cu): 8 rows of round_up(W, 4) words, a strip of H x 33
+MAX_ROW = 7264
+MAX_COLUMN = 1760
 
 
 def _shift_parts(shift: torch.Tensor, max_shift: int):
@@ -55,6 +63,9 @@ def shear_rows(img: torch.Tensor, shift: torch.Tensor, max_shift: int,
     if axis not in (0, 1) or shift.shape != (b, h if axis == 1 else w):
         raise ValueError(f"shear_rows: shift {tuple(shift.shape)} does not "
                          f"fit img {tuple(img.shape)} along axis {axis}")
+    if b * h * w >= 2 ** 31:
+        raise ValueError(f"shear_rows: img {tuple(img.shape)} has 2^31 or "
+                         "more elements; the kernel indexes in 32 bits")
     if img.device.type == "cpu":
         return shear_rows_plain(img, shift, max_shift, axis)
     if img.device.type != "cuda":
@@ -67,6 +78,14 @@ def shear_rows(img: torch.Tensor, shift: torch.Tensor, max_shift: int,
                                           and shift.is_contiguous()):
         raise ValueError("shear_rows: operands must be contiguous and on "
                          "one device")
+    if (w if axis == 1 else h) > (MAX_ROW if axis == 1 else MAX_COLUMN):
+        raise ValueError(f"shear_rows: the kernel stages lines of at most "
+                         f"{MAX_ROW} pixels along rows and {MAX_COLUMN} "
+                         f"along columns, got img {tuple(img.shape)} along "
+                         f"axis {axis}")
+    if b > 65535:
+        raise ValueError(f"shear_rows: the kernel takes at most 65535 "
+                         f"images, got {b}")
     lib = _build.load_library()
     out = torch.empty_like(img)
     with torch.cuda.device(img.device):

@@ -49,6 +49,25 @@ def default_max_shift(h: int, w: int) -> int:
     return int(0.27 * max(h, w) + 24 + 0.1 * max(h, w))
 
 
+def shear_shifts(theta: torch.Tensor, tx: torch.Tensor, ty: torch.Tensor,
+                 shear: torch.Tensor, h: int, w: int):
+    """The per-line shifts of the three shears, [B, H], [B, W] and [B, H]
+    fp32: an x-shear of the rows, a y-shear of the columns, an x-shear of
+    the rows, each a linear ramp along the other axis."""
+    half = torch.tan(theta / 2.0)
+    a1, a2, a3 = -half, torch.sin(theta), -half
+    b2 = -ty
+    b1 = -tx - a1 * b2
+    v = torch.arange(h, dtype=torch.float32, device=theta.device) \
+        - (h - 1) / 2.0
+    u = torch.arange(w, dtype=torch.float32, device=theta.device) \
+        - (w - 1) / 2.0
+    slope1 = a1 - torch.tan(shear)
+    return ((slope1[:, None] * v + b1[:, None]).contiguous(),
+            (a2[:, None] * u + b2[:, None]).contiguous(),
+            (a3[:, None] * v).contiguous())
+
+
 def affine_warp_shear(images: torch.Tensor, theta: torch.Tensor,
                       zoom: torch.Tensor, tx: torch.Tensor, ty: torch.Tensor,
                       shear: Optional[torch.Tensor] = None,
@@ -62,21 +81,10 @@ def affine_warp_shear(images: torch.Tensor, theta: torch.Tensor,
     if max_shift is None:
         max_shift = default_max_shift(h, w)
     images = images.float().contiguous()
-    half = torch.tan(theta / 2.0)
-    a1, a2, a3 = -half, torch.sin(theta), -half
-    b2 = -ty
-    b1 = -tx - a1 * b2
-    v = torch.arange(h, dtype=torch.float32, device=images.device) \
-        - (h - 1) / 2.0
-    u = torch.arange(w, dtype=torch.float32, device=images.device) \
-        - (w - 1) / 2.0
-    slope1 = a1 - torch.tan(shear)
-    x1 = shear_rows(images, (slope1[:, None] * v + b1[:, None]).contiguous(),
-                    max_shift, axis=1)
-    x2 = shear_rows(x1, (a2[:, None] * u + b2[:, None]).contiguous(),
-                    max_shift, axis=0)
-    x3 = shear_rows(x2, (a3[:, None] * v).contiguous(), max_shift, axis=1)
+    s1, s2, s3 = shear_shifts(theta, tx, ty, shear, h, w)
+    x1 = shear_rows(images, s1, max_shift, axis=1)
+    x2 = shear_rows(x1, s2, max_shift, axis=0)
+    x3 = shear_rows(x2, s3, max_shift, axis=1)
     wz = _zoom_matrix(h, zoom)
     with _fp32_matmul():
         return wz @ x3 @ wz.transpose(1, 2)
-

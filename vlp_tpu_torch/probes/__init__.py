@@ -6,4 +6,10 @@ line per shape.
 
   python -m vlp_tpu_torch.probes.conv_probe [--batch 128]
   python -m vlp_tpu_torch.probes.bn_gemm_probe [--batch 128]
+
+``augment_probe`` times the augmentation kernels of every training path,
+#11 ``shear_rows`` and #12 ``add_gaussian_noise``, on the device alone
+beside ``F.grid_sample`` and ``torch.normal``:
+
+  python -m vlp_tpu_torch.probes.augment_probe [--batch 64 128]
 """

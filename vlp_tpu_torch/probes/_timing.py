@@ -13,6 +13,9 @@ import torch
 # bf16 tensor cores
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
+# written between two calls to take a cold reading: more than the card's
+# 50 MB of L2, so none of the last call's lines stay there
+FLUSH_BYTES = 96 * 2 ** 20
 
 
 def require_cuda(prog: str) -> str:
@@ -80,6 +83,39 @@ def device_in_turns(**fns: Callable[[], object]) -> Dict[str, float]:
     times = {n: [] for n in names}
     for n in names + names[::-1]:
         times[n].append(device_ms(fns[n]))
+    return {n: statistics.mean(t) for n, t in times.items()}
+
+
+def device_cold_ms(fn: Callable[[], object], calls: int = 20) -> float:
+    """Median device ms of ``calls`` calls of ``fn`` with the L2 cold: a
+    ``FLUSH_BYTES`` buffer is written before each call, and a pair of CUDA
+    events around the call alone times it; all queued behind a spin kernel,
+    so that no call waits for the host."""
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32,
+                        device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(50_000_000)  # ~25 ms: the host queues the calls
+    events = []
+    for i in range(calls):
+        flush.fill_(float(i))
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in events)
+
+
+def cold_in_turns(**fns: Callable[[], object]) -> Dict[str, float]:
+    """``device_cold_ms`` of each function, taken in the order of ``fns``
+    and then reversed, averaged."""
+    names = list(fns)
+    times = {n: [] for n in names}
+    for n in names + names[::-1]:
+        times[n].append(device_cold_ms(fns[n]))
     return {n: statistics.mean(t) for n, t in times.items()}
 
 
