@@ -9,8 +9,9 @@ Phases, each printing its lines before the last line:
 2. build: compiles ``vlp_tpu_torch/csrc`` with nvcc (sm_90a) and loads it;
    then checks that the kernels on the wgmma + TMA mainloop
    (``csrc/wgmma_gemm.cuh``: #19b, #17 at both tile widths, the four
-   products of #3/#6's sequence in its three instances, the dual tile of
-   #4/#10 (``csrc/mlp_bwd.cuh``) and the forwards' products
+   products of #3/#6's sequence in its three instances, the dual tiles
+   (``csrc/mlp_bwd.cuh``) of #4/#10 and of #14 (the accurate GELU, 64 and
+   128 columns) and the forwards' products
    (``csrc/dense_epi.cuh``: #2/#9's fc1 with its bias + GELU epilogue, and
    the bias (+ residual) epilogue that #2/#9's fc2 and #1/#5's qkv product
    and out-projection share), whose registers it prints) reach
@@ -21,7 +22,8 @@ Phases, each printing its lines before the last line:
    spills nothing, with its registers printed; and that every instance of
    the register-resident attention-core backward
    (``csrc/mhsa_reg_bwd.cuh``, #3's and #6's at head dim 32 and 13 key
-   tiles among them) spills nothing.
+   tiles among them, and #16's uni core, which also forms o, at every key
+   tile count, its registers printed) spills nothing.
 3. kernels: ``ln_attention`` and ``ln_mlp`` against their plain PyTorch
    versions at the shapes serving gives them, NesT-Small's three levels at
    batch 64 (bf16 inputs from a seeded CUDA generator), against the plain
@@ -137,16 +139,17 @@ Phases, each printing its lines before the last line:
    request of 32 and the training step at batch 32, with the checks of
    phases 15 and 16.
 18. MLP probe kernels: ``mlp_tile`` (#13, and its no-GELU and no-LN
-   ablations), ``mlp_tile_bwd`` (#14, every cotangent, reruns
-   bit-identical) and ``mlp_chain`` (#19a, each stage set) at every (TM,
-   FS) instance, and ``mlp_single`` (#19b, the wgmma + TMA kernel, reruns
+   ablations) and ``mlp_chain`` (#19a, each stage set) at every (TM, FS)
+   instance, ``mlp_tile_bwd`` (#14, every cotangent, reruns
+   bit-identical) at each of its dual tile's widths, and ``mlp_single`` (#19b, the wgmma + TMA kernel, reruns
    bit-identical), at NesT-Small level 3's width (D 384, F 1536) on the
    rows of batch 16 and on a ragged M (last tile partial), against their
    plain versions in bf16 and in fp32 (TF32 off); then the probe entry
    points (``vlp_tpu_torch.probes.mega_probe.run``, ``mlp_probe.run``) at
    batch 128: each instance, the shipped #2/#4, the plain versions,
    ``torch.matmul`` and the two-matmul chain in turns, #19b and
-   ``torch.matmul`` also as device time alone, each instance's error
+   ``torch.matmul`` and #14 and the shipped #4 also as device time alone,
+   each instance's error
    against the plain bf16 version held to the same bound as at the
    smaller shapes.
 19. attention probe kernels: ``attn_sched`` (#15) in every mode (v0, the
@@ -156,10 +159,12 @@ Phases, each printing its lines before the last line:
    on 4 samples of S 196 and of a ragged S 37, biases and beta drawn at
    scale 1 and gamma not 1, against their plain versions in bf16 and in
    fp32 (TF32 off); the softmax modes' y bit-equal, every backward mode
-   bit-identical on a rerun; then the probe entry point
+   bit-identical on a rerun, uni's core o (the register core's) against
+   v0's (the schedule core's) counted; then the probe entry point
    (``vlp_tpu_torch.probes.attn_probe.run``) at batch 128: each mode, its
    core, SDPA on the same q, k, v, the shipped #1/#3 and the plain versions
-   in turns, each mode's error there held to the same bound.
+   in turns, #16's modes, their cores, #3 and SDPA's backward also as
+   device time alone, each mode's error there held to the same bound.
 
 Then one JSON line with every kernel: its launches in the timed training
 steps of the path that runs it (NesT-Small's for #1-#4, #11, #12; ViT-B's
@@ -182,9 +187,10 @@ the calls must move, each input read and each output written once, over
 for shear and noise; ``bound_by`` says which), and ``library_ms`` (SDPA
 for #7 and #8, ``F.conv2d`` for #17, ``torch.matmul`` for #19b,
 ``F.grid_sample`` for #11 and ``torch.normal`` for #12, null where no
-single PyTorch call computes the function); #11, #12, #17 and #19b add
-``device_ms`` and ``library_device_ms``, the same calls' device time
-alone, and #11 and #12 also ``device_cold_ms`` and
+single PyTorch call computes the function); #11, #12, #14, #16, #17
+and #19b add ``device_ms`` and ``library_device_ms``, the same calls'
+device time alone (#14 and #16 also ``shipped_device_ms``, the shipped
+#4's or #3's, and #16 ``core_device_ms`` and ``sdpa_device_ms``), and #11 and #12 also ``device_cold_ms`` and
 ``library_device_cold_ms`` (the L2 flushed before each call) and each
 probe case at batch 64 and 128 in ``per_shape``. Last ``{"ok": true,
 "device": {...}}``. Any failed check raises.
@@ -331,9 +337,13 @@ CONV_CHECKS = ((128, 28, 28, 128, 128), (128, 14, 14, 256, 256),
 GEMM_CHECKS = ((128 * 56 * 56, 256, 64), (128 * 28 * 28, 512, 128),
                (128 * 56 * 56, 64, 256), (3 * 7 * 9, 48, 80))
 PROBE_BATCH = 128
-# the device-time fields of the #17 and #19b records (calls queued behind a
-# spin kernel: no host time)
+# the device-time fields of the #17, #19b, #14 and #16 records (calls
+# queued behind a spin kernel: no host time): the kernel's and its
+# yardsticks' (one PyTorch call; the shipped #3/#4; #16's core and SDPA's
+# backward)
 DEVICE_KEYS = ("kernel_device_ms", "library_device_ms")
+BWD_DEVICE_KEYS = ("kernel_device_ms", "shipped_device_ms", "core_device_ms",
+                   "sdpa_device_ms")
 # MLP probe kernels: the checks' row counts (batch 16 at level 3, and a
 # ragged M whose last tile is partial at TM 32 and 64) at level 3's width
 MLP_CHECK_ROWS = (16 * SEQ, 1037)
@@ -414,26 +424,33 @@ def phase_build() -> None:
 # the kernels on the wgmma + TMA mainloop (csrc/wgmma_gemm.cuh): #19b
 # (DenseRows), #17 at 128 and 256 output channels a block (ConvTaps), the
 # four products of #3/#6's sequence (RowsNT to bf16 and to fp32, ColsTN to
-# fp32 split-K partials; #4/#10's weight gradients, dln and dx run on the
-# same three), #4/#10's dual tile (DualMlp, 64 columns a block), and the
-# forwards' products (csrc/dense_epi.cuh): DenseEpi<true> bias + GELU at
-# 128 columns a block (#2/#9's fc1), <false> bias (+ residual) at 64
-# (#2/#9's fc2, #1/#5's qkv and out-projection: csrc/mlp_fwd.cuh's
+# fp32 split-K partials; #4/#10's and #14's weight gradients, dln and dx
+# and #16's do and tail run on the same three), the dual tiles
+# (csrc/mlp_bwd.cuh: #4/#10's DualMlp<false> at 64 columns a block, #14's
+# DualMlp<true>, the accurate GELU, at 64 and 128), and the forwards'
+# products (csrc/dense_epi.cuh): DenseEpi<true> bias + GELU at 128 columns
+# a block (#2/#9's fc1), <false> bias (+ residual) at 64 (#2/#9's fc2,
+# #1/#5's and #16's qkv and #1/#5's out-projection: csrc/mlp_fwd.cuh's
 # kFc2Width, csrc/ln_attention.cuh's kQkvWidth, kOutWidth)
 WGMMA_KERNEL = "wgmma_gemm_kernel"
 WGMMA_FWD = "DenseEpi"
 WGMMA_FWD_INSTANCES = 2
-WGMMA_INSTANCES = 7 + WGMMA_FWD_INSTANCES
-WGMMA_FORMS = ("DenseRows", "ConvTaps", "RowsNT", "ColsTN", "DualMlp",
-               WGMMA_FWD)
 WGMMA_DUAL = "DualMlp"
+# (#4/#10's, #14's) dual tile instances, by the GELU form in their names
+WGMMA_DUALS = {"DualMlpILb0E": 1, "DualMlpILb1E": 2}
+WGMMA_INSTANCES = 6 + WGMMA_FWD_INSTANCES + sum(WGMMA_DUALS.values())
+WGMMA_FORMS = ("DenseRows", "ConvTaps", "RowsNT", "ColsTN", WGMMA_DUAL,
+               WGMMA_FWD)
 # the register-resident attention-core backward (csrc/mhsa_reg_bwd.cuh):
 # every instance of both row maps must keep 0 spill bytes, and #3's and
-# #6's at NesT's S = 196 (head dim 32, 13 key tiles, with the column sums:
-# <32, 13, row map, true>, in ptxas's mangled names) must be built
+# #6's at NesT's S = 196 (head dim 32, 13 key tiles, with the column sums
+# and without o: <32, 13, row map, true, false>, in ptxas's mangled names)
+# and #16's uni core at the probe's S = 196 (<32, 13, IdentityRows, true,
+# true>: the sums and o) must be built
 REG_BWD_KERNEL = "mhsa_reg_bwd_kernel"
 NEST_ROW_MAPS = ("IdentityRows", "WindowRows")
-REG_BWD_NEST_ARGS = ("ILi32ELi13E", "Lb1E")
+REG_BWD_NEST_ARGS = ("ILi32ELi13E", "Lb1ELb0E")
+REG_BWD_UNI_ARGS = ("ILi32ELi13E", "IdentityRows", "Lb1ELb1E")
 # the register-resident forward core (csrc/mhsa_reg.cuh) of #1 and #5 at
 # NesT's S = 196: <32, 13, row map> must be built and keep 0 spill bytes
 REG_FWD_KERNEL = "mhsa_reg_kernel"
@@ -497,10 +514,13 @@ def _check_hopper_units() -> None:
           f"a form of {WGMMA_FORMS} has no {WGMMA_KERNEL} instance")
     check(all(st == 0 and ld == 0 for _, st, ld in mine.values()),
           "a wgmma_gemm_kernel instance spills")
-    dual = [v[0] for k, v in mine.items() if WGMMA_DUAL in k]
-    check(len(dual) == 1, f"ptxas reported {len(dual)} {WGMMA_DUAL} "
-          "instances, expected 1")
-    print(f"ptxas dual tile (#4/#10): {dual[0]} registers, 0 spill bytes")
+    for form, want in WGMMA_DUALS.items():
+        dual = sorted(v[0] for k, v in mine.items() if form in k)
+        check(len(dual) == want, f"ptxas reported {len(dual)} {form} "
+              f"instances, expected {want}")
+        print(f"ptxas dual tile {form} "
+              f"({'#14' if want == 2 else '#4/#10'}): {dual} registers, 0 "
+              "spill bytes")
     fwd = sorted(v[0] for k, v in mine.items() if WGMMA_FWD in k)
     check(len(fwd) == WGMMA_FWD_INSTANCES, f"ptxas reported {len(fwd)} "
           f"{WGMMA_FWD} instances, expected {WGMMA_FWD_INSTANCES}")
@@ -525,8 +545,17 @@ def _check_hopper_units() -> None:
         check(len(found) == 1,
               f"ptxas reported no {REG_BWD_KERNEL}<32, 13, {rows}, true>")
         nreg, st, ld = found[0]
-        print(f"ptxas {REG_BWD_KERNEL}<32, 13, {rows}, true>: {nreg} "
+        print(f"ptxas {REG_BWD_KERNEL}<32, 13, {rows}, true, false>: {nreg} "
               f"registers, spill stores {st} bytes, spill loads {ld} bytes")
+    uni = sorted((k, v) for k, v in core.items() if "Lb1ELb1E" in k)
+    check(any(all(a in k for a in REG_BWD_UNI_ARGS) for k, _ in uni),
+          f"ptxas reported no {REG_BWD_KERNEL}<32, 13, IdentityRows, true, "
+          "true> (#16's uni core)")
+    regs = {int(k.split("ILi32ELi")[1].split("E")[0]): v[0]
+            for k, v in uni if "ILi32ELi" in k}
+    print(f"ptxas {REG_BWD_KERNEL}<32, KT, IdentityRows, true, true> (#16's "
+          f"uni core): registers by key tiles {dict(sorted(regs.items()))}, "
+          f"spill bytes {sum(st + ld for _, (_, st, ld) in uni)}")
     spilling = sorted(k for k, (_, st, ld) in core.items() if st or ld)
     print(f"ptxas {REG_BWD_KERNEL}: {len(core)} instances, "
           f"{len(spilling)} spilling")
@@ -1786,7 +1815,7 @@ def _best(stat, records, is_call, yardsticks=()):
     stat.update(ms=best["kernel_ms"], plain_ms=best["plain_ms"],
                 flops=best["flops"], bytes=best["bytes"],
                 best=best["variant"])
-    for key in ("library_ms", *DEVICE_KEYS):
+    for key in ("library_ms", *DEVICE_KEYS, *BWD_DEVICE_KEYS):
         if key in best:
             stat[key] = best[key]
     stat["per_shape"] = {
@@ -1853,7 +1882,8 @@ def phase_mlp_probe_kernels(smi: str):
               + (f"max|d| vs plain {err:.4g}; " if err is not None else "")
               + f"on {smi}")
     _best(stats["mlp_tile"], by_probe["mlp_fwd"], instance)
-    _best(stats["mlp_tile_bwd"], by_probe["mlp_bwd"], instance)
+    _best(stats["mlp_tile_bwd"], by_probe["mlp_bwd"], instance,
+          BWD_DEVICE_KEYS)
     # the pure chain is #19a's call; its GELU and LN stages in per_shape
     _best(stats["mlp_chain"], by_probe["mlp_chain"],
           lambda r: not r["stages"], ("two_matmuls_ms",))
@@ -1916,10 +1946,11 @@ def _attn_probe_checks(gen, n, s, stats):
     core_refs = AS.attn_sched_bwd_core_plain(qkv, dy, heads)
     core_refs32 = AS.attn_sched_bwd_core_plain(qkv.float(), dy.float(),
                                                heads)
-    outs = {}
+    outs, core_o = {}, {}
     for mode in AS.BWD_MODES:
         outs[mode] = AS.attn_sched_bwd(x, *params[:5], dy, heads, mode)
         core = AS.attn_sched_bwd_core(qkv, dy, heads, mode)
+        core_o[mode] = core[0]
         torch.cuda.synchronize()
         _check_outputs("attn_sched_bwd", f"{where} {mode}", outs[mode] + core,
                        refs + core_refs, refs32 + core_refs32,
@@ -1933,7 +1964,10 @@ def _attn_probe_checks(gen, n, s, stats):
     same = [m for m in AS.BWD_MODES[1:] if all(
         torch.equal(a, b) for a, b in zip(outs[m], outs["v0"]))]
     print(f"kernel attn_sched_bwd {where}: reruns bit-identical; modes "
-          f"bit-equal to v0: {same}")
+          f"bit-equal to v0: {same}; uni's core o (the register core's) "
+          f"against v0's (the schedule core's): "
+          f"{int((core_o['uni'] != core_o['v0']).sum())} of "
+          f"{core_o['v0'].numel()} elements differ")
 
 
 def phase_attn_probe_kernels(smi: str):
@@ -1983,13 +2017,15 @@ def phase_attn_probe_kernels(smi: str):
               f"ms ({rec['bound_by']})"
               + (f", core {rec['core_ms']:.4f} ms, SDPA {rec['sdpa_ms']:.4f} "
                  "ms" if "core_ms" in rec else "")
+              + "".join(f", {k[:-3]} {rec[k]:.4f} ms" for k in BWD_DEVICE_KEYS
+                        if k in rec)
               + f"; on {smi}")
     for name, probe in (("attn_sched", "attn_fwd"),
                         ("attn_sched_bwd", "attn_bwd")):
         # the fastest mode that computes the function (not nosm, a bound)
         _best(stats[name], [r for r in records if r["probe"] == probe],
               lambda r: "#" not in r["variant"] and r["variant"] != "nosm",
-              ("core_ms", "sdpa_ms"))
+              ("core_ms", "sdpa_ms", *BWD_DEVICE_KEYS))
         st = stats[name]
         print(f"time {name} fastest ({st['best']}): kernel {st['ms']:.4f} ms "
               f"per call, plain {st['plain_ms']:.4f} ms")
@@ -2099,7 +2135,10 @@ def main() -> int:
             entry["fastest"] = stat["best"]
         if "kernel_device_ms" in stat:  # device time alone
             entry.update(device_ms=stat["kernel_device_ms"],
-                         library_device_ms=stat["library_device_ms"])
+                         library_device_ms=stat.get("library_device_ms"))
+        for key in BWD_DEVICE_KEYS[1:]:  # #14's, #16's yardsticks alone
+            if key in stat:
+                entry[key] = stat[key]
         if "kernel_device_cold_ms" in stat:  # #11, #12: with the L2 flushed
             entry.update(
                 device_cold_ms=stat["kernel_device_cold_ms"],

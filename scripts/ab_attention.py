@@ -241,27 +241,35 @@ def _call_parts(names, parts_of):
     return parts
 
 
+def _call_kernels(fn):
+    """[(kernel name, device ms)] of one call of ``fn`` (after one untimed
+    call) under torch.profiler, in launch order."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = sorted(
+        (e for e in prof.events()
+         if e.device_type == torch.autograd.DeviceType.CUDA and
+         not e.is_user_annotation),
+        key=lambda e: e.time_range.start)
+    return [(e.name, (e.time_range.end - e.time_range.start) / 1e3)
+            for e in kernels]
+
+
 def _split(fns_per_level, parts_of=SPLIT_PARTS):
     """{part: ms per NesT-Small step} and {kernel: ms per step} of one call
     of each level's function under torch.profiler, weighted by the level's
     blocks per step; ``parts_of`` groups the kernels (``_call_parts``)."""
-    from torch.profiler import ProfilerActivity, profile
     per_kernel, parts = {}, {}
     for fn, blocks in fns_per_level:
-        fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        kernels = sorted(
-            (e for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA and
-             not e.is_user_annotation),
-            key=lambda e: e.time_range.start)
-        for e, part in zip(kernels, _call_parts([e.name for e in kernels],
-                                                parts_of)):
-            ms = (e.time_range.end - e.time_range.start) / 1e3 * blocks
-            per_kernel[e.name] = per_kernel.get(e.name, 0.0) + ms
+        kernels = _call_kernels(fn)
+        for (name, ms), part in zip(kernels, _call_parts(
+                [n for n, _ in kernels], parts_of)):
+            ms *= blocks
+            per_kernel[name] = per_kernel.get(name, 0.0) + ms
             parts[part] = parts.get(part, 0.0) + ms
     return parts, {k[:120]: v for k, v in per_kernel.items()}
 

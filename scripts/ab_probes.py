@@ -1,0 +1,198 @@
+"""Before and after of the probe backwards #16 ``attn_sched_bwd`` (each
+mode, and its core alone) and #14 ``mlp_tile_bwd`` (each instance) in one
+process on one CUDA card, at the probes' shape (``probes/attn_probe.py``,
+``probes/mega_probe.py``: NesT-Small level 3, S 196, D 384, 12 heads of
+32, F 1536; ``--batch`` 128).
+
+``--parent DIR`` is a second checkout of the repository (for example an
+earlier commit unpacked with ``git archive`` into a directory that
+``.gitignore`` lists). Its library is built from its own
+``vlp_tpu_torch/csrc`` by its own ``_build.py`` into its own build
+directory (``scripts/ab_attention.py``'s ``_load_parent_build``). In the
+parent's turns this tree's ``attn_sched_bwd``, ``attn_sched_bwd_core`` and
+``mlp_tile_bwd`` wrappers launch that library's entry points of the same
+names and its workspace queries (their C signatures must be this tree's),
+and #14 runs the parent's instances (``BWD_TILES`` as its
+``ops/mlp_tile.py`` lists them); every other kernel and all the code
+around them are this tree's. The turns alternate (parent, change, change,
+parent, ...) after one warm-up turn of each, and each turn times, as device
+time alone per call (``_timing.device_ms``: 20 calls queued behind a spin
+kernel, so the host's time does not show):
+
+  attn_bwd_<mode>_ms       #16 in mode v0, stage2, uni
+  attn_bwd_core_<mode>_ms  its core alone on the probe's qkv and do
+  mlp_bwd_<tm>x<fs>_ms     #14 at each of the side's instances, and
+  mlp_bwd_fastest_ms       the fastest of them
+  ln_attention_bwd_ms, ln_mlp_bwd_ms, sdpa_bwd_ms
+                           the shipped #3 (on #1's qkv and o) and #4 and
+                           SDPA's backward on the same q, k, v: yardsticks,
+                           this tree's on both sides
+
+After the turns, one call of each #16 mode, each core and each #14
+instance per side runs under ``torch.profiler``: the ``split`` of the
+summary lists each call's kernels in launch order with their device ms.
+``--only parent`` times and splits the parent's kernels alone (the
+yardsticks too), without building this tree's library: the profile of the
+parent before a change is built.
+
+Random inputs from fixed seeds (the probes' draws), the same on both
+sides. Prints one JSON line per turn, then one with each side's median of
+every metric over its turns, the splits, and the card's name and power
+limit (``nvidia-smi``). Exits with code 2 without a CUDA device.
+
+Usage:
+  python scripts/ab_probes.py --parent DIR [--rounds 5] [--batch 128] \\
+      [--only parent] [--output ab_probes.json]
+"""
+from __future__ import annotations
+
+import argparse
+import ast
+import concurrent.futures
+import json
+import os
+import statistics
+import sys
+
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+from ab_attention import (_call_kernels, _Library, _Mixed,  # noqa: E402
+                          _load_parent_build)
+from vlp_tpu_torch.ops import _build  # noqa: E402
+from vlp_tpu_torch.ops import attn_sched as AS  # noqa: E402
+from vlp_tpu_torch.ops import fused_block as FB  # noqa: E402
+from vlp_tpu_torch.ops import mlp_tile as MT  # noqa: E402
+from vlp_tpu_torch.probes import attn_probe, mega_probe  # noqa: E402
+from vlp_tpu_torch.probes._timing import device_ms, require_cuda  # noqa: E402
+
+PARENT_ENTRY_POINTS = ("vlp_attn_sched_bwd", "vlp_attn_sched_bwd_workspace",
+                       "vlp_attn_sched_bwd_core",
+                       "vlp_attn_sched_bwd_core_workspace",
+                       "vlp_mlp_tile_bwd", "vlp_mlp_tile_bwd_workspace")
+
+
+def parent_bwd_tiles(root: str):
+    """``BWD_TILES`` of the parent checkout's ``ops/mlp_tile.py``, read
+    from its source (the module itself imports this tree's package)."""
+    path = os.path.join(root, "vlp_tpu_torch", "ops", "mlp_tile.py")
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    for node in tree.body:
+        if isinstance(node, ast.Assign) and any(
+                isinstance(t, ast.Name) and t.id == "BWD_TILES"
+                for t in node.targets):
+            return tuple(tuple(t) for t in ast.literal_eval(node.value))
+    raise ValueError(f"{path}: no BWD_TILES")
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent", required=True)
+    ap.add_argument("--rounds", type=int, default=5)
+    ap.add_argument("--batch", type=int, default=attn_probe.BATCH)
+    ap.add_argument("--only", choices=("parent",), default=None)
+    ap.add_argument("--output", default=None)
+    args = ap.parse_args(argv)
+    smi = require_cuda("ab_probes")
+    root = os.path.abspath(args.parent)
+    parent_build = _load_parent_build(root)
+    tiles = {"change": MT.BWD_TILES, "parent": parent_bwd_tiles(root)}
+    if args.only:
+        sides = {"parent": (_Library(parent_build.load_library()),) * 2}
+    else:
+        with concurrent.futures.ThreadPoolExecutor(2) as pool:
+            libs = [pool.submit(_build.load_library),
+                    pool.submit(parent_build.load_library)]
+            parent_lib = libs[1].result()
+            own_lib = libs[0].result()
+        sides = {"change": (_build, _build),
+                 "parent": (_Library(_Mixed(own_lib, parent_lib,
+                                            PARENT_ENTRY_POINTS)), _build)}
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x, g, b, wq, bq, wo, bo, dy = attn_probe.attn_inputs(args.batch, gen)
+    aparams = (g, b, wq, bq, wo)
+    qkv = AS.ln_qkv_plain(x, g, b, wq, bq)[-1]
+    do = (dy.float() @ wo.float().T).bfloat16()
+    _, sdpa_bwd = attn_probe._sdpa(qkv, do)
+    (g1, b1, bq1, bo1), (wq1, wo1) = FB._cast(
+        x.dtype, vectors=(g, b, bq, bo), matrices=(wq, wo))
+    m = args.batch * mega_probe.SEQ
+    mx, mg, mb, w1, mb1, w2, _, mdy = mega_probe.mlp_inputs(m, gen)
+    mparams = (mg, mb, w1, mb1, w2)
+
+    def use(side):
+        AS._build = MT._build = sides[side][0]
+        FB._build = sides[side][1]
+        MT.BWD_TILES = tiles[side]
+
+    def calls(side):
+        """{metric: the call it times} on ``side``."""
+        use(side)
+        _, qkv1, o1 = FB._ln_attention_cuda(x, g1, b1, wq1, bq1, wo1, bo1,
+                                            attn_probe.HEADS)
+        fns = {}
+        for mode in AS.BWD_MODES:
+            fns[f"attn_bwd_{mode}_ms"] = (
+                lambda mode=mode: AS.attn_sched_bwd(
+                    x, *aparams, dy, attn_probe.HEADS, mode))
+            fns[f"attn_bwd_core_{mode}_ms"] = (
+                lambda mode=mode: AS.attn_sched_bwd_core(
+                    qkv, do, attn_probe.HEADS, mode))
+        for tm, fs in tiles[side]:
+            fns[f"mlp_bwd_{tm}x{fs}_ms"] = (
+                lambda tm=tm, fs=fs: MT.mlp_tile_bwd(mx, *mparams, mdy,
+                                                     tm=tm, fs=fs))
+        fns["ln_attention_bwd_ms"] = lambda: FB.ln_attention_bwd(
+            x, g1, b1, wq1, bq1, wo1, dy, attn_probe.HEADS, qkv1, o1)
+        fns["ln_mlp_bwd_ms"] = lambda: FB.ln_mlp_bwd(mx, *mparams, mdy)
+        fns["sdpa_bwd_ms"] = sdpa_bwd
+        return fns
+
+    def turn(side):
+        out = {"side": side}
+        for name, fn in calls(side).items():
+            out[name] = device_ms(fn)
+        out["mlp_bwd_fastest_ms"] = min(
+            v for k, v in out.items() if k.startswith("mlp_bwd_"))
+        return out
+
+    order = list(sides)
+    for side in order:  # warm-up: plans, allocator, caches
+        turn(side)
+    records = []
+    for r in range(args.rounds):
+        for side in (order if r % 2 == 0 else order[::-1]):
+            rec = turn(side)
+            records.append(rec)
+            print(json.dumps(rec), flush=True)
+    metrics = sorted({k for rec in records for k in rec
+                      if k.endswith("_ms")})
+    median = {side: {k: statistics.median(x[k] for x in records
+                                          if x["side"] == side and k in x)
+                     for k in metrics
+                     if any(k in x for x in records if x["side"] == side)}
+              for side in order}
+    splits = {}
+    for side in order:
+        for name, fn in calls(side).items():
+            if name.startswith(("attn_bwd", "mlp_bwd")):
+                splits[f"{side} {name[:-3]}"] = [
+                    (k[:120], ms) for k, ms in _call_kernels(fn)]
+    summary = {"card": smi, "batch": args.batch, "rounds": args.rounds,
+               "tiles": tiles, "median": median, "split_ms": splits}
+    print(json.dumps(summary), flush=True)
+    if args.output:
+        with open(args.output, "w") as f:
+            json.dump({"turns": records, "summary": summary}, f, indent=1)
+    if not args.only:
+        use("change")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

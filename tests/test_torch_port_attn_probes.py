@@ -204,9 +204,12 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
         else:
             with pytest.raises(ValueError, match="S <= "):
                 AS.attn_sched(long, *params, HEADS, mode)
+    with pytest.raises(ValueError, match="S <= 256"):
+        AS.attn_sched_bwd(torch.zeros(1, 257, D, dtype=torch.bfloat16),
+                          *params[:5], torch.zeros(1, 257, D), HEADS, "uni")
     with pytest.raises(ValueError, match="S <= 240"):
         AS.attn_sched_bwd(torch.zeros(1, 241, D, dtype=torch.bfloat16),
-                          *params[:5], torch.zeros(1, 241, D), HEADS, "uni")
+                          *params[:5], torch.zeros(1, 241, D), HEADS, "v0")
     with pytest.raises(ValueError, match="S <= 208"):
         AS.attn_sched_bwd_core(torch.zeros(1, 209, 3 * D), torch.zeros(
             1, 209, D), HEADS, "stage2")
@@ -245,9 +248,14 @@ def test_probe_entry_point_needs_a_card(monkeypatch):
 def test_probe_runs_every_mode(monkeypatch):
     """The control flow at batch 1 on the CPU (the plain versions, one call
     each in place of the card's timing): one record per mode and one per
-    shipped kernel, each with its times, bound and error."""
-    monkeypatch.setattr(attn_probe, "in_turns", lambda **fns: {
-        k: float(fn() is not None) for k, fn in fns.items()})
+    shipped kernel, each with its times, bound and error; the backward
+    modes' with the device times alone of the kernel, its core, the
+    shipped #3 and SDPA, #3's with its own."""
+    def one_call_each(**fns):
+        return {k: float(fn() is not None) for k, fn in fns.items()}
+
+    monkeypatch.setattr(attn_probe, "in_turns", one_call_each)
+    monkeypatch.setattr(attn_probe, "device_in_turns", one_call_each)
     records = attn_probe.run(1, device="cpu")
     assert [(r["probe"], r["variant"]) for r in records] == [
         *(("attn_fwd", m) for m in AS.MODES),
@@ -262,6 +270,11 @@ def test_probe_runs_every_mode(monkeypatch):
         assert (rec["flops"], rec["bytes"]) == (
             fwd if rec["probe"] == "attn_fwd" else bwd)
         assert rec["bound_ms"] > 0 and "max_rel_err" in rec
+        if rec["probe"] == "attn_bwd":
+            assert rec["kernel_device_ms"] == 1.0
+            if "#" not in rec["variant"]:
+                assert rec["core_device_ms"] == rec["sdpa_device_ms"] == 1.0
+                assert rec["shipped_device_ms"] == 1.0
         if "#" not in rec["variant"]:
             assert rec["core_ms"] == rec["sdpa_ms"] == 1.0
             if rec["variant"] == "nosm":

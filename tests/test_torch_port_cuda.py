@@ -22,7 +22,9 @@ short sequences, which NesT-Small's own shapes do not reach. Bounds as in
 chip_smoke.py: kernel and plain version round to bf16 at the same points
 and differ by fp32 summation order, so up to two bf16 ulps (2^-6) of the
 largest output forward, and 2^-6 of each cotangent's largest |value|
-backward; shear is exact; noise within 2^-13 (chip_smoke.BOUND_NOISE).
+backward; against the fp32 plain version (TF32 off) 2^-5 forward and
+2^-4 backward (chip_smoke.BOUND_VS_PLAIN_FP32, BOUND_BWD_FP32); shear is
+exact; noise within 2^-13 (chip_smoke.BOUND_NOISE).
 """
 import pytest
 import torch
@@ -39,6 +41,7 @@ from vlp_tpu_torch.ops import shear as SH
 
 pytestmark = pytest.mark.gpu
 BOUND = 2.0 ** -6
+BOUND_BWD_FP32 = 2.0 ** -4
 
 
 @pytest.fixture
@@ -958,26 +961,33 @@ def test_mlp_single_kernel_matches_plain_and_reruns_bit_equal(cuda, m, k, n):
 
 
 @pytest.mark.parametrize("m,d,f", [(3136, 384, 1536), (1037, 384, 1536),
-                                   (77, 192, 768), (100, 64, 256)])
+                                   (77, 192, 768), (100, 64, 256),
+                                   (1037, 96, 352)])  # F: 2.75 tiles at 128
 def test_mlp_tile_bwd_kernel_matches_plain_and_reruns_bit_equal(cuda, m, d,
                                                                  f):
+    """Every instance against the plain version in bf16 and in fp32 (TF32
+    off), one launch a call, a rerun bit-equal."""
+    torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device=cuda).manual_seed(m + d + 1)
     x = _rand(gen, m, d).bfloat16()
     g, b, w1, b1, w2, _ = _mlp_tile_params(gen, d, f)
     dy = _rand(gen, m, d).bfloat16()
     refs = MT.mlp_tile_bwd_plain(x, g, b, w1, b1, w2, dy)
+    refs32 = MT.mlp_tile_bwd_plain(x.float(), g, b, w1.float(), b1,
+                                   w2.float(), dy.float())
     for tm, fs in MT.BWD_TILES:
         before = MT.mlp_tile_bwd.launches
         outs = MT.mlp_tile_bwd(x, g, b, w1, b1, w2, dy, tm=tm, fs=fs)
         torch.cuda.synchronize()
         assert MT.mlp_tile_bwd.launches == before + 1
         again = MT.mlp_tile_bwd(x, g, b, w1, b1, w2, dy, tm=tm, fs=fs)
-        for name, out, ref, rerun in zip(
+        for name, out, ref, ref32, rerun in zip(
                 ("dx", "dgamma", "dbeta", "dw1", "db1", "dw2", "db2"), outs,
-                refs, again):
+                refs, refs32, again):
             assert out.shape == ref.shape and out.dtype == ref.dtype, name
             assert torch.isfinite(out.float()).all(), name
             assert _rel_err(out, ref) <= BOUND, (tm, fs, name)
+            assert _rel_err(out, ref32) <= BOUND_BWD_FP32, (tm, fs, name)
             assert torch.equal(out, rerun), (tm, fs, name)
 
 
@@ -1000,6 +1010,14 @@ def test_mlp_probe_kernels_raise_on_what_they_refuse(cuda):
                                   dtype=torch.bfloat16)[4:].view(64, 64), w1)
     with pytest.raises(ValueError, match="instances"):
         MT.mlp_tile_bwd(x, g, b, w1, b1, w2, x, tm=64, fs=128)
+    off = torch.zeros(64 * 64 + 4, device=cuda,
+                      dtype=torch.bfloat16)[4:].view(64, 64)
+    before = MT.mlp_tile_bwd.launches
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        MT.mlp_tile_bwd(off, g, b, w1, b1, w2, x)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        MT.mlp_tile_bwd(x, g, b, w1, b1, w2, off)
+    assert MT.mlp_tile_bwd.launches == before
 
 
 def _attn_sched_params(gen, d):
@@ -1043,12 +1061,18 @@ def test_attn_sched_kernels_match_plain_and_agree_across_modes(cuda, n, s, d):
 @pytest.mark.parametrize("n,s,d", [(4, 196, 384), (4, 37, 384), (3, 208, 64)])
 def test_attn_sched_bwd_kernels_match_plain_and_rerun_bit_equal(cuda, n, s,
                                                                 d):
+    """Every mode against the plain version in bf16 and in fp32 (TF32
+    off), one launch a call, a rerun bit-equal; the core alone (uni's o
+    from the register core's own p) against its plain version."""
+    torch.backends.cuda.matmul.allow_tf32 = False
     heads = d // 32
     gen = torch.Generator(device=cuda).manual_seed(n + s + d + 1)
     x = _rand(gen, n, s, d).bfloat16()
     params = _attn_sched_params(gen, d)[:5]
     dy = _rand(gen, n, s, d).bfloat16()
     refs = AS.attn_sched_bwd_plain(x, *params, dy, heads)
+    refs32 = AS.attn_sched_bwd_plain(x.float(), *[t.float() for t in params],
+                                     dy.float(), heads)
     qkv = AS.ln_qkv_plain(x, *params[:4])[-1]
     core_refs = AS.attn_sched_bwd_core_plain(qkv, dy, heads)
     for mode in AS.BWD_MODES:
@@ -1057,16 +1081,63 @@ def test_attn_sched_bwd_kernels_match_plain_and_rerun_bit_equal(cuda, n, s,
         torch.cuda.synchronize()
         assert AS.attn_sched_bwd.launches == before + 1
         again = AS.attn_sched_bwd(x, *params, dy, heads, mode)
-        for name, out, ref, rerun in zip(
+        for name, out, ref, ref32, rerun in zip(
                 ("dx", "dgamma", "dbeta", "dwqkv", "dbqkv", "dwout", "dbout"),
-                outs, refs, again):
+                outs, refs, refs32, again):
             assert out.shape == ref.shape and out.dtype == ref.dtype, name
             assert torch.isfinite(out.float()).all(), (mode, name)
             assert _rel_err(out, ref) <= BOUND, (mode, name)
+            assert _rel_err(out, ref32) <= BOUND_BWD_FP32, (mode, name)
             assert torch.equal(out, rerun), (mode, name)
+        before = AS.attn_sched_bwd_core.launches
         core = AS.attn_sched_bwd_core(qkv, dy, heads, mode)
+        torch.cuda.synchronize()
+        assert AS.attn_sched_bwd_core.launches == before + 1
         for name, out, ref in zip(("o", "dqkv"), core, core_refs):
+            assert out.shape == ref.shape and out.dtype == ref.dtype, name
             assert _rel_err(out, ref) <= BOUND, (mode, name)
+
+
+@pytest.mark.parametrize("s,modes", [(241, ("uni",)),
+                                     (256, ("uni",)),
+                                     (240, ("v0", "uni")),
+                                     (1, AS.BWD_MODES)])
+def test_attn_sched_bwd_takes_each_modes_largest_s(cuda, s, modes):
+    """uni runs the register core alone (S <= 256); v0 and stage2 form o
+    with the forward's schedule core first (S <= 240, 208). At S 1 dq and
+    dk are zero."""
+    n, d = 2, 64
+    gen = torch.Generator(device=cuda).manual_seed(s)
+    x = _rand(gen, n, s, d).bfloat16()
+    params = _attn_sched_params(gen, d)[:5]
+    dy = _rand(gen, n, s, d).bfloat16()
+    refs = AS.attn_sched_bwd_plain(x, *params, dy, 2)
+    for mode in modes:
+        outs = AS.attn_sched_bwd(x, *params, dy, 2, mode)
+        torch.cuda.synchronize()
+        for name, out, ref in zip(
+                ("dx", "dgamma", "dbeta", "dwqkv", "dbqkv", "dwout", "dbout"),
+                outs, refs):
+            assert torch.isfinite(out.float()).all(), (mode, name)
+            if s > 1 or name not in ("dwqkv", "dbqkv"):
+                assert _rel_err(out, ref) <= BOUND, (mode, name)
+
+
+def test_attn_sched_bwd_refuses_misaligned_operands(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    x = _rand(gen, 2, 40, 64).bfloat16()
+    params = _attn_sched_params(gen, 64)[:5]
+    off = torch.zeros(x.numel() + 4, device=cuda,
+                      dtype=torch.bfloat16)[4:].view(x.shape)
+    qkv = _rand(gen, 2, 40, 192).bfloat16()
+    before = (AS.attn_sched_bwd.launches, AS.attn_sched_bwd_core.launches)
+    for args in ((off, *params, x), (x, *params, off)):
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            AS.attn_sched_bwd(*args, 2, "uni")
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        AS.attn_sched_bwd_core(qkv, off, 2, "uni")
+    assert (AS.attn_sched_bwd.launches,
+            AS.attn_sched_bwd_core.launches) == before
 
 
 def test_attn_sched_cuda_never_takes_the_plain_path(cuda, monkeypatch):

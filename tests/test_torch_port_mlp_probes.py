@@ -249,21 +249,30 @@ def _one_call_each(**fns):
     return {k: float(fn() is not None) for k, fn in fns.items()}
 
 
-@pytest.mark.parametrize("probe,count", [(mega_probe, 11), (mlp_probe, 13)])
+@pytest.mark.parametrize("probe,count", [(mega_probe, 10), (mlp_probe, 13)])
 def test_probe_runs_every_variant(monkeypatch, probe, count):
     """The control flow at batch 1 on the CPU (the kernels' plain versions,
     one call each in place of the card's timing): one record per variant,
     each with its times, bound and error; the single product's records
-    with the kernel's and torch.matmul's device times."""
+    with the kernel's and torch.matmul's device times, the backward
+    instances' with theirs and the shipped #4's, #4's with its own."""
     monkeypatch.setattr(probe, "in_turns", _one_call_each)
-    if probe is mlp_probe:
-        monkeypatch.setattr(probe, "device_in_turns", _one_call_each)
+    monkeypatch.setattr(probe, "device_in_turns", _one_call_each)
     records = probe.run(1, device="cpu")
     assert len(records) == count
     singles = [r for r in records if r["probe"] == "mlp_single"]
     assert len(singles) == (probe is mlp_probe)
     for rec in singles:
         assert rec["kernel_device_ms"] == rec["library_device_ms"] == 1.0
+    bwd = [r for r in records if r["probe"] == "mlp_bwd"]
+    assert [r["variant"] for r in bwd] == [
+        f"tile tm={tm} fs={fs}" for tm, fs in MT.BWD_TILES] * (
+            probe is mega_probe) + ["ln_mlp_bwd #4 (shipped)"] * (
+            probe is mega_probe)
+    for rec in bwd:
+        assert rec["kernel_device_ms"] == 1.0
+        if "#" not in rec["variant"]:
+            assert rec["shipped_device_ms"] == 1.0
     for rec in records:
         assert rec["kernel_ms"] == rec["plain_ms"] == 1.0
         assert rec["bound_ms"] > 0 and rec["flops"] > 0

@@ -1,4 +1,4 @@
-// Row maps of the attention cores (mhsa.cuh, mhsa_bwd.cuh, mhsa_reg.cuh,
+// Row maps of the attention cores (mhsa.cuh, mhsa_reg.cuh,
 // mhsa_reg_bwd.cuh): where token r of attention unit n lies among the rows
 // of qkv [M, 3D], o and do [M, D] and dqkv [M, 3D].
 //

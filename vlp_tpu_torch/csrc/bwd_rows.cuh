@@ -313,15 +313,6 @@ cudaError_t launch_reduce_rows(const float* part, T* out, int P,
   return cudaGetLastError();
 }
 
-// Split count of a weight-gradient GEMM over K rows into a [M, N] output:
-// enough blocks to fill the card four times over, at least 512 rows each.
-inline int weight_grad_splits(int M, int N, int K) {
-  const int tiles = ((M + kBM - 1) / kBM) * ((N + kBN - 1) / kBN);
-  int s = (4 * 132 + tiles - 1) / tiles;
-  s = s < K / 512 ? s : K / 512;
-  return s < 1 ? 1 : s;
-}
-
 // Carves one workspace buffer into 256-byte aligned pieces.
 struct Carver {
   char* base;

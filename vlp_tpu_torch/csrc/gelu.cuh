@@ -8,7 +8,9 @@
 //                 the backwards' recompute of h and gelu'(z) (mlp_bwd.cuh,
 //                 #4 and #10), so both sides form h from one function
 //   erf_as, gelu_erf: the accurate form (expf and a division), which the
-//                 probes' tile engine (mlp_tile.cuh, #13, #14, #19a) runs
+//                 probes' tile engine (mlp_tile.cuh, #13, #19a) runs, and
+//                 gelu_erf_grad, h and gelu'(z) from one such erf and exp,
+//                 the epilogue of the probe #14's dual tile (mlp_bwd.cuh)
 //
 // The hardware exp and reciprocal err by a few fp32 ulps, far below the
 // bf16 rounding of h and dh (scripts/gelu_epilogue_gap.py measures the gap
@@ -49,6 +51,31 @@ __device__ __forceinline__ float erf_as(float x) {
 
 __device__ __forceinline__ float gelu_erf(float z) {
   return 0.5f * z * (1.0f + erf_as(z * 0.7071067811865476f));
+}
+
+// h = gelu(z) = 0.5 z (1 + erf(z / sqrt 2)) and gelu'(z) = Phi(z) + z *
+// phi(z) in the association of vlp_tpu/ops/fused_mlp.py:_gelu_grad, formed
+// apart as benchmarks/mega_variants.py:185-210 forms them: erf_as's A&S erf
+// with one accurate expf, exp(-z^2 / 2), shared by the erf and phi, and its
+// reciprocal by the hardware's, refined by one Newton step (within an fp32
+// ulp of the division: with the division's slow-path call the dual tile's
+// epilogue spilled 8 bytes at 64 columns; without it ptxas gives 96
+// registers at 64 columns and 168 at 128, no spill)
+__device__ __forceinline__ void gelu_erf_grad(float z, float& h, float& d) {
+  const float x = z * 0.7071067811865476f;
+  const float a = fabsf(x);
+  const float y = 1.0f + 0.3275911f * a;
+  const float r = __fdividef(1.0f, y);
+  const float t = fmaf(r, fmaf(-y, r, 1.0f), r);
+  const float poly =
+      t * (0.254829592f +
+           t * (-0.284496736f +
+                t * (1.421413741f + t * (-1.453152027f + t * 1.061405429f))));
+  const float e = expf(-a * a);
+  const float s = x > 0.f ? 1.f : (x < 0.f ? -1.f : 0.f);
+  const float erf = s * (1.0f - poly * e);
+  h = 0.5f * z * (1.0f + erf);
+  d = 0.5f * (1.0f + erf) + z * (e * 0.3989422804014327f);
 }
 
 }  // namespace vlp

@@ -1,9 +1,9 @@
-// Tiled bf16 tensor-core GEMM of the probes: #15's LN-qkv and residual
-// out-projection (attn_sched.cu), #16's LN-qkv and do prologue
-// (attn_sched_bwd.cu) and #14's split-K weight gradients (mlp_tile_bwd.cu).
-// No model path launches it: every shipped kernel runs its products on
-// wgmma_gemm.cuh. Its bf16 type and warp_sum are what the other headers
-// include it for.
+// Tiled bf16 tensor-core GEMM of the probe #15: its LN-qkv and residual
+// out-projection (attn_sched.cu) are the only launches. No model path and
+// no other probe launches it: they run their products on wgmma_gemm.cuh
+// (the transposed operands, split-K and the raw fp32 and bf16 epilogues
+// below have no caller). Its bf16 type and warp_sum are what the other
+// headers include it for.
 //
 //   out[M, N] = epilogue(op(A) @ op(W) + bias[N])
 //

@@ -34,29 +34,9 @@
 // (mlp_bwd.cuh), the row passes x, dy, dln, dx and ln once more. So it is
 // bound by memory traffic, and with the products on wgmma the row passes
 // take a large share; fusing the LN backward into the dln product's
-// epilogue is later work.
+// epilogue is later work. The sequence is mlp_bwd.cuh's ln_mlp_backward,
+// which the probe #14 (mlp_tile_bwd.cu) shares.
 #include "mlp_bwd.cuh"
-
-namespace vlp {
-
-struct MlpBwdWs {
-  bf16* ln;
-  MlpGradWs g;  // h, dh, the column sums and the weight partials
-  float* dln;
-  float* rpart;  // [row blocks, 3, D]
-  size_t bytes;
-
-  MlpBwdWs(void* base, int M, int D, int F) {
-    Carver c{static_cast<char*>(base)};
-    ln = c.take<bf16>((size_t)M * D);
-    g = MlpGradWs(c, M, D, F);
-    dln = c.take<float>((size_t)M * D);
-    rpart = c.take<float>((size_t)ln_bwd_row_blocks(M) * 3 * D);
-    bytes = c.used;
-  }
-};
-
-}  // namespace vlp
 
 extern "C" size_t vlp_ln_mlp_bwd_workspace(int M, int D, int F) {
   return vlp::MlpBwdWs(nullptr, M, D, F).bytes;
@@ -73,29 +53,13 @@ extern "C" int vlp_ln_mlp_bwd(const void* x, const void* gamma,
                               void* dw2, void* db2, void* ws, int M, int D,
                               int F, float eps, void* stream) {
   using vlp::bf16;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const vlp::MlpBwdWs w(ws, M, D, F);
-  const bf16* xb = static_cast<const bf16*>(x);
-  const bf16* dyb = static_cast<const bf16*>(dy);
-  const float* g = static_cast<const float*>(gamma);
-  cudaError_t err = vlp::launch_ln_rows(xb, g, static_cast<const float*>(beta),
-                                        w.ln, M, D, eps, st);
-  if (err != cudaSuccess) return (int)err;
-  err = vlp::mlp_bwd_products(
-      w.ln, static_cast<const bf16*>(w1), static_cast<const float*>(b1),
-      static_cast<const bf16*>(w2), dyb, w.g, w.dln, static_cast<bf16*>(dw1),
-      static_cast<float*>(db1), static_cast<bf16*>(dw2), M, D, F, st);
-  if (err != cudaSuccess) return (int)err;
-  err = vlp::launch_ln_bwd_rows(xb, g, w.dln, dyb, static_cast<bf16*>(dx),
-                                w.rpart, M, D, eps, st);
-  if (err != cudaSuccess) return (int)err;
-  const int rb = vlp::ln_bwd_row_blocks(M);
-  float* outs[3] = {static_cast<float*>(dgamma), static_cast<float*>(dbeta),
-                    static_cast<float*>(db2)};
-  for (int k = 0; k < 3; ++k) {
-    err = vlp::launch_reduce_rows(w.rpart + (size_t)k * D, outs[k], rb,
-                                  (size_t)3 * D, (size_t)D, st);
-    if (err != cudaSuccess) return (int)err;
-  }
-  return (int)err;
+  return (int)vlp::ln_mlp_backward(
+      static_cast<const bf16*>(x), static_cast<const float*>(gamma),
+      static_cast<const float*>(beta), static_cast<const bf16*>(w1),
+      static_cast<const float*>(b1), static_cast<const bf16*>(w2),
+      static_cast<const bf16*>(dy), static_cast<bf16*>(dx),
+      static_cast<float*>(dgamma), static_cast<float*>(dbeta),
+      static_cast<bf16*>(dw1), static_cast<float*>(db1),
+      static_cast<bf16*>(dw2), static_cast<float*>(db2), ws, M, D, F, eps,
+      static_cast<cudaStream_t>(stream));
 }

@@ -1,7 +1,9 @@
 // The register-resident attention-core backward of the standalone
-// packed-qkv attention, kernel #8 (block_attention_bwd.cu), and of the
+// packed-qkv attention, kernel #8 (block_attention_bwd.cu), of the
 // half-block backwards #3 and #6 (ln_attention.cuh, with the per-unit
-// column sums of dq, dk, dv behind their dbqkv: kSums): from qkv
+// column sums of dq, dk, dv behind their dbqkv: kSums) and of the probe
+// #16 (attn_sched_bwd.cu: every mode's dqkv with the sums, and in its
+// single-softmax mode uni also the forward's o: kOut): from qkv
 // [M, 3D] and do [M, D] bf16 to dqkv = bf16([dq | dk | dv]) [M, 3D], the
 // body of vlp_tpu/ops/block_attention.py:109-144, the rows of unit n given
 // by a row map (attn_rows.cuh). Its rounding points are the body's:
@@ -25,6 +27,15 @@
 //   once. dov = bf16(do / l) and the row statistics (max, 1/l, c) go to
 //   shared memory. (Recomputing p in the second pass instead of holding it
 //   took 1.25-1.35x the time.)
+//   With kOut, right after the softmax (v has landed), the same p, packed
+//   one key tile at a time into bf16 A fragments, also forms o =
+//   bf16((bf16(p) @ v) * (1 / l)) with mhsa_reg.cuh's PV products
+//   (mega_variants.py:456-461: the multiply by 1 / l, not a division), and
+//   stores it before the dp passes: o's 16 accumulators a lane live only
+//   while p is (104 registers at 13 key tiles), not beside the ds
+//   fragments, dq and the second pass's dp, where the kernel peaks. ptxas
+//   (sm_90a) gives the instance at 13 key tiles 234 registers against
+//   230 without o, 254-255 at 14-16 key tiles, and no spill at any count.
 //   Phase B, per warp, 16 keys: for every query tile, the 16 x 16 score and
 //   dp tiles are recomputed with phase A's own instructions (A = the query
 //   tile, B = the key tile), so p and ds are phase A's bit for bit;
@@ -159,6 +170,28 @@ __device__ __forceinline__ void store_rows(const float (&acc)[HD / 8][4],
     }
 }
 
+// Stores o = bf16(acc * il) of a warp's 16 query rows (r0 = tile * 16 + g
+// and r0 + 8, rows < S; il their 1 / l) at column col of o's rows [M, D].
+template <int HD, class Rows>
+__device__ __forceinline__ void store_o(const float (&acc)[HD / 8][4],
+                                        const float (&il)[2], bf16* o, int D,
+                                        int col, int r0, int S,
+                                        const UnitRows<Rows>& row_of,
+                                        int lane) {
+  const int t = lane & 3;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = r0 + 8 * half;
+    if (r >= S) continue;
+    bf16* dst = o + row_of(r) * D + col + 2 * t;
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j)
+      *reinterpret_cast<uint32_t*>(dst + j * 8) =
+          pack_bf16(__fmul_rn(acc[j][2 * half], il[half]),
+                    __fmul_rn(acc[j][2 * half + 1], il[half]));
+  }
+}
+
 // grid (H, N); block bwd_warps<KT>() * 32 threads. qkv [M, 3D] and dout (do)
 // [M, D] bf16 -> dqkv [M, 3D] bf16; token r of unit n is row rows(n, r) of
 // each. With kSums, bpart [N, 3D] fp32 receives the unit's column sums of
@@ -167,20 +200,22 @@ __device__ __forceinline__ void store_rows(const float (&acc)[HD / 8][4],
 // [KT][3][HD] in shared memory, then added over the tiles in tile order, so
 // they depend on S and the unit's values alone (a template switch, so that
 // #8's instances, which take none, keep their registers: at HD 64 and 16
-// key tiles a runtime switch cost 4 bytes of spill). check: null, or
+// key tiles a runtime switch cost 4 bytes of spill). With kOut, o [M, D]
+// bf16 receives bf16((bf16(p) @ v) * (1 / l)) (a template switch too:
+// #3's, #6's and #8's instances compile as without it). check: null, or
 // [N * H][2][16 KT][16 KT]
 // fp32 (phase A's p, ds) and bad, the count of recomputed elements that
 // differ from them. The check's branches stay in the model path's code
 // (check null): they too bound ptxas's scheduling regions, and the kernel
 // spills without them.
-template <int HD, int KT, class Rows, bool kSums>
+template <int HD, int KT, class Rows, bool kSums, bool kOut>
 __global__ void __launch_bounds__(bwd_warps<KT>() * 32, 1)
     mhsa_reg_bwd_kernel(const bf16* __restrict__ qkv,
                         const bf16* __restrict__ dout,
                         bf16* __restrict__ dqkv, float* __restrict__ bpart,
                         float* __restrict__ check,
                         unsigned* __restrict__ bad, int S, int D,
-                        float scale, Rows rows) {
+                        float scale, Rows rows, bf16* __restrict__ o) {
   constexpr int W = bwd_warps<KT>();
   constexpr int kThreads = W * 32;
   constexpr int kRounds = (KT + W - 1) / W;
@@ -251,6 +286,27 @@ __global__ void __launch_bounds__(bwd_warps<KT>() * 32, 1)
       __syncthreads();
     }
     if (!active) continue;
+    if constexpr (kOut) {
+      float oa[HD / 8][4];
+#pragma unroll
+      for (int j = 0; j < HD / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) oa[j][e] = 0.f;
+#pragma unroll
+      for (int kt = 0; kt < KT; ++kt) {
+        tile_guard<KT>(S);
+        uint32_t pa[4];
+        acc_to_a(pa, p, kt);
+#pragma unroll
+        for (int dn = 0; dn < KF; ++dn) {
+          uint32_t b[4];
+          ldsm_x4_trans(b, frag_a_addr(Vs, ld, kt * 16, dn * 16, lane));
+          mma16816(oa[2 * dn], pa, b[0], b[1]);
+          mma16816(oa[2 * dn + 1], pa, b[2], b[3]);
+        }
+      }
+      store_o<HD>(oa, il, o, D, h * HD, qt * 16 + g, S, row_of, lane);
+    }
     float c[2] = {0.f, 0.f};
 #pragma unroll
     for (int kt = 0; kt < KT; ++kt) {
@@ -420,19 +476,19 @@ inline size_t mhsa_reg_bwd_smem_bytes(int S) {
 }
 
 // Launches the instance with KT = ceil(S / 16) key tiles.
-template <int HD, class Rows, bool kSums, int KT = 1>
+template <int HD, class Rows, bool kSums, bool kOut, int KT = 1>
 cudaError_t launch_mhsa_reg_bwd_tiles(const bf16* qkv, const bf16* dout,
                                       bf16* dqkv, float* bpart, float* check,
                                       unsigned* bad, int N, int S, int D,
-                                      int H, float scale, Rows rows,
+                                      int H, float scale, Rows rows, bf16* o,
                                       cudaStream_t stream) {
   if constexpr (KT < kMaxTiles) {
     if ((S + 15) / 16 > KT)
-      return launch_mhsa_reg_bwd_tiles<HD, Rows, kSums, KT + 1>(
-          qkv, dout, dqkv, bpart, check, bad, N, S, D, H, scale, rows,
+      return launch_mhsa_reg_bwd_tiles<HD, Rows, kSums, kOut, KT + 1>(
+          qkv, dout, dqkv, bpart, check, bad, N, S, D, H, scale, rows, o,
           stream);
   }
-  auto kernel = mhsa_reg_bwd_kernel<HD, KT, Rows, kSums>;
+  auto kernel = mhsa_reg_bwd_kernel<HD, KT, Rows, kSums, kOut>;
   // set at the instance's first launch only, as in mhsa_reg.cuh
   static const cudaError_t configured = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -440,7 +496,7 @@ cudaError_t launch_mhsa_reg_bwd_tiles(const bf16* qkv, const bf16* dout,
   if (configured != cudaSuccess) return configured;
   kernel<<<dim3(H, N), bwd_warps<KT>() * 32,
            mhsa_reg_bwd_smem_bytes<HD, KT, Rows, kSums>(S), stream>>>(
-      qkv, dout, dqkv, bpart, check, bad, S, D, scale, rows);
+      qkv, dout, dqkv, bpart, check, bad, S, D, scale, rows, o);
   return cudaGetLastError();
 }
 
@@ -456,8 +512,9 @@ cudaError_t launch_mhsa_reg_bwd(const bf16* qkv, const bf16* dout,
   if (N <= 0 || S <= 0 || S > 16 * reg::kMaxTiles || D != H * HD ||
       N > 65535 || (check == nullptr) != (bad == nullptr))
     return cudaErrorInvalidValue;
-  return reg::launch_mhsa_reg_bwd_tiles<HD, Rows, false>(
-      qkv, dout, dqkv, nullptr, check, bad, N, S, D, H, scale, rows, stream);
+  return reg::launch_mhsa_reg_bwd_tiles<HD, Rows, false, false>(
+      qkv, dout, dqkv, nullptr, check, bad, N, S, D, H, scale, rows, nullptr,
+      stream);
 }
 
 // The same with the units' column sums into bpart [N, 3D] fp32 (the half
@@ -470,8 +527,25 @@ cudaError_t launch_mhsa_reg_bwd_sums(const bf16* qkv, const bf16* dout,
   if (N <= 0 || S <= 0 || S > 16 * reg::kMaxTiles || D != H * HD ||
       N > 65535 || bpart == nullptr)
     return cudaErrorInvalidValue;
-  return reg::launch_mhsa_reg_bwd_tiles<HD, Rows, true>(
+  return reg::launch_mhsa_reg_bwd_tiles<HD, Rows, true, false>(
       qkv, dout, dqkv, bpart, nullptr, nullptr, N, S, D, H, scale, rows,
+      nullptr, stream);
+}
+
+// The same with the forward's o = bf16((bf16(p) @ v) * (1 / l)) of every
+// unit into o [M, D] bf16 (the probe #16's single-softmax core,
+// attn_sched_bwd.cu).
+template <int HD, class Rows>
+cudaError_t launch_mhsa_reg_bwd_sums_o(const bf16* qkv, const bf16* dout,
+                                       bf16* o, bf16* dqkv, float* bpart,
+                                       int N, int S, int D, int H,
+                                       float scale, Rows rows,
+                                       cudaStream_t stream) {
+  if (N <= 0 || S <= 0 || S > 16 * reg::kMaxTiles || D != H * HD ||
+      N > 65535 || bpart == nullptr || o == nullptr)
+    return cudaErrorInvalidValue;
+  return reg::launch_mhsa_reg_bwd_tiles<HD, Rows, true, true>(
+      qkv, dout, dqkv, bpart, nullptr, nullptr, N, S, D, H, scale, rows, o,
       stream);
 }
 

@@ -1,6 +1,7 @@
 // The launch sequence of the MLP backwards, shared by ln_mlp_bwd.cu (#4,
-// a = ln = bf16(LN(x) * gamma + beta)) and fused_mlp_bwd.cu (#10, a = x),
-// over a [M, D] rows, F the hidden width:
+// a = ln = bf16(LN(x) * gamma + beta)), fused_mlp_bwd.cu (#10, a = x) and
+// the probe mlp_tile_bwd.cu (#14, a = ln), over a [M, D] rows, F the
+// hidden width:
 //
 //   1. dual tile (wgmma_gemm.cuh, form DualMlp): over one 128 x BN tile of
 //      [M, F], acc = a @ W1 and acc2 = dy @ W2^T in one K loop over D; in
@@ -8,12 +9,16 @@
 //      own h), dh32 = acc2 * gelu'(z) with gelu'(z) = cdf + z * phi
 //      (fused_mlp.py:_gelu_and_grad, the Pallas backward's association),
 //      dh = bf16(dh32); stores h and dh
-//      [M, F] and the fp32 column sums of dh32 over the tile's 128 rows
+//      [M, F] and the fp32 column sums of dh32 over the tile's 128 rows.
+//      #14 takes the probe's own GELU form (DualMlp<true>: h =
+//      bf16(gelu(z)) with the accurate erf and gelu'(z) from the same erf,
+//      mega_variants.py:185-210) and both tile widths, BN 64 and 128
 //   2. ColsTN, split-K:  dW2 = h^T @ dy   (fp32 partials)
 //   3. ColsTN, split-K:  dW1 = a^T @ dh   (fp32 partials)
 //   4. RowsNT:           da = dh @ W1^T, fp32 (#4's dln) or bf16 (#10's dx)
-//   5. reduce_rows:      the partials in a fixed order -> dW2, dW1 (bf16)
-//                        and db1 = the tiles' column sums in tile order
+//   5. reduce_rows:      the partials in a fixed order -> dW2, dW1 (bf16 for
+//                        #4 and #10, fp32 for #14) and db1 = the tiles'
+//                        column sums in tile order
 //
 // The Pallas bodies compute z and dy @ W2^T for one row tile in the same
 // grid step, so gelu'(z) lives only in VMEM. On Hopper both products have
@@ -53,7 +58,9 @@ namespace wg {
 // through the transpose bit (as DenseRows reads B), acc2 = dy @ W2^T with
 // dy [M, D] K-major and W2 [F, D] K-major as it lies (as RowsNT reads B);
 // K = D. The epilogue writes h (the kernel's out) and dh [M, F] bf16 and
-// colsum [ceil(M / 128), F] fp32.
+// colsum [ceil(M / 128), F] fp32. kErf: the GELU form, false the shipped
+// backwards' (gelu_cdf_pdf), true the probe #14's (gelu_erf_grad).
+template <bool kErf>
 struct DualMlp {
   static constexpr int kProducts = 2;
   static constexpr int kTnspA = 0, kTnspB = 1, kTnspA2 = 0, kTnspB2 = 0;
@@ -101,10 +108,17 @@ struct DualMlp {
           for (int r = 0; r < 2; ++r) {
             const int i = 4 * j + 2 * r + e;
             const float zz = z[i] + bias;
-            float cdf, phi;
-            gelu_cdf_pdf(zz, cdf, phi);
-            z[i] = zz * cdf;          // h, rounded at the store
-            g[i] *= cdf + zz * phi;   // dh32
+            if constexpr (kErf) {
+              float hh, dd;
+              gelu_erf_grad(zz, hh, dd);
+              z[i] = hh;
+              g[i] *= dd;
+            } else {
+              float cdf, phi;
+              gelu_cdf_pdf(zz, cdf, phi);
+              z[i] = zz * cdf;          // h, rounded at the store
+              g[i] *= cdf + zz * phi;   // dh32
+            }
             if (row + 8 * r < M) s += g[i];
           }
           part[2 * jj + e] = s;
@@ -143,25 +157,26 @@ struct DualMlp {
   }
 };
 
-// The dual tile's width: 64 columns of F a block.
+// The dual tile's width on #4 and #10: 64 columns of F a block.
 constexpr int kDualBN = 64;
 
 // Encodes the dual tile's four tensor maps on the host and launches it: one
-// block per 128 x kDualBN tile of [M, F], two stages, two blocks an SM. D
-// and F multiples of 8, 16-byte aligned bf16 operands. Returns the first
-// failing cudaError_t.
-inline cudaError_t launch_mlp_dual(const bf16* a, const bf16* w1,
-                                   const float* b1, const bf16* dy,
-                                   const bf16* w2, bf16* h, bf16* dh,
-                                   float* colsum, int M, int D, int F,
-                                   cudaStream_t st) {
+// block per 128 x BN tile of [M, F], two stages; two blocks an SM at BN 64,
+// one at 128 (~133 KB of shared memory). D and F multiples of 8, 16-byte
+// aligned bf16 operands. Returns the first failing cudaError_t.
+template <bool kErf = false, int BN = kDualBN>
+cudaError_t launch_mlp_dual(const bf16* a, const bf16* w1, const float* b1,
+                            const bf16* dy, const bf16* w2, bf16* h,
+                            bf16* dh, float* colsum, int M, int D, int F,
+                            cudaStream_t st) {
+  static_assert(BN == 64 || BN == 128, "the dual tile's widths");
   if (M <= 0 || D <= 0 || F <= 0 || D % 8 || F % 8 ||
       (reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(w1) |
        reinterpret_cast<uintptr_t>(dy) | reinterpret_cast<uintptr_t>(w2) |
        reinterpret_cast<uintptr_t>(h) | reinterpret_cast<uintptr_t>(dh)) %
           16)
     return cudaErrorInvalidValue;
-  DualMlp src{};
+  DualMlp<kErf> src{};
   CUtensorMap map_a, map_w1;
   cudaError_t err = DenseRows::encode(&map_a, &map_w1, a, w1, M, F, D);
   if (err == cudaSuccess)
@@ -171,7 +186,7 @@ inline cudaError_t launch_mlp_dual(const bf16* a, const bf16* w1,
   src.dh = dh;
   src.colsum = colsum;
   src.K = D;
-  return launch_wgmma_gemm<DualMlp, kDualBN, 2, 2>(
+  return launch_wgmma_gemm<DualMlp<kErf>, BN, 2, BN == 64 ? 2 : 1>(
       map_a, map_w1, src, h, M, F, st);
 }
 
@@ -198,18 +213,18 @@ struct MlpGradWs {
   }
 };
 
-// Steps 1-5 on one stream: dW1, dW2 (bf16), db1 (fp32) and da (DA = float:
-// #4's dln; bf16: #10's dx) from a, dy, the weights and b1. At most 65535
-// 256-row blocks (the row passes' partials that follow). Returns the first
-// failing cudaError_t.
-template <class DA>
+// Steps 1-5 on one stream: dW1, dW2 (WT = bf16: #4's, #10's; fp32: #14's),
+// db1 (fp32) and da (DA = float: #4's and #14's dln; bf16: #10's dx) from
+// a, dy, the weights and b1, through the dual tile of GELU form kErf and
+// width BN. At most 65535 256-row blocks (the row passes' partials that
+// follow). Returns the first failing cudaError_t.
+template <bool kErf = false, int BN = wg::kDualBN, class DA, class WT>
 cudaError_t mlp_bwd_products(const bf16* a, const bf16* w1, const float* b1,
                              const bf16* w2, const bf16* dy,
-                             const MlpGradWs& w, DA* da, bf16* dw1,
-                             float* db1, bf16* dw2, int M, int D, int F,
-                             cudaStream_t st) {
+                             const MlpGradWs& w, DA* da, WT* dw1, float* db1,
+                             WT* dw2, int M, int D, int F, cudaStream_t st) {
   if (M <= 0 || col_row_blocks(M) > 65535) return cudaErrorInvalidValue;
-  cudaError_t err = wg::launch_mlp_dual(
+  cudaError_t err = wg::launch_mlp_dual<kErf, BN>(
       a, w1, b1, dy, w2, w.h, w.dh, w.b1part, M, D, F, st);
   if (err != cudaSuccess) return err;
   // dW2 = h^T @ dy
@@ -229,6 +244,55 @@ cudaError_t mlp_bwd_products(const bf16* a, const bf16* w1, const float* b1,
   if (err != cudaSuccess) return err;
   return launch_reduce_rows(w.b1part, db1, w.m_tiles, (size_t)F, (size_t)F,
                             st);
+}
+
+// Workspace pieces of the LayerNorm half-block MLP backward (#4, #14), in
+// one order for the size query and the launch.
+struct MlpBwdWs {
+  bf16* ln;
+  MlpGradWs g;  // h, dh, the column sums and the weight partials
+  float* dln;
+  float* rpart;  // [row blocks, 3, D]
+  size_t bytes;
+
+  MlpBwdWs(void* base, int M, int D, int F) {
+    Carver c{static_cast<char*>(base)};
+    ln = c.take<bf16>((size_t)M * D);
+    g = MlpGradWs(c, M, D, F);
+    dln = c.take<float>((size_t)M * D);
+    rpart = c.take<float>((size_t)ln_bwd_row_blocks(M) * 3 * D);
+    bytes = c.used;
+  }
+};
+
+// The LayerNorm half-block MLP backward (ln_mlp_bwd.cu lists its launches):
+// ln_rows, steps 1-5 on a = ln with da = dln fp32, the LN backward rows and
+// the fixed-order reductions of dgamma, dbeta and db2. All seven cotangents
+// from x and dy; dW1 and dW2 in WT. ws: MlpBwdWs(nullptr, M, D, F).bytes.
+// Returns the first failing cudaError_t.
+template <bool kErf = false, int BN = wg::kDualBN, class WT>
+cudaError_t ln_mlp_backward(const bf16* x, const float* gamma,
+                            const float* beta, const bf16* w1,
+                            const float* b1, const bf16* w2, const bf16* dy,
+                            bf16* dx, float* dgamma, float* dbeta, WT* dw1,
+                            float* db1, WT* dw2, float* db2, void* ws, int M,
+                            int D, int F, float eps, cudaStream_t st) {
+  const MlpBwdWs w(ws, M, D, F);
+  cudaError_t err = launch_ln_rows(x, gamma, beta, w.ln, M, D, eps, st);
+  if (err != cudaSuccess) return err;
+  err = mlp_bwd_products<kErf, BN>(w.ln, w1, b1, w2, dy, w.g, w.dln, dw1, db1,
+                                   dw2, M, D, F, st);
+  if (err != cudaSuccess) return err;
+  err = launch_ln_bwd_rows(x, gamma, w.dln, dy, dx, w.rpart, M, D, eps, st);
+  if (err != cudaSuccess) return err;
+  const int rb = ln_bwd_row_blocks(M);
+  float* outs[3] = {dgamma, dbeta, db2};
+  for (int k = 0; k < 3; ++k) {
+    err = launch_reduce_rows(w.rpart + (size_t)k * D, outs[k], rb,
+                             (size_t)3 * D, (size_t)D, st);
+    if (err != cudaSuccess) return err;
+  }
+  return err;
 }
 
 }  // namespace vlp

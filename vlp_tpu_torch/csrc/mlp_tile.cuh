@@ -1,8 +1,8 @@
 // The MLP tile engine: one launch computes the whole MLP of a block's row
 // tile, with the hidden activation kept on chip. Shared by mlp_tile.cu (the
 // probe kernels #13, benchmarks/mega_variants.py:make_mlp, and #19a,
-// benchmarks/mlp_probe.py:make_chain) and, for its helpers, mlp_tile_bwd.cu
-// (#14). The single product #19b runs on wgmma_gemm.cuh (gemm_single.cu).
+// benchmarks/mlp_probe.py:make_chain). The single product #19b and the
+// backward #14 run on wgmma_gemm.cuh (gemm_single.cu, mlp_tile_bwd.cu).
 //
 //   ln  = LN ? bf16(LN(x) * gamma + beta) : x                 [TM, D]
 //   for each F slice s of FS columns:
@@ -84,14 +84,6 @@ __device__ __forceinline__ void unpack8(uint4 u, float* v) {
   const bf16* b = reinterpret_cast<const bf16*>(&u);
 #pragma unroll
   for (int e = 0; e < 8; ++e) v[e] = __bfloat162float(b[e]);
-}
-
-// d/dz [z * Phi(z)] = Phi(z) + z * phi(z), the association of
-// vlp_tpu/ops/fused_mlp.py:_gelu_grad
-__device__ __forceinline__ float gelu_grad_erf(float z) {
-  const float cdf = 0.5f * (1.0f + erf_as(z * 0.7071067811865476f));
-  const float phi = expf(-0.5f * z * z) * 0.3989422804014327f;
-  return cdf + z * phi;
 }
 
 // rows [m0, m0 + rows) of src [M, D] into dst (row stride ld) by cp.async,

@@ -38,12 +38,22 @@ product, p = exp(s - max) unnormalised and cast for the PV product; the
 forward divides by l (``mega_variants.py:363``), the backward multiplies
 by 1/l (``:461-463``): o = bf16((bf16(p) @ v) * (1/l)), which feeds dWout.
 The backward's dov = bf16(do * (1/l)) takes the fp32 do in the Pallas body
-and the bf16 do that the kernels stage (``csrc/mhsa_bwd.cuh``), one bf16
-rounding apart; ``attn_sched_bwd_plain`` keeps the Pallas body's.
+and the bf16 do that the kernels stage (``csrc/mhsa_reg_bwd.cuh``), one
+bf16 rounding apart; ``attn_sched_bwd_plain`` keeps the Pallas body's.
+
+The backward runs the shipped ``ln_attention_bwd``'s (#3) launch sequence
+with the probe's recompute in front: ``ln_rows``, the qkv product with its
+bias and the do product on the wgmma + TMA mainloop, the register-resident
+core ``csrc/mhsa_reg_bwd.cuh`` (in ``uni`` it also forms o from its own p;
+``v0`` and ``stage2`` form o first with the forward's schedule core in
+their order) and #3's tail with fp32 weight gradients.
 
 A CUDA tensor runs ``csrc/attn_sched.cu`` / ``attn_sched_bwd.cu`` or
 raises; a CPU tensor runs the ``*_plain`` version. Shapes are refused on
-either device. Each wrapper counts its launches in ``<wrapper>.launches``.
+either device; the backwards refuse on the card also operands off 16-byte
+alignment (the products read them by TMA, the cores by 16-byte copies)
+and more than 65535 samples (the cores' grid). Each wrapper
+counts its launches in ``<wrapper>.launches``.
 """
 from __future__ import annotations
 
@@ -53,17 +63,20 @@ from vlp_tpu_torch.ops import _build
 from vlp_tpu_torch.ops._common import (_acc, _cast, _cuda_operands, _heads,
                                        _merge, _mm, _route, _rows, _stream)
 from vlp_tpu_torch.ops.block_attention import attend_qkv_bwd_plain
-from vlp_tpu_torch.ops.fused_block import _EPS, _ln_bwd_dx, _ln_fwd
+from vlp_tpu_torch.ops.fused_block import (_EPS, _check_attn_launch,
+                                           _ln_bwd_dx, _ln_fwd)
 
 MODES = ("v0", "nosm", "pipe", "pipe2", "stage")
 BWD_MODES = ("v0", "stage2", "uni")
 HEAD_DIM = 32
 MAX_D = 1024
 # Largest S of each mode: the block's 232,448 bytes of shared memory hold
-# the staged q, k, v (and do) and the fp32 score rows of the schedule
-# (csrc/attn_sched.cuh, attn_sched_bwd.cu)
+# the staged q, k, v and the fp32 score rows of the schedule
+# (csrc/attn_sched.cuh); the backward's two-pass modes form o with it in
+# v0's and stage's order, then run the register core (S <= 256,
+# csrc/mhsa_reg_bwd.cuh), which alone serves uni
 MAX_SEQ = {"v0": 240, "nosm": 240, "pipe": 240, "pipe2": 224, "stage": 208}
-MAX_SEQ_BWD = {"v0": 240, "stage2": 208, "uni": 240}
+MAX_SEQ_BWD = {"v0": 240, "stage2": 208, "uni": 256}
 
 
 def _vecs(dt, *vectors):
@@ -269,6 +282,7 @@ def attn_sched_bwd(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     g, b, bq = _cuda_operands("attn_sched_bwd", x, (wqkv, wout, dy),
                               (gamma, beta, bqkv))
     n, s, d = x.shape
+    _check_attn_launch("attn_sched_bwd", n, x, wqkv, wout, dy)
     m = BWD_MODES.index(mode)
     lib = _build.load_library()
     f32 = dict(dtype=torch.float32, device=x.device)
@@ -294,9 +308,12 @@ def attn_sched_bwd(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
 
 def attn_sched_bwd_core(qkv: torch.Tensor, do: torch.Tensor, num_heads: int,
                         mode: str = "v0"):
-    """The backward's attention core alone: (o, dqkv) from qkv [N, S, 3D]
-    and do [N, S, D] (``v0``/``stage2``: the forward core with o =
-    bf16(acc * (1/l)), then ``mhsa_bwd.cuh``; ``uni``: one kernel)."""
+    """The backward's attention core alone, the launches of the full
+    backward's step 4: (o, dqkv) from qkv [N, S, 3D] and do [N, S, D]
+    (``v0``/``stage2``: the forward's schedule core with o = bf16(acc *
+    (1/l)), then the register core ``mhsa_reg_bwd.cuh``; ``uni``: the
+    register core alone, o from its own p). Its workspace holds the
+    per-sample column sums that the core writes beside dqkv."""
     _check_shapes("attn_sched_bwd_core", qkv, num_heads, mode, BWD_MODES,
                   MAX_SEQ_BWD, d3=True)
     n, s, d3 = qkv.shape
@@ -305,6 +322,7 @@ def attn_sched_bwd_core(qkv: torch.Tensor, do: torch.Tensor, num_heads: int,
     if not _route("attn_sched_bwd_core", qkv):
         return attn_sched_bwd_core_plain(qkv, do, num_heads, mode)
     _cuda_operands("attn_sched_bwd_core", qkv, (do,), ())
+    _check_attn_launch("attn_sched_bwd_core", n, qkv, do)
     m = BWD_MODES.index(mode)
     lib = _build.load_library()
     o = torch.empty_like(do)

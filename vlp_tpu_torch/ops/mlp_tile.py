@@ -22,25 +22,30 @@ them only in its probe scripts); ``vlp_tpu_torch.probes.mega_probe`` and
 ``.mlp_probe`` time them beside the shipped ``ln_mlp`` (#2) and
 ``ln_mlp_bwd`` (#4) and cuBLAS.
 
-A CUDA tensor runs ``csrc/mlp_tile.cu`` (the forward and the chain) or
-``mlp_tile_bwd.cu`` (one engine, ``mlp_tile.cuh``), or, for the single
-product, ``csrc/gemm_single.cu`` (the wgmma + TMA mainloop
-``wgmma_gemm.cuh``), or raises; a CPU tensor runs the ``*_plain`` version,
-which rounds where the Pallas bodies round. Each wrapper counts its
-launches in ``<wrapper>.launches``.
+A CUDA tensor runs ``csrc/mlp_tile.cu`` (the forward and the chain, one
+engine, ``mlp_tile.cuh``), ``mlp_tile_bwd.cu`` (the shipped
+``ln_mlp_bwd``'s (#4) launch sequence on the wgmma + TMA mainloop
+``wgmma_gemm.cuh``, with the probe's GELU form and fp32 weight gradients)
+or, for the single product, ``csrc/gemm_single.cu`` (the same mainloop),
+or raises; a CPU tensor runs the ``*_plain`` version, which rounds where
+the Pallas bodies round. Each wrapper counts its launches in
+``<wrapper>.launches``.
 
 Schedule knobs: ``tm`` rows per block and ``fs`` columns per F slice, the
 counterparts of the TPU scripts' ``tm`` and ``parts``. The Mosaic bodies
 splitN (fc1 in column slices so GELU overlaps the next product), rowpipe
 (row sub-tiles interleaved) and the production backward's fsplit order
 the same sums for one in-order core; warps interleave on their own, so
-here each is a tiling of the on-chip h: ``fs`` < F is the F-slice walk
-that splitN and fsplit make (h and dh never leave the block), and
-``tm`` 32 against 64 is the smaller row tile of rowpipe, each at two slice
-widths. Forward instances ``TILES``, backward ``BWD_TILES`` (TM 64 with
-FS 128 does not fit the backward's shared memory). The single product
-has one instance (128 x 128 output tiles, two blocks an SM): tiles 64 and
-256 columns wide were slower at the probe's shape.
+here each is a tiling. Forward (``TILES``): ``fs`` < F is the F-slice
+walk that splitN makes (h never leaves the block), and ``tm`` 32 against
+64 is the smaller row tile of rowpipe, each at two slice widths. Backward
+(``BWD_TILES``): the dual tile of ``csrc/mlp_bwd.cuh`` owns ``tm`` = 128
+rows (two warpgroups of 64, rowpipe's sub-tiles, interleaved by the card)
+and ``fs`` = 64 or 128 columns of [M, F]: Pallas fsplit's F / ``parts``
+slices, each a block of its own (24 or 12 of them at F 1536); h and dh
+go through device memory to the weight-gradient products. The single
+product has one instance (128 x 128 output tiles, two blocks an SM):
+tiles 64 and 256 columns wide were slower at the probe's shape.
 """
 from __future__ import annotations
 
@@ -53,10 +58,14 @@ from vlp_tpu_torch.ops._common import (_acc, _cuda_operands, _mm, _route,
                                        _stream, gelu_grad)
 from vlp_tpu_torch.ops._common import gelu as _gelu
 from vlp_tpu_torch.ops.fused_block import _EPS, _ln_bwd_dx, _ln_fwd
+from vlp_tpu_torch.ops.fused_mlp import check_bwd_operands
 
 TILES = ((64, 64), (64, 128), (32, 64), (32, 128))
-BWD_TILES = ((64, 64), (32, 64), (32, 128))
+BWD_TILES = ((128, 64), (128, 128))
 MAX_D = 384
+# the backward's sequence (csrc/mlp_bwd.cuh): its row passes keep a row in
+# one warp's registers (D <= 1024, D % 32 == 0)
+MAX_D_BWD = 1024
 # the chain's stages the kernel takes (those the TPU probe runs)
 CHAIN_STAGES = ((), ("gelu",), ("ln", "gelu"))
 
@@ -118,11 +127,13 @@ def mlp_single_plain(x, w1) -> torch.Tensor:
     return _mm(x, w1).to(x.dtype)
 
 
-def _check_shapes(name, x, w1, w2, tm, fs, tiles, vectors=()):
+def _check_shapes(name, x, w1, w2, tm, fs, tiles, vectors=(),
+                  backward=False):
     """ValueError on what the kernel does not take, whatever the device:
-    x [M, D], w1 [D, F], w2 [F, D], D a multiple of 64 up to 384, F a
-    multiple of fs, (tm, fs) an instance; ``vectors`` are (tensor, length)
-    pairs."""
+    x [M, D], w1 [D, F], w2 [F, D], (tm, fs) one of ``tiles``, and for the
+    tile engine D a multiple of 64 up to 384 and F a multiple of fs, for the
+    ``backward`` D and F multiples of 32, D up to 1024; ``vectors`` are
+    (tensor, length) pairs."""
     if x.dim() != 2 or w1.dim() != 2 or w1.shape[0] != x.shape[1] or (
             tuple(w2.shape) != (w1.shape[1], x.shape[1])):
         raise ValueError(f"{name}: x {tuple(x.shape)}, w1 {tuple(w1.shape)}"
@@ -136,7 +147,12 @@ def _check_shapes(name, x, w1, w2, tm, fs, tiles, vectors=()):
     if (tm, fs) not in tiles:
         raise ValueError(f"{name}: (tm, fs) = ({tm}, {fs}) is not one of the "
                          f"kernel's instances {tiles}")
-    if d % 64 or d > MAX_D or f % fs:
+    if backward:
+        if d % 32 or f % 32 or d > MAX_D_BWD:
+            raise ValueError(f"{name}: the kernel takes D and F multiples "
+                             f"of 32 and D <= {MAX_D_BWD}; got D={d}, "
+                             f"F={f}")
+    elif d % 64 or d > MAX_D or f % fs:
         raise ValueError(f"{name}: the kernel takes D a multiple of 64 up to "
                          f"{MAX_D} and F a multiple of fs = {fs}; got D={d}, "
                          f"F={f}")
@@ -166,13 +182,15 @@ def mlp_tile(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
 
 def mlp_tile_bwd(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                  w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
-                 dy: torch.Tensor, *, tm: int = 64, fs: int = 64):
+                 dy: torch.Tensor, *, tm: int = 128, fs: int = 64):
     """Backward of ``mlp_tile``: (dx, dgamma, dbeta, dw1, db1, dw2, db2),
-    dx in x's dtype, the rest fp32 (vectors ``[1, n]``)."""
+    dx in x's dtype, the rest fp32 (vectors ``[1, n]``). On the card also
+    refuses operands off 16-byte alignment and more than 65535 blocks of
+    256 rows (``fused_mlp.check_bwd_operands``)."""
     d = x.shape[-1]
     f = w1.shape[-1]
     _check_shapes("mlp_tile_bwd", x, w1, w2, tm, fs, BWD_TILES,
-                  ((gamma, d), (beta, d), (b1, f)))
+                  ((gamma, d), (beta, d), (b1, f)), backward=True)
     if dy.shape != x.shape:
         raise ValueError("mlp_tile_bwd: dy does not match x")
     if not _route("mlp_tile_bwd", x):
@@ -180,6 +198,7 @@ def mlp_tile_bwd(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     gamma, beta, b1 = _cuda_operands("mlp_tile_bwd", x, (w1, w2, dy),
                                      (gamma, beta, b1))
     m = x.shape[0]
+    check_bwd_operands("mlp_tile_bwd", m, x, dy, w1, w2)
     lib = _build.load_library()
     f32 = dict(dtype=torch.float32, device=x.device)
     dx = torch.empty_like(x)

@@ -13,7 +13,12 @@ turns with its plain version (plain, kernel, core, SDPA, then reversed) by
 CUDA events; ``core_ms`` is the mode's attention core alone on the same
 qkv (and do), ``sdpa_ms`` ``F.scaled_dot_product_attention`` on the same
 q, k, v views (forward, or its autograd backward alone): the cores'
-yardstick, which the port never calls. Errors are against the plain bf16
+yardstick, which the port never calls. Each backward mode also carries
+device time alone (``_timing.device_in_turns``: 20 calls queued behind a
+spin kernel, so no host time shows) of the kernel, its core, the shipped
+#3 and SDPA's backward, taken in turns (``kernel_device_ms``,
+``core_device_ms``, ``shipped_device_ms``, ``sdpa_device_ms``); #3's own
+record carries its ``kernel_device_ms``. Errors are against the plain bf16
 version, absolute and relative to the plain output's largest |value|
 (none for nosm, another function, as in the script; #3 returns bf16 weight
 gradients, so it has only the relative one). Every mode of a direction
@@ -37,8 +42,9 @@ import torch.nn.functional as F
 from vlp_tpu_torch.ops import attn_sched as AS
 from vlp_tpu_torch.ops import fused_block as FB
 from vlp_tpu_torch.ops._common import _heads
-from vlp_tpu_torch.probes._timing import in_turns, require_cuda
-from vlp_tpu_torch.probes.mega_probe import errors, record
+from vlp_tpu_torch.probes._timing import (device_in_turns, in_turns,
+                                          require_cuda)
+from vlp_tpu_torch.probes.mega_probe import device_alone, errors, record
 
 BATCH = 128
 SEQ, D, HEADS = 196, 384, 12
@@ -133,20 +139,6 @@ def run(batch: int = BATCH, seed: int = 0, device: str = "cuda"
     del ref
 
     bparams = (g, b, wq, bq, wo)
-
-    def bplain():
-        return AS.attn_sched_bwd_plain(x, *bparams, dy, HEADS)
-
-    refs = bplain()
-    for mode in AS.BWD_MODES:
-        def bkern(mode=mode):
-            return AS.attn_sched_bwd(x, *bparams, dy, HEADS, mode)
-
-        records.append(record("attn_bwd", mode, in_turns(
-            plain=bplain, kernel=bkern,
-            core=lambda mode=mode: AS.attn_sched_bwd_core(qkv, do, HEADS,
-                                                          mode),
-            sdpa=sdpa_bwd), bwd_work, **errors(bkern(), refs)))
     # #3 reads the forward launch's qkv and o (on the CPU it recomputes them)
     if x.is_cuda:
         _, qkv1, o1 = FB._ln_attention_cuda(x, g1, b1, wq1, bq1, wo1, bo1,
@@ -158,11 +150,30 @@ def run(batch: int = BATCH, seed: int = 0, device: str = "cuda"
         return FB.ln_attention_bwd(x, g1, b1, wq1, bq1, wo1, dy, HEADS,
                                    qkv1, o1)
 
+    def bplain():
+        return AS.attn_sched_bwd_plain(x, *bparams, dy, HEADS)
+
+    refs = bplain()
+    for mode in AS.BWD_MODES:
+        def bkern(mode=mode):
+            return AS.attn_sched_bwd(x, *bparams, dy, HEADS, mode)
+
+        def core(mode=mode):
+            return AS.attn_sched_bwd_core(qkv, do, HEADS, mode)
+
+        rec = record("attn_bwd", mode, in_turns(
+            plain=bplain, kernel=bkern, core=core, sdpa=sdpa_bwd), bwd_work,
+            **errors(bkern(), refs))
+        rec.update(device_alone(device_in_turns(
+            kernel=bkern, core=core, shipped=shipped, sdpa=sdpa_bwd)))
+        records.append(rec)
     rel = errors(shipped(), refs)["max_rel_err"]
-    records.append(record(
+    rec = record(
         "attn_bwd", "ln_attention_bwd #3 (shipped, reads #1's qkv and o, "
         "recomputes neither)", in_turns(plain=bplain, kernel=shipped),
-        bwd_work, max_abs_err=None, max_rel_err=rel))
+        bwd_work, max_abs_err=None, max_rel_err=rel)
+    rec.update(device_alone(device_in_turns(kernel=shipped)))
+    records.append(rec)
     return records
 
 

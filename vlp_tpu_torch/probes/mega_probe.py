@@ -9,7 +9,11 @@ instance, and its two ablation bounds at the default instance (GELU ->
 identity, LN -> identity), beside the shipped two-launch ``ln_mlp`` (#2,
 the script's "v0 (current)" line: h goes through device memory) and the
 plain version. Backward (#14): ``mlp_tile_bwd`` at each backward instance
-beside the shipped ``ln_mlp_bwd`` (#4) and the plain version. Each is
+beside the shipped ``ln_mlp_bwd`` (#4) and the plain version, each
+instance also with device time alone (``_timing.device_in_turns``: 20
+calls queued behind a spin kernel, so no host time shows) of the kernel
+and #4 taken in turns (``kernel_device_ms``, ``shipped_device_ms``); #4's
+own record carries its ``kernel_device_ms``. Each is
 timed in turns with its plain version (plain, kernel, kernel, plain) by
 CUDA events, with its largest error against the plain version, absolute
 and relative to the plain output's largest |value| (none for the
@@ -34,7 +38,8 @@ import torch
 
 from vlp_tpu_torch.ops import fused_block as FB
 from vlp_tpu_torch.ops import mlp_tile as MT
-from vlp_tpu_torch.probes._timing import bound_ms, in_turns, require_cuda
+from vlp_tpu_torch.probes._timing import (bound_ms, device_in_turns,
+                                          in_turns, require_cuda)
 
 BATCH = 128
 SEQ, D = 196, 384
@@ -76,6 +81,11 @@ def record(probe: str, variant: str, t: Dict[str, float], work, **extra):
             **{f"{k}_ms": v for k, v in t.items()}, "flops": flops,
             "bytes": nbytes, **bound_ms(flops, nbytes),
             "tflops": flops / t["kernel"] / 1e9, **extra}
+
+
+def device_alone(t: Dict[str, float]) -> Dict[str, float]:
+    """``device_in_turns``' times as record fields ``<name>_device_ms``."""
+    return {f"{k}_device_ms": v for k, v in t.items()}
 
 
 def errors(outs, refs) -> Dict[str, float]:
@@ -134,19 +144,26 @@ def run(batch: int = BATCH, seed: int = 0, device: str = "cuda"
     def bplain():
         return MT.mlp_tile_bwd_plain(x, *bparams, dy)
 
+    def shipped():
+        return FB.ln_mlp_bwd(x, *bparams, dy)
+
     refs = bplain()
     for tm, fs in MT.BWD_TILES:
         def bkern(tm=tm, fs=fs):
             return MT.mlp_tile_bwd(x, *bparams, dy, tm=tm, fs=fs)
 
         err = errors(bkern(), refs)
-        records.append(record(
-            "mlp_bwd", f"tile tm={tm} fs={fs}", in_turns(
-                plain=bplain, kernel=bkern), bwd_work, tm=tm, fs=fs, **err))
-    rel = errors(FB.ln_mlp_bwd(x, *bparams, dy), refs)["max_rel_err"]
-    records.append(record("mlp_bwd", "ln_mlp_bwd #4 (shipped)", in_turns(
-        plain=bplain, kernel=lambda: FB.ln_mlp_bwd(x, *bparams, dy)),
-        bwd_work, max_abs_err=None, max_rel_err=rel))
+        rec = record("mlp_bwd", f"tile tm={tm} fs={fs}", in_turns(
+            plain=bplain, kernel=bkern), bwd_work, tm=tm, fs=fs, **err)
+        rec.update(device_alone(device_in_turns(kernel=bkern,
+                                                shipped=shipped)))
+        records.append(rec)
+    rel = errors(shipped(), refs)["max_rel_err"]
+    rec = record("mlp_bwd", "ln_mlp_bwd #4 (shipped)", in_turns(
+        plain=bplain, kernel=shipped), bwd_work, max_abs_err=None,
+        max_rel_err=rel)
+    rec.update(device_alone(device_in_turns(kernel=shipped)))
+    records.append(rec)
     return records
 
 
