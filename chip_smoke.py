@@ -17,9 +17,13 @@ Phases, each printing its lines before the last line:
    and out-projection share), whose registers it prints) reach
    Hopper's units: ``cuobjdump --dump-sass`` of the library shows HGMMA
    and UTMALDG in each, and the build's ``-Xptxas -v`` report shows 0 spill bytes for
-   each and no serialized wgmma; that #1's and #5's forward core
-   (``csrc/mhsa_reg.cuh`` at head dim 32 and 13 key tiles, both row maps)
-   spills nothing, with its registers printed; and that every instance of
+   each and no serialized wgmma; that every instance of the forward core
+   (``csrc/mhsa_reg.cuh``: #7's, #1's and #5's v0 order at head dim 32 and
+   13 key tiles, both row maps, and #15's forms, v0, nosm, pipe, pipe2,
+   stage and the kRecip v0 and stage of #16's pass 1, at every key-tile
+   count) spills nothing, with the registers of each form by key tiles and
+   the shared memory a block of each mode takes at S 196 and 256 (the
+   parked p of pipe2 and stage) printed; and that every instance of
    the register-resident attention-core backward
    (``csrc/mhsa_reg_bwd.cuh``, #3's and #6's at head dim 32 and 13 key
    tiles among them, and #16's uni core, which also forms o, at every key
@@ -156,15 +160,18 @@ Phases, each printing its lines before the last line:
    nosm bound against its own plain version, pipe, pipe2, stage), its core
    alone, ``attn_sched_bwd`` (#16, every cotangent) and its core in every
    mode (v0, stage2, uni), at NesT-Small level 3's width (D 384, 12 heads)
-   on 4 samples of S 196 and of a ragged S 37, biases and beta drawn at
-   scale 1 and gamma not 1, against their plain versions in bf16 and in
-   fp32 (TF32 off); the softmax modes' y bit-equal, every backward mode
-   bit-identical on a rerun, uni's core o (the register core's) against
-   v0's (the schedule core's) counted; then the probe entry point
+   on 4 samples of S 196, 4 of a ragged S 37 and 2 of every mode's
+   largest S 256, biases and beta drawn at scale 1 and gamma not 1,
+   against their plain versions in bf16 and in fp32 (TF32 off); the
+   softmax modes' y bit-equal to each other and to the shipped #1's
+   (``ln_attention``: v0 launches what #1 launches), every backward mode
+   bit-identical on a rerun, its core's o bit-equal in every mode (uni's
+   from the backward core's p, v0's and stage2's from the forward core
+   with kRecip), the elements apart printed; then the probe entry point
    (``vlp_tpu_torch.probes.attn_probe.run``) at batch 128: each mode, its
    core, SDPA on the same q, k, v, the shipped #1/#3 and the plain versions
-   in turns, #16's modes, their cores, #3 and SDPA's backward also as
-   device time alone, each mode's error there held to the same bound.
+   in turns, each mode, its core, #1/#3 and SDPA also as device time
+   alone, each mode's error there held to the same bound.
 
 Then one JSON line with every kernel: its launches in the timed training
 steps of the path that runs it (NesT-Small's for #1-#4, #11, #12; ViT-B's
@@ -204,6 +211,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -348,8 +356,9 @@ BWD_DEVICE_KEYS = ("kernel_device_ms", "shipped_device_ms", "core_device_ms",
 # ragged M whose last tile is partial at TM 32 and 64) at level 3's width
 MLP_CHECK_ROWS = (16 * SEQ, 1037)
 MLP_D, MLP_F = 384, 1536
-# attention probe kernels: the checks' (N, S) at level 3's width, 12 heads
-ATTN_CHECKS = ((4, SEQ), (4, 37))
+# attention probe kernels: the checks' (N, S) at level 3's width, 12 heads:
+# the probe's S, a ragged one and every mode's largest
+ATTN_CHECKS = ((4, SEQ), (4, 37), (2, 256))
 ATTN_D, ATTN_HEADS = 384, 12
 # Peak rate of one H100 SXM (NVIDIA's data sheet) of fp32 outside the
 # tensor cores (shear, noise); device memory and bf16 in probes/_timing.py
@@ -451,10 +460,20 @@ REG_BWD_KERNEL = "mhsa_reg_bwd_kernel"
 NEST_ROW_MAPS = ("IdentityRows", "WindowRows")
 REG_BWD_NEST_ARGS = ("ILi32ELi13E", "Lb1ELb0E")
 REG_BWD_UNI_ARGS = ("ILi32ELi13E", "IdentityRows", "Lb1ELb1E")
-# the register-resident forward core (csrc/mhsa_reg.cuh) of #1 and #5 at
-# NesT's S = 196: <32, 13, row map> must be built and keep 0 spill bytes
+# the register-resident forward core (csrc/mhsa_reg.cuh,
+# mhsa_reg_kernel<HD, KT, Rows, Order, kNosm, kRecip> in ptxas's mangled
+# names): #1's and #5's v0 instance at NesT's S = 196 (<32, 13, row map, 0,
+# false, false>) and #15's forms at every key-tile count must be built, and
+# every instance (#7's at both head dims among them) must keep 0 spill bytes
 REG_FWD_KERNEL = "mhsa_reg_kernel"
-REG_FWD_NEST_ARGS = ("ILi32ELi13E",)
+REG_FWD_ARGS = re.compile(r"mhsa_reg_kernelILi(\d+)ELi(\d+)ENS_\d+(\w+?Rows)"
+                          r"ELi(\d)ELb([01])ELb([01])E")
+# #15's modes and #16's two-pass modes' pass 1: (mode, order, nosm, recip)
+SCHED_FORMS = {"v0": ("v0", 0, 0, 0), "nosm": ("nosm", 0, 1, 0),
+               "pipe": ("pipe", 1, 0, 0), "pipe2": ("pipe2", 2, 0, 0),
+               "stage": ("stage", 3, 0, 0),
+               "v0 recip (#16 v0's pass 1)": ("v0", 0, 0, 1),
+               "stage recip (#16 stage2's pass 1)": ("stage", 3, 0, 1)}
 
 
 def _ptxas_report(log: str):
@@ -496,12 +515,57 @@ def _sass_functions(sass: str):
     return funcs
 
 
+def _check_forward_cores(report) -> None:
+    """Every instance of the register-resident forward core keeps 0 spill
+    bytes; #1's and #5's v0 instance at 13 key tiles and each of #15's
+    forms at every key-tile count are built. Prints the registers of each
+    and the shared memory a block of each mode takes at S 196 and 256, the
+    parked p beyond v0's staged k and v."""
+    fwd = {}
+    for name, v in report.items():
+        m = REG_FWD_ARGS.search(name)
+        if m:
+            hd, kt, rows, order, nosm, recip = m.groups()
+            fwd[(int(hd), int(kt), rows, int(order), int(nosm),
+                 int(recip))] = v
+    check(len(fwd) == sum(REG_FWD_KERNEL in k for k in report),
+          f"a {REG_FWD_KERNEL} instance's name does not parse")
+    for rows in NEST_ROW_MAPS:
+        check((32, 13, rows, 0, 0, 0) in fwd,
+              f"ptxas reported no {REG_FWD_KERNEL}<32, 13, {rows}> (v0)")
+        nreg, st, ld = fwd[(32, 13, rows, 0, 0, 0)]
+        print(f"ptxas {REG_FWD_KERNEL}<32, 13, {rows}, v0> (#1/#5's core): "
+              f"{nreg} registers, spill stores {st} bytes, spill loads {ld} "
+              "bytes")
+    lib = _build.load_library()
+    for form, (mode, order, nosm, recip) in SCHED_FORMS.items():
+        regs = {k[1]: v[0] for k, v in fwd.items()
+                if k[0] == 32 and k[2] == "IdentityRows"
+                and k[3:] == (order, nosm, recip)}
+        check(len(regs) == 16, f"ptxas reported {len(regs)} key-tile "
+              f"instances of #15's {form}, expected 16")
+        smem = {s: lib.vlp_attn_sched_core_smem(s, AS.MODES.index(mode))
+                for s in (SEQ, 256)}
+        park = {s: b - lib.vlp_attn_sched_core_smem(s, 0)
+                for s, b in smem.items()}
+        print(f"ptxas {REG_FWD_KERNEL} #15 {form}: registers by key tiles "
+              f"{dict(sorted(regs.items()))}; a block's shared memory "
+              f"{smem[SEQ]} bytes at S {SEQ}, {smem[256]} at 256, "
+              + (f"of which parked p {park[SEQ]} / {park[256]}"
+                 if park[SEQ] else "nothing parked"))
+    spilling = sorted(k for k, (_, st, ld) in report.items()
+                      if REG_FWD_KERNEL in k and (st or ld))
+    print(f"ptxas {REG_FWD_KERNEL}: {len(fwd)} instances, {len(spilling)} "
+          "spilling")
+    check(not spilling, f"{REG_FWD_KERNEL} instances spill: {spilling}")
+
+
 def _check_hopper_units() -> None:
     """The wgmma + TMA kernels reach Hopper's units: their SASS holds HGMMA
     (wgmma) and UTMALDG (TMA loads), ptxas reports 0 spill bytes for every
     instance and serializes none of their wgmma; every instance of the
-    register-resident attention-core backward keeps 0 spill bytes, #3's
-    and #6's among them."""
+    register-resident attention cores, forward and backward, keeps 0 spill
+    bytes, #1's, #3's, #5's, #6's and #15's among them."""
     report, serial = _ptxas_report(_build.build_log().read_text())
     mine = {k: v for k, v in report.items() if WGMMA_KERNEL in k}
     for name, (nreg, st, ld) in sorted(mine.items()):
@@ -526,18 +590,7 @@ def _check_hopper_units() -> None:
           f"{WGMMA_FWD} instances, expected {WGMMA_FWD_INSTANCES}")
     print(f"ptxas forward products (#2/#9, #1/#5): {len(fwd)} instances, "
           f"{fwd[0]}-{fwd[-1]} registers, 0 spill bytes")
-    for rows in NEST_ROW_MAPS:
-        found = [v for k, v in report.items()
-                 if REG_FWD_KERNEL in k and rows in k and
-                 all(a in k for a in REG_FWD_NEST_ARGS)]
-        check(len(found) == 1,
-              f"ptxas reported no {REG_FWD_KERNEL}<32, 13, {rows}>")
-        nreg, st, ld = found[0]
-        print(f"ptxas {REG_FWD_KERNEL}<32, 13, {rows}> (#1/#5's core): "
-              f"{nreg} registers, spill stores {st} bytes, spill loads {ld} "
-              "bytes")
-        check(st == 0 and ld == 0,
-              f"{REG_FWD_KERNEL}<32, 13, {rows}> spills")
+    _check_forward_cores(report)
     core = {k: v for k, v in report.items() if REG_BWD_KERNEL in k}
     for rows in NEST_ROW_MAPS:
         found = [v for k, v in core.items()
@@ -1938,9 +1991,12 @@ def _attn_probe_checks(gen, n, s, stats):
     check(all(torch.equal(ys[m], ys["v0"]) for m in ("pipe", "pipe2",
                                                      "stage")),
           f"attn_sched {where}: the softmax modes' y differ")
-    print(f"kernel attn_sched {where}: v0, pipe, pipe2, stage y bit-equal; "
-          f"v0 bit-equal to #1 ln_attention: "
-          f"{torch.equal(ys['v0'], FB.ln_attention(x, *params, heads))}")
+    shipped = FB.ln_attention(x, *params, heads)
+    check(torch.equal(ys["v0"], shipped),
+          f"attn_sched {where}: v0's y differs from #1 ln_attention's in "
+          f"{int((ys['v0'] != shipped).sum())} elements")
+    print(f"kernel attn_sched {where}: v0, pipe, pipe2, stage y bit-equal, "
+          "and bit-equal to #1 ln_attention's")
     refs = AS.attn_sched_bwd_plain(x, *params[:5], dy, heads)
     refs32 = AS.attn_sched_bwd_plain(x.float(), *p32[:5], dy.float(), heads)
     core_refs = AS.attn_sched_bwd_core_plain(qkv, dy, heads)
@@ -1963,11 +2019,15 @@ def _attn_probe_checks(gen, n, s, stats):
               f"attn_sched_bwd {where} {mode}: a rerun differs")
     same = [m for m in AS.BWD_MODES[1:] if all(
         torch.equal(a, b) for a, b in zip(outs[m], outs["v0"]))]
+    apart = {m: int((core_o[m] != core_o["v0"]).sum())
+             for m in AS.BWD_MODES[1:]}
     print(f"kernel attn_sched_bwd {where}: reruns bit-identical; modes "
-          f"bit-equal to v0: {same}; uni's core o (the register core's) "
-          f"against v0's (the schedule core's): "
-          f"{int((core_o['uni'] != core_o['v0']).sum())} of "
-          f"{core_o['v0'].numel()} elements differ")
+          f"bit-equal to v0: {same}; core o against v0's pass-1 o (the "
+          f"forward core with kRecip): stage2's and uni's (the backward "
+          f"core's kOut) differ in {apart['stage2']} and {apart['uni']} of "
+          f"{core_o['v0'].numel()} elements")
+    check(not any(apart.values()),
+          f"attn_sched_bwd {where}: the modes' o differ: {apart}")
 
 
 def phase_attn_probe_kernels(smi: str):

@@ -1,6 +1,7 @@
-"""Before and after of the probe backwards #16 ``attn_sched_bwd`` (each
-mode, and its core alone) and #14 ``mlp_tile_bwd`` (each instance) in one
-process on one CUDA card, at the probes' shape (``probes/attn_probe.py``,
+"""Before and after of the attention probes #15 ``attn_sched`` and #16
+``attn_sched_bwd`` (each mode, and each core alone) and of #14
+``mlp_tile_bwd`` (each instance) in one process on one CUDA card, at the
+probes' shape (``probes/attn_probe.py``,
 ``probes/mega_probe.py``: NesT-Small level 3, S 196, D 384, 12 heads of
 32, F 1536; ``--batch`` 128).
 
@@ -9,9 +10,10 @@ earlier commit unpacked with ``git archive`` into a directory that
 ``.gitignore`` lists). Its library is built from its own
 ``vlp_tpu_torch/csrc`` by its own ``_build.py`` into its own build
 directory (``scripts/ab_attention.py``'s ``_load_parent_build``). In the
-parent's turns this tree's ``attn_sched_bwd``, ``attn_sched_bwd_core`` and
-``mlp_tile_bwd`` wrappers launch that library's entry points of the same
-names and its workspace queries (their C signatures must be this tree's),
+parent's turns this tree's ``attn_sched``, ``attn_sched_core``,
+``attn_sched_bwd``, ``attn_sched_bwd_core`` and ``mlp_tile_bwd`` wrappers
+launch that library's entry points of the same names and its workspace
+queries (their C signatures must be this tree's),
 and #14 runs the parent's instances (``BWD_TILES`` as its
 ``ops/mlp_tile.py`` lists them); every other kernel and all the code
 around them are this tree's. The turns alternate (parent, change, change,
@@ -19,16 +21,18 @@ parent, ...) after one warm-up turn of each, and each turn times, as device
 time alone per call (``_timing.device_ms``: 20 calls queued behind a spin
 kernel, so the host's time does not show):
 
+  attn_fwd_<mode>_ms       #15 in mode v0, nosm, pipe, pipe2, stage
+  attn_fwd_core_<mode>_ms  its core alone on the probe's qkv
   attn_bwd_<mode>_ms       #16 in mode v0, stage2, uni
   attn_bwd_core_<mode>_ms  its core alone on the probe's qkv and do
   mlp_bwd_<tm>x<fs>_ms     #14 at each of the side's instances, and
   mlp_bwd_fastest_ms       the fastest of them
-  ln_attention_bwd_ms, ln_mlp_bwd_ms, sdpa_bwd_ms
-                           the shipped #3 (on #1's qkv and o) and #4 and
-                           SDPA's backward on the same q, k, v: yardsticks,
-                           this tree's on both sides
+  ln_attention_ms, ln_attention_bwd_ms, ln_mlp_bwd_ms, sdpa_fwd_ms,
+  sdpa_bwd_ms              the shipped #1, #3 (on #1's qkv and o) and #4
+                           and SDPA forward and backward on the same q, k,
+                           v: yardsticks, this tree's on both sides
 
-After the turns, one call of each #16 mode, each core and each #14
+After the turns, one call of each #15 and #16 mode, each core and each #14
 instance per side runs under ``torch.profiler``: the ``split`` of the
 summary lists each call's kernels in launch order with their device ms.
 ``--only parent`` times and splits the parent's kernels alone (the
@@ -68,7 +72,8 @@ from vlp_tpu_torch.ops import mlp_tile as MT  # noqa: E402
 from vlp_tpu_torch.probes import attn_probe, mega_probe  # noqa: E402
 from vlp_tpu_torch.probes._timing import device_ms, require_cuda  # noqa: E402
 
-PARENT_ENTRY_POINTS = ("vlp_attn_sched_bwd", "vlp_attn_sched_bwd_workspace",
+PARENT_ENTRY_POINTS = ("vlp_attn_sched", "vlp_attn_sched_core",
+                       "vlp_attn_sched_bwd", "vlp_attn_sched_bwd_workspace",
                        "vlp_attn_sched_bwd_core",
                        "vlp_attn_sched_bwd_core_workspace",
                        "vlp_mlp_tile_bwd", "vlp_mlp_tile_bwd_workspace")
@@ -118,7 +123,7 @@ def main(argv=None) -> int:
     aparams = (g, b, wq, bq, wo)
     qkv = AS.ln_qkv_plain(x, g, b, wq, bq)[-1]
     do = (dy.float() @ wo.float().T).bfloat16()
-    _, sdpa_bwd = attn_probe._sdpa(qkv, do)
+    sdpa_fwd, sdpa_bwd = attn_probe._sdpa(qkv, do)
     (g1, b1, bq1, bo1), (wq1, wo1) = FB._cast(
         x.dtype, vectors=(g, b, bq, bo), matrices=(wq, wo))
     m = args.batch * mega_probe.SEQ
@@ -136,6 +141,13 @@ def main(argv=None) -> int:
         _, qkv1, o1 = FB._ln_attention_cuda(x, g1, b1, wq1, bq1, wo1, bo1,
                                             attn_probe.HEADS)
         fns = {}
+        for mode in AS.MODES:
+            fns[f"attn_fwd_{mode}_ms"] = (
+                lambda mode=mode: AS.attn_sched(
+                    x, *aparams, bo, attn_probe.HEADS, mode))
+            fns[f"attn_fwd_core_{mode}_ms"] = (
+                lambda mode=mode: AS.attn_sched_core(
+                    qkv, attn_probe.HEADS, mode))
         for mode in AS.BWD_MODES:
             fns[f"attn_bwd_{mode}_ms"] = (
                 lambda mode=mode: AS.attn_sched_bwd(
@@ -147,9 +159,12 @@ def main(argv=None) -> int:
             fns[f"mlp_bwd_{tm}x{fs}_ms"] = (
                 lambda tm=tm, fs=fs: MT.mlp_tile_bwd(mx, *mparams, mdy,
                                                      tm=tm, fs=fs))
+        fns["ln_attention_ms"] = lambda: FB.ln_attention(
+            x, *aparams, bo, attn_probe.HEADS)
         fns["ln_attention_bwd_ms"] = lambda: FB.ln_attention_bwd(
             x, g1, b1, wq1, bq1, wo1, dy, attn_probe.HEADS, qkv1, o1)
         fns["ln_mlp_bwd_ms"] = lambda: FB.ln_mlp_bwd(mx, *mparams, mdy)
+        fns["sdpa_fwd_ms"] = sdpa_fwd
         fns["sdpa_bwd_ms"] = sdpa_bwd
         return fns
 
@@ -180,7 +195,7 @@ def main(argv=None) -> int:
     splits = {}
     for side in order:
         for name, fn in calls(side).items():
-            if name.startswith(("attn_bwd", "mlp_bwd")):
+            if name.startswith(("attn_fwd", "attn_bwd", "mlp_bwd")):
                 splits[f"{side} {name[:-3]}"] = [
                     (k[:120], ms) for k, ms in _call_kernels(fn)]
     summary = {"card": smi, "batch": args.batch, "rounds": args.rounds,

@@ -197,22 +197,21 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
         AS.attn_sched_bwd(x, *params[:5], dy, HEADS, "pipe")
     with pytest.raises(ValueError, match="unknown mode"):
         AS.attn_sched_core_plain(x, HEADS, "batched")
-    long = torch.zeros(1, 225, D, dtype=torch.bfloat16)
-    for mode, fine in (("pipe", True), ("pipe2", False), ("stage", False)):
-        if fine:
+    # every mode takes the register core's S <= 256
+    long = torch.zeros(1, 257, D, dtype=torch.bfloat16)
+    for mode in ("pipe", "pipe2", "stage"):
+        AS.attn_sched(long[:, :256], *params, HEADS, mode)
+        with pytest.raises(ValueError, match="S <= 256"):
             AS.attn_sched(long, *params, HEADS, mode)
-        else:
-            with pytest.raises(ValueError, match="S <= "):
-                AS.attn_sched(long, *params, HEADS, mode)
     with pytest.raises(ValueError, match="S <= 256"):
         AS.attn_sched_bwd(torch.zeros(1, 257, D, dtype=torch.bfloat16),
                           *params[:5], torch.zeros(1, 257, D), HEADS, "uni")
-    with pytest.raises(ValueError, match="S <= 240"):
-        AS.attn_sched_bwd(torch.zeros(1, 241, D, dtype=torch.bfloat16),
-                          *params[:5], torch.zeros(1, 241, D), HEADS, "v0")
-    with pytest.raises(ValueError, match="S <= 208"):
-        AS.attn_sched_bwd_core(torch.zeros(1, 209, 3 * D), torch.zeros(
-            1, 209, D), HEADS, "stage2")
+    with pytest.raises(ValueError, match="S <= 256"):
+        AS.attn_sched_bwd(torch.zeros(1, 257, D, dtype=torch.bfloat16),
+                          *params[:5], torch.zeros(1, 257, D), HEADS, "v0")
+    with pytest.raises(ValueError, match="S <= 256"):
+        AS.attn_sched_bwd_core(torch.zeros(1, 257, 3 * D), torch.zeros(
+            1, 257, D), HEADS, "stage2")
     wide = torch.zeros(1, 4, 1056, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="D <= 1024"):
         AS.attn_sched_core(torch.zeros(1, 4, 3 * 1056), 33)

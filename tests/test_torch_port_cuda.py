@@ -1030,9 +1030,12 @@ def _attn_sched_params(gen, d):
 
 
 # The attention schedule probes: every mode at the probe's width (D 384, 12
-# heads) at S 196 and a ragged S, and a narrow one.
-@pytest.mark.parametrize("n,s,d", [(4, 196, 384), (4, 37, 384), (3, 208, 64)])
+# heads) at S 196, a ragged S and the largest, and a narrow one.
+@pytest.mark.parametrize("n,s,d", [(4, 196, 384), (4, 37, 384), (3, 208, 64),
+                                   (2, 256, 384)])
 def test_attn_sched_kernels_match_plain_and_agree_across_modes(cuda, n, s, d):
+    """Every mode against its plain version; the softmax modes' y bit-equal
+    to each other and to #1's (v0 launches what #1 launches)."""
     heads = d // 32
     gen = torch.Generator(device=cuda).manual_seed(n + s + d)
     x = _rand(gen, n, s, d).bfloat16()
@@ -1056,6 +1059,33 @@ def test_attn_sched_kernels_match_plain_and_agree_across_modes(cuda, n, s, d):
         ys[mode] = y
     for mode in ("pipe", "pipe2", "stage"):
         assert torch.equal(ys[mode], ys["v0"]), mode
+    assert torch.equal(ys["v0"], FB.ln_attention(x, *params, heads))
+
+
+def test_attn_sched_refuses_misaligned_operands_and_65536_samples(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    x = _rand(gen, 2, 40, 64).bfloat16()
+    params = list(_attn_sched_params(gen, 64))
+    off = torch.zeros(x.numel() + 4, device=cuda,
+                      dtype=torch.bfloat16)[4:].view(x.shape)
+    w_off = torch.zeros(params[2].numel() + 4, device=cuda,
+                        dtype=torch.bfloat16)[4:].view(params[2].shape)
+    before = (AS.attn_sched.launches, AS.attn_sched_core.launches)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        AS.attn_sched(off, *params, 2)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        AS.attn_sched(x, *params[:2], w_off, *params[3:], 2)
+    qkv = torch.zeros(2 * 40 * 192 + 4, device=cuda,
+                      dtype=torch.bfloat16)[4:].view(2, 40, 192)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        AS.attn_sched_core(qkv, 2)
+    many = torch.zeros(65536, 1, 64, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="at most 65535"):
+        AS.attn_sched(many, *params, 2)
+    with pytest.raises(ValueError, match="at most 65535"):
+        AS.attn_sched_core(torch.zeros(65536, 1, 192, device=cuda,
+                                       dtype=torch.bfloat16), 2)
+    assert (AS.attn_sched.launches, AS.attn_sched_core.launches) == before
 
 
 @pytest.mark.parametrize("n,s,d", [(4, 196, 384), (4, 37, 384), (3, 208, 64)])
@@ -1063,7 +1093,9 @@ def test_attn_sched_bwd_kernels_match_plain_and_rerun_bit_equal(cuda, n, s,
                                                                 d):
     """Every mode against the plain version in bf16 and in fp32 (TF32
     off), one launch a call, a rerun bit-equal; the core alone (uni's o
-    from the register core's own p) against its plain version."""
+    from the register core's own p) against its plain version, and every
+    mode's o bit-equal (v0's and stage2's from the forward core with
+    kRecip)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     heads = d // 32
     gen = torch.Generator(device=cuda).manual_seed(n + s + d + 1)
@@ -1075,6 +1107,7 @@ def test_attn_sched_bwd_kernels_match_plain_and_rerun_bit_equal(cuda, n, s,
                                      dy.float(), heads)
     qkv = AS.ln_qkv_plain(x, *params[:4])[-1]
     core_refs = AS.attn_sched_bwd_core_plain(qkv, dy, heads)
+    core_o = {}
     for mode in AS.BWD_MODES:
         before = AS.attn_sched_bwd.launches
         outs = AS.attn_sched_bwd(x, *params, dy, heads, mode)
@@ -1096,16 +1129,19 @@ def test_attn_sched_bwd_kernels_match_plain_and_rerun_bit_equal(cuda, n, s,
         for name, out, ref in zip(("o", "dqkv"), core, core_refs):
             assert out.shape == ref.shape and out.dtype == ref.dtype, name
             assert _rel_err(out, ref) <= BOUND, (mode, name)
+        core_o[mode] = core[0]
+    for mode in ("stage2", "uni"):
+        assert torch.equal(core_o[mode], core_o["v0"]), mode
 
 
-@pytest.mark.parametrize("s,modes", [(241, ("uni",)),
-                                     (256, ("uni",)),
-                                     (240, ("v0", "uni")),
+@pytest.mark.parametrize("s,modes", [(241, AS.BWD_MODES),
+                                     (256, AS.BWD_MODES),
+                                     (240, AS.BWD_MODES),
                                      (1, AS.BWD_MODES)])
 def test_attn_sched_bwd_takes_each_modes_largest_s(cuda, s, modes):
-    """uni runs the register core alone (S <= 256); v0 and stage2 form o
-    with the forward's schedule core first (S <= 240, 208). At S 1 dq and
-    dk are zero."""
+    """Every mode runs the register cores (S <= 256): uni the backward's
+    alone, v0 and stage2 the forward's first for o. At S 1 dq and dk are
+    zero."""
     n, d = 2, 64
     gen = torch.Generator(device=cuda).manual_seed(s)
     x = _rand(gen, n, s, d).bfloat16()

@@ -11,10 +11,10 @@ entry point with the operands' pointers in the order of the C signature
 What the CUDA kernels do not take raises before any call: fp32 operands,
 operands off 16-byte alignment (the products read them by TMA, the cores
 by 16-byte copies), a head dim other than 32, S beyond the mode's limit
-(``MAX_SEQ_BWD``: 240 for v0, 208 for stage2, whose first pass is the
-forward's schedule core, 256 for uni, the register core's), more samples
-than the cores' grid, and for #14 (tm, fs) outside ``BWD_TILES`` and D or F
-not multiples of 32.
+(``MAX_SEQ_BWD``: 256 in every mode, the register cores' 16 key tiles,
+whose forward core forms v0's and stage2's o first), more samples than the
+cores' grid, and for #14 (tm, fs) outside ``BWD_TILES`` and D or F not
+multiples of 32.
 """
 import contextlib
 
@@ -193,7 +193,7 @@ def test_attn_sched_bwd_cuda_route_refuses(fake, case, match, mode):
 @pytest.mark.parametrize("mode", AS.BWD_MODES)
 def test_attn_sched_bwd_refuses_s_beyond_the_modes_limit(fake, mode):
     limit = AS.MAX_SEQ_BWD[mode]
-    assert limit == {"v0": 240, "stage2": 208, "uni": 256}[mode]
+    assert limit == {"v0": 256, "stage2": 256, "uni": 256}[mode]
     ops, heads = list(_attn_operands(1, limit + 1, 64)), 2
     qkv = torch.zeros(1, limit + 1, 192, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match=f"S <= {limit}"):
@@ -326,22 +326,25 @@ def test_ab_probes_script_reads_each_sides_instances(tmp_path):
 
 
 def test_ab_probes_script_serves_the_parents_probe_backwards():
-    """In the parent's turns the probe backwards' entry points and their
-    workspace queries come from the parent's library, every other entry
-    point (the shipped #1/#3/#4 yardsticks among them) from this tree's."""
+    """In the parent's turns the attention probes' (#15's and #16's) and
+    #14's entry points and their workspace queries come from the parent's
+    library, every other entry point (the shipped #1/#3/#4 yardsticks among
+    them) from this tree's."""
     ab, _ = _ab_probes()
     names = ab.PARENT_ENTRY_POINTS
-    assert set(names) == {"vlp_attn_sched_bwd", "vlp_attn_sched_bwd_workspace",
+    assert set(names) == {"vlp_attn_sched", "vlp_attn_sched_core",
+                          "vlp_attn_sched_bwd", "vlp_attn_sched_bwd_workspace",
                           "vlp_attn_sched_bwd_core",
                           "vlp_attn_sched_bwd_core_workspace",
                           "vlp_mlp_tile_bwd", "vlp_mlp_tile_bwd_workspace"}
     own = type("Own", (), {n: "own" for n in names + (
-        "vlp_ln_attention_bwd", "vlp_ln_mlp_bwd", "vlp_attn_sched")})()
+        "vlp_ln_attention", "vlp_ln_attention_bwd", "vlp_ln_mlp_bwd",
+        "vlp_attn_sched_core_smem")})()
     other = type("Other", (), {n: "parent" for n in names})()
     mixed = ab._Mixed(own, other, names)
     assert all(getattr(mixed, n) == "parent" for n in names)
     assert mixed.vlp_ln_attention_bwd == mixed.vlp_ln_mlp_bwd == "own"
-    assert mixed.vlp_attn_sched == "own"
+    assert mixed.vlp_ln_attention == mixed.vlp_attn_sched_core_smem == "own"
 
 
 def test_ab_probes_script_needs_a_card(monkeypatch, capsys):

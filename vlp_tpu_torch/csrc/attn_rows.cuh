@@ -1,6 +1,6 @@
-// Row maps of the attention cores (mhsa.cuh, mhsa_reg.cuh,
-// mhsa_reg_bwd.cuh): where token r of attention unit n lies among the rows
-// of qkv [M, 3D], o and do [M, D] and dqkv [M, 3D].
+// Row maps of the attention cores (mhsa_reg.cuh, mhsa_reg_bwd.cuh): where
+// token r of attention unit n lies among the rows of qkv [M, 3D], o and do
+// [M, D] and dqkv [M, 3D].
 //
 //   IdentityRows  unit n is sample n of [N, S, *]: row n * S + r (kernels
 //                 #1, #3, #7, #8).

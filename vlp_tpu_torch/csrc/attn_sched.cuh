@@ -1,6 +1,7 @@
-// The schedule variants of the attention core (mhsa.cuh) for the probe
-// kernels #15 (attn_sched.cu) and #16 (attn_sched_bwd.cu): the counterpart
-// of benchmarks/mega_variants.py:attn_fwd_kernel's modes.
+// The schedule modes of the probe kernels #15 (attn_sched.cu) and, for the
+// first pass of #16's two-pass modes, attn_sched_bwd.cu, as orders of
+// mhsa_reg.cuh's register-resident core: the counterpart of
+// benchmarks/mega_variants.py:attn_fwd_kernel's modes.
 //
 //   o = bf16((bf16(p) @ v) / l) per (sample, head), s = (q @ k^T) * scale
 //   in fp32, p = exp(s - rowmax(s)), l = sum(p); with kRecip the backward's
@@ -8,45 +9,33 @@
 //
 // On the TPU one grid step is one sample, and the modes reorder its 12-head
 // loop so that the VPU softmax of one head overlaps the MXU products of
-// another. Here each (sample, head) has its own block (grid (H, N), 4
-// warps), as in mhsa.cuh, and a warp walks the block's 16-query tiles; so
-// the unit that the modes reorder is the 16-query tile within a head's
-// block, and the question stays the same: do the tensor-core products of the
-// next unit, issued before the softmax of the current one, hide it?
+// another. Here each (sample, head) has its own block, as for #1, and the
+// unit that a mode reorders is a warp's 16-query tile: the question stays
+// whether the tensor-core products of one unit, issued beside the softmax
+// of another, hide it.
 //
-//   v0     tile by tile: QK -> softmax -> PV (mhsa.cuh's order)
-//   nosm   v0 with the softmax replaced by p = bf16(s * 0.01), l = 1: a
-//          bound, another function (mega_variants.py:354-356)
-//   pipe   each warp issues the QK of its next tile into a second score
-//          buffer before it runs the softmax and PV of the current one
-//   pipe2  two deep, three buffers per warp: QK of tile t+1, softmax of t,
-//          PV of t-1
-//   stage  block-wide: every tile's QK into one [sp x lds] fp32 buffer,
-//          barrier, every row's softmax, barrier, every tile's PV. The TPU
-//          groups across the 12 heads; 12 heads' fp32 scores are 1.8 MB at
-//          S = 196, so here the grouping is across one head's tiles.
+//   v0     mhsa_reg_kernel as #1 runs it (reg::kOrderV0)
+//   nosm   v0's order with the softmax replaced by p = bf16(s * 0.01), l = 1:
+//          a bound, another function (mega_variants.py:354-356; kNosm)
+//   pipe   the next tile's QK before this tile's PV (reg::kOrderPipe)
+//   pipe2  softmax of tile t, QK of t + 1, PV of t - 1 (reg::kOrderPipe2:
+//          t - 1's bf16 p parked in shared memory)
+//   stage  every tile's QK and softmax, then every tile's PV
+//          (reg::kOrderStage: the block's bf16 p parked in shared memory)
 //
-// Every mode runs mhsa.cuh's steps (stage, scores, softmax, PV): each
-// row's softmax is one warp's, in the same lane order, and each tile's
-// products are the same wmma sums, so v0, pipe, pipe2 and stage give
-// bit-equal o (v0 is the order of the half-block forwards' first core).
+// Every order runs the same pieces on the same fragments, so v0, pipe,
+// pipe2 and stage give bit-equal o, and v0 is #1's core bit for bit. Every
+// mode takes S <= 256 (mhsa_reg.cuh's key tiles; stage's parked p is
+// 132 KB at S = 256).
 //
-// Shared memory at HD = 32 (staged q, k, v: 3 * sp * 40 bf16; a score row
-// lds = max(sp, HD) + 4 fp32), S = 196 (sp 208, lds 212): v0 and nosm
-// 102 KB, pipe 155 KB, pipe2 208 KB, stage 222 KB of the 227 KB a block
-// may have; so S <= 240 for v0, nosm and pipe, 224 for pipe2, 208 for
-// stage (sched_smem_bytes; the launch refuses more).
-//
-// What bounds it on this card: as mhsa.cuh, 4 * S^2 * HD FLOPs per (sample,
-// head) on 8 * S * HD bytes, below the bf16 ridge, so the ideal core is
-// bound by device memory; these simple forms are bound by latency (the
-// softmax through shared memory, a wmma store before every reuse), which
-// is what the modes probe.
+// What bounds it on this card: 4 * S^2 * HD FLOPs per (sample, head) on
+// 8 * S * HD bytes, S / 2 = 98 FLOP/byte at S = 196, below the bf16 ridge
+// (~295 FLOP/byte), so the ideal core is bound by device memory; these
+// cores are bound by the warps an SM holds and their issue of the softmax
+// arithmetic, which is what the orders probe.
 #pragma once
 
-#include "attn_rows.cuh"
-#include "gemm.cuh"
-#include "mhsa.cuh"
+#include "mhsa_reg.cuh"
 
 namespace vlp {
 
@@ -58,157 +47,68 @@ enum SchedMode {
   kSchedStage = 4,
 };
 
-constexpr size_t kMaxBlockSmem = 232448;
-
-// Score buffers per warp (stage: one block-wide buffer).
-__host__ __device__ constexpr int sched_bufs(int mode) {
-  return mode == kSchedPipe ? 2 : (mode == kSchedPipe2 ? 3 : 1);
-}
-
-template <int HD>
-inline size_t sched_smem_bytes(int S, int mode) {
-  const int sp = (S + 15) / 16 * 16;
-  const size_t lds = mhsa_lds(S, HD);
-  const size_t staged = 3 * (size_t)sp * (HD + 8) * sizeof(bf16);
-  if (mode == kSchedStage)
-    return staged + (size_t)sp * (lds + 1) * sizeof(float);
-  return staged +
-         (size_t)kAttnWarps * sched_bufs(mode) * 16 * (lds + 1) * sizeof(float);
-}
-
-// grid (H, N); block kAttnWarps * 32 threads. qkv [N*S, 3D] -> o [N*S, D].
-template <int HD, int Mode, bool kRecip>
-__global__ void __launch_bounds__(kAttnWarps * 32)
-    mhsa_sched_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ o,
-                      int S, int D, float scale) {
-  constexpr int ld = HD + 8;
-  constexpr int W = kAttnWarps;
-  constexpr int bufs = sched_bufs(Mode);
-  constexpr bool nosm = Mode == kSchedNosm;
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int h = blockIdx.x;
-  const int n = blockIdx.y;
-  const int tiles = (S + 15) / 16;
-  const int sp = tiles * 16;
-  const int lds = mhsa_lds(S, HD);
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* Ks = Qs + sp * ld;
-  bf16* Vs = Ks + sp * ld;
-  float* Ss = reinterpret_cast<float*>(Vs + sp * ld);
-  float* Ls = Ss + (Mode == kSchedStage ? sp : W * bufs * 16) * lds;
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const UnitRows<IdentityRows> row_of =
-      unit_rows(IdentityRows{S}, n, S, nullptr, tid, W * 32);
-  mhsa_stage<HD>(qkv, Qs, S, sp, D, h, row_of, tid, W * 32);
-  __syncthreads();
-
-  if (Mode == kSchedStage) {
-    for (int qt = warp; qt < tiles; qt += W)
-      mhsa_scores<HD>(Qs, Ks, qt, tiles, Ss + qt * 16 * lds, lds);
-    __syncthreads();
-    for (int r = warp; r < sp; r += W)
-      mhsa_softmax_row<false>(Ss + r * lds, Ls + r, S, sp, scale, lane);
-    __syncthreads();
-    for (int qt = warp; qt < tiles; qt += W)
-      mhsa_pv<HD, kRecip>(Ss + qt * 16 * lds, Ls + qt * 16, lds, Vs, qt,
-                          tiles, S, o, D, h, row_of, lane);
-    return;
-  }
-
-  // this warp's tiles are warp, warp + W, ...: cnt of them
-  const int cnt = warp < tiles ? (tiles - warp + W - 1) / W : 0;
-  float* S_w = Ss + warp * bufs * 16 * lds;
-  float* L_w = Ls + warp * bufs * 16;
-  auto sbuf = [&](int b) { return S_w + b * 16 * lds; };
-  auto lbuf = [&](int b) { return L_w + b * 16; };
-  auto tile = [&](int k) { return warp + k * W; };
-
-  if (Mode == kSchedPipe) {
-    if (cnt > 0) mhsa_scores<HD>(Qs, Ks, tile(0), tiles, sbuf(0), lds);
-    for (int k = 0; k < cnt; ++k) {
-      const int cur = k & 1;
-      if (k + 1 < cnt)  // the next tile's products, before this softmax
-        mhsa_scores<HD>(Qs, Ks, tile(k + 1), tiles, sbuf(cur ^ 1), lds);
-      mhsa_softmax_tile<false>(sbuf(cur), lbuf(cur), lds, S, sp, scale,
-                               lane);
-      mhsa_pv<HD, kRecip>(sbuf(cur), lbuf(cur), lds, Vs, tile(k), tiles, S,
-                          o, D, h, row_of, lane);
-    }
-  } else if (Mode == kSchedPipe2) {
-    // step k: QK of tile k+1, softmax of tile k, PV of tile k-1; buffer
-    // (k+1) % 3 last held tile k-2, whose PV ended at step k-1
-    if (cnt > 0) mhsa_scores<HD>(Qs, Ks, tile(0), tiles, sbuf(0), lds);
-    for (int k = 0; k <= cnt; ++k) {
-      if (k + 1 < cnt)
-        mhsa_scores<HD>(Qs, Ks, tile(k + 1), tiles, sbuf((k + 1) % 3), lds);
-      if (k < cnt)
-        mhsa_softmax_tile<false>(sbuf(k % 3), lbuf(k % 3), lds, S, sp,
-                                 scale, lane);
-      if (k >= 1)
-        mhsa_pv<HD, kRecip>(sbuf((k - 1) % 3), lbuf((k - 1) % 3), lds, Vs,
-                            tile(k - 1), tiles, S, o, D, h, row_of, lane);
-    }
-  } else {  // v0, nosm
-    for (int k = 0; k < cnt; ++k) {
-      mhsa_scores<HD>(Qs, Ks, tile(k), tiles, sbuf(0), lds);
-      mhsa_softmax_tile<nosm>(sbuf(0), lbuf(0), lds, S, sp, scale, lane);
-      mhsa_pv<HD, kRecip>(sbuf(0), lbuf(0), lds, Vs, tile(k), tiles, S, o,
-                          D, h, row_of, lane);
-    }
-  }
-}
-
-template <int HD, int Mode, bool kRecip>
-cudaError_t launch_sched_mode(const bf16* qkv, bf16* o, int N, int S, int D,
-                              int H, float scale, cudaStream_t st) {
-  const size_t smem = sched_smem_bytes<HD>(S, Mode);
-  if (smem > kMaxBlockSmem) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      mhsa_sched_kernel<HD, Mode, kRecip>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  mhsa_sched_kernel<HD, Mode, kRecip>
-      <<<dim3(H, N), kAttnWarps * 32, smem, st>>>(qkv, o, S, D, scale);
-  return cudaGetLastError();
-}
-
-// The core in `mode` (SchedMode) at head dim 32; `recip`: the backward's o
-// (v0 and stage only).
-inline cudaError_t launch_mhsa_sched(const bf16* qkv, bf16* o, int N, int S,
+// The core in `mode` (SchedMode) at head dim 32 over N samples of S tokens;
+// kRecip: the backward's o, in v0's and stage's orders only.
+template <bool kRecip>
+inline cudaError_t launch_sched_core(const bf16* qkv, bf16* o, int N, int S,
                                      int D, int H, float scale, int mode,
-                                     bool recip, cudaStream_t st) {
-  if (N <= 0 || S <= 0 || S > kMaxSeq || D != H * 32 || N > 65535)
-    return cudaErrorInvalidValue;
-  if (recip) {
+                                     cudaStream_t st) {
+  const IdentityRows rows{S};
+  if constexpr (kRecip) {
     if (mode == kSchedV0)
-      return launch_sched_mode<32, kSchedV0, true>(qkv, o, N, S, D, H, scale,
-                                                   st);
+      return launch_mhsa_reg<32, reg::kOrderV0, false, true>(
+          qkv, o, N, S, D, H, scale, rows, st);
     if (mode == kSchedStage)
-      return launch_sched_mode<32, kSchedStage, true>(qkv, o, N, S, D, H,
-                                                      scale, st);
+      return launch_mhsa_reg<32, reg::kOrderStage, false, true>(
+          qkv, o, N, S, D, H, scale, rows, st);
     return cudaErrorInvalidValue;
+  } else {
+    switch (mode) {
+      case kSchedV0:
+        return launch_mhsa_reg<32>(qkv, o, N, S, D, H, scale, rows, st);
+      case kSchedNosm:
+        return launch_mhsa_reg<32, reg::kOrderV0, true>(qkv, o, N, S, D, H,
+                                                        scale, rows, st);
+      case kSchedPipe:
+        return launch_mhsa_reg<32, reg::kOrderPipe>(qkv, o, N, S, D, H,
+                                                    scale, rows, st);
+      case kSchedPipe2:
+        return launch_mhsa_reg<32, reg::kOrderPipe2>(qkv, o, N, S, D, H,
+                                                     scale, rows, st);
+      case kSchedStage:
+        return launch_mhsa_reg<32, reg::kOrderStage>(qkv, o, N, S, D, H,
+                                                     scale, rows, st);
+      default:
+        return cudaErrorInvalidValue;
+    }
   }
+}
+
+// Shared memory of one block of the core in `mode` over S tokens: the
+// staged k and v, and the parked p of pipe2 and stage (bytes; 0 for an
+// unknown mode or S outside 1..256).
+template <int KT = 1>
+inline size_t sched_core_smem(int S, int mode) {
+  if constexpr (KT < reg::kMaxTiles) {
+    if ((S + 15) / 16 > KT) return sched_core_smem<KT + 1>(S, mode);
+  }
+  if (S <= 0 || (S + 15) / 16 > KT) return 0;
   switch (mode) {
     case kSchedV0:
-      return launch_sched_mode<32, kSchedV0, false>(qkv, o, N, S, D, H,
-                                                    scale, st);
     case kSchedNosm:
-      return launch_sched_mode<32, kSchedNosm, false>(qkv, o, N, S, D, H,
-                                                      scale, st);
+      return reg::mhsa_reg_smem_bytes<32, KT, IdentityRows,
+                                      reg::kOrderV0>(S);
     case kSchedPipe:
-      return launch_sched_mode<32, kSchedPipe, false>(qkv, o, N, S, D, H,
-                                                      scale, st);
+      return reg::mhsa_reg_smem_bytes<32, KT, IdentityRows,
+                                      reg::kOrderPipe>(S);
     case kSchedPipe2:
-      return launch_sched_mode<32, kSchedPipe2, false>(qkv, o, N, S, D, H,
-                                                       scale, st);
+      return reg::mhsa_reg_smem_bytes<32, KT, IdentityRows,
+                                      reg::kOrderPipe2>(S);
     case kSchedStage:
-      return launch_sched_mode<32, kSchedStage, false>(qkv, o, N, S, D, H,
-                                                       scale, st);
+      return reg::mhsa_reg_smem_bytes<32, KT, IdentityRows,
+                                      reg::kOrderStage>(S);
     default:
-      return cudaErrorInvalidValue;
+      return 0;
   }
 }
 

@@ -17,13 +17,14 @@
 //                             per-sample fp32 column sums of dqkv
 //        uni     mhsa_reg_bwd.cuh's register-resident core with kOut: the
 //                scores once per (sample, head), o formed from phase A's p
-//        v0      pass 1 attn_sched.cuh's mhsa_sched_kernel<v0, recip> (o),
-//                pass 2 #3's core mhsa_reg_bwd_kernel<32, KT, *, true>
-//        stage2  pass 1 mhsa_sched_kernel<stage, recip>, pass 2 as v0: a
-//                stage-grouped pass 2 would hold the fp32 scores and dp of
-//                all 13 query tiles at S = 196, two buffers of 176 KB, more
-//                than a block has; so on this card stage2 differs from v0
-//                in pass 1 only
+//        v0      pass 1 the forward core mhsa_reg_kernel in v0's order
+//                with kRecip (attn_sched.cuh, o), pass 2 #3's core
+//                mhsa_reg_bwd_kernel<32, KT, *, true>
+//        stage2  pass 1 the forward core in stage's order with kRecip,
+//                pass 2 as v0: a stage-grouped pass 2 would hold the fp32
+//                scores and dp of all 13 query tiles at S = 196, two
+//                buffers of 176 KB, more than a block has; so on this card
+//                stage2 differs from v0 in pass 1 only
 //   5-8. ln_attention.cuh's attn_bwd_tail, shared with #3: dWout = o^T dy,
 //        dWqkv = ln^T dqkv (wgmma_gemm.cuh, split-K, reduced in a fixed
 //        order into fp32), dln, the LN backward, the vector gradients
@@ -31,9 +32,9 @@
 // The Pallas body's dov = bf16(do * (1/l)) rounds the fp32 do; the kernels
 // stage do in bf16 (step 3, as #3 does), one bf16 rounding of do apart.
 // Every sum runs in a fixed order (no atomics), so reruns are bit-identical.
-// The two-pass modes' pass 1 is #15's schedule core (wmma, scores through
-// shared memory), so they take S <= 240 (v0) and 208 (stage2); uni takes
-// the register core's S <= 256.
+// uni's o and the two-pass modes' pass-1 o run the same scores, softmax, PV
+// and store (mhsa_reg.cuh's pieces), so they are equal bit for bit. Every
+// mode takes the register cores' S <= 256.
 //
 // What bounds it on this card: 104 GFLOP at the probe's batch 128 (uni's
 // products; the two-pass modes recompute QK and PV once more), 0.105 ms at
@@ -60,9 +61,9 @@ inline cudaError_t attn_sched_bwd_core(const bf16* qkv, const bf16* dout,
     return launch_mhsa_reg_bwd_sums_o<32>(qkv, dout, o, dqkv, bpart, N, S, D,
                                           H, scale, IdentityRows{S}, st);
   if (mode != kBwdV0 && mode != kBwdStage2) return cudaErrorInvalidValue;
-  cudaError_t err = launch_mhsa_sched(
+  cudaError_t err = launch_sched_core<true>(
       qkv, o, N, S, D, H, scale, mode == kBwdV0 ? kSchedV0 : kSchedStage,
-      true, st);
+      st);
   if (err != cudaSuccess) return err;
   return launch_mhsa_reg_bwd_sums<32>(qkv, dout, dqkv, bpart, N, S, D, H,
                                       scale, IdentityRows{S}, st);

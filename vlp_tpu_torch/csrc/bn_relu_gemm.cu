@@ -16,8 +16,8 @@
 // the output (implicit_gemm.cuh); each 128x32 slice of x arrives in shared
 // memory through cp.async and every thread rewrites the two 8-element
 // vectors it loaded (affine, ReLU, bf16) before the block's barrier, so the
-// normalised map never goes to device memory: this is gemm.cuh's LayerNorm
-// prologue with a per-column affine and no row statistics.
+// normalised map never goes to device memory: a prologue on the A tile with
+// a per-column affine and no row statistics.
 //
 // What bounds it on this card: at the probe's shapes (batch 128:
 // [401408, 256] -> 64, [100352, 512] -> 128, [401408, 64] -> 256) it moves

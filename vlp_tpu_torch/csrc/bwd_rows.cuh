@@ -22,7 +22,7 @@
 
 #include <initializer_list>
 
-#include "gemm.cuh"
+#include "common.cuh"
 
 namespace vlp {
 

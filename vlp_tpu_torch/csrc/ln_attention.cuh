@@ -2,12 +2,13 @@
 // shared by ln_attention.cu / ln_attention_bwd.cu (#1, #3: N samples of S
 // tokens, [N, S, D]) and ln_attention_windows.cu /
 // ln_attention_windows_bwd.cu (#5, #6: the N block x block windows of a NesT
-// token map [B, H, W, D], S = block^2); the backward's tail after the
-// attention core also by the probe #16 (attn_sched_bwd.cu). Both directions
-// run bwd_rows.cuh's LayerNorm rows, the register-resident attention cores
-// (mhsa_reg.cuh forward, mhsa_reg_bwd.cuh backward with its per-unit column
-// sums) and their products on wgmma_gemm.cuh's TMA + wgmma mainloop
-// (dense_epi.cuh's DenseEpi forward, RowsNT and ColsTN backward).
+// token map [B, H, W, D], S = block^2); the forward also by the probe #15
+// with its core in the order of its mode (attn_sched.cu), the backward's
+// tail after the attention core by the probe #16 (attn_sched_bwd.cu). Both
+// directions run bwd_rows.cuh's LayerNorm rows, the register-resident
+// attention cores (mhsa_reg.cuh forward, mhsa_reg_bwd.cuh backward with its
+// per-unit column sums) and their products on wgmma_gemm.cuh's TMA + wgmma
+// mainloop (dense_epi.cuh's DenseEpi forward, RowsNT and ColsTN backward).
 //
 // LayerNorm, the projections, the biases, the residual and the LayerNorm
 // backward act on each row alone, so their kernels run over the M = N * S
@@ -44,26 +45,38 @@ constexpr int kQkvWidth = 64, kOutWidth = 64;
 
 }  // namespace wg
 
+// The attention core of #1 and #5: mhsa_reg.cuh's in v0's order. A core
+// launches o from qkv for N units of S tokens (D = 32 H) on the stream.
+struct RegCore {
+  template <class Rows>
+  cudaError_t operator()(const bf16* qkv, bf16* o, int N, int S, int D,
+                         int H, float scale, Rows rows,
+                         cudaStream_t st) const {
+    return launch_mhsa_reg<32>(qkv, o, N, S, D, H, scale, rows, st);
+  }
+};
+
 // The forward, four launches on one stream (ln_attention.cu lists them):
 // ln = bf16(LN(x) * gamma + beta), written into o's buffer (the qkv product
 // reads it before the core writes o); qkv = bf16(ln @ Wqkv + bqkv); o = the
-// attention core per unit; y = bf16(x + (o @ Wout + bout)). Returns the
-// first failing cudaError_t.
-template <class Rows>
+// attention core per unit (#1's and #5's RegCore; the probe #15 passes its
+// mode's order, attn_sched.cu); y = bf16(x + (o @ Wout + bout)). Returns
+// the first failing cudaError_t.
+template <class Rows, class Core = RegCore>
 cudaError_t ln_attention_forward(const bf16* x, const float* gamma,
                                  const float* beta, const bf16* wqkv,
                                  const float* bqkv, const bf16* wout,
                                  const float* bout, bf16* qkv, bf16* o,
                                  bf16* y, int N, int S, int D, int H,
                                  float scale, float eps, Rows rows,
-                                 cudaStream_t st) {
+                                 cudaStream_t st, Core core = {}) {
   const int M = N * S;
   cudaError_t err = launch_ln_rows(x, gamma, beta, o, M, D, eps, st);
   if (err != cudaSuccess) return err;
   err = wg::launch_dense_epi<false, wg::kQkvWidth>(o, wqkv, bqkv, nullptr,
                                                    qkv, M, 3 * D, D, st);
   if (err != cudaSuccess) return err;
-  err = launch_mhsa_reg<32>(qkv, o, N, S, D, H, scale, rows, st);
+  err = core(qkv, o, N, S, D, H, scale, rows, st);
   if (err != cudaSuccess) return err;
   return wg::launch_dense_epi<false, wg::kOutWidth>(o, wout, bout, x, y, M, D,
                                                     D, st);

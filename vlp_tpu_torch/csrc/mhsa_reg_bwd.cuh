@@ -170,28 +170,6 @@ __device__ __forceinline__ void store_rows(const float (&acc)[HD / 8][4],
     }
 }
 
-// Stores o = bf16(acc * il) of a warp's 16 query rows (r0 = tile * 16 + g
-// and r0 + 8, rows < S; il their 1 / l) at column col of o's rows [M, D].
-template <int HD, class Rows>
-__device__ __forceinline__ void store_o(const float (&acc)[HD / 8][4],
-                                        const float (&il)[2], bf16* o, int D,
-                                        int col, int r0, int S,
-                                        const UnitRows<Rows>& row_of,
-                                        int lane) {
-  const int t = lane & 3;
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int r = r0 + 8 * half;
-    if (r >= S) continue;
-    bf16* dst = o + row_of(r) * D + col + 2 * t;
-#pragma unroll
-    for (int j = 0; j < HD / 8; ++j)
-      *reinterpret_cast<uint32_t*>(dst + j * 8) =
-          pack_bf16(__fmul_rn(acc[j][2 * half], il[half]),
-                    __fmul_rn(acc[j][2 * half + 1], il[half]));
-  }
-}
-
 // grid (H, N); block bwd_warps<KT>() * 32 threads. qkv [M, 3D] and dout (do)
 // [M, D] bf16 -> dqkv [M, 3D] bf16; token r of unit n is row rows(n, r) of
 // each. With kSums, bpart [N, 3D] fp32 receives the unit's column sums of

@@ -53,12 +53,16 @@
 // F % FS == 0, 16-byte aligned contiguous row-major operands.
 #pragma once
 
-#include "gemm.cuh"           // bf16, wmma, warp_sum
+#include <mma.h>
+
+#include "common.cuh"         // bf16, warp_sum
 #include "gelu.cuh"           // erf_as, gelu_erf
 #include "implicit_gemm.cuh"  // cp_async16, cp_async_commit, cp_async_wait
 
 namespace vlp {
 namespace mlpt {
+
+namespace wmma = nvcuda::wmma;
 
 using igemm::cp_async16;
 using igemm::cp_async_commit;

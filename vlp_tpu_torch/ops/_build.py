@@ -106,6 +106,8 @@ _SIGNATURES = {
     "vlp_attn_sched": ([_P] * 10 + [_I] * 4 + [_F, _F, _I, _P], _I),
     # qkv, o, N, S, D, H, scale, mode, stream
     "vlp_attn_sched_core": ([_P] * 2 + [_I] * 4 + [_F, _I, _P], _I),
+    # S, mode -> bytes of shared memory a block of the core takes
+    "vlp_attn_sched_core_smem": ([_I] * 2, _Z),
     # N, S, D, H, mode -> bytes
     "vlp_attn_sched_bwd_workspace": ([_I] * 5, _Z),
     # x, gamma, beta, wqkv, bqkv, wout, dy, dx, dgamma, dbeta, dwqkv, dbqkv,

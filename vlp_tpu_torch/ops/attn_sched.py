@@ -25,13 +25,17 @@ head loop), ``pipe`` (head h+1's QK issued before head h's softmax),
 ``pipe2`` (two deep: QK of h+1, softmax of h, PV of h-1), ``stage`` (all
 QK, then all softmax, then all PV) and the bound ``nosm`` (softmax
 replaced by bf16(s * 0.01), l = 1: another function). Backward: ``v0``
-(two passes, each with its softmax recompute), ``stage2`` (the same, each
-pass grouped by stage) and ``uni`` (the softmax computed once). On the
-H100 the unit that is reordered is the 16-query tile within one (sample,
-head) block (``csrc/attn_sched.cuh``): the same question, whether issuing
-the tensor-core products of the next unit before the softmax of the
-current one hides it. Every mode but ``nosm`` computes the same function
-with the same roundings, so the forward modes give bit-equal y.
+(two passes, each with its own softmax recompute), ``stage2`` (the same,
+each pass grouped by stage) and ``uni`` (the softmax computed once). On the
+H100 the unit that is reordered is a warp's 16-query tile within one
+(sample, head) block, and each mode is an order of the register-resident
+core ``csrc/mhsa_reg.cuh`` that the shipped ``ln_attention`` (#1) runs in
+v0's order: ``pipe`` issues the next tile's QK before this tile's PV,
+``pipe2`` runs tile t's softmax, t+1's QK and t-1's PV in one step with
+t-1's bf16 p parked in shared memory, ``stage`` parks the block's bf16 p,
+then runs every tile's PV (``csrc/attn_sched.cuh``). Every mode but
+``nosm`` computes the same function with the same roundings, so the
+forward modes give bit-equal y, and v0's y is #1's bit for bit.
 
 Rounding points (the Pallas bodies'): scores in fp32 scaled after the
 product, p = exp(s - max) unnormalised and cast for the PV product; the
@@ -41,19 +45,30 @@ The backward's dov = bf16(do * (1/l)) takes the fp32 do in the Pallas body
 and the bf16 do that the kernels stage (``csrc/mhsa_reg_bwd.cuh``), one
 bf16 rounding apart; ``attn_sched_bwd_plain`` keeps the Pallas body's.
 
-The backward runs the shipped ``ln_attention_bwd``'s (#3) launch sequence
-with the probe's recompute in front: ``ln_rows``, the qkv product with its
-bias and the do product on the wgmma + TMA mainloop, the register-resident
-core ``csrc/mhsa_reg_bwd.cuh`` (in ``uni`` it also forms o from its own p;
-``v0`` and ``stage2`` form o first with the forward's schedule core in
-their order) and #3's tail with fp32 weight gradients.
+The forward runs #1's launch sequence (``csrc/ln_attention.cuh``):
+``ln_rows`` into o's buffer, the qkv product with its bias and the
+out-projection with its bias and the residual as wgmma + TMA tiles, and the
+core in the mode's order between them. The backward runs the shipped
+``ln_attention_bwd``'s (#3) launch sequence with the probe's recompute in
+front: ``ln_rows``, the qkv product with its bias and the do product on the
+wgmma + TMA mainloop, the register-resident core ``csrc/mhsa_reg_bwd.cuh``
+(in ``uni`` it also forms o from its own p; ``v0`` and ``stage2`` form o
+first with the forward core in v0's and stage's order and the multiply by
+1/l) and #3's tail with fp32 weight gradients. Every mode takes S <= 256.
+
+What bounds them on the card (one H100: 989 TFLOP/s bf16, 3.35 TB/s): at
+the probe's batch 128 (M = 25,088, D 384, 12 heads of 32) the forward does
+37.1 GFLOP against 40 MB of operands (0.038 ms, operations), the backward
+104 GFLOP against 61 MB (0.105 ms, operations). Both are far from it: the
+launches pass qkv and o through device memory (~26 M D bytes forward,
+0.075 ms at 3.35 TB/s) and the cores are bound by the softmax's issue.
 
 A CUDA tensor runs ``csrc/attn_sched.cu`` / ``attn_sched_bwd.cu`` or
 raises; a CPU tensor runs the ``*_plain`` version. Shapes are refused on
-either device; the backwards refuse on the card also operands off 16-byte
+either device; every wrapper refuses on the card also operands off 16-byte
 alignment (the products read them by TMA, the cores by 16-byte copies)
-and more than 65535 samples (the cores' grid). Each wrapper
-counts its launches in ``<wrapper>.launches``.
+and more than 65535 samples (the cores' grid). Each wrapper counts its
+launches in ``<wrapper>.launches``.
 """
 from __future__ import annotations
 
@@ -70,13 +85,11 @@ MODES = ("v0", "nosm", "pipe", "pipe2", "stage")
 BWD_MODES = ("v0", "stage2", "uni")
 HEAD_DIM = 32
 MAX_D = 1024
-# Largest S of each mode: the block's 232,448 bytes of shared memory hold
-# the staged q, k, v and the fp32 score rows of the schedule
-# (csrc/attn_sched.cuh); the backward's two-pass modes form o with it in
-# v0's and stage's order, then run the register core (S <= 256,
-# csrc/mhsa_reg_bwd.cuh), which alone serves uni
-MAX_SEQ = {"v0": 240, "nosm": 240, "pipe": 240, "pipe2": 224, "stage": 208}
-MAX_SEQ_BWD = {"v0": 240, "stage2": 208, "uni": 256}
+# Largest S of each mode: the register cores' 16 key tiles
+# (csrc/mhsa_reg.cuh, mhsa_reg_bwd.cuh); stage's parked p then takes 132 KB
+# of a block's 227 KB of shared memory
+MAX_SEQ = dict.fromkeys(MODES, 256)
+MAX_SEQ_BWD = dict.fromkeys(BWD_MODES, 256)
 
 
 def _vecs(dt, *vectors):
@@ -232,6 +245,7 @@ def attn_sched(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     g, b, bq, bo = _cuda_operands("attn_sched", x, (wqkv, wout),
                                   (gamma, beta, bqkv, bout))
     n, s, d = x.shape
+    _check_attn_launch("attn_sched", n, x, wqkv, wout)
     lib = _build.load_library()
     qkv = torch.empty((n, s, 3 * d), dtype=x.dtype, device=x.device)
     o = torch.empty_like(x)
@@ -256,6 +270,7 @@ def attn_sched_core(qkv: torch.Tensor, num_heads: int,
         return attn_sched_core_plain(qkv, num_heads, mode)
     _cuda_operands("attn_sched_core", qkv, (), ())
     n, s, d3 = qkv.shape
+    _check_attn_launch("attn_sched_core", n, qkv)
     lib = _build.load_library()
     o = torch.empty((n, s, d3 // 3), dtype=qkv.dtype, device=qkv.device)
     with torch.cuda.device(qkv.device):
@@ -310,10 +325,10 @@ def attn_sched_bwd_core(qkv: torch.Tensor, do: torch.Tensor, num_heads: int,
                         mode: str = "v0"):
     """The backward's attention core alone, the launches of the full
     backward's step 4: (o, dqkv) from qkv [N, S, 3D] and do [N, S, D]
-    (``v0``/``stage2``: the forward's schedule core with o = bf16(acc *
-    (1/l)), then the register core ``mhsa_reg_bwd.cuh``; ``uni``: the
-    register core alone, o from its own p). Its workspace holds the
-    per-sample column sums that the core writes beside dqkv."""
+    (``v0``/``stage2``: the forward core in v0's or stage's order with o =
+    bf16(acc * (1/l)), then the register core ``mhsa_reg_bwd.cuh``;
+    ``uni``: the register core alone, o from its own p). Its workspace holds
+    the per-sample column sums that the core writes beside dqkv."""
     _check_shapes("attn_sched_bwd_core", qkv, num_heads, mode, BWD_MODES,
                   MAX_SEQ_BWD, d3=True)
     n, s, d3 = qkv.shape

@@ -13,15 +13,15 @@ turns with its plain version (plain, kernel, core, SDPA, then reversed) by
 CUDA events; ``core_ms`` is the mode's attention core alone on the same
 qkv (and do), ``sdpa_ms`` ``F.scaled_dot_product_attention`` on the same
 q, k, v views (forward, or its autograd backward alone): the cores'
-yardstick, which the port never calls. Each backward mode also carries
-device time alone (``_timing.device_in_turns``: 20 calls queued behind a
-spin kernel, so no host time shows) of the kernel, its core, the shipped
-#3 and SDPA's backward, taken in turns (``kernel_device_ms``,
-``core_device_ms``, ``shipped_device_ms``, ``sdpa_device_ms``); #3's own
-record carries its ``kernel_device_ms``. Errors are against the plain bf16
-version, absolute and relative to the plain output's largest |value|
-(none for nosm, another function, as in the script; #3 returns bf16 weight
-gradients, so it has only the relative one). Every mode of a direction
+yardstick, which the port never calls. Each mode also carries device time
+alone (``_timing.device_in_turns``: 20 calls queued behind a spin kernel,
+so no host time shows) of the kernel, its core, the shipped #1 (forward)
+or #3 (backward) and SDPA, taken in turns (``kernel_device_ms``,
+``core_device_ms``, ``shipped_device_ms``, ``sdpa_device_ms``); #1's and
+#3's own records carry their ``kernel_device_ms``. Errors are against the
+plain bf16 version, absolute and relative to the plain output's largest
+|value| (none for nosm, another function, as in the script; #3 returns bf16
+weight gradients, so it has only the relative one). Every mode of a direction
 faces one bound (``attn_work``). The reference's draws: x ~ N(0, 1), wqkv
 and wout ~ N(0, 1/D) in bf16, biases and beta 0, gamma 1, dy ~ N(0, 1).
 
@@ -115,6 +115,10 @@ def run(batch: int = BATCH, seed: int = 0, device: str = "cuda"
     sdpa_fwd, sdpa_bwd = _sdpa(qkv, do)
 
     ref = AS.attn_sched_plain(x, *params, HEADS)
+
+    def shipped_fwd():
+        return FB.ln_attention(x, *params, HEADS)
+
     records = []
     for mode in AS.MODES:
         def plain(mode=mode):
@@ -123,20 +127,27 @@ def run(batch: int = BATCH, seed: int = 0, device: str = "cuda"
         def kern(mode=mode):
             return AS.attn_sched(x, *params, HEADS, mode)
 
+        def fcore(mode=mode):
+            return AS.attn_sched_core(qkv, HEADS, mode)
+
         err = ({"max_abs_err": None, "max_rel_err": None} if mode == "nosm"
                else errors((kern(),), (ref,)))
-        records.append(record("attn_fwd", mode, in_turns(
-            plain=plain, kernel=kern,
-            core=lambda mode=mode: AS.attn_sched_core(qkv, HEADS, mode),
-            sdpa=sdpa_fwd), fwd_work, **err))
-    (g1, b1, bq1, bo1), (wq1, wo1) = FB._cast(
-        x.dtype, vectors=(g, b, bq, bo), matrices=(wq, wo))
-    records.append(record(
+        rec = record("attn_fwd", mode, in_turns(
+            plain=plain, kernel=kern, core=fcore, sdpa=sdpa_fwd), fwd_work,
+            **err)
+        rec.update(device_alone(device_in_turns(
+            kernel=kern, core=fcore, shipped=shipped_fwd, sdpa=sdpa_fwd)))
+        records.append(rec)
+    rec = record(
         "attn_fwd", "ln_attention #1 (shipped)", in_turns(
             plain=lambda: AS.attn_sched_plain(x, *params, HEADS),
-            kernel=lambda: FB.ln_attention(x, *params, HEADS)), fwd_work,
-        **errors((FB.ln_attention(x, *params, HEADS),), (ref,))))
+            kernel=shipped_fwd), fwd_work,
+        **errors((shipped_fwd(),), (ref,)))
+    rec.update(device_alone(device_in_turns(kernel=shipped_fwd)))
+    records.append(rec)
     del ref
+    (g1, b1, bq1, bo1), (wq1, wo1) = FB._cast(
+        x.dtype, vectors=(g, b, bq, bo), matrices=(wq, wo))
 
     bparams = (g, b, wq, bq, wo)
     # #3 reads the forward launch's qkv and o (on the CPU it recomputes them)
