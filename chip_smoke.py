@@ -12,9 +12,11 @@ Phases, each printing its lines before the last line:
    products of #3/#6's sequence in its three instances, the dual tiles
    (``csrc/mlp_bwd.cuh``) of #4/#10 and of #14 (the accurate GELU, 64 and
    128 columns) and the forwards' products
-   (``csrc/dense_epi.cuh``: #2/#9's fc1 with its bias + GELU epilogue, and
-   the bias (+ residual) epilogue that #2/#9's fc2 and #1/#5's qkv product
-   and out-projection share), whose registers it prints) reach
+   (``csrc/dense_epi.cuh``: #2/#9's fc1 with its bias + GELU epilogue;
+   #13/#19a's fc1 with the accurate GELU at 128 and 64 columns; the bias
+   (+ residual) epilogue that #2/#9's fc2, #1/#5's qkv product and
+   out-projection and #13/#19a's fc2 share at 64 columns, and #13/#19a's
+   fc1 without GELU at 128), whose registers it prints) reach
    Hopper's units: ``cuobjdump --dump-sass`` of the library shows HGMMA
    and UTMALDG in each, and the build's ``-Xptxas -v`` report shows 0 spill bytes for
    each and no serialized wgmma; that every instance of the forward core
@@ -144,18 +146,18 @@ Phases, each printing its lines before the last line:
    phases 15 and 16.
 18. MLP probe kernels: ``mlp_tile`` (#13, and its no-GELU and no-LN
    ablations) and ``mlp_chain`` (#19a, each stage set) at every (TM, FS)
-   instance, ``mlp_tile_bwd`` (#14, every cotangent, reruns
-   bit-identical) at each of its dual tile's widths, and ``mlp_single`` (#19b, the wgmma + TMA kernel, reruns
-   bit-identical), at NesT-Small level 3's width (D 384, F 1536) on the
-   rows of batch 16 and on a ragged M (last tile partial), against their
-   plain versions in bf16 and in fp32 (TF32 off); then the probe entry
-   points (``vlp_tpu_torch.probes.mega_probe.run``, ``mlp_probe.run``) at
-   batch 128: each instance, the shipped #2/#4, the plain versions,
-   ``torch.matmul`` and the two-matmul chain in turns, #19b and
-   ``torch.matmul`` and #14 and the shipped #4 also as device time alone,
-   each instance's error
-   against the plain bf16 version held to the same bound as at the
-   smaller shapes.
+   instance (#2's launch sequence: fc1's tile 128 or 64 columns wide),
+   ``mlp_tile_bwd`` (#14, every cotangent) at each of its dual tile's
+   widths, and ``mlp_single`` (#19b, the wgmma + TMA kernel), reruns of
+   each bit-identical, at NesT-Small level 3's width (D 384, F 1536) on the
+   rows of batch 16 and on a ragged M (the last 128-row tile partial in
+   both), against their plain versions in bf16 and in fp32 (TF32 off);
+   then the probe entry points (``vlp_tpu_torch.probes.mega_probe.run``,
+   ``mlp_probe.run``) at batch 128: each instance, the shipped #2/#4, the
+   plain versions, ``torch.matmul`` and the two-matmul chain in turns,
+   each instance also as device time alone beside the shipped #2/#4, the
+   two-matmul chain or ``torch.matmul``, each instance's error against the
+   plain bf16 version held to the same bound as at the smaller shapes.
 19. attention probe kernels: ``attn_sched`` (#15) in every mode (v0, the
    nosm bound against its own plain version, pipe, pipe2, stage), its core
    alone, ``attn_sched_bwd`` (#16, every cotangent) and its core in every
@@ -194,10 +196,12 @@ the calls must move, each input read and each output written once, over
 for shear and noise; ``bound_by`` says which), and ``library_ms`` (SDPA
 for #7 and #8, ``F.conv2d`` for #17, ``torch.matmul`` for #19b,
 ``F.grid_sample`` for #11 and ``torch.normal`` for #12, null where no
-single PyTorch call computes the function); #11, #12, #14, #16, #17
-and #19b add ``device_ms`` and ``library_device_ms``, the same calls'
-device time alone (#14 and #16 also ``shipped_device_ms``, the shipped
-#4's or #3's, and #16 ``core_device_ms`` and ``sdpa_device_ms``), and #11 and #12 also ``device_cold_ms`` and
+single PyTorch call computes the function); #11, #12, #13, #14, #16,
+#17, #19a and #19b add ``device_ms`` and ``library_device_ms``, the same
+calls' device time alone (#19a's library the two-matmul chain; #13, #14
+and #16 also ``shipped_device_ms``, the shipped #2's, #4's or #3's, and
+#16 ``core_device_ms`` and ``sdpa_device_ms``), and #11 and #12 also
+``device_cold_ms`` and
 ``library_device_cold_ms`` (the L2 flushed before each call) and each
 probe case at batch 64 and 128 in ``per_shape``. Last ``{"ok": true,
 "device": {...}}``. Any failed check raises.
@@ -353,7 +357,7 @@ DEVICE_KEYS = ("kernel_device_ms", "library_device_ms")
 BWD_DEVICE_KEYS = ("kernel_device_ms", "shipped_device_ms", "core_device_ms",
                    "sdpa_device_ms")
 # MLP probe kernels: the checks' row counts (batch 16 at level 3, and a
-# ragged M whose last tile is partial at TM 32 and 64) at level 3's width
+# ragged M; the last 128-row tile of each is partial) at level 3's width
 MLP_CHECK_ROWS = (16 * SEQ, 1037)
 MLP_D, MLP_F = 384, 1536
 # attention probe kernels: the checks' (N, S) at level 3's width, 12 heads:
@@ -438,16 +442,25 @@ def phase_build() -> None:
 # (csrc/mlp_bwd.cuh: #4/#10's DualMlp<false> at 64 columns a block, #14's
 # DualMlp<true>, the accurate GELU, at 64 and 128), and the forwards'
 # products (csrc/dense_epi.cuh): DenseEpi<true> bias + GELU at 128 columns
-# a block (#2/#9's fc1), <false> bias (+ residual) at 64 (#2/#9's fc2,
-# #1/#5's and #16's qkv and #1/#5's out-projection: csrc/mlp_fwd.cuh's
-# kFc2Width, csrc/ln_attention.cuh's kQkvWidth, kOutWidth)
+# a block (#2/#9's fc1), <true, true> bias + the accurate GELU at 128 and
+# 64 (#13/#19a's fc1, csrc/mlp_tile.cu), <false> bias (+ residual) at 64
+# (#2/#9's and #13/#19a's fc2, #1/#5's and #16's qkv and #1/#5's
+# out-projection: csrc/mlp_fwd.cuh's kFc2Width, csrc/ln_attention.cuh's
+# kQkvWidth, kOutWidth) and at 128 (#13/#19a's fc1 without GELU)
 WGMMA_KERNEL = "wgmma_gemm_kernel"
 WGMMA_FWD = "DenseEpi"
-WGMMA_FWD_INSTANCES = 2
+# the forward products' instances by the epilogue form in their names
+# (DenseEpi<kGelu, kErf>): (count, who runs them)
+WGMMA_FWDS = {"DenseEpiILb1ELb0E": (1, "#2/#9's fc1"),
+              "DenseEpiILb1ELb1E": (2, "#13/#19a's fc1, accurate GELU"),
+              "DenseEpiILb0ELb0E": (2, "bias (+ residual): #1/#2/#5/#9's, "
+                                       "#13/#19a's")}
+WGMMA_FWD_WIDTH = re.compile(r"DenseEpiILb[01]ELb[01]EEELi(\d+)E")
 WGMMA_DUAL = "DualMlp"
 # (#4/#10's, #14's) dual tile instances, by the GELU form in their names
 WGMMA_DUALS = {"DualMlpILb0E": 1, "DualMlpILb1E": 2}
-WGMMA_INSTANCES = 6 + WGMMA_FWD_INSTANCES + sum(WGMMA_DUALS.values())
+WGMMA_INSTANCES = (6 + sum(n for n, _ in WGMMA_FWDS.values())
+                   + sum(WGMMA_DUALS.values()))
 WGMMA_FORMS = ("DenseRows", "ConvTaps", "RowsNT", "ColsTN", WGMMA_DUAL,
                WGMMA_FWD)
 # the register-resident attention-core backward (csrc/mhsa_reg_bwd.cuh):
@@ -585,11 +598,19 @@ def _check_hopper_units() -> None:
         print(f"ptxas dual tile {form} "
               f"({'#14' if want == 2 else '#4/#10'}): {dual} registers, 0 "
               "spill bytes")
-    fwd = sorted(v[0] for k, v in mine.items() if WGMMA_FWD in k)
-    check(len(fwd) == WGMMA_FWD_INSTANCES, f"ptxas reported {len(fwd)} "
-          f"{WGMMA_FWD} instances, expected {WGMMA_FWD_INSTANCES}")
-    print(f"ptxas forward products (#2/#9, #1/#5): {len(fwd)} instances, "
-          f"{fwd[0]}-{fwd[-1]} registers, 0 spill bytes")
+    for form, (want, who) in WGMMA_FWDS.items():
+        fwd = {}
+        for k, v in mine.items():
+            if form in k:
+                width = WGMMA_FWD_WIDTH.search(k)
+                fwd[int(width.group(1)) if width else k] = v[0]
+        check(len(fwd) == want, f"ptxas reported {len(fwd)} {form} "
+              f"instances, expected {want}")
+        print(f"ptxas forward product {form} ({who}): registers by tile "
+              f"width {fwd}, 0 spill bytes")
+    check(sum(WGMMA_FWD in k for k in mine) == sum(
+        n for n, _ in WGMMA_FWDS.values()),
+          f"a {WGMMA_FWD} instance of another form")
     _check_forward_cores(report)
     core = {k: v for k, v in report.items() if REG_BWD_KERNEL in k}
     for rows in NEST_ROW_MAPS:
@@ -1804,7 +1825,7 @@ MLP_BWD_NAMES = ("dx", "dgamma", "dbeta", "dw1", "db1", "dw2", "db2")
 def _mlp_probe_checks(gen, m, stats):
     """Every instance of #13 (and its ablations), #19a (each stage set),
     #19b and #14 at M rows of level 3's width against the plain versions in
-    bf16 and fp32; #14's and #19b's reruns bit-identical. b1 and b2 are
+    bf16 and fp32; the reruns of each bit-identical. b1 and b2 are
     drawn at scale 1, so that a dropped or misindexed bias moves y by about
     as much as the MLP branch does, far past the bounds."""
     d, f = MLP_D, MLP_F
@@ -1830,6 +1851,9 @@ def _mlp_probe_checks(gen, m, stats):
                            (MT.mlp_tile_plain(x.float(), *p32, **flags),),
                            ("y",), BOUND_VS_PLAIN_BF16, BOUND_VS_PLAIN_FP32,
                            stats["mlp_tile"])
+            check(torch.equal(MT.mlp_tile(x, *params, tm=tm, fs=fs,
+                                          **flags), y),
+                  f"mlp_tile {at} {flags or 'full'}: a rerun differs")
         for stages in MT.CHAIN_STAGES:
             y = MT.mlp_chain(x, w1, w2, stages, tm=tm, fs=fs)
             torch.cuda.synchronize()
@@ -1839,6 +1863,9 @@ def _mlp_probe_checks(gen, m, stats):
                                                w2.float(), stages),),
                            ("y",), BOUND_VS_PLAIN_BF16, BOUND_VS_PLAIN_FP32,
                            stats["mlp_chain"])
+            check(torch.equal(MT.mlp_chain(x, w1, w2, stages, tm=tm, fs=fs),
+                              y), f"mlp_chain {at} stages {stages}: a rerun "
+                  "differs")
     z = MT.mlp_single(x, w1)
     torch.cuda.synchronize()
     _check_outputs("mlp_single", where, (z,), (MT.mlp_single_plain(x, w1),),
@@ -1934,22 +1961,25 @@ def phase_mlp_probe_kernels(smi: str):
               + "".join(f"{k[:-3]} {v:.4f} ms, " for k, v in yard.items())
               + (f"max|d| vs plain {err:.4g}; " if err is not None else "")
               + f"on {smi}")
-    _best(stats["mlp_tile"], by_probe["mlp_fwd"], instance)
+    _best(stats["mlp_tile"], by_probe["mlp_fwd"], instance,
+          BWD_DEVICE_KEYS[:2])
     _best(stats["mlp_tile_bwd"], by_probe["mlp_bwd"], instance,
           BWD_DEVICE_KEYS)
     # the pure chain is #19a's call; its GELU and LN stages in per_shape
     _best(stats["mlp_chain"], by_probe["mlp_chain"],
-          lambda r: not r["stages"], ("two_matmuls_ms",))
+          lambda r: not r["stages"], ("two_matmuls_ms", *DEVICE_KEYS))
     _best(stats["mlp_single"], by_probe["mlp_single"], lambda r: True,
           ("library_ms", *DEVICE_KEYS))
     for name in names:
         st = stats[name]
+        alone = {k: st[k] for k in (*DEVICE_KEYS, *BWD_DEVICE_KEYS)
+                 if st.get(k) is not None}
         print(f"time {name} fastest ({st['best']}): kernel {st['ms']:.4f} ms "
               f"per call, plain {st['plain_ms']:.4f} ms"
-              + (f", torch.matmul {st['library_ms']:.4f} ms; device alone "
-                 f"kernel {st['kernel_device_ms']:.4f} ms, torch.matmul "
-                 f"{st['library_device_ms']:.4f} ms"
-                 if st["library_ms"] is not None else ""))
+              + (f", torch.matmul {st['library_ms']:.4f} ms"
+                 if st["library_ms"] is not None else "")
+              + "".join(f", {k} {v:.4f}" for k, v in alone.items())
+              + f"; on {smi}")
     print(f"MLP probe phase: checks {t_checks:.1f} s, probes "
           f"{time.perf_counter() - t0 - t_checks:.1f} s")
     return stats, launches

@@ -155,13 +155,14 @@ MLP_SPLIT_PARTS = (
 # the same for #2 and #9: the parent's gemm.cuh epilogues 1 (bias + GELU,
 # with the LN prologue for #2), 2 (bias + residual) and 0 (bias), this
 # tree's DenseEpi<true> (bias + GELU) and <false> (bias, + residual for #2)
-# after ln_rows
+# after ln_rows (DenseEpi<true, false> and <false, false> where the name
+# carries the second parameter, kErf, the probes' accurate GELU)
 MLP_FWD_SPLIT_PARTS = (
     ("LN rows", r"ln_rows"),
     ("fc1 + GELU", r"gemm_kernel<(true|false), false, false, 1>|"
-                   r"DenseEpi<true>"),
+                   r"DenseEpi<true[,>]"),
     ("fc2 + bias or residual", r"gemm_kernel<false, false, false, [02]>|"
-                               r"DenseEpi<false>"),
+                               r"DenseEpi<false[,>]"),
     ("other", r""))
 # the same for #1 and #5: the parent's gemm.cuh LN-prologue qkv GEMM
 # (epilogue 0, bias), mhsa.cuh's core and the residual out-projection
@@ -170,10 +171,11 @@ MLP_FWD_SPLIT_PARTS = (
 # kernel a call, so two launches of one instance split by their order.
 ATTN_FWD_SPLIT_PARTS = (
     ("LN rows", r"ln_rows"),
-    ("qkv product", r"gemm_kernel<true, false, false, 0>|DenseEpi<false>"),
+    ("qkv product", r"gemm_kernel<true, false, false, 0>|"
+                    r"DenseEpi<false[,>]"),
     ("attention core", r"mhsa"),
     ("out-projection", r"gemm_kernel<false, false, false, 2>|"
-                       r"DenseEpi<false>"),
+                       r"DenseEpi<false[,>]"),
     ("other", r""))
 ONCE_A_CALL = frozenset({"qkv product"})
 

@@ -1,9 +1,10 @@
-"""Before and after of the attention probes #15 ``attn_sched`` and #16
-``attn_sched_bwd`` (each mode, and each core alone) and of #14
-``mlp_tile_bwd`` (each instance) in one process on one CUDA card, at the
-probes' shape (``probes/attn_probe.py``,
-``probes/mega_probe.py``: NesT-Small level 3, S 196, D 384, 12 heads of
-32, F 1536; ``--batch`` 128).
+"""Before and after of the probes #13 ``mlp_tile`` and #19a ``mlp_chain``
+(each instance, each chain stage), of the attention probes #15
+``attn_sched`` and #16 ``attn_sched_bwd`` (each mode, and each core alone)
+and of #14 ``mlp_tile_bwd`` (each instance) in one process on one CUDA
+card, at the probes' shape (``probes/attn_probe.py``,
+``probes/mega_probe.py``, ``probes/mlp_probe.py``: NesT-Small level 3, S
+196, D 384, 12 heads of 32, F 1536; ``--batch`` 128).
 
 ``--parent DIR`` is a second checkout of the repository (for example an
 earlier commit unpacked with ``git archive`` into a directory that
@@ -13,31 +14,45 @@ directory (``scripts/ab_attention.py``'s ``_load_parent_build``). In the
 parent's turns this tree's ``attn_sched``, ``attn_sched_core``,
 ``attn_sched_bwd``, ``attn_sched_bwd_core`` and ``mlp_tile_bwd`` wrappers
 launch that library's entry points of the same names and its workspace
-queries (their C signatures must be this tree's),
-and #14 runs the parent's instances (``BWD_TILES`` as its
-``ops/mlp_tile.py`` lists them); every other kernel and all the code
-around them are this tree's. The turns alternate (parent, change, change,
-parent, ...) after one warm-up turn of each, and each turn times, as device
-time alone per call (``_timing.device_ms``: 20 calls queued behind a spin
-kernel, so the host's time does not show):
+queries (their C signatures must be this tree's), and #14 runs the
+parent's instances (``BWD_TILES`` as its ``ops/mlp_tile.py`` lists them).
+#13 and #19a run the parent's instances (its ``TILES``) through the
+parent's ``vlp_mlp_tile``: by this tree's wrappers where the parent's
+``_SIGNATURES`` give it this tree's C signature, else by the one-launch
+tile engine's signature that the parent's ``_SIGNATURES`` bind
+(``_engine_call``). Every other kernel and all the code around them are
+this tree's. The turns alternate (parent, change, change, parent, ...)
+after one warm-up turn of each, and each turn times, as device time alone
+per call (``_timing.device_ms``: 20 calls queued behind a spin kernel, so
+the host's time does not show):
 
   attn_fwd_<mode>_ms       #15 in mode v0, nosm, pipe, pipe2, stage
   attn_fwd_core_<mode>_ms  its core alone on the probe's qkv
   attn_bwd_<mode>_ms       #16 in mode v0, stage2, uni
   attn_bwd_core_<mode>_ms  its core alone on the probe's qkv and do
+  mlp_fwd_<tm>x<fs>_ms     #13 (LN and GELU on) at each of the side's
+                           instances, and
+  mlp_fwd_fastest_ms       the fastest of them
+  mlp_chain_<stages>_<tm>x<fs>_ms
+                           #19a with stages matmuls (none), gelu or
+                           ln+gelu at each instance, and
+  mlp_chain_<stages>_fastest_ms
+                           the fastest instance of each stage set
   mlp_bwd_<tm>x<fs>_ms     #14 at each of the side's instances, and
   mlp_bwd_fastest_ms       the fastest of them
-  ln_attention_ms, ln_attention_bwd_ms, ln_mlp_bwd_ms, sdpa_fwd_ms,
-  sdpa_bwd_ms              the shipped #1, #3 (on #1's qkv and o) and #4
-                           and SDPA forward and backward on the same q, k,
-                           v: yardsticks, this tree's on both sides
+  ln_attention_ms, ln_attention_bwd_ms, ln_mlp_ms, ln_mlp_bwd_ms,
+  two_matmuls_ms, sdpa_fwd_ms, sdpa_bwd_ms
+                           the shipped #1, #3 (on #1's qkv and o), #2 and
+                           #4, two cuBLAS matmuls (#19a's yardstick) and
+                           SDPA forward and backward on the same q, k, v:
+                           yardsticks, this tree's on both sides
 
-After the turns, one call of each #15 and #16 mode, each core and each #14
-instance per side runs under ``torch.profiler``: the ``split`` of the
-summary lists each call's kernels in launch order with their device ms.
-``--only parent`` times and splits the parent's kernels alone (the
-yardsticks too), without building this tree's library: the profile of the
-parent before a change is built.
+After the turns, one call of each #13 instance, #19a stage set and
+instance, #15 and #16 mode, each core and each #14 instance per side runs
+under ``torch.profiler``: the ``split`` of the summary lists each call's
+kernels in launch order with their device ms. ``--only parent`` times and
+splits the parent's kernels alone (the yardsticks too), without building
+this tree's library: the profile of the parent before a change is built.
 
 Random inputs from fixed seeds (the probes' draws), the same on both
 sides. Prints one JSON line per turn, then one with each side's median of
@@ -69,7 +84,9 @@ from vlp_tpu_torch.ops import _build  # noqa: E402
 from vlp_tpu_torch.ops import attn_sched as AS  # noqa: E402
 from vlp_tpu_torch.ops import fused_block as FB  # noqa: E402
 from vlp_tpu_torch.ops import mlp_tile as MT  # noqa: E402
-from vlp_tpu_torch.probes import attn_probe, mega_probe  # noqa: E402
+from vlp_tpu_torch.ops._common import _stream  # noqa: E402
+from vlp_tpu_torch.probes import (attn_probe, mega_probe,  # noqa: E402
+                                  mlp_probe)
 from vlp_tpu_torch.probes._timing import device_ms, require_cuda  # noqa: E402
 
 PARENT_ENTRY_POINTS = ("vlp_attn_sched", "vlp_attn_sched_core",
@@ -79,18 +96,39 @@ PARENT_ENTRY_POINTS = ("vlp_attn_sched", "vlp_attn_sched_core",
                        "vlp_mlp_tile_bwd", "vlp_mlp_tile_bwd_workspace")
 
 
-def parent_bwd_tiles(root: str):
-    """``BWD_TILES`` of the parent checkout's ``ops/mlp_tile.py``, read
-    from its source (the module itself imports this tree's package)."""
+def parent_tiles(root: str, name: str):
+    """``name`` (``TILES`` or ``BWD_TILES``) of the parent checkout's
+    ``ops/mlp_tile.py``, read from its source (the module itself imports
+    this tree's package)."""
     path = os.path.join(root, "vlp_tpu_torch", "ops", "mlp_tile.py")
     with open(path) as f:
         tree = ast.parse(f.read())
     for node in tree.body:
         if isinstance(node, ast.Assign) and any(
-                isinstance(t, ast.Name) and t.id == "BWD_TILES"
+                isinstance(t, ast.Name) and t.id == name
                 for t in node.targets):
             return tuple(tuple(t) for t in ast.literal_eval(node.value))
-    raise ValueError(f"{path}: no BWD_TILES")
+    raise ValueError(f"{path}: no {name}")
+
+
+def _engine_call(lib, x, w1, w2, vecs, *, ln, gelu, tm, fs):
+    """One call of the one-launch tile engine's ``vlp_mlp_tile`` (x, gamma,
+    beta, w1, b1, w2, b2, out, M, D, F, tm, fs, ln, gelu, bias, eps,
+    stream, as its library's ``_SIGNATURES`` bind them): #13 with ``vecs``
+    = (gamma, beta, b1, b2), #19a with ``vecs`` None."""
+    (m, d), f = x.shape, w1.shape[1]
+    ptrs = [v.data_ptr() for v in vecs] if vecs else [0] * 4
+    out = torch.empty_like(x)
+    err = lib.vlp_mlp_tile(x.data_ptr(), ptrs[0], ptrs[1], w1.data_ptr(),
+                           ptrs[2], w2.data_ptr(), ptrs[3], out.data_ptr(),
+                           m, d, f, tm, fs, int(ln), int(gelu),
+                           int(vecs is not None), FB._EPS, _stream())
+    _build.check(lib, err, "the parent's mlp_tile")
+    return out
+
+
+def _chain_label(stages):
+    return "+".join(stages) if stages else "matmuls"
 
 
 def main(argv=None) -> int:
@@ -104,9 +142,16 @@ def main(argv=None) -> int:
     smi = require_cuda("ab_probes")
     root = os.path.abspath(args.parent)
     parent_build = _load_parent_build(root)
-    tiles = {"change": MT.BWD_TILES, "parent": parent_bwd_tiles(root)}
+    tiles = {"change": MT.BWD_TILES,
+             "parent": parent_tiles(root, "BWD_TILES")}
+    fwd_tiles = {"change": MT.TILES, "parent": parent_tiles(root, "TILES")}
+    # the parent's #13/#19a through this tree's wrappers only where its C
+    # signature is this tree's
+    same_fwd = (parent_build._SIGNATURES["vlp_mlp_tile"]
+                == _build._SIGNATURES["vlp_mlp_tile"])
     if args.only:
-        sides = {"parent": (_Library(parent_build.load_library()),) * 2}
+        parent_lib = parent_build.load_library()
+        sides = {"parent": (_Library(parent_lib),) * 2}
     else:
         with concurrent.futures.ThreadPoolExecutor(2) as pool:
             libs = [pool.submit(_build.load_library),
@@ -114,8 +159,9 @@ def main(argv=None) -> int:
             parent_lib = libs[1].result()
             own_lib = libs[0].result()
         sides = {"change": (_build, _build),
-                 "parent": (_Library(_Mixed(own_lib, parent_lib,
-                                            PARENT_ENTRY_POINTS)), _build)}
+                 "parent": (_Library(_Mixed(
+                     own_lib, parent_lib, PARENT_ENTRY_POINTS
+                     + ("vlp_mlp_tile",) * same_fwd)), _build)}
     torch.backends.cuda.matmul.allow_tf32 = False
 
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -127,13 +173,27 @@ def main(argv=None) -> int:
     (g1, b1, bq1, bo1), (wq1, wo1) = FB._cast(
         x.dtype, vectors=(g, b, bq, bo), matrices=(wq, wo))
     m = args.batch * mega_probe.SEQ
-    mx, mg, mb, w1, mb1, w2, _, mdy = mega_probe.mlp_inputs(m, gen)
+    mx, mg, mb, w1, mb1, w2, mb2, mdy = mega_probe.mlp_inputs(m, gen)
     mparams = (mg, mb, w1, mb1, w2)
+    fparams = (*mparams, mb2)
 
     def use(side):
         AS._build = MT._build = sides[side][0]
         FB._build = sides[side][1]
         MT.BWD_TILES = tiles[side]
+        MT.TILES = fwd_tiles[side]
+
+    def mlp_fwd(side, tm, fs, stages=None):
+        """#13 (``stages`` None) or #19a at (tm, fs) on ``side``."""
+        ln = stages is None or "ln" in stages
+        gelu = stages is None or "gelu" in stages
+        if side == "change" or same_fwd:
+            if stages is None:
+                return lambda: MT.mlp_tile(mx, *fparams, tm=tm, fs=fs)
+            return lambda: MT.mlp_chain(mx, w1, w2, stages, tm=tm, fs=fs)
+        vecs = (mg, mb, mb1, mb2) if stages is None else None
+        return lambda: _engine_call(parent_lib, mx, w1, w2, vecs, ln=ln,
+                                    gelu=gelu, tm=tm, fs=fs)
 
     def calls(side):
         """{metric: the call it times} on ``side``."""
@@ -155,6 +215,11 @@ def main(argv=None) -> int:
             fns[f"attn_bwd_core_{mode}_ms"] = (
                 lambda mode=mode: AS.attn_sched_bwd_core(
                     qkv, do, attn_probe.HEADS, mode))
+        for tm, fs in fwd_tiles[side]:
+            fns[f"mlp_fwd_{tm}x{fs}_ms"] = mlp_fwd(side, tm, fs)
+            for stages in MT.CHAIN_STAGES:
+                fns[f"mlp_chain_{_chain_label(stages)}_{tm}x{fs}_ms"] = (
+                    mlp_fwd(side, tm, fs, stages))
         for tm, fs in tiles[side]:
             fns[f"mlp_bwd_{tm}x{fs}_ms"] = (
                 lambda tm=tm, fs=fs: MT.mlp_tile_bwd(mx, *mparams, mdy,
@@ -163,7 +228,9 @@ def main(argv=None) -> int:
             x, *aparams, bo, attn_probe.HEADS)
         fns["ln_attention_bwd_ms"] = lambda: FB.ln_attention_bwd(
             x, g1, b1, wq1, bq1, wo1, dy, attn_probe.HEADS, qkv1, o1)
+        fns["ln_mlp_ms"] = lambda: FB.ln_mlp(mx, *fparams)
         fns["ln_mlp_bwd_ms"] = lambda: FB.ln_mlp_bwd(mx, *mparams, mdy)
+        fns["two_matmuls_ms"] = lambda: mlp_probe.two_matmuls(mx, w1, w2)
         fns["sdpa_fwd_ms"] = sdpa_fwd
         fns["sdpa_bwd_ms"] = sdpa_bwd
         return fns
@@ -172,8 +239,10 @@ def main(argv=None) -> int:
         out = {"side": side}
         for name, fn in calls(side).items():
             out[name] = device_ms(fn)
-        out["mlp_bwd_fastest_ms"] = min(
-            v for k, v in out.items() if k.startswith("mlp_bwd_"))
+        for prefix in ("mlp_fwd", "mlp_bwd", *(
+                f"mlp_chain_{_chain_label(s)}" for s in MT.CHAIN_STAGES)):
+            out[f"{prefix}_fastest_ms"] = min(
+                v for k, v in out.items() if k.startswith(prefix + "_"))
         return out
 
     order = list(sides)
@@ -195,11 +264,12 @@ def main(argv=None) -> int:
     splits = {}
     for side in order:
         for name, fn in calls(side).items():
-            if name.startswith(("attn_fwd", "attn_bwd", "mlp_bwd")):
+            if name.startswith(("attn_fwd", "attn_bwd", "mlp_")):
                 splits[f"{side} {name[:-3]}"] = [
                     (k[:120], ms) for k, ms in _call_kernels(fn)]
     summary = {"card": smi, "batch": args.batch, "rounds": args.rounds,
-               "tiles": tiles, "median": median, "split_ms": splits}
+               "tiles": tiles, "fwd_tiles": fwd_tiles, "median": median,
+               "split_ms": splits}
     print(json.dumps(summary), flush=True)
     if args.output:
         with open(args.output, "w") as f:

@@ -336,6 +336,9 @@ _DENSE64 = ("void vlp::wg::wgmma_gemm_kernel<vlp::wg::DenseEpi<false>, 64, "
             "4, 2, __nv_bfloat16>(...)")
 _DENSE128 = ("void vlp::wg::wgmma_gemm_kernel<vlp::wg::DenseEpi<false>, 128, "
              "3, 2, __nv_bfloat16>(...)")
+# a name with both of DenseEpi's parameters (kGelu, kErf)
+_DENSE64_2 = ("void vlp::wg::wgmma_gemm_kernel<vlp::wg::DenseEpi<false, "
+              "false>, 64, 4, 2, __nv_bfloat16>(...)")
 _REG = "void vlp::reg::mhsa_reg_kernel<32, 13, vlp::{}>(...)"
 _OLD_QKV = "void vlp::gemm_kernel<true, false, false, 0>(...)"
 _OLD_CORE = "void vlp::mhsa_kernel<32, vlp::{}>(...)"
@@ -347,6 +350,8 @@ _FWD_PARTS = ["LN rows", "qkv product", "attention core", "out-projection"]
     # this tree: one DenseEpi<false> instance for both products, either map
     ([_ROWS, _DENSE64, _REG.format("IdentityRows"), _DENSE64], _FWD_PARTS),
     ([_ROWS, _DENSE64, _REG.format("WindowRows"), _DENSE64], _FWD_PARTS),
+    ([_ROWS, _DENSE64_2, _REG.format("IdentityRows"), _DENSE64_2],
+     _FWD_PARTS),
     # two widths, two instances
     ([_ROWS, _DENSE128, _REG.format("IdentityRows"), _DENSE64], _FWD_PARTS),
     ([_ROWS, _DENSE64, _REG.format("WindowRows"), _DENSE128], _FWD_PARTS),

@@ -41,6 +41,7 @@ from vlp_tpu_torch.ops import shear as SH
 
 pytestmark = pytest.mark.gpu
 BOUND = 2.0 ** -6
+BOUND_FP32 = 2.0 ** -5
 BOUND_BWD_FP32 = 2.0 ** -4
 
 
@@ -915,30 +916,51 @@ def _mlp_tile_params(gen, d, f):
             _rand(gen, f, d, scale=f ** -0.5).bfloat16(), _rand(gen, d))
 
 
-# The MLP tile engine: every instance, every flag combination. Rows past a
-# whole tile (M = 1037, 77) and widths below the probe's (D 64, 192).
+# #13 and #19a on #2's launch sequence: both instances, every flag
+# combination and chain stage, against the plain version in bf16 and in
+# fp32 (TF32 off), reruns bit-equal. Rows past a whole 128-row tile (every
+# M here), widths below the probe's (D 64, 96, 192; F 352 is 2.75 tiles of
+# 128), and D 40, which only the forms without a LayerNorm take.
 @pytest.mark.parametrize("m,d,f", [(3136, 384, 1536), (1037, 384, 1536),
-                                   (77, 192, 768), (100, 64, 256)])
+                                   (77, 192, 768), (100, 64, 256),
+                                   (1037, 96, 352), (77, 40, 160)])
 def test_mlp_tile_forward_kernels_match_plain(cuda, m, d, f):
+    torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device=cuda).manual_seed(m + d)
     x = _rand(gen, m, d).bfloat16()
-    g, b, w1, b1, w2, b2 = _mlp_tile_params(gen, d, f)
+    params = _mlp_tile_params(gen, d, f)
+    p32 = [t.float() for t in params]
+    w1, w2 = params[2], params[4]
+    flags = [(ln, gelu) for ln, gelu in ((True, True), (True, False),
+                                         (False, True)) if ln <= (d % 32 == 0)]
+    chains = [s for s in MT.CHAIN_STAGES if "ln" not in s or d % 32 == 0]
     for tm, fs in MT.TILES:
-        for ln, gelu in ((True, True), (True, False), (False, True)):
+        for ln, gelu in flags:
             before = MT.mlp_tile.launches
-            y = MT.mlp_tile(x, g, b, w1, b1, w2, b2, ln=ln, gelu=gelu, tm=tm,
-                            fs=fs)
+            y = MT.mlp_tile(x, *params, ln=ln, gelu=gelu, tm=tm, fs=fs)
             torch.cuda.synchronize()
             assert MT.mlp_tile.launches == before + 1
-            ref = MT.mlp_tile_plain(x, g, b, w1, b1, w2, b2, ln=ln,
-                                    gelu=gelu)
+            at = (tm, fs, ln, gelu)
             assert y.shape == (m, d) and torch.isfinite(y.float()).all()
-            assert _rel_err(y, ref) <= BOUND, (tm, fs, ln, gelu)
-        for stages in MT.CHAIN_STAGES:
+            assert _rel_err(y, MT.mlp_tile_plain(
+                x, *params, ln=ln, gelu=gelu)) <= BOUND, at
+            assert _rel_err(y, MT.mlp_tile_plain(
+                x.float(), *p32, ln=ln, gelu=gelu)) <= BOUND_FP32, at
+            assert torch.equal(MT.mlp_tile(x, *params, ln=ln, gelu=gelu,
+                                           tm=tm, fs=fs), y), at
+        for stages in chains:
+            before = MT.mlp_chain.launches
             y = MT.mlp_chain(x, w1, w2, stages, tm=tm, fs=fs)
             torch.cuda.synchronize()
+            assert MT.mlp_chain.launches == before + 1
+            at = (tm, fs, stages)
+            assert y.shape == (m, d) and torch.isfinite(y.float()).all()
             assert _rel_err(y, MT.mlp_chain_plain(x, w1, w2, stages)) \
-                <= BOUND, (tm, fs, stages)
+                <= BOUND, at
+            assert _rel_err(y, MT.mlp_chain_plain(
+                x.float(), p32[2], p32[4], stages)) <= BOUND_FP32, at
+            assert torch.equal(MT.mlp_chain(x, w1, w2, stages, tm=tm,
+                                            fs=fs), y), at
 
 
 # The single product on the wgmma mainloop: M of one row, ragged and the
@@ -1012,12 +1034,34 @@ def test_mlp_probe_kernels_raise_on_what_they_refuse(cuda):
         MT.mlp_tile_bwd(x, g, b, w1, b1, w2, x, tm=64, fs=128)
     off = torch.zeros(64 * 64 + 4, device=cuda,
                       dtype=torch.bfloat16)[4:].view(64, 64)
-    before = MT.mlp_tile_bwd.launches
+    before = [k.launches for k in MT.KERNELS]
     with pytest.raises(ValueError, match="16-byte aligned"):
         MT.mlp_tile_bwd(off, g, b, w1, b1, w2, x)
     with pytest.raises(ValueError, match="16-byte aligned"):
         MT.mlp_tile_bwd(x, g, b, w1, b1, w2, off)
-    assert MT.mlp_tile_bwd.launches == before
+    # #13 and #19a: #2's sequence reads x, w1 and w2 by TMA; its instances
+    # (tm, fs) and limits (D a multiple of 32 up to 1024 with a LayerNorm,
+    # of 8 without; F of 8)
+    w1_off = torch.zeros(64 * 256 + 4, device=cuda,
+                         dtype=torch.bfloat16)[4:].view(64, 256)
+    w2_off = torch.zeros(256 * 64 + 4, device=cuda,
+                         dtype=torch.bfloat16)[4:].view(256, 64)
+    for ops in ((off, w1, w2), (x, w1_off, w2), (x, w1, w2_off)):
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            MT.mlp_tile(ops[0], g, b, ops[1], b1, ops[2], b2)
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            MT.mlp_chain(*ops, ("ln", "gelu"))
+    with pytest.raises(ValueError, match="instances"):
+        MT.mlp_tile(x, g, b, w1, b1, w2, b2, tm=64, fs=64)
+    with pytest.raises(ValueError, match="instances"):
+        MT.mlp_chain(x, w1, w2, tm=32, fs=128)
+    x40 = torch.zeros(64, 40, device=cuda, dtype=torch.bfloat16)
+    w40 = torch.zeros(40, 160, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="multiple of 32 up to 1024"):
+        MT.mlp_chain(x40, w40, w40.T.contiguous(), ("ln", "gelu"))
+    with pytest.raises(ValueError, match="F a multiple of 8"):
+        MT.mlp_chain(x, w1[:, :252].contiguous(), w2[:252].contiguous())
+    assert [k.launches for k in MT.KERNELS] == before
 
 
 def _attn_sched_params(gen, d):

@@ -308,6 +308,11 @@ def test_ab_script_serves_the_parents_mlp_backwards():
      "fc2 + bias or residual"),
     ("void vlp::wg::wgmma_gemm_kernel<vlp::wg::DenseEpi<false>, 64, 4, 2, "
      "__nv_bfloat16>(...)", "fc2 + bias or residual"),
+    # the names with both of DenseEpi's parameters (kGelu, kErf)
+    ("void vlp::wg::wgmma_gemm_kernel<vlp::wg::DenseEpi<true, false>, 128, 3, "
+     "2, __nv_bfloat16>(...)", "fc1 + GELU"),
+    ("void vlp::wg::wgmma_gemm_kernel<vlp::wg::DenseEpi<false, false>, 64, 4, "
+     "2, __nv_bfloat16>(...)", "fc2 + bias or residual"),
     ("Memset (Device)", "other"),
 ])
 def test_ab_script_splits_both_sides_mlp_forwards_into_the_same_parts(name,

@@ -216,7 +216,21 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="instances"):
         MT.mlp_tile_bwd(x, g, b, w1, b1, w2, x, tm=64, fs=128)
     with pytest.raises(ValueError, match="instances"):
-        MT.mlp_tile(x, g, b, w1, b1, w2, b, tm=128)
+        MT.mlp_tile(x, g, b, w1, b1, w2, b, tm=64)
+    with pytest.raises(ValueError, match="instances"):
+        MT.mlp_chain(x, w1, w2, tm=128, fs=256)
+    # #2's sequence: D a multiple of 32 up to 1024 with a LayerNorm (its row
+    # pass), of 8 without; F a multiple of 8
+    x40, w40 = torch.zeros(8, 40), torch.zeros(40, 160)
+    with pytest.raises(ValueError, match="multiple of 32 up to 1024"):
+        MT.mlp_tile(x40, g[:40], b[:40], w40, b1[:160], w40.T, b[:40])
+    with pytest.raises(ValueError, match="multiple of 32 up to 1024"):
+        MT.mlp_chain(x40, w40, w40.T, ("ln", "gelu"))
+    x1056, w1056 = torch.zeros(2, 1056), torch.zeros(1056, 8)
+    with pytest.raises(ValueError, match="multiple of 32 up to 1024"):
+        MT.mlp_chain(x1056, w1056, w1056.T, ("ln", "gelu"))
+    with pytest.raises(ValueError, match="F a multiple of 8"):
+        MT.mlp_chain(x, w1[:, :252], w2[:252])
     with pytest.raises(ValueError, match="not both"):
         MT.mlp_tile(x, g, b, w1, b1, w2, b, ln=False, gelu=False)
     with pytest.raises(ValueError, match="stages"):
@@ -234,6 +248,10 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
     MT.mlp_tile_bwd(x, g, b, w1, b1, w2, x)
     MT.mlp_chain(x, w1, w2, ("ln", "gelu"))
     MT.mlp_single(x, w1)
+    # without a LayerNorm D need only be a multiple of 8
+    MT.mlp_tile(x40, g[:40], b[:40], w40, b1[:160], w40.T, b[:40], ln=False)
+    MT.mlp_chain(x40, w40, w40.T, ("gelu",))
+    MT.mlp_chain(x1056, w1056, w1056.T)
     assert [k.launches for k in MT.KERNELS] == before
 
 
@@ -249,13 +267,15 @@ def _one_call_each(**fns):
     return {k: float(fn() is not None) for k, fn in fns.items()}
 
 
-@pytest.mark.parametrize("probe,count", [(mega_probe, 10), (mlp_probe, 13)])
+@pytest.mark.parametrize("probe,count", [(mega_probe, 8), (mlp_probe, 7)])
 def test_probe_runs_every_variant(monkeypatch, probe, count):
     """The control flow at batch 1 on the CPU (the kernels' plain versions,
     one call each in place of the card's timing): one record per variant,
     each with its times, bound and error; the single product's records
-    with the kernel's and torch.matmul's device times, the backward
-    instances' with theirs and the shipped #4's, #4's with its own."""
+    with the kernel's and torch.matmul's device times, the chain's with
+    the kernel's (the pure chain's also with the two matmuls'), the
+    forward and backward instances' with theirs and the shipped #2's or
+    #4's, #2's and #4's with their own."""
     monkeypatch.setattr(probe, "in_turns", _one_call_each)
     monkeypatch.setattr(probe, "device_in_turns", _one_call_each)
     records = probe.run(1, device="cpu")
@@ -264,6 +284,22 @@ def test_probe_runs_every_variant(monkeypatch, probe, count):
     assert len(singles) == (probe is mlp_probe)
     for rec in singles:
         assert rec["kernel_device_ms"] == rec["library_device_ms"] == 1.0
+    chains = [r for r in records if r["probe"] == "mlp_chain"]
+    assert len(chains) == 3 * len(MT.TILES) * (probe is mlp_probe)
+    for rec in chains:
+        assert rec["kernel_device_ms"] == 1.0
+        assert rec.get("library_device_ms") == (
+            None if rec["stages"] else 1.0)
+    fwd = [r for r in records if r["probe"] == "mlp_fwd"]
+    assert [r["variant"] for r in fwd] == ([
+        f"tile tm={tm} fs={fs}" for tm, fs in MT.TILES] + [
+        "no-gelu BOUND", "no-ln BOUND", "ln_mlp #2 (shipped, fast GELU)"]
+    ) * (probe is mega_probe)
+    for rec in fwd:
+        if rec["variant"].startswith(("tile", "ln_mlp")):
+            assert rec["kernel_device_ms"] == 1.0
+        if rec["variant"].startswith("tile"):
+            assert rec["shipped_device_ms"] == 1.0
     bwd = [r for r in records if r["probe"] == "mlp_bwd"]
     assert [r["variant"] for r in bwd] == [
         f"tile tm={tm} fs={fs}" for tm, fs in MT.BWD_TILES] * (

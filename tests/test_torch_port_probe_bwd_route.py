@@ -310,19 +310,21 @@ def _ab_probes():
 
 
 def test_ab_probes_script_reads_each_sides_instances(tmp_path):
-    """``scripts/ab_probes.py`` runs #14 at the instances each checkout's
-    ``ops/mlp_tile.py`` lists, read from its source."""
+    """``scripts/ab_probes.py`` runs #13, #19a and #14 at the instances
+    each checkout's ``ops/mlp_tile.py`` lists, read from its source."""
     ab, root = _ab_probes()
-    assert ab.parent_bwd_tiles(str(root)) == MT.BWD_TILES
+    assert ab.parent_tiles(str(root), "BWD_TILES") == MT.BWD_TILES
+    assert ab.parent_tiles(str(root), "TILES") == MT.TILES
     ops = tmp_path / "vlp_tpu_torch" / "ops"
     ops.mkdir(parents=True)
     (ops / "mlp_tile.py").write_text(
         "TILES = ((64, 64),)\nBWD_TILES = ((64, 64), (32, 64), (32, 128))\n")
-    assert ab.parent_bwd_tiles(str(tmp_path)) == ((64, 64), (32, 64),
-                                                  (32, 128))
+    assert ab.parent_tiles(str(tmp_path), "BWD_TILES") == (
+        (64, 64), (32, 64), (32, 128))
+    assert ab.parent_tiles(str(tmp_path), "TILES") == ((64, 64),)
     (ops / "mlp_tile.py").write_text("TILES = ((64, 64),)\n")
     with pytest.raises(ValueError, match="no BWD_TILES"):
-        ab.parent_bwd_tiles(str(tmp_path))
+        ab.parent_tiles(str(tmp_path), "BWD_TILES")
 
 
 def test_ab_probes_script_serves_the_parents_probe_backwards():

@@ -1,5 +1,5 @@
 // The helpers that the kernels' headers share: the bf16 type and a warp's
-// sum (bwd_rows.cuh's LayerNorm rows, mhsa_reg.cuh's cores, mlp_tile.cuh).
+// sum (bwd_rows.cuh's LayerNorm rows, mhsa_reg.cuh's cores).
 #pragma once
 
 #include <cuda_bf16.h>

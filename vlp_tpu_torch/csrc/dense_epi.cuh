@@ -1,11 +1,12 @@
 // One dense product with its epilogue in registers, shared by the MLP
-// forwards (mlp_fwd.cuh: #2 ln_mlp, #9 fused_mlp) and the half-block
-// attention forwards (ln_attention.cuh: #1 ln_attention, #5
-// ln_attention_windows):
+// forwards (mlp_fwd.cuh: #2 ln_mlp, #9 fused_mlp, and the probes #13
+// mlp_tile and #19a mlp_chain) and the half-block attention forwards
+// (ln_attention.cuh: #1 ln_attention, #5 ln_attention_windows):
 //
-//   DenseEpi<true>:   out = bf16(gelu(a @ w + bias))
-//   DenseEpi<false>:  out = bf16(a @ w + bias), or bf16(res + (a @ w + bias))
-//                     where res is given
+//   DenseEpi<true>:        out = bf16(gelu(a @ w + bias))
+//   DenseEpi<true, true>:  the same with the accurate GELU (#13, #19a)
+//   DenseEpi<false>:       out = bf16(a @ w + bias), or bf16(res + (a @ w +
+//                          bias)) where res is given
 //
 // The product runs on wgmma_gemm.cuh's TMA + wgmma mainloop in the form
 // DenseRows (A [M, K] K-major, B [K, N] N-major through the transpose bit,
@@ -17,7 +18,8 @@
 // vlp_tpu/ops/fused_mlp.py:70-76). The residual is read as bf16 pairs at
 // the fragment's coordinates and added in fp32 before the one rounding.
 // GELU is gelu.cuh's gelu_cdf_pdf, the function the MLP backwards' dual
-// tile (mlp_bwd.cuh) recomputes h with.
+// tile (mlp_bwd.cuh) recomputes h with, or with kErf gelu_erf_h, the
+// probes' accurate form (one expf and a refined reciprocal an element).
 //
 // Tiles are 128 x BN (64 or 128), two blocks an SM, so one block's
 // epilogue overlaps the other's loads; each sequence picks its widths from
@@ -34,10 +36,12 @@ namespace vlp {
 namespace wg {
 
 // x @ w as DenseRows reads it, finished in registers: with kGelu h =
-// bf16(gelu(acc + bias)); without, y = bf16(acc + bias), or bf16(res + (acc
-// + bias)) where res is given. bias [N] fp32, res [M, N] bf16 or null.
-template <bool kGelu>
+// bf16(gelu(acc + bias)) (kErf: the accurate GELU); without, y = bf16(acc +
+// bias), or bf16(res + (acc + bias)) where res is given. bias [N] fp32, res
+// [M, N] bf16 or null.
+template <bool kGelu, bool kErf = false>
 struct DenseEpi : DenseRows {
+  static_assert(kGelu || !kErf, "kErf is a form of the GELU");
   static constexpr bool kEpilogue = true;
   const float* bias;
   const bf16* res;
@@ -60,7 +64,10 @@ struct DenseEpi : DenseRows {
         for (int r = 0; r < 2; ++r) {
           const int i = 4 * j + 2 * r;
           float z0 = acc[i] + b0, z1 = acc[i + 1] + b1;
-          if constexpr (kGelu) {
+          if constexpr (kErf) {
+            z0 = gelu_erf_h(z0);
+            z1 = gelu_erf_h(z1);
+          } else if constexpr (kGelu) {
             float cdf, phi;
             gelu_cdf_pdf(z0, cdf, phi);
             z0 *= cdf;
@@ -90,7 +97,7 @@ struct DenseEpi : DenseRows {
 // and N multiples of 8, 16-byte aligned bf16 operands. Encodes the two
 // tensor maps on the host and launches once; returns the first failing
 // cudaError_t.
-template <bool kGelu, int BN>
+template <bool kGelu, int BN, bool kErf = false>
 cudaError_t launch_dense_epi(const bf16* a, const bf16* w, const float* bias,
                              const bf16* res, bf16* out, int M, int N, int K,
                              cudaStream_t st) {
@@ -99,7 +106,7 @@ cudaError_t launch_dense_epi(const bf16* a, const bf16* w, const float* bias,
        reinterpret_cast<uintptr_t>(res) | reinterpret_cast<uintptr_t>(out)) %
           16)
     return cudaErrorInvalidValue;
-  DenseEpi<kGelu> src{};
+  DenseEpi<kGelu, kErf> src{};
   CUtensorMap map_a, map_w;
   const cudaError_t err = DenseRows::encode(&map_a, &map_w, a, w, M, N, K);
   if (err != cudaSuccess) return err;
@@ -107,8 +114,8 @@ cudaError_t launch_dense_epi(const bf16* a, const bf16* w, const float* bias,
   src.bias = bias;
   src.res = res;
   static_assert(BN == 64 || BN == 128, "two blocks an SM");
-  return launch_wgmma_gemm<DenseEpi<kGelu>, BN, BN == 128 ? 3 : 4, 2>(
-      map_a, map_w, src, out, M, N, st);
+  return launch_wgmma_gemm<DenseEpi<kGelu, kErf>, BN, BN == 128 ? 3 : 4,
+                           2>(map_a, map_w, src, out, M, N, st);
 }
 
 }  // namespace wg

@@ -1,7 +1,7 @@
 // A bf16 tensor-core GEMM whose A tile is gathered by a source policy, the
 // engine of the ResNet probe kernel bn_relu_gemm.cu (#18: rows with a
 // BatchNorm affine and ReLU applied as they arrive); its cp.async helpers
-// also serve mlp_tile.cuh and mhsa_reg.cuh. The 3x3 convolution #17
+// also serve mhsa_reg.cuh. The 3x3 convolution #17
 // (conv3x3.cu) runs on the wgmma mainloop of wgmma_gemm.cuh. This one
 // computes
 //

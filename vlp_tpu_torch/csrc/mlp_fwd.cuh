@@ -1,12 +1,17 @@
 // The launch sequence of the MLP forwards, shared by ln_mlp.cu (#2, a = ln =
-// bf16(LN(x) * gamma + beta), residual x) and fused_mlp.cu (#9, a = x, no
-// residual), over a [M, D] rows, F the hidden width:
+// bf16(LN(x) * gamma + beta), residual x), fused_mlp.cu (#9, a = x, no
+// residual) and the probes' mlp_tile.cu (#13 and its ablations, #19a's
+// chain), over a [M, D] rows, F the hidden width:
 //
 //   (#2) ln_rows (bwd_rows.cuh):  ln = bf16(LN(x) * gamma + beta)   [M, D]
 //   1. DenseEpi<true>:            h = bf16(z * Phi(z)),
 //                                 z = a @ W1 + b1                    [M, F]
 //   2. DenseEpi<false>:           y = bf16(x + (h @ W2 + b2))  (#2)  [M, D]
 //                                 y = bf16(h @ W2 + b2)        (#9)
+//
+// Step 1's epilogue form and width are parameters: #2 and #9 run the fast
+// GELU at kFc1Width; #13 and #19a the accurate GELU (DenseEpi<true, true>)
+// or none (DenseEpi<false>) at 128 or 64 columns.
 //
 // Both products are dense_epi.cuh's single-product wgmma + TMA tiles with
 // their epilogues in registers, rounded at the Pallas bodies' points
@@ -42,13 +47,15 @@ constexpr int kFc1Width = 128, kFc2Width = 64;
 
 // Steps 1-2 on one stream: h [M, F] and y [M, D] from a [M, D], w1 [D, F],
 // w2 [F, D] bf16 and b1 [F], b2 [D] fp32; y adds res = x where it is given
-// (#2). Returns the first failing cudaError_t.
+// (#2). Step 1 is DenseEpi<kGelu, kErf> at kFc1 columns a tile (#2's and
+// #9's by default). Returns the first failing cudaError_t.
+template <bool kGelu = true, bool kErf = false, int kFc1 = wg::kFc1Width>
 inline cudaError_t mlp_fwd_products(const bf16* a, const bf16* w1,
                                     const float* b1, const bf16* w2,
                                     const float* b2, const bf16* res, bf16* h,
                                     bf16* y, int M, int D, int F,
                                     cudaStream_t st) {
-  const cudaError_t err = wg::launch_dense_epi<true, wg::kFc1Width>(
+  const cudaError_t err = wg::launch_dense_epi<kGelu, kFc1, kErf>(
       a, w1, b1, nullptr, h, M, F, D, st);
   if (err != cudaSuccess) return err;
   return wg::launch_dense_epi<false, wg::kFc2Width>(h, w2, b2, res, y, M, D,

@@ -14,14 +14,15 @@
 // partials) and by the MLP backwards #4 and #10 (mlp_bwd.cuh: the dual
 // form DualMlp, two products of one output tile in one K loop with an
 // epilogue of its own; ColsTN for dW1 and dW2; RowsNT for dln to fp32 and
-// dx to bf16) and forwards #2 and #9 (mlp_fwd.cuh: DenseEpi, x @ w with an
-// epilogue of its own, bias + GELU, or bias and a residual). Every operand
+// dx to bf16) and forwards #2 and #9 and the probes #13 and #19a
+// (mlp_fwd.cuh: DenseEpi, x @ w with an epilogue of its own, bias + GELU,
+// or bias and a residual). Every operand
 // is read by a TMA map as it lies.
 //
 // What bounds a GEMM on this card: the bf16 tensor cores (989 TFLOP/s) once
 // a tile does ~300 operations per byte it brings from device memory, and
 // only wgmma reaches that rate (wmma compiles to mma.sync, which the older
-// engines implicit_gemm.cuh and mlp_tile.cuh run at 100-150 TFLOP/s). The
+// engine implicit_gemm.cuh runs at 100-150 TFLOP/s). The
 // tensor cores idle whenever a warpgroup waits for its operands, so the
 // loads have to run ahead of the products without costing the consumers
 // instructions or registers, and the epilogue has to overlap another

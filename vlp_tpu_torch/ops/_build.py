@@ -93,9 +93,9 @@ _SIGNATURES = {
     "vlp_gemm_single": ([_P] * 3 + [_I] * 3 + [_P], _I),
     # x, a, b, w, out, M, C, K, stream
     "vlp_bn_relu_gemm": ([_P] * 5 + [_I] * 3 + [_P], _I),
-    # x, gamma, beta, w1, b1, w2, b2, out, M, D, F, tm, fs, ln, gelu, bias,
-    # eps, stream
-    "vlp_mlp_tile": ([_P] * 8 + [_I] * 8 + [_F, _P], _I),
+    # x, gamma, beta, w1, b1, w2, b2, ln, h, y, M, D, F, tm, fs, ln_on,
+    # gelu, residual, eps, stream
+    "vlp_mlp_tile": ([_P] * 10 + [_I] * 8 + [_F, _P], _I),
     # M, D, F, tm -> bytes
     "vlp_mlp_tile_bwd_workspace": ([_I] * 4, _Z),
     # x, gamma, beta, w1, b1, w2, dy, dx, dgamma, dbeta, dw1, db1, dw2, db2,

@@ -1,8 +1,7 @@
-"""The MLP tile engine for Hopper: the half block's MLP with its hidden
-activation kept on chip, forward and backward, and the matmul chain it is
-built from (counterparts of the probe kernels
-``benchmarks/mega_variants.py:make_mlp`` (#13), ``:make_mlp_bwd`` (#14)
-and ``benchmarks/mlp_probe.py:make_chain``/``make_single`` (#19)).
+"""The MLP probe kernels for Hopper: the half block's MLP, forward and
+backward, and the matmul chain it is built from (counterparts of the probe
+kernels ``benchmarks/mega_variants.py:make_mlp`` (#13), ``:make_mlp_bwd``
+(#14) and ``benchmarks/mlp_probe.py:make_chain``/``make_single`` (#19)).
 
   mlp_tile:     y = bf16(x + (h @ W2 + b2)),
                 h = bf16(gelu(bf16(LN(x) * gamma + beta) @ W1 + b1));
@@ -22,33 +21,37 @@ them only in its probe scripts); ``vlp_tpu_torch.probes.mega_probe`` and
 ``.mlp_probe`` time them beside the shipped ``ln_mlp`` (#2) and
 ``ln_mlp_bwd`` (#4) and cuBLAS.
 
-A CUDA tensor runs ``csrc/mlp_tile.cu`` (the forward and the chain, one
-engine, ``mlp_tile.cuh``), ``mlp_tile_bwd.cu`` (the shipped
-``ln_mlp_bwd``'s (#4) launch sequence on the wgmma + TMA mainloop
-``wgmma_gemm.cuh``, with the probe's GELU form and fp32 weight gradients)
-or, for the single product, ``csrc/gemm_single.cu`` (the same mainloop),
-or raises; a CPU tensor runs the ``*_plain`` version, which rounds where
-the Pallas bodies round. Each wrapper counts its launches in
-``<wrapper>.launches``.
+A CUDA tensor runs ``csrc/mlp_tile.cu`` (the forward and the chain: the
+shipped ``ln_mlp``'s (#2) launch sequence ``csrc/mlp_fwd.cuh``, ``ln_rows``
+where there is a LayerNorm, then fc1 and fc2 as wgmma + TMA tiles with
+their epilogues in registers, fc1's with the probes' accurate GELU),
+``mlp_tile_bwd.cu`` (the shipped ``ln_mlp_bwd``'s (#4) launch sequence on
+the same mainloop ``wgmma_gemm.cuh``, with the probe's GELU form and fp32
+weight gradients) or, for the single product, ``csrc/gemm_single.cu``
+(the same mainloop), or raises; a CPU tensor runs the ``*_plain``
+version, which rounds where the Pallas bodies round. Each wrapper counts
+its launches in ``<wrapper>.launches``.
 
-Schedule knobs: ``tm`` rows per block and ``fs`` columns per F slice, the
+Schedule knobs: ``tm`` rows and ``fs`` columns of [M, F] a tile, the
 counterparts of the TPU scripts' ``tm`` and ``parts``. The Mosaic bodies
 splitN (fc1 in column slices so GELU overlaps the next product), rowpipe
 (row sub-tiles interleaved) and the production backward's fsplit order
 the same sums for one in-order core; warps interleave on their own, so
-here each is a tiling. Forward (``TILES``): ``fs`` < F is the F-slice
-walk that splitN makes (h never leaves the block), and ``tm`` 32 against
-64 is the smaller row tile of rowpipe, each at two slice widths. Backward
-(``BWD_TILES``): the dual tile of ``csrc/mlp_bwd.cuh`` owns ``tm`` = 128
-rows (two warpgroups of 64, rowpipe's sub-tiles, interleaved by the card)
-and ``fs`` = 64 or 128 columns of [M, F]: Pallas fsplit's F / ``parts``
-slices, each a block of its own (24 or 12 of them at F 1536); h and dh
-go through device memory to the weight-gradient products. The single
-product has one instance (128 x 128 output tiles, two blocks an SM):
-tiles 64 and 256 columns wide were slower at the probe's shape.
+here each is a tiling. Both sequences run 128-row tiles (``tm`` = 128:
+two consumer warpgroups of 64, rowpipe's sub-tiles, interleaved by the
+card), and ``fs`` is the width of the tile that forms h (or h and dh) over
+F: Pallas's F / ``parts`` slices, each a block of its own rather than a
+step of one core's loop (12 or 24 of them at F 1536); h goes through
+device memory to the second product. Forward (``TILES``): fc1's tile at
+128 columns (#2's width, the default) or 64 (the narrower F slice);
+fc2's stays at #2's 64. Backward (``BWD_TILES``): the dual tile of
+``csrc/mlp_bwd.cuh`` at 64 or 128 columns. The single product has one
+instance (128 x 128 output tiles, two blocks an SM): tiles 64 and 256
+columns wide were slower at the probe's shape.
 """
 from __future__ import annotations
 
+import functools
 from typing import Sequence
 
 import torch
@@ -58,14 +61,13 @@ from vlp_tpu_torch.ops._common import (_acc, _cuda_operands, _mm, _route,
                                        _stream, gelu_grad)
 from vlp_tpu_torch.ops._common import gelu as _gelu
 from vlp_tpu_torch.ops.fused_block import _EPS, _ln_bwd_dx, _ln_fwd
-from vlp_tpu_torch.ops.fused_mlp import check_bwd_operands
+from vlp_tpu_torch.ops.fused_mlp import check_aligned, check_bwd_operands
 
-TILES = ((64, 64), (64, 128), (32, 64), (32, 128))
+TILES = ((128, 128), (128, 64))
 BWD_TILES = ((128, 64), (128, 128))
-MAX_D = 384
-# the backward's sequence (csrc/mlp_bwd.cuh): its row passes keep a row in
-# one warp's registers (D <= 1024, D % 32 == 0)
-MAX_D_BWD = 1024
+# the LayerNorm row passes (csrc/bwd_rows.cuh) keep a row in one warp's
+# registers: D <= 1024, D % 32 == 0
+MAX_D = 1024
 # the chain's stages the kernel takes (those the TPU probe runs)
 CHAIN_STAGES = ((), ("gelu",), ("ln", "gelu"))
 
@@ -128,12 +130,13 @@ def mlp_single_plain(x, w1) -> torch.Tensor:
 
 
 def _check_shapes(name, x, w1, w2, tm, fs, tiles, vectors=(),
-                  backward=False):
+                  backward=False, ln=True):
     """ValueError on what the kernel does not take, whatever the device:
     x [M, D], w1 [D, F], w2 [F, D], (tm, fs) one of ``tiles``, and for the
-    tile engine D a multiple of 64 up to 384 and F a multiple of fs, for the
-    ``backward`` D and F multiples of 32, D up to 1024; ``vectors`` are
-    (tensor, length) pairs."""
+    forward's sequence D a multiple of 32 up to ``MAX_D`` with a LayerNorm
+    (``ln``; the row pass), of 8 without (the products' 16-byte rows) and F
+    a multiple of 8, for the ``backward`` D and F multiples of 32, D up to
+    ``MAX_D``; ``vectors`` are (tensor, length) pairs."""
     if x.dim() != 2 or w1.dim() != 2 or w1.shape[0] != x.shape[1] or (
             tuple(w2.shape) != (w1.shape[1], x.shape[1])):
         raise ValueError(f"{name}: x {tuple(x.shape)}, w1 {tuple(w1.shape)}"
@@ -148,25 +151,27 @@ def _check_shapes(name, x, w1, w2, tm, fs, tiles, vectors=(),
         raise ValueError(f"{name}: (tm, fs) = ({tm}, {fs}) is not one of the "
                          f"kernel's instances {tiles}")
     if backward:
-        if d % 32 or f % 32 or d > MAX_D_BWD:
+        if d % 32 or f % 32 or d > MAX_D:
             raise ValueError(f"{name}: the kernel takes D and F multiples "
-                             f"of 32 and D <= {MAX_D_BWD}; got D={d}, "
-                             f"F={f}")
-    elif d % 64 or d > MAX_D or f % fs:
-        raise ValueError(f"{name}: the kernel takes D a multiple of 64 up to "
-                         f"{MAX_D} and F a multiple of fs = {fs}; got D={d}, "
-                         f"F={f}")
+                             f"of 32 and D <= {MAX_D}; got D={d}, F={f}")
+    elif (d % 32 or d > MAX_D if ln else d % 8) or f % 8:
+        raise ValueError(f"{name}: the kernel takes D a multiple of 32 up to "
+                         f"{MAX_D} with a LayerNorm, of 8 without, and F a "
+                         f"multiple of 8; got D={d}, F={f}, LayerNorm "
+                         f"{'on' if ln else 'off'}")
 
 
 def mlp_tile(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
              w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
              b2: torch.Tensor, *, ln: bool = True, gelu: bool = True,
-             tm: int = 64, fs: int = 64) -> torch.Tensor:
+             tm: int = 128, fs: int = 128) -> torch.Tensor:
     """x [M, D] -> y [M, D] in x's dtype; ``ln``/``gelu`` False are the
-    probe's ablation bounds (not both)."""
+    probe's ablation bounds (not both). On the card also refuses x, w1 and
+    w2 off 16-byte alignment (the products read them by TMA)."""
     d = x.shape[-1]
     _check_shapes("mlp_tile", x, w1, w2, tm, fs, TILES,
-                  ((gamma, d), (beta, d), (b1, w1.shape[-1]), (b2, d)))
+                  ((gamma, d), (beta, d), (b1, w1.shape[-1]), (b2, d)),
+                  ln=ln)
     if not (ln or gelu):
         raise ValueError("mlp_tile: the kernel takes LN or GELU off, not "
                          "both")
@@ -174,8 +179,8 @@ def mlp_tile(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
         return mlp_tile_plain(x, gamma, beta, w1, b1, w2, b2, ln=ln,
                               gelu=gelu)
     vecs = _cuda_operands("mlp_tile", x, (w1, w2), (gamma, beta, b1, b2))
-    y = _tile_cuda("mlp_tile", x, w1, w2, vecs, ln=ln, gelu=gelu, tm=tm,
-                   fs=fs)
+    y = _tile_cuda("mlp_tile", x, w1, w2, vecs, ln=ln, gelu=gelu,
+                   residual=True, tm=tm, fs=fs)
     mlp_tile.launches += 1
     return y
 
@@ -220,37 +225,56 @@ def mlp_tile_bwd(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     return dx, dg, db, dw1, db1, dw2, db2
 
 
-def _tile_cuda(name, x, w1, w2, vecs, *, ln, gelu, tm, fs):
-    """One launch of ``vlp_mlp_tile``: with ``vecs`` = (gamma, beta, b1, b2)
-    the forward with bias and residual, with ``vecs`` None the chain (its
-    LayerNorm affine-free)."""
+@functools.lru_cache(maxsize=16)
+def _filled(device: torch.device, n: int, value: float) -> torch.Tensor:
+    """A fp32 [n] vector of ``value`` on ``device``, made once and only
+    read: the chain's zero biases and its LayerNorm's unit gamma and zero
+    beta, which leave z and x_hat as they are in fp32, so that the chain
+    runs #2's pieces unchanged."""
+    return torch.full((n,), value, dtype=torch.float32, device=device)
+
+
+def _tile_cuda(name, x, w1, w2, vecs, *, ln, gelu, residual, tm, fs):
+    """One call of ``vlp_mlp_tile`` (#2's launch sequence) on fp32
+    ``vecs`` = (gamma, beta, b1, b2): ``ln_rows`` into an ln [M, D] scratch
+    where ``ln``, fc1 (+ the accurate GELU where ``gelu``) into an h [M, F]
+    scratch, fc2 (+ x where ``residual``) into y."""
+    check_aligned(name, x, w1, w2)
     (m, d), f = x.shape, w1.shape[1]
-    gamma, beta, b1, b2 = (v.data_ptr() for v in vecs) if vecs else (0,) * 4
+    gamma, beta, b1, b2 = (v.data_ptr() for v in vecs)
     lib = _build.load_library()
-    out = torch.empty((m, d), dtype=x.dtype, device=x.device)
+    lnb = torch.empty_like(x) if ln else None
+    h = torch.empty((m, f), dtype=x.dtype, device=x.device)
+    y = torch.empty_like(x)
     with torch.cuda.device(x.device):
         err = lib.vlp_mlp_tile(
             x.data_ptr(), gamma, beta, w1.data_ptr(), b1, w2.data_ptr(), b2,
-            out.data_ptr(), m, d, f, tm, fs, int(ln), int(gelu),
-            int(bool(vecs)), _EPS, _stream())
+            lnb.data_ptr() if ln else 0, h.data_ptr(), y.data_ptr(), m, d, f,
+            tm, fs, int(ln), int(gelu), int(residual), _EPS, _stream())
     _build.check(lib, err, name)
-    return out
+    return y
 
 
 def mlp_chain(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
-              stages: Sequence[str] = (), *, tm: int = 64,
-              fs: int = 64) -> torch.Tensor:
+              stages: Sequence[str] = (), *, tm: int = 128,
+              fs: int = 128) -> torch.Tensor:
     """x [M, D] -> bf16(bf16(g(x' @ w1)) @ w2) [M, D]; ``stages`` one of
-    ``CHAIN_STAGES``."""
-    _check_shapes("mlp_chain", x, w1, w2, tm, fs, TILES)
+    ``CHAIN_STAGES``. On the card also refuses x, w1 and w2 off 16-byte
+    alignment."""
     if tuple(stages) not in CHAIN_STAGES:
         raise ValueError(f"mlp_chain: stages {tuple(stages)} not one of "
                          f"{CHAIN_STAGES}")
+    ln = "ln" in stages
+    _check_shapes("mlp_chain", x, w1, w2, tm, fs, TILES, ln=ln)
     if not _route("mlp_chain", x):
         return mlp_chain_plain(x, w1, w2, stages)
     _cuda_operands("mlp_chain", x, (w1, w2), ())
-    out = _tile_cuda("mlp_chain", x, w1, w2, None, ln="ln" in stages,
-                     gelu="gelu" in stages, tm=tm, fs=fs)
+    d, f = w1.shape
+    zeros = _filled(x.device, d, 0.0)
+    vecs = (_filled(x.device, d, 1.0), zeros, _filled(x.device, f, 0.0),
+            zeros)
+    out = _tile_cuda("mlp_chain", x, w1, w2, vecs, ln=ln,
+                     gelu="gelu" in stages, residual=False, tm=tm, fs=fs)
     mlp_chain.launches += 1
     return out
 

@@ -1,19 +1,21 @@
 """The MLP half-block schedule probe on one CUDA card (counterpart of the
 ``mlp`` half of ``benchmarks/mega_variants.py``): what the MLP of a
-pre-LN block costs with its hidden activation ``h [M, 4D]`` kept on chip,
-at NesT-Small level 3 (S 196, D 384, F 1536; ``--batch`` 128 gives
-M = 25088).
+pre-LN block costs, forward and backward (the Pallas bodies keep the
+hidden activation ``h [M, 4D]`` on chip; the port's sequences pass it
+through device memory), at NesT-Small level 3 (S 196, D 384, F 1536;
+``--batch`` 128 gives M = 25088).
 
-Forward (#13): ``mlp_tile`` (``ops/mlp_tile.py``) at each ``(tm, fs)``
-instance, and its two ablation bounds at the default instance (GELU ->
-identity, LN -> identity), beside the shipped two-launch ``ln_mlp`` (#2,
-the script's "v0 (current)" line: h goes through device memory) and the
-plain version. Backward (#14): ``mlp_tile_bwd`` at each backward instance
-beside the shipped ``ln_mlp_bwd`` (#4) and the plain version, each
-instance also with device time alone (``_timing.device_in_turns``: 20
-calls queued behind a spin kernel, so no host time shows) of the kernel
-and #4 taken in turns (``kernel_device_ms``, ``shipped_device_ms``); #4's
-own record carries its ``kernel_device_ms``. Each is
+Forward (#13): ``mlp_tile`` (``ops/mlp_tile.py``: #2's launch sequence
+with the accurate GELU) at each ``(tm, fs)`` instance, and its two
+ablation bounds at the default instance (GELU -> identity, LN ->
+identity), beside the shipped ``ln_mlp`` (#2, the script's "v0 (current)"
+line) and the plain version. Backward (#14): ``mlp_tile_bwd`` at each
+backward instance beside the shipped ``ln_mlp_bwd`` (#4) and the plain
+version. Each instance of either also with device time alone
+(``_timing.device_in_turns``: 20 calls queued behind a spin kernel, so no
+host time shows) of the kernel and the shipped #2 or #4 taken in turns
+(``kernel_device_ms``, ``shipped_device_ms``); #2's and #4's own records
+carry their ``kernel_device_ms``. Each is
 timed in turns with its plain version (plain, kernel, kernel, plain) by
 CUDA events, with its largest error against the plain version, absolute
 and relative to the plain output's largest |value| (none for the
@@ -44,7 +46,8 @@ from vlp_tpu_torch.probes._timing import (bound_ms, device_in_turns,
 BATCH = 128
 SEQ, D = 196, 384
 F = 4 * D
-DEFAULT_TILE = (64, 64)
+# the wrappers' default instance, #2's widths: the ablations run there
+DEFAULT_TILE = (128, 128)
 
 
 def mlp_work(m: int, d: int, f: int, backward: bool = False
@@ -113,6 +116,9 @@ def run(batch: int = BATCH, seed: int = 0, device: str = "cuda"
     def plain():
         return MT.mlp_tile_plain(x, *params)
 
+    def shipped_fwd():
+        return FB.ln_mlp(x, *params)
+
     ref = plain()
     records = []
     for tm, fs in MT.TILES:
@@ -120,9 +126,11 @@ def run(batch: int = BATCH, seed: int = 0, device: str = "cuda"
             return MT.mlp_tile(x, *params, tm=tm, fs=fs)
 
         err = errors((kern(),), (ref,))
-        records.append(record(
-            "mlp_fwd", f"tile tm={tm} fs={fs}", in_turns(
-                plain=plain, kernel=kern), fwd_work, tm=tm, fs=fs, **err))
+        rec = record("mlp_fwd", f"tile tm={tm} fs={fs}", in_turns(
+            plain=plain, kernel=kern), fwd_work, tm=tm, fs=fs, **err)
+        rec.update(device_alone(device_in_turns(kernel=kern,
+                                                shipped=shipped_fwd)))
+        records.append(rec)
     for label, flags in (("no-gelu BOUND", dict(gelu=False)),
                          ("no-ln BOUND", dict(ln=False))):
         t = in_turns(
@@ -131,12 +139,11 @@ def run(batch: int = BATCH, seed: int = 0, device: str = "cuda"
         records.append(record("mlp_fwd", label, t, fwd_work,
                               tm=DEFAULT_TILE[0], fs=DEFAULT_TILE[1],
                               max_abs_err=None, max_rel_err=None))
-    err = errors((FB.ln_mlp(x, *params),), (ref,))
-    records.append(record("mlp_fwd", "ln_mlp #2 (shipped, h in device "
-                          "memory)", in_turns(
-                              plain=plain,
-                              kernel=lambda: FB.ln_mlp(x, *params)),
-                          fwd_work, **err))
+    err = errors((shipped_fwd(),), (ref,))
+    rec = record("mlp_fwd", "ln_mlp #2 (shipped, fast GELU)", in_turns(
+        plain=plain, kernel=shipped_fwd), fwd_work, **err)
+    rec.update(device_alone(device_in_turns(kernel=shipped_fwd)))
+    records.append(rec)
     del ref
 
     bparams = (g, b, w1, b1, w2)

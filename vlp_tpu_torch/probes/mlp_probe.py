@@ -1,22 +1,26 @@
 """The MLP matmul-chain probe on one CUDA card (counterpart of
 ``benchmarks/mlp_probe.py``): what the half block's two products cost as
-one tile kernel with h on chip, against the same two products as separate
-cuBLAS calls, at NesT-Small level 3 (``--batch`` 128: x [25088, 384],
-W1 [384, 1536], W2 [1536, 384]).
+the port's chain (fc1 and fc2 as hand-written wgmma tiles with their
+epilogues in registers; the Pallas kernel keeps h on chip), against the
+same two products as separate cuBLAS calls, at NesT-Small level 3
+(``--batch`` 128: x [25088, 384], W1 [384, 1536], W2 [1536, 384]).
 
-``mlp_chain`` (#19a, ``ops/mlp_tile.py``) with stages ``()``, ``("gelu",)``
-and ``("ln", "gelu")`` at each ``(tm, fs)`` instance, and ``mlp_single``
-(#19b, the wgmma + TMA kernel, one instance), each timed
-in turns with its plain version and its yardstick (plain, kernel,
-yardstick, yardstick, kernel, plain) on CUDA events around each call:
-``torch.matmul(x, w1)`` for the single product (the one PyTorch call
-computing the same function: the library time), two bf16 ``torch.matmul``
-calls for the pure chain (the script's "XLA chain" line; no single call
-computes a chain). The single product and ``torch.matmul`` are timed again
-as device time alone (``kernel_device_ms``, ``library_device_ms``: calls
-queued behind a spin kernel, so the wrappers' host time does not count). Each record has the kernel's largest error against the
-plain version, absolute and relative to the plain output's largest
-|value|, its bound (``probes/_timing.bound_ms``) and TFLOP/s.
+``mlp_chain`` (#19a, ``ops/mlp_tile.py``: #2's launch sequence without
+bias or residual) with stages ``()``, ``("gelu",)`` and ``("ln", "gelu")``
+at each ``(tm, fs)`` instance, and ``mlp_single`` (#19b, the wgmma + TMA
+kernel, one instance), each timed in turns with its plain version and its
+yardstick (plain, kernel, yardstick, yardstick, kernel, plain) on CUDA
+events around each call: ``torch.matmul(x, w1)`` for the single product
+(the one PyTorch call computing the same function: the library time), two
+bf16 ``torch.matmul`` calls for the pure chain (the script's "XLA chain"
+line; no single call computes a chain). Each kernel is timed again as
+device time alone (``kernel_device_ms``: calls queued behind a spin
+kernel, so the wrappers' host time does not count), in turns with its
+yardstick where it has one (``library_device_ms``: ``torch.matmul``, or
+the two matmuls beside the pure chain). Each record has the kernel's
+largest error against the plain version, absolute and relative to the
+plain output's largest |value|, its bound (``probes/_timing.bound_ms``)
+and TFLOP/s.
 
 The TPU script launches ``grid = M // tm`` and so leaves the rows past the
 last whole tile unwritten (rows 24576-25087 at tm = 1024); the port writes
@@ -85,11 +89,17 @@ def run(batch: int = BATCH, seed: int = 0, device: str = "cuda"
 
             err = errors((kern(),), (ref,))
             t = in_turns(plain=plain, kernel=kern, **yard)
+            if yard:
+                dev = device_in_turns(kernel=kern,
+                                      library=yard["two_matmuls"])
+            else:
+                dev = device_in_turns(kernel=kern)
             label = "+".join(stages) if stages else "matmuls"
             records.append(record(
                 "mlp_chain", f"{label} tm={tm} fs={fs}", t,
                 chain_work(m, D, F), stages=list(stages), tm=tm, fs=fs,
-                **err, **extra))
+                **{f"{k}_device_ms": v for k, v in dev.items()}, **err,
+                **extra))
         del ref
 
     def splain():
