@@ -342,18 +342,20 @@ BOUND_GRAD_FP32_VS_ORDER = 3.0
 BOUND_GRAD_COS_FP32 = 0.999
 BOUND_GRAD_BF16_VS_CPU = 2.0
 # probe kernels: the checks' shapes (B, H, W, C, K) and (M, C, K), the
-# probes' shapes and two odd ones (ragged M and N tiles, C not a multiple
-# of 32, a one-pixel-high map, an odd batch)
+# probes' shapes and odd ones (ragged M and N tiles, C not a multiple
+# of 32, a one-pixel-high map, an odd batch; for #18 also C at the kernel's
+# limit with K 16, and one row with C 16 at K 256)
 CONV_CHECKS = ((128, 28, 28, 128, 128), (128, 14, 14, 256, 256),
                (3, 7, 9, 48, 80), (5, 1, 33, 16, 144))
 GEMM_CHECKS = ((128 * 56 * 56, 256, 64), (128 * 28 * 28, 512, 128),
-               (128 * 56 * 56, 64, 256), (3 * 7 * 9, 48, 80))
+               (128 * 56 * 56, 64, 256), (3 * 7 * 9, 48, 80),
+               (4097, BG.MAX_C, 16), (1, 16, 256))
 PROBE_BATCH = 128
-# the device-time fields of the #17, #19b, #14 and #16 records (calls
+# the device-time fields of the #17, #18, #19b, #14 and #16 records (calls
 # queued behind a spin kernel: no host time): the kernel's and its
-# yardsticks' (one PyTorch call; the shipped #3/#4; #16's core and SDPA's
-# backward)
-DEVICE_KEYS = ("kernel_device_ms", "library_device_ms")
+# yardsticks' (one PyTorch call; #18's two-op version; the shipped #3/#4;
+# #16's core and SDPA's backward)
+DEVICE_KEYS = ("kernel_device_ms", "library_device_ms", "two_op_device_ms")
 BWD_DEVICE_KEYS = ("kernel_device_ms", "shipped_device_ms", "core_device_ms",
                    "sdpa_device_ms")
 # MLP probe kernels: the checks' row counts (batch 16 at level 3, and a
@@ -446,7 +448,8 @@ def phase_build() -> None:
 # 64 (#13/#19a's fc1, csrc/mlp_tile.cu), <false> bias (+ residual) at 64
 # (#2/#9's and #13/#19a's fc2, #1/#5's and #16's qkv and #1/#5's
 # out-projection: csrc/mlp_fwd.cuh's kFc2Width, csrc/ln_attention.cuh's
-# kQkvWidth, kOutWidth) and at 128 (#13/#19a's fc1 without GELU)
+# kQkvWidth, kOutWidth) and at 128 (#13/#19a's fc1 without GELU), and the
+# register-A form AffineReluRows (#18, csrc/bn_relu_gemm.cu) at 64 and 128
 WGMMA_KERNEL = "wgmma_gemm_kernel"
 WGMMA_FWD = "DenseEpi"
 # the forward products' instances by the epilogue form in their names
@@ -459,10 +462,18 @@ WGMMA_FWD_WIDTH = re.compile(r"DenseEpiILb[01]ELb[01]EEELi(\d+)E")
 WGMMA_DUAL = "DualMlp"
 # (#4/#10's, #14's) dual tile instances, by the GELU form in their names
 WGMMA_DUALS = {"DualMlpILb0E": 1, "DualMlpILb1E": 2}
+# #18's register-A form: its instances by tile width, in ptxas's mangled
+# names (wgmma_gemm_kernel<AffineReluRows, BN, STAGES, MINB, bf16>)
+WGMMA_AFFINE = "AffineReluRows"
+WGMMA_AFFINE_WIDTHS = (64, 128)
+WGMMA_AFFINE_WIDTH = re.compile(r"AffineReluRowsELi(\d+)E")
 WGMMA_INSTANCES = (6 + sum(n for n, _ in WGMMA_FWDS.values())
-                   + sum(WGMMA_DUALS.values()))
+                   + sum(WGMMA_DUALS.values()) + len(WGMMA_AFFINE_WIDTHS))
 WGMMA_FORMS = ("DenseRows", "ConvTaps", "RowsNT", "ColsTN", WGMMA_DUAL,
-               WGMMA_FWD)
+               WGMMA_FWD, WGMMA_AFFINE)
+# the wmma engine that #18 ran on until it moved onto the register-A form
+# (csrc/implicit_gemm.cuh, deleted): no instance may be left in the build
+IGEMM_KERNEL = "igemm_kernel"
 # the register-resident attention-core backward (csrc/mhsa_reg_bwd.cuh):
 # every instance of both row maps must keep 0 spill bytes, and #3's and
 # #6's at NesT's S = 196 (head dim 32, 13 key tiles, with the column sums
@@ -611,6 +622,18 @@ def _check_hopper_units() -> None:
     check(sum(WGMMA_FWD in k for k in mine) == sum(
         n for n, _ in WGMMA_FWDS.values()),
           f"a {WGMMA_FWD} instance of another form")
+    affine = {}
+    for k, v in mine.items():
+        if WGMMA_AFFINE in k:
+            width = WGMMA_AFFINE_WIDTH.search(k)
+            affine[int(width.group(1)) if width else k] = v[0]
+    check(sorted(affine) == list(WGMMA_AFFINE_WIDTHS),
+          f"ptxas reported {WGMMA_AFFINE} instances {sorted(affine)}, "
+          f"expected widths {WGMMA_AFFINE_WIDTHS}")
+    print(f"ptxas register-A form {WGMMA_AFFINE} (#18): registers by tile "
+          f"width {affine}, 0 spill bytes")
+    check(not any(IGEMM_KERNEL in k for k in report),
+          f"the build still holds an {IGEMM_KERNEL} instance")
     _check_forward_cores(report)
     core = {k: v for k, v in report.items() if REG_BWD_KERNEL in k}
     for rows in NEST_ROW_MAPS:
@@ -640,8 +663,10 @@ def _check_hopper_units() -> None:
     sass = subprocess.run([cuobjdump, "--dump-sass",
                            str(_build.library_path())], capture_output=True,
                           text=True, check=True, timeout=600).stdout
-    funcs = {k: v for k, v in _sass_functions(sass).items()
-             if WGMMA_KERNEL in k}
+    every = _sass_functions(sass)
+    check(not any(IGEMM_KERNEL in k for k in every),
+          f"the library's SASS still holds an {IGEMM_KERNEL}")
+    funcs = {k: v for k, v in every.items() if WGMMA_KERNEL in k}
     check(len(funcs) == WGMMA_INSTANCES,
           f"SASS holds {len(funcs)} {WGMMA_KERNEL} instances, expected "
           f"{WGMMA_INSTANCES}")
@@ -1736,9 +1761,11 @@ def _edge_err(y, ref, b, h, w):
 
 def phase_probe_kernels(smi: str):
     """Phase 14: #17 and #18 against their plain versions (bf16, and fp32
-    with TF32 off) at the probe shapes and odd ones, then the probes' runs
-    at batch 128 with the launch counts set to 0 just before and read just
-    after. Returns (per-kernel totals over the probe shapes, launches)."""
+    with TF32 off) at the probe shapes and odd ones, reruns bit-equal, #18
+    also with a and b as views of longer vectors whose tail holds NaN (the
+    kernel reads no channel past C), then the probes' runs at batch 128
+    with the launch counts set to 0 just before and read just after.
+    Returns (per-kernel totals over the probe shapes, launches)."""
     torch.backends.cudnn.allow_tf32 = False  # the fp32 plain versions and
     torch.backends.cuda.matmul.allow_tf32 = False  # cuDNN in full fp32
     print("probe checks: TF32 off for cuDNN convolutions and cuBLAS "
@@ -1778,7 +1805,22 @@ def phase_probe_kernels(smi: str):
                                               wt.float()),),
                        ("y",), BOUND_VS_PLAIN_BF16, BOUND_VS_PLAIN_FP32,
                        stats["bn_relu_gemm"])
-        del x, a, bb, wt, y
+        again = torch.equal(BG.bn_relu_gemm(x, a, bb, wt), y)
+        # a and b as the first C of 64 more channels, the tail NaN
+        tails = [torch.full((1, c + 64), float("nan"), device="cuda")
+                 for _ in range(2)]
+        for t, v in zip(tails, (a, bb)):
+            t[:, :c] = v
+        y_tail = BG.bn_relu_gemm(x, tails[0][:, :c], tails[1][:, :c], wt)
+        finite = bool(torch.isfinite(y_tail.float()).all())
+        same = torch.equal(y_tail, y)
+        print(f"kernel bn_relu_gemm [{m}, {c}] -> {k}: rerun bit-equal "
+              f"{again}; a, b with a NaN tail: finite {finite}, bit-equal "
+              f"{same}")
+        check(again, f"bn_relu_gemm [{m}, {c}] -> {k}: a rerun differs")
+        check(finite and same, f"bn_relu_gemm [{m}, {c}] -> {k}: a or b's "
+              "tail past C reached the output")
+        del x, a, bb, wt, y, y_tail, tails
     torch.cuda.empty_cache()
 
     _reset_counts()
@@ -1813,7 +1855,9 @@ def phase_probe_kernels(smi: str):
               + (f"F.conv2d {lib:.4f} ms; device alone kernel "
                  f"{rec['kernel_device_ms']:.4f} ms, F.conv2d "
                  f"{rec['library_device_ms']:.4f} ms" if lib is not None else
-                 f"two-op torch {rec['two_op_ms']:.4f} ms")
+                 f"two-op torch {rec['two_op_ms']:.4f} ms; device alone "
+                 f"kernel {rec['kernel_device_ms']:.4f} ms, two-op "
+                 f"{rec['two_op_device_ms']:.4f} ms")
               + f", bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}); "
               f"on {smi}")
     return stats, launches
@@ -2226,6 +2270,8 @@ def main() -> int:
         if "kernel_device_ms" in stat:  # device time alone
             entry.update(device_ms=stat["kernel_device_ms"],
                          library_device_ms=stat.get("library_device_ms"))
+        if "two_op_device_ms" in stat:  # #18's yardstick alone
+            entry["two_op_device_ms"] = stat["two_op_device_ms"]
         for key in BWD_DEVICE_KEYS[1:]:  # #14's, #16's yardsticks alone
             if key in stat:
                 entry[key] = stat[key]

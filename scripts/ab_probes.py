@@ -1,10 +1,11 @@
 """Before and after of the probes #13 ``mlp_tile`` and #19a ``mlp_chain``
 (each instance, each chain stage), of the attention probes #15
-``attn_sched`` and #16 ``attn_sched_bwd`` (each mode, and each core alone)
-and of #14 ``mlp_tile_bwd`` (each instance) in one process on one CUDA
-card, at the probes' shape (``probes/attn_probe.py``,
+``attn_sched`` and #16 ``attn_sched_bwd`` (each mode, and each core alone),
+of #14 ``mlp_tile_bwd`` (each instance) and of #18 ``bn_relu_gemm`` in one
+process on one CUDA card, at the probes' shapes (``probes/attn_probe.py``,
 ``probes/mega_probe.py``, ``probes/mlp_probe.py``: NesT-Small level 3, S
-196, D 384, 12 heads of 32, F 1536; ``--batch`` 128).
+196, D 384, 12 heads of 32, F 1536; ``probes/bn_gemm_probe.py``: the three
+ResNet50 boundary shapes; ``--batch`` 128).
 
 ``--parent DIR`` is a second checkout of the repository (for example an
 earlier commit unpacked with ``git archive`` into a directory that
@@ -14,7 +15,8 @@ directory (``scripts/ab_attention.py``'s ``_load_parent_build``). In the
 parent's turns this tree's ``attn_sched``, ``attn_sched_core``,
 ``attn_sched_bwd``, ``attn_sched_bwd_core`` and ``mlp_tile_bwd`` wrappers
 launch that library's entry points of the same names and its workspace
-queries (their C signatures must be this tree's), and #14 runs the
+queries (their C signatures must be this tree's), so does
+``bn_relu_gemm`` (``vlp_bn_relu_gemm``), and #14 runs the
 parent's instances (``BWD_TILES`` as its ``ops/mlp_tile.py`` lists them).
 #13 and #19a run the parent's instances (its ``TILES``) through the
 parent's ``vlp_mlp_tile``: by this tree's wrappers where the parent's
@@ -40,17 +42,22 @@ the host's time does not show):
                            the fastest instance of each stage set
   mlp_bwd_<tm>x<fs>_ms     #14 at each of the side's instances, and
   mlp_bwd_fastest_ms       the fastest of them
+  bn_gemm_<shape>_ms       #18 at each of the probe's shapes
   ln_attention_ms, ln_attention_bwd_ms, ln_mlp_ms, ln_mlp_bwd_ms,
-  two_matmuls_ms, sdpa_fwd_ms, sdpa_bwd_ms
+  two_matmuls_ms, sdpa_fwd_ms, sdpa_bwd_ms, bn_two_op_<shape>_ms
                            the shipped #1, #3 (on #1's qkv and o), #2 and
-                           #4, two cuBLAS matmuls (#19a's yardstick) and
-                           SDPA forward and backward on the same q, k, v:
-                           yardsticks, this tree's on both sides
+                           #4, two cuBLAS matmuls (#19a's yardstick), SDPA
+                           forward and backward on the same q, k, v and
+                           #18's two-op PyTorch version: yardsticks, this
+                           tree's on both sides
 
 After the turns, one call of each #13 instance, #19a stage set and
-instance, #15 and #16 mode, each core and each #14 instance per side runs
-under ``torch.profiler``: the ``split`` of the summary lists each call's
-kernels in launch order with their device ms. ``--only parent`` times and
+instance, #15 and #16 mode, each core, each #14 instance and #18 at each
+shape per side runs under ``torch.profiler``: the ``split`` of the summary
+lists each call's kernels in launch order with their device ms. The
+summary's ``registers`` compares the two builds' ptxas reports (``-Xptxas
+-v``, ``_build.build_log``) for every instance of the wgmma mainloop and
+the attention cores that both hold. ``--only parent`` times and
 splits the parent's kernels alone (the yardsticks too), without building
 this tree's library: the profile of the parent before a change is built.
 
@@ -70,6 +77,7 @@ import ast
 import concurrent.futures
 import json
 import os
+import re
 import statistics
 import sys
 
@@ -80,20 +88,54 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from ab_attention import (_call_kernels, _Library, _Mixed,  # noqa: E402
                           _load_parent_build)
+from chip_smoke import _ptxas_report  # noqa: E402
 from vlp_tpu_torch.ops import _build  # noqa: E402
 from vlp_tpu_torch.ops import attn_sched as AS  # noqa: E402
+from vlp_tpu_torch.ops import bn_gemm as BG  # noqa: E402
 from vlp_tpu_torch.ops import fused_block as FB  # noqa: E402
 from vlp_tpu_torch.ops import mlp_tile as MT  # noqa: E402
 from vlp_tpu_torch.ops._common import _stream  # noqa: E402
-from vlp_tpu_torch.probes import (attn_probe, mega_probe,  # noqa: E402
-                                  mlp_probe)
+from vlp_tpu_torch.probes import (attn_probe, bn_gemm_probe,  # noqa: E402
+                                  mega_probe, mlp_probe)
 from vlp_tpu_torch.probes._timing import device_ms, require_cuda  # noqa: E402
 
 PARENT_ENTRY_POINTS = ("vlp_attn_sched", "vlp_attn_sched_core",
                        "vlp_attn_sched_bwd", "vlp_attn_sched_bwd_workspace",
                        "vlp_attn_sched_bwd_core",
                        "vlp_attn_sched_bwd_core_workspace",
-                       "vlp_mlp_tile_bwd", "vlp_mlp_tile_bwd_workspace")
+                       "vlp_mlp_tile_bwd", "vlp_mlp_tile_bwd_workspace",
+                       "vlp_bn_relu_gemm")
+# the kernels whose registers the two builds are compared on
+REGISTER_KERNELS = ("wgmma_gemm_kernel", "mhsa_reg_kernel",
+                    "mhsa_reg_bwd_kernel")
+# the hashes that nvcc gives a source's anonymous namespace in mangled
+# names (_GLOBAL__N__<hash>_<n>_<file>_cu_<hash>): they change with any
+# header the source includes, so the comparison drops them
+ANON_NAMESPACE = re.compile(r"_GLOBAL__N__[0-9a-f]+_\d+_(\w+?_cu)_[0-9a-f]{8}")
+
+
+def bn_inputs(batch, gen):
+    """{shape label: (x, a, b, w)} of #18 at the probe's shapes and
+    ``batch`` (the probe's draws)."""
+    return {label: bn_gemm_probe.gemm_inputs(batch * hw * hw, c, k, gen)
+            for label, hw, c, k in bn_gemm_probe.SHAPES}
+
+
+def compare_registers(parent_log: str, own_log: str):
+    """The registers of every ``REGISTER_KERNELS`` instance that both ptxas
+    reports name (anonymous namespaces named by their file alone): how
+    many are the same, {name: [parent, change]} of those that differ, and
+    how many only one build holds."""
+    regs = [{ANON_NAMESPACE.sub(r"_GLOBAL__N_\1", k): v[0]
+             for k, v in _ptxas_report(log)[0].items()
+             if any(n in k for n in REGISTER_KERNELS)}
+            for log in (parent_log, own_log)]
+    both = sorted(set(regs[0]) & set(regs[1]))
+    return {"same": sum(regs[0][k] == regs[1][k] for k in both),
+            "differ": {k: [regs[0][k], regs[1][k]] for k in both
+                       if regs[0][k] != regs[1][k]},
+            "only_parent": len(set(regs[0]) - set(regs[1])),
+            "only_change": len(set(regs[1]) - set(regs[0]))}
 
 
 def parent_tiles(root: str, name: str):
@@ -176,9 +218,10 @@ def main(argv=None) -> int:
     mx, mg, mb, w1, mb1, w2, mb2, mdy = mega_probe.mlp_inputs(m, gen)
     mparams = (mg, mb, w1, mb1, w2)
     fparams = (*mparams, mb2)
+    bn = bn_inputs(args.batch, gen)
 
     def use(side):
-        AS._build = MT._build = sides[side][0]
+        AS._build = MT._build = BG._build = sides[side][0]
         FB._build = sides[side][1]
         MT.BWD_TILES = tiles[side]
         MT.TILES = fwd_tiles[side]
@@ -233,6 +276,11 @@ def main(argv=None) -> int:
         fns["two_matmuls_ms"] = lambda: mlp_probe.two_matmuls(mx, w1, w2)
         fns["sdpa_fwd_ms"] = sdpa_fwd
         fns["sdpa_bwd_ms"] = sdpa_bwd
+        for label, ops in bn.items():
+            fns[f"bn_gemm_{label}_ms"] = (
+                lambda ops=ops: BG.bn_relu_gemm(*ops))
+            fns[f"bn_two_op_{label}_ms"] = (
+                lambda ops=ops: bn_gemm_probe.two_op(*ops))
         return fns
 
     def turn(side):
@@ -264,12 +312,17 @@ def main(argv=None) -> int:
     splits = {}
     for side in order:
         for name, fn in calls(side).items():
-            if name.startswith(("attn_fwd", "attn_bwd", "mlp_")):
+            if name.startswith(("attn_fwd", "attn_bwd", "mlp_",
+                                "bn_gemm")):
                 splits[f"{side} {name[:-3]}"] = [
                     (k[:120], ms) for k, ms in _call_kernels(fn)]
     summary = {"card": smi, "batch": args.batch, "rounds": args.rounds,
                "tiles": tiles, "fwd_tiles": fwd_tiles, "median": median,
                "split_ms": splits}
+    if not args.only:
+        summary["registers"] = compare_registers(
+            parent_build.build_log().read_text(),
+            _build.build_log().read_text())
     print(json.dumps(summary), flush=True)
     if args.output:
         with open(args.output, "w") as f:

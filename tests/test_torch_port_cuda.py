@@ -3,7 +3,8 @@ block on a NesT token map and its backward, the packed-qkv attention and
 the fused MLP with their backwards, the products of the backwards on the
 wgmma mainloop each on its own (the MLP backwards' dual tile at both
 widths among them), shear, noise, the ResNet probe
-kernels conv3x3 and bn_relu_gemm, the MLP probe kernels mlp_tile, its
+kernels conv3x3 and bn_relu_gemm (the mainloop's register-A form: reruns
+bit-equal, a and b read only up to C), the MLP probe kernels mlp_tile, its
 backward, mlp_chain and mlp_single (the last and conv3x3 on the wgmma
 mainloop, reruns bit-equal), the MLP forwards' products on the wgmma
 mainloop each on its own and #2/#9 at serving's ragged rows, #2's h
@@ -869,8 +870,14 @@ def test_conv3x3_kernel_matches_plain_at_the_edges(cuda, b, h, w, c, k):
     assert torch.equal(CV.conv3x3(x, wt), y)
 
 
+# #18 on the register-A form: C of 16, 48 (inside one 64-deep step, the
+# rest zero-filled by TMA) and multiples of 64 up to the table's limit; K
+# of 16, 80 (a ragged 128-wide tile), 64, 128 and 256; ragged M and one row
 @pytest.mark.parametrize("m,c,k", [(189, 48, 80), (1, 16, 16),
-                                   (4097, 256, 64), (1000, 64, 256)])
+                                   (4097, 256, 64), (1000, 64, 256),
+                                   (1037, 16, 256), (300, 48, 16),
+                                   (4097, 512, 128), (77, 192, 80),
+                                   (1037, BG.MAX_C, 16), (1, 64, 256)])
 def test_bn_relu_gemm_kernel_matches_plain(cuda, m, c, k):
     gen = torch.Generator(device=cuda).manual_seed(m + c + k)
     x = _rand(gen, m, c).bfloat16()
@@ -882,6 +889,50 @@ def test_bn_relu_gemm_kernel_matches_plain(cuda, m, c, k):
     assert BG.bn_relu_gemm.launches == before + 1
     assert y.shape == (m, k) and torch.isfinite(y.float()).all()
     assert _rel_err(y, BG.bn_relu_gemm_plain(x, a, b, wt)) <= BOUND
+    torch.backends.cuda.matmul.allow_tf32 = False
+    assert _rel_err(y, BG.bn_relu_gemm_plain(x.float(), a, b,
+                                             wt.float())) <= BOUND_FP32
+    assert torch.equal(BG.bn_relu_gemm(x, a, b, wt), y)
+
+
+@pytest.mark.parametrize("m,c,k", [(189, 48, 80), (1037, 16, 256),
+                                   (4097, 256, 64)])
+def test_bn_relu_gemm_reads_no_channel_past_c(cuda, m, c, k):
+    """a and b as the first C of vectors 64 longer whose tail holds NaN:
+    the kernel copies C channels of each and zeros past them, so the
+    output is finite and the same bits as with a and b alone."""
+    gen = torch.Generator(device=cuda).manual_seed(m * c + k)
+    x = _rand(gen, m, c).bfloat16()
+    a, b = _rand(gen, c), _rand(gen, c)
+    wt = _rand(gen, c, k, scale=0.05).bfloat16()
+    long_a = torch.full((c + 64,), float("nan"), device=cuda)
+    long_b = torch.full((c + 64,), float("nan"), device=cuda)
+    long_a[:c], long_b[:c] = a, b
+    y = BG.bn_relu_gemm(x, long_a[:c], long_b[:c], wt)
+    torch.cuda.synchronize()
+    assert torch.isfinite(y.float()).all()
+    assert torch.equal(y, BG.bn_relu_gemm(x, a, b, wt))
+    assert _rel_err(y, BG.bn_relu_gemm_plain(x, a, b, wt)) <= BOUND
+
+
+def test_bn_relu_gemm_refuses_what_its_kernel_does_not_take(cuda):
+    """C past the a/b table and x or w off 16-byte alignment raise before
+    any launch (TMA reads x and w)."""
+    vec = torch.zeros(BG.MAX_C + 16, device=cuda)
+    big = torch.zeros(8, BG.MAX_C + 16, device=cuda, dtype=torch.bfloat16)
+    w_big = torch.zeros(BG.MAX_C + 16, 16, device=cuda, dtype=torch.bfloat16)
+    flat = torch.zeros(8 * 64 + 1, device=cuda, dtype=torch.bfloat16)
+    w = torch.zeros(64, 16, device=cuda, dtype=torch.bfloat16)
+    w_flat = torch.zeros(64 * 16 + 1, device=cuda, dtype=torch.bfloat16)
+    x = flat[:-1].view(8, 64)
+    before = BG.bn_relu_gemm.launches
+    with pytest.raises(ValueError, match="C up to"):
+        BG.bn_relu_gemm(big, vec, vec, w_big)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        BG.bn_relu_gemm(flat[1:].view(8, 64), vec[:64], vec[:64], w)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        BG.bn_relu_gemm(x, vec[:64], vec[:64], w_flat[1:].view(64, 16))
+    assert BG.bn_relu_gemm.launches == before
 
 
 def test_probe_kernels_raise_on_what_they_refuse(cuda):

@@ -328,17 +328,18 @@ def test_ab_probes_script_reads_each_sides_instances(tmp_path):
 
 
 def test_ab_probes_script_serves_the_parents_probe_backwards():
-    """In the parent's turns the attention probes' (#15's and #16's) and
-    #14's entry points and their workspace queries come from the parent's
-    library, every other entry point (the shipped #1/#3/#4 yardsticks among
-    them) from this tree's."""
+    """In the parent's turns the attention probes' (#15's and #16's),
+    #14's and #18's entry points and their workspace queries come from the
+    parent's library, every other entry point (the shipped #1/#3/#4
+    yardsticks among them) from this tree's."""
     ab, _ = _ab_probes()
     names = ab.PARENT_ENTRY_POINTS
     assert set(names) == {"vlp_attn_sched", "vlp_attn_sched_core",
                           "vlp_attn_sched_bwd", "vlp_attn_sched_bwd_workspace",
                           "vlp_attn_sched_bwd_core",
                           "vlp_attn_sched_bwd_core_workspace",
-                          "vlp_mlp_tile_bwd", "vlp_mlp_tile_bwd_workspace"}
+                          "vlp_mlp_tile_bwd", "vlp_mlp_tile_bwd_workspace",
+                          "vlp_bn_relu_gemm"}
     own = type("Own", (), {n: "own" for n in names + (
         "vlp_ln_attention", "vlp_ln_attention_bwd", "vlp_ln_mlp_bwd",
         "vlp_attn_sched_core_smem")})()

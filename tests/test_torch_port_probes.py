@@ -210,3 +210,27 @@ def test_conv_probe_runs_every_shape_with_device_times(monkeypatch):
     assert records[2]["probe"] == "stem_maxpool"
     assert records[2]["grad_sum_first_max"] == pytest.approx(
         records[2]["grad_sum_eqsplit"], rel=1e-5)
+
+
+def test_bn_gemm_probe_runs_every_shape_with_device_times(monkeypatch):
+    """The BN-prologue GEMM probe's control flow at batch 1 on the CPU (the
+    plain versions, one call each in place of the card's timing): one
+    record per shape with its event and device times, bound and errors."""
+    def one_call_each(**fns):
+        return {k: float(fn() is not None) for k, fn in fns.items()}
+
+    monkeypatch.setattr(bn_gemm_probe, "in_turns", one_call_each)
+    monkeypatch.setattr(bn_gemm_probe, "device_in_turns", one_call_each)
+    before = BG.bn_relu_gemm.launches
+    records = bn_gemm_probe.run(1, device="cpu")
+    assert BG.bn_relu_gemm.launches == before
+    assert [r["shape"] for r in records] == [s[0] for s in
+                                             bn_gemm_probe.SHAPES]
+    for rec, (_, hw, c, k) in zip(records, bn_gemm_probe.SHAPES):
+        assert (rec["m"], rec["c"], rec["k"]) == (hw * hw, c, k)
+        assert rec["kernel_ms"] == rec["two_op_ms"] == 1.0
+        assert rec["kernel_device_ms"] == rec["two_op_device_ms"] == 1.0
+        assert rec["library_ms"] is None
+        assert rec["max_abs_err"] == 0.0  # the CPU ran the plain version
+        assert rec["two_op_max_abs_err"] < 0.1
+        assert rec["bound_by"] == "bytes" and rec["bound_ms"] > 0

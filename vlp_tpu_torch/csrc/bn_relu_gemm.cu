@@ -12,90 +12,43 @@
 // probe of the ResNet50 bottleneck boundary relu(bn(x)) @ W.
 //
 // The TPU kernel takes a row tile of x and the whole W per grid step and
-// normalises the tile in VMEM. Here a block owns 128 rows x 128 columns of
-// the output (implicit_gemm.cuh); each 128x32 slice of x arrives in shared
-// memory through cp.async and every thread rewrites the two 8-element
-// vectors it loaded (affine, ReLU, bf16) before the block's barrier, so the
-// normalised map never goes to device memory: a prologue on the A tile with
-// a per-column affine and no row statistics.
+// normalises the tile in VMEM. Here it runs on the wgmma + TMA mainloop
+// (wgmma_gemm.cuh) in its register-A form, AffineReluRows: TMA brings x
+// and W into the swizzled ring as for any dense product, each consumer
+// warp reads its 16 rows of a stage's x with ldmatrix, applies the affine
+// and the ReLU to those registers and hands them to wgmma as A, so the
+// normalised map never reaches shared or device memory: a prologue on the
+// A tile with a per-column affine and no row statistics.
 //
 // What bounds it on this card: at the probe's shapes (batch 128:
 // [401408, 256] -> 64, [100352, 512] -> 128, [401408, 64] -> 256) it moves
 // 256.9 / 128.5 / 256.9 MB for 2mCK = 1.3e10 / 1.3e10 / 1.3e10 operations,
-// so the memory bounds it: 0.077 / 0.038 / 0.077 ms at 3.35 TB/s. x is read
-// once per 128 output columns: once at K <= 128, twice at K = 256 (the
-// second read mostly from L2).
-#include "implicit_gemm.cuh"
-
-namespace {
-
-using vlp::igemm::bf16;
-using vlp::igemm::kBK;
-
-struct AffineRows {
-  const bf16* x;
-  const float* a;
-  const float* b;
-  const bf16* w;
-  int M, C, K, slices;  // slices = ceil(C / 32)
-
-  struct Row {
-    int m;
-    bool in;
-  };
-
-  __device__ Row row(int m) const { return Row{m, m < M}; }
-
-  __device__ int steps() const { return slices; }
-
-  __device__ const bf16* a_src(const Row& r, int step, int col,
-                               bool* ok) const {
-    const int c = step * kBK + col;
-    *ok = r.in && c < C;
-    return *ok ? x + (size_t)r.m * C + c : x;
-  }
-
-  __device__ const bf16* b_src(int step, int k, int n, bool* ok) const {
-    const int c = step * kBK + k;
-    *ok = c < C && n < K;
-    return *ok ? w + (size_t)c * K + n : w;
-  }
-
-  static constexpr bool kTransform = true;
-
-  // relu(x * a + b) -> bf16 on the 8 channels at step * 32 + col; channels
-  // past C stay the zeros cp.async filled in
-  __device__ void transform(int step, int col, uint4* v) const {
-    const int c = step * kBK + col;
-    if (c >= C) return;
-    bf16* e = reinterpret_cast<bf16*>(v);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const float t = __fadd_rn(__fmul_rn(__bfloat162float(e[i]), a[c + i]),
-                                b[c + i]);
-      e[i] = __float2bfloat16(fmaxf(t, 0.f));
-    }
-  }
-};
-
-}  // namespace
+// so the memory bounds it: 0.077 / 0.038 / 0.077 ms at 3.35 TB/s (the
+// tensor cores need 0.013). So a tile spans the whole output row where K
+// <= 128 (BN = 64 or 128), and x is read from device memory once; at K =
+// 256 two 128-wide tiles of a row block run side by side, the second read
+// of x mostly from L2. On an H100 at the probe's 64 -> 256 that took
+// 0.134 ms where one 256-wide tile a block (one block an SM, x read once)
+// took 0.159 and four 64-wide ones 0.178 (scripts/bn_gemm_widths.py).
+#include "wgmma_gemm.cuh"
 
 // x [M, C] bf16, a and b [C] fp32, w [C, K] bf16, out [M, K] bf16; C and K
-// multiples of 16. Returns the launch's cudaError_t.
+// multiples of 16, C <= 1024 (wgmma_gemm.cuh's kMaxAffineChannels), x, w
+// and out 16-byte aligned. Returns the launch's cudaError_t.
 extern "C" int vlp_bn_relu_gemm(const void* x, const void* a, const void* b,
                                 const void* w, void* out, int M, int C, int K,
                                 void* stream) {
+  namespace wg = vlp::wg;
   if (M <= 0 || C <= 0 || K <= 0 || C % 16 || K % 16)
     return (int)cudaErrorInvalidValue;
-  AffineRows src;
-  src.x = static_cast<const bf16*>(x);
-  src.a = static_cast<const float*>(a);
-  src.b = static_cast<const float*>(b);
-  src.w = static_cast<const bf16*>(w);
-  src.M = M;
-  src.C = C;
-  src.K = K;
-  src.slices = (C + kBK - 1) / kBK;
-  return (int)vlp::igemm::launch_igemm(src, static_cast<bf16*>(out), M, K,
-                                       static_cast<cudaStream_t>(stream));
+  const auto* xb = static_cast<const wg::bf16*>(x);
+  const auto* af = static_cast<const float*>(a);
+  const auto* bf = static_cast<const float*>(b);
+  const auto* wb = static_cast<const wg::bf16*>(w);
+  auto* ob = static_cast<wg::bf16*>(out);
+  const auto st = static_cast<cudaStream_t>(stream);
+  return (int)(K <= 64 ? wg::launch_affine_relu<64>(xb, af, bf, wb, ob, M, C,
+                                                    K, st)
+                      : wg::launch_affine_relu<128>(xb, af, bf, wb, ob, M,
+                                                    C, K, st));
 }

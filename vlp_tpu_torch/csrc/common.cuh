@@ -1,5 +1,6 @@
-// The helpers that the kernels' headers share: the bf16 type and a warp's
-// sum (bwd_rows.cuh's LayerNorm rows, mhsa_reg.cuh's cores).
+// The helpers that the kernels' headers share: the bf16 type, a warp's
+// sum (bwd_rows.cuh's LayerNorm rows, mhsa_reg.cuh's cores) and the
+// cp.async copies that stage mhsa_reg.cuh's and mhsa_reg_bwd.cuh's tiles.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -15,6 +16,26 @@ __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
+}
+
+// 16 bytes global -> shared, asynchronous; zero-filled when !ok (src is then
+// not read, but stays a valid address).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool ok) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  const int n = ok ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(n));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// waits until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 }  // namespace vlp

@@ -68,8 +68,7 @@
 #include <stdint.h>
 
 #include "attn_rows.cuh"
-#include "common.cuh"          // bf16
-#include "implicit_gemm.cuh"   // cp_async16, cp_async_commit, cp_async_wait
+#include "common.cuh"  // bf16, cp_async16, cp_async_commit, cp_async_wait
 
 namespace vlp {
 namespace reg {
@@ -196,7 +195,7 @@ __device__ __forceinline__ void stage_head(bf16* dst, const bf16* src,
     const int r = i / vecs;
     const int c = (i % vecs) * 8;
     const bool ok = r < S;
-    igemm::cp_async16(dst + r * ld + c, ok ? src + row_of(r) * pitch + c : src,
+    cp_async16(dst + r * ld + c, ok ? src + row_of(r) * pitch + c : src,
                       ok);
   }
 }
@@ -461,9 +460,9 @@ __global__ void __launch_bounds__(fwd_warps<Order>() * 32,
   const UnitRows<Rows> row_of = unit_rows(rows, n, S, Rt, tid, kThreads);
   const bf16* head = qkv + h * HD;
   stage_head<HD, KT, kThreads>(Ks, head + D, row3, S, row_of, tid);
-  igemm::cp_async_commit();
+  cp_async_commit();
   stage_head<HD, KT, kThreads>(Vs, head + 2 * D, row3, S, row_of, tid);
-  igemm::cp_async_commit();
+  cp_async_commit();
   const int col = h * HD;
 
   if constexpr (Order == kOrderV0) {
@@ -474,7 +473,7 @@ __global__ void __launch_bounds__(fwd_warps<Order>() * 32,
       uint32_t qa[KF][4];
       if (active) load_q<HD>(qa, head, row3, qt, S, row_of, lane);
       if (round == 0) {  // k has landed
-        igemm::cp_async_wait<1>();
+        cp_async_wait<1>();
         __syncthreads();
       }
       float s[2 * KT][4];
@@ -487,7 +486,7 @@ __global__ void __launch_bounds__(fwd_warps<Order>() * 32,
         for (int kt = 0; kt < KT; ++kt) acc_to_a(pa[kt], s, kt);
       }
       if (round == 0) {  // v has landed
-        igemm::cp_async_wait<0>();
+        cp_async_wait<0>();
         __syncthreads();
       }
       if (!active) continue;
@@ -509,7 +508,7 @@ __global__ void __launch_bounds__(fwd_warps<Order>() * 32,
       uint32_t qa[KF][4];
       if (active) load_q<HD>(qa, head, row3, qt, S, row_of, lane);
       if (round == 0) {  // k has landed
-        igemm::cp_async_wait<1>();
+        cp_async_wait<1>();
         __syncthreads();
       }
       if (!active) continue;
@@ -520,7 +519,7 @@ __global__ void __launch_bounds__(fwd_warps<Order>() * 32,
       park_p<KT>(Pk + qt * KT * 32 + lane, s);
       Lk[qt * 32 + lane] = make_float2(l[0], l[1]);
     }
-    igemm::cp_async_wait<0>();  // v has landed
+    cp_async_wait<0>();  // v has landed
     __syncthreads();            // and every tile's p is parked
     // stage 2: every tile's PV
 #pragma unroll 1
@@ -544,7 +543,7 @@ __global__ void __launch_bounds__(fwd_warps<Order>() * 32,
     };
     auto tile_row = [&](int k) { return (warp + k * W) * 16 + g; };
     if (cnt > 0) load_q<HD>(qa, head, row3, warp, S, row_of, lane);
-    igemm::cp_async_wait<1>();  // k has landed
+    cp_async_wait<1>();  // k has landed
     __syncthreads();
     if (cnt > 0) scores<HD, KT>(s, qa, Ks, S, scale, lane);
     if constexpr (Order == kOrderPipe) {
@@ -559,7 +558,7 @@ __global__ void __launch_bounds__(fwd_warps<Order>() * 32,
         for (int i = 0; i < 4; ++i) a[i] = pa[kt][i];
       };
       if (cnt > 0) softmax();
-      igemm::cp_async_wait<0>();  // v has landed
+      cp_async_wait<0>();  // v has landed
       __syncthreads();
       // tile k's p is in pa: the next tile's QK is issued before tile k's
       // PV, and its softmax follows that PV, before tile k's store
@@ -589,7 +588,7 @@ __global__ void __launch_bounds__(fwd_warps<Order>() * 32,
         softmax();
         lp[0] = l[0], lp[1] = l[1];
       }
-      igemm::cp_async_wait<0>();  // v has landed
+      cp_async_wait<0>();  // v has landed
       __syncthreads();
       if (cnt > 1) qk(1);
       // step k: the PV of tile k - 1 from the park, the softmax of tile k

@@ -226,10 +226,10 @@ __global__ void __launch_bounds__(bwd_warps<KT>() * 32, 1)
       do_chk ? check + ((size_t)n * gridDim.x + h) * 2 * SP * SP : nullptr;
   stage_head<HD, KT, kThreads>(Qs, head, row3, S, row_of, tid);
   stage_head<HD, KT, kThreads>(Ks, head + D, row3, S, row_of, tid);
-  igemm::cp_async_commit();
+  cp_async_commit();
   stage_head<HD, KT, kThreads>(Vs, head + 2 * D, row3, S, row_of, tid);
   stage_head<HD, KT, kThreads>(Ds, dout + h * HD, (size_t)D, S, row_of, tid);
-  igemm::cp_async_commit();
+  cp_async_commit();
 
   // ---- phase A: query tiles -> row statistics, dov, dq ----
 #pragma unroll 1
@@ -237,7 +237,7 @@ __global__ void __launch_bounds__(bwd_warps<KT>() * 32, 1)
     const int qt = warp + round * W;
     const bool active = qt < KT;  // warp-uniform
     if (round == 0) {  // q and k have landed
-      igemm::cp_async_wait<1>();
+      cp_async_wait<1>();
       __syncthreads();
     }
     float p[2 * KT][4];
@@ -260,7 +260,7 @@ __global__ void __launch_bounds__(bwd_warps<KT>() * 32, 1)
       il[1] = 1.0f / l[1];
     }
     if (round == 0) {  // v and do have landed
-      igemm::cp_async_wait<0>();
+      cp_async_wait<0>();
       __syncthreads();
     }
     if (!active) continue;

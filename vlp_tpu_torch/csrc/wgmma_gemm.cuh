@@ -1,14 +1,17 @@
 // A bf16 GEMM mainloop for Hopper, written by hand: TMA into a ring of
 // 128-byte-swizzled shared-memory stages, one producer warp, and two
-// consumer warpgroups running wgmma out of shared memory:
+// consumer warpgroups running wgmma out of shared memory (or with A from
+// registers, below):
 //
 //   out[M, N] = sum over k of A[M, k] * B[k, N]
 //
 // with fp32 accumulation, rounded once to bf16 or stored as fp32 (whole,
 // or as split-K partials). Shared by the probe kernels gemm_single.cu
-// (#19b, benchmarks/mlp_probe.py:make_single: DenseRows, x @ w) and
+// (#19b, benchmarks/mlp_probe.py:make_single: DenseRows, x @ w),
 // conv3x3.cu (#17, benchmarks/conv_probe.py:pallas_conv3x3: A = the 3x3
-// taps of an NHWC map by an im2col TMA map), by the half-block attention
+// taps of an NHWC map by an im2col TMA map) and bn_relu_gemm.cu (#18,
+// benchmarks/bn_gemm_probe.py:make_pallas: AffineReluRows, relu(x a + b)
+// @ w with A rewritten in registers), by the half-block attention
 // backwards #3 and #6 (ln_attention.cuh: RowsNT, dy @ Wout^T to bf16 and
 // dqkv @ Wqkv^T to fp32; ColsTN, o^T @ dy and ln^T @ dqkv to split-K fp32
 // partials) and by the MLP backwards #4 and #10 (mlp_bwd.cuh: the dual
@@ -21,8 +24,8 @@
 //
 // What bounds a GEMM on this card: the bf16 tensor cores (989 TFLOP/s) once
 // a tile does ~300 operations per byte it brings from device memory, and
-// only wgmma reaches that rate (wmma compiles to mma.sync, which the older
-// engine implicit_gemm.cuh runs at 100-150 TFLOP/s). The
+// only wgmma reaches that rate (the older mma.sync, which wmma compiles
+// to, runs at 100-150 TFLOP/s). The
 // tensor cores idle whenever a warpgroup waits for its operands, so the
 // loads have to run ahead of the products without costing the consumers
 // instructions or registers, and the epilogue has to overlap another
@@ -74,6 +77,22 @@
 //   layout, and finishes it element by element (bias, GELU, a residual
 //   read as bf16 pairs) before it calls store_group. The policies without
 //   it (DenseRows, RowsNT, ColsTN, ConvTaps) take the store as before.
+// - A transformed in registers (a single-product policy with kTransformA,
+//   AffineReluRows): A must pass through a function of its own between
+//   the load and the product (#18's folded BatchNorm and ReLU), so the
+//   consumers read it out of the ring with ldmatrix (the 16-byte chunk
+//   index XORed with row & 7, as TMA's swizzle laid it out), which gives
+//   each thread the A fragment of wgmma's register form (rows lane / 4 and
+//   + 8, k 2 (lane % 4) + {0, 1} and + 8); the policy rewrites those
+//   registers, reading its per-column table from shared memory (filled
+//   once a block by the consumers while the producer's first loads are in
+//   flight), and wgmma m64nBNk16 take A from registers and B by
+//   descriptor (MmaRS). Each group of k16 slices (all four of a stage,
+//   but one at BN 128, where 64 accumulators leave room for only 4 A
+//   registers in the 96 of two blocks an SM) is waited for at once
+//   (wait_group 0) and the stage released after its last, so one set of A
+//   registers suffices; TMA running STAGES ahead gives the overlap. The
+//   ring stays written by TMA alone.
 //
 // Requirements: N and every operand's row a multiple of 8 elements
 // (16-byte rows for TMA and the vector stores); the policy's tensor maps
@@ -307,6 +326,126 @@ struct Mma<256, TA, TB> {
   }
 };
 
+// d[64 x N] += A[64 x 16] (registers: each warp of the warpgroup its 16
+// rows, a[0..3] as an mma.sync m16n8k16 A fragment) * B[16 x N]
+// (descriptor db; TB = 1: N-major, read through the transpose bit)
+template <int N, int TB>
+struct MmaRS;
+
+template <int TB>
+struct MmaRS<64, TB> {
+  __device__ __forceinline__ static void run(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
+          "n"(TB));
+  }
+};
+
+template <int TB>
+struct MmaRS<128, TB> {
+  __device__ __forceinline__ static void run(float (&d)[64],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+        "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+          "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
+          "n"(TB));
+  }
+};
+
+template <int TB>
+struct MmaRS<256, TB> {
+  __device__ __forceinline__ static void run(float (&d)[128],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+        "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+        "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+        "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+        "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+        "}, {%128, %129, %130, %131}, %132, p, 1, 1, %134;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+          "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+          "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+          "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+          "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+          "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+          "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+          "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
+          "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+          "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),
+          "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+          "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
+          "+f"(d[126]), "+f"(d[127])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
+          "n"(TB));
+  }
+};
+
+
+// four 8 x 8 bf16 matrices out of shared memory, each lane giving one
+// 16-byte row address: r[i] is matrix i (lanes 8i..8i+7's rows), row
+// lane / 4, columns 2 (lane % 4) + {0, 1}
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
+// keeps the compiler from moving writes of a register-A fragment across
+// the wgmma_fence that orders them before the products that read them
+__device__ __forceinline__ void fence_frag(uint32_t (&a)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[i])::"memory");
+}
+
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
@@ -387,7 +526,7 @@ __device__ __forceinline__ void consumers_sync() {
   asm volatile("bar.sync 1, %0;\n" ::"n"(32 * kConsumerWarps) : "memory");
 }
 
-template <int BN, int STAGES, int PRODUCTS>
+template <int BN, int STAGES, int PRODUCTS, int TABLE = 0>
 struct Layout {
   static constexpr int kBBytes = (BN / 64) * kBoxBytes;
   static constexpr int kHalf = kABytes + kBBytes;  // one product's share
@@ -396,8 +535,10 @@ struct Layout {
   // the two-product epilogue's [warps][BN] fp32 scratch, after the barriers
   static constexpr int kSums = kBars + 16 * STAGES;
   static constexpr int kSumBytes = PRODUCTS > 1 ? kConsumerWarps * BN * 4 : 0;
+  // the register-A form's per-column table (TABLE bytes), after those
+  static constexpr int kTable = kSums + kSumBytes;
   // + 1024 for aligning the ring to the 128-byte swizzle's 1 KB atoms
-  static constexpr size_t kBytes = 1024 + kSums + kSumBytes;
+  static constexpr size_t kBytes = 1024 + kTable + TABLE;
 };
 
 // Whether a single-product policy finishes its tile itself: it declares
@@ -408,6 +549,21 @@ struct OwnEpilogue : std::false_type {};
 template <class Src>
 struct OwnEpilogue<Src, std::void_t<decltype(Src::kEpilogue)>>
     : std::bool_constant<Src::kEpilogue> {};
+
+// Whether a single-product policy rewrites A in registers before the
+// product: it declares kTransformA = true and kTableBytes, the shared
+// memory its table takes (a policy without kTransformA, or with it false,
+// runs the shared-memory wgmma and has no table).
+template <class Src, class = void>
+struct TransformA {
+  static constexpr bool value = false;
+  static constexpr int kTableBytes = 0;
+};
+template <class Src>
+struct TransformA<Src, std::void_t<decltype(Src::kTransformA)>> {
+  static constexpr bool value = Src::kTransformA;
+  static constexpr int kTableBytes = Src::kTransformA ? Src::kTableBytes : 0;
+};
 
 // Policy (a struct passed by value), its loads issued by one thread:
 //   kProducts                           // 1, or 2 (below)
@@ -433,6 +589,16 @@ struct OwnEpilogue<Src, std::void_t<decltype(Src::kEpilogue)>>
 //   template <int BN> void epilogue(float (&acc)[BN / 2], Out* out, int M,
 //       int N, int n0, int row, int lane) const;
 // which every consumer thread calls once in place of the store; no split.
+// A single-product policy may declare kTransformA (any value), and with it
+// true kTableBytes and
+//   void fill_table(float* table, int tid, int threads) const;
+//   template <int G> void transform_a(const float* table, int step, int k0,
+//                                     int lane, uint32_t (&a)[G][4]) const;
+// fill_table is called by the 256 consumer threads once, while the
+// producer's first loads are in flight; transform_a by every consumer
+// thread on each group of G k16 slices of a stage's A fragments (a[i]:
+// slice k0 + i of the thread's rows) between their load and the products.
+// No split, no epilogue of its own, kTnspA = 0.
 //
 // Block (x, z) owns output tile x and K steps [z * split_steps, (z + 1) *
 // split_steps); with gridDim.y > 1 its fp32 sum goes to its own partial,
@@ -444,7 +610,8 @@ __global__ void __launch_bounds__(kThreads, MINB)
                       const __grid_constant__ Src src,
                       Out* __restrict__ out, int M, int N, int split_steps) {
   constexpr int P = Src::kProducts;
-  using L = Layout<BN, STAGES, P>;
+  constexpr bool kXform = TransformA<Src>::value;
+  using L = Layout<BN, STAGES, P, TransformA<Src>::kTableBytes>;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t ring = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t full0 = ring + L::kBars;
@@ -511,37 +678,86 @@ __global__ void __launch_bounds__(kThreads, MINB)
 #pragma unroll
     for (int i = 0; i < BN / 2; ++i) acc2[i] = 0.f;
   }
-  for (int t = 0; t < steps; ++t) {
-    const int s = t % STAGES;
-    const uint32_t a_st = ring + s * L::kStage + g * (64 * 128);
-    const uint32_t b_st = ring + s * L::kStage + kABytes;
-    mbar_wait(full0 + 8 * s, (t / STAGES) & 1);
-    fence_acc(acc);
-    if constexpr (P == 2) fence_acc(acc2);
-    wgmma_fence();
+  if constexpr (kXform) {
+    static_assert(P == 1 && Src::kTnspA == 0, "K-major A, one product");
+    // k16 slices whose A fragments are live at once: all four of a stage
+    // (16 registers), but one (4) at BN 128, where 64 accumulators and the
+    // wgmma pipeline fill the 96 registers of two blocks an SM (two slices
+    // spilled 32 bytes there and serialized the wgmma)
+    constexpr int kGroup = BN == 128 ? 1 : kBK / 16;
+    // the table, filled by the consumers while the producer's first loads
+    // are in flight
+    float* table = reinterpret_cast<float*>(
+        smem_raw + (ring - smem_u32(smem_raw)) + L::kTable);
+    src.fill_table(table, threadIdx.x, 32 * kConsumerWarps);
+    consumers_sync();
+    // this lane's ldmatrix row (lane % 16 of the warp's 16) and its 16-byte
+    // chunk's place in the k16 slice (lane / 16), in the warpgroup's A
+    const uint32_t a_row = (16 * (warp & 3) + (lane & 15)) * 128;
+    const int chunk = lane >> 4, swz = lane & 7;
+    for (int t = 0; t < steps; ++t) {
+      const int s = t % STAGES;
+      const uint32_t a_st = ring + s * L::kStage + g * (64 * 128) + a_row;
+      const uint32_t b_st = ring + s * L::kStage + kABytes;
+      mbar_wait(full0 + 8 * s, (t / STAGES) & 1);
 #pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk)
-      Mma<BN, Src::kTnspA, Src::kTnspB>::run(
-          acc, desc_sw128(a_st + kStepA * kk, kLboA, 1024),
-          desc_sw128(b_st + kStepB * kk, kLboB, 1024), 1);
-    if constexpr (P == 2) {
-      constexpr uint32_t kStepA2 = Src::kTnspA2 ? 2048 : 32;
-      constexpr uint32_t kLboA2 = Src::kTnspA2 ? kBoxBytes : 16;
-      constexpr uint32_t kStepB2 = Src::kTnspB2 ? 2048 : 32;
-      constexpr uint32_t kLboB2 = Src::kTnspB2 ? kBoxBytes : 16;
+      for (int k0 = 0; k0 < kBK / 16; k0 += kGroup) {
+        uint32_t a[kGroup][4];
+#pragma unroll
+        for (int i = 0; i < kGroup; ++i)
+          ldmatrix_x4(a[i], a_st + (((2 * (k0 + i) + chunk) ^ swz) << 4));
+        src.transform_a(table, t0 + t, k0, lane, a);
+        fence_acc(acc);
+#pragma unroll
+        for (int i = 0; i < kGroup; ++i) fence_frag(a[i]);
+        wgmma_fence();
+#pragma unroll
+        for (int i = 0; i < kGroup; ++i)
+          MmaRS<BN, Src::kTnspB>::run(
+              acc, a[i], desc_sw128(b_st + kStepB * (k0 + i), kLboB, 1024),
+              1);
+        wgmma_commit();
+        fence_acc(acc);
+        wgmma_wait<0>();  // the group's A registers are free again
+        fence_acc(acc);
+#pragma unroll
+        for (int i = 0; i < kGroup; ++i) fence_frag(a[i]);
+      }
+      if (lane == 0) mbar_arrive(empty0 + 8 * s);  // the stage is free
+    }
+  } else {
+    for (int t = 0; t < steps; ++t) {
+      const int s = t % STAGES;
+      const uint32_t a_st = ring + s * L::kStage + g * (64 * 128);
+      const uint32_t b_st = ring + s * L::kStage + kABytes;
+      mbar_wait(full0 + 8 * s, (t / STAGES) & 1);
+      fence_acc(acc);
+      if constexpr (P == 2) fence_acc(acc2);
+      wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kBK / 16; ++kk)
-        Mma<BN, Src::kTnspA2, Src::kTnspB2>::run(
-            acc2, desc_sw128(a_st + L::kHalf + kStepA2 * kk, kLboA2, 1024),
-            desc_sw128(b_st + L::kHalf + kStepB2 * kk, kLboB2, 1024), 1);
+        Mma<BN, Src::kTnspA, Src::kTnspB>::run(
+            acc, desc_sw128(a_st + kStepA * kk, kLboA, 1024),
+            desc_sw128(b_st + kStepB * kk, kLboB, 1024), 1);
+      if constexpr (P == 2) {
+        constexpr uint32_t kStepA2 = Src::kTnspA2 ? 2048 : 32;
+        constexpr uint32_t kLboA2 = Src::kTnspA2 ? kBoxBytes : 16;
+        constexpr uint32_t kStepB2 = Src::kTnspB2 ? 2048 : 32;
+        constexpr uint32_t kLboB2 = Src::kTnspB2 ? kBoxBytes : 16;
+#pragma unroll
+        for (int kk = 0; kk < kBK / 16; ++kk)
+          Mma<BN, Src::kTnspA2, Src::kTnspB2>::run(
+              acc2, desc_sw128(a_st + L::kHalf + kStepA2 * kk, kLboA2, 1024),
+              desc_sw128(b_st + L::kHalf + kStepB2 * kk, kLboB2, 1024), 1);
+      }
+      wgmma_commit();
+      fence_acc(acc);
+      if constexpr (P == 2) fence_acc(acc2);
+      wgmma_wait<1>();  // step t - 1's products are done: free its stage
+      fence_acc(acc);
+      if constexpr (P == 2) fence_acc(acc2);
+      if (t > 0 && lane == 0) mbar_arrive(empty0 + 8 * ((t - 1) % STAGES));
     }
-    wgmma_commit();
-    fence_acc(acc);
-    if constexpr (P == 2) fence_acc(acc2);
-    wgmma_wait<1>();  // step t - 1's products are done: free its stage
-    fence_acc(acc);
-    if constexpr (P == 2) fence_acc(acc2);
-    if (t > 0 && lane == 0) mbar_arrive(empty0 + 8 * ((t - 1) % STAGES));
   }
   wgmma_wait<0>();
   fence_acc(acc);
@@ -573,9 +789,11 @@ cudaError_t launch_wgmma_gemm(const CUtensorMap& map_a,
                               int splits = 1, int split_steps = INT_MAX) {
   static_assert(BN == 64 || BN == 128 || BN == 256, "the Mma instances");
   static_assert(sizeof(Out) == 2 || sizeof(Out) == 4, "bf16 or fp32 out");
-  if (splits > 1 && OwnEpilogue<Src>::value) return cudaErrorInvalidValue;
+  if (splits > 1 && (OwnEpilogue<Src>::value || TransformA<Src>::value))
+    return cudaErrorInvalidValue;
   auto kernel = wgmma_gemm_kernel<Src, BN, STAGES, MINB, Out>;
-  constexpr size_t smem = Layout<BN, STAGES, Src::kProducts>::kBytes;
+  constexpr size_t smem = Layout<BN, STAGES, Src::kProducts,
+                                 TransformA<Src>::kTableBytes>::kBytes;
   static const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (attr != cudaSuccess) return attr;
@@ -758,6 +976,74 @@ struct ColsTN {
   }
 };
 
+// relu(x a + b) @ w, #18's folded BatchNorm (one scale and shift a
+// channel) and ReLU as the product's prologue: A = x [M, C] K-major, B = w
+// [C, N] N-major, read by DenseRows's maps; A rewritten in registers
+// (kTransformA) as x * a + b in fp32 (the product and the sum rounded
+// separately, no FMA), max with 0, rounded to bf16, as the plain version's
+// tensor ops do. a and b sit in a table in shared memory with zeros from C
+// to the last 64-deep step's end, so a channel that TMA filled with zeros
+// past C stays relu(0 * 0 + 0) = 0 and no thread reads a or b past C.
+// Rows past M become relu(b); the store masks them.
+constexpr int kMaxAffineChannels = 1024;  // the table: 8 KB
+
+struct AffineReluRows {
+  static constexpr int kProducts = 1;
+  static constexpr int kTnspA = 0, kTnspB = 1;
+  static constexpr bool kTransformA = true;
+  static constexpr int kTableBytes = 8 * kMaxAffineChannels;
+  const float* a;
+  const float* b;
+  int C;
+
+  __device__ int steps() const { return (C + kBK - 1) / kBK; }
+  __device__ void load_a(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                         int step, int m0) const {
+    tma_load_2d(dst, map, bar, step * kBK, m0);
+  }
+  __device__ void load_b(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                         int step, int n) const {
+    tma_load_2d(dst, map, bar, n, step * kBK);
+  }
+  // Per k16 slice j and lane quad position q, 8 floats: a at channels 16 j
+  // + 2 q + {0, 1, 8, 9} (the four a thread's fragment holds), then b at
+  // the same; so a thread reads two float4s a slice.
+  __device__ void fill_table(float* table, int tid, int threads) const {
+    const int padded = steps() * kBK;
+    for (int c = tid; c < padded; c += threads) {
+      const int p = c & 15;
+      const int i =
+          ((c >> 4) * 4 + ((p & 7) >> 1)) * 8 + 2 * (p >> 3) + (p & 1);
+      table[i] = c < C ? a[c] : 0.f;
+      table[i + 4] = c < C ? b[c] : 0.f;
+    }
+  }
+  // two bf16 of one row, channels c and c + 1 -> bf16(relu(x * a + b))
+  __device__ static uint32_t affine_relu(uint32_t v, float a0, float a1,
+                                         float b0, float b1) {
+    const float x0 = __uint_as_float(v << 16);
+    const float x1 = __uint_as_float(v & 0xffff0000u);
+    return pack_bf16x2(fmaxf(__fadd_rn(__fmul_rn(x0, a0), b0), 0.f),
+                       fmaxf(__fadd_rn(__fmul_rn(x1, a1), b1), 0.f));
+  }
+  // v[i]: rows lane / 4 and + 8 at channels 2 (lane % 4) + {0, 1} of k16
+  // slice k0 + i of the step ([0], [1]) and 8 on ([2], [3])
+  template <int G>
+  __device__ void transform_a(const float* table, int step, int k0, int lane,
+                              uint32_t (&v)[G][4]) const {
+    const float4* t4 = reinterpret_cast<const float4*>(table) +
+                       ((step * (kBK / 16) + k0) * 4 + (lane & 3)) * 2;
+#pragma unroll
+    for (int i = 0; i < G; ++i) {
+      const float4 sa = t4[8 * i], sb = t4[8 * i + 1];
+      v[i][0] = affine_relu(v[i][0], sa.x, sa.y, sb.x, sb.y);
+      v[i][1] = affine_relu(v[i][1], sa.x, sa.y, sb.x, sb.y);
+      v[i][2] = affine_relu(v[i][2], sa.z, sa.w, sb.z, sb.w);
+      v[i][3] = affine_relu(v[i][3], sa.z, sa.w, sb.z, sb.w);
+    }
+  }
+};
+
 // Split count of a split-K product [M, N] over K: about two blocks per SM
 // of the 132 in all, at least eight 64-deep steps a split, and no split
 // empty (so launch_dense with this count writes every partial).
@@ -795,6 +1081,36 @@ cudaError_t launch_dense(const bf16* a, const bf16* b, Out* out, int M,
   const int per = (steps + splits - 1) / splits;
   return launch_wgmma_gemm<Src, 128, 3, 2>(map_a, map_b, Src{K}, out, M, N,
                                            stream, splits, per);
+}
+
+// out = bf16(relu(x a + b) @ w) (AffineReluRows) on 128 x BN tiles. A
+// block's shared memory (Layout): 1 KB of alignment, STAGES x (16 KB of x
+// + BN / 64 x 8 KB of w), 16 bytes of barriers a stage and the 8 KB table:
+//   BN  64, 4 stages: 1024 + 98304 + 64 + 8192 = 107,584 bytes
+//   BN 128, 3 stages: 1024 + 98304 + 48 + 8192 = 107,568 bytes
+// so two blocks share an SM (2 x (107.6 KB + the 1 KB the card reserves a
+// block) = 217 KB of its 228 KB; 18 warps at <= 96 registers), 64 KB
+// of x in flight a block; BN 256 with 4 stages takes 205,888 bytes, one
+// block an SM. x [M, C], w [C, N], out [M, N] bf16, 16-byte aligned, C and
+// N multiples of 8, C <= kMaxAffineChannels; a, b [C] fp32. Encodes the
+// two maps on the host and launches once; returns the first failing
+// cudaError_t.
+template <int BN>
+cudaError_t launch_affine_relu(const bf16* x, const float* a, const float* b,
+                               const bf16* w, bf16* out, int M, int C, int N,
+                               cudaStream_t stream) {
+  constexpr int kStages = BN == 128 ? 3 : 4;
+  constexpr int kMinBlocks = BN == 256 ? 1 : 2;
+  if (M <= 0 || N <= 0 || C <= 0 || C > kMaxAffineChannels || C % 8 ||
+      N % 8 ||
+      (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w) |
+       reinterpret_cast<uintptr_t>(out)) % 16)
+    return cudaErrorInvalidValue;
+  CUtensorMap map_a, map_b;
+  const cudaError_t err = DenseRows::encode(&map_a, &map_b, x, w, M, N, C);
+  if (err != cudaSuccess) return err;
+  return launch_wgmma_gemm<AffineReluRows, BN, kStages, kMinBlocks>(
+      map_a, map_b, AffineReluRows{a, b, C}, out, M, N, stream);
 }
 
 }  // namespace wg

@@ -10,9 +10,12 @@ At batch 128 the stage-1 and stage-2 boundary shapes, ``[128*56*56, 256]
 -> 64``, ``[128*28*28, 512] -> 128`` and ``[128*56*56, 64] -> 256``: the
 kernel, its plain version and the two-op PyTorch version
 ``relu(x.float() * a + b).bfloat16() @ W`` (cuBLAS) timed in turns (plain,
-kernel, two-op, two-op, kernel, plain), with the errors against the plain
-version. No single PyTorch call computes the function, so the two-op
-version is the yardstick.
+kernel, two-op, two-op, kernel, plain) on CUDA events around each call,
+then kernel and two-op again as device time alone (``kernel_device_ms``,
+``two_op_device_ms``: calls queued behind a spin kernel, so the wrappers'
+host time does not count), with the errors against the plain version. No
+single PyTorch call computes the function, so the two-op version is the
+yardstick.
 
 Prints one JSON line per shape (and the card's name and power limit);
 writes nothing. Needs a CUDA card; exits with code 2 without one.
@@ -28,7 +31,8 @@ from typing import Dict, List, Tuple
 import torch
 
 from vlp_tpu_torch.ops.bn_gemm import bn_relu_gemm, bn_relu_gemm_plain
-from vlp_tpu_torch.probes._timing import bound_ms, in_turns, require_cuda
+from vlp_tpu_torch.probes._timing import (bound_ms, device_in_turns,
+                                          in_turns, require_cuda)
 
 BATCH = 128
 # (label, side, C in, K out) of the bottleneck boundary GEMMs at 224
@@ -73,19 +77,25 @@ def measure(label: str, hw: int, c: int, k: int, batch: int,
     t = in_turns(plain=lambda: bn_relu_gemm_plain(x, a, b, w),
                  kernel=lambda: bn_relu_gemm(x, a, b, w),
                  two_op=lambda: two_op(x, a, b, w))
+    dev = device_in_turns(kernel=lambda: bn_relu_gemm(x, a, b, w),
+                          two_op=lambda: two_op(x, a, b, w))
     flops, nbytes = gemm_work(m, c, k)
     return {"probe": "bn_relu_gemm", "shape": label, "batch": batch, "m": m,
             "c": c, "k": k, "kernel_ms": t["kernel"], "plain_ms": t["plain"],
             "two_op_ms": t["two_op"], "library_ms": None,
+            "kernel_device_ms": dev["kernel"],
+            "two_op_device_ms": dev["two_op"],
             "max_abs_err": err, "two_op_max_abs_err": two_err,
             "flops": flops, "bytes": nbytes, **bound_ms(flops, nbytes),
-            "kernel_gb_per_s": nbytes / t["kernel"] / 1e6,
-            "two_op_vs_kernel": t["two_op"] / t["kernel"]}
+            "kernel_gb_per_s": nbytes / dev["kernel"] / 1e6,
+            "two_op_vs_kernel": dev["two_op"] / dev["kernel"]}
 
 
-def run(batch: int = BATCH, seed: int = 0) -> List[Dict]:
-    """Every shape on the current CUDA device; one record per shape."""
-    gen = torch.Generator(device="cuda").manual_seed(seed)
+def run(batch: int = BATCH, seed: int = 0, device: str = "cuda"
+        ) -> List[Dict]:
+    """Every shape on ``device`` (a CPU device runs the plain version; the
+    tests use it for the control flow); one record per shape."""
+    gen = torch.Generator(device=device).manual_seed(seed)
     records = []
     for label, hw, c, k in SHAPES:
         records.append(measure(label, hw, c, k, batch, gen))
