@@ -4,15 +4,17 @@ on one CUDA card.
 ``--experiment`` names an entry of ``vlp_tpu_torch.config
 .TRAIN_EXPERIMENTS`` (default ``baseline_only_imaging_nest_small``; also
 ``baseline_only_imaging_vit_base``, the NesT-Small entry with
-``model.megakernel=false``, ``baseline_only_imaging_resnet34`` and
-``baseline_only_imaging_xrv_resnet50``), at that entry's batch; training
-batches hold datasets 0 and 1 in turn, so CORAL runs where the experiment
-sets it. ``--mode serve``
-(default) drives ``vlp_tpu_torch.serve.Predictor`` (224x224, bf16, random
-weights) with full-batch requests; ``--mode train`` drives the
-experiment's training step (``vlp_tpu_torch.train.step.make_train_step``:
-augmentation, forward, weighted BCE, backward, AdamW under cosine_warmup)
-on seeded uint8 batches. Under ``torch.profiler``: ``--warmup``
+``model.megakernel=false``, ``baseline_only_imaging_resnet34``,
+``baseline_only_imaging_xrv_resnet50`` and the pretrain experiments, such
+as ``pretrain_resnet34_tinybert``), at that entry's batch; imaging
+training batches hold datasets 0 and 1 in turn, so CORAL runs where the
+experiment sets it, and pretrain batches hold ragged 8-40-token captions,
+each twice. ``--mode serve`` (default; imaging experiments) drives
+``vlp_tpu_torch.serve.Predictor`` (224x224, bf16, random weights) with
+full-batch requests; ``--mode train`` drives the experiment's training
+step (``vlp_tpu_torch.train.step.make_train_step``: augmentation, forward,
+the task's loss, backward, the experiment's optimizer and schedule) on
+seeded batches. Under ``torch.profiler``: ``--warmup``
 iterations first, then ``--requests`` profiled ones. Prints, per iteration,
 the device time of each kernel (summed over its launches), the busy time
 (the union of all device intervals: kernels, copies, memsets; the
@@ -23,7 +25,13 @@ one's end, after a synchronize), the idle share 1 - busy / window, and the
 kernel time by group (``GROUPS``: the port's hand-written kernels, cuDNN
 and cuBLAS convolutions and GEMMs, the optimizer, reductions, elementwise
 passes and copies; the first pattern that a kernel's name matches).
-``--output`` also writes the table as JSON.
+``--output`` also writes the table as JSON. For a pretrain experiment
+``--mode train`` also profiles each part of the step run alone,
+``--requests`` times after one warm-up: the augmentation (#11/#12), the
+image tower's and the text tower's forward and backward (on a sum of their
+embeddings), the CLIP loss forward and backward on fixed embeddings, and
+the optimizer step; per call, its device busy time (the union of its
+device intervals) and its window on the host clock.
 
 Usage:
   python scripts/profile_slice.py [--mode serve|train] [--requests 5] \
@@ -49,14 +57,16 @@ from torch.profiler import ProfilerActivity, profile
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from vlp_tpu_torch.config import EXPERIMENTS, TRAIN_EXPERIMENTS  # noqa: E402
+from vlp_tpu_torch.ops import losses  # noqa: E402
 from vlp_tpu_torch.serve import Predictor  # noqa: E402
-from vlp_tpu_torch.train.setup import build_training, random_batch  # noqa: E402
-from vlp_tpu_torch.train.step import train_steps  # noqa: E402
+from vlp_tpu_torch.train.setup import batch_for, build_training  # noqa: E402
+from vlp_tpu_torch.train.step import to_device, train_steps  # noqa: E402
 
 EXPERIMENT = "baseline_only_imaging_nest_small"
 # (group, pattern searched in a kernel's name), first match wins
 GROUPS = (
-    ("hand-written", r"vlp::|shear_kernel|noise_kernel|philox_kernel"),
+    ("hand-written", r"vlp::|shear_\w*kernel|noise_kernel|philox_kernel"),
+    ("attention (SDPA)", r"flash|fmha|sdpa|[Aa]ttention"),
     ("conv and GEMM (cuDNN, cuBLAS)",
      r"cudnn|xmma|cutlass|gemm|Gemm|conv|Conv|wgrad|dgrad|sm90_|sm80_"),
     ("optimizer", r"multi_tensor|[Aa]dam"),
@@ -76,16 +86,79 @@ def _serve_iteration(key: str, batch: int):
 
 
 def _train_iteration(key: str, batch: int):
-    """One training step per call, on seeded uint8 batches (four in turn),
+    """One training step per call, on seeded batches (four in turn),
     random weights, the experiment's augmentation: the run of
-    chip_smoke.py's training phases."""
+    chip_smoke.py's training phases. Returns (the call, task, state, the
+    first batch)."""
     tcfg = TRAIN_EXPERIMENTS[key]
-    _, state, step = build_training(tcfg, torch.device("cuda"),
-                                    STEPS_PER_EPOCH)
+    task, state, step = build_training(tcfg, torch.device("cuda"),
+                                       STEPS_PER_EPOCH)
     rng = np.random.default_rng(1)
-    batches = itertools.cycle([random_batch(rng, batch, tcfg.serve.image_size)
-                               for _ in range(4)])
-    return lambda: train_steps(step, state, [next(batches)])
+    host = [batch_for(tcfg, rng, batch) for _ in range(4)]
+    batches = itertools.cycle(host)
+    return (lambda: train_steps(step, state, [next(batches)]), task, state,
+            host[0])
+
+
+def _profiled(fn, reps: int):
+    """(the profiler's events of ``reps`` calls of ``fn`` after one more
+    warm-up call, the window per call in ms: host clock, ending in a
+    synchronize)."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        window_ms = (time.perf_counter() - t0) * 1e3 / reps
+    return prof.events(), window_ms
+
+
+def _device_intervals(events):
+    """(kernel name, start, end) of the device work among ``events``,
+    leaving out the annotated ranges."""
+    return [(e.name, e.time_range.start, e.time_range.end) for e in events
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.is_user_annotation]
+
+
+def _vlp_parts(task, state, host_batch, reps: int) -> dict:
+    """{part: (device busy ms, window ms)} per call of each part of a
+    pretrain step run alone."""
+    model = task.model
+    model.train()
+    batch = to_device(host_batch, next(model.parameters()).device)
+    images = task._prep_train(batch, state.generator)
+    ids, mask = batch["input_ids"], batch["attention_mask"]
+    with torch.no_grad():
+        img = model.encode_image(images)
+        txt = model.encode_text(ids, mask)
+    img.requires_grad_(True)
+    txt.requires_grad_(True)
+
+    def loss():
+        losses.symmetric_infonce(losses.clip_logits(
+            img, txt, model.logit_scale, task.scale_max),
+            batch["mask"]).backward()
+
+    parts = {
+        "augmentation (#11, #12)": lambda: task._prep_train(
+            batch, state.generator),
+        "image tower fwd+bwd": lambda: model.encode_image(
+            images).sum().backward(),
+        "text tower fwd+bwd": lambda: model.encode_text(
+            ids, mask).sum().backward(),
+        "CLIP loss fwd+bwd": loss,
+        "optimizer step": state.optimizer.step}
+    out = {}
+    for name, fn in parts.items():
+        events, window_ms = _profiled(fn, reps)
+        busy = _union_us([(a, b) for _, a, b in _device_intervals(events)])
+        out[name] = (busy / 1e3 / reps, window_ms)
+    model.zero_grad(set_to_none=True)
+    return out
 
 
 def _union_us(intervals) -> float:
@@ -116,32 +189,29 @@ def main(argv: Optional[List[str]] = None) -> int:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
 
-    run = (_train_iteration if args.mode == "train" else _serve_iteration)(
-        args.experiment, batch)
-    for _ in range(args.warmup):
+    vlp = TRAIN_EXPERIMENTS[args.experiment].serve.task == "vision_language"
+    if args.mode == "serve" and vlp:
+        parser.error("--mode serve drives the imaging Predictor; "
+                     f"{args.experiment} is a pretrain experiment")
+    if args.mode == "train":
+        run, task, state, first = _train_iteration(args.experiment, batch)
+    else:
+        run = _serve_iteration(args.experiment, batch)
+    for _ in range(args.warmup - 1):
         run()
-    torch.cuda.synchronize()
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(args.requests):
-            run()
-        torch.cuda.synchronize()
-        window_ms = (time.perf_counter() - t0) * 1e3 / args.requests
+    events, window_ms = _profiled(run, args.requests)
 
     per_kernel = defaultdict(float)
     spans = defaultdict(float)  # annotated ranges, not device work
+    for e in events:
+        if e.device_type == torch.autograd.DeviceType.CUDA \
+                and e.is_user_annotation:
+            spans[e.name] += (e.time_range.end - e.time_range.start) / 1e3 \
+                / args.requests
     intervals = []
-    for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        ms = (e.time_range.end - e.time_range.start) / 1e3
-        if e.is_user_annotation:
-            spans[e.name] += ms / args.requests
-            continue
-        per_kernel[e.name] += ms
-        intervals.append((e.time_range.start, e.time_range.end))
+    for name, start, end in _device_intervals(events):
+        per_kernel[name] += (end - start) / 1e3
+        intervals.append((start, end))
     if not intervals:
         raise RuntimeError("the profiler recorded no device activity")
     busy_ms = _union_us(intervals) / 1e3 / args.requests
@@ -162,6 +232,12 @@ def main(argv: Optional[List[str]] = None) -> int:
     for name, ms in spans.items():
         print(f"span {name} (annotated range, outside busy and the "
               f"groups): {ms:.4f} ms")
+    parts = _vlp_parts(task, state, first, args.requests) \
+        if args.mode == "train" and vlp else {}
+    for name, (ms, win) in parts.items():
+        print(f"part {name}, run alone: device busy {ms:.4f} ms "
+              f"({ms / busy_ms:.2%} of the step's busy time), window "
+              f"{win:.4f} ms")
     for name, ms in rows:
         print(f"{ms:10.4f} ms  {ms / busy_ms:7.2%}  {name[:140]}")
     if args.output:
@@ -173,6 +249,7 @@ def main(argv: Optional[List[str]] = None) -> int:
                        "requests": args.requests, "window_ms": window_ms,
                        "busy_ms": busy_ms, "group_ms": dict(groups),
                        "annotated_span_ms": dict(spans),
+                       "parts_alone_ms": parts,
                        "per_kernel_ms": dict(rows)}, fh, indent=1)
     return 0
 

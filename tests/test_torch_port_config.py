@@ -59,6 +59,53 @@ def test_the_resnet_entries_say_what_the_slice_runs():
     assert xrv.coral_lambda == 0.0 and not xrv.serve.crop
 
 
+PRETRAIN = ("pretrain_resnet34_tinybert", "pretrain_resnet34_distilbert",
+            "pretrain_resnet18_tinybert", "pretrain_resnet50_distilbert",
+            "pretrain_resnet34_tinybert_masked_loss",
+            "pretrain_resnet34_tinybert_non_square_loss",
+            "pretrain_resnet34_tinybert_frozen_text",
+            "pretrain_resnet34_tinybert_split_lr",
+            "pretrain_resnet34_tinybert_no_augs",
+            "pretrain_resnet34_distilbert_masked",
+            "pretrain_resnet34_distilbert_dedup")
+
+
+def test_the_pretrain_entries_say_what_the_slice_runs():
+    """The eleven pretrain experiments the port runs (each also held
+    against the JAX experiment above), and what each says: the dual tower,
+    batch 128 at 224 px with 40-token captions, AdamW at 1e-3 under cosine
+    with the 5-degree shear; the variants' loss, groups and augmentation;
+    the DistilBERT line's embedding 32 and Adam without a schedule."""
+    vlp = {k: v for k, v in TRAIN_EXPERIMENTS.items()
+           if v.serve.task == "vision_language"}
+    assert sorted(vlp) == sorted(PRETRAIN)
+    main = vlp["pretrain_resnet34_tinybert"]
+    assert (main.serve.model, main.serve.text_model) == ("resnet34",
+                                                         "tinybert")
+    assert main.batch_size == 128 and main.serve.image_size == 224
+    assert main.max_token_length == 40 and main.serve.embedding_dim == 128
+    assert (main.optimizer, main.lr, main.scheduler) == ("adamw", 1e-3,
+                                                         "cosine")
+    assert main.augment().shear_deg == 5.0 and main.augment().enabled
+    assert main.augment().noise_prob == 0.5
+    assert main.serve.logit_scale_max == 100.0
+    assert vlp["pretrain_resnet34_tinybert_masked_loss"].serve.loss_variant \
+        == "masked"
+    assert vlp["pretrain_resnet34_tinybert_non_square_loss"].serve \
+        .loss_variant == "non_square"
+    assert vlp["pretrain_resnet34_tinybert_frozen_text"].text_encoder_lr \
+        == 0.0
+    split = vlp["pretrain_resnet34_tinybert_split_lr"]
+    assert (split.image_encoder_lr, split.text_encoder_lr,
+            split.projection_lr) == (1e-4, 1e-5, 1e-3)
+    assert not vlp["pretrain_resnet34_tinybert_no_augs"].augment().enabled
+    for name, lr in (("pretrain_resnet34_distilbert_masked", 1e-4),
+                     ("pretrain_resnet34_distilbert_dedup", 1e-5)):
+        d = vlp[name]
+        assert d.serve.embedding_dim == 32 and d.optimizer == "adam"
+        assert d.lr == lr and d.scheduler == "none"
+
+
 @pytest.mark.parametrize("overrides", [
     ["experiment=baseline_only_imaging_vit_base"],
     ["experiment=baseline_only_imaging_nest_small", "model.megakernel=false"],

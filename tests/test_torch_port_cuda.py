@@ -1298,3 +1298,43 @@ def test_attn_sched_cuda_never_takes_the_plain_path(cuda, monkeypatch):
     with pytest.raises(ValueError, match="contiguous"):
         AS.attn_sched_core(qkv.transpose(0, 1).contiguous().transpose(0, 1),
                            2)
+
+
+@pytest.mark.parametrize("zero_row", [None, 3])
+def test_vlp_tinybert_step_launches_the_augmentation_kernels(cuda,
+                                                             zero_row):
+    """The pretrain step (ResNet34 + TinyBERT at batch 8, 224 px, 40-token
+    ragged captions, bf16, the experiment's shear and noise) on the card:
+    3 ``shear_rows`` + 1 ``add_gaussian_noise`` launches and no other
+    kernel of the port, finite loss and gradients; a caption whose mask is
+    all zeros gives finite embeddings in training and in eval."""
+    import dataclasses
+
+    import numpy as np
+
+    from vlp_tpu_torch.config import PRETRAIN, TRAIN_EXPERIMENTS
+    from vlp_tpu_torch.train.setup import (build_training,
+                                           random_pretrain_batch)
+    from vlp_tpu_torch.train.step import to_device, train_steps
+
+    tcfg = dataclasses.replace(TRAIN_EXPERIMENTS[PRETRAIN], batch_size=8)
+    task, state, step = build_training(tcfg, cuda, 10)
+    batch = random_pretrain_batch(np.random.default_rng(0), 8, 224, 40)
+    if zero_row is not None:
+        batch["attention_mask"][zero_row] = 0
+    kernels = (*FB.KERNELS, *BA.KERNELS, *FM.KERNELS, SH.shear_rows,
+               NZ.add_gaussian_noise, *CV.KERNELS, *BG.KERNELS,
+               *MT.KERNELS, *AS.KERNELS)
+    for k in kernels:
+        k.launches = 0
+    (aux,) = train_steps(step, state, [batch])
+    torch.cuda.synchronize()
+    assert {k.__name__: k.launches for k in kernels if k.launches} == {
+        "shear_rows": 3, "add_gaussian_noise": 1}
+    assert torch.isfinite(aux["loss"]) and torch.isfinite(
+        aux["txt_emb"]).all()
+    assert all(torch.isfinite(p.grad).all()
+               for p in task.model.parameters())
+    out = task.eval_fn(to_device(batch, cuda))
+    assert all(torch.isfinite(out[k]).all()
+               for k in ("img_emb", "txt_emb", "loss"))

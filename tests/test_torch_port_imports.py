@@ -26,6 +26,8 @@ IMPORTS_VLP_TPU = re.compile(r"^\s*(import|from)\s+vlp_tpu(?![\w])",
 def test_serve_and_chip_smoke_import_without_jax_or_host_pipeline():
     code = ("import sys; import vlp_tpu_torch.serve, "
             "vlp_tpu_torch.train.step, vlp_tpu_torch.models.resnet, "
+            "vlp_tpu_torch.models.bert, vlp_tpu_torch.models.vlm, "
+            "vlp_tpu_torch.data.tokenize, "
             "vlp_tpu_torch.probes.conv_probe, "
             "vlp_tpu_torch.probes.bn_gemm_probe, "
             "vlp_tpu_torch.probes.mega_probe, "

@@ -310,9 +310,9 @@ def test_one_train_step_matches_jax_params_and_batch_stats():
         jstate, jax.tree.map(jnp.asarray, _batch(2)))
 
     tcfg = TrainConfig.from_config(cfg)
-    opt, schedule = make_optimizer(tcfg, task.model.parameters(), SPE)
-    state = TrainState.create(task.model, opt, schedule, seed=0)
-    aux = make_train_step(task, opt, schedule)(
+    opt, schedules = make_optimizer(tcfg, task.model, SPE)
+    state = TrainState.create(task.model, opt, schedules, seed=0)
+    aux = make_train_step(task, opt, schedules)(
         state, to_device(_batch(2), torch.device("cpu")))
     assert aux["lr"] == pytest.approx(LR, rel=1e-7)
     assert aux["loss"].item() == pytest.approx(float(jaux["loss"]),

@@ -121,12 +121,25 @@ def test_unported_backbones_and_tasks_raise():
     # is refused as the JAX registry refuses it
     with pytest.raises(ValueError, match="Unknown backbone"):
         create_backbone("resnet101")
-    for task in ("fusion", "vision_language"):
-        cfg = apply_overrides(
-            get_experiment("baseline_only_imaging_nest_small"),
-            [f"model.task={task}"])
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            tbuild(cfg, TStatics())
+    cfg = apply_overrides(get_experiment("baseline_only_imaging_nest_small"),
+                          ["model.task=fusion"])
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        tbuild(cfg, TStatics())
+    # the vision-language task is ported: the dual tower of the experiment
+    from vlp_tpu_torch.models.tasks import VisionLanguageTask
+
+    cfg = apply_overrides(get_experiment("pretrain_resnet34_tinybert"),
+                          ["model.model=resnet_micro",
+                           "model.text_model=microbert"])
+    task = tbuild(cfg, TStatics())
+    assert isinstance(task, VisionLanguageTask)
+    assert task.model.text_encoder.cfg.hidden_size == 64
+    assert task.loss_variant == "symmetric_infonce"
+    # the classifier's Predictor refuses it rather than failing on logits
+    from vlp_tpu_torch.serve import Predictor
+
+    with pytest.raises(ValueError, match="no logits"):
+        Predictor(cfg, None, 0.0, 1.0, device="cpu")
 
 
 @pytest.mark.parametrize("name", ["baseline_only_imaging_nest_small"])

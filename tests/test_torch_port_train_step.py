@@ -121,7 +121,7 @@ def _tiny(monkeypatch, cfg):
 
 
 def _torch_task(cfg, params=None):
-    """The port's task, optimizer and schedule for ``cfg``; weights from a
+    """The port's task, optimizer and schedules for ``cfg``; weights from a
     flax ``params`` tree, or the flax-scaled random init when None."""
     tcfg = TrainConfig.from_config(cfg)
     task = build_task(tcfg, TaskStatics(mean=MEAN, std=STD,
@@ -131,8 +131,8 @@ def _torch_task(cfg, params=None):
         flax_init_(task.model, torch.Generator().manual_seed(0))
     else:
         convert.load_weights(task.model, {"params": params})
-    opt, schedule = make_optimizer(tcfg, task.model.parameters(), SPE)
-    return task, opt, schedule
+    opt, schedules = make_optimizer(tcfg, task.model, SPE)
+    return task, opt, schedules
 
 
 def _as_torch(tree, model):
@@ -188,9 +188,9 @@ def _check_first_step(cfg, jtask, params):
         params, {}, jbatch, jax.random.key(4))
     jstate1, jaux = jstep(jstate, jbatch)
 
-    task, opt, schedule = _torch_task(cfg, params)
-    state = TrainState.create(task.model, opt, schedule, seed=0)
-    step = make_train_step(task, opt, schedule)
+    task, opt, schedules = _torch_task(cfg, params)
+    state = TrainState.create(task.model, opt, schedules, seed=0)
+    step = make_train_step(task, opt, schedules)
     aux = step(state, to_device(batch0, torch.device("cpu")))
     assert state.step == 1 and aux["lr"] == pytest.approx(LR, rel=1e-7)
     np.testing.assert_allclose(aux["loss"].item(), float(jloss), rtol=1e-5)
@@ -214,15 +214,16 @@ def test_one_train_step_and_a_carried_over_second_match_jax(tiny):
 
     # step 2 from JAX's state: weights and AdamW moments carried over
     adam = _adam_state(jstate1.opt_state)
-    task2, opt2, schedule2 = _torch_task(cfg, jax.device_get(jstate1.params))
+    task2, opt2, schedules2 = _torch_task(cfg,
+                                          jax.device_get(jstate1.params))
     convert.load_optimizer_state(opt2, task2.model,
                                  jax.device_get(adam.mu),
                                  jax.device_get(adam.nu), int(adam.count))
-    state2 = TrainState.create(task2.model, opt2, schedule2, seed=0)
+    state2 = TrainState.create(task2.model, opt2, schedules2, seed=0)
     state2.step = 1
     batch1 = _batch(11)
     jstate2, _ = jstep(jstate1, jax.tree.map(jnp.asarray, batch1))
-    aux2 = make_train_step(task2, opt2, schedule2)(
+    aux2 = make_train_step(task2, opt2, schedules2)(
         state2, to_device(batch1, torch.device("cpu")))
     lr1 = float(jmake_schedule(LR, cfg, SPE)(1))
     assert aux2["lr"] == pytest.approx(lr1, rel=1e-6)
@@ -273,10 +274,13 @@ def test_train_experiment_matches_jax_experiment():
     assert port.augment() == AugmentConfig(noise_prob=0.5, shear_deg=0.0)
 
 
-def test_coral_and_param_groups_raise_instead_of_being_ignored(tiny_port):
+def test_coral_is_carried_and_vision_encoder_lr_builds_two_groups(
+        tiny_port):
     """CORAL is ported: with ``coral_lambda`` set the loss carries it (it
     is not ignored; ``test_torch_port_resnet.py`` holds its value to the
-    JAX task's); parameter groups still raise."""
+    JAX task's). ``vision_encoder_lr`` builds two param groups, the
+    backbone at that lr and the head at the base lr, each with its own
+    schedule; ``freeze_encoder`` leaves the backbone out and frozen."""
     cfg = tiny_port
     cfg.model.coral_lambda = 10.0
     task, _, _ = _torch_task(cfg)
@@ -288,9 +292,23 @@ def test_coral_and_param_groups_raise_instead_of_being_ignored(tiny_port):
     assert loss.item() == pytest.approx(
         aux["bce"].item() + 10.0 * aux["coral"].item(), rel=1e-6)
     cfg.model.vision_encoder_lr = 1e-5
-    with pytest.raises(NotImplementedError, match="parameter groups"):
-        make_optimizer(TrainConfig.from_config(cfg), task.model.parameters(),
-                       SPE)
+    opt, schedules = make_optimizer(TrainConfig.from_config(cfg), task.model,
+                                    SPE)
+    backbone = list(task.model.backbone.parameters())
+    assert [g["name"] for g in opt.param_groups] == ["backbone", "head"]
+    assert opt.param_groups[0]["params"] == backbone
+    assert opt.param_groups[1]["params"] == list(
+        task.model.head.parameters())
+    assert [g["lr"] for g in opt.param_groups] == [1e-5, LR]
+    assert [s(0) for s in schedules] == [1e-5, LR]
+    assert schedules[0](3) == pytest.approx(1e-5 / LR * schedules[1](3),
+                                            rel=1e-12)
+    cfg.model.freeze_encoder = True
+    opt, schedules = make_optimizer(TrainConfig.from_config(cfg), task.model,
+                                    SPE)
+    assert [g["name"] for g in opt.param_groups] == ["head"]
+    assert len(schedules) == 1
+    assert not any(p.requires_grad for p in backbone)
 
 
 def test_train_steps_with_augmentation_on(tiny_port):
@@ -300,17 +318,17 @@ def test_train_steps_with_augmentation_on(tiny_port):
     cfg = tiny_port
     cfg.data.disable_augmentations = False
     cfg.scheduler.name = "cosine_warmup"
-    task, opt, schedule = _torch_task(cfg)
+    task, opt, schedules = _torch_task(cfg)
     assert task.statics.augment.enabled
-    state = TrainState.create(task.model, opt, schedule, seed=5)
-    step = make_train_step(task, opt, schedule)
+    state = TrainState.create(task.model, opt, schedules, seed=5)
+    step = make_train_step(task, opt, schedules)
     before = [p.detach().clone() for p in task.model.parameters()]
     auxes = train_steps(step, state, [_batch(20)])
     assert auxes[0]["lr"] == 0.0
     assert all(torch.equal(a, p) for a, p in zip(before,
                                                  task.model.parameters()))
     auxes += train_steps(step, state, [_batch(21), _batch(22)])
-    assert [a["lr"] for a in auxes] == [schedule(i) for i in range(3)]
+    assert [a["lr"] for a in auxes] == [schedules[0](i) for i in range(3)]
     assert all(np.isfinite(a["loss"].item()) for a in auxes)
     assert not all(torch.equal(a, p) for a, p in zip(
         before, task.model.parameters()))

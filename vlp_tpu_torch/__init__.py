@@ -14,6 +14,9 @@ path of ViT-B/16, ViT-L/16 and NesT-Small with ``megakernel=False``, with
 the packed-qkv attention ``attend_qkv`` and the fused MLP ``fused_mlp`` and
 their backwards; NesT-Small on its token map (``ln_attention_windows`` and
 its backward); the ResNets with BatchNorm and CORAL (cuDNN convolutions,
-no kernel of their own); and the ResNet probes ``conv3x3`` and
-``bn_relu_gemm`` (``vlp_tpu_torch.probes``). ROADMAP.md lists what follows.
+no kernel of their own); the vision-language pretraining step (the
+hash tokenizer, the BERT-family text towers on SDPA, the dual tower, the
+CLIP losses and per-tower parameter groups; its kernels are the
+augmentation's); and the probe kernels (``vlp_tpu_torch.probes``).
+ROADMAP.md lists what follows.
 """

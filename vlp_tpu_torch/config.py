@@ -1,10 +1,12 @@
 """What the port's serving and training paths read of an experiment config.
 
 The experiment configs live in the JAX package (``vlp_tpu.config``). The
-serving path needs only twelve of their fields, so it takes them as a
-``ServeConfig``, and the training step adds the optimizer, schedule and
-augmentation fields in a ``TrainConfig``; neither imports anything of
-``vlp_tpu``: the machine with the card runs without the JAX package.
+serving path needs only the model's and the input's fields (the dual
+tower's among them), so it takes them as a ``ServeConfig``, and the
+training step adds the optimizer, schedule, parameter-group, caption
+length and augmentation fields in a ``TrainConfig``; neither imports
+anything of ``vlp_tpu``: the machine with the card runs without the JAX
+package.
 ``from_config`` reads the fields off a ``vlp_tpu.config.Config``;
 ``EXPERIMENTS`` and ``TRAIN_EXPERIMENTS`` hold the ported experiments'
 values (keyed by the experiment name, or by the name and an override as
@@ -35,19 +37,34 @@ class ServeConfig:
     remat: bool = False                   # cfg.model.remat
     stem: str = "conv7"                   # cfg.model.stem
     bn_dtype: str = "fp32"                # cfg.trainer.bn_dtype
+    # the dual tower (task vision_language)
+    text_model: str = "distilbert"        # cfg.model.text_model
+    embedding_dim: int = 128              # cfg.model.embedding_dim
+    image_dropout: float = 0.0            # cfg.model.image_dropout
+    logit_scale_init: float = 2.6592      # cfg.model.logit_scale_init
+    logit_scale_max: float = 100.0        # cfg.model.logit_scale_max
+    loss_variant: str = "symmetric_infonce"  # cfg.model.loss_variant
+    infonce_impl: str = "gspmd"           # cfg.mesh.infonce_impl
 
     @classmethod
     def from_config(cls, cfg: Any) -> "ServeConfig":
         """The serving fields of a ``vlp_tpu.config.Config``."""
-        return cls(task=cfg.model.task, model=cfg.model.model,
+        m = cfg.model
+        return cls(task=m.task, model=m.model,
                    precision=cfg.trainer.precision,
                    image_size=cfg.data.image_size,
                    in_channels=cfg.data.in_channels,
                    scale_intensity=cfg.data.scale_intensity_normalization,
                    crop=cfg.data.crop_larger_dimension,
-                   fused_attention=cfg.model.fused_attention,
-                   megakernel=cfg.model.megakernel, remat=cfg.model.remat,
-                   stem=cfg.model.stem, bn_dtype=cfg.trainer.bn_dtype)
+                   fused_attention=m.fused_attention,
+                   megakernel=m.megakernel, remat=m.remat,
+                   stem=m.stem, bn_dtype=cfg.trainer.bn_dtype,
+                   text_model=m.text_model, embedding_dim=m.embedding_dim,
+                   image_dropout=m.image_dropout,
+                   logit_scale_init=m.logit_scale_init,
+                   logit_scale_max=m.logit_scale_max,
+                   loss_variant=m.loss_variant,
+                   infonce_impl=cfg.mesh.infonce_impl)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,6 +87,11 @@ class TrainConfig:
     # cfg.data.gaussian_noise_augmentation
     gaussian_noise_augmentation: bool = True
     shear_augmentation: bool = False        # cfg.data.shear_augmentation
+    # the dual tower's parameter groups; lr 0 freezes a group
+    image_encoder_lr: Optional[float] = None  # cfg.model.image_encoder_lr
+    text_encoder_lr: Optional[float] = None   # cfg.model.text_encoder_lr
+    projection_lr: Optional[float] = None     # cfg.model.projection_lr
+    max_token_length: int = 40              # cfg.data.max_token_length
 
     @classmethod
     def from_config(cls, cfg: Any) -> "TrainConfig":
@@ -86,7 +108,11 @@ class TrainConfig:
                    freeze_encoder=m.freeze_encoder,
                    disable_augmentations=d.disable_augmentations,
                    gaussian_noise_augmentation=d.gaussian_noise_augmentation,
-                   shear_augmentation=d.shear_augmentation)
+                   shear_augmentation=d.shear_augmentation,
+                   image_encoder_lr=m.image_encoder_lr,
+                   text_encoder_lr=m.text_encoder_lr,
+                   projection_lr=m.projection_lr,
+                   max_token_length=d.max_token_length)
 
     def augment(self) -> AugmentConfig:
         """The switches mapped as ``vlp_tpu/data/datamodule.py:49-54``."""
@@ -182,6 +208,36 @@ EXPERIMENTS: Dict[str, ServeConfig] = {
         model="resnet50-res512-all", in_channels=1, scale_intensity=True),
 }
 
+# VLP pretraining (vlp_tpu/config/experiments/__init__.py:90-139,
+# _pretrain_common): the dual tower, embedding 128, 224x224, bf16
+PRETRAIN = "pretrain_resnet34_tinybert"
+_VLP = ServeConfig(task="vision_language", model="resnet34",
+                   text_model="tinybert")
+EXPERIMENTS.update({
+    PRETRAIN: _VLP,
+    "pretrain_resnet34_distilbert": dataclasses.replace(
+        _VLP, text_model="distilbert"),
+    "pretrain_resnet18_tinybert": dataclasses.replace(_VLP,
+                                                      model="resnet18"),
+    "pretrain_resnet50_distilbert": dataclasses.replace(
+        _VLP, model="resnet50", text_model="distilbert"),
+    # :266-281, the deprecated loss variants
+    "pretrain_resnet34_tinybert_masked_loss": dataclasses.replace(
+        _VLP, loss_variant="masked"),
+    "pretrain_resnet34_tinybert_non_square_loss": dataclasses.replace(
+        _VLP, loss_variant="non_square"),
+    # :284-305, parameter groups; :308-311, augmentation off
+    "pretrain_resnet34_tinybert_frozen_text": _VLP,
+    "pretrain_resnet34_tinybert_split_lr": _VLP,
+    "pretrain_resnet34_tinybert_no_augs": _VLP,
+    # :474-533, the reference's DistilBERT line: embedding 32
+    "pretrain_resnet34_distilbert_masked": dataclasses.replace(
+        _VLP, text_model="distilbert", embedding_dim=32,
+        loss_variant="masked"),
+    "pretrain_resnet34_distilbert_dedup": dataclasses.replace(
+        _VLP, text_model="distilbert", embedding_dim=32),
+})
+
 _LR = 1.2925748253710286e-4
 
 TRAIN_EXPERIMENTS: Dict[str, TrainConfig] = {
@@ -208,3 +264,31 @@ TRAIN_EXPERIMENTS: Dict[str, TrainConfig] = {
         serve=EXPERIMENTS["baseline_only_imaging_xrv_resnet50"],
         lr=9.142907e-4, scheduler="cosine_warmup", batch_size=32),
 }
+
+# batch 128, AdamW at lr 1e-3 under cosine, the 5-degree shear on
+# (_pretrain_common); the DistilBERT line: Adam, no schedule, 60 epochs
+_VLP_TRAIN = TrainConfig(serve=_VLP, lr=1e-3, scheduler="cosine",
+                         batch_size=128, shear_augmentation=True)
+_DISTILBERT_EMB32 = dict(optimizer="adam", lr=1e-5, scheduler="none",
+                         max_epochs=60)
+TRAIN_EXPERIMENTS.update({
+    name: dataclasses.replace(_VLP_TRAIN, serve=EXPERIMENTS[name])
+    for name in ("pretrain_resnet34_tinybert", "pretrain_resnet34_distilbert",
+                 "pretrain_resnet18_tinybert", "pretrain_resnet50_distilbert",
+                 "pretrain_resnet34_tinybert_masked_loss",
+                 "pretrain_resnet34_tinybert_non_square_loss")})
+TRAIN_EXPERIMENTS.update({
+    "pretrain_resnet34_tinybert_frozen_text": dataclasses.replace(
+        _VLP_TRAIN, text_encoder_lr=0.0),
+    "pretrain_resnet34_tinybert_split_lr": dataclasses.replace(
+        _VLP_TRAIN, image_encoder_lr=1e-4, text_encoder_lr=1e-5,
+        projection_lr=1e-3),
+    "pretrain_resnet34_tinybert_no_augs": dataclasses.replace(
+        _VLP_TRAIN, disable_augmentations=True),
+    "pretrain_resnet34_distilbert_masked": dataclasses.replace(
+        _VLP_TRAIN, serve=EXPERIMENTS["pretrain_resnet34_distilbert_masked"],
+        **{**_DISTILBERT_EMB32, "lr": 1e-4}),
+    "pretrain_resnet34_distilbert_dedup": dataclasses.replace(
+        _VLP_TRAIN, serve=EXPERIMENTS["pretrain_resnet34_distilbert_dedup"],
+        disable_augmentations=True, **_DISTILBERT_EMB32),
+})

@@ -18,11 +18,23 @@ onto the port's module tree:
   batch_stats/.../mean, .../var       -> ....running_mean, ....running_var
   params/head/...                     -> head...
 
+and those of the dual tower (``VisionLanguageModel``):
+
+  params/image_encoder/..., batch_stats/image_encoder/... -> image_encoder...
+  params/text_encoder/layer{i}/...    -> text_encoder.layers.{i}...
+  .../embedding (Embed)               -> ....weight
+  .../attn/{query,key,value}/kernel [D, H, hd], bias [H, hd]
+                                      -> .../attn.qkv.weight [D, 3 H hd],
+                                         bias [3 H hd] (q | k | v)
+  .../attn/out/kernel [H, hd, D]      -> [H * hd, D]
+  params/image_projection, text_projection, logit_scale -> the same names
+
 A key the model lacks, a key the tree lacks, or a shape that differs
-raises, naming the key. ``load_optimizer_state`` maps an optax ``adamw``
-state (``mu``, ``nu``, ``count``) onto ``torch.optim.AdamW``'s per-parameter
-state the same way (parameters only), so weights and moments carry over
-together.
+raises, naming the key (the attention's DenseGeneral leaves are flattened
+in C order, which keeps their element count; ``pack_qkv`` concatenates q,
+k and v). ``load_optimizer_state`` maps an optax ``adamw`` state (``mu``,
+``nu``, ``count``) onto ``torch.optim.AdamW``'s per-parameter state the
+same way (parameters only), so weights and moments carry over together.
 """
 from __future__ import annotations
 
@@ -39,10 +51,17 @@ _COMPONENT_RULES = (
     (re.compile(r"^block(\d+)$"), r"blocks.\1"),
     (re.compile(r"^stage(\d+)_block(\d+)$"), r"stages.\1.\2"),
     (re.compile(r"^stem_conv_s2d$"), "stem_conv"),
+    (re.compile(r"^layer(\d+)$"), r"layers.\1"),
 )
 # the last component of each collection's leaves
-_LEAF_NAMES = {"params": {"kernel": "weight", "scale": "weight"},
+_LEAF_NAMES = {"params": {"kernel": "weight", "scale": "weight",
+                          "embedding": "weight"},
                "batch_stats": {"mean": "running_mean", "var": "running_var"}}
+
+
+# flax MultiHeadDotProductAttention's DenseGeneral leaves
+_MHA_OUT = re.compile(r"/attn/out/kernel$")
+_MHA_QKV = re.compile(r"^(.*/attn)/(query|key|value)/(kernel|bias)$")
 
 
 def flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
@@ -55,6 +74,34 @@ def flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
         else:
             flat[key] = v
     return flat
+
+
+def pack_qkv(flat: Mapping[str, Any]) -> Dict[str, Any]:
+    """Flat variables -> the same with each attention's query, key and
+    value kernels ``[D, H, hd]`` and biases ``[H, hd]`` replaced by one
+    ``.../attn/qkv/kernel`` ``[D, 3 H hd]`` and ``.../attn/qkv/bias``
+    (q | k | v, each flattened in C order); raises, naming the key, where a
+    part is missing or the parts' shapes differ."""
+    out, parts = {}, {}
+    for fkey, value in flat.items():
+        m = _MHA_QKV.match(fkey)
+        if m is None:
+            out[fkey] = value
+        else:
+            parts.setdefault((m[1], m[3]), {})[m[2]] = np.asarray(value)
+    for (prefix, leaf), got in parts.items():
+        for part in ("query", "key", "value"):
+            if part not in got:
+                raise KeyError(f"variables lack '{prefix}/{part}/{leaf}'")
+        shapes = [got[p].shape for p in ("query", "key", "value")]
+        if len(set(shapes)) > 1:
+            raise ValueError(f"'{prefix}/{{query,key,value}}/{leaf}': "
+                             f"shapes {shapes} differ")
+        out[f"{prefix}/qkv/{leaf}"] = np.concatenate(
+            [a.reshape(a.shape[0], -1) if leaf == "kernel" else
+             a.reshape(-1) for a in (got["query"], got["key"],
+                                     got["value"])], -1)
+    return out
 
 
 def load_npz(path: str) -> Dict[str, np.ndarray]:
@@ -86,7 +133,7 @@ def state_dict_from_flax(variables: Mapping[str, Any], model: nn.Module,
                          ) -> Dict[str, torch.Tensor]:
     """Maps JAX variables onto ``model``'s state_dict keys and shapes (its
     parameters alone with ``params_only``)."""
-    flat = flatten(variables)
+    flat = pack_qkv(flatten(variables))
     expected = dict(model.named_parameters()) if params_only \
         else model.state_dict()
     out = {}
@@ -98,6 +145,9 @@ def state_dict_from_flax(variables: Mapping[str, Any], model: nn.Module,
                            f"{type(model).__name__}")
         if fkey.endswith("/kernel") and arr.ndim == 4:
             arr = arr.transpose(3, 2, 0, 1)  # HWIO -> OIHW
+        if _MHA_OUT.search(fkey) and arr.ndim > expected[tkey].dim() \
+                and arr.size == expected[tkey].numel():
+            arr = arr.reshape(tuple(expected[tkey].shape))
         if tuple(arr.shape) != tuple(expected[tkey].shape):
             raise ValueError(
                 f"{fkey!r}: shape {tuple(arr.shape)} does not match "

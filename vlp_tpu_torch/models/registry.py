@@ -7,7 +7,9 @@ reference's allowlist, ``resnet18``, ``resnet34``, ``resnet50``,
 the transformers, as in the JAX registry. ``remat`` reaches only the
 transformers there too, so a ResNet takes ``remat=True`` and ignores it; for
 ViT and NesT it raises ``NotImplementedError`` until it is ported
-(ROADMAP.md)."""
+(ROADMAP.md). ``dropout_rate`` (the dual tower's ``image_dropout``) is
+taken and passed to no backbone, as the JAX registry does, so a rate above
+0 changes nothing on either side (no experiment sets one)."""
 from __future__ import annotations
 
 from typing import Optional, Tuple
@@ -35,9 +37,11 @@ def create_backbone(name: str, dtype: torch.dtype = torch.bfloat16,
                     fused_attention: Optional[bool] = None,
                     megakernel: bool = True, remat: bool = False,
                     norm_dtype: torch.dtype = torch.float32,
-                    stem: str = "conv7") -> Tuple[nn.Module, int]:
+                    stem: str = "conv7",
+                    dropout_rate: float = 0.0) -> Tuple[nn.Module, int]:
     """Returns (module, feature_dim), the width read from the module.
-    ``fused_attention`` None is the model's default (on)."""
+    ``fused_attention`` None is the model's default (on); ``dropout_rate``
+    is ignored, as in the JAX registry."""
     if name not in _BACKBONES:
         raise ValueError(f"Unknown backbone {name!r}; allowed: "
                          f"{sorted(_BACKBONES)}")

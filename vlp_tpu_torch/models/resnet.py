@@ -16,7 +16,8 @@ conv's own padding is symmetric). Then BatchNorm, ReLU, a 3x3/2 max pool
 padded with -inf, the stages (``stages.{i}.{j}``, flax
 ``stage{i}_block{j}``) and an fp32 global mean (``forward_features``).
 ``forward_head`` is the identity: the reference's head applies dropout and
-a class layer that no caller turns on (``num_classes=0``, dropout 0; the
+a class layer that no caller turns on (``num_classes=0``, dropout 0: the
+JAX registry passes the dual tower's ``image_dropout`` to no backbone; the
 task's 1-logit head sits outside the backbone). A module's mode decides
 between batch and running statistics, as flax's ``train=`` does; the task
 sets it (``models/tasks.py``).

@@ -69,12 +69,14 @@ class Dense(nn.Module):
 
 
 class LayerNorm(nn.Module):
-    """flax ``nn.LayerNorm(dtype=float32)``: fp32, eps 1e-6, variance as
-    ``E[x^2] - E[x]^2`` clipped at 0 (flax's ``use_fast_variance``)."""
+    """flax ``nn.LayerNorm(dtype=float32, epsilon=eps)``: fp32, eps 1e-6
+    unless given (BERT's is 1e-12), variance as ``E[x^2] - E[x]^2`` clipped
+    at 0 (flax's ``use_fast_variance``)."""
 
-    def __init__(self, dim: int, device: Optional[torch.device] = None
-                 ) -> None:
+    def __init__(self, dim: int, device: Optional[torch.device] = None,
+                 eps: float = _LN_EPS) -> None:
         super().__init__()
+        self.eps = eps
         self.weight = nn.Parameter(torch.ones(dim, device=device))
         self.bias = nn.Parameter(torch.zeros(dim, device=device))
 
@@ -82,8 +84,21 @@ class LayerNorm(nn.Module):
         x = x.float()
         mu = x.mean(-1, keepdim=True)
         var = ((x * x).mean(-1, keepdim=True) - mu * mu).clamp(min=0.0)
-        return (x - mu) * (torch.rsqrt(var + _LN_EPS) * self.weight) \
+        return (x - mu) * (torch.rsqrt(var + self.eps) * self.weight) \
             + self.bias
+
+
+class Embed(nn.Module):
+    """flax ``nn.Embed(param_dtype=float32)``: a ``[num, features]`` fp32
+    table whose rows the ids pick, in fp32."""
+
+    def __init__(self, num: int, features: int,
+                 device: Optional[torch.device] = None) -> None:
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(num, features, device=device))
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        return F.embedding(ids, self.weight)
 
 
 class BatchNorm(nn.Module):
@@ -312,13 +327,23 @@ def _lecun_normal_(w: torch.Tensor, fan_in: int,
 def flax_init_(model: nn.Module, generator: torch.Generator) -> None:
     """Random weights at the scales of the JAX package's flax initializers:
     Dense and Conv kernels lecun-normal with zero biases (a conv may have
-    none), LayerNorm and BatchNorm ones and zeros, BatchNorm's running mean
-    0 and variance 1, position embeddings N(0, 0.02), the class token
-    zeros."""
+    none; the text tower's packed q|k|v and out kernels are Dense, fan-in
+    D and H * hd), LayerNorm and BatchNorm ones and zeros, BatchNorm's
+    running mean 0 and variance 1, position embeddings N(0, 0.02), the
+    class token zeros; ``Embed`` tables N(0, 1 / features) (flax's
+    ``default_embed_init``, a plain normal). A module with raw parameters
+    of another kind initialises them in its ``flax_init_own_(generator)``,
+    which is called first."""
     for module in model.modules():
+        if hasattr(module, "flax_init_own_"):
+            module.flax_init_own_(generator)
         if isinstance(module, Dense):
             _lecun_normal_(module.weight, module.weight.shape[0], generator)
             module.bias.zero_()
+        elif isinstance(module, Embed):
+            nn.init.normal_(module.weight, 0.0,
+                            module.weight.shape[1] ** -0.5,
+                            generator=generator)
         elif isinstance(module, nn.Conv2d):
             w = module.weight
             _lecun_normal_(w, w.shape[1] * w.shape[2] * w.shape[3],

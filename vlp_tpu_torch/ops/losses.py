@@ -1,6 +1,7 @@
-"""The losses of ``OnlyImagingTask`` (counterparts of
-``vlp_tpu/ops/losses.py:per_sample_class_weights``, ``bce_with_logits``,
-``_masked_covariance`` and ``coral_loss``)."""
+"""The losses of ``OnlyImagingTask`` and ``VisionLanguageTask``
+(counterparts of ``vlp_tpu/ops/losses.py``): the weighted masked BCE and
+CORAL, and the CLIP losses, all in fp32 over fixed-shape batches whose
+padded rows carry ``mask`` 0."""
 from __future__ import annotations
 
 from typing import Optional, Tuple
@@ -64,3 +65,85 @@ def coral_loss(source: torch.Tensor, target: torch.Tensor,
     ct, nt = _masked_covariance(target, tm)
     loss = ((cs - ct) ** 2).sum() / (4.0 * d * d)
     return torch.where((ns >= 2) & (nt >= 2), loss, torch.zeros_like(loss))
+
+
+def l2_normalize(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
+    return x / torch.linalg.vector_norm(x, dim=-1, keepdim=True).clamp(
+        min=eps)
+
+
+def clip_logits(image_emb: torch.Tensor, text_emb: torch.Tensor,
+                logit_scale: torch.Tensor,
+                scale_max: float = 100.0) -> torch.Tensor:
+    """Both towers L2-normalised in fp32, ``scale = min(exp(logit_scale),
+    scale_max)`` (exp, then the clamp), ``img @ txt^T * scale`` [B, B]."""
+    img = l2_normalize(image_emb.float())
+    txt = l2_normalize(text_emb.float())
+    scale = torch.exp(logit_scale).clamp(max=scale_max)
+    return img @ txt.T * scale
+
+
+def _masked_softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
+                         mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """Mean cross entropy over the valid rows; invalid columns become -1e9
+    so that a padded sample is no negative."""
+    if mask is not None:
+        logits = torch.where(mask.reshape(1, -1) > 0, logits,
+                             torch.full_like(logits, -1e9))
+    logp = torch.log_softmax(logits, dim=-1)
+    per = -logp.gather(1, labels.reshape(-1, 1)).reshape(-1)
+    if mask is None:
+        return per.mean()
+    m = mask.reshape(-1)
+    return (per * m).sum() / m.sum().clamp(min=1.0)
+
+
+def symmetric_infonce(logits: torch.Tensor,
+                      mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(CE(logits) + CE(logits^T)) / 2 with the diagonal as targets."""
+    labels = torch.arange(logits.shape[0], device=logits.device)
+    return (_masked_softmax_xent(logits, labels, mask)
+            + _masked_softmax_xent(logits.T, labels, mask)) / 2.0
+
+
+def duplicate_caption_mask(caption_ids: torch.Tensor) -> torch.Tensor:
+    """[B, B]: 0 where j != i holds i's caption, 1 elsewhere."""
+    same = caption_ids.reshape(-1, 1) == caption_ids.reshape(1, -1)
+    eye = torch.eye(caption_ids.shape[0], dtype=torch.bool,
+                    device=caption_ids.device)
+    return (~(same & ~eye)).float()
+
+
+def masked_infonce(logits: torch.Tensor, caption_ids: torch.Tensor,
+                   mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The deprecated duplicate-tolerant variant as the reference computes
+    it: the logits of another image's duplicate caption are multiplied by
+    0 (they stay in the softmax as zeros), then the symmetric loss; ``mask``
+    drops padded rows and columns."""
+    masked = logits * duplicate_caption_mask(caption_ids)
+    return symmetric_infonce(masked, mask)
+
+
+def non_square_infonce(logits: torch.Tensor, caption_ids: torch.Tensor,
+                       mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The deprecated BCE against de-duplicated columns, in the JAX
+    package's fixed-shape form: only the first column of each caption
+    group counts (weight 1, the others 0), target[i, u] = 1 iff image i's
+    caption is u's, and the weighted BCE grid is averaged over
+    valid rows x first-occurrence columns."""
+    cid = caption_ids.reshape(-1)
+    n = cid.shape[0]
+    same = cid.reshape(1, -1) == cid.reshape(-1, 1)
+    idx = torch.arange(n, device=cid.device)
+    # the first True of each row (argmax returns the first maximum)
+    is_first = (same.int().argmax(1) == idx).float()
+    row_w = torch.ones(n, device=cid.device) if mask is None \
+        else mask.reshape(-1).float()
+    is_first = is_first * row_w
+    target = same.float()
+    per = logits.clamp(min=0) - logits * target + torch.log1p(
+        torch.exp(-logits.abs()))
+    u = is_first.sum().clamp(min=1.0)
+    rows = row_w.sum().clamp(min=1.0)
+    return (per * is_first.reshape(1, -1)
+            * row_w.reshape(-1, 1)).sum() / (rows * u)

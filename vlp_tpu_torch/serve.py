@@ -50,6 +50,9 @@ class Predictor:
                  std: float, batch_size: int = 64,
                  device: Union[str, torch.device] = "cuda") -> None:
         self.cfg = cfg = as_serve_config(cfg)
+        if cfg.task != "only_imaging":
+            raise ValueError(f"Predictor serves the imaging classifier; "
+                             f"task {cfg.task!r} has no logits")
         self.batch_size = batch_size
         self.device = torch.device(device)
         self.statics = TaskStatics(

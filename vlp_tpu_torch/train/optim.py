@@ -5,17 +5,29 @@ The schedules are per-step functions quantised as the reference's
 Lightning schedulers step per epoch: ``cosine`` is CosineAnnealingLR over
 ``max_epochs`` on whole epochs; ``cosine_warmup`` is linear warmup over
 ``warmup_epochs`` then a cosine, on the fractional epoch, so its lr at step
-0 is 0 (ROADMAP.md Queue 3). The train step writes ``schedule(step)`` into
-the optimizer's group before each update, which is where optax reads its
-schedule. ``adamw`` is ``torch.optim.AdamW``, the same update as
-``optax.adamw`` (``tests/test_torch_trajectory.py`` pins that), ``adam``
-and ``sgd`` likewise. Parameter groups (``vision_encoder_lr``) and lr-0
-freezing raise until a ported path needs them.
+0 is 0 (ROADMAP.md Queue 3). ``adamw`` is ``torch.optim.AdamW``, the same
+update as ``optax.adamw`` (``tests/test_torch_trajectory.py`` pins that),
+``adam`` and ``sgd`` likewise.
+
+Parameter groups, as ``vlp_tpu/train/optim.py:param_group_label_fn``
+labels them: for the dual tower, when any of ``image_encoder_lr``,
+``text_encoder_lr`` and ``projection_lr`` is set, three groups
+(``image_encoder.*``, ``text_encoder.*``, and the rest: the projections
+and ``logit_scale``), each at its own lr (the base lr where unset); for the
+other tasks, when ``vision_encoder_lr`` or ``freeze_encoder`` is set, two
+(``backbone.*`` at ``vision_encoder_lr``, 0 when frozen, and the head at
+the base lr). Each group has its own schedule, the same schedule of its
+own base lr, and the train step writes each group's value into that group
+before each update, where optax's ``multi_transform`` evaluates each
+group's schedule. A group at lr 0 gets no update at all, weight decay
+included (``optax.set_to_zero``): it is left out of the optimizer and its
+parameters stop requiring gradients, so the backward skips what only they
+need, as XLA drops the gradients that ``set_to_zero`` discards.
 """
 from __future__ import annotations
 
 import math
-from typing import Callable, Iterable, Tuple
+from typing import Callable, List, Tuple
 
 import torch
 
@@ -52,25 +64,65 @@ def make_schedule(base_lr: float, cfg: TrainConfig,
     raise ValueError(f"unknown scheduler {name!r}")
 
 
-def make_optimizer(cfg: TrainConfig, params: Iterable[torch.nn.Parameter],
+def param_groups(cfg: TrainConfig, model: torch.nn.Module
+                 ) -> List[Tuple[str, float, List[torch.nn.Parameter]]]:
+    """(label, base lr, parameters) of each group, in the order of the
+    model's parameters; one group ``all`` at the base lr when no group
+    field is set."""
+    if cfg.serve.task == "vision_language":
+        lrs = {"image": cfg.image_encoder_lr, "text": cfg.text_encoder_lr,
+               "projection": cfg.projection_lr}
+        if all(lr is None for lr in lrs.values()):
+            lrs = None
+
+        def label(name: str) -> str:
+            for prefix, group in (("image_encoder.", "image"),
+                                  ("text_encoder.", "text")):
+                if name.startswith(prefix):
+                    return group
+            return "projection"
+    elif cfg.vision_encoder_lr is not None or cfg.freeze_encoder:
+        lrs = {"backbone": 0.0 if cfg.freeze_encoder
+               else cfg.vision_encoder_lr, "head": None}
+
+        def label(name: str) -> str:
+            return "backbone" if name.startswith("backbone.") else "head"
+    else:
+        lrs = None
+    if lrs is None:
+        return [("all", cfg.lr, list(model.parameters()))]
+    groups = {g: [] for g in lrs}
+    for name, p in model.named_parameters():
+        groups[label(name)].append(p)
+    return [(g, cfg.lr if lrs[g] is None else lrs[g], ps)
+            for g, ps in groups.items() if ps]
+
+
+def make_optimizer(cfg: TrainConfig, model: torch.nn.Module,
                    steps_per_epoch: int
-                   ) -> Tuple[torch.optim.Optimizer, Schedule]:
-    """(optimizer over one group, schedule); the group's lr starts at
-    ``schedule(0)``."""
-    if cfg.vision_encoder_lr is not None or cfg.freeze_encoder:
-        raise NotImplementedError(
-            "parameter groups (vision_encoder_lr, freeze_encoder) are not "
-            "ported yet (ROADMAP.md Queue 1 item 2)")
-    schedule = make_schedule(cfg.lr, cfg, steps_per_epoch)
-    lr = schedule(0)
+                   ) -> Tuple[torch.optim.Optimizer, Tuple[Schedule, ...]]:
+    """(optimizer, one schedule per param group, in the optimizer's
+    order); each group's lr starts at its schedule's value at step 0 and
+    carries its label under ``"name"``. The parameters of an lr-0 group
+    are frozen: outside the optimizer, ``requires_grad`` off."""
+    groups, schedules = [], []
+    for name, base_lr, params in param_groups(cfg, model):
+        if base_lr == 0.0:
+            for p in params:
+                p.requires_grad_(False)
+            continue
+        schedule = make_schedule(base_lr, cfg, steps_per_epoch)
+        groups.append({"params": params, "lr": schedule(0), "name": name})
+        schedules.append(schedule)
+    if not groups:
+        raise ValueError("every parameter group has lr 0: nothing to train")
     if cfg.optimizer == "adamw":
-        opt = torch.optim.AdamW(params, lr=lr, betas=(cfg.b1, cfg.b2),
-                                eps=cfg.eps, weight_decay=cfg.weight_decay)
+        opt = torch.optim.AdamW(groups, betas=(cfg.b1, cfg.b2), eps=cfg.eps,
+                                weight_decay=cfg.weight_decay)
     elif cfg.optimizer == "adam":
-        opt = torch.optim.Adam(params, lr=lr, betas=(cfg.b1, cfg.b2),
-                               eps=cfg.eps)
+        opt = torch.optim.Adam(groups, betas=(cfg.b1, cfg.b2), eps=cfg.eps)
     elif cfg.optimizer == "sgd":
-        opt = torch.optim.SGD(params, lr=lr)
+        opt = torch.optim.SGD(groups)
     else:
         raise ValueError(f"unknown optimizer {cfg.optimizer!r}")
-    return opt, schedule
+    return opt, tuple(schedules)
