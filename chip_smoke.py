@@ -198,12 +198,37 @@ Phases, each printing its lines before the last line:
    of ``_split_lr`` (each group at its own lr), and
    ``pretrain_resnet34_distilbert`` (6 x 768, heads of 64): 3 steps with
    the same checks and its eval.
+21. The training entry point, ``vlp_tpu_torch.train.driver.train``, on
+   the card at full width on the synthetic corpora, in a temporary
+   ``output_dir`` (the trainer's INFO lines silenced). 21a: 4 folds x 2
+   epochs of ``baseline_only_imaging_resnet34`` (batch 64, 224, bf16, CORAL
+   1000, ``cosine_warmup``, noise on) on 640 images: 4 fold markers,
+   ``cv_summary.json``'s mean and std of ``val/combined/{accuracy,
+   precision,recall,auroc}`` at the best epoch finite in [0, 1], 3 + 1
+   augmentation launches a train step over the run; each fold's best
+   checkpoint reloaded into a fresh task evaluates its val loaders to the
+   logged ``val/combined/*`` (counts equal, loss and AUROC within
+   ``BOUND_RELOAD``); fold 0 as 1 epoch + resume from ``last`` + 1 epoch
+   against the straight run (``BOUND_RESUME_*``: cuDNN's backward is not
+   deterministic); ``train/images_per_sec`` beside phase 16's step rate,
+   the wall time's split (training, validation, checkpoint saves) and one
+   full-state checkpoint's size and write time. 21b: one epoch of
+   ``pretrain_resnet34_tinybert`` on 640 images (the linear probe and
+   precision@k over the downstream set at 224): the probe's metrics (the
+   checkpoint monitor), ``val/{lera,mura}/loss``, precision and recall@k
+   finite, 3 + 1 launches a step; then ``vlp_finetune_only_imaging_
+   resnet34`` from its best checkpoint, whose backbone (running statistics
+   included) is bit-equal to the checkpoint's image encoder before its
+   first step. 21c: one fold, one epoch of ``baseline_only_imaging_nest_
+   small`` on 160 images: 24 launches of each of #1-#4 a train step and 24
+   of #1 and #2 an eval forward, 3 + 1 augmentation launches a step.
 
 Then one JSON line with every kernel: its launches in the timed training
 steps of the path that runs it (NesT-Small's for #1-#4, #11, #12; ViT-B's
 for #7, #8; NesT unfused for #9, #10; NesT with ``nhwc_windows`` for #5,
 #6; ``other_launches`` adds the other paths (``vlp_resnet34_tinybert_train``
-among them for #11, #12), ``serve_launches`` the serving phases; #17 and
+and phase 21's ``*_trainer`` runs among them for #11, #12, and
+``nest_trainer`` for #1-#4), ``serve_launches`` the serving phases; #17 and
 #18 carry
 ``"path": "probe"`` and the launches of the probes' runs, as do #13,
 #14, #19a, #19b, #15 and #16, whose ``core_launches`` count the launches
@@ -239,11 +264,15 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import logging
 import math
+import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -253,6 +282,8 @@ import torch
 import torch.nn.functional as F
 
 from vlp_tpu_torch.config import (EXPERIMENTS, NEST_UNFUSED, PRETRAIN,
+                                  TrainConfig, apply_overrides,
+                                  get_experiment,
                                   TRAIN_EXPERIMENTS)
 from vlp_tpu_torch.models.tasks import build_task
 from vlp_tpu_torch.models.vit import conv_nhwc
@@ -274,7 +305,11 @@ from vlp_tpu_torch.probes._timing import median_ms as _median_ms
 from vlp_tpu_torch.serve import Predictor
 from vlp_tpu_torch.train.setup import (batch_for, build_training,
                                       random_batch, random_pretrain_batch)
+from vlp_tpu_torch.data.datamodule import build_datamodule
+from vlp_tpu_torch.train import driver
+from vlp_tpu_torch.train.loop import Trainer
 from vlp_tpu_torch.train.step import to_device, train_steps
+from vlp_tpu_torch.utils import checkpoint as ckpt
 
 # (blocks per image, D, heads, depth) of NesT-Small's levels at 224x224
 LEVELS = ((16, 96, 3, 2), (4, 192, 6, 2), (1, 384, 12, 20))
@@ -1830,6 +1865,7 @@ def phase_train_slice(smi: str, key: str, model: str, batch_size: int,
           f"{tcfg.warmup_epochs} of {tcfg.max_epochs} epochs)")
 
     med = statistics.median(times)
+    STEP_RATES[key] = batch_size / med
     dev_ms = statistics.median(s.elapsed_time(e) for s, e in events)
     print(f"train {key}: batch-{batch_size} step latency median "
           f"{med * 1e3:.3f} ms (min {min(times) * 1e3:.3f}, max "
@@ -1847,6 +1883,11 @@ def phase_train_slice(smi: str, key: str, model: str, batch_size: int,
     del task, state, step
     torch.cuda.empty_cache()
     return {k: v for k, v in launches.items() if v}
+
+
+# images/s of each phase_train_slice run (batch / median step latency), by
+# experiment: phase 21 prints the trainer's rate beside it
+STEP_RATES: dict = {}
 
 
 def _edge_err(y, ref, b, h, w):
@@ -2498,6 +2539,7 @@ def phase_vlp(smi: str) -> dict:
     print(f"vlp {key}: {TIMED_STEPS} timed steps, launches {launches}")
     check(per_step == want, f"launches per step {per_step}, expected {want}")
     med = statistics.median(times)
+    STEP_RATES[key] = VLP_BATCH / med
     dev_ms = statistics.median(a.elapsed_time(b) for a, b in events)
     print(f"vlp {key}: batch-{VLP_BATCH} step latency median "
           f"{med * 1e3:.3f} ms (min {min(times) * 1e3:.3f}, max "
@@ -2572,6 +2614,314 @@ def phase_vlp(smi: str) -> dict:
     return {k: v for k, v in launches.items() if v}
 
 
+# the trainer (phase 21): the k-fold driver on synthetic corpora at the
+# experiments' full width, in a temporary output_dir
+TRAINER_SAMPLES = 640
+NEST_TRAINER_SAMPLES = 160
+VLP_FINETUNE = "vlp_finetune_only_imaging_resnet34"
+# a best checkpoint reloaded and evaluated again: the same bf16 forward
+# on the same inputs; the counts behind accuracy, precision, recall, F1 and
+# balanced accuracy equal, the loss and the binned AUROC within 1e-4
+BOUND_RELOAD = 1e-4
+RELOAD_COUNTS = ("accuracy", "precision", "recall", "f1",
+                 "balanced_accuracy")
+# 1 epoch + resume + 1 epoch against the straight 2 epochs: cuDNN's
+# backward algorithms are not deterministic, so the runs drift apart by
+# rounding; losses within 2% relative, accuracies within 0.05
+BOUND_RESUME_LOSS = 0.02
+BOUND_RESUME_ACC = 0.05
+
+
+def _driver_run(key: str, overrides, out: Path):
+    """``driver.train`` of ``experiment=key`` with ``overrides`` into
+    ``out`` on the card, the launch counts set to 0 just before it and read
+    just after. Returns (cfg, aggregate, launches, seconds)."""
+    cfg = apply_overrides(get_experiment(key),
+                          list(overrides) + [f"output_dir={out}"])
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    agg = driver.train(cfg, "cuda")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {k: v for k, v in _counts().items() if v}
+    return cfg, agg, launches, seconds
+
+
+def _records(out: Path, fold: int) -> list:
+    with open(out / f"metrics_fold{fold}.jsonl") as fh:
+        return [json.loads(line) for line in fh]
+
+
+def _fold_summary(out: Path, fold: int) -> dict:
+    with open(out / f"fold{fold}.done.json") as fh:
+        return json.load(fh)["summary"]
+
+
+def _augment_launches(launches: dict, steps: int, key: str) -> None:
+    want = {"shear_rows": 3 * steps, "add_gaussian_noise": steps}
+    check(launches == want, f"{key}: launches {launches} over {steps} "
+          f"train steps, expected {want}")
+
+
+def _finite(values: dict, keys, key: str) -> None:
+    missing = [k for k in keys if k not in values]
+    check(not missing, f"{key}: metrics {missing} missing")
+    bad = {k: values[k] for k in keys
+           if k in values and not math.isfinite(values[k])}
+    check(not bad, f"{key}: non-finite metrics {bad}")
+
+
+def _epoch_split(out: Path, folds: int, seconds: float) -> str:
+    summaries = [_fold_summary(out, i) for i in range(folds)]
+    parts = {k: sum(s[f"time/{k}"] for s in summaries)
+             for k in ("train_s", "validate_s", "checkpoint_s")}
+    return (f"wall {seconds:.2f} s: training {parts['train_s']:.2f} s "
+            f"({100 * parts['train_s'] / seconds:.1f}%), validation "
+            f"{parts['validate_s']:.2f} s "
+            f"({100 * parts['validate_s'] / seconds:.1f}%), checkpoint "
+            f"saves {parts['checkpoint_s']:.2f} s "
+            f"({100 * parts['checkpoint_s'] / seconds:.1f}%), the rest "
+            "(data modules, model builds, fold summaries)")
+
+
+def _trainer_resnet34(smi: str, out: Path) -> dict:
+    """21a: 4 folds x 2 epochs of ResNet34 (batch 64, 224, bf16, CORAL
+    1000, cosine_warmup, noise on) on 640 synthetic images."""
+    cfg, agg, launches, seconds = _driver_run(RESNET34, [
+        "data.name=synthetic_downstream",
+        f"data.synthetic_num_samples={TRAINER_SAMPLES}",
+        "k_fold_cross_validation=true", "trainer.max_epochs=2"], out)
+    check((cfg.data.batch_size, cfg.data.image_size, cfg.trainer.precision,
+           cfg.model.coral_lambda, cfg.scheduler.name,
+           cfg.data.gaussian_noise_augmentation)
+          == (64, 224, "bf16", 1000.0, "cosine_warmup", True),
+          f"21a: unexpected config {cfg.to_dict()}")
+    markers = sorted(p.name for p in out.glob("fold*.done.json"))
+    check(markers == [f"fold{i}.done.json" for i in range(4)],
+          f"21a: fold markers {markers}")
+    prefix = "val/combined/accuracy_best_val/combined/"
+    for m in ("accuracy", "precision", "recall", "auroc"):
+        for stat in ("mean", "std"):
+            v = agg.get(f"{prefix}{m}_{stat}", float("nan"))
+            check(math.isfinite(v) and 0.0 <= v <= 1.0,
+                  f"21a: cv_summary {prefix}{m}_{stat} = {v}")
+    records = [_records(out, i) for i in range(4)]
+    steps = sum(r[-1]["_step"] for r in records)
+    _augment_launches(launches, steps, "21a")
+    rates = [r[1]["train/images_per_sec"] for r in records]
+    print(f"trainer {RESNET34}: 4 folds x 2 epochs, {steps} train steps, "
+          f"launches {launches}; cv_summary "
+          + ", ".join(f"{m} {agg[prefix + m + '_mean']:.4f} +- "
+                      f"{agg[prefix + m + '_std']:.4f}"
+                      for m in ("accuracy", "precision", "recall",
+                                "auroc")))
+    print(f"trainer {RESNET34}: train/images_per_sec epoch 1 by fold "
+          f"{[round(r, 1) for r in rates]} (median "
+          f"{statistics.median(rates):.1f}; epoch 0 "
+          f"{[round(r[0]['train/images_per_sec'], 1) for r in records]}); "
+          f"phase 16's step on random batches "
+          f"{STEP_RATES.get(RESNET34, float('nan')):.1f} images/s; "
+          f"{_epoch_split(out, 4, seconds)}; on {smi}")
+    cuda = torch.device("cuda")
+    tcfg = TrainConfig.from_config(cfg)
+    # each fold's best checkpoint, reloaded, evaluates its val loaders to
+    # the values logged at its best epoch
+    gaps = []
+    for fold in build_datamodule(cfg, cuda).folds():
+        meta = ckpt.load_meta(str(out / "checkpoints" / f"fold{fold.index}"
+                                  / "last.pt"))
+        tr = Trainer(cfg, build_task(tcfg, fold.statics, cuda),
+                     fold.train_loader, fold.val_loaders)
+        tr.state.model.load_state_dict(
+            ckpt.restore_raw(meta["checkpoint_best_path"])["model"])
+        got = tr._validate_classifier()
+        logged = _fold_summary(out, fold.index)
+        for m in (*RELOAD_COUNTS, "auroc", "loss"):
+            g, w = got[f"val/combined/{m}"], logged[f"{prefix}{m}"]
+            gap = abs(g - w) / max(abs(w), 1e-12)
+            gaps.append(gap)
+            check(g == w if m in RELOAD_COUNTS else gap <= BOUND_RELOAD,
+                  f"21a fold {fold.index}: reloaded val/combined/{m} {g} "
+                  f"vs logged {w}")
+        del tr
+    print(f"trainer {RESNET34}: 4 best checkpoints reloaded into fresh "
+          f"tasks evaluate their val loaders to the logged val/combined/* "
+          f"(largest relative gap {max(gaps):.3g}; counts equal, loss and "
+          f"AUROC bound {BOUND_RELOAD})")
+    # fold 0 as 1 epoch + resume from last + 1 epoch
+    fold0 = next(build_datamodule(cfg, cuda).folds())
+
+    def trainer(name):
+        return Trainer(cfg, build_task(tcfg, fold0.statics, cuda),
+                       fold0.train_loader, fold0.val_loaders,
+                       checkpoint_dir=str(out / name))
+
+    first = trainer("resume_a")
+    first.fit(max_epochs=1)
+    resumed = trainer("resume_b")
+    resumed.load_resume_state(str(out / "resume_a" / "last.pt"))
+    check(resumed.start_epoch == 1 and resumed.state.step == first.state.step,
+          "21a: resume position")
+    resumed.fit()
+    straight = records[0]
+    worst = {}
+    for got, want in ((first.sink.history[0], straight[0]),
+                      (resumed.sink.history[0], straight[1])):
+        check(got["epoch"] == want["epoch"] and set(got) - {"_step"}
+              == set(want) - {"_step", "_time"},
+              "21a: resumed epochs' metrics")
+        for k, bound in (("train/loss", BOUND_RESUME_LOSS),
+                         ("val/combined/loss", BOUND_RESUME_LOSS),
+                         ("val/combined/accuracy", BOUND_RESUME_ACC),
+                         ("val/combined/auroc", BOUND_RESUME_ACC)):
+            gap = abs(got[k] - want[k]) / (max(abs(want[k]), 1e-12)
+                                           if "loss" in k else 1.0)
+            worst[k] = max(worst.get(k, 0.0), gap)
+            check(gap <= bound, f"21a resume: {k} epoch {got['epoch']} "
+                  f"{got[k]} vs straight {want[k]} (bound {bound})")
+    print(f"trainer {RESNET34}: fold 0 as 1 epoch + resume from last + 1 "
+          f"epoch against the straight 2 epochs: gaps "
+          f"{ {k: float(f'{v:.3g}') for k, v in worst.items()} } (losses "
+          f"relative, bound {BOUND_RESUME_LOSS}; accuracy and AUROC "
+          f"absolute, bound {BOUND_RESUME_ACC}); epoch 1's "
+          f"train/images_per_sec straight "
+          f"{straight[1]['train/images_per_sec']:.1f} (epoch 0's "
+          f"checkpoint writes in flight), resumed "
+          f"{resumed.sink.history[0]['train/images_per_sec']:.1f} (none)")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    path = ckpt.save_train_state(str(out / "write.pt"), resumed.state,
+                                 meta={"epoch": 1})
+    write_s = time.perf_counter() - t0
+    print(f"trainer {RESNET34}: one full-state checkpoint (weights, "
+          f"running statistics, AdamW moments, step, generator) "
+          f"{os.path.getsize(path) / 2 ** 20:.1f} MiB written in "
+          f"{write_s * 1e3:.1f} ms (host copy + torch.save + rename); "
+          f"on {smi}")
+    del first, resumed
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _trainer_vlp(smi: str, out: Path):
+    """21b: one epoch of pretrain_resnet34_tinybert on 640 synthetic
+    pretrain images (the downstream synthetic set at 224 for the probe),
+    then vlp_finetune_only_imaging_resnet34 from its best checkpoint."""
+    cfg, agg, launches, seconds = _driver_run(PRETRAIN, [
+        "data.name=synthetic_pretrain",
+        f"data.synthetic_num_samples={TRAINER_SAMPLES}",
+        "trainer.max_epochs=1"], out / "pretrain")
+    check((cfg.data.batch_size, cfg.data.image_size,
+           cfg.downstream_data.image_size, cfg.trainer.precision)
+          == (128, 224, 224, "bf16"), "21b: unexpected config")
+    (rec,) = _records(out / "pretrain", 0)
+    steps = rec["_step"]
+    _augment_launches(launches, steps, "21b")
+    probe = [f"downstream_validation/linear_probe_{m}"
+             for m in ("balanced_accuracy", "auroc")]
+    retrieval = [f"val/{n}/{m}_at_{k}" for n in ("lera", "mura")
+                 for m in ("label_precision", "recall") for k in (3, 5, 10)]
+    _finite(rec, probe + ["val/lera/loss", "val/mura/loss",
+                          "val/combined/loss", "train/loss"] + retrieval,
+            "21b")
+    shown = probe + ["val/lera/loss", "val/mura/loss",
+                     "val/lera/recall_at_5", "val/mura/label_precision_at_5"]
+    print(f"trainer {PRETRAIN}: 1 epoch, {steps} train steps, launches "
+          f"{launches}; train/images_per_sec "
+          f"{rec['train/images_per_sec']:.1f} (phase 20's step "
+          f"{STEP_RATES.get(PRETRAIN, float('nan')):.1f}); "
+          + ", ".join(f"{k} {rec[k]:.4f}" for k in shown)
+          + f"; {_epoch_split(out / 'pretrain', 1, seconds)}; on {smi}")
+    best = ckpt.load_meta(str(out / "pretrain" / "checkpoints" / "fold0"
+                              / "last.pt"))["checkpoint_best_path"]
+    encoder = ckpt.extract_image_encoder(ckpt.restore_raw(best)["model"])
+    grafted = []
+    fit = Trainer.fit
+
+    def checked_fit(self, *args, **kwargs):
+        # before the first step: the backbone is the checkpoint's encoder
+        state = self.state.model.backbone.state_dict()
+        check(state.keys() == encoder.keys() and all(
+            torch.equal(state[k].cpu(), encoder[k]) for k in state),
+            "21b: the fine-tune's backbone is not the VLP image encoder")
+        grafted.append(sum(k.endswith("running_mean") for k in state))
+        return fit(self, *args, **kwargs)
+
+    Trainer.fit = checked_fit
+    try:
+        fcfg, fagg, flaunches, fseconds = _driver_run(VLP_FINETUNE, [
+            f"model.pretrained_ckpt={best}", "data.name=synthetic_downstream",
+            f"data.synthetic_num_samples={TRAINER_SAMPLES}",
+            "trainer.max_epochs=1", "k_fold_cross_validation=false"],
+            out / "finetune")
+    finally:
+        Trainer.fit = fit
+    check(len(grafted) == 1 and grafted[0] > 0, "21b: warm start")
+    (frec,) = _records(out / "finetune", 0)
+    _augment_launches(flaunches, frec["_step"], "21b fine-tune")
+    _finite(frec, ["train/loss"] + [f"val/combined/{m}" for m in (
+        "accuracy", "precision", "recall", "auroc", "loss")], "21b")
+    print(f"trainer {VLP_FINETUNE}: from {Path(best).name}, the backbone "
+          f"bit-equal to its image encoder before the first step ("
+          f"{len(encoder)} tensors, {grafted[0]} BatchNorms' running "
+          f"statistics); 1 epoch, {frec['_step']} steps, launches "
+          f"{flaunches}, train/images_per_sec "
+          f"{frec['train/images_per_sec']:.1f}, val/combined/accuracy "
+          f"{frec['val/combined/accuracy']:.4f}, auroc "
+          f"{frec['val/combined/auroc']:.4f}; "
+          f"{_epoch_split(out / 'finetune', 1, fseconds)}")
+    torch.cuda.empty_cache()
+    return launches, flaunches
+
+
+def _trainer_nest(smi: str, out: Path) -> dict:
+    """21c: one fold, one epoch of NesT-Small on 160 synthetic images: the
+    trainer's train and eval paths through #1-#4."""
+    cfg, agg, launches, seconds = _driver_run(NEST, [
+        "data.name=synthetic_downstream",
+        f"data.synthetic_num_samples={NEST_TRAINER_SAMPLES}",
+        "k_fold_cross_validation=false", "trainer.max_epochs=1"], out)
+    (rec,) = _records(out, 0)
+    steps = rec["_step"]
+    fold0 = next(build_datamodule(cfg, torch.device("cuda")).folds())
+    evals = sum(len(loader) for loader in fold0.val_loaders.values())
+    want = {"ln_attention": 24 * (steps + evals),
+            "ln_mlp": 24 * (steps + evals), "ln_attention_bwd": 24 * steps,
+            "ln_mlp_bwd": 24 * steps, "shear_rows": 3 * steps,
+            "add_gaussian_noise": steps}
+    check(launches == want, f"21c: launches {launches}, expected {want} "
+          f"({steps} train steps, {evals} eval forwards)")
+    _finite(rec, ["train/loss"] + [f"val/combined/{m}" for m in (
+        "accuracy", "auroc", "loss")], "21c")
+    print(f"trainer {NEST}: 1 epoch, {steps} train steps and {evals} eval "
+          f"forwards, launches {launches} (24 of #1-#4 a train step, 24 of "
+          f"#1 and #2 an eval forward); train/images_per_sec "
+          f"{rec['train/images_per_sec']:.1f} (phase 6's step "
+          f"{STEP_RATES.get(NEST, float('nan')):.1f}); "
+          f"{_epoch_split(out, 1, seconds)}; on {smi}")
+    return launches
+
+
+def phase_trainer(smi: str) -> dict:
+    """Phase 21: the training entry point, ``driver.train``, on the card
+    (21a ResNet34 k-fold, 21b VLP pretraining and the warm-started
+    fine-tune, 21c NesT-Small); returns each path's launches."""
+    # the trainer's per-fold INFO lines would bury this script's own
+    for name in list(logging.root.manager.loggerDict):
+        if name.startswith("vlp_tpu_torch"):
+            logging.getLogger(name).setLevel(logging.WARNING)
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_trainer_"))
+    try:
+        r34 = _trainer_resnet34(smi, root / "resnet34")
+        vlp, finetune = _trainer_vlp(smi, root / "vlp")
+        nest = _trainer_nest(smi, root / "nest")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return {"resnet34_kfold_trainer": r34, "vlp_pretrain_trainer": vlp,
+            "vlp_finetune_trainer": finetune, "nest_trainer": nest}
+
+
 def main() -> int:
     smi = phase_device()
     phase_build()
@@ -2614,8 +2964,10 @@ def main() -> int:
     stats.update(attn_stats)
     t20 = time.perf_counter()
     vlp = phase_vlp(smi)
-    print(f"phases 3-19: {t20 - t0:.1f} s; phase 20: "
-          f"{time.perf_counter() - t20:.1f} s")
+    t21 = time.perf_counter()
+    trainers = phase_trainer(smi)
+    print(f"phases 3-19: {t20 - t0:.1f} s; phase 20: {t21 - t20:.1f} s; "
+          f"phase 21: {time.perf_counter() - t21:.1f} s")
     # kernel -> (source, the TPU kernel it replaces, the training path whose
     # launches and per-step times the line gives)
     sources = {
@@ -2653,7 +3005,7 @@ def main() -> int:
     paths = {"nest_train": nest, "vit_b_train": vit,
              "nest_unfused_train": unfused, "nest_nhwc_train": nhwc,
              "resnet34_train": r34, "xrv_resnet50_train": xrv,
-             "vlp_resnet34_tinybert_train": vlp}
+             "vlp_resnet34_tinybert_train": vlp, **trainers}
     serves = {"nest_serve": serve, "vit_b_serve": serve_vit,
               "nest_nhwc_serve": serve_nhwc, "resnet34_serve": serve_r34,
               "xrv_resnet50_serve": serve_xrv}

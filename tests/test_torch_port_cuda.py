@@ -11,7 +11,8 @@ mainloop each on its own and #2/#9 at serving's ragged rows, #2's h
 against #4's dual tile's, and the attention schedule probes
 attn_sched and its backward in every mode) against their plain PyTorch
 versions,
-on the card. Marked ``gpu``: without a CUDA
+on the card; and the k-fold driver's first fold on the card with micro
+models (the augmentation's launches a train step, its checkpoints). Marked ``gpu``: without a CUDA
 device every test here skips. Needs no JAX, so it runs on a machine without
 it:
 
@@ -1338,3 +1339,54 @@ def test_vlp_tinybert_step_launches_the_augmentation_kernels(cuda,
     out = task.eval_fn(to_device(batch, cuda))
     assert all(torch.isfinite(out[k]).all()
                for k in ("img_emb", "txt_emb", "loss"))
+
+
+@pytest.mark.parametrize("name,overrides,resident_mb", [
+    ("baseline_only_imaging_resnet34", ["model.model=resnet_micro",
+                                        "data.name=synthetic_downstream"],
+     None),
+    ("baseline_only_imaging_resnet34", ["model.model=resnet_micro",
+                                        "data.name=synthetic_downstream"],
+     "0"),
+    ("smoke_synthetic_pretrain", ["model.model=resnet_micro",
+                                  "model.text_model=microbert",
+                                  "trainer.linear_probe_every_n_epochs=1"],
+     None)],
+    ids=["classifier", "classifier-pinned-host", "vlp"])
+def test_trainer_epoch_on_the_card_launches_the_augmentation_kernels(
+        cuda, tmp_path, monkeypatch, name, overrides, resident_mb):
+    """One epoch of the k-fold driver's first fold on the card with micro
+    models at 64 px, the corpus resident or (budget 0) assembled in pinned
+    host memory by the prefetch thread: 3 shear + 1 noise launches a train
+    step and no other kernel, finite metrics, the best and last checkpoints
+    on disk."""
+    import json
+    import math
+
+    from vlp_tpu_torch.config import apply_overrides, get_experiment
+    from vlp_tpu_torch.data import pipeline
+    from vlp_tpu_torch.train import driver
+
+    if resident_mb is not None:
+        monkeypatch.setenv(pipeline.RESIDENT_LIMIT_MB, resident_mb)
+
+    cfg = apply_overrides(get_experiment(name), overrides + [
+        "data.image_size=64", "data.batch_size=8",
+        "data.synthetic_num_samples=48", "k_fold_cross_validation=false",
+        "trainer.max_epochs=1", "data.shear_augmentation=true",
+        f"output_dir={tmp_path}"])
+    for k in (SH.shear_rows, NZ.add_gaussian_noise, *FB.KERNELS):
+        k.launches = 0
+    agg = driver.train(cfg, "cuda")
+    torch.cuda.synchronize()
+    with open(tmp_path / "metrics_fold0.jsonl") as fh:
+        steps = [json.loads(line)["_step"] for line in fh][-1]
+    assert steps > 0 and agg["num_folds"] == 1
+    assert SH.shear_rows.launches == 3 * steps
+    assert NZ.add_gaussian_noise.launches == steps
+    assert all(k.launches == 0 for k in FB.KERNELS)
+    assert all(math.isfinite(v) for v in agg.values())
+    names = sorted(p.name for p in (tmp_path / "checkpoints" / "fold0")
+                   .iterdir())
+    assert "last.pt" in names and any(n.startswith("epoch000_")
+                                      for n in names)

@@ -32,7 +32,17 @@ def test_serve_and_chip_smoke_import_without_jax_or_host_pipeline():
             "vlp_tpu_torch.probes.bn_gemm_probe, "
             "vlp_tpu_torch.probes.mega_probe, "
             "vlp_tpu_torch.probes.mlp_probe, "
-            "vlp_tpu_torch.probes.attn_probe, chip_smoke; "
+            "vlp_tpu_torch.probes.attn_probe, "
+            "vlp_tpu_torch.config.core, vlp_tpu_torch.config.experiments, "
+            "vlp_tpu_torch.data.captions, vlp_tpu_torch.data.datamodule, "
+            "vlp_tpu_torch.data.encoding, vlp_tpu_torch.data.pipeline, "
+            "vlp_tpu_torch.data.sampler, vlp_tpu_torch.data.splits, "
+            "vlp_tpu_torch.data.synthetic, vlp_tpu_torch.data.taxonomy, "
+            "vlp_tpu_torch.ops.metrics, vlp_tpu_torch.ops.retrieval, "
+            "vlp_tpu_torch.utils.checkpoint, vlp_tpu_torch.utils.hparams, "
+            "vlp_tpu_torch.utils.logging, vlp_tpu_torch.utils.profiling, "
+            "vlp_tpu_torch.train.callbacks, vlp_tpu_torch.train.loop, "
+            "vlp_tpu_torch.train.driver, chip_smoke; "
             f"print([m for m in {FORBIDDEN!r} if m in sys.modules] + "
             "[m for m in sys.modules if m.split('.')[0] == 'vlp_tpu'])")
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -121,3 +131,25 @@ def test_library_name_follows_the_sources(monkeypatch, tmp_path):
     assert first == _build.library_path()
     (csrc / "a.cu").write_text("// two\n")
     assert _build.library_path() != first
+
+
+def test_training_cli_starts_with_jax_and_the_host_stack_absent(tmp_path):
+    """``python -m vlp_tpu_torch.train --help`` where none of JAX, pandas,
+    scikit-learn, cv2 or the JAX package can be imported (None in
+    ``sys.modules``: an import raises, ``find_spec`` finds nothing), and
+    the config it parses from a command line."""
+    code = (
+        "import runpy, sys\n"
+        f"sys.modules.update(dict.fromkeys({FORBIDDEN + ('vlp_tpu',)!r}))\n"
+        "from vlp_tpu_torch.train.driver import Config, apply_overrides\n"
+        "cfg = apply_overrides(Config(), ['experiment=pretrain_resnet34_"
+        "tinybert', 'data.name=synthetic_pretrain'])\n"
+        "assert cfg.model.text_model == 'tinybert'\n"
+        "sys.argv = ['vlp_tpu_torch.train', '--help']\n"
+        "runpy.run_module('vlp_tpu_torch.train', run_name='__main__')\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(tmp_path),
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "--device" in out.stdout

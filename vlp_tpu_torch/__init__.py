@@ -17,6 +17,9 @@ its backward); the ResNets with BatchNorm and CORAL (cuDNN convolutions,
 no kernel of their own); the vision-language pretraining step (the
 hash tokenizer, the BERT-family text towers on SDPA, the dual tower, the
 CLIP losses and per-tower parameter groups; its kernels are the
-augmentation's); and the probe kernels (``vlp_tpu_torch.probes``).
-ROADMAP.md lists what follows.
+augmentation's); the probe kernels (``vlp_tpu_torch.probes``); and the
+training entry point, ``python -m vlp_tpu_torch.train`` (the config tree
+and experiment registry, the synthetic data modules and the device
+loader, the ``Trainer`` with its metrics, callbacks and checkpoints, the
+k-fold driver). ROADMAP.md lists what follows.
 """

@@ -1,25 +1,34 @@
-"""What the port's serving and training paths read of an experiment config.
+"""The port's experiment configs, and what its serving and training paths
+read of them.
 
-The experiment configs live in the JAX package (``vlp_tpu.config``). The
-serving path needs only the model's and the input's fields (the dual
+``vlp_tpu_torch.config.core`` is the port's copy of the JAX package's config
+tree, experiment registry and overrides (``Config``, ``get_experiment``,
+``apply_overrides``), and ``vlp_tpu_torch.config.experiments`` registers
+the same 62 experiments; ``tests/test_torch_port_experiments.py`` holds each
+one's ``to_dict()`` against ``vlp_tpu.config.get_experiment``. Nothing here
+imports the JAX package: the machine with the card runs without it.
+The serving path needs only the model's and the input's fields (the dual
 tower's among them), so it takes them as a ``ServeConfig``, and the
 training step adds the optimizer, schedule, parameter-group, caption
-length and augmentation fields in a ``TrainConfig``; neither imports
-anything of ``vlp_tpu``: the machine with the card runs without the JAX
-package.
-``from_config`` reads the fields off a ``vlp_tpu.config.Config``;
-``EXPERIMENTS`` and ``TRAIN_EXPERIMENTS`` hold the ported experiments'
-values (keyed by the experiment name, or by the name and an override as
-the command line gives them), and tests hold each entry against
-``get_experiment`` and ``apply_overrides``. ``serve_config`` resolves a
-command line's ``experiment=`` and overrides of the serving fields.
+length and augmentation fields in a ``TrainConfig``; ``from_config`` reads
+them off a ``Config`` (the port's, or the JAX package's in tests).
+``EXPERIMENTS`` and ``TRAIN_EXPERIMENTS`` hold the values of the
+experiments the chip checks run (keyed by the experiment name, or by the
+name and an override as the command line gives them), and tests hold each
+entry against ``from_config`` of the port's own registry and of
+``get_experiment``. ``serve_config`` resolves a command line's
+``experiment=`` and overrides of the serving fields.
 """
 from __future__ import annotations
 
-import ast
 import dataclasses
 from typing import Any, Dict, List, Optional
 
+from vlp_tpu_torch.config.core import (  # noqa: F401
+    Config, DataConfig, MeshConfig, ModelConfig, OptimizerConfig,
+    SchedulerConfig, TrainerConfig, _parse_value, apply_overrides,
+    get_experiment, list_experiments, register_experiment)
+from vlp_tpu_torch.config import experiments as _experiments  # noqa: F401
 from vlp_tpu_torch.ops.augment import AugmentConfig
 
 
@@ -48,7 +57,7 @@ class ServeConfig:
 
     @classmethod
     def from_config(cls, cfg: Any) -> "ServeConfig":
-        """The serving fields of a ``vlp_tpu.config.Config``."""
+        """The serving fields of a ``Config``."""
         m = cfg.model
         return cls(task=m.task, model=m.model,
                    precision=cfg.trainer.precision,
@@ -95,7 +104,7 @@ class TrainConfig:
 
     @classmethod
     def from_config(cls, cfg: Any) -> "TrainConfig":
-        """The training fields of a ``vlp_tpu.config.Config``."""
+        """The training fields of a ``Config``."""
         o, m, d = cfg.optimizer, cfg.model, cfg.data
         return cls(serve=ServeConfig.from_config(cfg), optimizer=o.name,
                    lr=o.lr, weight_decay=o.weight_decay, b1=o.b1, b2=o.b2,
@@ -124,7 +133,7 @@ class TrainConfig:
 
 def as_serve_config(cfg: Any) -> ServeConfig:
     """``cfg`` itself if it is a ``ServeConfig``, the ``serve`` part of a
-    ``TrainConfig``, else the serving fields of a ``vlp_tpu`` Config."""
+    ``TrainConfig``, else the serving fields of a ``Config``."""
     if isinstance(cfg, ServeConfig):
         return cfg
     if isinstance(cfg, TrainConfig):
@@ -133,7 +142,7 @@ def as_serve_config(cfg: Any) -> ServeConfig:
 
 
 # The ServeConfig field of each override a command line may give
-# (vlp_tpu.config's dotted names); serve_config raises on any other.
+# (the config tree's dotted names); serve_config raises on any other.
 SERVE_OVERRIDES = {
     "model.task": "task", "model.model": "model",
     "trainer.precision": "precision", "data.image_size": "image_size",
@@ -145,23 +154,10 @@ SERVE_OVERRIDES = {
     "model.stem": "stem", "trainer.bn_dtype": "bn_dtype"}
 
 
-def _parse_value(raw: str) -> Any:
-    """A command-line value as ``vlp_tpu.config`` parses it."""
-    low = raw.lower()
-    if low in ("null", "none"):
-        return None
-    if low in ("true", "false"):
-        return low == "true"
-    try:
-        return ast.literal_eval(raw)
-    except (ValueError, SyntaxError):
-        return raw
-
-
 def serve_config(overrides: List[str]) -> ServeConfig:
     """``experiment=<name>`` (from ``EXPERIMENTS``; the Config defaults when
     absent) with ``dotted.field=value`` overrides of the serving fields
-    applied, as ``vlp_tpu.config.apply_overrides`` applies them."""
+    applied, as ``apply_overrides`` applies them."""
     names = [o.split("=", 1)[1] for o in overrides
              if o.startswith("experiment=")]
     if names and names[-1] not in EXPERIMENTS:

@@ -1,5 +1,5 @@
-"""Deterministic host-side image preprocessing (the port's own copy of the
-NumPy path of ``vlp_tpu/data/preprocess_host.py:52-188``).
+"""Deterministic host-side image preprocessing and the image cache (the
+port's own copy of the NumPy path of ``vlp_tpu/data/preprocess_host.py``).
 
   decode -> grayscale (ITU-R 601 luma) -> histogram equalisation (MONAI
   ``equalize_hist``, 256 bins) -> optional crop of the larger dimension
@@ -8,15 +8,33 @@ NumPy path of ``vlp_tpu/data/preprocess_host.py:52-188``).
 
 The arithmetic is the reference's ``use_native=False`` path; its C++
 ``native/`` route is not ported. The reference decodes and resizes with
-cv2 (``IMREAD_UNCHANGED``, ``INTER_AREA``) and falls back to PIL; so does
-this copy, importing either only inside ``decode_image`` and ``resize``,
-so that importing the serving path loads neither. Without both, those two
-functions raise ``ImportError``; ``Predictor.predict_arrays`` takes
+cv2 (``IMREAD_UNCHANGED``, ``INTER_AREA``); so does this copy where cv2 is
+installed, importing it only inside ``decode_image`` and ``resize``, so
+that importing the serving path loads it not. Without cv2, ``resize``
+runs ``resize_area``, cv2's ``INTER_AREA`` written out in numpy with its
+float32 operations in cv2's order (bit-equal to cv2 on the square float
+images this pipeline resizes, up and down, ``tests/test_torch_port_data.
+py``): the machine with the card has no cv2, and the synthetic corpora are
+made there. ``decode_image`` falls back to PIL, and raises
+``ImportError`` without both; ``Predictor.predict_arrays`` takes
 preprocessed uint8 images and needs no decoder.
+
+``ImageCache`` holds a corpus of preprocessed images: in memory
+(``from_arrays``, the synthetic corpora) or as the ``.npy`` memmap and JSON
+that the JAX package's ``ImageCache.build`` writes under the same key
+(``ImageCache.open``); ``fold_mean_std`` gives a fold's scalar mean and
+std, cached as JSON under the same key as the JAX package's.
 """
 from __future__ import annotations
 
+import json
+import math
+import os
+from typing import Optional, Sequence, Tuple
+
 import numpy as np
+
+from vlp_tpu_torch.data.splits import hash_list_of_strings
 
 
 def _cv2():
@@ -128,16 +146,105 @@ def pad_to_square_edge_average(img: np.ndarray) -> np.ndarray:
 
 
 def resize(img: np.ndarray, size: int) -> np.ndarray:
+    """HW float32 -> [size, size] float32, cv2 ``INTER_AREA``."""
     if img.shape == (size, size):
         return img
     cv2 = _cv2()
     if cv2 is not None:
         return cv2.resize(img, (size, size),
                           interpolation=cv2.INTER_AREA).astype(np.float32)
-    image = _pil_image()
-    return np.asarray(image.fromarray(img).resize((size, size),
-                                                  image.BILINEAR),
-                      dtype=np.float32)
+    return resize_area(img, size)
+
+
+def _linear_taps(ssize: int, dsize: int):
+    """cv2's coefficients of ``INTER_AREA`` where an axis is enlarged: a
+    source index and the weights of it and the next."""
+    inv = dsize / ssize
+    scale = 1.0 / inv
+    sx = np.empty(dsize, np.int64)
+    fx = np.empty(dsize, np.float32)
+    for dx in range(dsize):
+        s = math.floor(dx * scale)
+        f = np.float32((dx + 1) - (s + 1) * inv)
+        f = np.float32(0) if f <= 0 else np.float32(f - math.floor(f))
+        if s < 0:
+            f, s = np.float32(0), 0
+        if s >= ssize - 1:
+            f, s = np.float32(0), ssize - 1
+        sx[dx], fx[dx] = s, f
+    return sx, np.minimum(sx + 1, ssize - 1), np.float32(1) - fx, fx
+
+
+def _area_taps(ssize: int, dsize: int):
+    """cv2's ``computeResizeAreaTab``: (destination, source, weight) of
+    each overlap of a shrunk axis, in cv2's order."""
+    scale = 1.0 / (dsize / ssize)
+    taps = []
+    for dx in range(dsize):
+        fsx1 = dx * scale
+        fsx2 = fsx1 + scale
+        cell = min(scale, ssize - fsx1)
+        sx1, sx2 = math.ceil(fsx1), math.floor(fsx2)
+        sx2 = min(sx2, ssize - 1)
+        sx1 = min(sx1, sx2)
+        if sx1 - fsx1 > 1e-3:
+            taps.append((dx, sx1 - 1, np.float32((sx1 - fsx1) / cell)))
+        for sx in range(sx1, sx2):
+            taps.append((dx, sx, np.float32(1.0 / cell)))
+        if fsx2 - sx2 > 1e-3:
+            taps.append((dx, sx2, np.float32(min(fsx2 - sx2, 1.0, cell)
+                                             / cell)))
+    return taps
+
+
+def resize_area(img: np.ndarray, size: int) -> np.ndarray:
+    """cv2.resize(img, (size, size), interpolation=INTER_AREA) of an HW
+    float32 image in numpy: block means where both axes shrink by whole
+    factors, overlap-weighted sums where both shrink, else cv2's linear
+    taps; float32 sums in cv2's order."""
+    img = np.asarray(img, np.float32)
+    h, w = img.shape
+    if h >= size and w >= size:
+        if h == w == 2 * size:
+            # cv2's 2 x 2 means: 4-wide vectors add the row pairs, the
+            # columns past the last whole vector add the four in turn
+            a, b = img[0::2, 0::2], img[0::2, 1::2]
+            c, d = img[1::2, 0::2], img[1::2, 1::2]
+            out = ((a + b) + (c + d)) * np.float32(0.25)
+            tail = size // 4 * 4
+            out[:, tail:] = (((a + b) + c) + d)[:, tail:] * np.float32(0.25)
+            return out
+        if h % size == 0 and w % size == 0:
+            ky, kx = h // size, w // size
+            blocks = img.reshape(size, ky, size, kx).transpose(
+                0, 2, 1, 3).reshape(size, size, ky * kx)
+            acc = np.zeros((size, size), np.float32)
+            n, i = ky * kx, 0
+            while i <= n - 4:  # cv2 adds four taps, then the sum
+                acc = acc + (blocks[..., i] + blocks[..., i + 1]
+                             + blocks[..., i + 2] + blocks[..., i + 3])
+                i += 4
+            for i in range(i, n):
+                acc = acc + blocks[..., i]
+            return acc * np.float32(1.0 / n)
+        rows = np.zeros((h, size), np.float32)
+        for dx, sx, a in _area_taps(w, size):
+            rows[:, dx] += img[:, sx] * a
+        out = np.zeros((size, size), np.float32)
+        acc, prev = None, None
+        for dy, sy, b in _area_taps(h, size):
+            if dy != prev:
+                if prev is not None:
+                    out[prev] = acc
+                acc, prev = b * rows[sy], dy
+            else:
+                acc = acc + b * rows[sy]
+        out[prev] = acc
+        return out
+    sx0, sx1, a0, a1 = _linear_taps(w, size)
+    sy0, sy1, b0, b1 = _linear_taps(h, size)
+    rows = img[:, sx0] * a0 + img[:, sx1] * a1
+    return b0[:, None] * rows[sy0] + b1[:, None] * rows[sy1]
 
 
 def preprocess_image(path_or_array, image_size: int = 224,
@@ -159,3 +266,96 @@ def preprocess_image(path_or_array, image_size: int = 224,
     gray = pad_to_square_edge_average(gray)
     gray = resize(gray, image_size)
     return np.clip(np.rint(gray), 0, 255).astype(np.uint8)
+
+
+class ImageCache:
+    """A [N, S, S] uint8 corpus of deterministically preprocessed images
+    (in memory, or the memmap the JAX package's ``ImageCache.build`` wrote),
+    with the image paths in its row order and the preprocessing options'
+    fingerprint that ``fold_mean_std`` keys on."""
+
+    def __init__(self, data: np.ndarray, paths: Sequence[str],
+                 options_key: Optional[str] = None) -> None:
+        self.data = data
+        self.paths = list(paths)
+        self.options_key = options_key or f"size={data.shape[1]}"
+
+    @property
+    def image_size(self) -> int:
+        return self.data.shape[1]
+
+    def __len__(self) -> int:
+        return self.data.shape[0]
+
+    def gather(self, indices: Sequence[int]) -> np.ndarray:
+        return self.data[np.asarray(indices, dtype=np.int64)]
+
+    @classmethod
+    def open(cls, paths: Sequence[str], cache_dir: str, image_size: int = 224,
+             crop: bool = False, maximum_crop_ratio: float = 0.05,
+             equalize: bool = True, native: bool = True) -> "ImageCache":
+        """The cache that ``vlp_tpu.data.preprocess_host.ImageCache.build``
+        wrote for these paths and options (``native``: whether it used its
+        C++ route, which is part of the key) under ``cache_dir``:
+        ``imgcache_<key>.npy`` memory-mapped, with its ``.json``. Raises
+        ``FileNotFoundError`` where it was not built; building it needs the
+        real images and the JAX package's ``ImageCache.build``."""
+        opts = (f"size={image_size}|crop={crop}"
+                f"|ratio={maximum_crop_ratio}|eq={equalize}")
+        key = hash_list_of_strings([opts, f"native={bool(native)}"]
+                                   + list(paths))
+        npy = os.path.join(cache_dir, f"imgcache_{key}.npy")
+        meta = os.path.join(cache_dir, f"imgcache_{key}.json")
+        if not (os.path.exists(npy) and os.path.exists(meta)):
+            raise FileNotFoundError(
+                f"no image cache {npy} (+ .json) for these {len(paths)} "
+                "paths and options")
+        with open(meta) as fh:
+            info = json.load(fh)
+        data = np.load(npy, mmap_mode="r")
+        if data.shape != (info["num_images"], image_size, image_size) \
+                or len(paths) != info["num_images"]:
+            raise ValueError(f"{npy}: shape {data.shape} does not match its "
+                             f"metadata {info} and {len(paths)} paths")
+        return cls(data, paths, options_key=opts)
+
+    @classmethod
+    def from_arrays(cls, images: np.ndarray,
+                    paths: Optional[Sequence[str]] = None) -> "ImageCache":
+        """In-memory cache (synthetic fixtures / tests)."""
+        images = np.asarray(images, dtype=np.uint8)
+        if paths is None:
+            paths = [f"synthetic://{i}" for i in range(len(images))]
+        return cls(images, paths)
+
+
+def fold_mean_std(cache: ImageCache, indices: Sequence[int],
+                  cache_dir: Optional[str] = None) -> Tuple[float, float]:
+    """Scalar mean/std over all fold-train images on the raw 0..255 scale
+    (reference DownstreamDataModule.py:203-253), exact by streaming fp64
+    sums; cached to ``<cache_dir>/<sha256(options, paths)>.json``, the
+    JAX package's key and file."""
+    idx = [int(i) for i in indices]
+    stat_path = None
+    if cache_dir is not None:
+        key = hash_list_of_strings(
+            [cache.options_key] + [cache.paths[i] for i in idx])
+        stat_path = os.path.join(cache_dir, f"{key}.json")
+        if os.path.exists(stat_path):
+            with open(stat_path) as fh:
+                d = json.load(fh)
+            return float(d["mean"]), float(d["std"])
+    total = total_sq = 0.0
+    count = 0
+    for i in idx:
+        x = cache.data[i].astype(np.float64)
+        total += x.sum()
+        total_sq += (x * x).sum()
+        count += x.size
+    mean = total / count
+    std = float(np.sqrt(max(total_sq / count - mean * mean, 0.0)))
+    if stat_path is not None:
+        os.makedirs(cache_dir, exist_ok=True)
+        with open(stat_path, "w") as fh:
+            json.dump({"mean": mean, "std": std}, fh)
+    return float(mean), std

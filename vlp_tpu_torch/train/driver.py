@@ -1,0 +1,354 @@
+"""K-fold cross-validation driver and command line (counterpart of
+``vlp_tpu/train/driver.py``).
+
+    python -m vlp_tpu_torch.train [--device cuda|cpu] experiment=<name>
+        [dotted.overrides=...]
+
+The reference's train() flow (src/train.py:56-257): the config, the data
+module, per fold a task (its label weights and normalisation from the fold)
+and a ``Trainer``, ``fit``, the fold's metrics at its best epoch from the
+summary snapshot (with the fit's wall seconds in training, validation and
+checkpoint saves, ``time/train_s``, ``time/validate_s``,
+``time/checkpoint_s``), and the mean and std across folds in
+``cv_summary.json``.
+VLP runs add the downstream linear probe and precision@k callbacks
+(src/train.py:126-135) and, after fit, precision@k of the best checkpoint
+over the whole downstream set (src/train.py:187-211). A classifier with
+``model.pretrained_ckpt`` starts its backbone from a VLP checkpoint's image
+tower (BatchNorm's running statistics included).
+
+It runs on ``cuda`` unless ``--device cpu`` is given (the tests give it);
+there is no fallback to the CPU. One device: a ``mesh.*`` that asks for
+more raises (ROADMAP Queue 1 item 14). Not ported, each in ROADMAP Queue 1
+item 15: ``test=true`` (the frozen test-set evaluation writes its tables
+through pandas) raises; the post-fit t-SNE and confusion plots (matplotlib,
+scikit-learn) are left out with a log line, so a fold's summary lacks
+their keys. The real datasets wait for their files; the synthetic ones
+run.
+"""
+from __future__ import annotations
+
+import argparse
+import copy
+import hashlib
+import json
+import os
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from vlp_tpu_torch.config import Config, TrainConfig, apply_overrides
+from vlp_tpu_torch.data.datamodule import DownstreamData, build_datamodule
+from vlp_tpu_torch.models.tasks import build_task
+from vlp_tpu_torch.ops.retrieval import label_precision_at_k
+from vlp_tpu_torch.train.callbacks import (DownstreamPrecisionAtK,
+                                           LinearProbeCallback)
+from vlp_tpu_torch.train.loop import Trainer
+from vlp_tpu_torch.train.step import collect_over_loader
+from vlp_tpu_torch.utils import checkpoint as ckpt
+from vlp_tpu_torch.utils.hparams import log_hyperparameters
+from vlp_tpu_torch.utils.logging import (JsonlSink, MemorySink, MultiSink,
+                                         _to_jsonable, get_logger)
+
+logger = get_logger(__name__)
+XRV = "resnet50-res512-all"
+
+
+def _maybe_warm_start(cfg: Config, trainer: Trainer) -> None:
+    """A classifier's backbone from a VLP checkpoint's image tower
+    (reference OnlyImagingModule.py:75-98), or from a classifier
+    checkpoint's backbone. The torchxrayvision ResNet50's pretrained
+    weights are not in the repository: it starts from random init, as the
+    JAX package's does without them."""
+    if cfg.model.pretrained and cfg.model.model == XRV:
+        logger.warning("model.pretrained: the torchxrayvision weights are "
+                       "not in the repository; %s starts from random init",
+                       XRV)
+    path = cfg.model.pretrained_ckpt
+    if not path:
+        return
+    if path.startswith("REQUIRED:"):
+        raise ValueError(
+            f"experiment {cfg.experiment!r} needs model.pretrained_ckpt "
+            "pointing at a VLP checkpoint (override it on the command line)")
+    if not os.path.isfile(path):
+        raise FileNotFoundError(path)
+    source = ckpt.restore_raw(path)["model"]
+    encoder = ckpt.extract_image_encoder(source) \
+        if any(k.startswith("image_encoder.") for k in source) \
+        else {k[len("backbone."):]: v for k, v in source.items()
+              if k.startswith("backbone.")}
+    model = trainer.state.model
+    model.load_state_dict(ckpt.graft_backbone(model.state_dict(), encoder))
+    logger.info("Warm-started backbone (+BN stats) from %s", path)
+
+
+def _maybe_load_pretrained_text_tower(cfg: Config, trainer: Trainer) -> None:
+    """The reference's text towers start from pretrained HF weights; their
+    files and tokenizer are not in the repository (ROADMAP Queue 1 item
+    16), so the text tower keeps its random init, as the JAX package's
+    does without a local HF cache."""
+    logger.info("pretrained %s text-tower weights are not in the "
+                "repository: the text tower starts from random init",
+                cfg.model.text_model)
+
+
+def _linear_probe_callback(cfg: Config, downstream: DownstreamData,
+                           every_n: int, vlp_task):
+    """The probe and precision@k callbacks over the first downstream CV
+    split's loaders (reference src/train.py:126-135); features come from the
+    VLP image tower with the downstream fold's normalisation."""
+    fold = next(downstream.folds())
+    probe_task = copy.copy(vlp_task)  # the same model, the fold's statics
+    probe_task.statics = fold.statics
+
+    def extract():
+        x_tr, y_tr = collect_over_loader(probe_task.features_fn,
+                                         fold.train_loader)
+        xs, ys = zip(*(collect_over_loader(probe_task.features_fn, loader)
+                       for loader in fold.val_loaders.values()))
+        host = [t.float().cpu().numpy() for t in
+                (x_tr, y_tr, torch.cat(xs), torch.cat(ys))]
+        return tuple(host)
+
+    def embed_val():
+        es, ys = zip(*(collect_over_loader(probe_task.embed_images_fn, loader)
+                       for loader in fold.val_loaders.values()))
+        return torch.cat(es), torch.cat(ys)
+
+    probe = LinearProbeCallback(extract, every_n_epochs=every_n)
+    pak = DownstreamPrecisionAtK(embed_val, ks=cfg.model.retrieval_ks)
+    return probe, pak
+
+
+def _ckpt_identity(path: Optional[str]) -> list:
+    """Identity of a checkpoint file's content: (name, size, mtime_ns) of
+    it and its sidecar. A warm-start checkpoint regenerated at the same path
+    invalidates fold markers; the path alone cannot tell old weights from
+    new."""
+    if not path or not os.path.isfile(path):
+        return []
+    return sorted((os.path.basename(p), os.stat(p).st_size,
+                   os.stat(p).st_mtime_ns)
+                  for p in (path, path + ".meta.json") if os.path.exists(p))
+
+
+def _config_fingerprint(cfg: Config) -> str:
+    """Stable hash of every config field that affects a fold's result
+    (``resume_completed_folds`` and ``test`` excluded: they control what
+    runs around the folds), with the warm-start checkpoint's content
+    identity, so a fold marker written under other settings is never
+    reused."""
+    d = cfg.to_dict()
+    d.pop("resume_completed_folds", None)
+    d.pop("test", None)
+    d["__pretrained_ckpt_identity__"] = _ckpt_identity(
+        cfg.model.pretrained_ckpt)
+    blob = json.dumps(d, sort_keys=True, default=str)
+    return hashlib.sha256(blob.encode()).hexdigest()[:16]
+
+
+def _write_fold_done(path: str, summary: Dict[str, float], fp: str) -> None:
+    """The fold's completion marker (summary + config fingerprint), written
+    to a temporary file and renamed, so a kill mid-write never leaves a
+    truncated marker."""
+    tmp = path + ".tmp"
+    with open(tmp, "w") as fh:
+        json.dump({"fingerprint": fp,
+                   "summary": {k: _to_jsonable(v)
+                               for k, v in summary.items()}}, fh, indent=2)
+    os.replace(tmp, path)
+
+
+def _check_config(cfg: Config) -> None:
+    """The checks that need no data, before anything is built."""
+    if cfg.ckpt_path and cfg.k_fold_cross_validation:
+        raise ValueError(
+            "ckpt_path carries ONE fold's training state; under "
+            "k_fold_cross_validation=true it would be loaded into every "
+            "fold (same weights + skipped epoch range -> invalid CV "
+            "statistics). Resume the interrupted fold with "
+            "k_fold_cross_validation=false, or drop ckpt_path.")
+    m = cfg.mesh
+    if m.data_parallel not in (-1, 1) or m.model_parallel != 1:
+        raise ValueError(
+            f"mesh.data_parallel={m.data_parallel}, mesh.model_parallel="
+            f"{m.model_parallel}: the port trains on one device; data and "
+            "model parallelism are not ported (ROADMAP.md Queue 1 item 14)")
+    if m.param_sharding == "tp":
+        raise ValueError(
+            "mesh.param_sharding='tp' shards weights over the model axis, "
+            "which needs mesh.model_parallel>1 (not ported: ROADMAP.md "
+            "Queue 1 item 14).")
+    if cfg.test:
+        raise NotImplementedError(
+            "test=true: the frozen test-set evaluation writes its tables "
+            "through pandas and is not ported (ROADMAP.md Queue 1 item 15)")
+
+
+def train(cfg: Config, device="cuda") -> Dict[str, float]:
+    """Every fold of ``cfg`` (one without k-fold CV) on ``device``;
+    returns the CV aggregate, also written to
+    ``<output_dir>/cv_summary.json``."""
+    _check_config(cfg)
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device; the command line's --device cpu "
+                           "runs on the CPU")
+    os.makedirs(cfg.output_dir, exist_ok=True)
+    tcfg = TrainConfig.from_config(cfg)
+    dm = build_datamodule(cfg, device)
+    is_vlp = cfg.model.task == "vision_language"
+
+    downstream = None
+    if is_vlp:
+        # a deep copy: train() must not change the caller's cfg
+        ds_cfg = Config()
+        ds_cfg.data = copy.deepcopy(cfg.downstream_data)
+        ds_cfg.mesh = cfg.mesh
+        ds_cfg.output_dir = cfg.output_dir
+        if cfg.data.name.startswith("synthetic"):
+            ds_cfg.data.name = "synthetic_downstream"
+        downstream = DownstreamData(ds_cfg, device)
+    else:
+        logger.info("post-fit t-SNE and confusion plots are not ported "
+                    "(matplotlib, scikit-learn): the fold summaries lack "
+                    "their keys")
+
+    fold_summaries: List[Dict[str, float]] = []
+    n_folds = None if cfg.k_fold_cross_validation else 1
+    fp = _config_fingerprint(cfg)
+    for fold in dm.folds():
+        if n_folds is not None and fold.index >= n_folds:
+            break
+        done_path = os.path.join(cfg.output_dir, f"fold{fold.index}.done.json")
+        if cfg.resume_completed_folds and os.path.exists(done_path):
+            try:
+                with open(done_path) as fh:
+                    done = json.load(fh)
+            except (OSError, json.JSONDecodeError):
+                done = None
+            if done and done.get("fingerprint") == fp:
+                logger.info("Fold %d: reusing completed summary (%s)",
+                            fold.index, done_path)
+                fold_summaries.append(done["summary"])
+                continue
+            if done is not None:
+                logger.warning(
+                    "Fold %d: %s fingerprint does not match this config "
+                    "(args/data changed since it was written): re-running "
+                    "the fold", fold.index, done_path)
+        sinks = [MemorySink(), JsonlSink(os.path.join(
+            cfg.output_dir, f"metrics_fold{fold.index}.jsonl"))]
+        if cfg.logger == "wandb":
+            logger.warning("wandb is not available to the port; JSONL sink "
+                           "only")
+        sink = MultiSink(sinks)
+        task = build_task(tcfg, fold.statics, device)
+        probe = pak = None
+        if is_vlp:
+            probe, pak = _linear_probe_callback(
+                cfg, downstream, cfg.trainer.linear_probe_every_n_epochs,
+                task)
+        trainer = Trainer(
+            cfg, task, fold.train_loader, fold.val_loaders, sink=sink,
+            checkpoint_dir=os.path.join(cfg.output_dir, "checkpoints",
+                                        f"fold{fold.index}"),
+            linear_probe=probe, downstream_pak=pak,
+            retrieval_ks=cfg.model.retrieval_ks)
+        _maybe_warm_start(cfg, trainer)
+        if is_vlp:
+            _maybe_load_pretrained_text_tower(cfg, trainer)
+        log_hyperparameters(cfg, trainer.state.model, sink)
+        if cfg.ckpt_path:
+            # resume (reference passes ckpt_path to trainer.fit,
+            # src/train.py:171)
+            if ckpt.load_meta(cfg.ckpt_path) is not None:
+                trainer.load_resume_state(cfg.ckpt_path)
+            else:
+                trainer.state.model.load_state_dict(
+                    ckpt.restore_raw(cfg.ckpt_path)["model"])
+                logger.warning(
+                    "ckpt_path %s has no .meta.json sidecar: this is a "
+                    "WARM START, not a resume; optimizer moments, the "
+                    "schedule's position and the epoch counters restart "
+                    "from zero", cfg.ckpt_path)
+        trainer.fit()
+        summary = dict(sink.sinks[0].summary)
+        summary.update({f"time/{k}": v for k, v in trainer.times.items()})
+        if is_vlp and trainer.checkpointer and \
+                trainer.checkpointer.best_path:
+            summary.update(_downstream_precision_at_k(cfg, trainer,
+                                                      downstream))
+        sink.log_summary(summary)
+        sink.finish()
+        _write_fold_done(done_path, summary, fp)
+        fold_summaries.append(summary)
+        logger.info("Fold %d summary: %s", fold.index,
+                    {k: round(v, 4) for k, v in summary.items()
+                     if isinstance(v, float)})
+
+    agg = aggregate_folds(fold_summaries)
+    with open(os.path.join(cfg.output_dir, "cv_summary.json"), "w") as fh:
+        json.dump(agg, fh, indent=2)
+    logger.info("CV aggregate: %s", {k: round(v, 4) for k, v in agg.items()})
+    return agg
+
+
+def _downstream_precision_at_k(cfg: Config, trainer: Trainer,
+                               downstream: DownstreamData
+                               ) -> Dict[str, float]:
+    """Label precision@k of the best VLP image tower over the whole
+    downstream train + val data of its first fold (reference
+    src/train.py:187-211), with that fold's normalisation."""
+    best = trainer.checkpointer.restore_best()
+    eval_task = copy.copy(trainer.task)
+    eval_task.model = copy.deepcopy(trainer.task.model)
+    eval_task.model.load_state_dict(best["model"])
+    fold = next(downstream.folds())
+    eval_task.statics = fold.statics
+    embs, labels = zip(*(collect_over_loader(eval_task.embed_images_fn, ld)
+                         for ld in [fold.train_loader,
+                                    *fold.val_loaders.values()]))
+    emb, y = torch.cat(embs), torch.cat(labels)
+    ks = tuple(k for k in cfg.model.retrieval_ks if k + 1 <= emb.shape[0])
+    if not ks:  # tiny downstream sets: p@k undefined
+        return {}
+    p = label_precision_at_k(emb, y, ks=ks)
+    values = torch.stack([p[k] for k in ks]).tolist()
+    return {f"downstream_entire/label_precision_at_{k}": v
+            for k, v in zip(ks, values)}
+
+
+def aggregate_folds(summaries: List[Dict[str, float]]) -> Dict[str, float]:
+    """mean/std across folds (reference src/train.py:229-240)."""
+    if not summaries:
+        return {}
+    keys = set.intersection(*(set(s) for s in summaries))
+    out = {}
+    for k in sorted(keys):
+        vals = [float(s[k]) for s in summaries
+                if isinstance(s[k], (int, float))]
+        if not vals:
+            continue
+        out[f"{k}_mean"] = float(np.mean(vals))
+        out[f"{k}_std"] = float(np.std(vals))
+    out["num_folds"] = len(summaries)
+    return out
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    parser = argparse.ArgumentParser(
+        prog="python -m vlp_tpu_torch.train",
+        description="K-fold training of an experiment on one device; "
+                    "overrides are dotted.path=value, experiment=<name> "
+                    "first.")
+    parser.add_argument("--device", default="cuda",
+                        help="cuda (the default) or cpu")
+    args, overrides = parser.parse_known_args(argv)
+    cfg = apply_overrides(Config(), overrides)
+    np.random.seed(cfg.seed)
+    torch.manual_seed(cfg.seed)
+    train(cfg, args.device)
+    return 0

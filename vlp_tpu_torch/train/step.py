@@ -1,5 +1,6 @@
 """The training step (counterpart of ``vlp_tpu/train/step.py:19-53``):
-augment -> forward -> loss -> backward -> optimizer step -> schedule step.
+augment -> forward -> loss -> backward -> optimizer step -> schedule step;
+and the eval step and ``collect_over_loader`` (``:107-245``).
 
 ``make_train_step(task, optimizer, schedules)`` returns ``step(state,
 batch) -> aux``. The step sets each param group's lr to its own
@@ -11,10 +12,17 @@ terms, logits or embeddings) on the device (nothing synchronises), the
 first group's lr as ``lr`` and every group's by name as ``group_lrs``.
 ``train_steps`` feeds it host batches: uint8 images and labels go host ->
 pinned -> device without blocking.
+
+``make_eval_step(task)`` is the task's ``eval_fn`` (eval mode, no autograd:
+running statistics, nothing updated); ``collect_over_loader(fn, loader)``
+runs ``fn`` (``features_fn``, ``embed_images_fn``) over a loader's batches
+and keeps the outputs and labels on the device, the padded rows dropped;
+nothing reaches the host per batch. The JAX package scans K batches a
+dispatch there; here each batch is one call, with the same outputs.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Iterable, List, Sequence
+from typing import Callable, Dict, Iterable, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -65,3 +73,24 @@ def train_steps(step: Callable[[TrainState, Batch], Dict],
     """Runs ``step`` over host batches; returns each step's aux."""
     device = next(state.model.parameters()).device
     return [step(state, to_device(b, device)) for b in batches]
+
+
+def make_eval_step(task) -> Callable[[Batch], Dict[str, torch.Tensor]]:
+    def eval_step(batch: Batch) -> Dict[str, torch.Tensor]:
+        return task.eval_fn(batch)
+
+    return eval_step
+
+
+def collect_over_loader(fn: Callable[[Batch], torch.Tensor], loader
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(outputs [N, ...], labels [N]) of ``fn`` over every real row of
+    ``loader``'s batches, in order, on the loader's device."""
+    outs, labels, masks = [], [], []
+    with torch.no_grad():
+        for batch in loader:
+            outs.append(fn(batch))
+            labels.append(batch["label"].reshape(-1))
+            masks.append(batch["mask"].reshape(-1) > 0)
+    keep = torch.cat(masks)
+    return torch.cat(outs)[keep], torch.cat(labels)[keep]
