@@ -222,13 +222,43 @@ Phases, each printing its lines before the last line:
    first step. 21c: one fold, one epoch of ``baseline_only_imaging_nest_
    small`` on 160 images: 24 launches of each of #1-#4 a train step and 24
    of #1 and #2 an eval forward, 3 + 1 augmentation launches a step.
+22. The late-fusion task (the imaging backbone, a 10-wide image head, the
+   clinical MLP over 15-dim clinical vectors and the fusion head) at full
+   width. 22a ``baseline_fusion_resnet34`` (batch 64, 224, bf16, CORAL
+   1000): ``Predictor`` answers 64, 64 and 37 images with their clinical
+   vectors (no kernel launch; logits against fp32 on the CPU;
+   ``clinical=None`` bit-equal to zeros), then phase 16's training checks
+   (3 + 1 augmentation launches a step and no other kernel, CORAL above 0,
+   the clinical BatchNorms' running statistics moving, the 4-image
+   gradients against fp32 on the CPU with the clinical Dense biases, whose
+   exact gradient is 0, left out of the cosines), its step beside phase
+   16's in the same call, then both steps in alternating turns. 22b ``baseline_fusion_nest_small``: one request
+   of 64 (24 of #1 and #2 a forward) and the step (24 of #1-#4 and 3 + 1 a
+   step). 22c the trainer with ``test=true``: 4 folds x 1 epoch of
+   ``baseline_fusion_resnet34`` on 640 images; fold markers,
+   ``cv_summary.json`` in [0, 1], ``test_eval.csv`` (its header, folds 0-3,
+   the 7 levels), ``test/*`` in [0, 1] or NaN only where every fold's
+   overall split is single-class; ``python -m vlp_tpu_torch.eval.
+   test_eval --device cuda`` on the 4 best checkpoints writes the same CSV
+   byte for byte; ``Predictor(checkpoint=fold 0's best)`` gives the
+   probabilities ``collect_probs`` gave on the test images; the test
+   evaluation's seconds beside the wall's split. 22d
+   ``vlp_finetune_fusion_resnet34`` and ``_frozen_encoder`` from phase
+   21b's VLP checkpoint, one epoch at batch 8 each: the backbone bit-equal
+   to the image encoder after the warm start (running statistics
+   included), every other tensor at its init; the frozen encoder's
+   parameters bit-equal after the epoch, its running statistics moved.
 
 Then one JSON line with every kernel: its launches in the timed training
 steps of the path that runs it (NesT-Small's for #1-#4, #11, #12; ViT-B's
 for #7, #8; NesT unfused for #9, #10; NesT with ``nhwc_windows`` for #5,
 #6; ``other_launches`` adds the other paths (``vlp_resnet34_tinybert_train``
 and phase 21's ``*_trainer`` runs among them for #11, #12, and
-``nest_trainer`` for #1-#4), ``serve_launches`` the serving phases; #17 and
+``nest_trainer`` for #1-#4; phase 22's ``fusion_resnet34_train``,
+``fusion_nest_train`` (#1-#4 too), ``fusion_trainer``,
+``fusion_finetune_trainer`` and ``fusion_frozen_encoder_trainer``),
+``serve_launches`` the serving phases (``fusion_nest_serve`` among them);
+#17 and
 #18 carry
 ``"path": "probe"`` and the launches of the probes' runs, as do #13,
 #14, #19a, #19b, #15 and #16, whose ``core_launches`` count the launches
@@ -304,8 +334,10 @@ from vlp_tpu_torch.probes._timing import BF16_FLOPS, HBM_BYTES_PER_S
 from vlp_tpu_torch.probes._timing import median_ms as _median_ms
 from vlp_tpu_torch.serve import Predictor
 from vlp_tpu_torch.train.setup import (batch_for, build_training,
-                                      random_batch, random_pretrain_batch)
+                                      random_clinical,
+                                      random_pretrain_batch)
 from vlp_tpu_torch.data.datamodule import build_datamodule
+from vlp_tpu_torch.eval import test_eval
 from vlp_tpu_torch.train import driver
 from vlp_tpu_torch.train.loop import Trainer
 from vlp_tpu_torch.train.step import to_device, train_steps
@@ -406,9 +438,11 @@ BOUND_BATCH_INDEPENDENCE = 1e-3
 BOUND_GRAD_FP32_VS_ORDER = 3.0
 BOUND_GRAD_COS_FP32 = 0.999
 BOUND_GRAD_BF16_VS_CPU = 2.0
-# parameters whose exact gradient is 0 (see _check_grads), named by the
-# flax parts of the text tower's packed q|k|v (see _grad_views)
-ZERO_GRAD = "attn.key.bias"
+# parameters whose exact gradient is 0 (see _check_grads): the text
+# tower's attention key bias, named by the flax parts of its packed q|k|v
+# (see _grad_views), and the fusion model's clinical Dense biases, each
+# followed by a train-mode BatchNorm that takes out the batch mean
+ZERO_GRAD = re.compile(r"(attn\.key\.bias|clinical_mlp\.fc\d+\.bias)$")
 _PACKED_QKV = re.compile(r"^(text_encoder\..*attn\.)qkv\.(weight|bias)$")
 # probe kernels: the checks' shapes (B, H, W, C, K) and (M, C, K), the
 # probes' shapes and odd ones (ragged M and N tiles, C not a multiple
@@ -976,11 +1010,14 @@ def phase_serve(smi: str, key: str, batch: int, requests, per_forward,
     rng = np.random.default_rng(0)
     reqs = [rng.integers(0, 256, (k, 224, 224), dtype=np.uint8)
             for k in requests]
+    # the fusion model's clinical vectors, one a request row
+    clin = [random_clinical(rng, k) for k in requests] \
+        if cfg.task == "fusion" else [None] * len(requests)
     pred.predict_arrays(reqs[-1][:1])  # warm-up: cuDNN plans, allocator
     torch.cuda.synchronize()
 
     _reset_counts()
-    probs = [pred.predict_arrays(r) for r in reqs]
+    probs = [pred.predict_arrays(r, c) for r, c in zip(reqs, clin)]
     launches = _counts()
     forwards = sum(-(-k // batch) for k in requests)
     print(f"serve {key}: answered requests of {list(requests)} images in "
@@ -994,8 +1031,9 @@ def phase_serve(smi: str, key: str, batch: int, requests, per_forward,
               "probabilities must be finite and in [0, 1]")
 
     stats = _running_stats(pred.task.model)
-    logits = pred.predict_logits(reqs[0][:8])
-    full = pred.predict_logits(reqs[0])[:8]
+    c8 = None if clin[0] is None else clin[0][:8]
+    logits = pred.predict_logits(reqs[0][:8], c8)
+    full = pred.predict_logits(reqs[0], clin[0])[:8]
     gap = float(np.abs(full - logits).max())
     print(f"serve {key}: logits[:8] alone vs inside the full request: "
           f"bit-equal {bool(np.array_equal(full, logits))}, max_abs {gap:.6g}")
@@ -1009,13 +1047,24 @@ def phase_serve(smi: str, key: str, batch: int, requests, per_forward,
     ref.task.model.load_state_dict(pred.task.model.state_dict())
     if nhwc:
         ref.task.model.backbone.nhwc_windows = True
-    ref_logits = ref.predict_logits(reqs[0][:8])
+    ref_logits = ref.predict_logits(reqs[0][:8], c8)
     err = float(np.abs(logits - ref_logits).max())
     bound = BOUND_LOGITS * max(1.0, float(np.abs(ref_logits).max()))
     print(f"serve {key}: logits[:8] bf16 on GPU vs fp32 on CPU: max_abs "
           f"{err:.6g} (bound {bound:.6g}); gpu {np.round(logits, 4).tolist()}"
           f" cpu {np.round(ref_logits, 4).tolist()}")
     check(err <= bound, f"logits differ by {err:.4g} > {bound:.4g}")
+    if cfg.task == "fusion":
+        zeros = pred.predict_logits(reqs[0][:8],
+                                    np.zeros_like(clin[0][:8]))
+        none = pred.predict_logits(reqs[0][:8])
+        moved = float(np.abs(logits - zeros).max())
+        print(f"serve {key}: clinical=None bit-equal to explicit zeros "
+              f"{bool(np.array_equal(none, zeros))}; the clinical vectors "
+              f"move the logits[:8] by {moved:.4g}")
+        check(np.array_equal(none, zeros), "clinical=None must be zeros")
+        check(not np.array_equal(logits, zeros),
+              "the clinical vectors must reach the logits")
 
     if nhwc:
         _serve_vs_blockified(smi, key, pred, reqs[0], logits)
@@ -1023,10 +1072,10 @@ def phase_serve(smi: str, key: str, batch: int, requests, per_forward,
     times = []
     for _ in range(10):
         t0 = time.perf_counter()
-        pred.predict_arrays(reqs[0])
+        pred.predict_arrays(reqs[0], clin[0])
         times.append(time.perf_counter() - t0)
     med = statistics.median(times)
-    full = pred._batch(reqs[0], None)
+    full = pred._batch(reqs[0], clin[0])
     fwd_ms = _median_ms(lambda: pred.task.eval_fn(full))
     print(f"serve {key}{' nhwc_windows' if nhwc else ''}: batch-{batch} "
           f"request latency median "
@@ -1670,8 +1719,9 @@ def _grad_gap(a, b):
 def _check_grads(key, task, tcfg, statics):
     """The ``GRAD_BATCH``-image gradients, augmentation off, both domains:
     bf16 on the card against fp32 on the CPU; with BatchNorm (train mode)
-    also fp32 on the card against fp32 on the CPU, with fp32 on the CPU on
-    the reversed batch and bf16 on the CPU as the yardsticks."""
+    in the image tower also fp32 on the card against fp32 on the CPU, with
+    fp32 on the CPU on the reversed batch and bf16 on the CPU as the
+    yardsticks."""
     cuda, cpu = torch.device("cuda"), torch.device("cpu")
 
     def built(precision, device):
@@ -1688,7 +1738,7 @@ def _check_grads(key, task, tcfg, statics):
     # a tensor whose exact gradient is 0 (the text tower's attention key
     # bias: softmax ignores a shift of a query's scores) holds rounding
     # noise on every side; its cosine says nothing, and it is left out
-    held = [i for i, n in enumerate(names) if not n.endswith(ZERO_GRAD)]
+    held = [i for i, n in enumerate(names) if not ZERO_GRAD.search(n)]
 
     def worst_of(c):
         return min(held, key=lambda i: c[i])
@@ -1702,14 +1752,18 @@ def _check_grads(key, task, tcfg, statics):
         noise = max(g_gpu[i].abs().max().item() for i in range(len(names))
                     if i not in held)
         print(f"train {key}: {len(names) - len(held)} tensors of exact "
-              f"gradient 0 ({ZERO_GRAD}), left out of the cosines: largest "
+              f"gradient 0 ({ZERO_GRAD.pattern}), left out of the cosines: "
+              f"largest "
               f"|g| on GPU {noise:.3g}, {noise / top:.3g} of the largest "
               f"|g| of the model")
     print(f"train {key}: {GRAD_BATCH}-image gradients bf16 on GPU vs fp32 "
           f"on CPU: relative L2 {rel:.6g}; per-tensor cosine min "
           f"{cos[worst]:.6g} at {names[worst]}, median "
           f"{statistics.median(cos):.6g}")
-    if not _running_stats(task.model):
+    # the fp32 comparisons below hold BatchNorm's train-mode cancellation
+    # in the image tower; NesT and ViT (also under the fusion heads, whose
+    # clinical MLP normalises fp32 inputs on both sides) take the bf16 one
+    if not _running_stats(getattr(task.model, "backbone", task.model)):
         check(rel <= BOUND_GRAD_REL, f"gradient relative L2 {rel:.4g} > "
               f"{BOUND_GRAD_REL}")
         check(cos[worst] >= BOUND_GRAD_COS,
@@ -1784,7 +1838,7 @@ def phase_train_slice(smi: str, key: str, model: str, batch_size: int,
     if nhwc:
         task.model.backbone.nhwc_windows = True
     rng = np.random.default_rng(1)
-    batches = [random_batch(rng, batch_size, tcfg.serve.image_size)
+    batches = [batch_for(tcfg, rng, batch_size)
                for _ in range(WARMUP_STEPS + TIMED_STEPS)]
     auxes, used_lrs = [], []
 
@@ -1858,6 +1912,16 @@ def phase_train_slice(smi: str, key: str, model: str, batch_size: int,
         print(f"train {key}: {len(stats0)} running statistics, all moved at "
               f"step 0, {moved} moved again after it")
         check(moved == len(stats0), "running statistics stopped moving")
+    if hasattr(task.model, "clinical_mlp"):
+        clin = _running_stats(task.model.clinical_mlp)
+        print(f"train {key}: the clinical MLP's {len(clin)} BatchNorm "
+              f"running statistics moved (running_var of bn0 "
+              f"{clin[1][:4].tolist()} after {WARMUP_STEPS + TIMED_STEPS} "
+              f"steps, from 1.0)")
+        check(len(clin) == 6 and not any(
+            torch.equal(c, torch.ones_like(c)) or torch.equal(
+                c, torch.zeros_like(c)) for c in clin),
+            "the clinical BatchNorms' running statistics did not move")
     print(f"train {key}: losses {[round(v, 5) for v in losses.tolist()]}; "
           f"lr used "
           f"{used_lrs[0]:.6g} -> {used_lrs[-1]:.6g} = base_lr x step / "
@@ -1867,6 +1931,7 @@ def phase_train_slice(smi: str, key: str, model: str, batch_size: int,
     med = statistics.median(times)
     STEP_RATES[key] = batch_size / med
     dev_ms = statistics.median(s.elapsed_time(e) for s, e in events)
+    STEP_STATS[key] = (med * 1e3, batch_size / med, dev_ms, peak / 2 ** 30)
     print(f"train {key}: batch-{batch_size} step latency median "
           f"{med * 1e3:.3f} ms (min {min(times) * 1e3:.3f}, max "
           f"{max(times) * 1e3:.3f}, n={TIMED_STEPS}), "
@@ -1886,8 +1951,11 @@ def phase_train_slice(smi: str, key: str, model: str, batch_size: int,
 
 
 # images/s of each phase_train_slice run (batch / median step latency), by
-# experiment: phase 21 prints the trainer's rate beside it
+# experiment: phase 21 prints the trainer's rate beside it; and (median
+# step ms, images/s, device step span ms, peak GiB), which phase 22 prints
+# beside phase 16's
 STEP_RATES: dict = {}
+STEP_STATS: dict = {}
 
 
 def _edge_err(y, ref, b, h, w):
@@ -2872,7 +2940,7 @@ def _trainer_vlp(smi: str, out: Path):
           f"{frec['val/combined/auroc']:.4f}; "
           f"{_epoch_split(out / 'finetune', 1, fseconds)}")
     torch.cuda.empty_cache()
-    return launches, flaunches
+    return launches, flaunches, best
 
 
 def _trainer_nest(smi: str, out: Path) -> dict:
@@ -2903,23 +2971,304 @@ def _trainer_nest(smi: str, out: Path) -> dict:
     return launches
 
 
-def phase_trainer(smi: str) -> dict:
-    """Phase 21: the training entry point, ``driver.train``, on the card
-    (21a ResNet34 k-fold, 21b VLP pretraining and the warm-started
-    fine-tune, 21c NesT-Small); returns each path's launches."""
-    # the trainer's per-fold INFO lines would bury this script's own
+def _quiet_trainer_logs() -> None:
+    """The trainer's per-fold INFO lines would bury this script's own."""
     for name in list(logging.root.manager.loggerDict):
         if name.startswith("vlp_tpu_torch"):
             logging.getLogger(name).setLevel(logging.WARNING)
-    root = Path(tempfile.mkdtemp(prefix="chip_smoke_trainer_"))
-    try:
-        r34 = _trainer_resnet34(smi, root / "resnet34")
-        vlp, finetune = _trainer_vlp(smi, root / "vlp")
-        nest = _trainer_nest(smi, root / "nest")
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_trainer(smi: str, root: Path):
+    """Phase 21: the training entry point, ``driver.train``, on the card
+    (21a ResNet34 k-fold, 21b VLP pretraining and the warm-started
+    fine-tune, 21c NesT-Small) under ``root``; returns each path's
+    launches and 21b's best VLP checkpoint, which phase 22 starts from."""
+    _quiet_trainer_logs()
+    r34 = _trainer_resnet34(smi, root / "resnet34")
+    vlp, finetune, vlp_best = _trainer_vlp(smi, root / "vlp")
+    nest = _trainer_nest(smi, root / "nest")
     return {"resnet34_kfold_trainer": r34, "vlp_pretrain_trainer": vlp,
-            "vlp_finetune_trainer": finetune, "nest_trainer": nest}
+            "vlp_finetune_trainer": finetune, "nest_trainer": nest}, vlp_best
+
+
+FUSION_R34 = "baseline_fusion_resnet34"
+FUSION_NEST = "baseline_fusion_nest_small"
+FUSION_FINETUNE = "vlp_finetune_fusion_resnet34"
+FUSION_FROZEN = "vlp_finetune_fusion_resnet34_frozen_encoder"
+FUSION_FINETUNE_SAMPLES = 160
+TEST_EVAL_HEADER = "level,group,fold,metric,value"
+TEST_EVAL_LEVELS = {"overall", "dataset", "entity", "anatomy_site", "sex",
+                    "age_encoded", "age_group"}
+# the metrics that are NaN on a single-class split (eval/subgroup.py)
+SINGLE_CLASS_NAN = {"roc_auc", "precision", "recall", "f1_score"}
+
+
+def _fusion_step_vs_imaging(smi: str) -> None:
+    """22a's step beside phase 16's ResNet34 imaging step, same call."""
+    f, r = STEP_STATS[FUSION_R34], STEP_STATS[RESNET34]
+    print(f"fusion {FUSION_R34}: batch-{BATCH} step median {f[0]:.3f} ms, "
+          f"{f[1]:.1f} images/s, device span {f[2]:.3f} ms, peak "
+          f"{f[3]:.3f} GiB; phase 16's {RESNET34} {r[0]:.3f} ms, "
+          f"{r[1]:.1f} images/s, device span {r[2]:.3f} ms, peak "
+          f"{r[3]:.3f} GiB; rate ratio fusion / imaging "
+          f"{f[1] / r[1]:.4f}; on {smi}")
+
+
+def _fusion_vs_imaging_in_turns(smi: str) -> None:
+    """The imaging and the fusion ResNet34 steps (each from seed 0, on the
+    same images and labels, the fusion one with clinical vectors), in
+    alternating turns of ``AB_STEPS`` steps after 3 warm-up steps each."""
+    cuda = torch.device("cuda")
+    rng = np.random.default_rng(3)
+    images = [batch_for(TRAIN_EXPERIMENTS[RESNET34], rng, BATCH)
+              for _ in range(AB_STEPS)]
+    runs = {RESNET34: images,
+            FUSION_R34: [dict(b, clinical=random_clinical(rng, BATCH))
+                         for b in images]}
+    built, times = {}, {}
+    for key, batches in runs.items():
+        task, state, step = build_training(TRAIN_EXPERIMENTS[key], cuda,
+                                           STEPS_PER_EPOCH)
+        train_steps(step, state, batches[:WARMUP_STEPS])
+        built[key], times[key] = (state, step), []
+    torch.cuda.synchronize()
+    for r in range(AB_ROUNDS):
+        for key in (runs if r % 2 == 0 else reversed(list(runs))):
+            state, step = built[key]
+            for batch in runs[key]:
+                t0 = time.perf_counter()
+                train_steps(step, state, [batch])
+                torch.cuda.synchronize()
+                times[key].append(time.perf_counter() - t0)
+    med = {k: statistics.median(v) for k, v in times.items()}
+    print(f"fusion {FUSION_R34}: in alternating turns ({AB_ROUNDS} x "
+          f"{AB_STEPS}) the fusion step median {med[FUSION_R34] * 1e3:.3f} "
+          f"ms (min {min(times[FUSION_R34]) * 1e3:.3f}), the imaging step "
+          f"{med[RESNET34] * 1e3:.3f} ms (min "
+          f"{min(times[RESNET34]) * 1e3:.3f}); rate ratio fusion / imaging "
+          f"{med[RESNET34] / med[FUSION_R34]:.4f}; on {smi}")
+    del built
+    torch.cuda.empty_cache()
+
+
+def _read_test_eval(path: Path) -> list:
+    with open(path, newline="") as fh:
+        lines = fh.read().split("\n")
+    check(lines[0] == TEST_EVAL_HEADER and lines[-1] == "",
+          f"22c: test_eval.csv header {lines[0]!r}")
+    return [line.split(",") for line in lines[1:-1]]
+
+
+def _fusion_test_run(smi: str, out: Path) -> dict:
+    """22c: baseline_fusion_resnet34 4 folds x 1 epoch on 640 synthetic
+    images with test=true; the test_eval command line on the same best
+    checkpoints; Predictor serving fold 0's best checkpoint."""
+    timed = {}
+    evaluate = driver._evaluate_test_set
+
+    def timed_evaluate(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            return evaluate(*args, **kwargs)
+        finally:
+            torch.cuda.synchronize()
+            timed["test_s"] = time.perf_counter() - t0
+
+    overrides = ["data.name=synthetic_downstream",
+                 f"data.synthetic_num_samples={TRAINER_SAMPLES}",
+                 "k_fold_cross_validation=true", "trainer.max_epochs=1"]
+    driver._evaluate_test_set = timed_evaluate
+    try:
+        cfg, agg, launches, seconds = _driver_run(
+            FUSION_R34, overrides + ["test=true"], out)
+    finally:
+        driver._evaluate_test_set = evaluate
+    check((cfg.model.task, cfg.data.batch_size, cfg.data.image_size,
+           cfg.trainer.precision, cfg.model.coral_lambda)
+          == ("fusion", 64, 224, "bf16", 1000.0), "22c: unexpected config")
+    markers = sorted(p.name for p in out.glob("fold*.done.json"))
+    check(markers == [f"fold{i}.done.json" for i in range(4)],
+          f"22c: fold markers {markers}")
+    with open(out / "cv_summary.json") as fh:
+        summary = json.load(fh)
+    prefix = "val/combined/accuracy_best_val/combined/"
+    for m in ("accuracy", "precision", "recall", "auroc"):
+        v = summary.get(f"{prefix}{m}_mean", float("nan"))
+        check(0.0 <= v <= 1.0, f"22c: cv_summary {m} mean {v}")
+    steps = sum(_records(out, i)[-1]["_step"] for i in range(4))
+    _augment_launches(launches, steps, "22c")
+    rows = _read_test_eval(out / "test_eval.csv")
+    check({r[2] for r in rows} == {"0", "1", "2", "3"},
+          f"22c: test_eval.csv folds {sorted({r[2] for r in rows})}")
+    check({r[0] for r in rows} == TEST_EVAL_LEVELS,
+          f"22c: test_eval.csv levels {sorted({r[0] for r in rows})}")
+    test = {k: v for k, v in agg.items() if k.startswith("test/")}
+    check(len(test) == 6, f"22c: test aggregate {test}")
+    for k, v in test.items():
+        if math.isnan(v):
+            metric = k[len("test/"):]
+            overall = [r for r in rows if r[0] == "overall"
+                       and r[3] == metric]
+            check(metric in SINGLE_CLASS_NAN
+                  and all(r[4] == "NaN" for r in overall),
+                  f"22c: {k} NaN where a fold's overall split has two "
+                  "classes")
+        else:
+            check(0.0 <= v <= 1.0, f"22c: {k} = {v}")
+    print(f"trainer {FUSION_R34} test=true: 4 folds x 1 epoch, {steps} "
+          f"train steps, launches {launches}; test "
+          + ", ".join(f"{k[5:]} {v:.4f}" for k, v in test.items())
+          + f"; test_eval.csv {len(rows)} rows, folds 0-3, "
+          f"{len(TEST_EVAL_LEVELS)} levels; {_epoch_split(out, 4, seconds)}"
+          f"; the test evaluation (4 best checkpoints on the frozen split) "
+          f"{timed['test_s']:.2f} s ({100 * timed['test_s'] / seconds:.1f}% "
+          f"of the wall); on {smi}")
+
+    best = [p for _, p in driver.best_checkpoints(str(out))]
+    check(len(best) == 4, f"22c: best checkpoints {best}")
+    cli_csv = out / "cli_test_eval.csv"
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _reset_counts()
+    check(test_eval.main(["--output-file", str(cli_csv), "--device", "cuda",
+                          "--checkpoints", *best,
+                          f"experiment={FUSION_R34}", *overrides,
+                          f"output_dir={out}"]) == 0, "22c: test_eval CLI")
+    cli_s = time.perf_counter() - t0
+    check(not any(_counts().values()), "22c: the test evaluation launched "
+          "a hand-written kernel")
+    same = cli_csv.read_bytes() == (out / "test_eval.csv").read_bytes()
+    print(f"trainer {FUSION_R34}: python -m vlp_tpu_torch.eval.test_eval "
+          f"--device cuda on the 4 best checkpoints wrote test_eval.csv "
+          f"byte for byte: {same} ({cli_s:.2f} s)")
+    check(same, "22c: the command line's CSV differs from the driver's")
+
+    # Predictor on fold 0's best checkpoint against collect_probs
+    cuda = torch.device("cuda")
+    dm = build_datamodule(cfg, cuda)
+    frame = test_eval.collect_probs(cfg, best[0], dm, 0, cuda)
+    statics = dm.fold_statics(0)
+    pred = Predictor(EXPERIMENTS[FUSION_R34], None, statics.mean,
+                     statics.std, batch_size=BATCH, device="cuda",
+                     checkpoint=best[0])
+    images = dm.cache.gather([dm._cache_index[s["image_path"]]
+                              for s in dm.test])
+    clinical = np.stack([s["clinical"] for s in dm.test])
+    logits = pred.predict_logits(images, clinical)
+    probs = 1.0 / (1.0 + np.exp(-logits))
+    err = float(np.abs(probs - frame["prob"]).max())
+    bound = BOUND_LOGITS * max(1.0, float(np.abs(logits).max()))
+    print(f"trainer {FUSION_R34}: Predictor(checkpoint=fold 0's best) on "
+          f"the {len(images)} test images vs collect_probs: max_abs "
+          f"probability gap {err:.3g} (the logit bound {bound:.4g} holds "
+          f"it, the sigmoid's slope being at most 1/4)")
+    check(err <= bound, f"22c: Predictor vs collect_probs {err}")
+    del pred, dm
+    return launches
+
+
+def _fusion_finetune(smi: str, out: Path, vlp_best: str) -> tuple:
+    """22d: vlp_finetune_fusion_resnet34 and _frozen_encoder, one epoch at
+    batch 8 each, from phase 21b's VLP checkpoint."""
+    encoder = ckpt.extract_image_encoder(ckpt.restore_raw(vlp_best)["model"])
+    warm = driver._maybe_warm_start
+    fit = Trainer.fit
+    seen = []
+
+    def checked_warm(cfg, trainer):
+        before = {k: v.detach().clone() for k, v in
+                  trainer.state.model.state_dict().items()}
+        warm(cfg, trainer)
+        after = trainer.state.model.state_dict()
+        for k, v in after.items():
+            if k.startswith("backbone."):
+                check(torch.equal(v.cpu(), encoder[k[len("backbone."):]]),
+                      f"22d: {k} is not the VLP image encoder's")
+            else:
+                check(torch.equal(v, before[k]), f"22d: {k} moved in the "
+                      "warm start")
+        seen.append(sum(k.endswith("running_mean") for k in after
+                        if k.startswith("backbone.")))
+
+    def checked_fit(self, *args, **kwargs):
+        backbone = self.state.model.backbone
+        params = [p.detach().clone() for p in backbone.parameters()]
+        stats = _running_stats(backbone)
+        result = fit(self, *args, **kwargs)
+        frozen = all(torch.equal(a, b) for a, b in
+                     zip(params, backbone.parameters()))
+        moved = all(not torch.equal(a, b) for a, b in
+                    zip(stats, _running_stats(backbone)))
+        seen.append((frozen, moved))
+        return result
+
+    driver._maybe_warm_start = checked_warm
+    Trainer.fit = checked_fit
+    runs = {}
+    try:
+        for key in (FUSION_FINETUNE, FUSION_FROZEN):
+            cfg, _, launches, seconds = _driver_run(key, [
+                f"model.pretrained_ckpt={vlp_best}",
+                "data.name=synthetic_downstream",
+                f"data.synthetic_num_samples={FUSION_FINETUNE_SAMPLES}",
+                "trainer.max_epochs=1", "k_fold_cross_validation=false"],
+                out / key)
+            (rec,) = _records(out / key, 0)
+            _augment_launches(launches, rec["_step"], f"22d {key}")
+            _finite(rec, ["train/loss"] + [f"val/combined/{m}" for m in (
+                "accuracy", "auroc", "loss")], f"22d {key}")
+            runs[key] = (cfg, rec, launches, seconds)
+    finally:
+        driver._maybe_warm_start = warm
+        Trainer.fit = fit
+    (n_bn, (frozen_a, moved_a), _, (frozen_b, moved_b)) = seen
+    check(cfg.data.batch_size == 8 and moved_a and moved_b,
+          "22d: batch 8 and the backbone's running statistics moving")
+    check(not frozen_a, "22d: the fine-tune's backbone did not train")
+    check(frozen_b, "22d: the frozen encoder's parameters moved")
+    for key, (cfg, rec, launches, seconds) in runs.items():
+        print(f"trainer {key}: from {Path(vlp_best).name}, the backbone "
+              f"bit-equal to its image encoder ({len(encoder)} tensors, "
+              f"{n_bn} BatchNorms' running statistics), heads and clinical "
+              f"branch at their init; 1 epoch at batch "
+              f"{cfg.data.batch_size}, {rec['_step']} steps, launches "
+              f"{launches}, train/images_per_sec "
+              f"{rec['train/images_per_sec']:.1f}, val/combined/accuracy "
+              f"{rec['val/combined/accuracy']:.4f}; "
+              + ("backbone parameters bit-equal after the epoch, its "
+                 "running statistics moved; " if key == FUSION_FROZEN
+                 else "")
+              + f"{_epoch_split(out / key, 1, seconds)}; on {smi}")
+    return runs[FUSION_FINETUNE][2], runs[FUSION_FROZEN][2]
+
+
+def phase_fusion(smi: str, root: Path, vlp_best: str):
+    """Phase 22: the late-fusion task. 22a serves and trains
+    baseline_fusion_resnet34, 22b baseline_fusion_nest_small; 22c the
+    trainer with test=true, the test_eval command line and Predictor on a
+    trainer checkpoint; 22d the VLP warm start of the fusion backbone.
+    Returns (training paths' launches, serving paths' launches)."""
+    serve_r34 = phase_serve(smi, FUSION_R34, BATCH, REQUESTS, {})
+    r34 = phase_train_slice(smi, FUSION_R34, "resnet34", BATCH, {
+        "shear_rows": 3, "add_gaussian_noise": 1}, coral=1000.0)
+    _fusion_step_vs_imaging(smi)
+    _fusion_vs_imaging_in_turns(smi)
+    serve_nest = phase_serve(smi, FUSION_NEST, BATCH, (BATCH,),
+                             {"ln_attention": 24, "ln_mlp": 24})
+    nest = phase_train_slice(smi, FUSION_NEST, "nest_small", BATCH, {
+        "ln_attention": 24, "ln_mlp": 24, "ln_attention_bwd": 24,
+        "ln_mlp_bwd": 24, "shear_rows": 3, "add_gaussian_noise": 1})
+    _quiet_trainer_logs()
+    trainer = _fusion_test_run(smi, root / "fusion")
+    finetune, frozen = _fusion_finetune(smi, root / "fusion_finetune",
+                                        vlp_best)
+    torch.cuda.empty_cache()
+    return ({"fusion_resnet34_train": r34, "fusion_nest_train": nest,
+             "fusion_trainer": trainer, "fusion_finetune_trainer": finetune,
+             "fusion_frozen_encoder_trainer": frozen},
+            {"fusion_resnet34_serve": serve_r34,
+             "fusion_nest_serve": serve_nest})
 
 
 def main() -> int:
@@ -2965,9 +3314,16 @@ def main() -> int:
     t20 = time.perf_counter()
     vlp = phase_vlp(smi)
     t21 = time.perf_counter()
-    trainers = phase_trainer(smi)
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_trainer_"))
+    try:
+        trainers, vlp_best = phase_trainer(smi, root)
+        t22 = time.perf_counter()
+        fusion, fusion_serves = phase_fusion(smi, root, vlp_best)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
     print(f"phases 3-19: {t20 - t0:.1f} s; phase 20: {t21 - t20:.1f} s; "
-          f"phase 21: {time.perf_counter() - t21:.1f} s")
+          f"phase 21: {t22 - t21:.1f} s; phase 22: "
+          f"{time.perf_counter() - t22:.1f} s")
     # kernel -> (source, the TPU kernel it replaces, the training path whose
     # launches and per-step times the line gives)
     sources = {
@@ -3005,10 +3361,10 @@ def main() -> int:
     paths = {"nest_train": nest, "vit_b_train": vit,
              "nest_unfused_train": unfused, "nest_nhwc_train": nhwc,
              "resnet34_train": r34, "xrv_resnet50_train": xrv,
-             "vlp_resnet34_tinybert_train": vlp, **trainers}
+             "vlp_resnet34_tinybert_train": vlp, **trainers, **fusion}
     serves = {"nest_serve": serve, "vit_b_serve": serve_vit,
               "nest_nhwc_serve": serve_nhwc, "resnet34_serve": serve_r34,
-              "xrv_resnet50_serve": serve_xrv}
+              "xrv_resnet50_serve": serve_xrv, **fusion_serves}
     kernels = []
     for name, (source, replaces, path) in sources.items():
         stat = _finish(stats[name], FP32_FLOPS if name in (

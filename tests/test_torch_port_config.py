@@ -11,7 +11,8 @@ import cv2
 import numpy as np
 import pytest
 
-from vlp_tpu.config import Config, apply_overrides, get_experiment
+from vlp_tpu.config import (Config, apply_overrides, get_experiment,
+                            list_experiments)
 from vlp_tpu.data import preprocess_host as jph
 from vlp_tpu_torch.config import (EXPERIMENTS, NEST_UNFUSED,
                                   TRAIN_EXPERIMENTS, ServeConfig,
@@ -71,14 +72,19 @@ PRETRAIN = ("pretrain_resnet34_tinybert", "pretrain_resnet34_distilbert",
 
 
 def test_the_pretrain_entries_say_what_the_slice_runs():
-    """The eleven pretrain experiments the port runs (each also held
-    against the JAX experiment above), and what each says: the dual tower,
+    """The eleven pretrain experiments the chip checks run (each entry is
+    also held against the JAX experiment above; the tables hold every
+    registered experiment, so the other pretrain ones are there too), and
+    what each says: the dual tower,
     batch 128 at 224 px with 40-token captions, AdamW at 1e-3 under cosine
     with the 5-degree shear; the variants' loss, groups and augmentation;
     the DistilBERT line's embedding 32 and Adam without a schedule."""
     vlp = {k: v for k, v in TRAIN_EXPERIMENTS.items()
            if v.serve.task == "vision_language"}
-    assert sorted(vlp) == sorted(PRETRAIN)
+    assert sorted(vlp) == sorted(
+        n for n in list_experiments()
+        if get_experiment(n).model.task == "vision_language")
+    assert set(PRETRAIN) <= set(vlp)
     main = vlp["pretrain_resnet34_tinybert"]
     assert (main.serve.model, main.serve.text_model) == ("resnet34",
                                                          "tinybert")
@@ -126,8 +132,12 @@ def test_command_line_refuses_what_the_port_would_ignore():
     with pytest.raises(ValueError, match="model.megakernel"):
         serve_config(["experiment=baseline_only_imaging_vit_base",
                       "optimizer.lr=0.1"])
-    with pytest.raises(KeyError, match="not ported"):
-        serve_config(["experiment=baseline_fusion_resnet34"])
+    # every registered experiment resolves, the fusion ones too; an
+    # unknown name raises
+    assert serve_config(["experiment=baseline_fusion_resnet34"]) == \
+        ServeConfig.from_config(get_experiment("baseline_fusion_resnet34"))
+    with pytest.raises(KeyError, match="unknown experiment"):
+        serve_config(["experiment=no_such_experiment"])
     assert serve_config(["experiment=baseline_only_imaging_nest_small",
                          "model.megakernel=false"]) == \
         EXPERIMENTS[NEST_UNFUSED]

@@ -1390,3 +1390,87 @@ def test_trainer_epoch_on_the_card_launches_the_augmentation_kernels(
                    .iterdir())
     assert "last.pt" in names and any(n.startswith("epoch000_")
                                       for n in names)
+
+
+def test_fusion_step_launches_the_augmentation_kernels_and_serves(cuda,
+                                                                 tmp_path):
+    """The fusion step (``baseline_fusion_resnet34`` at batch 8, 224 px,
+    bf16, CORAL 1000, the experiment's noise) on the card: 3 ``shear_rows``
+    + 1 ``add_gaussian_noise`` launches and no other kernel, finite loss
+    and gradients, CORAL above 0, the clinical BatchNorms' running
+    statistics moving; a checkpoint of the trained model served back by
+    ``Predictor`` gives the task's own logits, ``clinical=None`` zeros."""
+    import dataclasses
+
+    import numpy as np
+
+    from vlp_tpu_torch.config import TRAIN_EXPERIMENTS
+    from vlp_tpu_torch.serve import Predictor
+    from vlp_tpu_torch.train.setup import batch_for, build_training
+    from vlp_tpu_torch.train.step import to_device, train_steps
+    from vlp_tpu_torch.utils import checkpoint as ckpt
+
+    tcfg = dataclasses.replace(TRAIN_EXPERIMENTS["baseline_fusion_resnet34"],
+                               batch_size=8)
+    task, state, step = build_training(tcfg, cuda, 10)
+    batch = batch_for(tcfg, np.random.default_rng(0), 8)
+    assert batch["clinical"].shape == (8, 15)
+    kernels = (*FB.KERNELS, *BA.KERNELS, *FM.KERNELS, SH.shear_rows,
+               NZ.add_gaussian_noise, *CV.KERNELS, *BG.KERNELS,
+               *MT.KERNELS, *AS.KERNELS)
+    for k in kernels:
+        k.launches = 0
+    stats = [b.clone() for b in task.model.clinical_mlp.buffers()]
+    (aux,) = train_steps(step, state, [batch])
+    torch.cuda.synchronize()
+    assert {k.__name__: k.launches for k in kernels if k.launches} == {
+        "shear_rows": 3, "add_gaussian_noise": 1}
+    assert torch.isfinite(aux["loss"]) and aux["coral"].item() > 0
+    assert all(torch.isfinite(p.grad).all()
+               for p in task.model.parameters())
+    assert all(not torch.equal(a, b) for a, b in
+               zip(stats, task.model.clinical_mlp.buffers()))
+    path = ckpt.save(str(tmp_path / "f.pt"),
+                     {"model": task.model.state_dict()})
+    pred = Predictor(tcfg.serve, None, task.statics.mean, task.statics.std,
+                     batch_size=8, device="cuda", checkpoint=path)
+    want = task.eval_fn(to_device(batch, cuda))["logits"].float().cpu()
+    got = pred.predict_logits(batch["image_u8"], batch["clinical"])
+    assert np.array_equal(got, want.numpy())
+    np.testing.assert_array_equal(
+        pred.predict_logits(batch["image_u8"]),
+        pred.predict_logits(batch["image_u8"], np.zeros((8, 15),
+                                                        np.float32)))
+
+
+def test_test_evaluation_on_the_card_matches_the_command_line(cuda,
+                                                              tmp_path):
+    """``driver.train`` with ``test=true`` (the fusion task, micro ResNet
+    at 64 px, 4 folds x 1 epoch) on the card writes ``test_eval.csv`` and
+    ``test/*`` in [0, 1]; ``python -m vlp_tpu_torch.eval.test_eval --device
+    cuda`` on the same best checkpoints writes it byte for byte."""
+    import math
+
+    from vlp_tpu_torch.config import apply_overrides, get_experiment
+    from vlp_tpu_torch.eval import test_eval
+    from vlp_tpu_torch.train import driver
+
+    overrides = ["model.task=fusion", "model.model=resnet_micro",
+                 "data.image_size=64", "data.batch_size=8",
+                 "data.synthetic_num_samples=64",
+                 "k_fold_cross_validation=true", "trainer.max_epochs=1",
+                 f"output_dir={tmp_path}"]
+    cfg = apply_overrides(get_experiment("smoke_synthetic_only_imaging"),
+                          overrides + ["test=true"])
+    agg = driver.train(cfg, "cuda")
+    test = {k: v for k, v in agg.items() if k.startswith("test/")}
+    assert len(test) == 6
+    assert all(math.isnan(v) or 0.0 <= v <= 1.0 for v in test.values())
+    best = [p for _, p in driver.best_checkpoints(str(tmp_path))]
+    assert len(best) == 4
+    out = tmp_path / "cli.csv"
+    assert test_eval.main(["--output-file", str(out), "--device", "cuda",
+                           "--checkpoints", *best,
+                           "experiment=smoke_synthetic_only_imaging",
+                           *overrides]) == 0
+    assert out.read_bytes() == (tmp_path / "test_eval.csv").read_bytes()

@@ -153,3 +153,44 @@ def test_training_cli_starts_with_jax_and_the_host_stack_absent(tmp_path):
                          timeout=300)
     assert out.returncode == 0, out.stderr
     assert "--device" in out.stdout
+
+
+def test_fusion_and_eval_modules_load_with_the_host_stack_absent(tmp_path):
+    """The fusion heads, the eval package, the console entry points and
+    ``python -m vlp_tpu_torch.eval.test_eval --help`` where none of JAX,
+    pandas, scikit-learn, matplotlib, cv2 or the JAX package can be
+    imported; a fusion model serves and its subgroup table is written."""
+    blocked = FORBIDDEN + ("matplotlib", "vlp_tpu")
+    code = (
+        "import runpy, sys\n"
+        f"sys.modules.update(dict.fromkeys({blocked!r}))\n"
+        "import numpy as np\n"
+        "import vlp_tpu_torch.models.heads, vlp_tpu_torch.eval, "
+        "vlp_tpu_torch.cli\n"
+        "from vlp_tpu_torch.config import EXPERIMENTS\n"
+        "from vlp_tpu_torch.eval.subgroup import evaluate_results, "
+        "predictions_frame\n"
+        "from vlp_tpu_torch.data.synthetic import make_synthetic_downstream\n"
+        "from vlp_tpu_torch.serve import Predictor\n"
+        "import dataclasses\n"
+        "cfg = dataclasses.replace(EXPERIMENTS['baseline_fusion_resnet34'], "
+        "model='resnet_micro', image_size=16)\n"
+        "p = Predictor(cfg, None, 128.0, 64.0, batch_size=2, device='cpu')\n"
+        "imgs = np.zeros((3, 16, 16), np.uint8)\n"
+        "probs = p.predict_arrays(imgs, np.ones((3, 15), np.float32))\n"
+        "samples, _ = make_synthetic_downstream(3, 16)\n"
+        "evaluate_results('t.csv', [predictions_frame(probs, samples)])\n"
+        "sys.argv = ['test_eval', '--help']\n"
+        "try:\n"
+        "    runpy.run_module('vlp_tpu_torch.eval.test_eval', "
+        "run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    assert e.code == 0\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(tmp_path),
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "--checkpoints" in out.stdout and "--device" in out.stdout
+    assert (tmp_path / "t.csv").read_text().startswith(
+        "level,group,fold,metric,value\n")

@@ -121,10 +121,16 @@ def test_unported_backbones_and_tasks_raise():
     # is refused as the JAX registry refuses it
     with pytest.raises(ValueError, match="Unknown backbone"):
         create_backbone("resnet101")
+    # the fusion task is ported: the experiment's backbone under the
+    # fusion heads
+    from vlp_tpu_torch.models.tasks import FusionTask
+
     cfg = apply_overrides(get_experiment("baseline_only_imaging_nest_small"),
                           ["model.task=fusion"])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tbuild(cfg, TStatics())
+    task = tbuild(cfg, TStatics())
+    assert isinstance(task, FusionTask)
+    assert type(task.model.backbone).__name__ == "NesT"
+    assert task.model.image_head.weight.shape == (384, 10)
     # the vision-language task is ported: the dual tower of the experiment
     from vlp_tpu_torch.models.tasks import VisionLanguageTask
 

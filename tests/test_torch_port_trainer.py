@@ -228,7 +228,6 @@ def test_config_fingerprint_and_checks(tmp_path):
     for overrides, err in ((["mesh.data_parallel=2"], ValueError),
                            (["mesh.model_parallel=2"], ValueError),
                            (["mesh.param_sharding=tp"], ValueError),
-                           (["test=true"], NotImplementedError),
                            (["ckpt_path=x", "k_fold_cross_validation=true"],
                             ValueError),
                            (["data.name=downstream"], NotImplementedError)):
@@ -237,6 +236,13 @@ def test_config_fingerprint_and_checks(tmp_path):
         bad.output_dir = str(tmp_path)
         with pytest.raises(err):
             driver.train(bad, "cpu")
+    # test=true runs (the frozen test-set evaluation after the folds) and
+    # stays out of the fingerprint
+    good = get_experiment("smoke_synthetic_only_imaging")
+    fp = driver._config_fingerprint(good)
+    good.test = True
+    driver._check_config(good)
+    assert driver._config_fingerprint(good) == fp
 
 
 # the subprocess cannot import these: the machine with the card has none

@@ -21,5 +21,8 @@ augmentation's); the probe kernels (``vlp_tpu_torch.probes``); and the
 training entry point, ``python -m vlp_tpu_torch.train`` (the config tree
 and experiment registry, the synthetic data modules and the device
 loader, the ``Trainer`` with its metrics, callbacks and checkpoints, the
-k-fold driver). ROADMAP.md lists what follows.
+k-fold driver); the late-fusion task (the clinical MLP and the fusion
+head), the frozen test-set evaluation (``test=true``,
+``vlp_tpu_torch.eval``) and serving the trainer's checkpoints. ROADMAP.md
+lists what follows.
 """

@@ -4,7 +4,7 @@ read of them.
 ``vlp_tpu_torch.config.core`` is the port's copy of the JAX package's config
 tree, experiment registry and overrides (``Config``, ``get_experiment``,
 ``apply_overrides``), and ``vlp_tpu_torch.config.experiments`` registers
-the same 62 experiments; ``tests/test_torch_port_experiments.py`` holds each
+the same 61 experiments; ``tests/test_torch_port_experiments.py`` holds each
 one's ``to_dict()`` against ``vlp_tpu.config.get_experiment``. Nothing here
 imports the JAX package: the machine with the card runs without it.
 The serving path needs only the model's and the input's fields (the dual
@@ -12,12 +12,12 @@ tower's among them), so it takes them as a ``ServeConfig``, and the
 training step adds the optimizer, schedule, parameter-group, caption
 length and augmentation fields in a ``TrainConfig``; ``from_config`` reads
 them off a ``Config`` (the port's, or the JAX package's in tests).
-``EXPERIMENTS`` and ``TRAIN_EXPERIMENTS`` hold the values of the
-experiments the chip checks run (keyed by the experiment name, or by the
-name and an override as the command line gives them), and tests hold each
-entry against ``from_config`` of the port's own registry and of
-``get_experiment``. ``serve_config`` resolves a command line's
-``experiment=`` and overrides of the serving fields.
+``EXPERIMENTS`` and ``TRAIN_EXPERIMENTS`` are ``from_config`` of every
+registered experiment, keyed by its name, and of ``NEST_UNFUSED``, keyed
+by the name and its override as a command line gives them; tests hold
+each entry against the JAX package's ``get_experiment``.
+``serve_config`` resolves a command line's ``experiment=`` and overrides
+of the serving fields.
 """
 from __future__ import annotations
 
@@ -161,8 +161,8 @@ def serve_config(overrides: List[str]) -> ServeConfig:
     names = [o.split("=", 1)[1] for o in overrides
              if o.startswith("experiment=")]
     if names and names[-1] not in EXPERIMENTS:
-        raise KeyError(f"experiment {names[-1]!r} is not ported; ported: "
-                       f"{sorted(EXPERIMENTS)}")
+        raise KeyError(f"unknown experiment {names[-1]!r}; available: "
+                       f"{list_experiments()}")
     cfg = EXPERIMENTS[names[-1]] if names else ServeConfig()
     for item in overrides:
         if item.startswith("experiment="):
@@ -178,113 +178,19 @@ def serve_config(overrides: List[str]) -> ServeConfig:
 
 
 NEST_UNFUSED = "baseline_only_imaging_nest_small model.megakernel=false"
-
-EXPERIMENTS: Dict[str, ServeConfig] = {
-    # vlp_tpu/config/experiments/__init__.py:35-40 (model nest_small) on
-    # baseline_only_imaging_resnet34 (:17-32, crop_larger_dimension) and the
-    # Config defaults (224x224, 3 channels, bf16)
-    "baseline_only_imaging_nest_small": ServeConfig(model="nest_small",
-                                                    crop=True),
-    # the same with the half-block kernels off (config/core.py:57-60): the
-    # unfused block path, attend_qkv and fused_mlp
-    NEST_UNFUSED: ServeConfig(model="nest_small", crop=True,
-                              megakernel=False),
-    # :258-264 and :384-390 on baseline_only_imaging_resnet34
-    "baseline_only_imaging_vit_base": ServeConfig(
-        model="vit_base_patch16_224", crop=True),
-    "baseline_only_imaging_vit_large": ServeConfig(
-        model="vit_large_patch16_224", crop=True),
-    # :16-32
-    "baseline_only_imaging_resnet34": ServeConfig(model="resnet34",
-                                                  crop=True),
-    # :43-57: the torchxrayvision ResNet50 on 1-channel images with the
-    # intensity scaling; the port runs it from random init (pretrained=True
-    # needs weights that are not in the repository)
-    "baseline_only_imaging_xrv_resnet50": ServeConfig(
-        model="resnet50-res512-all", in_channels=1, scale_intensity=True),
-}
-
-# VLP pretraining (vlp_tpu/config/experiments/__init__.py:90-139,
-# _pretrain_common): the dual tower, embedding 128, 224x224, bf16
+# VLP pretraining, the experiment the chip checks and bench.py run
 PRETRAIN = "pretrain_resnet34_tinybert"
-_VLP = ServeConfig(task="vision_language", model="resnet34",
-                   text_model="tinybert")
-EXPERIMENTS.update({
-    PRETRAIN: _VLP,
-    "pretrain_resnet34_distilbert": dataclasses.replace(
-        _VLP, text_model="distilbert"),
-    "pretrain_resnet18_tinybert": dataclasses.replace(_VLP,
-                                                      model="resnet18"),
-    "pretrain_resnet50_distilbert": dataclasses.replace(
-        _VLP, model="resnet50", text_model="distilbert"),
-    # :266-281, the deprecated loss variants
-    "pretrain_resnet34_tinybert_masked_loss": dataclasses.replace(
-        _VLP, loss_variant="masked"),
-    "pretrain_resnet34_tinybert_non_square_loss": dataclasses.replace(
-        _VLP, loss_variant="non_square"),
-    # :284-305, parameter groups; :308-311, augmentation off
-    "pretrain_resnet34_tinybert_frozen_text": _VLP,
-    "pretrain_resnet34_tinybert_split_lr": _VLP,
-    "pretrain_resnet34_tinybert_no_augs": _VLP,
-    # :474-533, the reference's DistilBERT line: embedding 32
-    "pretrain_resnet34_distilbert_masked": dataclasses.replace(
-        _VLP, text_model="distilbert", embedding_dim=32,
-        loss_variant="masked"),
-    "pretrain_resnet34_distilbert_dedup": dataclasses.replace(
-        _VLP, text_model="distilbert", embedding_dim=32),
-})
 
-_LR = 1.2925748253710286e-4
 
+def _experiment(key: str) -> Config:
+    """The Config a key names: the experiment, then the overrides written
+    after it (``NEST_UNFUSED``)."""
+    name, *overrides = key.split(" ")
+    return apply_overrides(get_experiment(name), overrides)
+
+
+_KEYS = sorted(list_experiments()) + [NEST_UNFUSED]
+EXPERIMENTS: Dict[str, ServeConfig] = {
+    key: ServeConfig.from_config(_experiment(key)) for key in _KEYS}
 TRAIN_EXPERIMENTS: Dict[str, TrainConfig] = {
-    # baseline_only_imaging_resnet34 (:17-32): batch 64, lr 1.29e-4,
-    # cosine_warmup; nest_small sets coral_lambda 0 (:35-40); AdamW and the
-    # 4 warmup of 10 epochs are the Config defaults (config/core.py:19-35,124)
-    "baseline_only_imaging_nest_small": TrainConfig(
-        serve=EXPERIMENTS["baseline_only_imaging_nest_small"],
-        lr=_LR, scheduler="cosine_warmup", batch_size=64),
-    NEST_UNFUSED: TrainConfig(serve=EXPERIMENTS[NEST_UNFUSED], lr=_LR,
-                              scheduler="cosine_warmup", batch_size=64),
-    # vit_base sets batch 32 (:263)
-    "baseline_only_imaging_vit_base": TrainConfig(
-        serve=EXPERIMENTS["baseline_only_imaging_vit_base"], lr=_LR,
-        scheduler="cosine_warmup", batch_size=32),
-    "baseline_only_imaging_vit_large": TrainConfig(
-        serve=EXPERIMENTS["baseline_only_imaging_vit_large"], lr=_LR,
-        scheduler="cosine_warmup", batch_size=64),
-    # CORAL between dataset 0 and dataset 1 with weight 1000 (:22)
-    "baseline_only_imaging_resnet34": TrainConfig(
-        serve=EXPERIMENTS["baseline_only_imaging_resnet34"], lr=_LR,
-        scheduler="cosine_warmup", batch_size=64, coral_lambda=1000.0),
-    "baseline_only_imaging_xrv_resnet50": TrainConfig(
-        serve=EXPERIMENTS["baseline_only_imaging_xrv_resnet50"],
-        lr=9.142907e-4, scheduler="cosine_warmup", batch_size=32),
-}
-
-# batch 128, AdamW at lr 1e-3 under cosine, the 5-degree shear on
-# (_pretrain_common); the DistilBERT line: Adam, no schedule, 60 epochs
-_VLP_TRAIN = TrainConfig(serve=_VLP, lr=1e-3, scheduler="cosine",
-                         batch_size=128, shear_augmentation=True)
-_DISTILBERT_EMB32 = dict(optimizer="adam", lr=1e-5, scheduler="none",
-                         max_epochs=60)
-TRAIN_EXPERIMENTS.update({
-    name: dataclasses.replace(_VLP_TRAIN, serve=EXPERIMENTS[name])
-    for name in ("pretrain_resnet34_tinybert", "pretrain_resnet34_distilbert",
-                 "pretrain_resnet18_tinybert", "pretrain_resnet50_distilbert",
-                 "pretrain_resnet34_tinybert_masked_loss",
-                 "pretrain_resnet34_tinybert_non_square_loss")})
-TRAIN_EXPERIMENTS.update({
-    "pretrain_resnet34_tinybert_frozen_text": dataclasses.replace(
-        _VLP_TRAIN, text_encoder_lr=0.0),
-    "pretrain_resnet34_tinybert_split_lr": dataclasses.replace(
-        _VLP_TRAIN, image_encoder_lr=1e-4, text_encoder_lr=1e-5,
-        projection_lr=1e-3),
-    "pretrain_resnet34_tinybert_no_augs": dataclasses.replace(
-        _VLP_TRAIN, disable_augmentations=True),
-    "pretrain_resnet34_distilbert_masked": dataclasses.replace(
-        _VLP_TRAIN, serve=EXPERIMENTS["pretrain_resnet34_distilbert_masked"],
-        **{**_DISTILBERT_EMB32, "lr": 1e-4}),
-    "pretrain_resnet34_distilbert_dedup": dataclasses.replace(
-        _VLP_TRAIN, serve=EXPERIMENTS["pretrain_resnet34_distilbert_dedup"],
-        disable_augmentations=True, **_DISTILBERT_EMB32),
-})
+    key: TrainConfig.from_config(_experiment(key)) for key in _KEYS}

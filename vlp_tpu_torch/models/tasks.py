@@ -1,20 +1,27 @@
-"""The imaging-only classifier and the vision-language pretraining tasks
-(counterparts of ``OnlyImagingTask`` and ``VisionLanguageTask`` in
-``vlp_tpu/models/tasks.py``).
+"""The imaging-only classifier, the late-fusion and the vision-language
+pretraining tasks (counterparts of ``OnlyImagingTask``, ``FusionTask`` and
+``VisionLanguageTask`` in ``vlp_tpu/models/tasks.py``).
 
 ``OnlyImagingTask``: augmentation or normalisation, backbone, a 1-logit
 head, the weighted masked BCE of ``loss_fn`` with the CORAL term between
 the features of dataset 0 (source) and dataset 1 (target) when
 ``coral_lambda > 0``, and the per-sample outputs of ``eval_fn``.
+``FusionTask``: the same with ``FusionModel``, which also takes the batch's
+15-dim ``clinical`` vector (backbone -> ``image_head`` Dense(F, 10);
+``ClinicalMLP``; ``FusionHead`` over both); CORAL acts on the backbone
+features. As in the JAX package, ``FusionModel`` fixes the clinical input
+at 15, its widths at (32, 20, 10) and the image head at 10:
+``model.clinical_in_dim``, ``model.clinical_hidden`` and
+``model.image_feature_out`` are read by neither.
 ``VisionLanguageTask``: the same augmentation (``shear_rows`` and
 ``add_gaussian_noise``), the dual tower (``models/vlm.py``) and the CLIP
 loss that ``loss_variant`` names (``symmetric_infonce``, ``masked`` or
 ``non_square``). Pretrain batches hold ``image_u8``, ``input_ids``,
 ``attention_mask``, ``caption_id`` and ``mask``. A task sets the model's
 mode as the JAX task passes ``train=``: ``loss_fn`` in training mode
-(BatchNorm on batch statistics, running statistics updated), the other
-entry points in eval mode under ``inference_mode``. The fusion task is not
-ported yet (ROADMAP.md)."""
+(BatchNorm on batch statistics, padded rows included as in flax, running
+statistics updated), the other entry points in eval mode under
+``inference_mode``."""
 from __future__ import annotations
 
 import dataclasses
@@ -24,6 +31,7 @@ import torch
 from torch import nn
 
 from vlp_tpu_torch.config import ServeConfig, TrainConfig, as_serve_config
+from vlp_tpu_torch.models.heads import ClinicalMLP, FusionHead
 from vlp_tpu_torch.models.registry import create_backbone
 from vlp_tpu_torch.models.vit import Dense
 from vlp_tpu_torch.models.vlm import VisionLanguageModel
@@ -64,6 +72,30 @@ class OnlyImagingModel(nn.Module):
         return self.head(feats).squeeze(-1), feats
 
 
+class FusionModel(nn.Module):
+    """Backbone -> ``image_head`` (fp32 Dense(F, 10)); ``clinical_mlp``
+    over the clinical vector; ``fusion_head`` over both. Returns (logits
+    [B], backbone features)."""
+
+    def __init__(self, backbone_name: str, dtype: torch.dtype,
+                 in_chans: int = 3,
+                 device: Optional[torch.device] = None,
+                 **backbone_kw) -> None:
+        super().__init__()
+        self.backbone, self.feature_dim = create_backbone(
+            backbone_name, dtype=dtype, in_chans=in_chans, device=device,
+            **backbone_kw)
+        self.image_head = Dense(self.feature_dim, 10, device)
+        self.clinical_mlp = ClinicalMLP(device=device)
+        self.fusion_head = FusionHead(device=device)
+
+    def forward(self, images: torch.Tensor, clinical: torch.Tensor):
+        feats = self.backbone(images)
+        out = self.fusion_head(self.image_head(feats.float()),
+                               self.clinical_mlp(clinical))
+        return out.squeeze(-1), feats
+
+
 def _backbone_kw(cfg: ServeConfig) -> dict:
     return dict(fused_attention=cfg.fused_attention,
                 megakernel=cfg.megakernel, remat=cfg.remat, stem=cfg.stem,
@@ -95,14 +127,20 @@ class _ImageTask:
 
 
 class OnlyImagingTask(_ImageTask):
+    model_class = OnlyImagingModel
+
     def __init__(self, cfg: ServeConfig, statics: TaskStatics,
                  device: Optional[torch.device] = None,
                  coral_lambda: float = 0.0) -> None:
         super().__init__(cfg, statics)
         self.coral_lambda = float(coral_lambda)
-        self.model = OnlyImagingModel(
+        self.model = self.model_class(
             cfg.model, self.dtype, statics.out_channels, device,
             **_backbone_kw(cfg))
+
+    def _apply(self, images: torch.Tensor, batch: Dict[str, torch.Tensor]):
+        """(logits, features) of the model on prepared images."""
+        return self.model(images)
 
     def loss_fn(self, batch: Dict[str, torch.Tensor], gen: torch.Generator
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -112,7 +150,7 @@ class OnlyImagingTask(_ImageTask):
         between the features of dataset 0 and dataset 1. Returns (loss,
         {logits, labels, mask, bce, [coral,] loss})."""
         self.model.train()
-        logits, feats = self.model(self._prep_train(batch, gen))
+        logits, feats = self._apply(self._prep_train(batch, gen), batch)
         labels = batch["label"].float()
         mask = batch.get("mask", torch.ones_like(labels))
         w = losses.per_sample_class_weights(labels,
@@ -133,7 +171,7 @@ class OnlyImagingTask(_ImageTask):
                 ) -> Dict[str, torch.Tensor]:
         """Eval mode (running statistics, nothing updated)."""
         self.model.eval()
-        logits, _ = self.model(self._prep_eval(batch))
+        logits, _ = self._apply(self._prep_eval(batch), batch)
         labels = batch["label"].float()
         mask = batch.get("mask", torch.ones_like(labels))
         w = losses.per_sample_class_weights(labels,
@@ -146,8 +184,19 @@ class OnlyImagingTask(_ImageTask):
     def features_fn(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         """Pooled backbone features, in eval mode."""
         self.model.eval()
-        _, feats = self.model(self._prep_eval(batch))
+        _, feats = self._apply(self._prep_eval(batch), batch)
         return feats
+
+
+class FusionTask(OnlyImagingTask):
+    """Imaging + clinical late fusion: ``OnlyImagingTask``'s loss, eval and
+    features with ``FusionModel``, which also reads ``batch["clinical"]``
+    [B, 15]; CORAL on the backbone features."""
+
+    model_class = FusionModel
+
+    def _apply(self, images: torch.Tensor, batch: Dict[str, torch.Tensor]):
+        return self.model(images, batch["clinical"])
 
 
 LOSS_VARIANTS = ("symmetric_infonce", "masked", "non_square")
@@ -240,10 +289,8 @@ def build_task(cfg, statics: TaskStatics,
     cfg = as_serve_config(cfg)
     if cfg.task == "only_imaging":
         return OnlyImagingTask(cfg, statics, device, coral)
+    if cfg.task == "fusion":
+        return FusionTask(cfg, statics, device, coral)
     if cfg.task == "vision_language":
         return VisionLanguageTask(cfg, statics, device)
-    if cfg.task == "fusion":
-        raise NotImplementedError(
-            f"task {cfg.task!r} is not ported to vlp_tpu_torch yet; "
-            "see ROADMAP.md")
     raise ValueError(f"unknown task {cfg.task!r}")

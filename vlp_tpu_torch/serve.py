@@ -1,19 +1,27 @@
 """Batch inference / serving entry point of the port (counterpart of
 ``vlp_tpu/serve.py``).
 
-Loads weights exported from a JAX checkpoint (``scripts/export_flax_params
-.py``), preprocesses raw images with the port's copy of the deterministic
-host pipeline (``vlp_tpu_torch.data.preprocess_host``), and runs
-fixed-shape batches on one device: a directory of images through the CLI,
-or arrays through ``Predictor`` for embedding in a server.
+Loads a checkpoint that the port's trainer wrote (``--checkpoint``, a
+``.pt``) or weights exported from a JAX checkpoint (``--weights``, the
+``.npz`` of ``scripts/export_flax_params.py``), preprocesses raw images
+with the port's copy of the deterministic host pipeline
+(``vlp_tpu_torch.data.preprocess_host``), and runs fixed-shape batches on
+one device: a directory of images through the CLI, or arrays through
+``Predictor`` for embedding in a server. It serves the classifiers, the
+imaging-only and the late-fusion task; the fusion model's clinical vectors
+come from the caller (``predict_arrays(images, clinical)``), zeros where
+none is given, as the JAX ``Predictor`` fills them. The vision-language
+task has no logits and is refused.
 
 Usage:
-  python -m vlp_tpu_torch.serve --weights weights.npz --images dir/ \
-      --output preds.csv [experiment=<name>] [overrides] [--mean M --std S]
+  python -m vlp_tpu_torch.serve (--checkpoint ck.pt | --weights w.npz) \
+      --images dir/ --output preds.csv [experiment=<name>] [overrides] \
+      [--mean M --std S]
 
 ``experiment`` names an entry of ``vlp_tpu_torch.config.EXPERIMENTS``
-(``baseline_only_imaging_nest_small``, ``baseline_only_imaging_vit_base``,
-...); the overrides are those of the serving fields
+(every registered experiment: ``baseline_only_imaging_nest_small``,
+``baseline_fusion_resnet34``, ...); the overrides are those of the serving
+fields
 (``config.SERVE_OVERRIDES``: ``model.megakernel=false``,
 ``model.fused_attention=...``, ``data.image_size=...``, ...). Any other
 override raises rather than being ignored.
@@ -32,38 +40,51 @@ import torch
 
 from vlp_tpu_torch.config import as_serve_config, serve_config
 from vlp_tpu_torch.convert import load_weights
+from vlp_tpu_torch.data.encoding import CLINICAL_DIM
 from vlp_tpu_torch.data.preprocess_host import preprocess_image
 from vlp_tpu_torch.models.tasks import TaskStatics, build_task
 from vlp_tpu_torch.models.vit import flax_init_
+from vlp_tpu_torch.utils.checkpoint import restore_raw
+
+CLASSIFIER_TASKS = ("only_imaging", "fusion")
 
 
 class Predictor:
     """Model + batched predict with a fixed batch shape (ragged tails are
     padded, so every call runs the same shapes).
 
-    ``cfg``: a ``vlp_tpu_torch.config.ServeConfig`` or a
-    ``vlp_tpu.config.Config``. ``weights``: a ``.npz`` from
-    ``scripts/export_flax_params.py``; ``None`` initialises random weights at
-    the flax initializers' scales from a generator seeded with 0."""
+    ``cfg``: a ``vlp_tpu_torch.config.ServeConfig`` or a ``Config``.
+    ``weights``: a ``.npz`` from ``scripts/export_flax_params.py``;
+    ``checkpoint``: a ``.pt`` the port's trainer wrote (its ``model``
+    entry, loaded strictly); neither initialises random weights at the
+    flax initializers' scales from a generator seeded with 0."""
 
     def __init__(self, cfg, weights: Optional[str], mean: float,
                  std: float, batch_size: int = 64,
-                 device: Union[str, torch.device] = "cuda") -> None:
+                 device: Union[str, torch.device] = "cuda",
+                 checkpoint: Optional[str] = None) -> None:
         self.cfg = cfg = as_serve_config(cfg)
-        if cfg.task != "only_imaging":
-            raise ValueError(f"Predictor serves the imaging classifier; "
-                             f"task {cfg.task!r} has no logits")
+        if cfg.task not in CLASSIFIER_TASKS:
+            raise ValueError(f"Predictor serves the classifiers "
+                             f"{CLASSIFIER_TASKS}; task {cfg.task!r} has "
+                             "no logits")
+        if weights is not None and checkpoint is not None:
+            raise ValueError("give weights (.npz) or checkpoint (.pt), "
+                             "not both")
         self.batch_size = batch_size
         self.device = torch.device(device)
         self.statics = TaskStatics(
             mean=mean, std=std, out_channels=cfg.in_channels,
             scale_intensity=cfg.scale_intensity)
         self.task = build_task(cfg, self.statics, self.device)
-        if weights is None:
+        if checkpoint is not None:
+            self.task.model.load_state_dict(restore_raw(checkpoint)["model"],
+                                            strict=True)
+        elif weights is not None:
+            load_weights(self.task.model, weights)
+        else:
             flax_init_(self.task.model,
                        torch.Generator(device=self.device).manual_seed(0))
-        else:
-            load_weights(self.task.model, weights)
 
     def _batch(self, images_u8: np.ndarray,
                clinical: Optional[np.ndarray]) -> Dict[str, torch.Tensor]:
@@ -71,7 +92,7 @@ class Predictor:
         m = len(images_u8)
         img = np.zeros((b, s, s), np.uint8)
         img[:m] = images_u8
-        cl = np.zeros((b, 15), np.float32)
+        cl = np.zeros((b, CLINICAL_DIM), np.float32)
         if clinical is not None:
             cl[:m] = clinical
         dev = self.device
@@ -85,7 +106,8 @@ class Predictor:
 
     def predict_logits(self, images_u8: np.ndarray,
                        clinical: Optional[np.ndarray] = None) -> np.ndarray:
-        """[N, S, S] uint8 (already deterministically preprocessed) ->
+        """[N, S, S] uint8 (already deterministically preprocessed) and,
+        for the fusion task, [N, 15] clinical vectors (zeros when None) ->
         [N] fp32 logits."""
         n = images_u8.shape[0]
         logits = np.zeros(n, np.float32)
@@ -118,7 +140,10 @@ def parse_args(argv: Optional[List[str]] = None):
     """(arguments, the ``ServeConfig`` of ``experiment=`` and the
     overrides) of a command line."""
     parser = argparse.ArgumentParser(description=__doc__)
-    parser.add_argument("--weights", required=True,
+    source = parser.add_mutually_exclusive_group(required=True)
+    source.add_argument("--checkpoint",
+                        help=".pt written by python -m vlp_tpu_torch.train")
+    source.add_argument("--weights",
                         help=".npz from scripts/export_flax_params.py")
     parser.add_argument("--images", required=True,
                         help="directory of PNGs (recursive) or one file")
@@ -146,7 +171,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     if not paths:
         raise FileNotFoundError(f"no images under {args.images}")
     predictor = Predictor(cfg, args.weights, args.mean, args.std,
-                          args.batch_size, args.device)
+                          args.batch_size, args.device,
+                          checkpoint=args.checkpoint)
     probs = predictor.predict_files(paths)
     with open(args.output, "w", newline="") as fh:
         writer = csv.writer(fh)

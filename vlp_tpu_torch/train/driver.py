@@ -13,23 +13,27 @@ checkpoint saves, ``time/train_s``, ``time/validate_s``,
 ``cv_summary.json``.
 VLP runs add the downstream linear probe and precision@k callbacks
 (src/train.py:126-135) and, after fit, precision@k of the best checkpoint
-over the whole downstream set (src/train.py:187-211). A classifier with
-``model.pretrained_ckpt`` starts its backbone from a VLP checkpoint's image
-tower (BatchNorm's running statistics included).
+over the whole downstream set (src/train.py:187-211). A classifier (the
+imaging-only or the fusion model) with ``model.pretrained_ckpt`` starts its
+backbone from a VLP checkpoint's image tower (BatchNorm's running
+statistics included); its heads and clinical branch keep their init.
+With ``test=true`` a classifier run then evaluates each fold's best
+checkpoint on the frozen test split (``eval.test_eval``), writes
+``<output_dir>/test_eval.csv`` and adds ``test/<metric>``, the mean over
+folds of the overall rows, to the returned aggregate.
 
 It runs on ``cuda`` unless ``--device cpu`` is given (the tests give it);
 there is no fallback to the CPU. One device: a ``mesh.*`` that asks for
 more raises (ROADMAP Queue 1 item 14). Not ported, each in ROADMAP Queue 1
-item 15: ``test=true`` (the frozen test-set evaluation writes its tables
-through pandas) raises; the post-fit t-SNE and confusion plots (matplotlib,
-scikit-learn) are left out with a log line, so a fold's summary lacks
-their keys. The real datasets wait for their files; the synthetic ones
-run.
+item 15 (b): the post-fit t-SNE and confusion plots (matplotlib, scikit-learn)
+are left out with a log line, so a fold's summary lacks their keys. The
+real datasets wait for their files; the synthetic ones run.
 """
 from __future__ import annotations
 
 import argparse
 import copy
+import glob
 import hashlib
 import json
 import os
@@ -40,6 +44,8 @@ import torch
 
 from vlp_tpu_torch.config import Config, TrainConfig, apply_overrides
 from vlp_tpu_torch.data.datamodule import DownstreamData, build_datamodule
+from vlp_tpu_torch.eval.subgroup import evaluate_results
+from vlp_tpu_torch.eval.test_eval import collect_probs
 from vlp_tpu_torch.models.tasks import build_task
 from vlp_tpu_torch.ops.retrieval import label_precision_at_k
 from vlp_tpu_torch.train.callbacks import (DownstreamPrecisionAtK,
@@ -56,11 +62,12 @@ XRV = "resnet50-res512-all"
 
 
 def _maybe_warm_start(cfg: Config, trainer: Trainer) -> None:
-    """A classifier's backbone from a VLP checkpoint's image tower
-    (reference OnlyImagingModule.py:75-98), or from a classifier
-    checkpoint's backbone. The torchxrayvision ResNet50's pretrained
-    weights are not in the repository: it starts from random init, as the
-    JAX package's does without them."""
+    """A classifier's backbone (the imaging-only or the fusion model's)
+    from a VLP checkpoint's image tower (reference
+    OnlyImagingModule.py:75-98), or from a classifier checkpoint's
+    backbone; the rest of the model keeps its init. The torchxrayvision
+    ResNet50's pretrained weights are not in the repository: it starts
+    from random init, as the JAX package's does without them."""
     if cfg.model.pretrained and cfg.model.model == XRV:
         logger.warning("model.pretrained: the torchxrayvision weights are "
                        "not in the repository; %s starts from random init",
@@ -181,10 +188,6 @@ def _check_config(cfg: Config) -> None:
             "mesh.param_sharding='tp' shards weights over the model axis, "
             "which needs mesh.model_parallel>1 (not ported: ROADMAP.md "
             "Queue 1 item 14).")
-    if cfg.test:
-        raise NotImplementedError(
-            "test=true: the frozen test-set evaluation writes its tables "
-            "through pandas and is not ported (ROADMAP.md Queue 1 item 15)")
 
 
 def train(cfg: Config, device="cuda") -> Dict[str, float]:
@@ -293,6 +296,80 @@ def train(cfg: Config, device="cuda") -> Dict[str, float]:
     with open(os.path.join(cfg.output_dir, "cv_summary.json"), "w") as fh:
         json.dump(agg, fh, indent=2)
     logger.info("CV aggregate: %s", {k: round(v, 4) for k, v in agg.items()})
+    if cfg.test and not is_vlp:
+        agg.update(_evaluate_test_set(cfg, dm, device))
+    return agg
+
+
+def _fold_number(path: str) -> int:
+    return int(os.path.basename(path)[len("fold"):])
+
+
+def best_checkpoints(output_dir: str) -> List[tuple]:
+    """(fold index, best ``.pt``) of each ``checkpoints/fold<i>`` directory,
+    in numeric order (fold10 after fold2). The best path is the one ``last``'s
+    sidecar records, trusted only if no ``epoch*.pt`` is newer than the
+    sidecar by more than 1 s (a later run in the same directory would
+    otherwise be shadowed by an earlier run's sidecar); else the newest
+    ``epoch*.pt`` by mtime, with a warning. A directory without a
+    checkpoint is skipped with a warning."""
+    out = []
+    for fold_dir in sorted(
+            glob.glob(os.path.join(output_dir, "checkpoints", "fold*")),
+            key=_fold_number):
+        paths = [p for p in glob.glob(os.path.join(fold_dir, "epoch*.pt"))
+                 if os.path.isfile(p)]
+        meta = ckpt.load_meta(os.path.join(fold_dir, "last.pt"))
+        meta_path = os.path.join(fold_dir, "last.pt.meta.json")
+        fresh = meta is not None and all(
+            os.path.getmtime(p) <= os.path.getmtime(meta_path) + 1.0
+            for p in paths)
+        best = None
+        if fresh and meta.get("checkpoint_best_path") and \
+                os.path.isfile(meta["checkpoint_best_path"]):
+            best = meta["checkpoint_best_path"]
+        elif paths:
+            best = max(paths, key=os.path.getmtime)
+            if len(paths) > 1 or meta is not None:
+                logger.warning(
+                    "test=true: %s has a missing or stale sidecar (%d epoch "
+                    "checkpoints on disk); using the newest by mtime: %s",
+                    fold_dir, len(paths), best)
+        if best:
+            out.append((_fold_number(fold_dir), best))
+        else:
+            logger.warning("test=true: %s has no checkpoints; its fold is "
+                           "skipped", fold_dir)
+    return out
+
+
+def _evaluate_test_set(cfg: Config, dm, device) -> Dict[str, float]:
+    """Each fold's best checkpoint on the frozen test split, with that
+    fold's statistics: ``<output_dir>/test_eval.csv`` (its ``fold`` is the
+    checkpoint's position in the list) and ``test/<metric>``, the mean over
+    folds of the overall rows, NaN skipped as pandas' ``mean`` skips it."""
+    ckpts = best_checkpoints(cfg.output_dir)
+    if not ckpts:
+        logger.warning("test=true but no checkpoints found; skipping")
+        return {}
+    frames = [collect_probs(cfg, path, dm, fold, device)
+              for fold, path in ckpts]
+    out_csv = os.path.join(cfg.output_dir, "test_eval.csv")
+    results = evaluate_results(out_csv, frames)
+    overall: Dict[str, List[float]] = {}
+    for level, metric, value in zip(results["level"], results["metric"],
+                                    results["value"]):
+        if level == "overall":
+            overall.setdefault(metric, []).append(value)
+    agg = {}
+    for metric, values in overall.items():
+        v = np.asarray(values, np.float64)
+        n = int((~np.isnan(v)).sum())
+        # pandas' nanmean: the sum with NaN as 0, over the values kept
+        agg[f"test/{metric}"] = float(np.where(np.isnan(v), 0.0, v).sum()
+                                      / n) if n else float("nan")
+    logger.info("Frozen test set: %s (full CSV: %s)",
+                {k: round(v, 4) for k, v in agg.items()}, out_csv)
     return agg
 
 

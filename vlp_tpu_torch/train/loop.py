@@ -36,16 +36,13 @@ import torch
 from vlp_tpu_torch.config import Config, TrainConfig
 from vlp_tpu_torch.data.pipeline import DeviceLoader
 from vlp_tpu_torch.models.tasks import VisionLanguageTask
-from vlp_tpu_torch.models.vit import flax_init_
 from vlp_tpu_torch.ops import metrics as M
 from vlp_tpu_torch.ops.retrieval import (masked_image_text_recall_at_k,
                                          masked_label_precision_at_k)
 from vlp_tpu_torch.train.callbacks import (EarlyStopping, LinearProbeCallback,
                                            MetricSnapshot)
-from vlp_tpu_torch.train.optim import make_optimizer
-from vlp_tpu_torch.train.state import TrainState
-from vlp_tpu_torch.train.step import (collect_over_loader, make_eval_step,
-                                      make_train_step)
+from vlp_tpu_torch.train.setup import init_training
+from vlp_tpu_torch.train.step import collect_over_loader, make_eval_step
 from vlp_tpu_torch.utils import checkpoint as ckpt
 from vlp_tpu_torch.utils.logging import MemorySink, MetricSink, get_logger
 from vlp_tpu_torch.utils.profiling import trace
@@ -85,14 +82,9 @@ class Trainer:
         self.device = next(task.model.parameters()).device
         self.is_vlp = isinstance(task, VisionLanguageTask)
 
-        flax_init_(task.model,
-                   torch.Generator(device=self.device).manual_seed(cfg.seed))
-        optimizer, schedules = make_optimizer(
-            TrainConfig.from_config(cfg), task.model,
-            max(len(train_loader), 1))
-        self.state = TrainState.create(task.model, optimizer, schedules,
-                                       seed=cfg.seed + 1)
-        self.train_step = make_train_step(task, optimizer, schedules)
+        self.state, self.train_step = init_training(
+            task, TrainConfig.from_config(cfg), max(len(train_loader), 1),
+            seed=cfg.seed, state_seed=cfg.seed + 1)
         self.eval_step = make_eval_step(task)
         self.cache_train_emb = (self.is_vlp
                                 and cfg.trainer.cache_train_embeddings)
@@ -278,7 +270,9 @@ class Trainer:
         mask_sums: List[torch.Tensor] = []
         self._train_cache = {"img": [], "txt": [], "label": [], "mask": []}
         profile = contextlib.nullcontext()
-        if self.cfg.trainer.profile and epoch == self.start_epoch:
+        # the first epoch of a fresh fit only, as the JAX trainer: a
+        # resumed fit opens no trace
+        if self.cfg.trainer.profile and epoch == 0:
             profile = trace(self.cfg.trainer.profile_dir
                             or f"{self.cfg.output_dir}/profile")
         with profile:

@@ -1,9 +1,10 @@
 """A training run of one ported experiment from random weights, on seeded
-batches: the run that ``chip_smoke.py`` (phases 6, 9, 10, 13, 16, 17 and
-20) times and ``scripts/profile_slice.py --mode train`` profiles, built
-here once so that both drive the same step. ``random_batch`` gives the
-imaging tasks' batches, ``random_pretrain_batch`` the vision-language
-task's (``batch_for`` picks the one an experiment takes).
+batches: the run that ``chip_smoke.py`` (phases 6, 9, 10, 13, 16, 17, 20
+and 22) times and ``scripts/profile_slice.py --mode train`` profiles,
+built here once so that both drive the same step. ``random_batch`` gives
+the imaging tasks' batches (with ``random_clinical``'s vectors for the
+fusion task), ``random_pretrain_batch`` the vision-language task's
+(``batch_for`` picks the one an experiment takes).
 """
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ import numpy as np
 import torch
 
 from vlp_tpu_torch.config import TrainConfig
+from vlp_tpu_torch.data.encoding import NUM_ANATOMY_SITES
 from vlp_tpu_torch.data.tokenize import CLS_ID, FIRST_WORD_ID, PAD_ID, SEP_ID
 from vlp_tpu_torch.models.bert import TEXT_CONFIGS
 from vlp_tpu_torch.models.tasks import TaskStatics, build_task
@@ -25,24 +27,36 @@ from vlp_tpu_torch.train.step import make_train_step
 MEAN, STD = 128.0, 64.0
 
 
+def init_training(task, tcfg: TrainConfig, steps_per_epoch: int,
+                  seed: int, state_seed: int
+                  ) -> Tuple[TrainState, Callable]:
+    """(state, step) of a built ``task``: flax-scaled random weights from
+    ``seed``, the optimizer and per-group schedules of ``make_optimizer``,
+    a ``TrainState`` whose generator is seeded with ``state_seed``, and
+    ``make_train_step``'s step. ``build_training`` and the ``Trainer``
+    both build through it."""
+    device = next(task.model.parameters()).device
+    flax_init_(task.model, torch.Generator(device=device).manual_seed(seed))
+    opt, schedules = make_optimizer(tcfg, task.model, steps_per_epoch)
+    state = TrainState.create(task.model, opt, schedules, seed=state_seed)
+    return state, make_train_step(task, opt, schedules)
+
+
 def build_training(tcfg: TrainConfig, device: torch.device,
                    steps_per_epoch: int, seed: int = 0
                    ) -> Tuple[object, TrainState, Callable]:
     """(task, state, step) of ``tcfg`` on ``device``: the task of its
-    ``model.task`` (imaging-only or vision-language) with ``MEAN``/``STD``,
-    the serving fields' channels and intensity scaling and ``tcfg``'s
-    augmentation, flax-scaled random weights from ``seed``, the optimizer
-    and per-group schedules of ``make_optimizer``, a ``TrainState`` whose
-    generator is seeded with ``seed``, and ``make_train_step``'s step."""
+    ``model.task`` (imaging-only, fusion or vision-language) with
+    ``MEAN``/``STD``, the serving fields' channels and intensity scaling
+    and ``tcfg``'s augmentation, then ``init_training`` with weights and
+    generator both from ``seed``."""
     statics = TaskStatics(mean=MEAN, std=STD,
                           out_channels=tcfg.serve.in_channels,
                           scale_intensity=tcfg.serve.scale_intensity,
                           augment=tcfg.augment())
     task = build_task(tcfg, statics, device)
-    flax_init_(task.model, torch.Generator(device=device).manual_seed(seed))
-    opt, schedules = make_optimizer(tcfg, task.model, steps_per_epoch)
-    state = TrainState.create(task.model, opt, schedules, seed=seed)
-    return task, state, make_train_step(task, opt, schedules)
+    state, step = init_training(task, tcfg, steps_per_epoch, seed, seed)
+    return task, state, step
 
 
 def random_batch(rng: np.random.Generator, batch: int,
@@ -55,6 +69,17 @@ def random_batch(rng: np.random.Generator, batch: int,
             "label": rng.integers(0, 2, batch).astype(np.int32),
             "mask": np.ones(batch, np.float32),
             "dataset_id": (np.arange(batch) % 2).astype(np.int32)}
+
+
+def random_clinical(rng: np.random.Generator, batch: int) -> np.ndarray:
+    """[batch, 15] clinical vectors as ``encoding.clinical_vector`` forms
+    them: a one-hot anatomy site, the age's ten-year bin (1-7) and the
+    sex (0 or 1)."""
+    out = np.zeros((batch, NUM_ANATOMY_SITES + 2), np.float32)
+    out[np.arange(batch), rng.integers(0, NUM_ANATOMY_SITES, batch)] = 1.0
+    out[:, -2] = np.minimum(rng.integers(5, 90, batch) // 10 + 1, 7)
+    out[:, -1] = rng.integers(0, 2, batch)
+    return out
 
 
 def random_pretrain_batch(rng: np.random.Generator, batch: int,
@@ -95,4 +120,7 @@ def batch_for(tcfg: TrainConfig, rng: np.random.Generator,
     if s.task == "vision_language":
         return random_pretrain_batch(rng, batch, s.image_size,
                                      tcfg.max_token_length, s.text_model)
-    return random_batch(rng, batch, s.image_size)
+    out = random_batch(rng, batch, s.image_size)
+    if s.task == "fusion":
+        out["clinical"] = random_clinical(rng, batch)
+    return out
