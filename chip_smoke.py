@@ -248,6 +248,32 @@ Phases, each printing its lines before the last line:
    to the image encoder after the warm start (running statistics
    included), every other tensor at its init; the frozen encoder's
    parameters bit-equal after the epoch, its running statistics moved.
+23. Data parallelism on W = ``torch.cuda.device_count()`` NCCL ranks, one
+   process a card, started by ``python -m torch.distributed.run
+   --standalone`` (on one card W = 1, said on a line of its own: the
+   process group, the collectives and the sharded paths run at one rank).
+   23a and 23c run in one launch of this file as the rank program
+   (``--dp-rank <dir>``, each rank's results as JSON there): 23a
+   ``pretrain_resnet34_tinybert`` at full width (global batch 128, 224,
+   in fp32 with TF32 off and in bf16) one DP step in each
+   ``infonce_impl`` against rank 0's one-process step from the same
+   seeded weights on the same global batch (loss within
+   ``BOUND_DP_LOSS``; the reduced gradient and the parameters after one
+   AdamW step within ``BOUND_DP_FLOOR`` times the one-process step's own
+   distance on the reversed batch; every rank's parameters equal to rank
+   0's), then the
+   DP step and the one-process step in alternating turns (images/s, the
+   gradient reduction's device time a step, peak memory; 3 + 1 launches a
+   step per rank), and the replicated and sharded resident corpora
+   bit-equal to the host's rows; 23c two NesT-Small DP steps (24 of #1-#4
+   and 3 + 1 a step per rank; the first loss against one process). 23b
+   the training entry point under the launcher, phase 21a's run (4 folds x
+   2 epochs of ResNet34 on 640 images): each fold's last epoch against
+   21a's (the quantities of 21a's resume check, losses within 2%,
+   accuracy and AUROC within ``BOUND_DP_TRAINER_METRIC``), rank 0's
+   files those of 21a's driver run, and the
+   same launch with ``resume_completed_folds=true`` reusing all 4 fold
+   markers with ``cv_summary.json`` unchanged.
 
 Then one JSON line with every kernel: its launches in the timed training
 steps of the path that runs it (NesT-Small's for #1-#4, #11, #12; ViT-B's
@@ -256,7 +282,9 @@ for #7, #8; NesT unfused for #9, #10; NesT with ``nhwc_windows`` for #5,
 and phase 21's ``*_trainer`` runs among them for #11, #12, and
 ``nest_trainer`` for #1-#4; phase 22's ``fusion_resnet34_train``,
 ``fusion_nest_train`` (#1-#4 too), ``fusion_trainer``,
-``fusion_finetune_trainer`` and ``fusion_frozen_encoder_trainer``),
+``fusion_finetune_trainer`` and ``fusion_frozen_encoder_trainer``;
+phase 23's ``dp_vlp_resnet34_tinybert_train`` and ``dp_nest_train``, per
+rank, #1-#4 in the latter too),
 ``serve_launches`` the serving phases (``fusion_nest_serve`` among them);
 #17 and
 #18 carry
@@ -334,7 +362,7 @@ from vlp_tpu_torch.probes._timing import BF16_FLOPS, HBM_BYTES_PER_S
 from vlp_tpu_torch.probes._timing import median_ms as _median_ms
 from vlp_tpu_torch.serve import Predictor
 from vlp_tpu_torch.train.setup import (batch_for, build_training,
-                                      random_clinical,
+                                      random_batch, random_clinical,
                                       random_pretrain_batch)
 from vlp_tpu_torch.data.datamodule import build_datamodule
 from vlp_tpu_torch.eval import test_eval
@@ -342,6 +370,9 @@ from vlp_tpu_torch.train import driver
 from vlp_tpu_torch.train.loop import Trainer
 from vlp_tpu_torch.train.step import to_device, train_steps
 from vlp_tpu_torch.utils import checkpoint as ckpt
+from vlp_tpu_torch.data.pipeline import ResidentCorpus
+from vlp_tpu_torch.data.preprocess_host import ImageCache
+from vlp_tpu_torch.parallel.mesh import create_mesh, destroy_mesh, shard_batch
 
 # (blocks per image, D, heads, depth) of NesT-Small's levels at 224x224
 LEVELS = ((16, 96, 3, 2), (4, 192, 6, 2), (1, 384, 12, 20))
@@ -3271,6 +3302,406 @@ def phase_fusion(smi: str, root: Path, vlp_best: str):
              "fusion_nest_serve": serve_nest})
 
 
+# data parallelism (phase 23): W ranks, one a card, started by
+# ``python -m torch.distributed.run --standalone`` with this file as the
+# rank program (``--dp-rank OUT``): 23a and 23c run in one launch, 23b is
+# the training entry point under the launcher
+DP_TURNS = 3
+DP_TURN_STEPS = 4
+DP_CORPUS = (300, 64)  # resident-corpus check: rows, global batch
+# 23a/23c against the one-process step from the same weights on the same
+# global batch: the same forward but for the order of BatchNorm's and the
+# loss's global sums; the loss within 1e-3 of its value (bf16 roundings
+# flipped by that order). The gradient and the parameters after one AdamW
+# step: train-mode BatchNorm magnifies any rounding difference (phase 16:
+# bf16 gradients ~0.7 apart from fp32 ones, relative L2), so each is held
+# to 3x the one-process step's own distance on the reversed batch (the
+# same loss, its sums in another order; augmentation off for this check,
+# whose draws follow the row order), as phase 16 holds the card against
+# the CPU; in fp32 with TF32 off and cuDNN's deterministic algorithms that
+# floor is small and the check sharp, in bf16 it is loose.
+BOUND_DP_LOSS = 1e-3
+BOUND_DP_FLOOR = 3.0
+# 23b against 21a (the same run without a process group): cuDNN's
+# backward is not deterministic, so the bounds of 21a's resume check
+DP_TRAINER_TIMEOUT = 400
+# 23b against 21a: each fold's last-epoch losses within 21a's resume bound
+# (2%); its accuracy and AUROC are read on ~120 validation images of
+# random labels, whose standard error is ~0.05 (AUROC near 0.5: sqrt((n +
+# 1) / (12 n1 n2))), and two bf16 runs whose gradients differ by 23a's
+# rounding floor (0.5 relative L2 a step) drift apart by that noise: within
+# 3 standard errors
+BOUND_DP_TRAINER_METRIC = 0.15
+DRIVER_FILES = re.compile(r"^(checkpoints/fold\d+/[^/]+|metrics_fold\d+\..+"
+                          r"|fold\d+\.done\.json|cv_summary\.json)$")
+
+
+def _params_grads(model):
+    """Copies of the parameters and their gradients, flat, in fp32."""
+    params = torch.cat([p.detach().float().reshape(-1)
+                        for p in model.parameters()])
+    grads = torch.cat([(torch.zeros_like(p) if p.grad is None else p.grad)
+                       .detach().float().reshape(-1)
+                       for p in model.parameters()])
+    return params, grads
+
+
+def _rank_spread(mesh, model) -> float:
+    """The largest difference of any rank's parameters from rank 0's."""
+    import torch.distributed as dist
+
+    flat = _params_grads(model)[0]
+    ref = flat.clone()
+    dist.broadcast(ref, 0)
+    spread = (flat - ref).abs().max().reshape(1)
+    dist.all_reduce(spread, op=dist.ReduceOp.MAX)
+    return float(spread)
+
+
+def _rel(a, b) -> float:
+    return float((a - b).norm() / b.norm().clamp(min=1e-30))
+
+
+def _reversed(batch: dict) -> dict:
+    return {k: np.ascontiguousarray(v[::-1]) for k, v in batch.items()}
+
+
+def _dp_check(mesh, tcfg, batch) -> dict:
+    """One step of ``tcfg`` through the DP step in each ``infonce_impl``
+    on this rank's rows of ``batch``, against rank 0's one-process step
+    (loss, gradient, parameters), whose own distance on the reversed batch
+    is the floor (BOUND_DP_FLOOR's comment); every rank's parameters
+    against rank 0's."""
+    cuda = mesh.device
+    res = {}
+    if mesh.is_main:
+        one = []
+        for b in (batch, _reversed(batch)):
+            _, st, sp = build_training(tcfg, cuda, STEPS_PER_EPOCH)
+            loss = float(sp(st, to_device(b, cuda))["loss"])
+            one.append((loss, *_params_grads(st.model)))
+            del st, sp
+        (loss_a, p_a, g_a), (loss_b, p_b, g_b) = one
+        res.update(one_loss=loss_a, rev_loss=loss_b,
+                   floor_grad=_rel(g_b, g_a), floor_param=_rel(p_b, p_a))
+    local = to_device(shard_batch(batch, mesh), cuda)
+    for impl in ("gspmd", "shard_map"):
+        t = dataclasses.replace(tcfg, serve=dataclasses.replace(
+            tcfg.serve, infonce_impl=impl))
+        task, state, step = build_training(t, cuda, STEPS_PER_EPOCH,
+                                           mesh=mesh)
+        out = {"loss": float(step(state, local)["loss"]),
+               "rank_spread": _rank_spread(mesh, task.model)}
+        if mesh.is_main:
+            p, g = _params_grads(task.model)
+            out.update(grad=_rel(g, g_a), param=_rel(p, p_a))
+        res[impl] = out
+        del task, state, step
+        torch.cuda.empty_cache()
+    return res
+
+
+def _collective_us(mesh, calls: int = 200) -> float:
+    """Host microseconds a call of one BatchNorm-sized all-reduce with its autograd
+    wrapper (``parallel.collectives.all_reduce`` of 2 x 512 + 1 fp32),
+    back to back, the device synchronised at the end."""
+    from vlp_tpu_torch.parallel.collectives import all_reduce
+
+    x = torch.ones(2 * 512 + 1, device=mesh.device)
+    all_reduce(x, mesh)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        all_reduce(x, mesh)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / calls * 1e6
+
+
+def _dp_vlp(mesh) -> dict:
+    """23a on this rank: ``_dp_check`` of the pretrain experiment in fp32
+    (TF32 off) and in bf16, then the DP step (gspmd, bf16) and rank 0's
+    one-process step on the same global batches in alternating turns."""
+    cuda = mesh.device
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tcfg = TRAIN_EXPERIMENTS[PRETRAIN]
+    rng = np.random.default_rng(1)
+    batches = [random_pretrain_batch(rng, VLP_BATCH, tcfg.serve.image_size,
+                                     tcfg.max_token_length,
+                                     tcfg.serve.text_model)
+               for _ in range(DP_TURN_STEPS)]
+    plain = dataclasses.replace(tcfg, disable_augmentations=True)
+    fp32 = dataclasses.replace(plain, serve=dataclasses.replace(
+        tcfg.serve, precision="fp32"))
+    torch.backends.cudnn.deterministic = True
+    res = {"world": mesh.world, "fp32": _dp_check(mesh, fp32, batches[0])}
+    torch.backends.cudnn.deterministic = False
+    res["bf16"] = _dp_check(mesh, plain, batches[0])
+    res["collective_us"] = _collective_us(mesh)
+    local = [to_device(shard_batch(b, mesh), cuda) for b in batches]
+    full = [to_device(b, cuda) for b in batches]
+    ostate = ostep = None
+    if mesh.is_main:
+        _, ostate, ostep = build_training(tcfg, cuda, STEPS_PER_EPOCH)
+    task, state, step = build_training(tcfg, cuda, STEPS_PER_EPOCH,
+                                       mesh=mesh)
+    # alternating turns: DP_TURN_STEPS DP steps on every rank, then (rank
+    # 0 alone) as many one-process steps on the same global batches
+    step.reduce_events = []
+    dp_t, one_t, dp_peak, one_peak = [], [], 0, 0
+    launches = {k.__name__: 0 for k in KERNELS}
+    for _ in range(DP_TURNS):
+        mesh.barrier()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        for b in local:
+            t0 = time.perf_counter()
+            step(state, b)
+            torch.cuda.synchronize()
+            dp_t.append(time.perf_counter() - t0)
+        for k, v in _counts().items():
+            launches[k] += v
+        dp_peak = max(dp_peak, torch.cuda.max_memory_allocated())
+        mesh.barrier()
+        if mesh.is_main:
+            torch.cuda.reset_peak_memory_stats()
+            for b in full:
+                t0 = time.perf_counter()
+                ostep(ostate, b)
+                torch.cuda.synchronize()
+                one_t.append(time.perf_counter() - t0)
+            one_peak = max(one_peak, torch.cuda.max_memory_allocated())
+        mesh.barrier()
+    res.update(
+        dp_ms=statistics.median(dp_t) * 1e3,
+        one_ms=statistics.median(one_t) * 1e3 if one_t else None,
+        reduce_ms=statistics.median(a.elapsed_time(b)
+                                    for a, b in step.reduce_events),
+        dp_peak_gib=dp_peak / 2 ** 30, one_peak_gib=one_peak / 2 ** 30,
+        steps=DP_TURNS * DP_TURN_STEPS,
+        launches={k: v for k, v in launches.items() if v})
+    return res
+
+
+def _dp_corpus(mesh) -> dict:
+    """The replicated and sharded resident corpora on the card: this
+    rank's rows of a global batch's images (the sharded one through
+    NCCL's uint8 reduce-scatter) bit-equal to the host's."""
+    rows, b = DP_CORPUS
+    rng = np.random.default_rng(5)
+    data = rng.integers(0, 256, (rows, 224, 224), dtype=np.uint8)
+    cache = ImageCache.from_arrays(data)
+    idx = rng.integers(0, rows, b)
+    mine = idx[mesh.rows(b)]
+    out = {}
+    for mode in ("replicated", "sharded"):
+        corpus = ResidentCorpus(cache, mesh.device, mesh, mode)
+        got = corpus.take(torch.from_numpy(idx).to(mesh.device),
+                          mesh.rows(b)).cpu().numpy()
+        out[mode] = bool(np.array_equal(got, data[mine]))
+    return out
+
+
+def _dp_nest(mesh) -> dict:
+    """23c on this rank: two NesT-Small train steps through the DP step
+    (#1-#4 and #11/#12 under the process group), the first held against
+    rank 0's one-process step."""
+    cuda = mesh.device
+    tcfg = TRAIN_EXPERIMENTS[NEST]
+    rng = np.random.default_rng(2)
+    batches = [random_batch(rng, BATCH, tcfg.serve.image_size)
+               for _ in range(2)]
+    res = {}
+    if mesh.is_main:
+        _, ostate, ostep = build_training(tcfg, cuda, STEPS_PER_EPOCH)
+        res["one_loss"] = float(ostep(ostate, to_device(batches[0], cuda))[
+            "loss"])
+        del ostate, ostep
+    task, state, step = build_training(tcfg, cuda, STEPS_PER_EPOCH,
+                                       mesh=mesh)
+    local = [to_device(shard_batch(b, mesh), cuda) for b in batches]
+    torch.cuda.synchronize()
+    _reset_counts()
+    losses = [float(step(state, b)["loss"]) for b in local]
+    torch.cuda.synchronize()
+    res.update(losses=losses,
+               launches={k: v for k, v in _counts().items() if v},
+               rank_spread=_rank_spread(mesh, task.model))
+    return res
+
+
+def _dp_rank(out: Path) -> int:
+    """The rank program of 23a and 23c (under the launcher's
+    environment): its results as ``rank<r>.json`` in ``out``."""
+    logging.getLogger("vlp_tpu_torch").setLevel(logging.WARNING)
+    mesh = create_mesh(None, "cuda")
+    try:
+        res = {"23a": _dp_vlp(mesh), "corpus": _dp_corpus(mesh),
+               "23c": _dp_nest(mesh)}
+        (out / f"rank{mesh.rank}.json").write_text(json.dumps(res))
+    finally:
+        destroy_mesh(mesh)
+    return 0
+
+
+def _launch(args, world: int, timeout: float, what: str):
+    """``python -m torch.distributed.run --standalone`` of ``world`` ranks
+    running ``args``; fails with the output's tail unless all exit 0."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc_per_node={world}", *args]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True,
+                          timeout=timeout, cwd=str(Path(__file__).parent))
+    check(proc.returncode == 0, f"{what}: the launcher exited "
+          f"{proc.returncode}:\n{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    return proc, time.perf_counter() - t0
+
+
+def _dp_steps(smi: str, world: int, out: Path) -> tuple:
+    """23a and 23c: one launch of the rank program; every rank's results
+    checked here. Returns the DP paths' launches per rank."""
+    out.mkdir(parents=True)
+    _, seconds = _launch([str(Path(__file__).resolve()), "--dp-rank",
+                          str(out)], world, DP_TRAINER_TIMEOUT, "23a/23c")
+    ranks = [json.loads((out / f"rank{r}.json").read_text())
+             for r in range(world)]
+    a0 = ranks[0]["23a"]
+    for prec in ("fp32", "bf16"):
+        c = a0[prec]
+        for impl in ("gspmd", "shard_map"):
+            r = c[impl]
+            rel = abs(r["loss"] - c["one_loss"]) / abs(c["one_loss"])
+            print(f"dp 23a {PRETRAIN} {prec} W={world} {impl}: loss "
+                  f"{r['loss']:.6f} vs one process {c['one_loss']:.6f} "
+                  f"(relative {rel:.3g}, bound {BOUND_DP_LOSS}); after one "
+                  f"AdamW step, relative L2 from one process: gradient "
+                  f"{r['grad']:.3g}, parameters {r['param']:.3g}; the one-"
+                  f"process step's own on the reversed batch "
+                  f"{c['floor_grad']:.3g} and {c['floor_param']:.3g} "
+                  f"(bound {BOUND_DP_FLOOR:g}x those); ranks' parameters "
+                  f"apart by {r['rank_spread']:.3g}")
+            check(rel <= BOUND_DP_LOSS, f"23a {prec} {impl}: loss {rel:.3g}")
+            check(r["grad"] <= BOUND_DP_FLOOR * c["floor_grad"] + 1e-7
+                  and r["param"] <= BOUND_DP_FLOOR * c["floor_param"] + 1e-7,
+                  f"23a {prec} {impl}: {r} against the floor {c}")
+            check(r["rank_spread"] == 0.0, f"23a {prec} {impl}: ranks differ")
+            check(all(rk["23a"][prec][impl]["loss"] == r["loss"]
+                      for rk in ranks),
+                  f"23a {prec} {impl}: the ranks' losses differ")
+    steps = a0["steps"]
+    want = {"shear_rows": 3 * steps, "add_gaussian_noise": steps}
+    for rk in ranks:
+        check(rk["23a"]["launches"] == want, f"23a: launches per rank "
+              f"{rk['23a']['launches']}, expected {want}")
+    print(f"dp 23a {PRETRAIN} W={world}, global batch {VLP_BATCH} "
+          f"({VLP_BATCH // world} a rank), {DP_TURNS} alternating turns of "
+          f"{DP_TURN_STEPS} steps: DP step median {a0['dp_ms']:.3f} ms "
+          f"({VLP_BATCH / a0['dp_ms'] * 1e3:.1f} images/s), one-process "
+          f"step {a0['one_ms']:.3f} ms ({VLP_BATCH / a0['one_ms'] * 1e3:.1f} "
+          f"images/s); gradient reduction {a0['reduce_ms']:.3f} ms device "
+          f"time a step ({100 * a0['reduce_ms'] / a0['dp_ms']:.2f}% of the "
+          f"step); peak memory during the DP turns {a0['dp_peak_gib']:.3f} "
+          f"GiB, during the one-process turns {a0['one_peak_gib']:.3f} GiB "
+          f"(both trainings resident); launches per rank {want}; one "
+          f"BatchNorm-sized all-reduce {a0['collective_us']:.1f} us of host "
+          f"time a call back to back; on {smi}")
+    for rk in ranks:
+        check(all(rk["corpus"].values()), f"23a: resident corpus rows "
+              f"{rk['corpus']}")
+    print(f"dp 23a W={world}: replicated and sharded resident corpora "
+          f"({DP_CORPUS[0]} rows of 224x224 uint8, global batch "
+          f"{DP_CORPUS[1]}) give each rank its rows bit-equal")
+    c0 = ranks[0]["23c"]
+    rel = abs(c0["losses"][0] - c0["one_loss"]) / abs(c0["one_loss"])
+    want_c = {"ln_attention": 48, "ln_mlp": 48, "ln_attention_bwd": 48,
+              "ln_mlp_bwd": 48, "shear_rows": 6, "add_gaussian_noise": 2}
+    for rk in ranks:
+        check(rk["23c"]["launches"] == want_c, f"23c: launches per rank "
+              f"{rk['23c']['launches']}, expected {want_c}")
+        check(rk["23c"]["losses"] == c0["losses"]
+              and rk["23c"]["rank_spread"] == 0.0, "23c: ranks differ")
+    check(all(math.isfinite(v) for v in c0["losses"])
+          and rel <= BOUND_DP_LOSS, f"23c: losses {c0} ({rel:.3g} apart)")
+    print(f"dp 23c {NEST} W={world}: 2 DP steps at global batch {BATCH}, "
+          f"losses {[round(v, 6) for v in c0['losses']]}, step 0 vs one "
+          f"process {c0['one_loss']:.6f} (relative {rel:.3g}); launches "
+          f"per rank {c0['launches']}; 23a+23c launch {seconds:.1f} s")
+    return ({k: v for k, v in a0["launches"].items()},
+            dict(c0["launches"]))
+
+
+def _dp_trainer(smi: str, world: int, root: Path) -> None:
+    """23b: 21a's run (ResNet34, 4 folds x 2 epochs, 640 images) under
+    the launcher, each fold's last epoch held against 21a's (the
+    quantities of 21a's resume check; BOUND_DP_TRAINER_METRIC's comment);
+    only rank 0's files; then the same command with
+    resume_completed_folds=true reads them."""
+    out = root / "dp_trainer"
+    args = ["-m", "vlp_tpu_torch.train", "--device", "cuda",
+            f"experiment={RESNET34}", "data.name=synthetic_downstream",
+            f"data.synthetic_num_samples={TRAINER_SAMPLES}",
+            "k_fold_cross_validation=true", "trainer.max_epochs=2",
+            f"output_dir={out}"]
+    _, seconds = _launch(args, world, DP_TRAINER_TIMEOUT, "23b")
+    ref = root / "resnet34"
+    # each fold's last epoch, the quantities of 21a's resume check
+    gaps = {}
+    for i in range(4):
+        got, want = _records(out, i)[-1], _records(ref, i)[-1]
+        for k in ("train/loss", "val/combined/loss", "val/combined/accuracy",
+                  "val/combined/auroc"):
+            g, w = got[k], want[k]
+            gap = abs(g - w) / abs(w) if k.endswith("loss") else abs(g - w)
+            gaps[f"fold{i} {k}"] = gap
+            check(gap <= (BOUND_RESUME_LOSS if k.endswith("loss")
+                          else BOUND_DP_TRAINER_METRIC),
+                  f"23b fold {i} {k}: {g} vs 21a's {w}")
+        check(set(_fold_summary(out, i)) == set(_fold_summary(ref, i)),
+              f"23b fold {i}: summary keys differ")
+
+    def files(root_dir):  # the driver's outputs (21a adds its own)
+        rel = (str(p.relative_to(root_dir)) for p in root_dir.rglob("*")
+               if p.is_file())
+        return sorted(re.sub(r"epoch\d+_.*\.pt", "epoch_best.pt", f)
+                      for f in rel if DRIVER_FILES.match(f))
+
+    check(files(out) == files(ref), f"23b: files {files(out)} vs 21a's "
+          f"{files(ref)}")
+    agg = json.loads((out / "cv_summary.json").read_text())
+    proc, resume_s = _launch(args + ["resume_completed_folds=true"], world,
+                             DP_TRAINER_TIMEOUT, "23b resume")
+    reused = (proc.stdout + proc.stderr).count("reusing completed summary")
+    check(reused == 4, f"23b resume: {reused} folds reused, expected 4")
+    check(json.loads((out / "cv_summary.json").read_text()) == agg,
+          "23b resume: cv_summary changed")
+    print(f"dp 23b {RESNET34} W={world}: 4 folds x 2 epochs under the "
+          f"launcher in {seconds:.1f} s (launch included); each fold's "
+          f"last epoch vs 21a's: gaps "
+          f"{ {k: round(v, 4) for k, v in gaps.items()} } (losses "
+          f"relative, bound {BOUND_RESUME_LOSS}; accuracy and AUROC "
+          f"absolute, bound {BOUND_DP_TRAINER_METRIC}); rank 0's files "
+          f"match 21a's; the resumed "
+          f"launch reused all 4 folds in {resume_s:.1f} s; on {smi}")
+
+
+def phase_dp(smi: str, root: Path) -> dict:
+    """Phase 23: data parallelism over W = device_count ranks (NCCL), one
+    process a card. Returns the DP paths' launches per rank."""
+    world = torch.cuda.device_count()
+    if world == 1:
+        print("dp: one card, so W = 1: the process group, the collectives "
+              "and the sharded paths run at one rank and are held against "
+              "one process; the W >= 2 comparison needs more cards")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    vlp, nest = _dp_steps(smi, world, root / "dp_steps")
+    _dp_trainer(smi, world, root)
+    print(f"phase 23: {time.perf_counter() - t0:.1f} s")
+    return {"dp_vlp_resnet34_tinybert_train": vlp, "dp_nest_train": nest}
+
+
 def main() -> int:
     smi = phase_device()
     phase_build()
@@ -3319,11 +3750,13 @@ def main() -> int:
         trainers, vlp_best = phase_trainer(smi, root)
         t22 = time.perf_counter()
         fusion, fusion_serves = phase_fusion(smi, root, vlp_best)
+        t23 = time.perf_counter()
+        dp = phase_dp(smi, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     print(f"phases 3-19: {t20 - t0:.1f} s; phase 20: {t21 - t20:.1f} s; "
-          f"phase 21: {t22 - t21:.1f} s; phase 22: "
-          f"{time.perf_counter() - t22:.1f} s")
+          f"phase 21: {t22 - t21:.1f} s; phase 22: {t23 - t22:.1f} s; "
+          f"phase 23: {time.perf_counter() - t23:.1f} s")
     # kernel -> (source, the TPU kernel it replaces, the training path whose
     # launches and per-step times the line gives)
     sources = {
@@ -3361,7 +3794,8 @@ def main() -> int:
     paths = {"nest_train": nest, "vit_b_train": vit,
              "nest_unfused_train": unfused, "nest_nhwc_train": nhwc,
              "resnet34_train": r34, "xrv_resnet50_train": xrv,
-             "vlp_resnet34_tinybert_train": vlp, **trainers, **fusion}
+             "vlp_resnet34_tinybert_train": vlp, **trainers, **fusion,
+             **dp}
     serves = {"nest_serve": serve, "vit_b_serve": serve_vit,
               "nest_nhwc_serve": serve_nhwc, "resnet34_serve": serve_r34,
               "xrv_resnet50_serve": serve_xrv, **fusion_serves}
@@ -3412,4 +3846,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--dp-rank":
+        raise SystemExit(_dp_rank(Path(sys.argv[2])))
     raise SystemExit(main())

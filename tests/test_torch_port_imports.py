@@ -42,7 +42,9 @@ def test_serve_and_chip_smoke_import_without_jax_or_host_pipeline():
             "vlp_tpu_torch.utils.checkpoint, vlp_tpu_torch.utils.hparams, "
             "vlp_tpu_torch.utils.logging, vlp_tpu_torch.utils.profiling, "
             "vlp_tpu_torch.train.callbacks, vlp_tpu_torch.train.loop, "
-            "vlp_tpu_torch.train.driver, chip_smoke; "
+            "vlp_tpu_torch.train.driver, vlp_tpu_torch.parallel.mesh, "
+            "vlp_tpu_torch.parallel.collectives, "
+            "vlp_tpu_torch.parallel.infonce, chip_smoke; "
             f"print([m for m in {FORBIDDEN!r} if m in sys.modules] + "
             "[m for m in sys.modules if m.split('.')[0] == 'vlp_tpu'])")
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -57,6 +59,12 @@ def _port_sources():
     for root, _, files in os.walk(os.path.join(REPO, "vlp_tpu_torch")):
         paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
     return paths
+
+
+def test_port_sources_cover_the_parallel_package():
+    names = {os.path.relpath(p, REPO) for p in _port_sources()}
+    assert {os.path.join("vlp_tpu_torch", "parallel", f) for f in (
+        "__init__.py", "mesh.py", "collectives.py", "infonce.py")} <= names
 
 
 def test_port_sources_never_import_jax():

@@ -1,0 +1,357 @@
+"""Rank processes of the data-parallel tests (``test_torch_port_parallel*.py``).
+
+``run_ranks(target, world, tmp_dir, *args)`` starts ``world`` processes with
+the ``spawn`` context; each forms a gloo group through a ``FileStore`` under
+``tmp_dir`` (no TCP port to collide across test workers), runs
+``target(mesh, *args)`` and pickles its result to a file, which the parent
+reads back. Each process is joined with a timeout and killed on expiry, so
+a hung rendezvous fails one test, not the suite. The targets import torch
+and the port only (no JAX): the tests compare their results in the parent.
+"""
+from __future__ import annotations
+
+import os
+import pickle
+import tempfile
+import time
+import traceback
+from typing import Dict, List
+
+import numpy as np
+import torch
+
+CPU = torch.device("cpu")
+
+
+def _entry(target, rank, world, out, args, timeout_s, device):
+    torch.set_num_threads(2)
+    from vlp_tpu_torch.parallel.mesh import create_mesh, destroy_mesh
+
+    try:
+        mesh = create_mesh(None, device, init_method=f"file://{out}/store",
+                           rank=rank, world_size=world, timeout_s=timeout_s)
+        result = target(mesh, *args)
+        destroy_mesh(mesh)
+    except BaseException:
+        with open(f"{out}/rank{rank}.err", "w") as fh:
+            fh.write(traceback.format_exc())
+        raise
+    with open(f"{out}/rank{rank}.pkl", "wb") as fh:
+        pickle.dump(result, fh)
+
+
+def run_ranks(target, world: int, tmp_dir, *args, timeout: float = 180.0,
+              collective_timeout: float = 90.0, device: str = "cpu"
+              ) -> List:
+    """``target(mesh, *args)`` on ``world`` ranks (gloo on the CPU, NCCL on
+    ``device="cuda"``); their results in rank order. Raises with the ranks'
+    tracebacks if any rank failed or hung."""
+    import multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    out = tempfile.mkdtemp(dir=str(tmp_dir))
+    procs = [ctx.Process(target=_entry, args=(target, r, world, out, args,
+                                              collective_timeout, device))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + timeout
+    for p in procs:
+        p.join(max(0.0, deadline - time.monotonic()))
+    hung = [r for r, p in enumerate(procs) if p.is_alive()]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    errors = [open(f"{out}/rank{r}.err").read() for r in range(world)
+              if os.path.exists(f"{out}/rank{r}.err")]
+    codes = [p.exitcode for p in procs]
+    if hung or errors or any(codes):
+        raise AssertionError(f"ranks hung {hung}, exit codes {codes}:\n"
+                             + "\n".join(errors))
+    results = []
+    for r in range(world):
+        with open(f"{out}/rank{r}.pkl", "rb") as fh:
+            results.append(pickle.load(fh))
+    return results
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    return t.detach().float().cpu().numpy().copy()
+
+
+# --------------------------------------------------------------------------
+# the collectives, the global losses and BatchNorm
+# --------------------------------------------------------------------------
+
+def _leaf(a, rows=None):
+    t = torch.tensor(a if rows is None else a[rows])
+    return t.requires_grad_(True) if t.is_floating_point() else t
+
+
+def losses_worker(mesh, d: Dict[str, np.ndarray]) -> Dict:
+    from vlp_tpu_torch.models.vit import BatchNorm, set_batchnorm_mesh
+    from vlp_tpu_torch.ops import losses
+    from vlp_tpu_torch.parallel import collectives as C
+    from vlp_tpu_torch.parallel.infonce import clip_loss
+
+    rows = mesh.rows(d["img"].shape[0])
+    out: Dict = {}
+    # collectives: forward and adjoint
+    x = _leaf(d["x"], rows)
+    y = C.all_gather(x, mesh)
+    (y * torch.tensor(d["w"])).sum().backward()
+    out["gather"], out["gather_grad"] = _np(y), _np(x.grad)
+    x = _leaf(d["x"], rows)
+    s = C.all_reduce(x, mesh)
+    (s * torch.tensor(d["w"][rows])).sum().backward()
+    out["reduce"], out["reduce_grad"] = _np(s), _np(x.grad)
+    x = _leaf(d["x"])
+    part = C.reduce_scatter(x * (mesh.rank + 1), mesh)
+    (part * torch.tensor(d["w"][rows])).sum().backward()
+    out["scatter"], out["scatter_grad"] = _np(part), _np(x.grad)
+    # the CLIP losses in both forms and the deprecated variants
+    for variant in ("symmetric_infonce", "masked", "non_square"):
+        for impl in ("gspmd", "shard_map"):
+            for tail in (False, True):
+                img, txt = _leaf(d["img"], rows), _leaf(d["txt"], rows)
+                scale = _leaf(np.float32(d["logit_scale"]))
+                mask = torch.tensor(d["mask_tail" if tail else "ones"][rows])
+                loss = clip_loss(variant, impl, img, txt, scale, mask,
+                                 torch.tensor(d["cid"][rows]), mesh)
+                loss.backward()
+                out[("clip", variant, impl, tail)] = (
+                    float(loss), _np(img.grad), _np(txt.grad),
+                    float(scale.grad))
+    # the weighted masked BCE and CORAL
+    logits = _leaf(d["logits"], rows)
+    labels = torch.tensor(d["labels"][rows])
+    w = losses.per_sample_class_weights(labels, tuple(d["class_weights"]))
+    for tail in (False, True):
+        logits.grad = None
+        mask = torch.tensor(d["mask_tail"][rows]) if tail else None
+        loss = losses.bce_with_logits(logits, labels, w, mask, mesh)
+        loss.backward()
+        out[("bce", tail)] = (float(loss), _np(logits.grad))
+    feats = _leaf(d["feats"], rows)
+    dom = torch.tensor(d["domain"][rows])
+    m = torch.tensor(d["mask_tail"][rows])
+    loss = losses.coral_loss(feats, feats, m * (dom == 0), m * (dom == 1),
+                             mesh=mesh)
+    loss.backward()
+    out["coral"] = (float(loss), _np(feats.grad))
+    # BatchNorm on NCHW maps and on [B, C] rows (the clinical MLP's)
+    for key in ("bn4", "bn2"):
+        x = _leaf(d[key], rows)
+        bn = BatchNorm(x.shape[1])
+        with torch.no_grad():
+            bn.weight.copy_(torch.tensor(d[key + "_scale"]))
+            bn.bias.copy_(torch.tensor(d[key + "_bias"]))
+        set_batchnorm_mesh(bn, mesh)
+        bn.train()
+        y = bn(x)
+        # each rank's share of one objective: the sum over the ranks is
+        # the global batch's sum(y * cot)
+        (y * torch.tensor(d[key + "_cot"][rows])).sum().backward()
+        out[key] = {"y": _np(y), "dx": _np(x.grad),
+                    "dscale": _np(bn.weight.grad), "dbias": _np(bn.bias.grad),
+                    "mean": _np(bn.running_mean), "var": _np(bn.running_var)}
+    # every rank starts from rank 0's weights
+    lin = torch.nn.Linear(3, 2)
+    with torch.no_grad():
+        lin.weight.fill_(float(mesh.rank))
+    C.broadcast_module(lin, mesh)
+    out["broadcast"] = _np(lin.weight)
+    return out
+
+
+# --------------------------------------------------------------------------
+# train steps
+# --------------------------------------------------------------------------
+
+def build(spec: Dict, mesh):
+    """(task, state, step) of ``spec``: the experiment and overrides, the
+    fold statics, the weights (a numpy state dict) and the step's
+    optimizer, on ``mesh`` (None: one process)."""
+    from vlp_tpu_torch.config import (Config, TrainConfig, apply_overrides,
+                                      get_experiment)
+    from vlp_tpu_torch.models.tasks import TaskStatics, build_task
+    from vlp_tpu_torch.ops.augment import AugmentConfig
+    from vlp_tpu_torch.train.optim import make_optimizer
+    from vlp_tpu_torch.train.setup import init_training
+    from vlp_tpu_torch.train.state import TrainState
+    from vlp_tpu_torch.train.step import make_train_step
+
+    cfg = apply_overrides(get_experiment(spec["experiment"]) if
+                          spec.get("experiment") else Config(),
+                          list(spec["overrides"]))
+    tcfg = TrainConfig.from_config(cfg)
+    aug = tcfg.augment() if spec.get("augment") else AugmentConfig(
+        enabled=False)
+    statics = TaskStatics(mean=spec["mean"], std=spec["std"],
+                          class_weights=tuple(spec.get("class_weights",
+                                                       (1.0, 1.0))),
+                          out_channels=tcfg.serve.in_channels, augment=aug)
+    device = mesh.device if mesh is not None else torch.device(
+        spec.get("device", "cpu"))
+    task = build_task(tcfg, statics, device, mesh)
+    if spec.get("weights") is None:
+        state, step = init_training(task, tcfg, spec["spe"], seed=0,
+                                    state_seed=1)
+        return task, state, step
+    task.model.load_state_dict({k: torch.tensor(v, device=device)
+                                for k, v in spec["weights"].items()})
+    opt, schedules = make_optimizer(tcfg, task.model, spec["spe"])
+    state = TrainState.create(task.model, opt, schedules, seed=1)
+    return task, state, make_train_step(task, opt, schedules)
+
+
+def run_steps(spec: Dict, mesh) -> Dict:
+    """``spec["steps"]`` steps on ``spec["batch"]`` (the global batch; on a
+    mesh this rank's rows of it); the losses, the last aux's scalars, the
+    gradients the last step applied and the model's state dict after."""
+    from vlp_tpu_torch.parallel.mesh import shard_batch
+    from vlp_tpu_torch.train.step import to_device
+
+    task, state, step = build(spec, mesh)
+    device = next(task.model.parameters()).device
+    batch = to_device(shard_batch(spec["batch"], mesh), device)
+    losses, aux = [], {}
+    for _ in range(spec.get("steps", 1)):
+        aux = step(state, batch)
+        losses.append(float(aux["loss"]))
+    return {"losses": losses,
+            "aux": {k: float(v) for k, v in aux.items()
+                    if isinstance(v, torch.Tensor) and v.dim() == 0},
+            "grads": {k: p.grad.cpu().numpy().copy()
+                      for k, p in task.model.named_parameters()
+                      if p.grad is not None},
+            "state": {k: v.detach().cpu().numpy().copy()
+                      for k, v in task.model.state_dict().items()}}
+
+
+def steps_worker(mesh, specs: Dict[str, Dict]) -> Dict:
+    return {name: run_steps(spec, mesh) for name, spec in specs.items()}
+
+
+# --------------------------------------------------------------------------
+# augmentation at the global batch
+# --------------------------------------------------------------------------
+
+def augment_rows(images: np.ndarray, seed: int, mesh) -> np.ndarray:
+    """This rank's rows of the augmented global batch ``images`` (every
+    row without a mesh), on a generator seeded with ``seed``."""
+    from vlp_tpu_torch.ops.augment import AugmentConfig, augment_and_normalize
+    from vlp_tpu_torch.parallel.mesh import shard_batch
+
+    x = torch.tensor(shard_batch({"x": images}, mesh)["x"])
+    gen = torch.Generator().manual_seed(seed)
+    cfg = AugmentConfig(translate_prob=0.7, rotate_prob=0.7, zoom_prob=0.7,
+                        flip_prob=0.5, noise_prob=0.7, noise_std=4.0,
+                        shear_deg=5.0)
+    return augment_and_normalize(x, gen, 100.0, 40.0, cfg, out_channels=1,
+                                 dtype=torch.float32, mesh=mesh).numpy()
+
+
+def augment_worker(mesh, batches: List[np.ndarray], seed: int) -> List:
+    return [augment_rows(b, seed, mesh) for b in batches]
+
+
+# --------------------------------------------------------------------------
+# the loaders and the refusals
+# --------------------------------------------------------------------------
+
+def pretrain_bundle(n: int, size: int = 8, dup: int = 2):
+    """A pretrain bundle of ``n`` random images whose captions each repeat
+    ``dup`` times."""
+    from vlp_tpu_torch.data.pipeline import ArrayBundle
+    from vlp_tpu_torch.data.preprocess_host import ImageCache
+
+    rng = np.random.default_rng(0)
+    cache = ImageCache.from_arrays(
+        rng.integers(0, 256, (n, size, size), dtype=np.uint8))
+    cids = [i // dup for i in range(n)]
+    samples = [{"dataset": "MURA" if i % 2 else "LERA",
+                "image_path": f"s{i}", "label": i % 2,
+                "caption_id": cids[i]} for i in range(n)]
+    ids = (np.arange(6)[None, :] + np.arange(n)[:, None]).astype(np.int32)
+    return ArrayBundle(samples, cache, token_ids=ids,
+                       token_mask=np.ones((n, 6), np.int32)), cids
+
+
+def loader_batches(mesh, n: int, batch_size: int, limit_mb: float,
+                   epochs: int = 2, seed: int = 3):
+    """(resident mode, the batches of ``epochs`` epochs as numpy) of a
+    caption-unique loader over ``pretrain_bundle(n)`` under the budget
+    ``limit_mb``; on a mesh this rank's rows, and the gathered global
+    caption ids and masks."""
+    from vlp_tpu_torch.data.pipeline import RESIDENT_LIMIT_MB, DeviceLoader
+    from vlp_tpu_torch.data.sampler import NoDuplicateCaptionSampler
+    from vlp_tpu_torch.parallel.collectives import gather_rows
+
+    bundle, cids = pretrain_bundle(n)
+    sampler = NoDuplicateCaptionSampler(n, cids, batch_size, seed=seed)
+    old = os.environ.get(RESIDENT_LIMIT_MB)
+    os.environ[RESIDENT_LIMIT_MB] = repr(limit_mb)
+    try:
+        loader = DeviceLoader(bundle, sampler, batch_size, CPU, mesh=mesh)
+    finally:
+        if old is None:
+            del os.environ[RESIDENT_LIMIT_MB]
+        else:
+            os.environ[RESIDENT_LIMIT_MB] = old
+    out = []
+    for _ in range(epochs):
+        for batch in loader:
+            got = {k: v.numpy().copy() for k, v in batch.items()}
+            got["global_caption_id"] = gather_rows(
+                batch["caption_id"], mesh).numpy().copy()
+            got["global_mask"] = gather_rows(batch["mask"],
+                                             mesh).numpy().copy()
+            out.append(got)
+    return loader.resident_mode, out
+
+
+def loaders_worker(mesh, cases: Dict[str, tuple]) -> Dict:
+    return {name: loader_batches(mesh, *args) for name, args in
+            cases.items()}
+
+
+def refusals_worker(mesh) -> Dict[str, str]:
+    """The message of each refusal at this world."""
+    from vlp_tpu_torch.config import Config
+    from vlp_tpu_torch.data.pipeline import DeviceLoader
+    from vlp_tpu_torch.data.sampler import ShuffleBatchSampler
+    from vlp_tpu_torch.parallel.mesh import check_mesh_config
+
+    out = {}
+    bundle, _ = pretrain_bundle(12)
+    try:
+        DeviceLoader(bundle, ShuffleBatchSampler(12, 5), 5, CPU, mesh=mesh)
+    except ValueError as e:
+        out["batch"] = str(e)
+    for key, value in (("data_parallel", mesh.world + 1),
+                       ("model_parallel", 2), ("param_sharding", "fsdp"),
+                       ("param_sharding", "tp")):
+        m = Config().mesh
+        setattr(m, key, value)
+        try:
+            check_mesh_config(m, mesh.world)
+        except ValueError as e:
+            out[f"{key}={value}"] = str(e)
+    return out
+
+
+def lonely_rank(store: str, out: str) -> None:
+    """Rank 0 of a world of 2 whose peer never comes: the message of the
+    error ``create_mesh`` raises, written to ``out``."""
+    from vlp_tpu_torch.parallel.mesh import create_mesh
+
+    try:
+        create_mesh(None, "cpu", init_method=f"file://{store}", rank=0,
+                    world_size=2, timeout_s=3.0)
+        msg = "formed"
+    except RuntimeError as e:
+        msg = str(e)
+    with open(out, "w") as fh:
+        fh.write(msg)

@@ -10,7 +10,10 @@ the same folds, statics and batches as the JAX package's for a config
 (``data.name=synthetic_downstream|synthetic_pretrain``); the real datasets'
 readers (``vlp_tpu/data/datasets.py``) need pandas and the files, which are
 not in the repository, so ``downstream`` and ``pretrain`` raise
-(ROADMAP Queue 1 item 15).
+(ROADMAP Queue 1 item 15). On a data mesh (``mesh``) every loader, the
+evaluation and test loaders too, gives this rank's rows of each global
+batch, so ``data.batch_size`` and ``data.eval_batch_size`` must divide by
+the world (``pipeline.DeviceLoader``).
 """
 from __future__ import annotations
 
@@ -73,8 +76,10 @@ class DownstreamData:
     (INTERNAL grouped by patient, BTXRD ungrouped, reference
     DownstreamDataModule.py:255-337)."""
 
-    def __init__(self, cfg: Config, device, cache_dir: Optional[str] = None):
+    def __init__(self, cfg: Config, device, cache_dir: Optional[str] = None,
+                 mesh=None):
         self.cfg = cfg
+        self.mesh = mesh
         self.device = torch.device(device)
         self.cache_dir = cache_dir or os.path.join(cfg.output_dir, "datacache")
         d = cfg.data
@@ -99,7 +104,8 @@ class DownstreamData:
                 ) -> DeviceLoader:
         return DeviceLoader(
             ArrayBundle(samples, self.cache, self._indices(samples)),
-            sampler, batch_size, self.device, self.cfg.data.prefetch_depth)
+            sampler, batch_size, self.device, self.cfg.data.prefetch_depth,
+            self.mesh)
 
     def _fold_splits(self):
         d = self.cfg.data
@@ -164,8 +170,10 @@ class PretrainData:
     """LERA+MURA with caption-unique batching and joint tokenization
     (reference PretrainDataModule.py)."""
 
-    def __init__(self, cfg: Config, device, cache_dir: Optional[str] = None):
+    def __init__(self, cfg: Config, device, cache_dir: Optional[str] = None,
+                 mesh=None):
         self.cfg = cfg
+        self.mesh = mesh
         self.device = torch.device(device)
         self.cache_dir = cache_dir or os.path.join(cfg.output_dir, "datacache")
         d = cfg.data
@@ -187,7 +195,7 @@ class PretrainData:
             [self._cache_index[s["image_path"]] for s in samples],
             token_ids=ids, token_mask=mask)
         return DeviceLoader(bundle, sampler, batch_size, self.device,
-                            self.cfg.data.prefetch_depth)
+                            self.cfg.data.prefetch_depth, self.mesh)
 
     def folds(self) -> Generator[Fold, None, None]:
         cfg, d = self.cfg, self.cfg.data
@@ -241,10 +249,11 @@ class PretrainData:
             "(reference PretrainDataModule.py:351-359).")
 
 
-def build_datamodule(cfg: Config, device, cache_dir: Optional[str] = None):
+def build_datamodule(cfg: Config, device, cache_dir: Optional[str] = None,
+                     mesh=None):
     name = cfg.data.name
     if name in ("downstream", "synthetic_downstream"):
-        return DownstreamData(cfg, device, cache_dir)
+        return DownstreamData(cfg, device, cache_dir, mesh)
     if name in ("pretrain", "synthetic_pretrain"):
-        return PretrainData(cfg, device, cache_dir)
+        return PretrainData(cfg, device, cache_dir, mesh)
     raise ValueError(f"unknown data module {name!r}")

@@ -25,8 +25,22 @@ it is, so the padded rows enter BatchNorm's batch statistics as in the JAX
 step while losses and metrics weight by the mask. ``init_batch`` never
 touches the sampler. The JAX package's K-batch chunks
 (``iter_scan_chunks``) feed its scanned step; the port's trainer runs one
-step a batch and takes batches one at a time. The sharded and replicated
-corpora of a multi-device mesh wait for ROADMAP Queue 1 item 14.
+step a batch and takes batches one at a time.
+
+On a data mesh (``mesh``, ``parallel/mesh.py``) ``batch_size`` is the
+global batch and must divide by the world. Every rank walks the same
+sampler, pads the same global batch, and takes its rows ``[r b, (r + 1)
+b)``: the padded tail lies on the last ranks, as on the JAX mesh. The
+resident corpus then takes one of the JAX package's three modes
+(``resident_corpus``, under the same per-device budget):
+
+- ``local``: one rank (or no mesh), the corpus on its device;
+- ``replicated``: the whole uint8 corpus on every rank's device; a rank
+  gathers its own rows, no collective;
+- ``sharded``: the corpus's rows padded to a multiple of N and split over
+  the ranks. For each global batch every rank writes the rows it owns into
+  a zeroed uint8 ``[B_g, H, W]`` buffer and one reduce-scatter hands every
+  rank its slice. Each row has one owner, so the uint8 sum is exact.
 """
 from __future__ import annotations
 
@@ -40,6 +54,8 @@ import torch
 
 from vlp_tpu_torch.data.preprocess_host import ImageCache
 from vlp_tpu_torch.data.sampler import pad_batch_indices
+from vlp_tpu_torch.parallel.collectives import reduce_scatter
+from vlp_tpu_torch.parallel.mesh import axis_size, pad_to_multiple
 
 DATASET_IDS = {"INTERNAL": 0, "BTXRD": 1, "MURA": 0, "LERA": 1}
 RESIDENT_LIMIT_MB = "VLP_DEVICE_RESIDENT_MB"  # the budget; 0 disables
@@ -88,11 +104,12 @@ class ArrayBundle:
     def __len__(self) -> int:
         return len(self.samples)
 
-    def assemble(self, indices: List[int], batch_size: int
-                 ) -> Dict[str, np.ndarray]:
-        """The host batch of ``indices``, padded to ``batch_size``."""
+    def assemble(self, indices: List[int], batch_size: int,
+                 rows: slice = slice(None)) -> Dict[str, np.ndarray]:
+        """The host batch of ``indices``, padded to ``batch_size``; its
+        ``rows`` (a rank's slice of the global batch)."""
         idx, mask = pad_batch_indices(list(indices), batch_size)
-        idx = np.asarray(idx, np.int64)
+        idx, mask = np.asarray(idx, np.int64)[rows], mask[rows]
         batch = {"label": self.labels[idx],
                  "dataset_id": self.dataset_ids[idx], "mask": mask}
         if self.is_pretrain:
@@ -127,20 +144,71 @@ def _to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     return t.clone()
 
 
-def resident_corpus(cache: ImageCache, device: torch.device
-                    ) -> Optional[torch.Tensor]:
-    """The cache's uint8 images on ``device`` (uploaded once per device and
-    shared by the loaders of that cache), or None over the
-    ``VLP_DEVICE_RESIDENT_MB`` budget."""
-    limit_mb = float(os.environ.get(RESIDENT_LIMIT_MB, "4096"))
-    if cache.data.nbytes > limit_mb * 1e6:
+class ResidentCorpus:
+    """The uint8 corpus on this rank's device in one of three modes (the
+    module docstring); ``take(idx_global, rows)`` gives this rank's
+    ``rows`` of the images of the global batch's cache rows
+    ``idx_global`` [B_g] (a device tensor)."""
+
+    def __init__(self, cache: ImageCache, device: torch.device, mesh,
+                 mode: str) -> None:
+        self.mode = mode
+        self.mesh = mesh
+        self.device = device
+        data = cache.data
+        if mode != "sharded":
+            self.images = torch.from_numpy(np.array(data, copy=True)).to(
+                device)
+            return
+        # only this rank's rows are read off the (memory-mapped) cache
+        n = mesh.world
+        self.rows_per_rank = pad_to_multiple(len(data), n) // n
+        start = mesh.rank * self.rows_per_rank
+        stop = min(start + self.rows_per_rank, len(data))
+        local = np.zeros((self.rows_per_rank, *data.shape[1:]), data.dtype)
+        if stop > start:
+            local[:stop - start] = data[start:stop]
+        self.images = torch.from_numpy(local).to(device)
+
+    def take(self, idx_global: torch.Tensor, rows: slice) -> torch.Tensor:
+        if self.mode != "sharded":
+            return self.images.index_select(0, idx_global[rows])
+        first = self.mesh.rank * self.rows_per_rank
+        local = idx_global - first
+        owned = (local >= 0) & (local < self.rows_per_rank)
+        got = self.images.index_select(
+            0, local.clamp(0, self.rows_per_rank - 1))
+        got = got * owned.to(got.dtype).reshape(-1, *(1,) * (got.dim() - 1))
+        return reduce_scatter(got, self.mesh)
+
+
+def resident_corpus(cache: ImageCache, device: torch.device, mesh=None
+                    ) -> Optional[ResidentCorpus]:
+    """The cache's resident corpus on ``device`` (built once per device and
+    mode and shared by the loaders of that cache), or None over the
+    ``VLP_DEVICE_RESIDENT_MB`` budget: ``local`` on one rank,
+    ``replicated`` where the corpus fits a device, ``sharded`` where its
+    1/N share does (the JAX package's ``_resident_images``)."""
+    limit = float(os.environ.get(RESIDENT_LIMIT_MB, "4096")) * 1e6
+    nbytes = cache.data.nbytes
+    world = axis_size(mesh)
+    if world == 1:
+        mode = "local" if nbytes <= limit else None
+    elif nbytes <= limit:
+        mode = "replicated"
+    elif nbytes / world <= limit:
+        mode = "sharded"
+    else:
+        mode = None
+    if mode is None:
         return None
+    key = (device, mode, mesh)
     cached = getattr(cache, "_resident_torch", None)
-    if cached is not None and cached[0] == device:
+    if cached is not None and cached[0] == key:
         return cached[1]
-    images = torch.from_numpy(np.array(cache.data, copy=True)).to(device)
-    cache._resident_torch = (device, images)
-    return images
+    corpus = ResidentCorpus(cache, device, mesh, mode)
+    cache._resident_torch = (key, corpus)
+    return corpus
 
 
 def _prefetch(items: Iterator, depth: int) -> Iterator:
@@ -189,24 +257,38 @@ def _prefetch(items: Iterator, depth: int) -> Iterator:
 
 class DeviceLoader:
     """Fixed-size batches of a bundle on ``device``, in the sampler's order
-    (resident or host-assembled, see the module docstring)."""
+    (resident or host-assembled, see the module docstring); on ``mesh``
+    this rank's rows of each global batch of ``batch_size``."""
 
     def __init__(self, bundle: ArrayBundle, sampler, batch_size: int,
-                 device, prefetch_depth: int = 2) -> None:
+                 device, prefetch_depth: int = 2, mesh=None) -> None:
         self.bundle = bundle
         self.sampler = sampler
         self.batch_size = batch_size
+        self.mesh = mesh
         self.device = torch.device(device)
         self.prefetch_depth = max(1, prefetch_depth)
-        self._images = resident_corpus(bundle.cache, self.device)
+        world = axis_size(mesh)
+        if batch_size % world:
+            raise ValueError(
+                f"batch_size={batch_size} must be divisible by the "
+                f"{world}-shard data axis (every data shard gets an "
+                "equal slice; adjust data.batch_size/eval_batch_size or "
+                "mesh.data_parallel)")
+        self.rows = slice(None) if mesh is None else mesh.rows(batch_size)
+        self._corpus = resident_corpus(bundle.cache, self.device, mesh)
         self._cols = None
-        if self._images is not None:
+        if self._corpus is not None:
             self._cols = {k: torch.from_numpy(np.array(v)).to(self.device)
                           for k, v in bundle.columns().items()}
 
     @property
     def resident(self) -> bool:
-        return self._images is not None
+        return self._corpus is not None
+
+    @property
+    def resident_mode(self) -> Optional[str]:
+        return None if self._corpus is None else self._corpus.mode
 
     def __len__(self) -> int:
         return len(self.sampler)
@@ -218,17 +300,18 @@ class DeviceLoader:
                                           len(self.bundle)))))
 
     def _batch(self, indices: List[int]) -> Dict[str, torch.Tensor]:
-        if self._images is None:
-            return self._upload(self.bundle.assemble(indices,
-                                                     self.batch_size))
+        if self._corpus is None:
+            return self._upload(self.bundle.assemble(
+                indices, self.batch_size, self.rows))
         idx, _ = pad_batch_indices(list(indices), self.batch_size)
         idx = _to_device(np.asarray(idx, np.int64), self.device)
-        out = {k: v.index_select(0, idx) for k, v in self._cols.items()
+        mine = idx[self.rows]
+        out = {k: v.index_select(0, mine) for k, v in self._cols.items()
                if k != "cache_idx"}
-        out["image_u8"] = self._images.index_select(
-            0, self._cols["cache_idx"].index_select(0, idx))
+        out["image_u8"] = self._corpus.take(
+            self._cols["cache_idx"].index_select(0, idx), self.rows)
         out["mask"] = (torch.arange(self.batch_size, device=self.device)
-                       < len(indices)).float()
+                       < len(indices)).float()[self.rows]
         return out
 
     def _upload(self, host: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
@@ -237,12 +320,12 @@ class DeviceLoader:
     def _pinned_batches(self) -> Iterator[Dict[str, torch.Tensor]]:
         pin = self.device.type == "cuda"
         for indices in self.sampler:
-            host = self.bundle.assemble(indices, self.batch_size)
+            host = self.bundle.assemble(indices, self.batch_size, self.rows)
             yield {k: (torch.from_numpy(v).pin_memory() if pin
                        else torch.from_numpy(v)) for k, v in host.items()}
 
     def __iter__(self) -> Iterator[Dict[str, torch.Tensor]]:
-        if self._images is not None:
+        if self._corpus is not None:
             for indices in self.sampler:
                 yield self._batch(indices)
             return

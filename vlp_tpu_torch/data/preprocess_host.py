@@ -355,7 +355,11 @@ def fold_mean_std(cache: ImageCache, indices: Sequence[int],
     mean = total / count
     std = float(np.sqrt(max(total_sq / count - mean * mean, 0.0)))
     if stat_path is not None:
+        # written whole and renamed: the ranks of a data mesh compute the
+        # same file at once and may read it while another writes
         os.makedirs(cache_dir, exist_ok=True)
-        with open(stat_path, "w") as fh:
+        tmp = f"{stat_path}.{os.getpid()}.tmp"
+        with open(tmp, "w") as fh:
             json.dump({"mean": mean, "std": std}, fh)
+        os.replace(tmp, stat_path)
     return float(mean), std

@@ -35,6 +35,7 @@ from vlp_tpu_torch.eval.subgroup import (FRAME_COLUMNS, Frame,
                                          evaluate_results, predictions_frame,
                                          write_csv)
 from vlp_tpu_torch.models.tasks import build_task
+from vlp_tpu_torch.parallel.collectives import gather_rows
 from vlp_tpu_torch.utils.checkpoint import restore_raw
 from vlp_tpu_torch.utils.logging import get_logger
 
@@ -45,15 +46,19 @@ def collect_probs(cfg: Config, checkpoint_path: str, dm: DownstreamData,
                   fold: int, device, save_failures: Optional[str] = None,
                   max_failures: int = 10) -> Frame:
     """Sigmoid probabilities of the checkpoint's model over the frozen test
-    split, with fold ``fold``'s normalisation, and the samples' metadata."""
+    split, with fold ``fold``'s normalisation, and the samples' metadata;
+    on the data module's mesh each rank evaluates its rows and gathers
+    every rank's."""
     task = build_task(cfg, dm.fold_statics(fold), torch.device(device))
     task.model.load_state_dict(restore_raw(checkpoint_path)["model"],
                                strict=True)
+    mesh = getattr(dm, "mesh", None)
     probs = []
     for batch in dm.test_loader(fold):
         out = task.eval_fn(batch)
-        logits = out["logits"].float().cpu().numpy().ravel()
-        mask = out["mask"].cpu().numpy() > 0
+        logits = gather_rows(out["logits"].float(), mesh).cpu().numpy()
+        mask = gather_rows(out["mask"], mesh).cpu().numpy() > 0
+        logits = logits.ravel()
         probs.append(1.0 / (1.0 + np.exp(-logits[mask])))
     frame = predictions_frame(np.concatenate(probs), dm.test)
     if save_failures:

@@ -21,7 +21,16 @@ loss that ``loss_variant`` names (``symmetric_infonce``, ``masked`` or
 mode as the JAX task passes ``train=``: ``loss_fn`` in training mode
 (BatchNorm on batch statistics, padded rows included as in flax, running
 statistics updated), the other entry points in eval mode under
-``inference_mode``."""
+``inference_mode``.
+
+On a data mesh (``mesh``, ``parallel/mesh.py``) a task holds this rank's
+rows of each batch and its ``loss_fn`` returns the global batch's loss, the
+same on every rank: the augmentation draws at the global batch size,
+BatchNorm takes the global statistics, the BCE, CORAL and CLIP losses
+reduce over the ranks (``infonce_impl`` picks the CLIP loss's form,
+``parallel/infonce.py``), as the JAX task's loss on a ``('data',)`` mesh.
+``aux`` holds the global loss and this rank's per-sample outputs; the
+``eval_fn`` loss is the global one too. Without a mesh nothing changes."""
 from __future__ import annotations
 
 import dataclasses
@@ -33,9 +42,10 @@ from torch import nn
 from vlp_tpu_torch.config import ServeConfig, TrainConfig, as_serve_config
 from vlp_tpu_torch.models.heads import ClinicalMLP, FusionHead
 from vlp_tpu_torch.models.registry import create_backbone
-from vlp_tpu_torch.models.vit import Dense
+from vlp_tpu_torch.models.vit import Dense, set_batchnorm_mesh
 from vlp_tpu_torch.models.vlm import VisionLanguageModel
 from vlp_tpu_torch.ops import losses
+from vlp_tpu_torch.parallel.infonce import IMPLS, clip_loss
 from vlp_tpu_torch.ops.augment import (AugmentConfig, augment_and_normalize,
                                        normalize_only)
 
@@ -106,10 +116,15 @@ def _backbone_kw(cfg: ServeConfig) -> dict:
 class _ImageTask:
     """The image preparation both tasks share."""
 
-    def __init__(self, cfg: ServeConfig, statics: TaskStatics) -> None:
+    def __init__(self, cfg: ServeConfig, statics: TaskStatics,
+                 mesh=None) -> None:
         self.dtype = torch.bfloat16 if cfg.precision == "bf16" \
             else torch.float32
         self.statics = statics
+        self.mesh = mesh
+
+    def _set_mesh(self) -> None:
+        set_batchnorm_mesh(self.model, self.mesh)
 
     def _prep_train(self, batch: Dict[str, torch.Tensor],
                     gen: torch.Generator) -> torch.Tensor:
@@ -117,7 +132,7 @@ class _ImageTask:
         return augment_and_normalize(
             batch["image_u8"], gen, s.mean, s.std, s.augment,
             out_channels=s.out_channels, dtype=self.dtype,
-            scale_intensity=s.scale_intensity)
+            scale_intensity=s.scale_intensity, mesh=self.mesh)
 
     def _prep_eval(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         s = self.statics
@@ -131,12 +146,13 @@ class OnlyImagingTask(_ImageTask):
 
     def __init__(self, cfg: ServeConfig, statics: TaskStatics,
                  device: Optional[torch.device] = None,
-                 coral_lambda: float = 0.0) -> None:
-        super().__init__(cfg, statics)
+                 coral_lambda: float = 0.0, mesh=None) -> None:
+        super().__init__(cfg, statics, mesh)
         self.coral_lambda = float(coral_lambda)
         self.model = self.model_class(
             cfg.model, self.dtype, statics.out_channels, device,
             **_backbone_kw(cfg))
+        self._set_mesh()
 
     def _apply(self, images: torch.Tensor, batch: Dict[str, torch.Tensor]):
         """(logits, features) of the model on prepared images."""
@@ -155,12 +171,12 @@ class OnlyImagingTask(_ImageTask):
         mask = batch.get("mask", torch.ones_like(labels))
         w = losses.per_sample_class_weights(labels,
                                             self.statics.class_weights)
-        loss = losses.bce_with_logits(logits, labels, w, mask)
+        loss = losses.bce_with_logits(logits, labels, w, mask, self.mesh)
         aux = {"bce": loss}
         if self.coral_lambda > 0:
             domain = batch["dataset_id"]
             cl = losses.coral_loss(feats, feats, mask * (domain == 0),
-                                   mask * (domain == 1))
+                                   mask * (domain == 1), mesh=self.mesh)
             loss = loss + self.coral_lambda * cl
             aux["coral"] = cl
         return loss, {"logits": logits, "labels": labels, "mask": mask,
@@ -176,7 +192,7 @@ class OnlyImagingTask(_ImageTask):
         mask = batch.get("mask", torch.ones_like(labels))
         w = losses.per_sample_class_weights(labels,
                                             self.statics.class_weights)
-        loss = losses.bce_with_logits(logits, labels, w, mask)
+        loss = losses.bce_with_logits(logits, labels, w, mask, self.mesh)
         return {"logits": logits, "labels": labels, "mask": mask,
                 "dataset_id": batch["dataset_id"], "loss": loss}
 
@@ -205,12 +221,14 @@ LOSS_VARIANTS = ("symmetric_infonce", "masked", "non_square")
 class VisionLanguageTask(_ImageTask):
     """The dual tower and its CLIP loss. ``infonce_impl`` takes the JAX
     task's two values; on one device both compute the dense [B, B] loss,
-    as the JAX task does without a multi-device mesh."""
+    as the JAX task does without a multi-device mesh; on a mesh ``gspmd``
+    gathers the embeddings for the dense global loss and ``shard_map``
+    forms this rank's row block (``parallel/infonce.py``)."""
 
     def __init__(self, cfg: ServeConfig, statics: TaskStatics,
-                 device: Optional[torch.device] = None) -> None:
-        super().__init__(cfg, statics)
-        if cfg.infonce_impl not in ("gspmd", "shard_map"):
+                 device: Optional[torch.device] = None, mesh=None) -> None:
+        super().__init__(cfg, statics, mesh)
+        if cfg.infonce_impl not in IMPLS:
             raise ValueError(f"mesh.infonce_impl={cfg.infonce_impl!r} "
                              "(expected 'gspmd' or 'shard_map')")
         if cfg.loss_variant not in LOSS_VARIANTS:
@@ -223,6 +241,7 @@ class VisionLanguageTask(_ImageTask):
             cfg.model, cfg.text_model, cfg.embedding_dim, cfg.image_dropout,
             cfg.logit_scale_init, self.dtype, statics.out_channels, device,
             **_backbone_kw(cfg))
+        self._set_mesh()
 
     def _embed(self, images, batch):
         return self.model(images, batch["input_ids"],
@@ -238,15 +257,9 @@ class VisionLanguageTask(_ImageTask):
             self._prep_train(batch, gen), batch)
         mask = batch.get("mask", torch.ones(img_emb.shape[0],
                                             device=img_emb.device))
-        logits = losses.clip_logits(img_emb, txt_emb, logit_scale,
-                                    self.scale_max)
-        if self.loss_variant == "masked":
-            loss = losses.masked_infonce(logits, batch["caption_id"], mask)
-        elif self.loss_variant == "non_square":
-            loss = losses.non_square_infonce(logits, batch["caption_id"],
-                                             mask)
-        else:
-            loss = losses.symmetric_infonce(logits, mask)
+        loss = clip_loss(self.loss_variant, self.infonce_impl, img_emb,
+                         txt_emb, logit_scale, mask, batch.get("caption_id"),
+                         self.mesh, self.scale_max)
         # logit_scale is the parameter itself, which the optimizer updates
         # in place: aux keeps the value this loss used
         return loss, {"loss": loss,
@@ -260,12 +273,12 @@ class VisionLanguageTask(_ImageTask):
         self.model.eval()
         img_emb, txt_emb, logit_scale = self._embed(self._prep_eval(batch),
                                                     batch)
-        logits = losses.clip_logits(img_emb, txt_emb, logit_scale,
-                                    self.scale_max)
-        mask = batch.get("mask", torch.ones(logits.shape[0],
-                                            device=logits.device))
+        mask = batch.get("mask", torch.ones(img_emb.shape[0],
+                                            device=img_emb.device))
+        loss = clip_loss("symmetric_infonce", "gspmd", img_emb, txt_emb,
+                         logit_scale, mask, None, self.mesh, self.scale_max)
         return {"img_emb": img_emb, "txt_emb": txt_emb, "mask": mask,
-                "loss": losses.symmetric_infonce(logits, mask)}
+                "loss": loss}
 
     @torch.inference_mode()
     def embed_images_fn(self, batch: Dict[str, torch.Tensor]
@@ -282,15 +295,15 @@ class VisionLanguageTask(_ImageTask):
 
 
 def build_task(cfg, statics: TaskStatics,
-               device: Optional[torch.device] = None):
+               device: Optional[torch.device] = None, mesh=None):
     """``cfg``: a ``ServeConfig``, a ``TrainConfig`` or a
-    ``vlp_tpu.config.Config``."""
+    ``vlp_tpu.config.Config``; ``mesh``: the data mesh, or None."""
     coral = cfg.coral_lambda if isinstance(cfg, TrainConfig) else 0.0
     cfg = as_serve_config(cfg)
     if cfg.task == "only_imaging":
-        return OnlyImagingTask(cfg, statics, device, coral)
+        return OnlyImagingTask(cfg, statics, device, coral, mesh)
     if cfg.task == "fusion":
-        return FusionTask(cfg, statics, device, coral)
+        return FusionTask(cfg, statics, device, coral, mesh)
     if cfg.task == "vision_language":
-        return VisionLanguageTask(cfg, statics, device)
+        return VisionLanguageTask(cfg, statics, device, mesh)
     raise ValueError(f"unknown task {cfg.task!r}")

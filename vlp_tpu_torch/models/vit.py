@@ -42,6 +42,7 @@ from vlp_tpu_torch.ops.block_attention import attend_qkv
 from vlp_tpu_torch.ops.fused_block import (ln_attention,
                                            ln_attention_windows, ln_mlp,
                                            supports_attn, supports_mlp)
+from vlp_tpu_torch.parallel.collectives import all_reduce
 
 _LN_EPS = 1e-6
 _BN_EPS = 1e-5
@@ -110,24 +111,45 @@ class BatchNorm(nn.Module):
     biased batch variance (no ``num_batches_tracked``), in eval mode it
     normalises with the running statistics; the result is cast to
     ``dtype``. ``torch.nn.BatchNorm2d`` differs: it keeps the unbiased
-    variance as its running one."""
+    variance as its running one.
+
+    On a data mesh (``mesh``, set by ``set_batchnorm_mesh``) the training
+    statistics are the global batch's, as flax's under GSPMD: the per-
+    channel fp32 sum, sum of squares and count are all-reduced with a
+    gradient (``parallel/collectives.py``), and the running update, made
+    from the reduced statistics, is the same on every rank.
+    ``nn.SyncBatchNorm`` is not used: its variance and running update are
+    not flax's."""
 
     def __init__(self, dim: int, dtype: torch.dtype = torch.float32,
                  device: Optional[torch.device] = None) -> None:
         super().__init__()
         self.dtype = dtype
+        self.mesh = None
         self.weight = nn.Parameter(torch.ones(dim, device=device))
         self.bias = nn.Parameter(torch.zeros(dim, device=device))
         self.register_buffer("running_mean", torch.zeros(dim, device=device))
         self.register_buffer("running_var", torch.ones(dim, device=device))
+
+    def _global_moments(self, x: torch.Tensor, axes) -> tuple:
+        """E[x] and E[x^2] over the mesh's global batch."""
+        c = x.shape[1]
+        count = x.new_full((1,), x.numel() // c)
+        sums = all_reduce(torch.cat([x.sum(axes), (x * x).sum(axes), count]),
+                          self.mesh)
+        n = sums[-1].detach()  # a count: no gradient to carry back
+        return sums[:c] / n, sums[c:2 * c] / n
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.float()
         shape = (1, -1) + (1,) * (x.dim() - 2)
         if self.training:
             axes = (0, *range(2, x.dim()))
-            mean = x.mean(axes)
-            var = ((x * x).mean(axes) - mean * mean).clamp(min=0.0)
+            if self.mesh is None:
+                mean, mean_sq = x.mean(axes), (x * x).mean(axes)
+            else:
+                mean, mean_sq = self._global_moments(x, axes)
+            var = (mean_sq - mean * mean).clamp(min=0.0)
             with torch.no_grad():
                 self.running_mean.copy_(0.9 * self.running_mean + 0.1 * mean)
                 self.running_var.copy_(0.9 * self.running_var + 0.1 * var)
@@ -136,6 +158,14 @@ class BatchNorm(nn.Module):
         mul = torch.rsqrt(var + _BN_EPS) * self.weight
         y = (x - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
         return y.to(self.dtype)
+
+
+def set_batchnorm_mesh(model: nn.Module, mesh) -> None:
+    """Every ``BatchNorm`` of ``model`` takes the mesh's global statistics
+    (None: this process's batch)."""
+    for m in model.modules():
+        if isinstance(m, BatchNorm):
+            m.mesh = mesh
 
 
 def gelu_exact(h: torch.Tensor) -> torch.Tensor:

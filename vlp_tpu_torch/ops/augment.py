@@ -13,6 +13,13 @@ draw, the reference's branch ``vlp_tpu/ops/augment.py:209-211``); then
 ``(x - mean) / std`` or the torchxrayvision scaling, the channel repeat and
 one cast. Eval path: ``normalize_only``. The generator streams differ from
 ``jax.random``'s, so the same seed gives other draws (ROADMAP.md Queue 3).
+
+On a data mesh every draw with a batch dimension (the eleven parameter
+vectors, the noise seeds, the odd width's dense draw) is made at the global
+batch size from a generator in the same state on every rank, and each rank
+takes its rows: a sample's warp and noise are the ones it gets in one
+process at the global batch, and no two ranks repeat an augmentation.
+``shear_rows`` and ``add_gaussian_noise`` then run on this rank's rows.
 """
 from __future__ import annotations
 
@@ -23,6 +30,7 @@ import torch
 
 from vlp_tpu_torch.ops.noise import add_gaussian_noise
 from vlp_tpu_torch.ops.warp import affine_warp_shear
+from vlp_tpu_torch.parallel.mesh import axis_size
 
 
 class AugmentConfig(NamedTuple):
@@ -127,27 +135,33 @@ def augment_and_normalize(images_u8: torch.Tensor, gen: torch.Generator,
                           cfg: AugmentConfig = AugmentConfig(),
                           out_channels: int = 3,
                           dtype: torch.dtype = torch.bfloat16,
-                          scale_intensity: bool = False) -> torch.Tensor:
+                          scale_intensity: bool = False,
+                          mesh=None) -> torch.Tensor:
     """[B, H, W] uint8 -> augmented, normalised [B, H, W, C] in ``dtype``.
     ``gen`` lives on the images' device; each call advances it by eleven
     parameter draws and one pair of noise seeds per sample (at an odd
-    width: one normal draw per pixel in place of the seeds)."""
+    width: one normal draw per pixel in place of the seeds), per sample of
+    the global batch on a mesh (``images_u8`` then holds this rank's
+    rows)."""
     x = images_u8.float()
     if cfg.enabled:
         b = x.shape[0]
-        tx, ty, theta, zoom, shear, flip, noise_std = _sample_params(
-            gen, cfg, b, x.device)
+        world = axis_size(mesh)
+        rows = slice(0, b) if mesh is None else mesh.rows(b * world)
+        tx, ty, theta, zoom, shear, flip, noise_std = (
+            p[rows] for p in _sample_params(gen, cfg, b * world, x.device))
         x = affine_warp_shear(x, theta, zoom, tx, ty, shear)
         x = torch.where(flip[:, None, None], x.flip(1), x)
         # sigma in raw intensity units, as MONAI RandGaussianNoised adds
         # N(0, sigma <= 0.01) to the unnormalised 0..255 image
         if x.shape[-1] % 2 == 0:
-            seeds = torch.randint(-2 ** 31, 2 ** 31 - 1, (b, 2),
+            seeds = torch.randint(-2 ** 31, 2 ** 31 - 1, (b * world, 2),
                                   generator=gen, device=x.device,
-                                  dtype=torch.int32)
+                                  dtype=torch.int32)[rows].contiguous()
             x = add_gaussian_noise(x.contiguous(), seeds, noise_std)
         else:  # the kernel pairs columns: a dense draw, as the reference
-            x = x + torch.randn(x.shape, generator=gen, device=x.device) \
+            x = x + torch.randn((b * world, *x.shape[1:]), generator=gen,
+                                device=x.device)[rows] \
                 * noise_std[:, None, None]
     return _normalize(x, mean, std, out_channels, dtype, scale_intensity)
 

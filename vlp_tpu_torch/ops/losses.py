@@ -1,17 +1,31 @@
 """The losses of ``OnlyImagingTask`` and ``VisionLanguageTask``
 (counterparts of ``vlp_tpu/ops/losses.py``): the weighted masked BCE and
 CORAL, and the CLIP losses, all in fp32 over fixed-shape batches whose
-padded rows carry ``mask`` 0."""
+padded rows carry ``mask`` 0.
+
+Under a data mesh (``mesh``, ``parallel/mesh.py``) ``bce_with_logits``,
+``_masked_covariance`` and ``coral_loss`` take this rank's rows and return
+the global batch's value: their sums are all-reduced with a gradient
+(``parallel/collectives.py``), so the denominators are global and a padded
+tail on the last rank counts as it does in one process.
+``per_sample_class_weights`` is per row (the class weights are the fold's,
+counted on the host), so it needs no reduction. The CLIP losses take the
+global logits, which ``parallel/infonce.py`` forms from the gathered
+embeddings and caption ids. Without a mesh every function is the
+one-device one."""
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
 import torch
 
+from vlp_tpu_torch.parallel.collectives import all_reduce
+
 
 def bce_with_logits(logits: torch.Tensor, labels: torch.Tensor,
                     weights: Optional[torch.Tensor] = None,
-                    mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    mask: Optional[torch.Tensor] = None,
+                    mesh=None) -> torch.Tensor:
     """Per-sample-weighted binary cross entropy with logits, the mean of
     ``w * loss`` over the (masked) batch, as torch ``BCEWithLogitsLoss(
     weight=w, reduction='mean')`` with the reference's per-sample weights."""
@@ -21,6 +35,11 @@ def bce_with_logits(logits: torch.Tensor, labels: torch.Tensor,
         torch.exp(-logits.abs()))
     if weights is not None:
         per = per * weights.reshape(-1)
+    if mesh is not None:
+        m = torch.ones_like(per) if mask is None else mask.reshape(-1).float()
+        total, count = all_reduce(torch.stack([(per * m).sum(), m.sum()]),
+                                  mesh).unbind(0)
+        return total / (count if mask is None else count.clamp(min=1.0))
     if mask is None:
         return per.mean()
     mask = mask.reshape(-1)
@@ -35,22 +54,31 @@ def per_sample_class_weights(labels: torch.Tensor,
     return labels * class_weights[1] + (1.0 - labels) * class_weights[0]
 
 
-def _masked_covariance(x: torch.Tensor, mask: torch.Tensor
+def _masked_covariance(x: torch.Tensor, mask: torch.Tensor, mesh=None
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Covariance over the masked rows of x [N, D], Bessel-corrected, in
     the reference's form ``(X^T X - n mu mu^T) / max(n - 1, 1)`` (not
-    ``torch.cov``: the cancellation is part of what is computed)."""
+    ``torch.cov``: the cancellation is part of what is computed). On a
+    mesh n, the column sums and X^T X are the global ones (one all-reduce
+    of the three)."""
     mask = mask.reshape(-1, 1).to(x.dtype)
-    n = mask.sum()
     xm = x * mask
-    mean = xm.sum(0, keepdim=True) / n.clamp(min=1.0)  # [1, D]
-    c = (xm.T @ xm - n * (mean.T @ mean)) / (n - 1.0).clamp(min=1.0)
+    n, colsum, dtd = mask.sum(), xm.sum(0, keepdim=True), xm.T @ xm
+    if mesh is not None:
+        d = x.shape[1]
+        flat = all_reduce(torch.cat([n.reshape(1), colsum.reshape(-1),
+                                     dtd.reshape(-1)]), mesh)
+        n, colsum, dtd = (flat[0], flat[1:1 + d].reshape(1, d),
+                          flat[1 + d:].reshape(d, d))
+    mean = colsum / n.clamp(min=1.0)  # [1, D]
+    c = (dtd - n * (mean.T @ mean)) / (n - 1.0).clamp(min=1.0)
     return c, n
 
 
 def coral_loss(source: torch.Tensor, target: torch.Tensor,
                source_mask: Optional[torch.Tensor] = None,
-               target_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+               target_mask: Optional[torch.Tensor] = None,
+               mesh=None) -> torch.Tensor:
     """``sum((Cov_s - Cov_t)^2) / (4 d^2)`` in fp32 over the masked rows;
     0 unless both domains have at least 2 samples. The unselected branch is
     finite (n is clamped before it divides), so its zero gradient stays
@@ -61,8 +89,8 @@ def coral_loss(source: torch.Tensor, target: torch.Tensor,
         if source_mask is None else source_mask
     tm = torch.ones(target.shape[0], device=target.device) \
         if target_mask is None else target_mask
-    cs, ns = _masked_covariance(source, sm)
-    ct, nt = _masked_covariance(target, tm)
+    cs, ns = _masked_covariance(source, sm, mesh)
+    ct, nt = _masked_covariance(target, tm, mesh)
     loss = ((cs - ct) ** 2).sum() / (4.0 * d * d)
     return torch.where((ns >= 2) & (nt >= 2), loss, torch.zeros_like(loss))
 

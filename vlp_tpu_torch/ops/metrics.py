@@ -9,8 +9,11 @@ accuracy, the binned AUROC and the mean loss: the metric set the reference
 logs per dataloader. The arithmetic is the JAX package's in fp32, so the
 same logits give the same counters and histograms. ``auroc_exact`` and
 ``binary_report`` are the exact host-side versions (rank AUROC with average
-ties, as sklearn's ``roc_auc_score``). The mesh reduction ``psum_state``
-waits for ROADMAP Queue 1 item 14.
+ties, as sklearn's ``roc_auc_score``). On a data mesh each rank adds its
+own rows and ``reduce_state`` sums the states over the ranks before
+``compute_metrics`` (the JAX package's ``psum_state``): the counters and
+histograms hold integer counts, so the sum is exact and the same on every
+rank.
 """
 from __future__ import annotations
 
@@ -18,6 +21,8 @@ from typing import Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
+
+from vlp_tpu_torch.parallel.collectives import all_reduce_
 
 DEFAULT_BINS = 4096
 
@@ -71,6 +76,17 @@ def update_state(state: BinaryMetricState, logits: torch.Tensor,
 def merge_states(a: BinaryMetricState, b: BinaryMetricState
                  ) -> BinaryMetricState:
     return BinaryMetricState(*(x + y for x, y in zip(a, b)))
+
+
+def reduce_state(state: BinaryMetricState, mesh) -> BinaryMetricState:
+    """The sum of every rank's state (the state itself without a mesh), in
+    one all-reduce."""
+    if mesh is None:
+        return state
+    flat = all_reduce_(torch.cat([t.reshape(-1) for t in state]), mesh)
+    sizes = [t.numel() for t in state]
+    return BinaryMetricState(*(part.reshape(t.shape) for part, t in zip(
+        flat.split(sizes), state)))
 
 
 def _auroc_from_hists(pos_hist: torch.Tensor, neg_hist: torch.Tensor

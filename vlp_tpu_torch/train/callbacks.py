@@ -21,6 +21,11 @@ precision@k and the linear probe (counterpart of
   method to a gradient of 1e-10 (sklearn's lbfgs stops at 1e-4: the two
   probabilities agree to that, ``tests/test_torch_port_callbacks.py``), and
   the metrics are computed in numpy.
+
+On a data mesh the driver's feature and embedding closures gather every
+rank's rows (``train/step.collect_over_loader``): every rank fits the same
+Newton problem on the same fp64 data and computes the same precision@k,
+so the metrics, and the branches taken on them, agree across ranks.
 """
 from __future__ import annotations
 

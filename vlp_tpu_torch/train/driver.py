@@ -23,8 +23,21 @@ checkpoint on the frozen test split (``eval.test_eval``), writes
 folds of the overall rows, to the returned aggregate.
 
 It runs on ``cuda`` unless ``--device cpu`` is given (the tests give it);
-there is no fallback to the CPU. One device: a ``mesh.*`` that asks for
-more raises (ROADMAP Queue 1 item 14). Not ported, each in ROADMAP Queue 1
+there is no fallback to the CPU. Under the launcher,
+
+    python -m torch.distributed.run --standalone --nproc_per_node=N \
+        -m vlp_tpu_torch.train [--device cuda|cpu] experiment=<name> ...
+
+it trains on N ranks, one process per device (``cuda:LOCAL_RANK`` over
+NCCL; gloo for ``--device cpu``), with the JAX mesh's global-batch
+semantics (``parallel/``): ``data.batch_size`` is the global batch, the
+loss, gradients, BatchNorm statistics and metrics are the global batch's,
+and only rank 0 logs and writes (metrics files, checkpoints, fold markers,
+``cv_summary.json``, the test CSV); barriers sit where another rank reads
+what rank 0 wrote. ``mesh.data_parallel`` must be -1 or the world;
+FSDP above one rank and tensor parallelism raise (ROADMAP Queue 1 item
+14). Without the launcher's environment it is one process on one device.
+Not ported, each in ROADMAP Queue 1
 item 15 (b): the post-fit t-SNE and confusion plots (matplotlib, scikit-learn)
 are left out with a log line, so a fold's summary lacks their keys. The
 real datasets wait for their files; the synthetic ones run.
@@ -47,7 +60,10 @@ from vlp_tpu_torch.data.datamodule import DownstreamData, build_datamodule
 from vlp_tpu_torch.eval.subgroup import evaluate_results
 from vlp_tpu_torch.eval.test_eval import collect_probs
 from vlp_tpu_torch.models.tasks import build_task
+from vlp_tpu_torch.ops._build import load_library
 from vlp_tpu_torch.ops.retrieval import label_precision_at_k
+from vlp_tpu_torch.parallel.mesh import (check_mesh_config, create_mesh,
+                                         destroy_mesh, launched)
 from vlp_tpu_torch.train.callbacks import (DownstreamPrecisionAtK,
                                            LinearProbeCallback)
 from vlp_tpu_torch.train.loop import Trainer
@@ -55,7 +71,8 @@ from vlp_tpu_torch.train.step import collect_over_loader
 from vlp_tpu_torch.utils import checkpoint as ckpt
 from vlp_tpu_torch.utils.hparams import log_hyperparameters
 from vlp_tpu_torch.utils.logging import (JsonlSink, MemorySink, MultiSink,
-                                         _to_jsonable, get_logger)
+                                         _to_jsonable, get_logger,
+                                         quiet_unless_main)
 
 logger = get_logger(__name__)
 XRV = "resnet50-res512-all"
@@ -177,31 +194,49 @@ def _check_config(cfg: Config) -> None:
             "fold (same weights + skipped epoch range -> invalid CV "
             "statistics). Resume the interrupted fold with "
             "k_fold_cross_validation=false, or drop ckpt_path.")
-    m = cfg.mesh
-    if m.data_parallel not in (-1, 1) or m.model_parallel != 1:
-        raise ValueError(
-            f"mesh.data_parallel={m.data_parallel}, mesh.model_parallel="
-            f"{m.model_parallel}: the port trains on one device; data and "
-            "model parallelism are not ported (ROADMAP.md Queue 1 item 14)")
-    if m.param_sharding == "tp":
-        raise ValueError(
-            "mesh.param_sharding='tp' shards weights over the model axis, "
-            "which needs mesh.model_parallel>1 (not ported: ROADMAP.md "
-            "Queue 1 item 14).")
 
 
-def train(cfg: Config, device="cuda") -> Dict[str, float]:
+def train(cfg: Config, device="cuda", mesh=None) -> Dict[str, float]:
     """Every fold of ``cfg`` (one without k-fold CV) on ``device``;
     returns the CV aggregate, also written to
-    ``<output_dir>/cv_summary.json``."""
+    ``<output_dir>/cv_summary.json``. Under the launcher's environment (or
+    with a ``mesh`` of a process group the caller formed) every rank runs
+    it on its rows; a group formed here is torn down on exit and on
+    error."""
     _check_config(cfg)
+    own = mesh is None and launched()
+    if own:
+        mesh = create_mesh(cfg.mesh, torch.device(device).type)
+    else:
+        check_mesh_config(cfg.mesh, 1 if mesh is None else mesh.world)
+    try:
+        return _train(cfg, device if mesh is None else mesh.device, mesh)
+    finally:
+        if own:
+            destroy_mesh(mesh)
+
+
+def _barrier(mesh) -> None:
+    if mesh is not None:
+        mesh.barrier()
+
+
+def _train(cfg: Config, device, mesh) -> Dict[str, float]:
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device; the command line's --device cpu "
                            "runs on the CPU")
-    os.makedirs(cfg.output_dir, exist_ok=True)
+    main = mesh is None or mesh.is_main
+    quiet_unless_main(mesh)
+    if main:
+        os.makedirs(cfg.output_dir, exist_ok=True)
+        if mesh is not None and device.type == "cuda":
+            # one build of the kernels for the host's ranks, not one each;
+            # a failed build fails rank 0, and the launcher stops the rest
+            load_library()
+    _barrier(mesh)
     tcfg = TrainConfig.from_config(cfg)
-    dm = build_datamodule(cfg, device)
+    dm = build_datamodule(cfg, device, mesh=mesh)
     is_vlp = cfg.model.task == "vision_language"
 
     downstream = None
@@ -213,7 +248,7 @@ def train(cfg: Config, device="cuda") -> Dict[str, float]:
         ds_cfg.output_dir = cfg.output_dir
         if cfg.data.name.startswith("synthetic"):
             ds_cfg.data.name = "synthetic_downstream"
-        downstream = DownstreamData(ds_cfg, device)
+        downstream = DownstreamData(ds_cfg, device, mesh=mesh)
     else:
         logger.info("post-fit t-SNE and confusion plots are not ported "
                     "(matplotlib, scikit-learn): the fold summaries lack "
@@ -242,13 +277,15 @@ def train(cfg: Config, device="cuda") -> Dict[str, float]:
                     "Fold %d: %s fingerprint does not match this config "
                     "(args/data changed since it was written): re-running "
                     "the fold", fold.index, done_path)
-        sinks = [MemorySink(), JsonlSink(os.path.join(
-            cfg.output_dir, f"metrics_fold{fold.index}.jsonl"))]
+        sinks = [MemorySink()]
+        if main:
+            sinks.append(JsonlSink(os.path.join(
+                cfg.output_dir, f"metrics_fold{fold.index}.jsonl")))
         if cfg.logger == "wandb":
             logger.warning("wandb is not available to the port; JSONL sink "
                            "only")
         sink = MultiSink(sinks)
-        task = build_task(tcfg, fold.statics, device)
+        task = build_task(tcfg, fold.statics, device, mesh)
         probe = pak = None
         if is_vlp:
             probe, pak = _linear_probe_callback(
@@ -278,6 +315,7 @@ def train(cfg: Config, device="cuda") -> Dict[str, float]:
                     "schedule's position and the epoch counters restart "
                     "from zero", cfg.ckpt_path)
         trainer.fit()
+        _barrier(mesh)  # rank 0's checkpoints are on disk
         summary = dict(sink.sinks[0].summary)
         summary.update({f"time/{k}": v for k, v in trainer.times.items()})
         if is_vlp and trainer.checkpointer and \
@@ -286,18 +324,22 @@ def train(cfg: Config, device="cuda") -> Dict[str, float]:
                                                       downstream))
         sink.log_summary(summary)
         sink.finish()
-        _write_fold_done(done_path, summary, fp)
+        if main:
+            _write_fold_done(done_path, summary, fp)
+        _barrier(mesh)  # the marker too
         fold_summaries.append(summary)
         logger.info("Fold %d summary: %s", fold.index,
                     {k: round(v, 4) for k, v in summary.items()
                      if isinstance(v, float)})
 
     agg = aggregate_folds(fold_summaries)
-    with open(os.path.join(cfg.output_dir, "cv_summary.json"), "w") as fh:
-        json.dump(agg, fh, indent=2)
+    if main:
+        with open(os.path.join(cfg.output_dir, "cv_summary.json"),
+                  "w") as fh:
+            json.dump(agg, fh, indent=2)
     logger.info("CV aggregate: %s", {k: round(v, 4) for k, v in agg.items()})
     if cfg.test and not is_vlp:
-        agg.update(_evaluate_test_set(cfg, dm, device))
+        agg.update(_evaluate_test_set(cfg, dm, device, mesh))
     return agg
 
 
@@ -343,11 +385,14 @@ def best_checkpoints(output_dir: str) -> List[tuple]:
     return out
 
 
-def _evaluate_test_set(cfg: Config, dm, device) -> Dict[str, float]:
+def _evaluate_test_set(cfg: Config, dm, device, mesh=None
+                       ) -> Dict[str, float]:
     """Each fold's best checkpoint on the frozen test split, with that
     fold's statistics: ``<output_dir>/test_eval.csv`` (its ``fold`` is the
     checkpoint's position in the list) and ``test/<metric>``, the mean over
-    folds of the overall rows, NaN skipped as pandas' ``mean`` skips it."""
+    folds of the overall rows, NaN skipped as pandas' ``mean`` skips it.
+    On a mesh every rank evaluates its rows of the test loader and gathers
+    the probabilities; rank 0 writes the CSV."""
     ckpts = best_checkpoints(cfg.output_dir)
     if not ckpts:
         logger.warning("test=true but no checkpoints found; skipping")
@@ -355,7 +400,8 @@ def _evaluate_test_set(cfg: Config, dm, device) -> Dict[str, float]:
     frames = [collect_probs(cfg, path, dm, fold, device)
               for fold, path in ckpts]
     out_csv = os.path.join(cfg.output_dir, "test_eval.csv")
-    results = evaluate_results(out_csv, frames)
+    results = evaluate_results(
+        out_csv if mesh is None or mesh.is_main else None, frames)
     overall: Dict[str, List[float]] = {}
     for level, metric, value in zip(results["level"], results["metric"],
                                     results["value"]):
@@ -418,14 +464,14 @@ def aggregate_folds(summaries: List[Dict[str, float]]) -> Dict[str, float]:
 def main(argv: Optional[List[str]] = None) -> int:
     parser = argparse.ArgumentParser(
         prog="python -m vlp_tpu_torch.train",
-        description="K-fold training of an experiment on one device; "
-                    "overrides are dotted.path=value, experiment=<name> "
-                    "first.")
+        description="K-fold training of an experiment on one device, or "
+                    "on N under python -m torch.distributed.run; overrides "
+                    "are dotted.path=value, experiment=<name> first.")
     parser.add_argument("--device", default="cuda",
                         help="cuda (the default) or cpu")
     args, overrides = parser.parse_known_args(argv)
     cfg = apply_overrides(Config(), overrides)
     np.random.seed(cfg.seed)
     torch.manual_seed(cfg.seed)
-    train(cfg, args.device)
+    train(cfg, args.device)  # forms the process group under the launcher
     return 0

@@ -23,6 +23,16 @@ touches the sampler; the step's generator is seeded with ``cfg.seed + 1``,
 as the JAX trainer splits its key. ``trainer.scan_steps`` is taken and the
 steps run one a call: the JAX package's K-step scan gives the same numbers
 (a CUDA-graph K-step is ROADMAP's "CUDA graphs" item).
+
+On a data mesh (the task's ``mesh``) every rank runs the same loop on its
+rows: the step's loss is the global one; validation reduces each loader's
+metric state over the ranks (``metrics.reduce_state``) and computes
+retrieval@k and the linear probe on the gathered embeddings and features;
+the epoch's metrics are then rank 0's on every rank, so early stopping and
+the checkpoint monitor take the same branch everywhere (a rank that
+stopped alone would hang the others in their next collective). Only rank 0
+writes checkpoints and profiles; the driver gives the other ranks an
+in-memory sink.
 """
 from __future__ import annotations
 
@@ -39,6 +49,8 @@ from vlp_tpu_torch.models.tasks import VisionLanguageTask
 from vlp_tpu_torch.ops import metrics as M
 from vlp_tpu_torch.ops.retrieval import (masked_image_text_recall_at_k,
                                          masked_label_precision_at_k)
+from vlp_tpu_torch.parallel.collectives import (all_reduce_,
+                                                broadcast_object, gather_rows)
 from vlp_tpu_torch.train.callbacks import (EarlyStopping, LinearProbeCallback,
                                            MetricSnapshot)
 from vlp_tpu_torch.train.setup import init_training
@@ -81,6 +93,8 @@ class Trainer:
         self.downstream_pak = downstream_pak
         self.device = next(task.model.parameters()).device
         self.is_vlp = isinstance(task, VisionLanguageTask)
+        self.mesh = getattr(task, "mesh", None)
+        main = self.mesh is None or self.mesh.is_main
 
         self.state, self.train_step = init_training(
             task, TrainConfig.from_config(cfg), max(len(train_loader), 1),
@@ -93,11 +107,12 @@ class Trainer:
         self.checkpointer = (
             ckpt.Checkpointer(checkpoint_dir, t.checkpoint_monitor,
                               t.checkpoint_mode,
-                              async_write=t.async_checkpointing)
+                              async_write=t.async_checkpointing, write=main)
             if checkpoint_dir else None)
         self._last_saver = (
             ckpt.LastStateSaver(f"{checkpoint_dir}/last.pt",
-                                async_write=t.async_checkpointing)
+                                async_write=t.async_checkpointing,
+                                write=main)
             if t.save_last and checkpoint_dir else None)
         self.early_stopping = (
             EarlyStopping(t.early_stopping_monitor, t.early_stopping_mode,
@@ -208,6 +223,8 @@ class Trainer:
                        "train/images_per_sec": images_seen / max(dt, 1e-9)}
             t0 = time.perf_counter()
             metrics.update(self._validate(epoch))
+            # one decision for every rank: rank 0's numbers
+            metrics = broadcast_object(metrics, self.mesh)
             self.times["validate_s"] += time.perf_counter() - t0
             if monitor in metrics:
                 monitor_seen = True
@@ -272,7 +289,8 @@ class Trainer:
         profile = contextlib.nullcontext()
         # the first epoch of a fresh fit only, as the JAX trainer: a
         # resumed fit opens no trace
-        if self.cfg.trainer.profile and epoch == 0:
+        if self.cfg.trainer.profile and epoch == 0 and (
+                self.mesh is None or self.mesh.is_main):
             profile = trace(self.cfg.trainer.profile_dir
                             or f"{self.cfg.output_dir}/profile")
         with profile:
@@ -286,12 +304,14 @@ class Trainer:
                                        ("txt", aux["txt_emb"]),
                                        ("label", batch["label"]),
                                        ("mask", aux["mask"])):
-                        self._train_cache[key].append(value.detach())
+                        self._train_cache[key].append(
+                            gather_rows(value.detach(), self.mesh))
         if not losses:
             return float("nan"), 0
-        host = torch.cat([torch.cat(losses),
-                          torch.stack(mask_sums).sum().reshape(1).float()]
-                         ).cpu().numpy()
+        # the losses are the global batches'; the image count is summed
+        seen = all_reduce_(torch.stack(mask_sums).sum().reshape(1).float(),
+                           self.mesh)
+        host = torch.cat([torch.cat(losses), seen]).cpu().numpy()
         return float(np.mean(host[:-1])), int(host[-1])
 
     def _retrieval(self, prefix: str, img: torch.Tensor, txt: torch.Tensor,
@@ -344,6 +364,7 @@ class Trainer:
                 o = self.eval_step(batch)
                 st = M.update_state(st, o["logits"], o["labels"], o["mask"],
                                     o["loss"])
+            st = M.reduce_state(st, self.mesh)
             combined = M.merge_states(combined, st)
             values.update(M.compute_metrics(st, prefix=f"val/{name}/"))
         values.update(M.compute_metrics(combined, prefix="val/combined/"))
@@ -364,7 +385,7 @@ class Trainer:
                                    ("txt", o["txt_emb"]),
                                    ("label", batch["label"]),
                                    ("mask", o["mask"])):
-                    chunks[key].append(value)
+                    chunks[key].append(gather_rows(value, self.mesh))
                 losses.append(o["loss"].reshape(1).float())
             if not losses:
                 continue  # an empty val loader is skipped
@@ -382,6 +403,7 @@ class Trainer:
     def extract_features(self, loader: DeviceLoader
                          ) -> Tuple[np.ndarray, np.ndarray]:
         """Frozen-model pooled features and labels over a loader (linear
-        probe / transfer eval), on the host."""
+        probe / transfer eval), on the host; every rank's rows on a
+        mesh."""
         feats, labels = collect_over_loader(self.task.features_fn, loader)
         return feats.float().cpu().numpy(), labels.cpu().numpy()

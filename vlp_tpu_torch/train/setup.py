@@ -19,6 +19,7 @@ from vlp_tpu_torch.data.tokenize import CLS_ID, FIRST_WORD_ID, PAD_ID, SEP_ID
 from vlp_tpu_torch.models.bert import TEXT_CONFIGS
 from vlp_tpu_torch.models.tasks import TaskStatics, build_task
 from vlp_tpu_torch.models.vit import flax_init_
+from vlp_tpu_torch.parallel.collectives import broadcast_module
 from vlp_tpu_torch.train.optim import make_optimizer
 from vlp_tpu_torch.train.state import TrainState
 from vlp_tpu_torch.train.step import make_train_step
@@ -34,27 +35,31 @@ def init_training(task, tcfg: TrainConfig, steps_per_epoch: int,
     ``seed``, the optimizer and per-group schedules of ``make_optimizer``,
     a ``TrainState`` whose generator is seeded with ``state_seed``, and
     ``make_train_step``'s step. ``build_training`` and the ``Trainer``
-    both build through it."""
+    both build through it. On the task's mesh every rank then takes rank
+    0's weights and running statistics; the generators start in the same
+    state on every rank."""
     device = next(task.model.parameters()).device
     flax_init_(task.model, torch.Generator(device=device).manual_seed(seed))
+    broadcast_module(task.model, getattr(task, "mesh", None))
     opt, schedules = make_optimizer(tcfg, task.model, steps_per_epoch)
     state = TrainState.create(task.model, opt, schedules, seed=state_seed)
     return state, make_train_step(task, opt, schedules)
 
 
 def build_training(tcfg: TrainConfig, device: torch.device,
-                   steps_per_epoch: int, seed: int = 0
+                   steps_per_epoch: int, seed: int = 0, mesh=None
                    ) -> Tuple[object, TrainState, Callable]:
     """(task, state, step) of ``tcfg`` on ``device``: the task of its
     ``model.task`` (imaging-only, fusion or vision-language) with
     ``MEAN``/``STD``, the serving fields' channels and intensity scaling
     and ``tcfg``'s augmentation, then ``init_training`` with weights and
-    generator both from ``seed``."""
+    generator both from ``seed``; on ``mesh`` the step takes this rank's
+    rows of each global batch (``parallel.mesh.shard_batch``)."""
     statics = TaskStatics(mean=MEAN, std=STD,
                           out_channels=tcfg.serve.in_channels,
                           scale_intensity=tcfg.serve.scale_intensity,
                           augment=tcfg.augment())
-    task = build_task(tcfg, statics, device)
+    task = build_task(tcfg, statics, device, mesh)
     state, step = init_training(task, tcfg, steps_per_epoch, seed, seed)
     return task, state, step
 

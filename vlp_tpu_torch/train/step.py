@@ -19,6 +19,16 @@ runs ``fn`` (``features_fn``, ``embed_images_fn``) over a loader's batches
 and keeps the outputs and labels on the device, the padded rows dropped;
 nothing reaches the host per batch. The JAX package scans K batches a
 dispatch there; here each batch is one call, with the same outputs.
+
+On a data mesh (the task's ``mesh``) the step is the JAX step on a
+``('data',)`` mesh: the batch is this rank's rows, ``loss_fn`` gives the
+global loss, and after ``backward`` one bucketed all-reduce per dtype
+averages the gradients (``parallel/collectives.reduce_gradients``), so the
+optimizer applies the single-process gradient of the global batch on every
+rank: BatchNorm's running statistics come from the global statistics and
+``logit_scale`` is a parameter like the others; a group frozen at lr 0 is
+reduced with the rest. ``collect_over_loader`` gathers the outputs, labels
+and masks in global row order before it drops the padded rows.
 """
 from __future__ import annotations
 
@@ -27,6 +37,7 @@ from typing import Callable, Dict, Iterable, List, Sequence, Tuple
 import numpy as np
 import torch
 
+from vlp_tpu_torch.parallel.collectives import gather_rows, reduce_gradients
 from vlp_tpu_torch.train.optim import Schedule
 from vlp_tpu_torch.train.state import TrainState
 
@@ -36,9 +47,14 @@ Batch = Dict[str, torch.Tensor]
 def make_train_step(task, optimizer: torch.optim.Optimizer,
                     schedules: Sequence[Schedule]
                     ) -> Callable[[TrainState, Batch], Dict]:
+    """The step; on a mesh ``step.reduce_events`` may be set to a list, to
+    which each step appends the (start, end) CUDA events around its
+    gradient reduction."""
     if len(schedules) != len(optimizer.param_groups):
         raise ValueError(f"{len(schedules)} schedules for "
                          f"{len(optimizer.param_groups)} param groups")
+    mesh = getattr(task, "mesh", None)
+    params = [p for g in optimizer.param_groups for p in g["params"]]
 
     def train_step(state: TrainState, batch: Batch) -> Dict:
         lrs = {}
@@ -47,11 +63,22 @@ def make_train_step(task, optimizer: torch.optim.Optimizer,
         optimizer.zero_grad(set_to_none=True)
         loss, aux = task.loss_fn(batch, state.generator)
         loss.backward()
+        if mesh is not None:
+            events = train_step.reduce_events
+            if events is not None:
+                start = torch.cuda.Event(enable_timing=True)
+                start.record()
+            reduce_gradients(params, mesh)
+            if events is not None:
+                end = torch.cuda.Event(enable_timing=True)
+                end.record()
+                events.append((start, end))
         optimizer.step()
         state.step += 1
         return {**{k: v.detach() for k, v in aux.items()},
                 "lr": optimizer.param_groups[0]["lr"], "group_lrs": lrs}
 
+    train_step.reduce_events = None
     return train_step
 
 
@@ -85,12 +112,14 @@ def make_eval_step(task) -> Callable[[Batch], Dict[str, torch.Tensor]]:
 def collect_over_loader(fn: Callable[[Batch], torch.Tensor], loader
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(outputs [N, ...], labels [N]) of ``fn`` over every real row of
-    ``loader``'s batches, in order, on the loader's device."""
+    ``loader``'s batches, in order, on the loader's device; on the
+    loader's mesh every rank's rows, gathered in global row order."""
+    mesh = getattr(loader, "mesh", None)
     outs, labels, masks = [], [], []
     with torch.no_grad():
         for batch in loader:
-            outs.append(fn(batch))
-            labels.append(batch["label"].reshape(-1))
-            masks.append(batch["mask"].reshape(-1) > 0)
+            outs.append(gather_rows(fn(batch), mesh))
+            labels.append(gather_rows(batch["label"].reshape(-1), mesh))
+            masks.append(gather_rows(batch["mask"].reshape(-1), mesh) > 0)
     keep = torch.cat(masks)
     return torch.cat(outs)[keep], torch.cat(labels)[keep]

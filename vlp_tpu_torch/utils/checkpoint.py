@@ -18,7 +18,8 @@ state is copied to the host and a background thread writes it while the
 next epoch trains; the meta sidecar and the deletion of the previous best
 wait for that write's commit (the next write or ``wait()``); without it
 the same files are written before ``save`` returns. Against three faults of
-the JAX package's version (ROADMAP Queue 1 item 10):
+the JAX package's ``Checkpointer`` and ``LastStateSaver``
+(``vlp_tpu/utils/checkpoint.py:25-161``) and its trainer's commit:
 
 - every file is written to ``<path>.tmp`` and ``os.replace``d onto its
   path, so a write that fails midway leaves the previous ``last`` (and its
@@ -26,6 +27,11 @@ the JAX package's version (ROADMAP Queue 1 item 10):
 - a new best whose path equals the old one is never deleted at commit;
 - the trainer runs the commit barrier in a ``finally``, also when ``fit``
   raises.
+
+On a data mesh only rank 0 writes: the other ranks' ``Checkpointer``
+and ``LastStateSaver`` (``write=False``) keep the same best metric and
+paths, so that every rank takes the same branches and reads rank 0's
+files after a barrier.
 
 ``extract_image_encoder`` and ``graft_backbone`` move the dual tower's
 ``image_encoder.*`` entries onto a classifier's ``backbone.*`` (BatchNorm's
@@ -123,9 +129,11 @@ class Checkpointer:
     configs/callbacks/model_checkpoint_*.yaml)."""
 
     def __init__(self, directory: str, monitor: str, mode: str = "max",
-                 async_write: bool = True) -> None:
+                 async_write: bool = True, write: bool = True) -> None:
         self.directory = os.path.abspath(directory)
-        os.makedirs(self.directory, exist_ok=True)
+        self.write = write
+        if write:
+            os.makedirs(self.directory, exist_ok=True)
         self.monitor = monitor
         self.mode = mode
         self.best: Optional[float] = None
@@ -171,12 +179,14 @@ class Checkpointer:
         if not self.improved(value):
             return False
         self._commit()  # one write in flight
-        tree = state_to_tree(state)
+        tree = state_to_tree(state) if self.write else None
         old = self.best_path
         self.best = value
         safe = self.monitor.replace("/", "_")
         self.best_path = os.path.join(
             self.directory, f"epoch{epoch:03d}_{safe}{value:.4f}.pt")
+        if not self.write:
+            return True
         if meta is not None:
             self._pending_meta = {**meta, "checkpoint_best": value,
                                   "checkpoint_best_path": self.best_path}
@@ -202,8 +212,10 @@ class LastStateSaver:
     ``save_last``, src/train.py:171); its sidecar is written only after
     the body has replaced the previous one."""
 
-    def __init__(self, path: str, async_write: bool = True) -> None:
+    def __init__(self, path: str, async_write: bool = True,
+                 write: bool = True) -> None:
         self.path = os.path.abspath(path)
+        self.write = write
         self._writer = _Writer(async_write)
         self._pending_meta: Optional[Dict] = None
 
@@ -221,6 +233,8 @@ class LastStateSaver:
         self._commit()
 
     def save(self, state, meta: Optional[Dict] = None) -> str:
+        if not self.write:
+            return self.path
         self._commit()
         tree = state_to_tree(state)
         self._pending_meta = dict(meta) if meta is not None else None

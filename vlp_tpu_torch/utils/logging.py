@@ -32,6 +32,13 @@ def get_logger(name: str = _LOGGER_NAME) -> logging.Logger:
     return logger
 
 
+def quiet_unless_main(mesh) -> None:
+    """On a data mesh only rank 0 logs at INFO; the others keep warnings
+    and errors."""
+    if mesh is not None and not mesh.is_main:
+        get_logger().setLevel(logging.WARNING)
+
+
 class MetricSink:
     """Interface for metric consumers (wandb-equivalent)."""
 
