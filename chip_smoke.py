@@ -274,6 +274,42 @@ Phases, each printing its lines before the last line:
    files those of 21a's driver run, and the
    same launch with ``resume_completed_folds=true`` reusing all 4 fold
    markers with ``cv_summary.json`` unchanged.
+24. Per-block rematerialisation, flax's attention layout, ViT-L/16 and
+   FSDP. 24a: NesT-Small (batch 64, blockified and ``nhwc_windows``) and
+   ViT-B/16 (batch 32) with ``model.remat`` off and on from the same
+   weights and generator: one step's loss and every gradient bit-equal
+   (cuDNN deterministic for the convolutions around the blocks); each
+   forward kernel launched twice a step with remat (NesT: 48 of #1 or #5
+   and #2, 24 of each backward; ViT-B: 24 of #7, 12 of #8, no #9/#10,
+   which ``fused_mlp.supports`` refuses at D 768); step time and peak
+   memory (and the peak above the memory held before the step) in
+   alternating turns, the parameters still bit-equal after them. 24b:
+   ViT-L/16 (``baseline_only_imaging_vit_large``: 24 blocks, D 1024, 16
+   heads of 64, batch 64, 224, bf16; the routes the reference's predicates
+   give printed: #7/#8 only) with #7/#8 at its shape against their plain
+   versions and SDPA, serving 64 + 64 + 37 (24 of #7 a forward) and phase
+   6's training checks for 13 steps without remat (24 of #7 and #8 a
+   step; gradients against fp32 on the CPU) and with (48 of #7, 24 of
+   #8), each step's time and peak memory. 24c: ``model.fused_attention=
+   false`` on ViT-B/16 and NesT-Small, serving (logits against fp32 on
+   the CPU; no #1-#8; #9 on NesT's levels) and 13 training steps (#9/#10
+   on NesT), and a checkpoint of the fused layout restored strictly into
+   the flax layout, both answering one request within ``BOUND_LOGITS``.
+   24d (W = ``torch.cuda.device_count()`` NCCL ranks; W = 1 is said on a
+   line of its own): this file as the rank program (``--fsdp-rank
+   <dir>``) runs ``pretrain_resnet34_tinybert`` at global batch 128 under
+   ``mesh.param_sharding=fsdp`` and the replicated DP step from the same
+   weights, one step each in fp32 (TF32 off, cuDNN deterministic, no
+   augmentation) held against rank 0's one-process step to 23a's rules and
+   against each other, every rank's gathered parameters equal; then both
+   bf16 steps in alternating turns (median step, a rank's bytes of
+   parameters and AdamW moments, peak memory, 3 + 1 launches a step), and
+   ViT-L/16 under fsdp and remat together for 2 steps (48 of #7 and 24 of
+   #8 a step); then phase 21a's run under the launcher with
+   ``mesh.param_sharding=fsdp`` against 21a's summaries, resumed from its
+   markers, its 4 best checkpoints (the replicated run's format) reloaded
+   into one-process tasks reproducing the logged ``val/combined/*``, and
+   fold 0's best served by ``Predictor(checkpoint=...)``.
 
 Then one JSON line with every kernel: its launches in the timed training
 steps of the path that runs it (NesT-Small's for #1-#4, #11, #12; ViT-B's
@@ -284,8 +320,13 @@ and phase 21's ``*_trainer`` runs among them for #11, #12, and
 ``fusion_nest_train`` (#1-#4 too), ``fusion_trainer``,
 ``fusion_finetune_trainer`` and ``fusion_frozen_encoder_trainer``;
 phase 23's ``dp_vlp_resnet34_tinybert_train`` and ``dp_nest_train``, per
-rank, #1-#4 in the latter too),
-``serve_launches`` the serving phases (``fusion_nest_serve`` among them);
+rank, #1-#4 in the latter too; phase 24's ``*_remat_train``,
+``vit_l_train``, ``vit_l_remat_train``, ``*_flax_layout_train``,
+``fsdp_vlp_resnet34_tinybert_train`` and ``fsdp_vit_l_remat_train``),
+``serve_launches`` the serving phases (``fusion_nest_serve``,
+``vit_l_serve`` and ``*_flax_layout_serve`` among them); #7 and #8 also
+carry ``vit_l``, their errors and times per ViT-L/16 training step (24
+calls) beside SDPA's;
 #17 and
 #18 carry
 ``"path": "probe"`` and the launches of the probes' runs, as do #13,
@@ -321,6 +362,7 @@ fall outside those runs.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import logging
 import math
@@ -343,8 +385,8 @@ from vlp_tpu_torch.config import (EXPERIMENTS, NEST_UNFUSED, PRETRAIN,
                                   TrainConfig, apply_overrides,
                                   get_experiment,
                                   TRAIN_EXPERIMENTS)
-from vlp_tpu_torch.models.tasks import build_task
-from vlp_tpu_torch.models.vit import conv_nhwc
+from vlp_tpu_torch.models.tasks import TaskStatics, build_task
+from vlp_tpu_torch.models.vit import EncoderBlock, conv_nhwc
 from vlp_tpu_torch.ops import _build
 from vlp_tpu_torch.ops import attn_sched as AS
 from vlp_tpu_torch.ops import block_attention as BA
@@ -1025,13 +1067,18 @@ def _add(stat, calls, k_ms, p_ms, work, lib_ms=None):
 
 
 def phase_serve(smi: str, key: str, batch: int, requests, per_forward,
-                nhwc: bool = False):
+                nhwc: bool = False, fields=None):
     """``Predictor`` for ``experiment=key`` at ``batch`` answers
     ``requests``; every kernel launches ``per_forward[name]`` times per
     forward (0 where unnamed); logits vs fp32 on the CPU; latency. With
     ``nhwc`` the NesT backbone's ``nhwc_windows`` is set, and the logits and
-    latency are also held against the blockified path."""
+    latency are also held against the blockified path. ``fields``: serving
+    fields set on the experiment (``{"fused_attention": False}``), named
+    in the lines as overrides."""
     cfg = EXPERIMENTS[key]
+    if fields:
+        cfg = dataclasses.replace(cfg, **fields)
+        key = _label(key, fields)
     check(cfg.precision == "bf16" and cfg.image_size == 224,
           f"unexpected experiment config {cfg}")
     pred = Predictor(cfg, None, mean=128.0, std=64.0, batch_size=batch,
@@ -1704,6 +1751,18 @@ def _train_vs_blockified(smi, key, task, step, state, batches, batch_size):
               f"{smi}")
 
 
+def _with(tcfg: TrainConfig, **fields) -> TrainConfig:
+    """``tcfg`` with serving fields replaced."""
+    return dataclasses.replace(tcfg, serve=dataclasses.replace(tcfg.serve,
+                                                               **fields))
+
+
+def _label(key: str, fields) -> str:
+    """An experiment and serving fields as a command line names them."""
+    return " ".join([key] + [f"model.{k}={str(v).lower()}"
+                             for k, v in fields.items()])
+
+
 def _running_stats(model):
     """Copies of the model's BatchNorm running statistics (none for NesT
     and ViT)."""
@@ -1847,7 +1906,7 @@ def _check_grads(key, task, tcfg, statics):
 
 def phase_train_slice(smi: str, key: str, model: str, batch_size: int,
                       per_step_want: dict, nhwc: bool = False,
-                      coral: float = 0.0):
+                      coral: float = 0.0, fields=None, grads: bool = True):
     """The training step of ``experiment=key`` at its batch from random
     weights, on batches that hold datasets 0 and 1: 3 warm-up and 10 timed
     steps; every kernel launches ``per_step_want[name]`` times per step (0
@@ -1855,8 +1914,14 @@ def phase_train_slice(smi: str, key: str, model: str, batch_size: int,
     moving from step 0 on, with ``coral`` (the experiment's weight) CORAL
     nonzero in every timed step; latency, device span and peak memory. With
     ``nhwc`` the NesT backbone's ``nhwc_windows`` is set, and the step is
-    also timed against the blockified path's in alternating turns."""
+    also timed against the blockified path's in alternating turns.
+    ``fields``: serving fields set on the experiment (``{"remat": True}``),
+    named in the lines as overrides; without ``grads`` the gradients are
+    not held against fp32 on the CPU."""
     tcfg = TRAIN_EXPERIMENTS[key]
+    if fields:
+        tcfg = _with(tcfg, **fields)
+        key = _label(key, fields)
     aug = tcfg.augment()
     check(tcfg.serve.model == model and tcfg.serve.precision == "bf16"
           and tcfg.serve.image_size == 224 and tcfg.batch_size == batch_size
@@ -1865,6 +1930,7 @@ def phase_train_slice(smi: str, key: str, model: str, batch_size: int,
           and aug.noise_prob == 0.5 and aug.shear_deg == 0.0,
           f"unexpected training config {tcfg}")
     cuda = torch.device("cuda")
+    _release()
     task, state, step = build_training(tcfg, cuda, STEPS_PER_EPOCH)
     if nhwc:
         task.model.backbone.nhwc_windows = True
@@ -1896,6 +1962,7 @@ def phase_train_slice(smi: str, key: str, model: str, batch_size: int,
 
     _reset_counts()
     torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
     times, events = [], []
     for batch in batches[WARMUP_STEPS:]:
         start = torch.cuda.Event(enable_timing=True)
@@ -1967,15 +2034,19 @@ def phase_train_slice(smi: str, key: str, model: str, batch_size: int,
           f"{med * 1e3:.3f} ms (min {min(times) * 1e3:.3f}, max "
           f"{max(times) * 1e3:.3f}, n={TIMED_STEPS}), "
           f"{batch_size / med:.1f} images/s; device step span "
-          f"median {dev_ms:.3f} ms; peak memory {peak / 2 ** 30:.3f} GiB; "
-          f"on {smi}")
+          f"median {dev_ms:.3f} ms; peak memory {peak / 2 ** 30:.3f} GiB "
+          f"({(peak - held) / 2 ** 30:.3f} above the memory held before the "
+          f"steps); on {smi}")
+    STEP_ABOVE[key] = (peak - held) / 2 ** 30
     if nhwc:
         _train_vs_blockified(smi, key, task, step, state,
                              batches[WARMUP_STEPS:], batch_size)
 
     # gradients on the card vs fp32 on the CPU, augmentation off
-    _check_grads(key, task, tcfg, dataclasses.replace(
-        task.statics, augment=task.statics.augment._replace(enabled=False)))
+    if grads:
+        _check_grads(key, task, tcfg, dataclasses.replace(
+            task.statics,
+            augment=task.statics.augment._replace(enabled=False)))
     del task, state, step
     torch.cuda.empty_cache()
     return {k: v for k, v in launches.items() if v}
@@ -1987,6 +2058,17 @@ def phase_train_slice(smi: str, key: str, model: str, batch_size: int,
 # beside phase 16's
 STEP_RATES: dict = {}
 STEP_STATS: dict = {}
+# GiB of each phase_train_slice run's peak above the memory it held before
+# its timed steps, by experiment (phase 24 compares remat's)
+STEP_ABOVE: dict = {}
+
+
+def _release() -> None:
+    """Frees what earlier phases left unreachable (reference cycles
+    included) and returns the cached blocks, so that a phase's peak memory
+    is its own."""
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def _edge_err(y, ref, b, h, w):
@@ -2784,6 +2866,35 @@ def _epoch_split(out: Path, folds: int, seconds: float) -> str:
             "(data modules, model builds, fold summaries)")
 
 
+def _reload_matches_log(cfg, out: Path, tag: str) -> float:
+    """Each fold's best checkpoint (the one ``last``'s sidecar names),
+    reloaded into a fresh task on the card, evaluates its val loaders to
+    the values logged at its best epoch: the counts equal, the loss and
+    AUROC within ``BOUND_RELOAD``. Returns the largest relative gap."""
+    cuda = torch.device("cuda")
+    tcfg = TrainConfig.from_config(cfg)
+    prefix = "val/combined/accuracy_best_val/combined/"
+    gaps = []
+    for fold in build_datamodule(cfg, cuda).folds():
+        meta = ckpt.load_meta(str(out / "checkpoints" / f"fold{fold.index}"
+                                  / "last.pt"))
+        tr = Trainer(cfg, build_task(tcfg, fold.statics, cuda),
+                     fold.train_loader, fold.val_loaders)
+        tr.state.model.load_state_dict(
+            ckpt.restore_raw(meta["checkpoint_best_path"])["model"])
+        got = tr._validate_classifier()
+        logged = _fold_summary(out, fold.index)
+        for m in (*RELOAD_COUNTS, "auroc", "loss"):
+            g, w = got[f"val/combined/{m}"], logged[f"{prefix}{m}"]
+            gap = abs(g - w) / max(abs(w), 1e-12)
+            gaps.append(gap)
+            check(g == w if m in RELOAD_COUNTS else gap <= BOUND_RELOAD,
+                  f"{tag} fold {fold.index}: reloaded val/combined/{m} {g} "
+                  f"vs logged {w}")
+        del tr
+    return max(gaps)
+
+
 def _trainer_resnet34(smi: str, out: Path) -> dict:
     """21a: 4 folds x 2 epochs of ResNet34 (batch 64, 224, bf16, CORAL
     1000, cosine_warmup, noise on) on 640 synthetic images."""
@@ -2824,29 +2935,10 @@ def _trainer_resnet34(smi: str, out: Path) -> dict:
           f"{_epoch_split(out, 4, seconds)}; on {smi}")
     cuda = torch.device("cuda")
     tcfg = TrainConfig.from_config(cfg)
-    # each fold's best checkpoint, reloaded, evaluates its val loaders to
-    # the values logged at its best epoch
-    gaps = []
-    for fold in build_datamodule(cfg, cuda).folds():
-        meta = ckpt.load_meta(str(out / "checkpoints" / f"fold{fold.index}"
-                                  / "last.pt"))
-        tr = Trainer(cfg, build_task(tcfg, fold.statics, cuda),
-                     fold.train_loader, fold.val_loaders)
-        tr.state.model.load_state_dict(
-            ckpt.restore_raw(meta["checkpoint_best_path"])["model"])
-        got = tr._validate_classifier()
-        logged = _fold_summary(out, fold.index)
-        for m in (*RELOAD_COUNTS, "auroc", "loss"):
-            g, w = got[f"val/combined/{m}"], logged[f"{prefix}{m}"]
-            gap = abs(g - w) / max(abs(w), 1e-12)
-            gaps.append(gap)
-            check(g == w if m in RELOAD_COUNTS else gap <= BOUND_RELOAD,
-                  f"21a fold {fold.index}: reloaded val/combined/{m} {g} "
-                  f"vs logged {w}")
-        del tr
+    gap = _reload_matches_log(cfg, out, "21a")
     print(f"trainer {RESNET34}: 4 best checkpoints reloaded into fresh "
           f"tasks evaluate their val loaders to the logged val/combined/* "
-          f"(largest relative gap {max(gaps):.3g}; counts equal, loss and "
+          f"(largest relative gap {gap:.3g}; counts equal, loss and "
           f"AUROC bound {BOUND_RELOAD})")
     # fold 0 as 1 epoch + resume from last + 1 epoch
     fold0 = next(build_datamodule(cfg, cuda).folds())
@@ -3336,12 +3428,21 @@ DRIVER_FILES = re.compile(r"^(checkpoints/fold\d+/[^/]+|metrics_fold\d+\..+"
                           r"|fold\d+\.done\.json|cv_summary\.json)$")
 
 
+def _full(t):
+    """A DTensor shard's full tensor (a collective: every rank calls it in
+    the same order), any other tensor itself."""
+    from torch.distributed.tensor import DTensor
+
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
 def _params_grads(model):
-    """Copies of the parameters and their gradients, flat, in fp32."""
-    params = torch.cat([p.detach().float().reshape(-1)
+    """Copies of the parameters and their gradients, flat, in fp32; a
+    sharded model's gathered (every rank calls it)."""
+    params = torch.cat([_full(p.detach()).float().reshape(-1)
                         for p in model.parameters()])
-    grads = torch.cat([(torch.zeros_like(p) if p.grad is None else p.grad)
-                       .detach().float().reshape(-1)
+    grads = torch.cat([_full(torch.zeros_like(p) if p.grad is None
+                             else p.grad).detach().float().reshape(-1)
                        for p in model.parameters()])
     return params, grads
 
@@ -3476,12 +3577,18 @@ def _dp_vlp(mesh) -> dict:
     res.update(
         dp_ms=statistics.median(dp_t) * 1e3,
         one_ms=statistics.median(one_t) * 1e3 if one_t else None,
-        reduce_ms=statistics.median(a.elapsed_time(b)
-                                    for a, b in step.reduce_events),
+        reduce_ms=_reduce_ms(step.reduce_events),
         dp_peak_gib=dp_peak / 2 ** 30, one_peak_gib=one_peak / 2 ** 30,
         steps=DP_TURNS * DP_TURN_STEPS,
         launches={k: v for k, v in launches.items() if v})
     return res
+
+
+def _reduce_ms(events) -> float:
+    """The median over steps of a step's gradient reduction device time:
+    the sum of its reductions' spans (``make_train_step``)."""
+    return statistics.median(sum(a.elapsed_time(b) for a, b in spans)
+                             for spans in events)
 
 
 def _dp_corpus(mesh) -> dict:
@@ -3631,19 +3738,21 @@ def _dp_steps(smi: str, world: int, out: Path) -> tuple:
             dict(c0["launches"]))
 
 
-def _dp_trainer(smi: str, world: int, root: Path) -> None:
+def _dp_trainer(smi: str, world: int, root: Path, tag: str = "23b",
+                extra=()) -> Path:
     """23b: 21a's run (ResNet34, 4 folds x 2 epochs, 640 images) under
     the launcher, each fold's last epoch held against 21a's (the
     quantities of 21a's resume check; BOUND_DP_TRAINER_METRIC's comment);
     only rank 0's files; then the same command with
-    resume_completed_folds=true reads them."""
-    out = root / "dp_trainer"
+    resume_completed_folds=true reads them. ``extra`` overrides (24d:
+    ``mesh.param_sharding=fsdp``); returns the run's directory."""
+    out = root / f"trainer_{tag}"
     args = ["-m", "vlp_tpu_torch.train", "--device", "cuda",
             f"experiment={RESNET34}", "data.name=synthetic_downstream",
             f"data.synthetic_num_samples={TRAINER_SAMPLES}",
             "k_fold_cross_validation=true", "trainer.max_epochs=2",
-            f"output_dir={out}"]
-    _, seconds = _launch(args, world, DP_TRAINER_TIMEOUT, "23b")
+            f"output_dir={out}", *extra]
+    _, seconds = _launch(args, world, DP_TRAINER_TIMEOUT, tag)
     ref = root / "resnet34"
     # each fold's last epoch, the quantities of 21a's resume check
     gaps = {}
@@ -3656,9 +3765,9 @@ def _dp_trainer(smi: str, world: int, root: Path) -> None:
             gaps[f"fold{i} {k}"] = gap
             check(gap <= (BOUND_RESUME_LOSS if k.endswith("loss")
                           else BOUND_DP_TRAINER_METRIC),
-                  f"23b fold {i} {k}: {g} vs 21a's {w}")
+                  f"{tag} fold {i} {k}: {g} vs 21a's {w}")
         check(set(_fold_summary(out, i)) == set(_fold_summary(ref, i)),
-              f"23b fold {i}: summary keys differ")
+              f"{tag} fold {i}: summary keys differ")
 
     def files(root_dir):  # the driver's outputs (21a adds its own)
         rel = (str(p.relative_to(root_dir)) for p in root_dir.rglob("*")
@@ -3666,16 +3775,17 @@ def _dp_trainer(smi: str, world: int, root: Path) -> None:
         return sorted(re.sub(r"epoch\d+_.*\.pt", "epoch_best.pt", f)
                       for f in rel if DRIVER_FILES.match(f))
 
-    check(files(out) == files(ref), f"23b: files {files(out)} vs 21a's "
+    check(files(out) == files(ref), f"{tag}: files {files(out)} vs 21a's "
           f"{files(ref)}")
     agg = json.loads((out / "cv_summary.json").read_text())
     proc, resume_s = _launch(args + ["resume_completed_folds=true"], world,
-                             DP_TRAINER_TIMEOUT, "23b resume")
+                             DP_TRAINER_TIMEOUT, f"{tag} resume")
     reused = (proc.stdout + proc.stderr).count("reusing completed summary")
-    check(reused == 4, f"23b resume: {reused} folds reused, expected 4")
+    check(reused == 4, f"{tag} resume: {reused} folds reused, expected 4")
     check(json.loads((out / "cv_summary.json").read_text()) == agg,
-          "23b resume: cv_summary changed")
-    print(f"dp 23b {RESNET34} W={world}: 4 folds x 2 epochs under the "
+          f"{tag} resume: cv_summary changed")
+    print(f"{tag} {RESNET34} W={world} {' '.join(extra)}: 4 folds x 2 "
+          f"epochs under the "
           f"launcher in {seconds:.1f} s (launch included); each fold's "
           f"last epoch vs 21a's: gaps "
           f"{ {k: round(v, 4) for k, v in gaps.items()} } (losses "
@@ -3683,6 +3793,7 @@ def _dp_trainer(smi: str, world: int, root: Path) -> None:
           f"absolute, bound {BOUND_DP_TRAINER_METRIC}); rank 0's files "
           f"match 21a's; the resumed "
           f"launch reused all 4 folds in {resume_s:.1f} s; on {smi}")
+    return out
 
 
 def phase_dp(smi: str, root: Path) -> dict:
@@ -3700,6 +3811,587 @@ def phase_dp(smi: str, root: Path) -> dict:
     _dp_trainer(smi, world, root)
     print(f"phase 23: {time.perf_counter() - t0:.1f} s")
     return {"dp_vlp_resnet34_tinybert_train": vlp, "dp_nest_train": nest}
+
+
+# phase 24: per-block rematerialisation, flax's attention layout, ViT-L/16
+# at full width and FSDP (mesh.param_sharding=fsdp)
+VIT_L = "baseline_only_imaging_vit_large"
+VIT_L_BATCH = 64
+# ViT-L/16's attention kernels' shape: (label, N, S, D, heads, calls per
+# training step)
+VIT_L_ATTN = ("ViT-L", VIT_L_BATCH, 197, 1024, 16, 24)
+# remat against no remat in alternating turns (24a), steps a turn
+REMAT_TURNS = 3
+REMAT_TURN_STEPS = 3
+FSDP_TURNS = 3
+FSDP_TURN_STEPS = 3
+FSDP_VIT_L_STEPS = 2
+
+
+def _bits(x: float) -> str:
+    return np.float32(x).tobytes().hex()
+
+
+def _state_bytes(model, optimizer) -> int:
+    """Bytes this rank holds of the parameters and the AdamW moments (a
+    DTensor's shard)."""
+    from torch.distributed.tensor import DTensor
+
+    moments = [t for st in optimizer.state.values()
+               for k, t in st.items() if k != "step"]
+    return 4 * sum((t.to_local() if isinstance(t, DTensor) else t).numel()
+                   for t in [*model.parameters(), *moments])
+
+
+def _remat_pair(smi: str, key: str, batch_size: int, want_plain: dict,
+                want_remat: dict, nhwc: bool = False) -> dict:
+    """24a for one path: the experiment's step with and without
+    ``model.remat`` from the same seeded weights and generator on the same
+    batch: the loss and every gradient bit-equal (cuDNN deterministic for
+    the convolutions around the blocks), each side's launches; then both
+    steps in alternating turns (median step time, peak memory, the peak
+    above the memory held before the step) and their parameters still
+    bit-equal after the turns. Returns the remat step's launches."""
+    cuda = torch.device("cuda")
+    tcfg = TRAIN_EXPERIMENTS[key]
+    label = key + (" nhwc_windows" if nhwc else "")
+    _release()
+    runs = {}
+    for remat in (False, True):
+        task, state, step = build_training(_with(tcfg, remat=remat), cuda,
+                                           STEPS_PER_EPOCH)
+        if nhwc:
+            task.model.backbone.nhwc_windows = True
+        runs[remat] = (task, state, step)
+    rng = np.random.default_rng(4)
+    batches = [to_device(batch_for(tcfg, rng, batch_size), cuda)
+               for _ in range(1 + REMAT_TURN_STEPS)]
+    torch.backends.cudnn.deterministic = True
+    one = {}
+    for remat, (task, state, step) in runs.items():
+        torch.cuda.synchronize()
+        _reset_counts()
+        loss = float(step(state, batches[0])["loss"])
+        torch.cuda.synchronize()
+        one[remat] = (loss, [p.grad.detach().clone()
+                             for p in task.model.parameters()],
+                      {k: v for k, v in _counts().items() if v})
+    torch.backends.cudnn.deterministic = False
+    names = [n for n, _ in runs[False][0].model.named_parameters()]
+    differ = [n for n, a, b in zip(names, one[False][1], one[True][1])
+              if not torch.equal(a, b)]
+    print(f"remat 24a {label}: one step at batch {batch_size}: loss "
+          f"{one[False][0]:.6f} without remat, {one[True][0]:.6f} with "
+          f"(bit-equal {_bits(one[False][0]) == _bits(one[True][0])}); "
+          f"{len(names) - len(differ)} of {len(names)} gradients "
+          f"bit-equal{'' if not differ else ', apart: ' + str(differ[:6])}"
+          f"; launches without remat {one[False][2]}, with {one[True][2]}")
+    check(_bits(one[False][0]) == _bits(one[True][0]) and not differ,
+          f"24a {label}: remat changed the step ({len(differ)} gradients "
+          f"apart: {differ[:6]})")
+    check(one[False][2] == want_plain, f"24a {label}: launches without "
+          f"remat {one[False][2]}, expected {want_plain}")
+    check(one[True][2] == want_remat, f"24a {label}: launches with remat "
+          f"{one[True][2]}, expected {want_remat}")
+    times = {False: [], True: []}
+    peak = {False: 0, True: 0}
+    above = {False: 0, True: 0}
+    for _ in range(REMAT_TURNS):
+        for remat, (task, state, step) in runs.items():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+            for b in batches[1:]:
+                t0 = time.perf_counter()
+                step(state, b)
+                torch.cuda.synchronize()
+                times[remat].append(time.perf_counter() - t0)
+            top = torch.cuda.max_memory_allocated()
+            peak[remat] = max(peak[remat], top)
+            above[remat] = max(above[remat], top - held)
+    same = all(torch.equal(a, b) for a, b in zip(
+        runs[False][0].model.parameters(), runs[True][0].model.parameters()))
+    med = {r: statistics.median(t) * 1e3 for r, t in times.items()}
+    print(f"remat 24a {label}: {REMAT_TURNS} alternating turns of "
+          f"{REMAT_TURN_STEPS} steps: median step {med[False]:.3f} ms "
+          f"without remat, {med[True]:.3f} ms with "
+          f"({med[True] / med[False]:.3f}x); peak memory "
+          f"{peak[False] / 2 ** 30:.3f} / "
+          f"{peak[True] / 2 ** 30:.3f} GiB (both trainings resident), above "
+          f"the memory held before the step {above[False] / 2 ** 30:.3f} / "
+          f"{above[True] / 2 ** 30:.3f} GiB "
+          f"({above[True] / above[False]:.3f}x); parameters after the turns "
+          f"bit-equal {same}; on {smi}")
+    check(same, f"24a {label}: the two trainings' parameters parted")
+    del runs
+    torch.cuda.empty_cache()
+    return one[True][2]
+
+
+def _vit_l_attention() -> dict:
+    """#7/#8 at ViT-L/16's shape (N 64, S 197, 16 heads of 64), against
+    their plain versions as phase 7 holds them; reruns bit-equal."""
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    label, n, s, d, heads, calls = VIT_L_ATTN
+    where = f"{label} N={n} S={s} D={d} H={heads}"
+    stats = {name: _stat() for name in ("attend_qkv", "attend_qkv_bwd")}
+    qkv = (torch.randn(n, s, 3 * d, generator=gen, device="cuda")
+           * 1.5).bfloat16()
+    do = torch.randn(n, s, d, generator=gen, device="cuda").bfloat16()
+    out = BA.attend_qkv(qkv, heads)
+    _check_outputs("attend_qkv", where, (out,),
+                   (BA.attend_qkv_plain(qkv, heads),),
+                   (BA.attend_qkv_plain(qkv.float(), heads),), ("o",),
+                   BOUND_VS_PLAIN_BF16, BOUND_VS_PLAIN_FP32,
+                   stats["attend_qkv"])
+    check(torch.equal(out, BA.attend_qkv(qkv, heads)),
+          f"attend_qkv {where}: reruns differ")
+    dqkv = BA.attend_qkv_bwd(qkv, do, heads)
+    _check_outputs(
+        "attend_qkv_bwd", where, _dqkv_parts(dqkv, d),
+        _dqkv_parts(BA.attend_qkv_bwd_plain(qkv, do, heads), d),
+        _dqkv_parts(BA.attend_qkv_bwd_plain(qkv.float(), do.float(),
+                                            heads), d),
+        ("dq", "dk", "dv"), BOUND_BWD_BF16, BOUND_BWD_FP32,
+        stats["attend_qkv_bwd"])
+    check(torch.equal(dqkv, BA.attend_qkv_bwd(qkv, do, heads)),
+          f"attend_qkv_bwd {where}: reruns differ")
+    print(f"kernel attend_qkv / attend_qkv_bwd {where}: reruns bit-equal")
+    ql, kl, vl = qkv.detach().requires_grad_().view(
+        n, s, 3, heads, d // heads).permute(2, 0, 3, 1, 4)
+    dol = do.view(n, s, heads, d // heads).transpose(1, 2)
+    with torch.no_grad():
+        lib_f = _median_ms(lambda: F.scaled_dot_product_attention(ql, kl,
+                                                                  vl))
+    ol = F.scaled_dot_product_attention(ql, kl, vl)
+    lib_b = _median_ms(lambda: torch.autograd.grad(
+        ol, (ql, kl, vl), dol, retain_graph=True))
+    for name, kern, plain, lib in (
+            ("attend_qkv", lambda: BA.attend_qkv(qkv, heads),
+             lambda: BA.attend_qkv_plain(qkv, heads), lib_f),
+            ("attend_qkv_bwd", lambda: BA.attend_qkv_bwd(qkv, do, heads),
+             lambda: BA.attend_qkv_bwd_plain(qkv, do, heads), lib_b)):
+        k_ms, p_ms = _timed_pair(plain, kern)
+        print(f"time {name} {where}: kernel {k_ms:.4f} ms, plain "
+              f"{p_ms:.4f} ms, SDPA {lib:.4f} ms per call")
+        _add(stats[name], calls, k_ms, p_ms, _work(name, n, s, d), lib)
+        _finish(stats[name])
+    del qkv, do, ql, kl, vl, ol
+    torch.cuda.empty_cache()
+    return stats
+
+
+def _routes(key: str, batch: int, fields=None) -> str:
+    """Which kernel each block of ``key``'s backbone reaches at ``batch``
+    (the reference's predicates)."""
+    cfg = EXPERIMENTS[key]
+    if fields:
+        cfg = dataclasses.replace(cfg, **fields)
+    task = build_task(cfg, TaskStatics(), torch.device("meta"))
+    blk = next(m for m in task.model.modules()
+               if isinstance(m, EncoderBlock))
+    d = blk.ln1.weight.shape[0]
+    heads, f = blk.num_heads, blk.mlp.fc1.weight.shape[1]
+    s = 197
+    return (f"{key}: D {d}, {heads} heads of {d // heads}, F {f}, S {s}, "
+            f"N {batch}: ln_attention "
+            f"{blk.megakernel and FB.supports_attn(batch, s, d, heads, 2)}, "
+            f"ln_mlp {blk.megakernel and FB.supports_mlp(batch * s, d, f, 2)}"
+            f", attend_qkv {blk.fused_attention}, fused_mlp "
+            f"{FM.supports(batch * s, d, f, 2)}")
+
+
+def _fused_vs_flax_layout(smi: str, key: str, batch: int, fused_pred,
+                          request) -> None:
+    """A checkpoint of the fused layout's served weights restores strictly
+    into the flax layout's ``Predictor``; both answer the same request
+    within ``BOUND_LOGITS``."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = ckpt.save(os.path.join(tmp, "fused.pt"),
+                         {"model": fused_pred.task.model.state_dict()})
+        flax = Predictor(dataclasses.replace(EXPERIMENTS[key],
+                                             fused_attention=False), None,
+                         mean=128.0, std=64.0, batch_size=batch,
+                         device="cuda", checkpoint=path)
+    a = fused_pred.predict_logits(request)
+    b = flax.predict_logits(request)
+    err = float(np.abs(a - b).max())
+    bound = BOUND_LOGITS * max(1.0, float(np.abs(a).max()))
+    print(f"layout 24c {key}: the fused layout's weights restored into the "
+          f"flax layout: logits of {len(request)} images apart by max_abs "
+          f"{err:.6g} (bound {bound:.6g}; attend_qkv against SDPA, both "
+          f"bf16); on {smi}")
+    check(err <= bound, f"24c {key}: layouts' logits {err:.4g} apart")
+    del flax
+
+
+def _phase_remat(smi: str) -> dict:
+    """24a: remat against no remat on NesT-Small (both routes) and
+    ViT-B/16."""
+    aug = {"shear_rows": 3, "add_gaussian_noise": 1}
+    nest = {"ln_attention_bwd": 24, "ln_mlp_bwd": 24, **aug}
+    out = {}
+    out["nest_remat_train"] = _remat_pair(
+        smi, NEST, BATCH, {"ln_attention": 24, "ln_mlp": 24, **nest},
+        {"ln_attention": 48, "ln_mlp": 48, **nest})
+    nhwc = {"ln_attention_windows_bwd": 24, "ln_mlp_bwd": 24, **aug}
+    out["nest_nhwc_remat_train"] = _remat_pair(
+        smi, NEST, BATCH, {"ln_attention_windows": 24, "ln_mlp": 24, **nhwc},
+        {"ln_attention_windows": 48, "ln_mlp": 48, **nhwc}, nhwc=True)
+    # ViT-B/16: fused_mlp.supports fails at D 768, F 3072 (phase 9), so
+    # only #7/#8 run in its blocks
+    out["vit_b_remat_train"] = _remat_pair(
+        smi, VIT_B, VIT_BATCH, {"attend_qkv": 12, "attend_qkv_bwd": 12,
+                                **aug},
+        {"attend_qkv": 24, "attend_qkv_bwd": 12, **aug})
+    return out
+
+
+def _phase_vit_l(smi: str) -> tuple:
+    """24b: ViT-L/16 at full width (24 blocks, D 1024, batch 64, 224,
+    bf16): #7/#8 at its shape against plain, serving 64 + 64 + 37, and 13
+    training steps without and with remat."""
+    print(f"vit-l 24b routes: {_routes(VIT_L, VIT_L_BATCH)}")
+    stats = _vit_l_attention()
+    serve = phase_serve(smi, VIT_L, VIT_L_BATCH, REQUESTS,
+                        {"attend_qkv": 24})
+    aug = {"shear_rows": 3, "add_gaussian_noise": 1}
+    plain = phase_train_slice(smi, VIT_L, "vit_large_patch16_224",
+                              VIT_L_BATCH, {"attend_qkv": 24,
+                                            "attend_qkv_bwd": 24, **aug})
+    remat = phase_train_slice(smi, VIT_L, "vit_large_patch16_224",
+                              VIT_L_BATCH, {"attend_qkv": 48,
+                                            "attend_qkv_bwd": 24, **aug},
+                              fields={"remat": True}, grads=False)
+    with_remat = _label(VIT_L, {"remat": True})
+    a, b = STEP_STATS[VIT_L], STEP_STATS[with_remat]
+    above = STEP_ABOVE[VIT_L], STEP_ABOVE[with_remat]
+    print(f"vit-l 24b {VIT_L}: step median {a[0]:.3f} ms without remat, "
+          f"{b[0]:.3f} ms with ({b[0] / a[0]:.3f}x); peak memory "
+          f"{a[3]:.3f} GiB without, {b[3]:.3f} GiB with "
+          f"({b[3] / a[3]:.3f}x), above the memory held before the steps "
+          f"{above[0]:.3f} and {above[1]:.3f} GiB ({above[1] / above[0]:.3f}"
+          f"x); on {smi}")
+    return stats, serve, plain, remat
+
+
+def _phase_layout(smi: str) -> dict:
+    """24c: ``model.fused_attention=false`` on ViT-B/16 and NesT-Small:
+    serving and 13 training steps; none of #1-#8, #9/#10 where
+    ``fused_mlp.supports`` holds (NesT's levels, not ViT-B's width); a
+    fused checkpoint restored into the flax layout."""
+    flax = {"fused_attention": False}
+    aug = {"shear_rows": 3, "add_gaussian_noise": 1}
+    out = {}
+    for key, batch, reqs, per_forward, per_step in (
+            (VIT_B, VIT_BATCH, VIT_REQUESTS, {}, aug),
+            (NEST, BATCH, REQUESTS, {"fused_mlp": 24},
+             {"fused_mlp": 24, "fused_mlp_bwd": 24, **aug})):
+        print(f"layout 24c routes: {_routes(key, batch, flax)}")
+        out[f"{key}_serve"] = phase_serve(smi, key, batch, reqs, per_forward,
+                                          fields=flax)
+        fused = Predictor(EXPERIMENTS[key], None, mean=128.0, std=64.0,
+                          batch_size=batch, device="cuda")
+        request = np.random.default_rng(3).integers(
+            0, 256, (batch, 224, 224), dtype=np.uint8)
+        _fused_vs_flax_layout(smi, key, batch, fused, request)
+        del fused
+        torch.cuda.empty_cache()
+        model = EXPERIMENTS[key].model
+        out[f"{key}_train"] = phase_train_slice(smi, key, model, batch,
+                                                per_step, fields=flax)
+    return out
+
+
+def _fsdp_pretrain(mesh) -> dict:
+    """24d on this rank: ``pretrain_resnet34_tinybert`` at global batch
+    128 under ``mesh.param_sharding=fsdp`` against the replicated DP step:
+    one step in fp32 (TF32 off, cuDNN deterministic, augmentation off)
+    from the same weights on the same global batch, both held against rank
+    0's one-process step to 23a's rules (and against each other); every
+    rank's gathered parameters; then the bf16 step of both in alternating
+    turns: median step, peak memory, the bytes a rank holds of the
+    parameters and AdamW moments, launches."""
+    cuda = mesh.device
+    tcfg = TRAIN_EXPERIMENTS[PRETRAIN]
+    rng = np.random.default_rng(6)
+    batches = [random_pretrain_batch(rng, VLP_BATCH, tcfg.serve.image_size,
+                                     tcfg.max_token_length,
+                                     tcfg.serve.text_model)
+               for _ in range(FSDP_TURN_STEPS)]
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    fp32 = _with(dataclasses.replace(tcfg, disable_augmentations=True),
+                 precision="fp32")
+    res = {"world": mesh.world, "torch": torch.__version__}
+    if mesh.is_main:
+        one = []
+        for b in (batches[0], _reversed(batches[0])):
+            _, st, sp = build_training(fp32, cuda, STEPS_PER_EPOCH)
+            loss = float(sp(st, to_device(b, cuda))["loss"])
+            one.append((loss, *_params_grads(st.model)))
+            del st, sp
+        (loss_a, p_a, g_a), (_, p_b, g_b) = one
+        res.update(one_loss=loss_a, floor_grad=_rel(g_b, g_a),
+                   floor_param=_rel(p_b, p_a))
+    local = to_device(shard_batch(batches[0], mesh), cuda)
+    kept = {}
+    for mode in ("replicated", "fsdp"):
+        t = dataclasses.replace(fp32, param_sharding=mode)
+        task, state, step = build_training(t, cuda, STEPS_PER_EPOCH,
+                                           mesh=mesh)
+        out = {"loss": float(step(state, local)["loss"])}
+        p, g = _params_grads(task.model)
+        out["rank_spread"] = _rank_spread(mesh, task.model)
+        if mesh.is_main:
+            out.update(grad=_rel(g, g_a), param=_rel(p, p_a))
+            kept[mode] = (p, g)
+        res[mode] = out
+        del task, state, step
+        torch.cuda.empty_cache()
+    torch.backends.cudnn.deterministic = False
+    if mesh.is_main:
+        (p_r, g_r), (p_f, g_f) = kept["replicated"], kept["fsdp"]
+        res["fsdp_vs_replicated"] = {
+            "grad": _rel(g_f, g_r), "param": _rel(p_f, p_r),
+            "grad_equal": bool(torch.equal(g_f, g_r)),
+            "param_equal": bool(torch.equal(p_f, p_r))}
+    # the bf16 step with the experiment's augmentation, in turns
+    local = [to_device(shard_batch(b, mesh), cuda) for b in batches]
+    runs = {mode: build_training(dataclasses.replace(
+        tcfg, param_sharding=mode), cuda, STEPS_PER_EPOCH, mesh=mesh)
+        for mode in ("replicated", "fsdp")}
+    times = {m: [] for m in runs}
+    peak = {m: 0 for m in runs}
+    launches = {m: {} for m in runs}
+    for _, _, step in runs.values():
+        step.reduce_events = []
+    for _ in range(FSDP_TURNS):
+        for mode, (task, state, step) in runs.items():
+            mesh.barrier()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _reset_counts()
+            for b in local:
+                t0 = time.perf_counter()
+                step(state, b)
+                torch.cuda.synchronize()
+                times[mode].append(time.perf_counter() - t0)
+            for k, v in _counts().items():
+                if v:
+                    launches[mode][k] = launches[mode].get(k, 0) + v
+            peak[mode] = max(peak[mode], torch.cuda.max_memory_allocated())
+    res["turns"] = {mode: {
+        "ms": statistics.median(times[mode]) * 1e3,
+        "reduce_ms": _reduce_ms(step.reduce_events),
+        "reductions": len(step.reduce_events[0]),
+        "peak_gib": peak[mode] / 2 ** 30,
+        "state_bytes": _state_bytes(task.model, state.optimizer),
+        "rank_spread": _rank_spread(mesh, task.model),
+        "launches": launches[mode],
+        "steps": FSDP_TURNS * FSDP_TURN_STEPS}
+        for mode, (task, state, step) in runs.items()}
+    return res
+
+
+def _fsdp_vit_l(mesh) -> dict:
+    """24d on this rank: ViT-L/16 under fsdp and remat together, two steps
+    at global batch 64: losses, launches, peak memory, the bytes a rank
+    holds of the parameters and AdamW moments."""
+    cuda = mesh.device
+    tcfg = _with(dataclasses.replace(TRAIN_EXPERIMENTS[VIT_L],
+                                     param_sharding="fsdp"), remat=True)
+    task, state, step = build_training(tcfg, cuda, STEPS_PER_EPOCH,
+                                       mesh=mesh)
+    rng = np.random.default_rng(7)
+    local = [to_device(shard_batch(random_batch(rng, VIT_L_BATCH, 224),
+                                   mesh), cuda)
+             for _ in range(FSDP_VIT_L_STEPS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t0 = time.perf_counter()
+    losses = [float(step(state, b)["loss"]) for b in local]
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return {"losses": losses, "seconds": seconds,
+            "launches": {k: v for k, v in _counts().items() if v},
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "state_bytes": _state_bytes(task.model, state.optimizer),
+            "rank_spread": _rank_spread(mesh, task.model)}
+
+
+def _fsdp_rank(out: Path) -> int:
+    """The rank program of 24d (under the launcher's environment): its
+    results as ``rank<r>.json`` in ``out``."""
+    logging.getLogger("vlp_tpu_torch").setLevel(logging.WARNING)
+    mesh = create_mesh(None, "cuda")
+    try:
+        res = {"pretrain": _fsdp_pretrain(mesh), "vit_l": _fsdp_vit_l(mesh)}
+        (out / f"rank{mesh.rank}.json").write_text(json.dumps(res))
+    finally:
+        destroy_mesh(mesh)
+    return 0
+
+
+def _fsdp_steps(smi: str, world: int, out: Path) -> tuple:
+    """24d's steps: one launch of the rank program; every rank's results
+    checked here. Returns the launches per rank of the pretrain fsdp turns
+    and of the ViT-L steps."""
+    out.mkdir(parents=True)
+    _, seconds = _launch([str(Path(__file__).resolve()), "--fsdp-rank",
+                          str(out)], world, DP_TRAINER_TIMEOUT, "24d")
+    ranks = [json.loads((out / f"rank{r}.json").read_text())
+             for r in range(world)]
+    a0 = ranks[0]["pretrain"]
+    print(f"fsdp 24d: torch {a0['torch']}, W={world}")
+    for mode in ("replicated", "fsdp"):
+        r = a0[mode]
+        rel = abs(r["loss"] - a0["one_loss"]) / abs(a0["one_loss"])
+        print(f"fsdp 24d {PRETRAIN} fp32 W={world} {mode}: loss "
+              f"{r['loss']:.6f} vs one process {a0['one_loss']:.6f} "
+              f"(relative {rel:.3g}, bound {BOUND_DP_LOSS}); after one "
+              f"AdamW step, relative L2 from one process: gradient "
+              f"{r['grad']:.3g}, parameters {r['param']:.3g}; the one-"
+              f"process step's own on the reversed batch "
+              f"{a0['floor_grad']:.3g} and {a0['floor_param']:.3g} (bound "
+              f"{BOUND_DP_FLOOR:g}x those); ranks' parameters apart by "
+              f"{r['rank_spread']:.3g}")
+        check(rel <= BOUND_DP_LOSS, f"24d {mode}: loss {rel:.3g}")
+        check(r["grad"] <= BOUND_DP_FLOOR * a0["floor_grad"] + 1e-7
+              and r["param"] <= BOUND_DP_FLOOR * a0["floor_param"] + 1e-7,
+              f"24d {mode}: {r} against the floor {a0}")
+        check(all(rk["pretrain"][mode]["rank_spread"] == 0.0
+                  for rk in ranks), f"24d {mode}: ranks differ")
+        check(all(rk["pretrain"][mode]["loss"] == r["loss"]
+                  for rk in ranks), f"24d {mode}: the ranks' losses differ")
+    fr = a0["fsdp_vs_replicated"]
+    print(f"fsdp 24d {PRETRAIN} fp32 W={world}: fsdp against the "
+          f"replicated DP step: gradient relative L2 {fr['grad']:.3g} "
+          f"(bit-equal {fr['grad_equal']}), parameters {fr['param']:.3g} "
+          f"(bit-equal {fr['param_equal']})")
+    check(fr["grad"] <= BOUND_DP_FLOOR * a0["floor_grad"] + 1e-7
+          and fr["param"] <= BOUND_DP_FLOOR * a0["floor_param"] + 1e-7,
+          f"24d fsdp vs replicated: {fr} against the floor {a0}")
+    turns = a0["turns"]
+    steps = turns["fsdp"]["steps"]
+    want = {"shear_rows": 3 * steps, "add_gaussian_noise": steps}
+    for rk in ranks:
+        for mode in ("replicated", "fsdp"):
+            t = rk["pretrain"]["turns"][mode]
+            check(t["launches"] == want, f"24d {mode}: launches per rank "
+                  f"{t['launches']}, expected {want}")
+            check(t["rank_spread"] == 0.0, f"24d {mode}: ranks differ after "
+                  "the turns")
+    rep, fs = turns["replicated"], turns["fsdp"]
+    # FSDP2 reduce-scatters only above one rank (at W = 1 it copies)
+    check(rep["reductions"] == 1 and (fs["reductions"] > 1) == (world > 1),
+          f"24d: reductions a step replicated {rep['reductions']}, fsdp "
+          f"{fs['reductions']} at W={world}")
+    print(f"fsdp 24d {PRETRAIN} bf16 W={world}, global batch {VLP_BATCH}, "
+          f"{FSDP_TURNS} alternating turns of {FSDP_TURN_STEPS} steps: "
+          f"median step fsdp {fs['ms']:.3f} ms, replicated {rep['ms']:.3f} "
+          f"ms ({fs['ms'] / rep['ms']:.3f}x); gradient reduction device "
+          f"time a step fsdp {fs['reduce_ms']:.3f} ms over "
+          f"{fs['reductions']} collectives (reduce-scatters and the "
+          f"replicated leaves' all-reduce), replicated "
+          f"{rep['reduce_ms']:.3f} ms over {rep['reductions']}; a rank's "
+          f"parameters + AdamW "
+          f"moments fsdp {fs['state_bytes'] / 2 ** 20:.1f} MiB, replicated "
+          f"{rep['state_bytes'] / 2 ** 20:.1f} MiB "
+          f"({fs['state_bytes'] / rep['state_bytes']:.3f}x); peak memory "
+          f"fsdp {fs['peak_gib']:.3f} GiB, replicated {rep['peak_gib']:.3f} "
+          f"GiB (both trainings resident); launches per rank {want}; on "
+          f"{smi}")
+    v0 = ranks[0]["vit_l"]
+    want_v = {"attend_qkv": 48 * FSDP_VIT_L_STEPS,
+              "attend_qkv_bwd": 24 * FSDP_VIT_L_STEPS,
+              "shear_rows": 3 * FSDP_VIT_L_STEPS,
+              "add_gaussian_noise": FSDP_VIT_L_STEPS}
+    for rk in ranks:
+        v = rk["vit_l"]
+        check(v["launches"] == want_v, f"24d ViT-L: launches per rank "
+              f"{v['launches']}, expected {want_v}")
+        check(v["losses"] == v0["losses"] and v["rank_spread"] == 0.0,
+              "24d ViT-L: ranks differ")
+    check(all(math.isfinite(x) for x in v0["losses"]),
+          f"24d ViT-L: losses {v0['losses']}")
+    print(f"fsdp 24d {VIT_L} model.remat=true mesh.param_sharding=fsdp "
+          f"W={world}: {FSDP_VIT_L_STEPS} steps at global batch "
+          f"{VIT_L_BATCH} in {v0['seconds']:.2f} s, losses "
+          f"{[round(x, 6) for x in v0['losses']]}; launches per rank "
+          f"{v0['launches']}; a rank's parameters + AdamW moments "
+          f"{v0['state_bytes'] / 2 ** 20:.1f} MiB; peak memory "
+          f"{v0['peak_gib']:.3f} GiB; 24d steps launch {seconds:.1f} s; on "
+          f"{smi}")
+    return fs["launches"], v0["launches"]
+
+
+def _fsdp_serve(smi: str, out: Path) -> None:
+    """24d: the fsdp run's checkpoints (gathered into the replicated run's
+    format) reloaded into fresh one-process tasks evaluate their val
+    loaders to the logged values, and fold 0's best serves through a
+    one-process ``Predictor``."""
+    cfg = apply_overrides(get_experiment(RESNET34), [
+        "data.name=synthetic_downstream",
+        f"data.synthetic_num_samples={TRAINER_SAMPLES}",
+        "k_fold_cross_validation=true", "trainer.max_epochs=2",
+        f"output_dir={out}"])
+    gap = _reload_matches_log(cfg, out, "24d")
+    meta = ckpt.load_meta(str(out / "checkpoints" / "fold0" / "last.pt"))
+    best = meta["checkpoint_best_path"]
+    tree = ckpt.restore_raw(best)
+    check(all(isinstance(k, int) for k in tree["optimizer"]["state"]),
+          "24d: the fsdp checkpoint's optimizer state is not in the "
+          "replicated format")
+    pred = Predictor(EXPERIMENTS[RESNET34], None, mean=128.0, std=64.0,
+                     batch_size=BATCH, device="cuda", checkpoint=best)
+    images = np.random.default_rng(8).integers(0, 256, (BATCH, 224, 224),
+                                               dtype=np.uint8)
+    probs = pred.predict_arrays(images)
+    check(probs.shape == (BATCH,) and bool(np.all(np.isfinite(probs)))
+          and bool(np.all((probs >= 0) & (probs <= 1))),
+          "24d: Predictor's probabilities")
+    print(f"fsdp 24d {RESNET34}: the 4 best checkpoints of the fsdp run "
+          f"(the replicated run's format) reloaded into fresh one-process "
+          f"tasks evaluate their val loaders to the logged val/combined/* "
+          f"(largest relative gap {gap:.3g}); fold 0's best "
+          f"({os.path.basename(best)}) serves {BATCH} images through "
+          f"Predictor(checkpoint=...), probabilities in [0, 1]; on {smi}")
+    del pred
+
+
+def phase_remat_fsdp(smi: str, root: Path) -> tuple:
+    """Phase 24: per-block rematerialisation (24a), ViT-L/16 at full width
+    (24b), flax's attention layout (24c) and FSDP on W =
+    ``device_count`` ranks (24d). Returns (per-kernel stats of #7/#8 at
+    ViT-L's shape, training launches by path, serving launches by path)."""
+    world = torch.cuda.device_count()
+    t0 = time.perf_counter()
+    train = _phase_remat(smi)
+    stats, serve_l, plain_l, remat_l = _phase_vit_l(smi)
+    train.update(vit_l_train=plain_l, vit_l_remat_train=remat_l)
+    layout = _phase_layout(smi)
+    train.update(vit_b_flax_layout_train=layout[f"{VIT_B}_train"],
+                 nest_flax_layout_train=layout[f"{NEST}_train"])
+    serves = {"vit_l_serve": serve_l,
+              "vit_b_flax_layout_serve": layout[f"{VIT_B}_serve"],
+              "nest_flax_layout_serve": layout[f"{NEST}_serve"]}
+    t_d = time.perf_counter()
+    if world == 1:
+        print("fsdp: one card, so W = 1: FSDP shards over one rank, which "
+              "saves no memory and moves no bytes between cards; the "
+              "sharded path, its hooks and its checkpoints still run")
+    pre, vit = _fsdp_steps(smi, world, root / "fsdp_steps")
+    train.update(fsdp_vlp_resnet34_tinybert_train=pre,
+                 fsdp_vit_l_remat_train=vit)
+    out = _dp_trainer(smi, world, root, tag="24d",
+                      extra=("mesh.param_sharding=fsdp",))
+    _fsdp_serve(smi, out)
+    print(f"phase 24: {time.perf_counter() - t0:.1f} s (24d "
+          f"{time.perf_counter() - t_d:.1f} s)")
+    return stats, train, serves
 
 
 def main() -> int:
@@ -3752,11 +4444,15 @@ def main() -> int:
         fusion, fusion_serves = phase_fusion(smi, root, vlp_best)
         t23 = time.perf_counter()
         dp = phase_dp(smi, root)
+        t24 = time.perf_counter()
+        vit_l_stats, remat_fsdp, remat_fsdp_serves = phase_remat_fsdp(smi,
+                                                                      root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     print(f"phases 3-19: {t20 - t0:.1f} s; phase 20: {t21 - t20:.1f} s; "
           f"phase 21: {t22 - t21:.1f} s; phase 22: {t23 - t22:.1f} s; "
-          f"phase 23: {time.perf_counter() - t23:.1f} s")
+          f"phase 23: {t24 - t23:.1f} s; phase 24: "
+          f"{time.perf_counter() - t24:.1f} s")
     # kernel -> (source, the TPU kernel it replaces, the training path whose
     # launches and per-step times the line gives)
     sources = {
@@ -3795,10 +4491,11 @@ def main() -> int:
              "nest_unfused_train": unfused, "nest_nhwc_train": nhwc,
              "resnet34_train": r34, "xrv_resnet50_train": xrv,
              "vlp_resnet34_tinybert_train": vlp, **trainers, **fusion,
-             **dp}
+             **dp, **remat_fsdp}
     serves = {"nest_serve": serve, "vit_b_serve": serve_vit,
               "nest_nhwc_serve": serve_nhwc, "resnet34_serve": serve_r34,
-              "xrv_resnet50_serve": serve_xrv, **fusion_serves}
+              "xrv_resnet50_serve": serve_xrv, **fusion_serves,
+              **remat_fsdp_serves}
     kernels = []
     for name, (source, replaces, path) in sources.items():
         stat = _finish(stats[name], FP32_FLOPS if name in (
@@ -3837,6 +4534,10 @@ def main() -> int:
         served = {p: c[name] for p, c in serves.items() if name in c}
         if served:
             entry["serve_launches"] = served
+        if name in vit_l_stats:  # per ViT-L/16 training step (24b)
+            entry["vit_l"] = {k: vit_l_stats[name][k] for k in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms")}
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -3848,4 +4549,6 @@ def main() -> int:
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--dp-rank":
         raise SystemExit(_dp_rank(Path(sys.argv[2])))
+    if len(sys.argv) == 3 and sys.argv[1] == "--fsdp-rank":
+        raise SystemExit(_fsdp_rank(Path(sys.argv[2])))
     raise SystemExit(main())

@@ -10,19 +10,23 @@ Run under the launcher (one process a card, NCCL)::
 Builds the experiment's training twice from the same seeded weights: the
 data-parallel step on this rank's rows of each global batch, and (rank 0
 alone, the others waiting) the one-process step on the whole global batch.
-Times, in alternating turns of ``--steps`` synchronised steps each, four
+Times, in alternating turns of ``--steps`` synchronised steps each, five
 variants: ``one``, ``dp``, ``dp_local_bn`` (BatchNorm on this rank's rows,
-``set_batchnorm_mesh(model, None)``) and ``dp_no_grad_reduce``
-(``reduce_gradients`` skipped). The two ablations change what is computed
-above one rank and serve only to split the DP step's time. Then one
-step of ``one`` and of ``dp`` each under ``torch.profiler``: the
-collectives (``c10d::`` calls), the kernel launches and the summed device
-time per step. Prints one JSON line (rank 0) with the medians in ms, the
+``set_batchnorm_mesh(model, None)``), ``dp_no_grad_reduce``
+(``reduce_gradients`` skipped) and ``fsdp`` (the same training under
+``mesh.param_sharding=fsdp``, ``parallel/fsdp.py``, from the same
+weights). The two ablations change what is computed above one rank and
+serve only to split the DP step's time. Then one step of ``one``, ``dp``
+and ``fsdp`` each under
+``torch.profiler``: the collectives (``c10d::`` calls), the kernel
+launches, the summed device time per step and the operations that take
+the most host time (self CPU ms). Prints one JSON line (rank 0) with the medians in ms, the
 card's name and power limit; ``--output`` also writes it.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -45,6 +49,10 @@ from vlp_tpu_torch.train.setup import (batch_for,  # noqa: E402
 from vlp_tpu_torch.train.step import to_device  # noqa: E402
 
 
+# operations listed by self host time in a profiled step
+TOP_HOST = 12
+
+
 def _timed(step, state, batches) -> list:
     out = []
     for b in batches:
@@ -63,12 +71,17 @@ def _profiled(step, state, batch) -> dict:
         step(state, batch)
         torch.cuda.synchronize()
     events = prof.key_averages()
+    top = sorted(events, key=lambda e: e.self_cpu_time_total,
+                 reverse=True)[:TOP_HOST]
     return {
         "collectives": sum(e.count for e in events
                            if e.key.startswith("c10d::")),
         "kernel_launches": sum(e.count for e in events
                                if e.key.startswith("cudaLaunchKernel")),
-        "device_ms": sum(e.self_device_time_total for e in events) / 1e3}
+        "device_ms": sum(e.self_device_time_total for e in events) / 1e3,
+        "host_ms": sum(e.self_cpu_time_total for e in events) / 1e3,
+        "top_host_ms": {e.key: [round(e.self_cpu_time_total / 1e3, 3),
+                                e.count] for e in top}}
 
 
 def main(argv=None) -> int:
@@ -116,8 +129,14 @@ def main(argv=None) -> int:
         def one():
             return _timed(ostep, ostate, full) if mesh.is_main else []
 
+        _, fstate, fstep = build_training(dataclasses.replace(
+            tcfg, param_sharding="fsdp"), cuda, 10, mesh=mesh)
+
+        def fsdp():
+            return _timed(fstep, fstate, local)
+
         variants = {"one": one, "dp": dp, "dp_local_bn": dp_local_bn,
-                    "dp_no_grad_reduce": dp_no_grad_reduce}
+                    "dp_no_grad_reduce": dp_no_grad_reduce, "fsdp": fsdp}
         times = {k: [] for k in variants}
         for turn in range(args.turns + 1):  # the first is a warm-up
             for name, fn in variants.items():
@@ -126,7 +145,8 @@ def main(argv=None) -> int:
                 if turn:
                     times[name] += got
                 mesh.barrier()
-        prof = {"dp": _profiled(step, state, local[0])}
+        prof = {"dp": _profiled(step, state, local[0]),
+                "fsdp": _profiled(fstep, fstate, local[0])}
         mesh.barrier()
         if mesh.is_main:
             prof["one"] = _profiled(ostep, ostate, full[0])

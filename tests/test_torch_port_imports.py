@@ -44,7 +44,8 @@ def test_serve_and_chip_smoke_import_without_jax_or_host_pipeline():
             "vlp_tpu_torch.train.callbacks, vlp_tpu_torch.train.loop, "
             "vlp_tpu_torch.train.driver, vlp_tpu_torch.parallel.mesh, "
             "vlp_tpu_torch.parallel.collectives, "
-            "vlp_tpu_torch.parallel.infonce, chip_smoke; "
+            "vlp_tpu_torch.parallel.infonce, vlp_tpu_torch.parallel.fsdp, "
+            "chip_smoke; "
             f"print([m for m in {FORBIDDEN!r} if m in sys.modules] + "
             "[m for m in sys.modules if m.split('.')[0] == 'vlp_tpu'])")
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -64,7 +65,8 @@ def _port_sources():
 def test_port_sources_cover_the_parallel_package():
     names = {os.path.relpath(p, REPO) for p in _port_sources()}
     assert {os.path.join("vlp_tpu_torch", "parallel", f) for f in (
-        "__init__.py", "mesh.py", "collectives.py", "infonce.py")} <= names
+        "__init__.py", "mesh.py", "collectives.py", "infonce.py",
+        "fsdp.py")} <= names
 
 
 def test_port_sources_never_import_jax():

@@ -112,13 +112,22 @@ def test_refusals_name_the_roadmap_item(world, tmp_path):
         f"batch_size=5 must be divisible by the {world}-shard data axis "
         "(every data shard gets an equal slice; adjust data.batch_size/"
         "eval_batch_size or mesh.data_parallel)")
+    # fsdp runs (tests/test_torch_port_fsdp.py); tensor parallelism and
+    # the 2-D mesh still raise, the JAX driver's two refusals in its words
     assert set(msgs) == {"batch", f"data_parallel={world + 1}",
-                         "model_parallel=2", "param_sharding=fsdp",
-                         "param_sharding=tp"}
+                         "model_parallel=2", "param_sharding=tp",
+                         "param_sharding=fsdp,model_parallel=2",
+                         "param_sharding=tp,model_parallel=2"}
     for key, msg in msgs.items():
         if key != "batch":
             assert "ROADMAP.md Queue 1 item 14" in msg, key
-    assert "would train replicated" in msgs["param_sharding=fsdp"]
+    assert "would train replicated" in msgs["model_parallel=2"]
+    assert msgs["param_sharding=tp"].startswith(
+        "mesh.param_sharding='tp' shards weights over the model axis — set "
+        "mesh.model_parallel>1 (2-D data x model mesh).")
+    assert msgs["param_sharding=fsdp,model_parallel=2"].startswith(
+        "mesh.param_sharding='fsdp' shards over the data axis and never "
+        "uses the model axis")
 
 
 def test_a_group_that_does_not_form_raises(tmp_path):

@@ -417,7 +417,8 @@ def test_flax_init_takes_bias_free_convs_and_batchnorm():
 def test_remat_builds_a_resnet_and_still_raises_for_the_transformers():
     """``remat`` reaches only ViT and NesT in the reference's registry, so a
     ResNet takes ``remat=True`` and ignores it: the same module, the same
-    forward. The transformers still raise until remat is ported."""
+    forward. The transformers build with it (per-block rematerialisation,
+    ``tests/test_torch_port_remat.py``)."""
     plain, _ = create_backbone("resnet34", dtype=torch.float32)
     flax_init_(plain, torch.Generator().manual_seed(0))
     remat, dim = create_backbone("resnet34", dtype=torch.float32, remat=True)
@@ -430,5 +431,6 @@ def test_remat_builds_a_resnet_and_still_raises_for_the_transformers():
     with torch.no_grad():
         assert torch.equal(remat(x), plain(x))
     for name in ("vit_base_patch16_224", "nest_small"):
-        with pytest.raises(NotImplementedError, match="remat"):
-            create_backbone(name, remat=True)
+        model, _ = create_backbone(name, remat=True,
+                                   device=torch.device("meta"))
+        assert model.remat

@@ -174,9 +174,11 @@ def test_converter_round_trip_and_refusals(tiny_vit):
 
 
 def test_unported_switches_raise():
-    """``fused_attention=False`` and ``remat=True`` still raise; NesT's
-    ``nhwc_windows=True`` (kernels #5/#6) is ported: it builds and runs a
-    tiny forward on the windowed path."""
+    """The switches that raised until they were ported now build:
+    ``fused_attention=False`` (flax's attention layout, the same parameter
+    names), ``remat=True`` (the same parameters) and NesT's
+    ``nhwc_windows=True`` (kernels #5/#6), which runs a tiny forward on the
+    windowed path."""
     from vlp_tpu_torch.models.nest import NesT
     model = NesT(img_size=16, patch_size=2, embed_dims=(16, 32),
                  num_heads=(2, 4), depths=(1, 1), block_size=4,
@@ -189,8 +191,12 @@ def test_unported_switches_raise():
     assert feats.shape == (2, 32) and bool(torch.isfinite(feats).all())
     assert TFB.ln_attention_windows.launches == before  # CPU: plain version
     assert model._level_uses_nhwc(torch.zeros(2, 8, 8, 16), 0)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tvit.EncoderBlock(64, 2, fused_attention=False)
+    flax_layout = tvit.EncoderBlock(64, 2, fused_attention=False)
+    assert isinstance(flax_layout.attn, tvit.MultiHeadAttention)
+    assert not flax_layout.megakernel
+    assert set(flax_layout.state_dict()) == set(
+        tvit.EncoderBlock(64, 2).state_dict())
     from vlp_tpu_torch.models.registry import create_backbone
-    with pytest.raises(NotImplementedError, match="remat"):
-        create_backbone("vit_base_patch16_224", remat=True)
+    vit, dim = create_backbone("vit_base_patch16_224", remat=True,
+                               device=torch.device("meta"))
+    assert vit.remat and dim == 768

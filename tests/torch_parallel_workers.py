@@ -76,8 +76,24 @@ def run_ranks(target, world: int, tmp_dir, *args, timeout: float = 180.0,
     return results
 
 
+def _full(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor shard's full tensor (a collective: every rank calls it in
+    the same order); any other tensor itself."""
+    from torch.distributed.tensor import DTensor
+
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
 def _np(t: torch.Tensor) -> np.ndarray:
-    return t.detach().float().cpu().numpy().copy()
+    return _full(t).detach().float().cpu().numpy().copy()
+
+
+def local_numel(tensors) -> int:
+    """Elements this rank holds of ``tensors`` (a DTensor's shard)."""
+    from torch.distributed.tensor import DTensor
+
+    return int(sum((t.to_local() if isinstance(t, DTensor) else t).numel()
+                   for t in tensors))
 
 
 # --------------------------------------------------------------------------
@@ -177,6 +193,7 @@ def build(spec: Dict, mesh):
                                       get_experiment)
     from vlp_tpu_torch.models.tasks import TaskStatics, build_task
     from vlp_tpu_torch.ops.augment import AugmentConfig
+    from vlp_tpu_torch.parallel.fsdp import shard_model
     from vlp_tpu_torch.train.optim import make_optimizer
     from vlp_tpu_torch.train.setup import init_training
     from vlp_tpu_torch.train.state import TrainState
@@ -201,6 +218,8 @@ def build(spec: Dict, mesh):
         return task, state, step
     task.model.load_state_dict({k: torch.tensor(v, device=device)
                                 for k, v in spec["weights"].items()})
+    if mesh is not None and tcfg.param_sharding == "fsdp":
+        shard_model(task.model, mesh)
     opt, schedules = make_optimizer(tcfg, task.model, spec["spe"])
     state = TrainState.create(task.model, opt, schedules, seed=1)
     return task, state, make_train_step(task, opt, schedules)
@@ -209,25 +228,81 @@ def build(spec: Dict, mesh):
 def run_steps(spec: Dict, mesh) -> Dict:
     """``spec["steps"]`` steps on ``spec["batch"]`` (the global batch; on a
     mesh this rank's rows of it); the losses, the last aux's scalars, the
-    gradients the last step applied and the model's state dict after."""
+    gradients the last step applied and the model's state dict after (a
+    sharded model's gathered), and with ``spec["elements"]`` the elements
+    this rank holds of the parameters and of the optimizer's moments and
+    the names of the sharded parameters; with ``spec["spans"]`` the
+    reduction spans each step recorded (``step.reduce_events``, each
+    span's (start, end) in the order of ``record()`` on the CPU's stand-in
+    for a CUDA event) and the FSDP units that hold sharded parameters."""
     from vlp_tpu_torch.parallel.mesh import shard_batch
     from vlp_tpu_torch.train.step import to_device
 
     task, state, step = build(spec, mesh)
     device = next(task.model.parameters()).device
     batch = to_device(shard_batch(spec["batch"], mesh), device)
+    if spec.get("spans"):
+        torch.cuda.Event = _OrderEvent  # this rank process only
+        step.reduce_events = []
     losses, aux = [], {}
     for _ in range(spec.get("steps", 1)):
         aux = step(state, batch)
         losses.append(float(aux["loss"]))
-    return {"losses": losses,
-            "aux": {k: float(v) for k, v in aux.items()
-                    if isinstance(v, torch.Tensor) and v.dim() == 0},
-            "grads": {k: p.grad.cpu().numpy().copy()
-                      for k, p in task.model.named_parameters()
-                      if p.grad is not None},
-            "state": {k: v.detach().cpu().numpy().copy()
-                      for k, v in task.model.state_dict().items()}}
+    out = {"losses": losses,
+           "aux": {k: float(v) for k, v in aux.items()
+                   if isinstance(v, torch.Tensor) and v.dim() == 0},
+           "grads": {k: _np(p.grad)
+                     for k, p in task.model.named_parameters()
+                     if p.grad is not None},
+           "state": {k: _np(v) for k, v in task.model.state_dict().items()}}
+    if spec.get("elements"):
+        from torch.distributed.tensor import DTensor
+
+        params = list(task.model.parameters())
+        moments = [t for s in state.optimizer.state.values()
+                   for k, t in s.items() if k != "step"]
+        out["elements"] = (local_numel(params), local_numel(moments))
+        out["sharded"] = sorted(k for k, p in task.model.named_parameters()
+                                if isinstance(p, DTensor))
+    if spec.get("spans"):
+        out["spans"] = [[(a.at, b.at) for a, b in spans]
+                        for spans in step.reduce_events]
+        out["scatter_units"] = _scatter_units(task.model)
+    return out
+
+
+class _OrderEvent:
+    """A CUDA event's stand-in on the CPU: ``at`` is the order in which
+    ``record()`` ran."""
+    count = 0
+
+    def __init__(self, enable_timing: bool = False) -> None:
+        self.at = None
+
+    def record(self) -> None:
+        _OrderEvent.count += 1
+        self.at = _OrderEvent.count
+
+
+def _scatter_units(model) -> int:
+    """The FSDP units (``parallel/fsdp._units`` and the root) that hold a
+    sharded parameter: each reduce-scatters once a backward."""
+    from torch.distributed.tensor import DTensor
+
+    from vlp_tpu_torch.parallel.fsdp import _units
+
+    names = {id(m): n for n, m in model.named_modules()}
+    owner = {}
+    for i, unit in enumerate(_units(model)):
+        for m in unit if isinstance(unit, list) else [unit]:
+            owner[names[id(m)] + "."] = i
+
+    def unit_of(name):
+        prefixes = [p for p in owner if name.startswith(p)]
+        return owner[max(prefixes, key=len)] if prefixes else "root"
+
+    return len({unit_of(n) for n, p in model.named_parameters()
+                if isinstance(p, DTensor)})
 
 
 def steps_worker(mesh, specs: Dict[str, Dict]) -> Dict:
@@ -330,15 +405,18 @@ def refusals_worker(mesh) -> Dict[str, str]:
         DeviceLoader(bundle, ShuffleBatchSampler(12, 5), 5, CPU, mesh=mesh)
     except ValueError as e:
         out["batch"] = str(e)
-    for key, value in (("data_parallel", mesh.world + 1),
-                       ("model_parallel", 2), ("param_sharding", "fsdp"),
-                       ("param_sharding", "tp")):
+    for settings in ({"data_parallel": mesh.world + 1},
+                     {"model_parallel": 2}, {"param_sharding": "fsdp"},
+                     {"param_sharding": "tp"},
+                     {"param_sharding": "fsdp", "model_parallel": 2},
+                     {"param_sharding": "tp", "model_parallel": 2}):
         m = Config().mesh
-        setattr(m, key, value)
+        for key, value in settings.items():
+            setattr(m, key, value)
         try:
             check_mesh_config(m, mesh.world)
         except ValueError as e:
-            out[f"{key}={value}"] = str(e)
+            out[",".join(f"{k}={v}" for k, v in settings.items())] = str(e)
     return out
 
 
@@ -355,3 +433,202 @@ def lonely_rank(store: str, out: str) -> None:
         msg = str(e)
     with open(out, "w") as fh:
         fh.write(msg)
+
+
+# --------------------------------------------------------------------------
+# the trainer, its checkpoints and the driver under fsdp
+# --------------------------------------------------------------------------
+
+FSDP_TRAINER = ["model.model=resnet_micro", "data.image_size=32",
+                "data.batch_size=8", "data.eval_batch_size=8",
+                "data.synthetic_num_samples=48",
+                "scheduler.name=cosine_warmup", "scheduler.warmup_epochs=1",
+                "trainer.max_epochs=2", "data.shear_augmentation=true"]
+
+
+VLP_TRAINER = ["model.model=resnet_micro", "model.text_model=microbert",
+               "data.image_size=32", "downstream_data.image_size=32",
+               "data.synthetic_num_samples=40", "trainer.max_epochs=1",
+               "trainer.linear_probe_every_n_epochs=1"]
+WARM_TRAINER = ["model.model=resnet_micro", "data.image_size=32",
+                "data.name=synthetic_downstream",
+                "data.synthetic_num_samples=40", "trainer.max_epochs=1",
+                "k_fold_cross_validation=false"]
+
+
+def _timeless(records) -> List[Dict]:
+    return [{k: v for k, v in r.items()
+             if not k.endswith("train/images_per_sec")} for r in records]
+
+
+def _fsdp_trainer(mesh, overrides, ckpt_dir):
+    """(trainer, fold) of the smoke classifier with ``overrides`` on fold
+    0, on ``mesh``."""
+    from vlp_tpu_torch.config import (TrainConfig, apply_overrides,
+                                      get_experiment)
+    from vlp_tpu_torch.data.datamodule import build_datamodule
+    from vlp_tpu_torch.models.tasks import build_task
+    from vlp_tpu_torch.train.loop import Trainer
+
+    cfg = apply_overrides(get_experiment("smoke_synthetic_only_imaging"),
+                          FSDP_TRAINER + list(overrides))
+    cfg.output_dir = str(ckpt_dir)
+    fold = next(build_datamodule(cfg, CPU, mesh=mesh).folds())
+    task = build_task(TrainConfig.from_config(cfg), fold.statics, CPU, mesh)
+    return Trainer(cfg, task, fold.train_loader, fold.val_loaders,
+                   checkpoint_dir=str(ckpt_dir)), fold
+
+
+def _gathered(model) -> Dict[str, np.ndarray]:
+    return {k: _np(v) for k, v in model.state_dict().items()}
+
+
+def fsdp_trainer_worker(mesh, tmp: str) -> Dict:
+    """Under ``mesh.param_sharding=fsdp``: the trainer straight for 2
+    epochs against 1 epoch and a resumed one; the best checkpoint served
+    by a one-process ``Predictor`` (rank 0) against the sharded model's
+    eval forward; the k-fold driver; a replicated run's ``last`` resumed
+    under fsdp against the replicated resume; the VLP driver (the linear
+    probe's feature pass every epoch, the best checkpoint reloaded for the
+    downstream precision@k) under fsdp and replicated, and a classifier
+    under fsdp warm-started from the fsdp run's best: its gathered
+    backbone when ``fit`` starts."""
+    from vlp_tpu_torch.parallel.collectives import gather_rows
+    from vlp_tpu_torch.parallel.fsdp import is_sharded
+    from vlp_tpu_torch.parallel.mesh import shard_batch
+    from vlp_tpu_torch.serve import Predictor
+    from vlp_tpu_torch.train import driver
+    from vlp_tpu_torch.utils.checkpoint import restore_raw
+
+    fsdp = ["mesh.param_sharding=fsdp"]
+    out: Dict = {}
+    straight, fold = _fsdp_trainer(mesh, fsdp, f"{tmp}/a")
+    straight.fit()
+    first, _ = _fsdp_trainer(mesh, fsdp, f"{tmp}/b")
+    first.fit(max_epochs=1)
+    mesh.barrier()  # rank 0's last.pt is on disk
+    resumed, _ = _fsdp_trainer(mesh, fsdp, f"{tmp}/c")
+    resumed.load_resume_state(f"{tmp}/b/last.pt")
+    start = resumed.start_epoch
+    resumed.fit()
+    mesh.barrier()
+    from torch.distributed.tensor import DTensor
+    out["resume"] = {
+        "sharded": sum(isinstance(p, DTensor)
+                       for p in straight.state.model.parameters()),
+        "start_epoch": start,
+        "history_straight": _timeless(straight.sink.history),
+        "history_first": _timeless(first.sink.history),
+        "history_resumed": _timeless(resumed.sink.history),
+        "straight_state": _gathered(straight.state.model),
+        "resumed_state": _gathered(resumed.state.model)}
+
+    # the best checkpoint on one process against the sharded model
+    best = straight.checkpointer.best_path
+    assert is_sharded(straight.task.model)
+    from vlp_tpu_torch.utils.checkpoint import load_model_state
+    load_model_state(straight.task.model, restore_raw(best)["model"])
+    rng = np.random.default_rng(9)
+    b = 8
+    images = rng.integers(0, 256, (b, 32, 32), dtype=np.uint8)
+    full = {"image_u8": images, "label": np.zeros(b, np.int32),
+            "dataset_id": np.zeros(b, np.int32),
+            "mask": np.ones(b, np.float32)}
+    local = {k: torch.from_numpy(v) for k, v in
+             shard_batch(full, mesh).items()}
+    sharded = gather_rows(straight.task.eval_fn(local)["logits"], mesh)
+    if mesh.is_main:
+        tree = restore_raw(best)
+        pred = Predictor(straight.cfg, None, fold.statics.mean,
+                         fold.statics.std, batch_size=b, device="cpu",
+                         checkpoint=best)
+        out["serve"] = {
+            "format": "replicated" if isinstance(
+                next(iter(tree["optimizer"]["state"])), int) else "other",
+            "predictor": pred.predict_logits(images),
+            "sharded": sharded.numpy().copy()}
+
+    # the k-fold driver (2 folds of 1 epoch); rank 0 writes
+    from vlp_tpu_torch.config import apply_overrides, get_experiment
+    cfg = apply_overrides(get_experiment("smoke_synthetic_only_imaging"),
+                          FSDP_TRAINER + fsdp + [
+                              "k_fold_cross_validation=true",
+                              "data.n_folds_downstream=2", "trainer.max_epochs=1"])
+    cfg.output_dir = f"{tmp}/driver"
+    out["driver"] = driver.train(cfg, "cpu", mesh)
+    mesh.barrier()
+    if mesh.is_main:
+        out["driver_files"] = sorted(
+            f for f in os.listdir(cfg.output_dir)
+            if f.endswith(".json") and not f.startswith("metrics"))
+
+    # a replicated run's last.pt resumed under fsdp and replicated: the
+    # state each holds after the load (gathered) against the file's
+    rep, _ = _fsdp_trainer(mesh, [], f"{tmp}/r")
+    rep.fit(max_epochs=1)
+    mesh.barrier()
+    from vlp_tpu_torch.utils.checkpoint import state_to_tree
+    saved = restore_raw(f"{tmp}/r/last.pt")
+    cross = {}
+    for name, over in (("replicated", []), ("fsdp", fsdp)):
+        t, _ = _fsdp_trainer(mesh, over, f"{tmp}/r_{name}")
+        t.load_resume_state(f"{tmp}/r/last.pt")
+        tree = state_to_tree(t.state)
+        if mesh.is_main:
+            cross[f"loaded_{name}"] = _same_tree(tree, saved)
+        t.fit()
+        cross[f"history_{name}"] = _timeless(t.sink.history)
+    out["cross"] = cross
+
+    # the VLP driver under both, then the fsdp run's best as a warm start
+    from vlp_tpu_torch.train.loop import Trainer
+    from vlp_tpu_torch.utils.checkpoint import (extract_image_encoder,
+                                                load_meta)
+    vlp = {}
+    for name, over in (("replicated", []), ("fsdp", fsdp)):
+        cfg = apply_overrides(get_experiment("smoke_synthetic_pretrain"),
+                              VLP_TRAINER + over)
+        cfg.output_dir = f"{tmp}/vlp_{name}"
+        vlp[name] = {k: v for k, v in driver.train(cfg, "cpu", mesh).items()
+                     if not k.startswith("time/") and "per_sec" not in k}
+    out["vlp"] = vlp
+    mesh.barrier()
+    best = load_meta(f"{tmp}/vlp_fsdp/checkpoints/fold0/last.pt")[
+        "checkpoint_best_path"]
+    cfg = apply_overrides(get_experiment("vlp_finetune_only_imaging_resnet34"),
+                          WARM_TRAINER + fsdp + [
+                              f"model.pretrained_ckpt={best}"])
+    cfg.output_dir = f"{tmp}/warm"
+    fit, seen = Trainer.fit, []
+
+    def gathered_fit(self, *a, **k):
+        seen.append((is_sharded(self.state.model),
+                     _gathered(self.state.model)))  # every rank gathers
+        return fit(self, *a, **k)
+
+    Trainer.fit = gathered_fit
+    try:
+        driver.train(cfg, "cpu", mesh)
+    finally:
+        Trainer.fit = fit
+    encoder = extract_image_encoder(restore_raw(best)["model"])
+    (sharded_fit, state), = seen
+    out["warm"] = {
+        "sharded": sharded_fit,
+        "encoder": {k: v.float().numpy() for k, v in encoder.items()},
+        "backbone": {k[len("backbone."):]: v for k, v in state.items()
+                     if k.startswith("backbone.")}}
+    return out
+
+
+def _same_tree(a, b) -> bool:
+    """Two checkpoint trees equal: every tensor bit for bit, the rest
+    by ``==``."""
+    if isinstance(a, dict):
+        return isinstance(b, dict) and set(a) == set(b) and all(
+            _same_tree(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(map(_same_tree, a, b))
+    if isinstance(a, torch.Tensor):
+        return isinstance(b, torch.Tensor) and torch.equal(a, b)
+    return a == b

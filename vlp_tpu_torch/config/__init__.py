@@ -10,7 +10,7 @@ imports the JAX package: the machine with the card runs without it.
 The serving path needs only the model's and the input's fields (the dual
 tower's among them), so it takes them as a ``ServeConfig``, and the
 training step adds the optimizer, schedule, parameter-group, caption
-length and augmentation fields in a ``TrainConfig``; ``from_config`` reads
+length, augmentation and parameter-sharding fields in a ``TrainConfig``; ``from_config`` reads
 them off a ``Config`` (the port's, or the JAX package's in tests).
 ``EXPERIMENTS`` and ``TRAIN_EXPERIMENTS`` are ``from_config`` of every
 registered experiment, keyed by its name, and of ``NEST_UNFUSED``, keyed
@@ -101,6 +101,7 @@ class TrainConfig:
     text_encoder_lr: Optional[float] = None   # cfg.model.text_encoder_lr
     projection_lr: Optional[float] = None     # cfg.model.projection_lr
     max_token_length: int = 40              # cfg.data.max_token_length
+    param_sharding: str = "replicated"      # cfg.mesh.param_sharding
 
     @classmethod
     def from_config(cls, cfg: Any) -> "TrainConfig":
@@ -121,7 +122,8 @@ class TrainConfig:
                    image_encoder_lr=m.image_encoder_lr,
                    text_encoder_lr=m.text_encoder_lr,
                    projection_lr=m.projection_lr,
-                   max_token_length=d.max_token_length)
+                   max_token_length=d.max_token_length,
+                   param_sharding=cfg.mesh.param_sharding)
 
     def augment(self) -> AugmentConfig:
         """The switches mapped as ``vlp_tpu/data/datamodule.py:49-54``."""

@@ -61,8 +61,8 @@ class ModelConfig:
     # LN+attention+residual / LN+MLP+residual fused per program. Param-tree
     # compatible with the fused path; per-shape fallback when unsupported.
     megakernel: bool = True
-    # Per-block rematerialization for ViT/NesT (not ported: the port's
-    # registry raises for it on the transformers).
+    # Per-block rematerialization for ViT/NesT (torch.utils.checkpoint per
+    # encoder block); a ResNet takes it and ignores it.
     remat: bool = False
     pretrained_ckpt: Optional[str] = None  # VLP checkpoint warm-start path
     freeze_encoder: bool = False

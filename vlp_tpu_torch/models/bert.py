@@ -9,7 +9,9 @@ computes it: ``y = attn(x)``; ``x = LN(x + y)`` (the sum in the compute
 dtype, the LayerNorm in fp32 with eps 1e-12, cast back); ``y =
 ffn_out(gelu(ffn_in(x)))`` with the exact erf GELU; ``x = LN(x + y)``.
 
-Attention is flax's ``MultiHeadDotProductAttention``: separate q, k, v
+Attention is flax's ``MultiHeadDotProductAttention`` (``vit.
+MultiHeadAttention``, which the ViT/NesT blocks share under
+``fused_attention=False``): separate q, k, v
 kernels ``[D, H, hd]`` with biases ``[H, hd]`` and an out kernel ``[H, hd,
 D]``, held here as one packed ``Dense`` ``qkv`` ``[D, 3 * H * hd]`` (q | k
 | v, which ``convert`` concatenates) and ``out`` ``[H * hd, D]``. q is
@@ -36,14 +38,13 @@ HF files are in the repository or on the machine with the card.
 from __future__ import annotations
 
 import dataclasses
-import math
 from typing import Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
-from vlp_tpu_torch.models.vit import Dense, Embed, LayerNorm, gelu_exact
+from vlp_tpu_torch.models.vit import (Dense, Embed, LayerNorm,
+                                      MultiHeadAttention, gelu_exact)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,32 +86,6 @@ def padding_bias(attention_mask: torch.Tensor, dtype: torch.dtype
                        device=attention_mask.device)
     bias = bias.masked_fill(pad & live[:, None], torch.finfo(dtype).min)
     return bias[:, None, None, :], live.to(dtype)[:, None, None, None]
-
-
-class MultiHeadAttention(nn.Module):
-    """Self-attention of flax ``nn.MultiHeadDotProductAttention(num_heads,
-    dtype, param_dtype=float32)`` under a padding mask."""
-
-    def __init__(self, dim: int, heads: int,
-                 device: Optional[torch.device] = None) -> None:
-        super().__init__()
-        self.heads = heads
-        self.qkv = Dense(dim, 3 * dim, device)
-        self.out = Dense(dim, dim, device)
-
-    def forward(self, x: torch.Tensor, bias: torch.Tensor,
-                live: torch.Tensor) -> torch.Tensor:
-        """x [B, L, D] in the compute dtype; bias and live from
-        ``padding_bias``."""
-        b, length, d = x.shape
-        hd = d // self.heads
-        qkv = self.qkv(x).view(b, length, 3, self.heads, hd)
-        q, k, v = qkv.permute(2, 0, 3, 1, 4).unbind(0)
-        # flax: query / jnp.sqrt(depth).astype(dtype)
-        q = q / torch.tensor(math.sqrt(hd), dtype=x.dtype).item() * live
-        o = F.scaled_dot_product_attention(q, k, v, attn_mask=bias,
-                                           scale=1.0)
-        return self.out(o.transpose(1, 2).reshape(b, length, d))
 
 
 class BertLayer(nn.Module):

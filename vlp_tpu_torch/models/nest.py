@@ -6,7 +6,10 @@ blocks that fold into the batch, the level's encoder blocks attend within
 each block (``ln_attention`` / ``ln_mlp`` kernels by default; with
 ``megakernel=False`` the unfused block, ``attend_qkv`` and ``fused_mlp``),
 and a ConvPool (3x3 conv, LayerNorm, 3x3/2 max pool) joins the levels. Head: fp32 LayerNorm
-and a global mean over H and W. Activations are NHWC, as in the JAX
+and a global mean over H and W. With ``fused_attention=False`` the blocks
+take flax's attention layout (``vit.EncoderBlock``) and the windowed route
+is off; with ``remat`` each block of either route is rematerialised
+(``vit.run_block``). Activations are NHWC, as in the JAX
 package; the convolutions (outside Pallas there too) go to ``F.conv2d``.
 
 With ``nhwc_windows`` (a plain attribute that ``forward`` reads, so a built
@@ -24,7 +27,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from vlp_tpu_torch.models.vit import EncoderBlock, LayerNorm, conv_nhwc
+from vlp_tpu_torch.models.vit import (EncoderBlock, LayerNorm, conv_nhwc,
+                                      run_block)
 from vlp_tpu_torch.ops.fused_block import (blockify, supports_window,
                                            unblockify)
 
@@ -54,11 +58,13 @@ class NesT(nn.Module):
                  depths: Sequence[int] = (2, 2, 20), block_size: int = 14,
                  dtype: torch.dtype = torch.bfloat16,
                  fused_attention: bool = True, megakernel: bool = True,
-                 nhwc_windows: bool = False,
+                 nhwc_windows: bool = False, remat: bool = False,
                  device: Optional[torch.device] = None) -> None:
         super().__init__()
         self.dtype = dtype
-        self.megakernel = megakernel
+        # the windowed kernels need the packed layout, as in the reference
+        self.megakernel = megakernel and fused_attention
+        self.remat = remat
         self.nhwc_windows = nhwc_windows
         self.embed_dims = tuple(embed_dims)
         self.num_heads = tuple(num_heads)
@@ -112,13 +118,13 @@ class NesT(nn.Module):
                 x = (x + unblockify(pos, self.block_size, size, size)
                      ).contiguous()
                 for blk in blocks:
-                    x = blk(x)
+                    x = run_block(blk, x, self.remat)
             else:
                 t = blockify(x, self.block_size) + pos
                 b, nb, s, d = t.shape
                 t = t.reshape(b * nb, s, d)
                 for blk in blocks:
-                    t = blk(t)
+                    t = run_block(blk, t, self.remat)
                 x = unblockify(t.reshape(b, nb, s, d), self.block_size, size,
                                size)
             if li < len(self.pools):

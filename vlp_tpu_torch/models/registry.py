@@ -5,9 +5,8 @@ reference's allowlist, ``resnet18``, ``resnet34``, ``resnet50``,
 ``vit_base_patch16_224`` and ``vit_large_patch16_224``. ``stem`` and
 ``norm_dtype`` reach the ResNets, ``fused_attention`` and ``megakernel``
 the transformers, as in the JAX registry. ``remat`` reaches only the
-transformers there too, so a ResNet takes ``remat=True`` and ignores it; for
-ViT and NesT it raises ``NotImplementedError`` until it is ported
-(ROADMAP.md). ``dropout_rate`` (the dual tower's ``image_dropout``) is
+transformers there too (per-block rematerialisation), so a ResNet takes
+``remat=True`` and ignores it. ``dropout_rate`` (the dual tower's ``image_dropout``) is
 taken and passed to no backbone, as the JAX registry does, so a rate above
 0 changes nothing on either side (no experiment sets one)."""
 from __future__ import annotations
@@ -46,15 +45,11 @@ def create_backbone(name: str, dtype: torch.dtype = torch.bfloat16,
         raise ValueError(f"Unknown backbone {name!r}; allowed: "
                          f"{sorted(_BACKBONES)}")
     module, fn = _BACKBONES[name]
-    if remat and module is not resnet:
-        raise NotImplementedError(
-            "remat=True (per-block rematerialization) is not ported to "
-            "vlp_tpu_torch yet; see ROADMAP.md")
     kw = dict(in_chans=in_chans, dtype=dtype, device=device)
     if module is resnet:
         kw.update(norm_dtype=norm_dtype, stem=stem)
     else:
         kw.update(fused_attention=True if fused_attention is None
-                  else fused_attention, megakernel=megakernel)
+                  else fused_attention, megakernel=megakernel, remat=remat)
     m = getattr(module, fn)(**kw)
     return m, m.num_features

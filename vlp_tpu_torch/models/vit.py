@@ -24,9 +24,22 @@ The predicates are copies of the TPU kernels' VMEM arithmetic
 (``ops/fused_block.py``, ``ops/fused_mlp.py``): they say which composition
 the reference computes at a shape, and the port computes the same one.
 ``Dense`` and ``LayerNorm`` mirror flax's parameters and rounding;
-``flax_init_`` gives the flax initializers' scales. The flax
-``MultiHeadDotProductAttention`` path (``fused_attention=False``, separate
-query/key/value parameters) is not ported (ROADMAP.md).
+``flax_init_`` gives the flax initializers' scales.
+
+With ``fused_attention=False`` the block takes the reference's flax
+layout: neither half-block kernel, and attention as flax's
+``MultiHeadDotProductAttention`` (``MultiHeadAttention``: SDPA, which XLA
+computed on the TPU) between the LayerNorm and the residual; the MLP half
+is still ``LayerNorm`` -> ``MlpBlock``, so ``fused_mlp`` runs where
+``fused_mlp.supports`` holds (``vlp_tpu/models/vit.py:179-205``). flax's
+separate query/key/value leaves reach the same packed ``attn.qkv`` as the
+fused layout's (``convert.pack_qkv``), so a state dict of either layout
+loads into the other unchanged.
+
+With ``remat`` the ViT (and NesT) rematerialise each block
+(``torch.utils.checkpoint``, the reference's ``nn.remat(EncoderBlock)``):
+the backward keeps only the block inputs and runs each block's forward
+again, kernels included; the parameters are the same.
 """
 from __future__ import annotations
 
@@ -36,6 +49,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from vlp_tpu_torch.ops import fused_mlp as FM
 from vlp_tpu_torch.ops.block_attention import attend_qkv
@@ -195,6 +209,40 @@ class FusedSelfAttention(nn.Module):
         return self.out(attend_qkv(self.qkv(x), self.num_heads))
 
 
+class MultiHeadAttention(nn.Module):
+    """Self-attention of flax ``nn.MultiHeadDotProductAttention(num_heads,
+    dtype, param_dtype=float32)``, optionally under a padding mask (the
+    text tower's). flax's query, key and value kernels ``[D, H, hd]`` are
+    held as one packed ``Dense`` ``qkv`` ``[D, 3 H hd]`` (q | k | v, which
+    ``convert`` concatenates) and its out kernel ``[H, hd, D]`` as ``out``
+    ``[H hd, D]``. q is divided by ``sqrt(hd)`` rounded to the compute
+    dtype before the product, as flax divides it; the scores, softmax and
+    weighted sum are one ``F.scaled_dot_product_attention`` call."""
+
+    def __init__(self, dim: int, heads: int,
+                 device: Optional[torch.device] = None) -> None:
+        super().__init__()
+        self.heads = heads
+        self.qkv = Dense(dim, 3 * dim, device)
+        self.out = Dense(dim, dim, device)
+
+    def forward(self, x: torch.Tensor, bias: Optional[torch.Tensor] = None,
+                live: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """x [B, L, D] in the compute dtype; ``bias`` and ``live`` from
+        ``bert.padding_bias``, or None: no mask."""
+        b, length, d = x.shape
+        hd = d // self.heads
+        qkv = self.qkv(x).view(b, length, 3, self.heads, hd)
+        q, k, v = qkv.permute(2, 0, 3, 1, 4).unbind(0)
+        # flax: query / jnp.sqrt(depth).astype(dtype)
+        q = q / torch.tensor(math.sqrt(hd), dtype=x.dtype).item()
+        if live is not None:
+            q = q * live
+        o = F.scaled_dot_product_attention(q, k, v, attn_mask=bias,
+                                           scale=1.0)
+        return self.out(o.transpose(1, 2).reshape(b, length, d))
+
+
 class MlpBlock(nn.Module):
     """fc1 -> exact GELU -> fc2 (the reference's ``MlpBlock``): the
     ``fused_mlp`` kernel where ``fused_mlp.supports`` holds for the rows,
@@ -221,7 +269,8 @@ class EncoderBlock(nn.Module):
     ``[B, H, W, D]`` token map with attention inside ``window`` x
     ``window`` tiles, in the compute dtype; parameter names follow the JAX
     block's tree (``ln1``, ``attn/{qkv,out}``, ``ln2``, ``mlp/{fc1,fc2}``),
-    the same on every path (module docstring)."""
+    the same on every path and in both attention layouts (module
+    docstring)."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
                  device: Optional[torch.device] = None, *,
@@ -229,16 +278,14 @@ class EncoderBlock(nn.Module):
                  megakernel: bool = True,
                  window: Optional[int] = None) -> None:
         super().__init__()
-        if not fused_attention:
-            raise NotImplementedError(
-                "fused_attention=False (flax MultiHeadDotProductAttention, "
-                "separate query/key/value parameters) is not ported to "
-                "vlp_tpu_torch yet; see ROADMAP.md")
         self.num_heads = num_heads
-        self.megakernel = megakernel
+        # the half-block kernels need the packed layout, as in the reference
+        self.megakernel = megakernel and fused_attention
+        self.fused_attention = fused_attention
         self.window = window
         self.ln1 = LayerNorm(dim, device)
-        self.attn = FusedSelfAttention(dim, num_heads, device)
+        self.attn = FusedSelfAttention(dim, num_heads, device) \
+            if fused_attention else MultiHeadAttention(dim, num_heads, device)
         self.ln2 = LayerNorm(dim, device)
         self.mlp = MlpBlock(dim, int(dim * mlp_ratio), device)
 
@@ -256,10 +303,10 @@ class EncoderBlock(nn.Module):
     def _window_forward(self, x: torch.Tensor) -> torch.Tensor:
         """NesT's blockify-free path on the map [B, H, W, D]
         (``vlp_tpu/models/vit.py:218-245``); the caller (NesT) checks
-        ``supports_window``."""
-        if not self.window:
+        ``supports_window`` and the packed layout."""
+        if not self.window or not self.fused_attention:
             raise ValueError("EncoderBlock: a [B, H, W, D] input needs "
-                             "window=")
+                             "window= and fused_attention")
         x = ln_attention_windows(x, self.window, *self._attn_params(),
                                  self.num_heads)
         return self._mlp_half(x, True)
@@ -297,7 +344,8 @@ def conv_nhwc(x: torch.Tensor, conv: nn.Conv2d, stride: int,
 class ViT(nn.Module):
     """Pre-LN ViT with a class token (the reference's ``ViT``): patch conv,
     CLS token, position embedding, ``depth`` encoder blocks (``blocks.i``,
-    flax ``block{i}``), a final fp32 LayerNorm; returns the CLS feature."""
+    flax ``block{i}``; each rematerialised with ``remat``), a final fp32
+    LayerNorm; returns the CLS feature."""
 
     def __init__(self, img_size: int = 224, in_chans: int = 3,
                  patch_size: int = 16, hidden_dim: int = 768,
@@ -305,9 +353,11 @@ class ViT(nn.Module):
                  mlp_ratio: float = 4.0,
                  dtype: torch.dtype = torch.bfloat16,
                  fused_attention: bool = True, megakernel: bool = True,
+                 remat: bool = False,
                  device: Optional[torch.device] = None) -> None:
         super().__init__()
         self.dtype = dtype
+        self.remat = remat
         self.patch_size = patch_size
         self.num_features = hidden_dim
         self.patch_embed = nn.Conv2d(in_chans, hidden_dim, patch_size,
@@ -331,8 +381,20 @@ class ViT(nn.Module):
         cls = self.cls_token.to(dt).expand(b, 1, self.num_features)
         x = torch.cat([cls, x], dim=1) + self.pos_embed.to(dt)
         for blk in self.blocks:
-            x = blk(x)
+            x = run_block(blk, x, self.remat)
         return self.final_ln(x)[:, 0]
+
+
+def run_block(block: nn.Module, x: torch.Tensor,
+              remat: bool) -> torch.Tensor:
+    """``block(x)``; with ``remat`` and autograd recording, rematerialised:
+    only x is kept for the backward, which runs the block's forward again
+    (``nn.remat(EncoderBlock, prevent_cse=False)``). No block draws random
+    numbers, so the RNG state is not stashed."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(block, x, use_reentrant=False,
+                          preserve_rng_state=False)
+    return block(x)
 
 
 def vit_base_patch16_224(**kw) -> ViT:

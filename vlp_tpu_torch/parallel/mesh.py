@@ -91,8 +91,11 @@ def check_mesh_config(m, world: int) -> None:
     """``mesh.*`` against the world the launcher started. ``data_parallel``
     -1 (or 0) is the world; any other value must equal it (the JAX package
     takes the first n devices; here the launcher decides how many processes
-    there are). Tensor parallelism is not ported, nor FSDP above one rank:
-    they raise, so such a run never goes on replicated."""
+    there are). ``param_sharding`` ``replicated`` or ``fsdp``
+    (``parallel/fsdp.py``); the JAX driver's two refusals
+    (``vlp_tpu/train/driver.py:227-236``) in its words; tensor parallelism
+    on the 2-D data x model mesh is not ported and raises, so such a run
+    never goes on replicated."""
     dp = int(m.data_parallel)
     if dp not in (-1, 0) and dp != world:
         raise ValueError(
@@ -100,17 +103,28 @@ def check_mesh_config(m, world: int) -> None:
             f"(data parallelism, {ITEM_14}): give -1 (the world) or launch "
             f"{dp} ranks with python -m torch.distributed.run "
             f"--nproc_per_node={dp}")
-    if int(m.model_parallel) != 1 or m.param_sharding == "tp":
+    mp = int(m.model_parallel)
+    if m.param_sharding == "tp" and mp <= 1:
+        raise ValueError(
+            "mesh.param_sharding='tp' shards weights over the model axis — "
+            "set mesh.model_parallel>1 (2-D data x model mesh). The 2-D "
+            f"mesh with tensor parallelism is not ported ({ITEM_14}).")
+    if m.param_sharding == "fsdp" and mp > 1:
+        raise ValueError(
+            "mesh.param_sharding='fsdp' shards over the data axis and "
+            "never uses the model axis — model_parallel>1 would leave the "
+            "model-axis devices as pure replicas. Use param_sharding='tp' "
+            "on a 2-D mesh, or fsdp with model_parallel=1. The 2-D mesh is "
+            f"not ported ({ITEM_14}).")
+    if mp != 1 or m.param_sharding == "tp":
         raise ValueError(
             f"mesh.model_parallel={m.model_parallel}, mesh.param_sharding="
             f"{m.param_sharding!r}: the 2-D data x model mesh with tensor "
             f"parallelism is not ported ({ITEM_14}); the port would train "
             "replicated")
-    if world > 1 and m.param_sharding == "fsdp":
-        raise ValueError(
-            f"mesh.param_sharding='fsdp' at {world} ranks: FSDP (parameters "
-            "and Adam moments sharded over the data axis) is not ported "
-            f"({ITEM_14}); the port would train replicated")
+    if m.param_sharding not in ("replicated", "fsdp"):
+        raise ValueError(f"mesh.param_sharding={m.param_sharding!r}: "
+                         "replicated, fsdp or tp")
 
 
 def create_mesh(mesh_cfg=None, device: str = "cuda",

@@ -35,8 +35,10 @@ loss, gradients, BatchNorm statistics and metrics are the global batch's,
 and only rank 0 logs and writes (metrics files, checkpoints, fold markers,
 ``cv_summary.json``, the test CSV); barriers sit where another rank reads
 what rank 0 wrote. ``mesh.data_parallel`` must be -1 or the world;
-FSDP above one rank and tensor parallelism raise (ROADMAP Queue 1 item
-14). Without the launcher's environment it is one process on one device.
+``mesh.param_sharding=fsdp`` shards the parameters and AdamW moments over
+the ranks (``parallel/fsdp.py``; every rank runs every forward, and the
+checkpoints are gathered into the replicated run's format); tensor
+parallelism raises (ROADMAP Queue 1 item 14). Without the launcher's environment it is one process on one device.
 Not ported, each in ROADMAP Queue 1
 item 15 (b): the post-fit t-SNE and confusion plots (matplotlib, scikit-learn)
 are left out with a log line, so a fold's summary lacks their keys. The
@@ -104,7 +106,12 @@ def _maybe_warm_start(cfg: Config, trainer: Trainer) -> None:
         else {k[len("backbone."):]: v for k, v in source.items()
               if k.startswith("backbone.")}
     model = trainer.state.model
-    model.load_state_dict(ckpt.graft_backbone(model.state_dict(), encoder))
+    # the keys and shapes checked against the model's (a sharded model's
+    # DTensors give their global shapes); the backbone's entries loaded
+    grafted = ckpt.graft_backbone(model.state_dict(), encoder)
+    ckpt.load_model_state(model, {k: v for k, v in grafted.items()
+                                  if k.startswith("backbone.")},
+                          strict=False)
     logger.info("Warm-started backbone (+BN stats) from %s", path)
 
 
@@ -307,7 +314,8 @@ def _train(cfg: Config, device, mesh) -> Dict[str, float]:
             if ckpt.load_meta(cfg.ckpt_path) is not None:
                 trainer.load_resume_state(cfg.ckpt_path)
             else:
-                trainer.state.model.load_state_dict(
+                ckpt.load_model_state(
+                    trainer.state.model,
                     ckpt.restore_raw(cfg.ckpt_path)["model"])
                 logger.warning(
                     "ckpt_path %s has no .meta.json sidecar: this is a "
@@ -424,11 +432,12 @@ def _downstream_precision_at_k(cfg: Config, trainer: Trainer,
                                ) -> Dict[str, float]:
     """Label precision@k of the best VLP image tower over the whole
     downstream train + val data of its first fold (reference
-    src/train.py:187-211), with that fold's normalisation."""
+    src/train.py:187-211), with that fold's normalisation. The fold's
+    model is done training: it takes the best weights in place (a sharded
+    model's ranks each their shards)."""
     best = trainer.checkpointer.restore_best()
     eval_task = copy.copy(trainer.task)
-    eval_task.model = copy.deepcopy(trainer.task.model)
-    eval_task.model.load_state_dict(best["model"])
+    ckpt.load_model_state(eval_task.model, best["model"])
     fold = next(downstream.folds())
     eval_task.statics = fold.statics
     embs, labels = zip(*(collect_over_loader(eval_task.embed_images_fn, ld)

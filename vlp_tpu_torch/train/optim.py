@@ -23,15 +23,28 @@ group's schedule. A group at lr 0 gets no update at all, weight decay
 included (``optax.set_to_zero``): it is left out of the optimizer and its
 parameters stop requiring gradients, so the backward skips what only they
 need, as XLA drops the gradients that ``set_to_zero`` discards.
+
+On a model sharded by ``parallel/fsdp.py`` the optimizer holds the shards,
+and each group is split in two with the same label and schedule: its
+sharded parameters (DTensors) and its replicated ones. The multi-tensor
+update refuses a list that mixes the two, and the per-parameter one pays
+DTensor's dispatch on every operation of every shard; split, each half
+takes the multi-tensor form where the device has it. The update is the
+same. ``merged_state`` turns that optimizer's gathered state into the
+replicated run's format (the halves merged back), and ``split_state``
+turns that format back into the split optimizer's: checkpoints
+(``utils/checkpoint.py``) hold the replicated format whichever way the
+model was held.
 """
 from __future__ import annotations
 
 import math
-from typing import Callable, List, Tuple
+from typing import Any, Callable, Dict, List, Tuple
 
 import torch
 
 from vlp_tpu_torch.config import TrainConfig
+from vlp_tpu_torch.parallel.fsdp import is_sharded, replicated
 
 Schedule = Callable[[int], float]
 
@@ -103,17 +116,25 @@ def make_optimizer(cfg: TrainConfig, model: torch.nn.Module,
                    ) -> Tuple[torch.optim.Optimizer, Tuple[Schedule, ...]]:
     """(optimizer, one schedule per param group, in the optimizer's
     order); each group's lr starts at its schedule's value at step 0 and
-    carries its label under ``"name"``. The parameters of an lr-0 group
-    are frozen: outside the optimizer, ``requires_grad`` off."""
+    carries its label under ``"name"``; a sharded model's groups are
+    split into their sharded and replicated halves (module docstring). The
+    parameters of an lr-0 group are frozen: outside the optimizer,
+    ``requires_grad`` off."""
     groups, schedules = [], []
+    split = is_sharded(model)
     for name, base_lr, params in param_groups(cfg, model):
         if base_lr == 0.0:
             for p in params:
                 p.requires_grad_(False)
             continue
         schedule = make_schedule(base_lr, cfg, steps_per_epoch)
-        groups.append({"params": params, "lr": schedule(0), "name": name})
-        schedules.append(schedule)
+        kept = replicated(params) if split else []
+        ids = {id(p) for p in kept}
+        for part in ([p for p in params if id(p) not in ids], kept):
+            if part:
+                groups.append({"params": part, "lr": schedule(0),
+                               "name": name})
+                schedules.append(schedule)
     if not groups:
         raise ValueError("every parameter group has lr 0: nothing to train")
     if cfg.optimizer == "adamw":
@@ -126,3 +147,56 @@ def make_optimizer(cfg: TrainConfig, model: torch.nn.Module,
     else:
         raise ValueError(f"unknown optimizer {cfg.optimizer!r}")
     return opt, tuple(schedules)
+
+
+def _merged_groups(model: torch.nn.Module, groups) -> list:
+    """``make_optimizer``'s groups of a sharded model (parameter names in
+    place of the parameters) merged back by label, with each label's names
+    in the model's order: the groups of the replicated run's optimizer."""
+    order = {n: i for i, (n, _) in enumerate(model.named_parameters())}
+    merged: Dict[Any, Dict[str, Any]] = {}
+    for group in groups:
+        label = group.get("name")
+        if label in merged:
+            merged[label]["params"] += list(group["params"])
+        else:
+            merged[label] = {**group, "params": list(group["params"])}
+    for group in merged.values():
+        group["params"].sort(key=order.__getitem__)
+    return list(merged.values())
+
+
+def merged_state(model: torch.nn.Module, full: Dict[str, Any]
+                 ) -> Dict[str, Any]:
+    """A sharded model's optimizer state as
+    ``torch.distributed.checkpoint.state_dict`` gathers it in full (keyed
+    by parameter name, the groups split) -> the replicated run's
+    ``optimizer.state_dict()``: each label's halves merged, the parameters
+    numbered in group order."""
+    index: Dict[str, int] = {}
+    groups = []
+    for group in _merged_groups(model, full["param_groups"]):
+        ids = [index.setdefault(fqn, len(index)) for fqn in group["params"]]
+        groups.append({**group, "params": ids})
+    return {"state": {index[k]: v for k, v in full["state"].items()},
+            "param_groups": groups}
+
+
+def split_state(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
+                state: Dict[str, Any]) -> Dict[str, Any]:
+    """``merged_state``'s inverse for ``optimizer``: the replicated run's
+    state keyed by parameter name, with ``optimizer``'s split groups, each
+    taking its label's saved settings (the form
+    ``set_optimizer_state_dict`` loads)."""
+    name = {id(p): n for n, p in model.named_parameters()}
+    groups = [{**g, "params": [name[id(p)] for p in g["params"]]}
+              for g in optimizer.param_groups]
+    merged = _merged_groups(model, groups)
+    if len(merged) != len(state["param_groups"]):
+        raise ValueError(f"the checkpoint has {len(state['param_groups'])} "
+                         f"parameter groups, the optimizer {len(merged)}")
+    fqns = [n for g in merged for n in g["params"]]
+    saved = {g.get("name"): g for g in state["param_groups"]}
+    return {"state": {fqns[i]: v for i, v in state["state"].items()},
+            "param_groups": [{**saved[g.get("name")], "params": g["params"]}
+                             for g in groups]}

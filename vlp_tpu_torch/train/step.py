@@ -27,8 +27,11 @@ averages the gradients (``parallel/collectives.reduce_gradients``), so the
 optimizer applies the single-process gradient of the global batch on every
 rank: BatchNorm's running statistics come from the global statistics and
 ``logit_scale`` is a parameter like the others; a group frozen at lr 0 is
-reduced with the rest. ``collect_over_loader`` gathers the outputs, labels
-and masks in global row order before it drops the padded rows.
+reduced with the rest. On a model sharded by ``parallel/fsdp.py`` FSDP2
+has reduce-scattered the sharded parameters' gradients inside the
+backward (overlapped with it), and the all-reduce takes only the
+replicated ones. ``collect_over_loader`` gathers the outputs, labels and
+masks in global row order before it drops the padded rows.
 """
 from __future__ import annotations
 
@@ -38,6 +41,7 @@ import numpy as np
 import torch
 
 from vlp_tpu_torch.parallel.collectives import gather_rows, reduce_gradients
+from vlp_tpu_torch.parallel.fsdp import reduce_scatter_timer, replicated
 from vlp_tpu_torch.train.optim import Schedule
 from vlp_tpu_torch.train.state import TrainState
 
@@ -48,31 +52,39 @@ def make_train_step(task, optimizer: torch.optim.Optimizer,
                     schedules: Sequence[Schedule]
                     ) -> Callable[[TrainState, Batch], Dict]:
     """The step; on a mesh ``step.reduce_events`` may be set to a list, to
-    which each step appends the (start, end) CUDA events around its
-    gradient reduction."""
+    which each step appends the list of (start, end) CUDA events around
+    each of its gradient reductions: a sharded model's reduce-scatters
+    (one a unit, inside the backward) and the all-reduce; the step's
+    reduction device time is the sum of their spans."""
     if len(schedules) != len(optimizer.param_groups):
         raise ValueError(f"{len(schedules)} schedules for "
                          f"{len(optimizer.param_groups)} param groups")
     mesh = getattr(task, "mesh", None)
-    params = [p for g in optimizer.param_groups for p in g["params"]]
+    params = replicated(p for g in optimizer.param_groups
+                        for p in g["params"])
+    scatter = None if mesh is None else reduce_scatter_timer(task.model)
 
     def train_step(state: TrainState, batch: Batch) -> Dict:
         lrs = {}
         for group, schedule in zip(optimizer.param_groups, schedules):
             group["lr"] = lrs[group.get("name")] = schedule(state.step)
         optimizer.zero_grad(set_to_none=True)
+        spans = None if mesh is None or train_step.reduce_events is None \
+            else []
+        if scatter is not None:
+            scatter.events = spans
         loss, aux = task.loss_fn(batch, state.generator)
         loss.backward()
         if mesh is not None:
-            events = train_step.reduce_events
-            if events is not None:
+            if spans is not None:
                 start = torch.cuda.Event(enable_timing=True)
                 start.record()
             reduce_gradients(params, mesh)
-            if events is not None:
+            if spans is not None:
                 end = torch.cuda.Event(enable_timing=True)
                 end.record()
-                events.append((start, end))
+                spans.append((start, end))
+                train_step.reduce_events.append(spans)
         optimizer.step()
         state.step += 1
         return {**{k: v.detach() for k, v in aux.items()},

@@ -31,7 +31,13 @@ the JAX package's ``Checkpointer`` and ``LastStateSaver``
 On a data mesh only rank 0 writes: the other ranks' ``Checkpointer``
 and ``LastStateSaver`` (``write=False``) keep the same best metric and
 paths, so that every rank takes the same branches and reads rank 0's
-files after a barrier.
+files after a barrier. On a model sharded by ``parallel/fsdp.py``
+``model_state`` and ``optimizer_state`` gather the full state to rank 0's
+host (``torch.distributed.checkpoint.state_dict``, a collective: every
+rank calls them, from the training thread, before any write starts), so a
+file has the replicated run's format and resumes, serves and warm-starts
+whichever way the next run holds its model; ``load_model_state`` and
+``load_optimizer_state`` give each rank its shards of a full state.
 
 ``extract_image_encoder`` and ``graft_backbone`` move the dual tower's
 ``image_encoder.*`` entries onto a classifier's ``backbone.*`` (BatchNorm's
@@ -47,6 +53,8 @@ from typing import Any, Callable, Dict, Optional
 
 import torch
 
+from vlp_tpu_torch.parallel.fsdp import is_sharded
+from vlp_tpu_torch.train.optim import merged_state, split_state
 from vlp_tpu_torch.utils.logging import get_logger
 
 logger = get_logger(__name__)
@@ -63,12 +71,87 @@ def _to_host(tree: Any) -> Any:
     return tree
 
 
-def state_to_tree(state) -> Dict[str, Any]:
-    """TrainState -> the checkpoint's tree, on the host."""
-    return _to_host({"model": state.model.state_dict(),
-                     "optimizer": state.optimizer.state_dict(),
-                     "step": int(state.step),
-                     "generator": state.generator.get_state()})
+def _full_options(**kw):
+    from torch.distributed.checkpoint.state_dict import StateDictOptions
+
+    return StateDictOptions(full_state_dict=True, **kw)
+
+
+def model_state(model: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """The model's full ``state_dict`` on the host; of a sharded model
+    gathered to rank 0 (every rank must call it; the others get an empty
+    dict)."""
+    if not is_sharded(model):
+        return _to_host(model.state_dict())
+    from torch.distributed.checkpoint.state_dict import get_model_state_dict
+
+    return get_model_state_dict(model, options=_full_options(
+        cpu_offload=True))
+
+
+def load_model_state(model: torch.nn.Module, state: Dict[str, torch.Tensor],
+                     strict: bool = True) -> None:
+    """Loads a full ``state_dict`` (``strict=False``: a part of one) into
+    ``model``; a sharded model's ranks each take their shards."""
+    if not is_sharded(model):
+        model.load_state_dict(state, strict=strict)
+        return
+    from torch.distributed.checkpoint.state_dict import set_model_state_dict
+
+    set_model_state_dict(model, state, options=_full_options(strict=strict))
+
+
+def optimizer_state(model: torch.nn.Module,
+                    optimizer: torch.optim.Optimizer) -> Dict[str, Any]:
+    """``optimizer.state_dict()`` on the host; of a sharded model's
+    optimizer gathered to rank 0 in the replicated run's format
+    (``optim.merged_state``; every rank must call it, the others get
+    None)."""
+    if not is_sharded(model):
+        return _to_host(optimizer.state_dict())
+    from torch.distributed.checkpoint.state_dict import (
+        get_optimizer_state_dict)
+
+    full = get_optimizer_state_dict(model, optimizer, options=_full_options(
+        cpu_offload=True))
+    return merged_state(model, full) if full else None
+
+
+def load_optimizer_state(model: torch.nn.Module,
+                         optimizer: torch.optim.Optimizer,
+                         state: Dict[str, Any]) -> None:
+    """Loads ``optimizer_state``'s format into ``optimizer``; a sharded
+    model's ranks each take their shards of the moments, its groups their
+    label's settings (``optim.split_state``)."""
+    if not is_sharded(model):
+        optimizer.load_state_dict(state)
+        return
+    from torch.distributed.checkpoint.state_dict import (
+        set_optimizer_state_dict)
+
+    set_optimizer_state_dict(model, optimizer,
+                             split_state(model, optimizer, state),
+                             options=_full_options())
+
+
+def state_to_tree(state) -> Optional[Dict[str, Any]]:
+    """TrainState -> the checkpoint's tree, on the host. Of a sharded
+    model every rank must call it; ranks other than 0 get None."""
+    model = model_state(state.model)
+    optimizer = optimizer_state(state.model, state.optimizer)
+    if optimizer is None:
+        return None
+    return {"model": model, "optimizer": optimizer, "step": int(state.step),
+            "generator": _to_host(state.generator.get_state())}
+
+
+def _tree_to_write(state, write: bool) -> Optional[Dict[str, Any]]:
+    """``state_to_tree`` where this rank writes; a sharded model's ranks
+    all join its gather."""
+    if write or is_sharded(state.model):
+        tree = state_to_tree(state)
+        return tree if write else None
+    return None
 
 
 def _write_file(path: str, write: Callable[[str], None]) -> None:
@@ -179,7 +262,7 @@ class Checkpointer:
         if not self.improved(value):
             return False
         self._commit()  # one write in flight
-        tree = state_to_tree(state) if self.write else None
+        tree = _tree_to_write(state, self.write)
         old = self.best_path
         self.best = value
         safe = self.monitor.replace("/", "_")
@@ -234,6 +317,7 @@ class LastStateSaver:
 
     def save(self, state, meta: Optional[Dict] = None) -> str:
         if not self.write:
+            _tree_to_write(state, False)  # a sharded model's gather
             return self.path
         self._commit()
         tree = state_to_tree(state)
@@ -278,8 +362,8 @@ def restore_train_state(path: str, state) -> None:
     optimizer configuration): weights, running statistics, moments, step
     and generator."""
     tree = restore_raw(path)
-    state.model.load_state_dict(tree["model"])
-    state.optimizer.load_state_dict(tree["optimizer"])
+    load_model_state(state.model, tree["model"])
+    load_optimizer_state(state.model, state.optimizer, tree["optimizer"])
     state.step = int(tree["step"])
     state.generator.set_state(tree["generator"])
 
