@@ -4447,12 +4447,15 @@ def main() -> int:
         t24 = time.perf_counter()
         vit_l_stats, remat_fsdp, remat_fsdp_serves = phase_remat_fsdp(smi,
                                                                       root)
+        t25 = time.perf_counter()
+        from chip_smoke_tp import phase_tp  # phase 25 in a module of its own
+        tp_stats, tp_paths = phase_tp(smi, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     print(f"phases 3-19: {t20 - t0:.1f} s; phase 20: {t21 - t20:.1f} s; "
           f"phase 21: {t22 - t21:.1f} s; phase 22: {t23 - t22:.1f} s; "
-          f"phase 23: {t24 - t23:.1f} s; phase 24: "
-          f"{time.perf_counter() - t24:.1f} s")
+          f"phase 23: {t24 - t23:.1f} s; phase 24: {t25 - t24:.1f} s; "
+          f"phase 25: {time.perf_counter() - t25:.1f} s")
     # kernel -> (source, the TPU kernel it replaces, the training path whose
     # launches and per-step times the line gives)
     sources = {
@@ -4491,7 +4494,7 @@ def main() -> int:
              "nest_unfused_train": unfused, "nest_nhwc_train": nhwc,
              "resnet34_train": r34, "xrv_resnet50_train": xrv,
              "vlp_resnet34_tinybert_train": vlp, **trainers, **fusion,
-             **dp, **remat_fsdp}
+             **dp, **remat_fsdp, **tp_paths}
     serves = {"nest_serve": serve, "vit_b_serve": serve_vit,
               "nest_nhwc_serve": serve_nhwc, "resnet34_serve": serve_r34,
               "xrv_resnet50_serve": serve_xrv, **fusion_serves,
@@ -4538,6 +4541,8 @@ def main() -> int:
             entry["vit_l"] = {k: vit_l_stats[name][k] for k in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms")}
+        if name in tp_stats:  # per step of a model rank's split blocks (25a)
+            entry["tp"] = tp_stats[name]
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -4551,4 +4556,7 @@ if __name__ == "__main__":
         raise SystemExit(_dp_rank(Path(sys.argv[2])))
     if len(sys.argv) == 3 and sys.argv[1] == "--fsdp-rank":
         raise SystemExit(_fsdp_rank(Path(sys.argv[2])))
+    if len(sys.argv) == 3 and sys.argv[1] == "--tp-rank":
+        from chip_smoke_tp import tp_rank
+        raise SystemExit(tp_rank(Path(sys.argv[2])))
     raise SystemExit(main())

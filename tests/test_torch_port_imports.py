@@ -45,7 +45,7 @@ def test_serve_and_chip_smoke_import_without_jax_or_host_pipeline():
             "vlp_tpu_torch.train.driver, vlp_tpu_torch.parallel.mesh, "
             "vlp_tpu_torch.parallel.collectives, "
             "vlp_tpu_torch.parallel.infonce, vlp_tpu_torch.parallel.fsdp, "
-            "chip_smoke; "
+            "vlp_tpu_torch.parallel.tp, chip_smoke, chip_smoke_tp; "
             f"print([m for m in {FORBIDDEN!r} if m in sys.modules] + "
             "[m for m in sys.modules if m.split('.')[0] == 'vlp_tpu'])")
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -56,7 +56,8 @@ def test_serve_and_chip_smoke_import_without_jax_or_host_pipeline():
 
 
 def _port_sources():
-    paths = [os.path.join(REPO, "chip_smoke.py")]
+    paths = [os.path.join(REPO, f) for f in ("chip_smoke.py",
+                                             "chip_smoke_tp.py")]
     for root, _, files in os.walk(os.path.join(REPO, "vlp_tpu_torch")):
         paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
     return paths
@@ -66,7 +67,8 @@ def test_port_sources_cover_the_parallel_package():
     names = {os.path.relpath(p, REPO) for p in _port_sources()}
     assert {os.path.join("vlp_tpu_torch", "parallel", f) for f in (
         "__init__.py", "mesh.py", "collectives.py", "infonce.py",
-        "fsdp.py")} <= names
+        "fsdp.py", "tp.py")} <= names
+    assert "chip_smoke_tp.py" in names
 
 
 def test_port_sources_never_import_jax():

@@ -10,10 +10,12 @@ against one process of the port itself; and one NCCL step on two cards
 - ``NoDuplicateCaptionSampler``: captions unique within each main-phase
   global batch, every sample once an epoch (``tests/test_parallel.py:
   280-302``);
-- the refusals, each naming ROADMAP Queue 1 item 14 where it is not
-  ported: a batch that does not divide by the world (the JAX message), a
-  ``data_parallel`` that is not the world, ``model_parallel`` > 1, fsdp and
-  tp above one rank, and a process group that does not form;
+- the refusals: a batch that does not divide by the world (the JAX
+  message), a ``data_parallel`` x ``model_parallel`` that is not the world
+  (naming ROADMAP Queue 1 item 14), a ``model_parallel`` that does not
+  divide it, the JAX driver's three refusals in its words (tp without the
+  model axis, fsdp with it, ``shard_map`` with it), and a process group
+  that does not form;
 - ``python -m torch.distributed.run --nproc_per_node=2 -m
   vlp_tpu_torch.train --device cpu``: its fold metrics equal the
   one-process run's (the counts exactly, the rest within 1e-5 of the
@@ -112,22 +114,31 @@ def test_refusals_name_the_roadmap_item(world, tmp_path):
         f"batch_size=5 must be divisible by the {world}-shard data axis "
         "(every data shard gets an equal slice; adjust data.batch_size/"
         "eval_batch_size or mesh.data_parallel)")
-    # fsdp runs (tests/test_torch_port_fsdp.py); tensor parallelism and
-    # the 2-D mesh still raise, the JAX driver's two refusals in its words
-    assert set(msgs) == {"batch", f"data_parallel={world + 1}",
-                         "model_parallel=2", "param_sharding=tp",
+    # fsdp and the 2-D mesh run (tests/test_torch_port_fsdp.py,
+    # tests/test_torch_port_tp.py, M replicas under replicated); the JAX
+    # driver's three refusals raise in its words, and a mesh that does not
+    # tile the world raises naming the data axis's item
+    w = world
+    assert set(msgs) == {"batch", f"data_parallel={w + 1}",
+                         "model_parallel=3", "param_sharding=tp",
                          "param_sharding=fsdp,model_parallel=2",
-                         "param_sharding=tp,model_parallel=2"}
-    for key, msg in msgs.items():
-        if key != "batch":
-            assert "ROADMAP.md Queue 1 item 14" in msg, key
-    assert "would train replicated" in msgs["model_parallel=2"]
+                         f"param_sharding=tp,model_parallel=2,"
+                         f"data_parallel={w}",
+                         "infonce_impl=shard_map,model_parallel=2"}
+    for key in (f"data_parallel={w + 1}",
+                f"param_sharding=tp,model_parallel=2,data_parallel={w}"):
+        assert "ROADMAP.md Queue 1 item 14" in msgs[key], key
+    assert msgs["model_parallel=3"].startswith(
+        f"mesh.model_parallel=3 does not divide the {w} rank(s) launched")
     assert msgs["param_sharding=tp"].startswith(
         "mesh.param_sharding='tp' shards weights over the model axis — set "
         "mesh.model_parallel>1 (2-D data x model mesh).")
     assert msgs["param_sharding=fsdp,model_parallel=2"].startswith(
         "mesh.param_sharding='fsdp' shards over the data axis and never "
         "uses the model axis")
+    assert msgs["infonce_impl=shard_map,model_parallel=2"].startswith(
+        "mesh.infonce_impl='shard_map' is written for a 1-D data mesh; "
+        "with mesh.model_parallel>1 use infonce_impl='gspmd'")
 
 
 def test_a_group_that_does_not_form_raises(tmp_path):

@@ -10,12 +10,14 @@ and the port only (no JAX): the tests compare their results in the parent.
 """
 from __future__ import annotations
 
+import contextlib
+import functools
 import os
 import pickle
 import tempfile
 import time
 import traceback
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -23,13 +25,15 @@ import torch
 CPU = torch.device("cpu")
 
 
-def _entry(target, rank, world, out, args, timeout_s, device):
+def _entry(target, rank, world, out, args, timeout_s, device,
+           model_parallel=1):
     torch.set_num_threads(2)
     from vlp_tpu_torch.parallel.mesh import create_mesh, destroy_mesh
 
     try:
         mesh = create_mesh(None, device, init_method=f"file://{out}/store",
-                           rank=rank, world_size=world, timeout_s=timeout_s)
+                           rank=rank, world_size=world, timeout_s=timeout_s,
+                           model_parallel=model_parallel)
         result = target(mesh, *args)
         destroy_mesh(mesh)
     except BaseException:
@@ -41,17 +45,19 @@ def _entry(target, rank, world, out, args, timeout_s, device):
 
 
 def run_ranks(target, world: int, tmp_dir, *args, timeout: float = 180.0,
-              collective_timeout: float = 90.0, device: str = "cpu"
-              ) -> List:
+              collective_timeout: float = 90.0, device: str = "cpu",
+              model_parallel: int = 1) -> List:
     """``target(mesh, *args)`` on ``world`` ranks (gloo on the CPU, NCCL on
-    ``device="cuda"``); their results in rank order. Raises with the ranks'
-    tracebacks if any rank failed or hung."""
+    ``device="cuda"``), on the ``world / model_parallel`` x
+    ``model_parallel`` mesh; their results in global rank order. Raises
+    with the ranks' tracebacks if any rank failed or hung."""
     import multiprocessing as mp
 
     ctx = mp.get_context("spawn")
     out = tempfile.mkdtemp(dir=str(tmp_dir))
     procs = [ctx.Process(target=_entry, args=(target, r, world, out, args,
-                                              collective_timeout, device))
+                                              collective_timeout, device,
+                                              model_parallel))
              for r in range(world)]
     for p in procs:
         p.start()
@@ -185,20 +191,44 @@ def losses_worker(mesh, d: Dict[str, np.ndarray]) -> Dict:
 # train steps
 # --------------------------------------------------------------------------
 
+@contextlib.contextmanager
+def tiny_backbones(tiny: Optional[Dict[str, Dict]]):
+    """While open, the port's registry builds each backbone named in
+    ``tiny`` (``vit_base_patch16_224`` or ``nest_small``) as its ViT or
+    NesT with those arguments."""
+    from vlp_tpu_torch.models import nest, vit
+
+    saved = []
+    for name, kw in (tiny or {}).items():
+        module, cls = (nest, nest.NesT) if name.startswith("nest") \
+            else (vit, vit.ViT)
+        saved.append((module, name, getattr(module, name)))
+        setattr(module, name, functools.partial(cls, **kw))
+    try:
+        yield
+    finally:
+        for module, name, fn in saved:
+            setattr(module, name, fn)
+
+
 def build(spec: Dict, mesh):
     """(task, state, step) of ``spec``: the experiment and overrides, the
     fold statics, the weights (a numpy state dict) and the step's
-    optimizer, on ``mesh`` (None: one process)."""
+    optimizer, on ``mesh`` (None: one process); ``spec["tiny"]`` the
+    backbones built small (``tiny_backbones``)."""
     from vlp_tpu_torch.config import (Config, TrainConfig, apply_overrides,
                                       get_experiment)
     from vlp_tpu_torch.models.tasks import TaskStatics, build_task
     from vlp_tpu_torch.ops.augment import AugmentConfig
+    from vlp_tpu_torch.parallel import fsdp
     from vlp_tpu_torch.parallel.fsdp import shard_model
+    from vlp_tpu_torch.parallel.tp import shard_model_tp
     from vlp_tpu_torch.train.optim import make_optimizer
     from vlp_tpu_torch.train.setup import init_training
     from vlp_tpu_torch.train.state import TrainState
     from vlp_tpu_torch.train.step import make_train_step
 
+    fsdp.MIN_SIZE = spec.get("min_size", 2 ** 16)  # this rank process
     cfg = apply_overrides(get_experiment(spec["experiment"]) if
                           spec.get("experiment") else Config(),
                           list(spec["overrides"]))
@@ -211,7 +241,8 @@ def build(spec: Dict, mesh):
                           out_channels=tcfg.serve.in_channels, augment=aug)
     device = mesh.device if mesh is not None else torch.device(
         spec.get("device", "cpu"))
-    task = build_task(tcfg, statics, device, mesh)
+    with tiny_backbones(spec.get("tiny")):
+        task = build_task(tcfg, statics, device, mesh)
     if spec.get("weights") is None:
         state, step = init_training(task, tcfg, spec["spe"], seed=0,
                                     state_seed=1)
@@ -220,6 +251,8 @@ def build(spec: Dict, mesh):
                                 for k, v in spec["weights"].items()})
     if mesh is not None and tcfg.param_sharding == "fsdp":
         shard_model(task.model, mesh)
+    elif tcfg.param_sharding == "tp":
+        shard_model_tp(task.model, mesh)
     opt, schedules = make_optimizer(tcfg, task.model, spec["spe"])
     state = TrainState.create(task.model, opt, schedules, seed=1)
     return task, state, make_train_step(task, opt, schedules)
@@ -231,7 +264,9 @@ def run_steps(spec: Dict, mesh) -> Dict:
     gradients the last step applied and the model's state dict after (a
     sharded model's gathered), and with ``spec["elements"]`` the elements
     this rank holds of the parameters and of the optimizer's moments and
-    the names of the sharded parameters; with ``spec["spans"]`` the
+    the names of the sharded parameters (a split model's: gathered, and
+    with ``spec["local"]`` also this rank's own state); with
+    ``spec["spans"]`` the
     reduction spans each step recorded (``step.reduce_events``, each
     span's (start, end) in the order of ``record()`` on the CPU's stand-in
     for a CUDA event) and the FSDP units that hold sharded parameters."""
@@ -248,22 +283,32 @@ def run_steps(spec: Dict, mesh) -> Dict:
     for _ in range(spec.get("steps", 1)):
         aux = step(state, batch)
         losses.append(float(aux["loss"]))
+    from vlp_tpu_torch.parallel import tp
+
+    model = task.model
+    grads = {k: p.grad for k, p in model.named_parameters()
+             if p.grad is not None}
+    full = model.state_dict()
+    if tp.is_split(model):
+        grads, full = tp.gather_state(model, grads), tp.gather_state(model)
     out = {"losses": losses,
            "aux": {k: float(v) for k, v in aux.items()
                    if isinstance(v, torch.Tensor) and v.dim() == 0},
-           "grads": {k: _np(p.grad)
-                     for k, p in task.model.named_parameters()
-                     if p.grad is not None},
-           "state": {k: _np(v) for k, v in task.model.state_dict().items()}}
+           "grads": {k: _np(g) for k, g in grads.items()},
+           "state": {k: _np(v) for k, v in full.items()}}
+    if spec.get("local"):
+        out["local"] = {k: _np(v) for k, v in model.state_dict().items()}
     if spec.get("elements"):
         from torch.distributed.tensor import DTensor
 
-        params = list(task.model.parameters())
+        params = list(model.parameters())
         moments = [t for s in state.optimizer.state.values()
                    for k, t in s.items() if k != "step"]
         out["elements"] = (local_numel(params), local_numel(moments))
-        out["sharded"] = sorted(k for k, p in task.model.named_parameters()
-                                if isinstance(p, DTensor))
+        out["sharded"] = sorted(
+            k for k, p in model.named_parameters()
+            if isinstance(p, DTensor) or k in getattr(model, "tp_splits",
+                                                      {}))
     if spec.get("spans"):
         out["spans"] = [[(a.at, b.at) for a, b in spans]
                         for spans in step.reduce_events]
@@ -406,10 +451,13 @@ def refusals_worker(mesh) -> Dict[str, str]:
     except ValueError as e:
         out["batch"] = str(e)
     for settings in ({"data_parallel": mesh.world + 1},
-                     {"model_parallel": 2}, {"param_sharding": "fsdp"},
-                     {"param_sharding": "tp"},
+                     {"model_parallel": 2}, {"model_parallel": 3},
+                     {"param_sharding": "fsdp"}, {"param_sharding": "tp"},
                      {"param_sharding": "fsdp", "model_parallel": 2},
-                     {"param_sharding": "tp", "model_parallel": 2}):
+                     {"param_sharding": "tp", "model_parallel": 2},
+                     {"param_sharding": "tp", "model_parallel": 2,
+                      "data_parallel": mesh.world},
+                     {"infonce_impl": "shard_map", "model_parallel": 2}):
         m = Config().mesh
         for key, value in settings.items():
             setattr(m, key, value)

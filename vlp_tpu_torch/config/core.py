@@ -5,10 +5,9 @@ an experiment resolves to the same values on both sides
 (``tests/test_torch_port_experiments.py`` holds every registered
 experiment's ``to_dict()`` against ``vlp_tpu.config.get_experiment``).
 Pure Python: the machine with the card has no JAX package to read it from.
-Fields that only the JAX package acts on (``mesh.model_parallel``,
-``mesh.param_sharding``, ``trainer.scan_steps``'s K-step dispatch) are
-kept so that every command line that resolves there resolves here; the
-port's driver refuses the mesh values it cannot run.
+Fields that only the JAX package acts on (``trainer.scan_steps``'s K-step
+dispatch) are kept so that every command line that resolves there
+resolves here; the port's driver refuses the mesh values it cannot run.
 """
 from __future__ import annotations
 
@@ -158,10 +157,13 @@ class TrainerConfig:
 
 @dataclass
 class MeshConfig:
-    """Device mesh of the JAX package. The port reads ``data_parallel``
-    (-1 or the launcher's world), ``axis_name`` and ``infonce_impl`` as the
-    JAX package does (``parallel/mesh.py``); FSDP above one rank and tensor
-    parallelism raise (ROADMAP Queue 1 item 14)."""
+    """Device mesh of the JAX package. The port reads every field as the
+    JAX package does (``parallel/mesh.py``): ``data_parallel`` (-1: the
+    launcher's world over ``model_parallel``), ``model_parallel`` (the
+    model axis of the 2-D mesh), ``infonce_impl`` and ``param_sharding``
+    (``parallel/fsdp.py``, ``parallel/tp.py``), with the JAX driver's
+    refusals; a mesh that does not tile the launcher's world raises
+    (ROADMAP Queue 1 item 14)."""
 
     data_parallel: int = -1  # -1 => all visible devices (after model axis)
     axis_name: str = "data"

@@ -32,19 +32,26 @@ XLA (flax never reaches a Pallas kernel under a mask,
 counterpart here, as for the ResNet's convolutions. There is no dropout:
 flax's attention has rate 0 and the encoder none of its own.
 
+Under tensor parallelism (``parallel/tp.py``) a layer's attention splits
+by heads (``vit.MultiHeadAttention``) where the JAX rule shards flax's
+query kernel and the heads divide by M, and its FFN (``ffn_in`` by
+columns, ``ffn_out`` by rows) where the rule shards ``ffn_in``; the
+embedding tables split on the rule's dim (``vit.Embed``).
+
 ``load_hf_weights`` (HF checkpoints from a local cache) is not ported: no
 HF files are in the repository or on the machine with the card.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
 
 from vlp_tpu_torch.models.vit import (Dense, Embed, LayerNorm,
                                       MultiHeadAttention, gelu_exact)
+from vlp_tpu_torch.parallel import tp
 
 
 @dataclasses.dataclass(frozen=True)
@@ -101,6 +108,10 @@ class BertLayer(nn.Module):
         self.ffn_in = Dense(d, cfg.intermediate_size, device)
         self.ffn_out = Dense(cfg.intermediate_size, d, device)
         self.ffn_ln = LayerNorm(d, device, eps)
+
+    def tp_split_(self, mesh) -> Dict:
+        return {**tp.prefixed("attn", tp.split_attention_(self.attn, mesh)),
+                **tp.split_mlp_(self, "ffn_in", "ffn_out", mesh)}
 
     def forward(self, x: torch.Tensor, bias: torch.Tensor,
                 live: torch.Tensor) -> torch.Tensor:

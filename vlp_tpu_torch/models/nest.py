@@ -18,10 +18,16 @@ passes ``supports_window`` skips blockify and unblockify: the blocks run on
 the map itself, through ``ln_attention_windows`` (the reference's
 ``_level_uses_nhwc`` branch). The JAX package's config has no key for it,
 and neither has the port's.
+
+Under tensor parallelism (``parallel/tp.py``) each block splits as
+``vit.EncoderBlock`` does (NesT-Small's level 0 stays whole: all its
+weights are under 2^16), a ConvPool's conv by output channels, and the
+position embeddings are gathered where they are added; a level with a
+split attention takes the blockified route.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Dict, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -31,6 +37,7 @@ from vlp_tpu_torch.models.vit import (EncoderBlock, LayerNorm, conv_nhwc,
                                       run_block)
 from vlp_tpu_torch.ops.fused_block import (blockify, supports_window,
                                            unblockify)
+from vlp_tpu_torch.parallel import tp
 
 
 class ConvPool(nn.Module):
@@ -42,6 +49,9 @@ class ConvPool(nn.Module):
         super().__init__()
         self.conv = nn.Conv2d(in_dim, out_dim, 3, padding=1, device=device)
         self.norm = LayerNorm(out_dim, device)
+
+    def tp_split_(self, mesh) -> Dict:
+        return tp.prefixed("conv", tp.split_conv_out_(self.conv, mesh))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = x.dtype
@@ -93,10 +103,17 @@ class NesT(nn.Module):
         self.pools = nn.ModuleList(pools)
         self.final_norm = LayerNorm(embed_dims[-1], device)
 
+    def tp_split_(self, mesh) -> Dict:
+        return {**tp.prefixed("patch_embed",
+                              tp.split_conv_out_(self.patch_embed, mesh)),
+                **tp.gather_params_(self, [f"pos_embed_{li}" for li in
+                                           range(len(self.levels))], mesh)}
+
     def _level_uses_nhwc(self, x: torch.Tensor, li: int) -> bool:
         """The reference's choice (``vlp_tpu/models/nest.py:127-148``) on
         one device: the windowed kernels for level ``li`` of map x."""
-        if not (self.megakernel and self.nhwc_windows):
+        if not (self.megakernel and self.nhwc_windows) or any(
+                blk.attn_split for blk in self.levels[li]):
             return False
         b, h, w, d = x.shape
         # by level, not by width: embed_dims may repeat
@@ -111,7 +128,8 @@ class NesT(nn.Module):
         size = x.shape[1]
         for li, blocks in enumerate(self.levels):
             # stored blockified, [1, nb, S, D]
-            pos = getattr(self, f"pos_embed_{li}").to(self.dtype)
+            pos = tp.full_param(getattr(self, f"pos_embed_{li}")).to(
+                self.dtype)
             if self._level_uses_nhwc(x, li):
                 # the kernels take a contiguous map: a copy only where the
                 # convolution or the pool left another layout

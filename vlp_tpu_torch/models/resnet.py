@@ -21,16 +21,28 @@ JAX registry passes the dual tower's ``image_dropout`` to no backbone; the
 task's 1-logit head sits outside the backbone). A module's mode decides
 between batch and running statistics, as flax's ``train=`` does; the task
 sets it (``models/tasks.py``).
+
+Under tensor parallelism (``parallel/tp.py``) a block whose 3x3 conv2 the
+JAX rule shards (stages 2-4) splits over the model ranks: a
+``BasicBlock``'s conv1 by output channels, BN1 and ReLU on them, conv2 by
+input channels; a ``Bottleneck``'s conv2 by output channels, BN2 and ReLU
+on them, conv3 by input channels, conv1 whole. The shortcut's 1x1 conv,
+where the rule shards it, takes this rank's input channels. The last
+conv's partial sums and the shortcut's are summed over the model ranks in
+one all-reduce before their BatchNorms and the residual.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence, Type
+from typing import Dict, Optional, Sequence, Type
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from vlp_tpu_torch.models.vit import BatchNorm
+from vlp_tpu_torch.parallel.collectives import (copy_to_model,
+                                                reduce_from_model)
+from vlp_tpu_torch.parallel import tp
 
 
 def _conv(in_dim: int, out_dim: int, kernel: int, stride: int,
@@ -50,6 +62,59 @@ def conv(x: torch.Tensor, module: nn.Conv2d) -> torch.Tensor:
     return F.conv2d(x, w, None, module.stride, module.padding)
 
 
+def _split_block_(block: nn.Module, mesh, i: int) -> Dict:
+    """Splits ``block`` where it splits (``tp.conv_splits`` of its 3x3
+    conv2): conv<i> by output channels with bn<i> (its running statistics
+    too), conv<i + 1> by input channels, and the shortcut conv by input
+    channels where it splits too; else nothing."""
+    if not tp.conv_splits(block.conv2, block.conv2.weight.shape[0], mesh):
+        return {}
+    block.tp_mesh = mesh
+    bn = getattr(block, f"bn{i}")
+    out = {f"conv{i}.weight": tp.split_(getattr(block, f"conv{i}"),
+                                        "weight", mesh, 0),
+           **{f"bn{i}.{n}": tp.split_(bn, n, mesh, 0)
+              for n in ("weight", "bias", "running_mean", "running_var")},
+           f"conv{i + 1}.weight": tp.split_(getattr(block, f"conv{i + 1}"),
+                                            "weight", mesh, 1)}
+    ds = getattr(block, "ds_conv", None)
+    block.ds_split = ds is not None and tp.conv_splits(
+        ds, ds.weight.shape[1], mesh)
+    if block.ds_split:
+        out["ds_conv.weight"] = tp.split_(ds, "weight", mesh, 1)
+    return out
+
+
+def _tail(block: nn.Module, x: torch.Tensor, xs: torch.Tensor,
+          y: torch.Tensor, bn: BatchNorm) -> torch.Tensor:
+    """A block's end: the last conv's output ``y``, then ``bn``, the
+    shortcut, the residual and ReLU. In a split block ``y`` is a partial
+    sum, summed over the model ranks before ``bn``; where the shortcut
+    conv is split too, with its partial sums on this rank's channels of
+    ``xs`` (x after ``copy_to_model``), in one all-reduce. The sum runs on
+    the NHWC view, which the channels-last maps have; unsplit it is the
+    identity."""
+    dt, nt, mesh = block.dtype, block.norm_dtype, block.tp_mesh
+    parts = [y.permute(0, 2, 3, 1)]
+    if block.ds_split:
+        c = xs.shape[1] // mesh.model_world
+        r = mesh.model_rank
+        parts.append(conv(xs[:, r * c:(r + 1) * c], block.ds_conv).permute(
+            0, 2, 3, 1))
+    summed = reduce_from_model(parts[0] if len(parts) == 1
+                               else torch.cat(parts, -1), mesh).permute(
+                                   0, 3, 1, 2)
+    n = y.shape[1]
+    y = bn(summed[:, :n].to(nt))
+    if block.ds_split:
+        residual = block.ds_bn(summed[:, n:].to(nt))
+    elif hasattr(block, "ds_conv"):
+        residual = block.ds_bn(conv(x, block.ds_conv).to(nt))
+    else:
+        residual = x
+    return F.relu((y + residual).to(dt))
+
+
 class BasicBlock(nn.Module):
     expansion = 1
 
@@ -66,14 +131,17 @@ class BasicBlock(nn.Module):
         if downsample:
             self.ds_conv = _conv(in_dim, filters, 1, stride, device)
             self.ds_bn = BatchNorm(filters, norm_dtype, device)
+        self.tp_mesh, self.ds_split = None, False
+
+    def tp_split_(self, mesh) -> Dict:
+        """conv1 by output channels with BN1, conv2 by input channels."""
+        return _split_block_(self, mesh, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt, nt = self.dtype, self.norm_dtype
-        y = F.relu(self.bn1(conv(x, self.conv1).to(nt)).to(dt))
-        y = self.bn2(conv(y, self.conv2).to(nt))
-        residual = self.ds_bn(conv(x, self.ds_conv).to(nt)) \
-            if hasattr(self, "ds_conv") else x
-        return F.relu((y + residual).to(dt))
+        xs = copy_to_model(x, self.tp_mesh)
+        y = F.relu(self.bn1(conv(xs, self.conv1).to(nt)).to(dt))
+        return _tail(self, x, xs, conv(y, self.conv2), self.bn2)
 
 
 class Bottleneck(nn.Module):
@@ -97,15 +165,20 @@ class Bottleneck(nn.Module):
         if downsample:
             self.ds_conv = _conv(in_dim, out_dim, 1, stride, device)
             self.ds_bn = BatchNorm(out_dim, norm_dtype, device)
+        self.tp_mesh, self.ds_split = None, False
+
+    def tp_split_(self, mesh) -> Dict:
+        """conv2 by output channels with BN2, conv3 by input channels;
+        conv1 whole."""
+        return _split_block_(self, mesh, 2)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dt, nt = self.dtype, self.norm_dtype
+        dt, nt, mesh = self.dtype, self.norm_dtype, self.tp_mesh
         y = F.relu(self.bn1(conv(x, self.conv1).float()).to(dt))
-        y = F.relu(self.bn2(conv(y, self.conv2).float()).to(dt))
-        y = self.bn3(conv(y, self.conv3).to(nt))
-        residual = self.ds_bn(conv(x, self.ds_conv).to(nt)) \
-            if hasattr(self, "ds_conv") else x
-        return F.relu((y + residual).to(dt))
+        y = F.relu(self.bn2(conv(copy_to_model(y, mesh), self.conv2).float()
+                            ).to(dt))
+        xs = copy_to_model(x, mesh) if self.ds_split else x
+        return _tail(self, x, xs, conv(y, self.conv3), self.bn3)
 
 
 class ResNet(nn.Module):

@@ -40,11 +40,21 @@ With ``remat`` the ViT (and NesT) rematerialise each block
 (``torch.utils.checkpoint``, the reference's ``nn.remat(EncoderBlock)``):
 the backward keeps only the block inputs and runs each block's forward
 again, kernels included; the parameters are the same.
+
+Under tensor parallelism (``parallel/tp.py``) a block's attention and MLP
+each split over the model ranks where the JAX rule shards their largest
+weight: ``attend_qkv`` and ``fused_mlp`` then run on a rank's H / M heads
+and F / M hidden columns, the out-projection's and fc2's partial sums are
+all-reduced before their biases (the ``fused_mlp`` kernel gets a zero b2)
+and the residual. A split half never takes a half-block kernel (it cannot
+form a partial sum); a half that stays whole keeps its kernel, as a
+whole block does. The patch embedding splits by output channels and the
+position embedding is gathered where it is added.
 """
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -56,7 +66,10 @@ from vlp_tpu_torch.ops.block_attention import attend_qkv
 from vlp_tpu_torch.ops.fused_block import (ln_attention,
                                            ln_attention_windows, ln_mlp,
                                            supports_attn, supports_mlp)
-from vlp_tpu_torch.parallel.collectives import all_reduce
+from vlp_tpu_torch.parallel.collectives import (all_reduce, copy_to_model,
+                                                gather_from_model,
+                                                reduce_from_model)
+from vlp_tpu_torch.parallel import tp
 
 _LN_EPS = 1e-6
 _BN_EPS = 1e-5
@@ -70,7 +83,11 @@ _SQRT_HALF_BF16 = 0.70703125
 class Dense(nn.Module):
     """``y = x @ weight + bias`` with ``weight`` stored ``[in, out]``, the
     layout of a flax ``Dense`` kernel; in the input's dtype, the product
-    rounded before the bias is added, as flax's ``Dense(dtype=...)``."""
+    rounded before the bias is added, as flax's ``Dense(dtype=...)``.
+    Split by columns (``tp.split_columns_``) its input passes
+    ``copy_to_model``; split by rows (``tp.split_rows_``) the partial
+    products are summed over the model ranks before the bias. Unsplit,
+    both are the identity."""
 
     def __init__(self, in_features: int, out_features: int,
                  device: Optional[torch.device] = None) -> None:
@@ -78,9 +95,11 @@ class Dense(nn.Module):
         self.weight = nn.Parameter(
             torch.empty(in_features, out_features, device=device))
         self.bias = nn.Parameter(torch.zeros(out_features, device=device))
+        self.col_mesh = self.row_mesh = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x @ self.weight.to(x.dtype) + self.bias.to(x.dtype)
+        y = copy_to_model(x, self.col_mesh) @ self.weight.to(x.dtype)
+        return reduce_from_model(y, self.row_mesh) + self.bias.to(x.dtype)
 
 
 class LayerNorm(nn.Module):
@@ -105,15 +124,34 @@ class LayerNorm(nn.Module):
 
 class Embed(nn.Module):
     """flax ``nn.Embed(param_dtype=float32)``: a ``[num, features]`` fp32
-    table whose rows the ids pick, in fp32."""
+    table whose rows the ids pick, in fp32. Split on the JAX rule's dim: by
+    rows, a rank looks up the ids in its range (zeros elsewhere) and the
+    model ranks' lookups are summed, exactly; by columns, its columns are
+    gathered."""
 
     def __init__(self, num: int, features: int,
                  device: Optional[torch.device] = None) -> None:
         super().__init__()
         self.weight = nn.Parameter(torch.empty(num, features, device=device))
+        self.row_mesh = self.col_mesh = None
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
-        return F.embedding(ids, self.weight)
+        mesh = self.row_mesh
+        if mesh is None:
+            return gather_from_model(F.embedding(ids, self.weight),
+                                     self.col_mesh, -1)
+        n = self.weight.shape[0]
+        local = ids - mesh.model_rank * n
+        inside = ((local >= 0) & (local < n)).unsqueeze(-1)
+        rows = F.embedding(local.clamp(0, n - 1), self.weight)
+        return reduce_from_model(rows * inside, mesh)
+
+    def tp_split_(self, mesh) -> Dict:
+        dim = tp.jax_dim(self.weight.shape, mesh)
+        if dim is None:
+            return {}
+        setattr(self, "row_mesh" if dim == 0 else "col_mesh", mesh)
+        return {"weight": tp.split_(self, "weight", mesh, dim)}
 
 
 class BatchNorm(nn.Module):
@@ -208,6 +246,10 @@ class FusedSelfAttention(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.out(attend_qkv(self.qkv(x), self.num_heads))
 
+    def flax_qkv_shape(self) -> tuple:
+        """The packed qkv kernel's shape in flax's tree ([D, 3D])."""
+        return tuple(self.qkv.weight.shape)
+
 
 class MultiHeadAttention(nn.Module):
     """Self-attention of flax ``nn.MultiHeadDotProductAttention(num_heads,
@@ -222,7 +264,7 @@ class MultiHeadAttention(nn.Module):
     def __init__(self, dim: int, heads: int,
                  device: Optional[torch.device] = None) -> None:
         super().__init__()
-        self.heads = heads
+        self.num_heads = heads
         self.qkv = Dense(dim, 3 * dim, device)
         self.out = Dense(dim, dim, device)
 
@@ -230,9 +272,10 @@ class MultiHeadAttention(nn.Module):
                 live: Optional[torch.Tensor] = None) -> torch.Tensor:
         """x [B, L, D] in the compute dtype; ``bias`` and ``live`` from
         ``bert.padding_bias``, or None: no mask."""
-        b, length, d = x.shape
-        hd = d // self.heads
-        qkv = self.qkv(x).view(b, length, 3, self.heads, hd)
+        b, length = x.shape[:2]
+        width = self.qkv.weight.shape[1] // 3  # this rank's heads' width
+        hd = width // self.num_heads
+        qkv = self.qkv(x).view(b, length, 3, self.num_heads, hd)
         q, k, v = qkv.permute(2, 0, 3, 1, 4).unbind(0)
         # flax: query / jnp.sqrt(depth).astype(dtype)
         q = q / torch.tensor(math.sqrt(hd), dtype=x.dtype).item()
@@ -240,7 +283,12 @@ class MultiHeadAttention(nn.Module):
             q = q * live
         o = F.scaled_dot_product_attention(q, k, v, attn_mask=bias,
                                            scale=1.0)
-        return self.out(o.transpose(1, 2).reshape(b, length, d))
+        return self.out(o.transpose(1, 2).reshape(b, length, width))
+
+    def flax_qkv_shape(self) -> tuple:
+        """flax's query kernel's shape ([D, H, hd])."""
+        d, h = self.qkv.weight.shape[0], self.num_heads
+        return (d, h, d // h)
 
 
 class MlpBlock(nn.Module):
@@ -258,9 +306,16 @@ class MlpBlock(nn.Module):
         lead, d = x.shape[:-1], x.shape[-1]
         m = math.prod(lead)
         if FM.supports(m, d, self.fc1.weight.shape[1], x.element_size()):
-            return FM.fused_mlp(x.reshape(m, d), self.fc1.weight,
-                                self.fc1.bias, self.fc2.weight,
-                                self.fc2.bias).view(*lead, d)
+            # split (``tp.split_mlp_``): this rank's F / M hidden columns
+            mesh = self.fc1.col_mesh
+            b2 = self.fc2.bias if mesh is None \
+                else torch.zeros_like(self.fc2.bias)
+            y = FM.fused_mlp(copy_to_model(x, mesh).reshape(m, d),
+                             self.fc1.weight, self.fc1.bias, self.fc2.weight,
+                             b2)
+            if mesh is not None:  # fc2's bias once, after the sum
+                y = reduce_from_model(y, mesh) + self.fc2.bias.to(x.dtype)
+            return y.view(*lead, d)
         return self.fc2(gelu_exact(self.fc1(x)))
 
 
@@ -288,28 +343,39 @@ class EncoderBlock(nn.Module):
             if fused_attention else MultiHeadAttention(dim, num_heads, device)
         self.ln2 = LayerNorm(dim, device)
         self.mlp = MlpBlock(dim, int(dim * mlp_ratio), device)
+        # split over the model ranks (``tp_split_``)
+        self.attn_split = self.mlp_split = False
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if x.dim() == 4:
             return self._window_forward(x)
         n, s, d = x.shape
-        if self.megakernel and supports_attn(n, s, d, self.num_heads,
-                                             x.element_size()):
+        if self.megakernel and not self.attn_split and supports_attn(
+                n, s, d, self.num_heads, x.element_size()):
             x = ln_attention(x, *self._attn_params(), self.num_heads)
         else:
             x = x + self.attn(self.ln1(x).to(x.dtype))
-        return self._mlp_half(x, self.megakernel)
+        return self._mlp_half(x, self.megakernel and not self.mlp_split)
+
+    def tp_split_(self, mesh) -> Dict:
+        """The attention by heads and the MLP by hidden columns, each
+        where it splits."""
+        attn = tp.prefixed("attn", tp.split_attention_(self.attn, mesh))
+        mlp = tp.prefixed("mlp", tp.split_mlp_(self.mlp, "fc1", "fc2", mesh))
+        self.attn_split, self.mlp_split = bool(attn), bool(mlp)
+        return {**attn, **mlp}
 
     def _window_forward(self, x: torch.Tensor) -> torch.Tensor:
         """NesT's blockify-free path on the map [B, H, W, D]
         (``vlp_tpu/models/vit.py:218-245``); the caller (NesT) checks
         ``supports_window`` and the packed layout."""
-        if not self.window or not self.fused_attention:
+        if not self.window or not self.fused_attention or self.attn_split:
             raise ValueError("EncoderBlock: a [B, H, W, D] input needs "
-                             "window= and fused_attention")
+                             "window=, fused_attention and a whole "
+                             "attention")
         x = ln_attention_windows(x, self.window, *self._attn_params(),
                                  self.num_heads)
-        return self._mlp_half(x, True)
+        return self._mlp_half(x, not self.mlp_split)
 
     def _attn_params(self):
         return (self.ln1.weight, self.ln1.bias, self.attn.qkv.weight,
@@ -334,11 +400,14 @@ def conv_nhwc(x: torch.Tensor, conv: nn.Conv2d, stride: int,
               padding: int) -> torch.Tensor:
     """flax ``nn.Conv`` in the activation dtype on NHWC: the convolution
     without bias, then the bias, where the conv has one, added in that
-    dtype."""
-    dt = x.dtype
-    y = F.conv2d(x.permute(0, 3, 1, 2), conv.weight.to(dt), None,
-                 stride=stride, padding=padding).permute(0, 2, 3, 1)
-    return y if conv.bias is None else y + conv.bias.to(dt)
+    dtype. A conv split by output channels (``tp.split_conv_out_``) holds
+    this model rank's, which are gathered."""
+    dt, mesh = x.dtype, getattr(conv, "tp_mesh", None)
+    y = F.conv2d(copy_to_model(x, mesh).permute(0, 3, 1, 2),
+                 conv.weight.to(dt), None, stride=stride,
+                 padding=padding).permute(0, 2, 3, 1)
+    y = y if conv.bias is None else y + conv.bias.to(dt)
+    return gather_from_model(y, mesh, -1)
 
 
 class ViT(nn.Module):
@@ -373,13 +442,19 @@ class ViT(nn.Module):
             for _ in range(depth))
         self.final_ln = LayerNorm(hidden_dim, device)
 
+    def tp_split_(self, mesh) -> Dict:
+        return {**tp.prefixed("patch_embed",
+                              tp.split_conv_out_(self.patch_embed, mesh)),
+                **tp.gather_params_(self, ("cls_token", "pos_embed"), mesh)}
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """NHWC images -> the fp32 CLS feature [B, D]."""
         b, dt = x.shape[0], self.dtype
         x = conv_nhwc(x.to(dt), self.patch_embed, self.patch_size, 0)
         x = x.reshape(b, -1, self.num_features)
-        cls = self.cls_token.to(dt).expand(b, 1, self.num_features)
-        x = torch.cat([cls, x], dim=1) + self.pos_embed.to(dt)
+        cls = tp.full_param(self.cls_token).to(dt).expand(
+            b, 1, self.num_features)
+        x = torch.cat([cls, x], dim=1) + tp.full_param(self.pos_embed).to(dt)
         for blk in self.blocks:
             x = run_block(blk, x, self.remat)
         return self.final_ln(x)[:, 0]

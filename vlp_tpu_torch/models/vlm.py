@@ -8,7 +8,8 @@ fp32 matrices applied to the fp32 features (fp32 products: TF32 stays
 off); ``logit_scale``, a 0-d fp32 parameter that ``losses.clip_logits``
 exponentiates and clamps. The forward returns the un-normalised embeddings
 and ``logit_scale``, as the JAX module does, so the loss builds the [B, B]
-logits.
+logits. Under tensor parallelism (``parallel/tp.py``) a projection that
+the JAX rule shards is split on its dim and gathered where it is used.
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ from torch import nn
 
 from vlp_tpu_torch.models.bert import TEXT_CONFIGS, BertEncoder
 from vlp_tpu_torch.models.registry import create_backbone
+from vlp_tpu_torch.parallel import tp
 
 
 class VisionLanguageModel(nn.Module):
@@ -55,6 +57,10 @@ class VisionLanguageModel(nn.Module):
             nn.init.normal_(p, 0.0, p.shape[0] ** -0.5, generator=generator)
         self.logit_scale.fill_(self.logit_scale_init)
 
+    def tp_split_(self, mesh) -> dict:
+        return tp.gather_params_(self, ("image_projection",
+                                        "text_projection"), mesh)
+
     def forward(self, images: torch.Tensor, input_ids: torch.Tensor,
                 attention_mask: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -65,7 +71,8 @@ class VisionLanguageModel(nn.Module):
                 self.logit_scale)
 
     def encode_image(self, images: torch.Tensor) -> torch.Tensor:
-        return self.image_encoder(images) @ self.image_projection
+        return self.image_encoder(images) \
+            @ tp.full_param(self.image_projection)
 
     def image_features(self, images: torch.Tensor) -> torch.Tensor:
         """The un-projected pooled backbone features (the linear probe's
@@ -75,4 +82,4 @@ class VisionLanguageModel(nn.Module):
     def encode_text(self, input_ids: torch.Tensor,
                     attention_mask: torch.Tensor) -> torch.Tensor:
         return self.text_encoder(input_ids, attention_mask) \
-            @ self.text_projection
+            @ tp.full_param(self.text_projection)

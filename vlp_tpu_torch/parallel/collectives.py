@@ -1,8 +1,10 @@
 """The collectives that GSPMD inserts on the JAX package's ``('data',)``
-mesh, as autograd functions over ``torch.distributed`` (no JAX
-counterpart: there they are implicit).
+mesh and on the model axis of its ``('data', 'model')`` mesh, as autograd
+functions over ``torch.distributed`` (no JAX counterpart: there they are
+implicit).
 
-The convention, held by ``tests/test_torch_port_parallel.py``:
+The data axis's convention (``mesh.group``, N = ``mesh.world`` data
+ranks), held by ``tests/test_torch_port_parallel.py``:
 
 - Every rank computes the global-batch loss L: the same value on every
   rank, from its own rows and what the collectives bring it.
@@ -19,9 +21,22 @@ So a loss may mix the forms freely: a replicated computation on gathered
 values, a row block reduced by an all-reduce, BatchNorm's all-reduced
 statistics. ``torch.distributed.nn.functional`` is not used.
 
+The model axis (``mesh.model_group``, the M ranks that hold the same rows
+and one shard each of the tensor-parallel weights, ``parallel/tp.py``)
+takes Megatron's convention instead: every model rank computes the same
+replicated activations and the same loss, and a replicated tensor's
+gradient is the whole one on every model rank. ``copy_to_model`` (the
+identity; backward: the sum over the model ranks) stands before a layer
+whose weight is split by columns, since each rank's columns give only a
+part of its input's gradient; ``reduce_from_model`` (the sum; backward:
+the identity) after a layer split by rows; ``gather_from_model`` (the
+model ranks' blocks in order; backward: this rank's block) after a layer
+whose output is split.
+
 The functions without a gradient (``gather_rows``, ``all_reduce_``,
-``broadcast_module``) serve the metrics, the evaluation and the setup. On
-one rank of no mesh (``mesh`` None) every function is the identity.
+``broadcast_module``) serve the metrics, the evaluation and the setup; the
+broadcasts run over the whole world, from global rank 0. On one rank of no
+mesh (``mesh`` None) every function is the identity.
 """
 from __future__ import annotations
 
@@ -100,6 +115,107 @@ class ReduceScatter(torch.autograd.Function):
         return _gather(g, ctx.mesh), None
 
 
+# while a list, each model-axis collective appends to it the (start, end)
+# CUDA events recorded around it (the step's model-axis time is the sum of
+# their spans)
+model_axis_events: Optional[list] = None
+
+
+def _timed(fn):
+    events = model_axis_events
+    if events is None:
+        return fn()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    out = fn()
+    end.record()
+    events.append((start, end))
+    return out
+
+
+def _model_reduce(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    x = x.clone(memory_format=torch.contiguous_format)
+    _timed(lambda: dist.all_reduce(x, group=mesh.model_group))
+    return x
+
+
+def model_slice(x: torch.Tensor, dim: int, groups: int, rank: int,
+                world: int) -> torch.Tensor:
+    """Model rank ``rank``'s share of ``x`` along ``dim``: the dim viewed
+    as ``[groups, world, n / (groups world)]``, block ``[:, rank]`` (a
+    packed q|k|v has 3 groups, so a rank holds its heads' q, k and v)."""
+    dim %= x.dim()
+    return x.unflatten(dim, (groups, world, -1)).select(
+        dim + 1, rank).flatten(dim, dim + 1)
+
+
+def model_gather(x: torch.Tensor, mesh: Mesh, dim: int, groups: int = 1
+                 ) -> torch.Tensor:
+    """Every model rank's share ``x`` assembled in order along ``dim``
+    (``model_slice``'s inverse), without a gradient."""
+    dim %= x.dim()
+    parts = [torch.empty_like(x, memory_format=torch.contiguous_format)
+             for _ in range(mesh.model_world)]
+    _timed(lambda: dist.all_gather(parts, x.detach().contiguous(),
+                                   group=mesh.model_group))
+    blocks = [p.unflatten(dim, (groups, -1)) for p in parts]
+    return torch.stack(blocks, dim + 1).flatten(dim, dim + 2)
+
+
+class CopyToModel(torch.autograd.Function):
+    """The identity; backward: the sum over the model ranks."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _model_reduce(g, ctx.mesh), None
+
+
+class ReduceFromModel(torch.autograd.Function):
+    """The sum over the model ranks; backward: the identity."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        return _model_reduce(x, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class GatherFromModel(torch.autograd.Function):
+    """``model_gather``; backward: this rank's share (``model_slice``)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, dim, groups):
+        ctx.mesh, ctx.dim, ctx.groups = mesh, dim, groups
+        return model_gather(x, mesh, dim, groups)
+
+    @staticmethod
+    def backward(ctx, g):
+        m = ctx.mesh
+        return (model_slice(g, ctx.dim, ctx.groups, m.model_rank,
+                            m.model_world).contiguous(), None, None, None)
+
+
+def copy_to_model(x: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
+    return x if mesh is None else CopyToModel.apply(x, mesh)
+
+
+def reduce_from_model(x: torch.Tensor, mesh: Optional[Mesh]
+                      ) -> torch.Tensor:
+    return x if mesh is None else ReduceFromModel.apply(x, mesh)
+
+
+def gather_from_model(x: torch.Tensor, mesh: Optional[Mesh], dim: int,
+                      groups: int = 1) -> torch.Tensor:
+    return x if mesh is None else GatherFromModel.apply(x, mesh, dim, groups)
+
+
 def all_gather(x: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
     return x if mesh is None else AllGather.apply(x, mesh)
 
@@ -128,28 +244,30 @@ def all_reduce_(x: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
 
 @torch.no_grad()
 def broadcast_module(module: torch.nn.Module, mesh: Optional[Mesh]) -> None:
-    """Every parameter and buffer from rank 0, so that every rank starts
-    from rank 0's weights and running statistics."""
+    """Every parameter and buffer from global rank 0, so that every rank
+    starts from its weights and running statistics."""
     if mesh is None:
         return
     for t in list(module.parameters()) + list(module.buffers()):
-        dist.broadcast(t.data, 0, group=mesh.group)
+        dist.broadcast(t.data, 0)
 
 
 def broadcast_object(obj, mesh: Optional[Mesh]):
-    """Rank 0's ``obj`` on every rank (a picklable host object)."""
+    """Global rank 0's ``obj`` on every rank (a picklable host
+    object)."""
     if mesh is None:
         return obj
     box: List = [obj]
-    dist.broadcast_object_list(box, 0, group=mesh.group,
-                               device=mesh.device)
+    dist.broadcast_object_list(box, 0, device=mesh.device)
     return box[0]
 
 
 @torch.no_grad()
 def reduce_gradients(params: Iterable[torch.nn.Parameter],
                      mesh: Optional[Mesh]) -> None:
-    """The mean over ranks of every parameter gradient, in one bucket per
+    """The mean over the data ranks of every parameter gradient (a
+    tensor-parallel shard's over the data ranks that hold the same shard),
+    in one bucket per
     dtype: one all-reduce each, then a division by N (the convention of
     the module docstring). A parameter without a gradient (unused in the
     loss) keeps None, as in one process: every rank runs the same graph,

@@ -1,23 +1,34 @@
-"""The process group and the data mesh (counterpart of
-``vlp_tpu/parallel/mesh.py:22-95``).
+"""The process groups and the data x model mesh (counterpart of
+``vlp_tpu/parallel/mesh.py:22-68``).
 
 The JAX package is one process that sees every chip: it jits the step over
-a 1-D ``('data',)`` mesh and GSPMD makes every batch-wide reduction global.
-The port runs one process per device, started by the launcher::
+a ``('data',)`` mesh, or a 2-D ``('data', 'model')`` one with
+``mesh.model_parallel`` M > 1, and GSPMD inserts every collective. The
+port runs one process per device, started by the launcher::
 
     python -m torch.distributed.run --standalone --nproc_per_node=N \\
         -m vlp_tpu_torch.train [--device cuda|cpu] experiment=... [overrides]
 
 ``create_mesh`` reads ``RANK``, ``WORLD_SIZE`` and ``LOCAL_RANK`` from the
 launcher (or takes an explicit ``init_method`` and ranks, as the tests do),
-forms the process group (NCCL on ``cuda:LOCAL_RANK``; gloo only for the CPU)
-and returns a ``Mesh``: the rank, the world, the group and the device. The
-loaders, tasks and trainer take it where the JAX code takes ``mesh``.
-Without the launcher's environment it returns None and nothing changes from
-one process on one device. ``data.batch_size`` stays the global batch: each
-rank holds ``B / N`` rows, rows ``[r B/N, (r + 1) B/N)`` of it
-(``Mesh.rows``). A process group that fails to form raises: a run never
-trains alone when it was asked to train with others.
+forms the process group (NCCL on ``cuda:LOCAL_RANK``; gloo for the CPU,
+and on CUDA where a node's ranks outnumber its cards)
+and returns a ``Mesh``. The N = D x M ranks lie data-major, as the JAX
+package reshapes its devices to ``(D, M)``: global rank ``g`` is data rank
+``g // M`` and model rank ``g % M``. ``rank``, ``world`` and ``group`` are
+the data axis's (D ranks of one model rank; the default group when M is
+1): the loaders, the tasks, the losses, the metrics and the gradient mean
+take them where the JAX code takes ``mesh``, since batches shard over the
+data axis only (``axis_size``). ``model_rank``, ``model_world`` and
+``model_group`` are the model axis's, which only tensor parallelism
+(``parallel/tp.py``) reads; ``is_main``, ``barrier`` and the broadcasts
+are the whole world's. Without the launcher's environment ``create_mesh``
+returns None and nothing changes from one process on one device.
+``data.batch_size`` stays the global batch: each data rank holds ``B / D``
+rows, rows ``[r B/D, (r + 1) B/D)`` of it (``Mesh.rows``), and the M model
+ranks of one data rank hold the same rows. A process group that fails to
+form raises: a run never trains alone when it was asked to train with
+others.
 """
 from __future__ import annotations
 
@@ -29,6 +40,10 @@ from typing import Any, Dict, Optional
 import torch
 import torch.distributed as dist
 
+from vlp_tpu_torch.utils.logging import get_logger
+
+logger = get_logger(__name__)
+
 # seconds a collective may wait for its peers before the run fails: a rank
 # that died (a kernel that failed to build or launch) must not hang the rest
 DEFAULT_TIMEOUT_S = 600.0
@@ -37,20 +52,30 @@ ITEM_14 = "ROADMAP.md Queue 1 item 14"
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class Mesh:
-    """A 1-D data mesh of ``world`` processes, this one ``rank``."""
+    """This process's place on the D x M mesh: data rank ``rank`` of
+    ``world`` (over ``group``) and model rank ``model_rank`` of
+    ``model_world`` (over ``model_group``); global rank ``rank *
+    model_world + model_rank``."""
 
     rank: int
     world: int
     device: torch.device
-    group: Any = None  # the default group
+    group: Any = None  # the data axis's group; None: the default group
     axis_name: str = "data"
+    model_rank: int = 0
+    model_world: int = 1
+    model_group: Any = None
+
+    @property
+    def global_rank(self) -> int:
+        return self.rank * self.model_world + self.model_rank
 
     @property
     def is_main(self) -> bool:
-        return self.rank == 0
+        return self.global_rank == 0
 
     def rows(self, n_global: int) -> slice:
-        """This rank's rows of a global batch of ``n_global``."""
+        """This data rank's rows of a global batch of ``n_global``."""
         if n_global % self.world:
             raise ValueError(f"a global batch of {n_global} rows does not "
                              f"divide over {self.world} ranks")
@@ -58,14 +83,15 @@ class Mesh:
         return slice(self.rank * b, (self.rank + 1) * b)
 
     def barrier(self) -> None:
+        """Every rank of the world."""
         if self.device.type == "cuda":
-            dist.barrier(group=self.group, device_ids=[self.device.index])
+            dist.barrier(device_ids=[self.device.index])
         else:
-            dist.barrier(group=self.group)
+            dist.barrier()
 
 
 def axis_size(mesh: Optional[Mesh]) -> int:
-    """The data axis's size: the world, 1 without a mesh."""
+    """The data axis's size, 1 without a mesh."""
     return 1 if mesh is None else mesh.world
 
 
@@ -75,8 +101,8 @@ def pad_to_multiple(n: int, m: int) -> int:
 
 def shard_batch(batch: Dict[str, Any], mesh: Optional[Mesh]
                 ) -> Dict[str, Any]:
-    """This rank's rows of every array or tensor of a global batch (the
-    batch itself without a mesh)."""
+    """This data rank's rows of every array or tensor of a global batch
+    (the batch itself without a mesh)."""
     if mesh is None:
         return batch
     return {k: v[mesh.rows(v.shape[0])] for k, v in batch.items()}
@@ -88,55 +114,64 @@ def launched() -> bool:
 
 
 def check_mesh_config(m, world: int) -> None:
-    """``mesh.*`` against the world the launcher started. ``data_parallel``
-    -1 (or 0) is the world; any other value must equal it (the JAX package
-    takes the first n devices; here the launcher decides how many processes
-    there are). ``param_sharding`` ``replicated`` or ``fsdp``
-    (``parallel/fsdp.py``); the JAX driver's two refusals
-    (``vlp_tpu/train/driver.py:227-236``) in its words; tensor parallelism
-    on the 2-D data x model mesh is not ported and raises, so such a run
-    never goes on replicated."""
-    dp = int(m.data_parallel)
-    if dp not in (-1, 0) and dp != world:
-        raise ValueError(
-            f"mesh.data_parallel={dp} but {world} rank(s) were launched "
-            f"(data parallelism, {ITEM_14}): give -1 (the world) or launch "
-            f"{dp} ranks with python -m torch.distributed.run "
-            f"--nproc_per_node={dp}")
+    """``mesh.*`` against the world the launcher started: the JAX driver's
+    three refusals (``vlp_tpu/train/driver.py:222-236``) in its words, then
+    ``model_parallel`` M must divide the world and ``data_parallel`` -1 (or
+    0) is the rest of it, D = world / M; any other value must equal that
+    (the JAX package takes the first D x M devices; here the launcher
+    decides how many processes there are). ``param_sharding``
+    ``replicated`` (M > 1 then holds M replicas, as the JAX mesh does),
+    ``fsdp`` (``parallel/fsdp.py``) or ``tp`` (``parallel/tp.py``)."""
     mp = int(m.model_parallel)
+    if mp > 1 and getattr(m, "infonce_impl", "gspmd") == "shard_map":
+        raise ValueError(
+            "mesh.infonce_impl='shard_map' is written for a 1-D data mesh; "
+            "with mesh.model_parallel>1 use infonce_impl='gspmd' (GSPMD "
+            "partitions the contrastive matrix over both axes).")
     if m.param_sharding == "tp" and mp <= 1:
         raise ValueError(
             "mesh.param_sharding='tp' shards weights over the model axis — "
-            "set mesh.model_parallel>1 (2-D data x model mesh). The 2-D "
-            f"mesh with tensor parallelism is not ported ({ITEM_14}).")
+            "set mesh.model_parallel>1 (2-D data x model mesh).")
     if m.param_sharding == "fsdp" and mp > 1:
         raise ValueError(
             "mesh.param_sharding='fsdp' shards over the data axis and "
             "never uses the model axis — model_parallel>1 would leave the "
             "model-axis devices as pure replicas. Use param_sharding='tp' "
-            "on a 2-D mesh, or fsdp with model_parallel=1. The 2-D mesh is "
-            f"not ported ({ITEM_14}).")
-    if mp != 1 or m.param_sharding == "tp":
-        raise ValueError(
-            f"mesh.model_parallel={m.model_parallel}, mesh.param_sharding="
-            f"{m.param_sharding!r}: the 2-D data x model mesh with tensor "
-            f"parallelism is not ported ({ITEM_14}); the port would train "
-            "replicated")
-    if m.param_sharding not in ("replicated", "fsdp"):
+            "on a 2-D mesh, or fsdp with model_parallel=1.")
+    if m.param_sharding not in ("replicated", "fsdp", "tp"):
         raise ValueError(f"mesh.param_sharding={m.param_sharding!r}: "
                          "replicated, fsdp or tp")
+    if mp < 1 or world % mp:
+        raise ValueError(
+            f"mesh.model_parallel={mp} does not divide the {world} rank(s) "
+            "launched: launch D x M ranks with python -m "
+            "torch.distributed.run --nproc_per_node=<D*M>")
+    dp = int(m.data_parallel)
+    if dp not in (-1, 0) and dp * mp != world:
+        raise ValueError(
+            f"mesh.data_parallel={dp} x mesh.model_parallel={mp} but "
+            f"{world} rank(s) were launched (data parallelism, {ITEM_14}): "
+            f"give -1 (the rest of the world) or launch {dp * mp} ranks "
+            f"with python -m torch.distributed.run --nproc_per_node="
+            f"{dp * mp}")
 
 
 def create_mesh(mesh_cfg=None, device: str = "cuda",
                 init_method: Optional[str] = None,
                 rank: Optional[int] = None,
                 world_size: Optional[int] = None,
-                timeout_s: float = DEFAULT_TIMEOUT_S) -> Optional[Mesh]:
-    """The process group and this rank's ``Mesh``, or None without the
-    launcher's environment and without ``init_method`` (one process).
-    ``device`` is the device type: ``cuda`` takes NCCL on
-    ``cuda:LOCAL_RANK``, ``cpu`` gloo. ``mesh_cfg`` (``cfg.mesh``) is
-    checked against the world (``check_mesh_config``)."""
+                timeout_s: float = DEFAULT_TIMEOUT_S,
+                model_parallel: Optional[int] = None) -> Optional[Mesh]:
+    """The process group, the data and model groups and this rank's
+    ``Mesh``, or None without the launcher's environment and without
+    ``init_method`` (one process). ``device`` is the device type: ``cuda``
+    takes NCCL on ``cuda:LOCAL_RANK``, ``cpu`` gloo. Where a node's ranks
+    (``LOCAL_WORLD_SIZE``) outnumber its visible cards, which NCCL refuses,
+    ``cuda`` takes gloo instead, with the ranks on the cards in turn
+    (``LOCAL_RANK`` modulo their count), and says so in a log line.
+    ``mesh_cfg`` (``cfg.mesh``) is checked against the world
+    (``check_mesh_config``) and gives M (``model_parallel`` overrides it;
+    1 without either)."""
     if init_method is None and not launched():
         if mesh_cfg is not None:
             check_mesh_config(mesh_cfg, 1)
@@ -148,14 +183,25 @@ def create_mesh(mesh_cfg=None, device: str = "cuda",
     local_rank = int(env.get("LOCAL_RANK", rank))
     if mesh_cfg is not None:
         check_mesh_config(mesh_cfg, world)
+    mp = int(model_parallel if model_parallel is not None
+             else getattr(mesh_cfg, "model_parallel", 1))
+    if mp < 1 or world % mp:
+        raise ValueError(f"model_parallel={mp} does not divide the world "
+                         f"of {world}")
     kind = torch.device(device).type
     if kind == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError("--device cuda under the launcher, but no "
                                "CUDA device is visible")
-        dev = torch.device("cuda", local_rank)
+        cards = torch.cuda.device_count()
+        local_world = int(env.get("LOCAL_WORLD_SIZE", world))
+        backend = "nccl" if local_world <= cards else "gloo"
+        if backend == "gloo" and local_rank == 0:
+            logger.info("%d ranks on %d visible CUDA device(s): the process "
+                        "group takes gloo, as NCCL refuses two ranks on one "
+                        "device", local_world, cards)
+        dev = torch.device("cuda", local_rank % cards)
         torch.cuda.set_device(dev)
-        backend = "nccl"
     elif kind == "cpu":
         dev, backend = torch.device("cpu"), "gloo"
     else:
@@ -164,7 +210,7 @@ def create_mesh(mesh_cfg=None, device: str = "cuda",
         raise RuntimeError("torch.distributed is not available")
     kw = dict(backend=backend, rank=rank, world_size=world,
               timeout=datetime.timedelta(seconds=timeout_s))
-    if kind == "cuda":
+    if backend == "nccl":
         kw["device_id"] = dev
     if init_method is not None:
         kw["init_method"] = init_method
@@ -179,8 +225,21 @@ def create_mesh(mesh_cfg=None, device: str = "cuda",
         raise RuntimeError(
             f"rank {rank} of {world}: the {backend} process group did not "
             f"form ({e}); the run stops rather than train alone") from e
-    mesh = Mesh(rank=rank, world=world, device=dev,
-                axis_name=getattr(mesh_cfg, "axis_name", "data"))
+    groups: Dict[str, Any] = {}
+    if mp > 1:
+        # every rank forms every group, in the same order
+        dp = world // mp
+        for d in range(dp):
+            g = dist.new_group([d * mp + m for m in range(mp)])
+            if rank // mp == d:
+                groups["model_group"] = g
+        for m in range(mp):
+            g = dist.new_group([d * mp + m for d in range(dp)])
+            if rank % mp == m:
+                groups["group"] = g
+    mesh = Mesh(rank=rank // mp, world=world // mp, device=dev,
+                axis_name=getattr(mesh_cfg, "axis_name", "data"),
+                model_rank=rank % mp, model_world=mp, **groups)
     mesh.barrier()
     return mesh
 

@@ -37,8 +37,18 @@ and only rank 0 logs and writes (metrics files, checkpoints, fold markers,
 what rank 0 wrote. ``mesh.data_parallel`` must be -1 or the world;
 ``mesh.param_sharding=fsdp`` shards the parameters and AdamW moments over
 the ranks (``parallel/fsdp.py``; every rank runs every forward, and the
-checkpoints are gathered into the replicated run's format); tensor
-parallelism raises (ROADMAP Queue 1 item 14). Without the launcher's environment it is one process on one device.
+checkpoints are gathered into the replicated run's format). With
+``mesh.model_parallel=M`` the N = D x M ranks form the 2-D data x model
+mesh (``parallel/mesh.py``): the batch shards over the D data ranks, and
+``mesh.param_sharding=tp`` splits the weights and AdamW moments over the
+M model ranks of each (``parallel/tp.py``; checkpoints again in the
+replicated run's format)::
+
+    python -m torch.distributed.run --standalone --nproc_per_node=<D*M> \
+        -m vlp_tpu_torch.train experiment=<name> mesh.model_parallel=<M> \
+        mesh.param_sharding=tp
+
+Without the launcher's environment it is one process on one device.
 Not ported, each in ROADMAP Queue 1
 item 15 (b): the post-fit t-SNE and confusion plots (matplotlib, scikit-learn)
 are left out with a log line, so a fold's summary lacks their keys. The
@@ -64,6 +74,7 @@ from vlp_tpu_torch.eval.test_eval import collect_probs
 from vlp_tpu_torch.models.tasks import build_task
 from vlp_tpu_torch.ops._build import load_library
 from vlp_tpu_torch.ops.retrieval import label_precision_at_k
+from vlp_tpu_torch.parallel import tp
 from vlp_tpu_torch.parallel.mesh import (check_mesh_config, create_mesh,
                                          destroy_mesh, launched)
 from vlp_tpu_torch.train.callbacks import (DownstreamPrecisionAtK,
@@ -106,9 +117,12 @@ def _maybe_warm_start(cfg: Config, trainer: Trainer) -> None:
         else {k[len("backbone."):]: v for k, v in source.items()
               if k.startswith("backbone.")}
     model = trainer.state.model
-    # the keys and shapes checked against the model's (a sharded model's
-    # DTensors give their global shapes); the backbone's entries loaded
-    grafted = ckpt.graft_backbone(model.state_dict(), encoder)
+    # the keys and shapes checked against the replicated model's (a
+    # sharded model's DTensors give their global shapes, a split one's
+    # splits); the backbone's entries loaded
+    grafted = ckpt.graft_backbone(
+        {k: torch.empty(shape, device="meta")
+         for k, shape in tp.full_shapes(model).items()}, encoder)
     ckpt.load_model_state(model, {k: v for k, v in grafted.items()
                                   if k.startswith("backbone.")},
                           strict=False)
@@ -215,7 +229,8 @@ def train(cfg: Config, device="cuda", mesh=None) -> Dict[str, float]:
     if own:
         mesh = create_mesh(cfg.mesh, torch.device(device).type)
     else:
-        check_mesh_config(cfg.mesh, 1 if mesh is None else mesh.world)
+        check_mesh_config(cfg.mesh, 1 if mesh is None
+                          else mesh.world * mesh.model_world)
     try:
         return _train(cfg, device if mesh is None else mesh.device, mesh)
     finally:

@@ -21,6 +21,7 @@ from vlp_tpu_torch.models.tasks import TaskStatics, build_task
 from vlp_tpu_torch.models.vit import flax_init_
 from vlp_tpu_torch.parallel.collectives import broadcast_module
 from vlp_tpu_torch.parallel.fsdp import shard_model
+from vlp_tpu_torch.parallel.tp import shard_model_tp
 from vlp_tpu_torch.train.optim import make_optimizer
 from vlp_tpu_torch.train.state import TrainState
 from vlp_tpu_torch.train.step import make_train_step
@@ -38,15 +39,18 @@ def init_training(task, tcfg: TrainConfig, steps_per_epoch: int,
     ``make_train_step``'s step. ``build_training`` and the ``Trainer``
     both build through it. On the task's mesh every rank then takes rank
     0's weights and running statistics, and with ``param_sharding`` fsdp
-    the model is sharded over the ranks (``parallel/fsdp.py``) before the
-    optimizer is built on its shards; the generators start in the same
-    state on every rank."""
+    the model is sharded over the ranks (``parallel/fsdp.py``), with tp
+    split over the model ranks (``parallel/tp.py``), before the optimizer
+    is built on its shards; the generators start in the same state on
+    every rank."""
     device = next(task.model.parameters()).device
     mesh = getattr(task, "mesh", None)
     flax_init_(task.model, torch.Generator(device=device).manual_seed(seed))
     broadcast_module(task.model, mesh)
     if mesh is not None and tcfg.param_sharding == "fsdp":
         shard_model(task.model, mesh)
+    elif tcfg.param_sharding == "tp":
+        shard_model_tp(task.model, mesh)
     opt, schedules = make_optimizer(tcfg, task.model, steps_per_epoch)
     state = TrainState.create(task.model, opt, schedules, seed=state_seed)
     return state, make_train_step(task, opt, schedules)

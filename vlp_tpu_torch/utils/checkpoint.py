@@ -34,10 +34,12 @@ paths, so that every rank takes the same branches and reads rank 0's
 files after a barrier. On a model sharded by ``parallel/fsdp.py``
 ``model_state`` and ``optimizer_state`` gather the full state to rank 0's
 host (``torch.distributed.checkpoint.state_dict``, a collective: every
-rank calls them, from the training thread, before any write starts), so a
-file has the replicated run's format and resumes, serves and warm-starts
-whichever way the next run holds its model; ``load_model_state`` and
-``load_optimizer_state`` give each rank its shards of a full state.
+rank calls them, from the training thread, before any write starts), and
+on a model split by ``parallel/tp.py`` to every rank's (over the model
+ranks, ``tp.gather_state``), so a file has the replicated run's format
+and resumes, serves and warm-starts whichever way the next run holds its
+model; ``load_model_state`` and ``load_optimizer_state`` give each rank
+its shards of a full state.
 
 ``extract_image_encoder`` and ``graft_backbone`` move the dual tower's
 ``image_encoder.*`` entries onto a classifier's ``backbone.*`` (BatchNorm's
@@ -53,6 +55,7 @@ from typing import Any, Callable, Dict, Optional
 
 import torch
 
+from vlp_tpu_torch.parallel import tp
 from vlp_tpu_torch.parallel.fsdp import is_sharded
 from vlp_tpu_torch.train.optim import merged_state, split_state
 from vlp_tpu_torch.utils.logging import get_logger
@@ -80,7 +83,9 @@ def _full_options(**kw):
 def model_state(model: torch.nn.Module) -> Dict[str, torch.Tensor]:
     """The model's full ``state_dict`` on the host; of a sharded model
     gathered to rank 0 (every rank must call it; the others get an empty
-    dict)."""
+    dict), of a split one to every rank (every rank calls it)."""
+    if tp.is_split(model):
+        return _to_host(tp.gather_state(model))
     if not is_sharded(model):
         return _to_host(model.state_dict())
     from torch.distributed.checkpoint.state_dict import get_model_state_dict
@@ -92,7 +97,10 @@ def model_state(model: torch.nn.Module) -> Dict[str, torch.Tensor]:
 def load_model_state(model: torch.nn.Module, state: Dict[str, torch.Tensor],
                      strict: bool = True) -> None:
     """Loads a full ``state_dict`` (``strict=False``: a part of one) into
-    ``model``; a sharded model's ranks each take their shards."""
+    ``model``; a sharded or split model's ranks each take their
+    shards."""
+    if tp.is_split(model):
+        state = tp.scatter_state(model, state)
     if not is_sharded(model):
         model.load_state_dict(state, strict=strict)
         return
@@ -106,7 +114,9 @@ def optimizer_state(model: torch.nn.Module,
     """``optimizer.state_dict()`` on the host; of a sharded model's
     optimizer gathered to rank 0 in the replicated run's format
     (``optim.merged_state``; every rank must call it, the others get
-    None)."""
+    None); of a split model's gathered to every rank."""
+    if tp.is_split(model):
+        return _to_host(tp.gather_optimizer_state(model, optimizer))
     if not is_sharded(model):
         return _to_host(optimizer.state_dict())
     from torch.distributed.checkpoint.state_dict import (
@@ -122,7 +132,10 @@ def load_optimizer_state(model: torch.nn.Module,
                          state: Dict[str, Any]) -> None:
     """Loads ``optimizer_state``'s format into ``optimizer``; a sharded
     model's ranks each take their shards of the moments, its groups their
-    label's settings (``optim.split_state``)."""
+    label's settings (``optim.split_state``); a split model's ranks their
+    shares of the moments."""
+    if tp.is_split(model):
+        state = tp.scatter_optimizer_state(model, optimizer, state)
     if not is_sharded(model):
         optimizer.load_state_dict(state)
         return
@@ -146,9 +159,9 @@ def state_to_tree(state) -> Optional[Dict[str, Any]]:
 
 
 def _tree_to_write(state, write: bool) -> Optional[Dict[str, Any]]:
-    """``state_to_tree`` where this rank writes; a sharded model's ranks
-    all join its gather."""
-    if write or is_sharded(state.model):
+    """``state_to_tree`` where this rank writes; a sharded or split
+    model's ranks all join its gather."""
+    if write or is_sharded(state.model) or tp.is_split(state.model):
         tree = state_to_tree(state)
         return tree if write else None
     return None

@@ -8,27 +8,29 @@ groups and ``batch_stats``.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Dict
 
 from torch import nn
 
 from vlp_tpu_torch.config import Config
+from vlp_tpu_torch.parallel.tp import full_shapes
 from vlp_tpu_torch.utils.logging import MetricSink
-
-
-def count_params(tensors) -> int:
-    return int(sum(t.numel() for t in tensors))
 
 
 def log_hyperparameters(cfg: Config, model: nn.Module,
                         sink: MetricSink) -> Dict[str, Any]:
-    params = list(model.parameters())
-    total = count_params(params)
-    frozen = count_params(p for p in params if not p.requires_grad)
+    """The counts are the replicated model's, also of a model split over
+    the model ranks (``parallel/tp.py``)."""
+    sizes = {k: math.prod(s) for k, s in full_shapes(model).items()}
+    params = dict(model.named_parameters())
+    total = sum(sizes[n] for n in params)
+    frozen = sum(sizes[n] for n, p in params.items() if not p.requires_grad)
     record = {
         "model/params/total": total,
         "model/params/trainable": total - frozen,
-        "model/params/non_trainable": frozen + count_params(model.buffers()),
+        "model/params/non_trainable": frozen + sum(
+            sizes[n] for n, _ in model.named_buffers()),
         "config": cfg.to_dict(),
     }
     sink.log_summary(record)

@@ -17,6 +17,9 @@ import time
 from typing import Any, Dict, List, Optional
 
 _LOGGER_NAME = "vlp_tpu_torch"
+# the level of every logger of the port's on a rank that is not global
+# rank 0 (``quiet_unless_main``), None elsewhere
+_QUIET: Optional[int] = None
 
 
 def get_logger(name: str = _LOGGER_NAME) -> logging.Logger:
@@ -27,16 +30,23 @@ def get_logger(name: str = _LOGGER_NAME) -> logging.Logger:
             logging.Formatter("%(asctime)s %(levelname)s %(name)s: %(message)s")
         )
         logger.addHandler(handler)
-        logger.setLevel(os.environ.get("VLP_TPU_LOGLEVEL", "INFO"))
+        logger.setLevel(_QUIET or os.environ.get("VLP_TPU_LOGLEVEL", "INFO"))
         logger.propagate = False
     return logger
 
 
 def quiet_unless_main(mesh) -> None:
-    """On a data mesh only rank 0 logs at INFO; the others keep warnings
-    and errors."""
-    if mesh is not None and not mesh.is_main:
-        get_logger().setLevel(logging.WARNING)
+    """On a mesh only global rank 0 logs at INFO; the others keep warnings
+    and errors, in every logger of the port's (each module's has its own
+    level), those made later too."""
+    global _QUIET
+    if mesh is None or mesh.is_main:
+        return
+    _QUIET = logging.WARNING
+    for name, logger in logging.Logger.manager.loggerDict.items():
+        if name.split(".")[0] == _LOGGER_NAME and isinstance(
+                logger, logging.Logger) and logger.handlers:
+            logger.setLevel(_QUIET)
 
 
 class MetricSink:
