@@ -310,6 +310,10 @@ Phases, each printing its lines before the last line:
    markers, its 4 best checkpoints (the replicated run's format) reloaded
    into one-process tasks reproducing the logged ``val/combined/*``, and
    fold 0's best served by ``Predictor(checkpoint=...)``.
+25. Tensor parallelism (``chip_smoke_tp.py``, its module docstring).
+26. GPipe and sequence parallelism through ViT-L/16's and ViT-B/16's
+   encoder stacks, the sweep entry point, ``setup_check`` and the FLOP
+   count (``chip_smoke_pp.py``, its module docstring).
 
 Then one JSON line with every kernel: its launches in the timed training
 steps of the path that runs it (NesT-Small's for #1-#4, #11, #12; ViT-B's
@@ -322,7 +326,9 @@ and phase 21's ``*_trainer`` runs among them for #11, #12, and
 phase 23's ``dp_vlp_resnet34_tinybert_train`` and ``dp_nest_train``, per
 rank, #1-#4 in the latter too; phase 24's ``*_remat_train``,
 ``vit_l_train``, ``vit_l_remat_train``, ``*_flax_layout_train``,
-``fsdp_vlp_resnet34_tinybert_train`` and ``fsdp_vit_l_remat_train``),
+``fsdp_vlp_resnet34_tinybert_train`` and ``fsdp_vit_l_remat_train``;
+phase 25's ``tp_*`` and phase 26's ``pp_vit_l_*``, ``sp_vit_b_*`` and
+``sweep_resnet34``, a rank's per step or the sweep's),
 ``serve_launches`` the serving phases (``fusion_nest_serve``,
 ``vit_l_serve`` and ``*_flax_layout_serve`` among them); #7 and #8 also
 carry ``vit_l``, their errors and times per ViT-L/16 training step (24
@@ -4450,12 +4456,16 @@ def main() -> int:
         t25 = time.perf_counter()
         from chip_smoke_tp import phase_tp  # phase 25 in a module of its own
         tp_stats, tp_paths = phase_tp(smi, root)
+        t26 = time.perf_counter()
+        from chip_smoke_pp import phase_pp  # phase 26 in a module of its own
+        pp_paths = phase_pp(smi, root, stats)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     print(f"phases 3-19: {t20 - t0:.1f} s; phase 20: {t21 - t20:.1f} s; "
           f"phase 21: {t22 - t21:.1f} s; phase 22: {t23 - t22:.1f} s; "
           f"phase 23: {t24 - t23:.1f} s; phase 24: {t25 - t24:.1f} s; "
-          f"phase 25: {time.perf_counter() - t25:.1f} s")
+          f"phase 25: {t26 - t25:.1f} s; phase 26: "
+          f"{time.perf_counter() - t26:.1f} s")
     # kernel -> (source, the TPU kernel it replaces, the training path whose
     # launches and per-step times the line gives)
     sources = {
@@ -4494,7 +4504,7 @@ def main() -> int:
              "nest_unfused_train": unfused, "nest_nhwc_train": nhwc,
              "resnet34_train": r34, "xrv_resnet50_train": xrv,
              "vlp_resnet34_tinybert_train": vlp, **trainers, **fusion,
-             **dp, **remat_fsdp, **tp_paths}
+             **dp, **remat_fsdp, **tp_paths, **pp_paths}
     serves = {"nest_serve": serve, "vit_b_serve": serve_vit,
               "nest_nhwc_serve": serve_nhwc, "resnet34_serve": serve_r34,
               "xrv_resnet50_serve": serve_xrv, **fusion_serves,
@@ -4559,4 +4569,7 @@ if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--tp-rank":
         from chip_smoke_tp import tp_rank
         raise SystemExit(tp_rank(Path(sys.argv[2])))
+    if len(sys.argv) == 3 and sys.argv[1] == "--pp-rank":
+        from chip_smoke_pp import pp_rank
+        raise SystemExit(pp_rank(Path(sys.argv[2])))
     raise SystemExit(main())

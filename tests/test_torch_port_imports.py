@@ -1,8 +1,8 @@
 """The port's import boundary and its kernel loader.
 
-The machine with the card has no JAX, pandas, scikit-learn or cv2, so the
-serving entry point, the training step and chip_smoke.py must import
-without them and without
+The machine with the card has no JAX, pandas, scikit-learn or cv2 (and the
+port must not need PyYAML), so the serving entry point, the training step,
+the sweep and chip_smoke.py must import without them and without
 any module of the JAX package ``vlp_tpu``; and a missing CUDA compiler must
 raise, never hand back a plain fallback.
 """
@@ -14,13 +14,17 @@ import sys
 import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "flax", "optax", "orbax", "pandas", "sklearn", "cv2")
+FORBIDDEN = ("jax", "flax", "optax", "orbax", "pandas", "sklearn", "cv2",
+             "yaml")
 IMPORTS_JAX = re.compile(r"^\s*(import|from)\s+(jax|flax|optax|orbax)\b",
                          re.MULTILINE)
 # `import vlp_tpu`, `import vlp_tpu.x`, `from vlp_tpu(.x) import ...` at any
 # indentation (lazy imports too), but not vlp_tpu_torch
 IMPORTS_VLP_TPU = re.compile(r"^\s*(import|from)\s+vlp_tpu(?![\w])",
                              re.MULTILINE)
+IMPORTS_HOST = re.compile(r"^\s*(import|from)\s+(yaml|sklearn)\b",
+                          re.MULTILINE)
+SWEEP = os.path.join(REPO, "configs", "sweeps", "pretrain", "vlp.yaml")
 
 
 def test_serve_and_chip_smoke_import_without_jax_or_host_pipeline():
@@ -45,7 +49,11 @@ def test_serve_and_chip_smoke_import_without_jax_or_host_pipeline():
             "vlp_tpu_torch.train.driver, vlp_tpu_torch.parallel.mesh, "
             "vlp_tpu_torch.parallel.collectives, "
             "vlp_tpu_torch.parallel.infonce, vlp_tpu_torch.parallel.fsdp, "
-            "vlp_tpu_torch.parallel.tp, chip_smoke, chip_smoke_tp; "
+            "vlp_tpu_torch.parallel.tp, vlp_tpu_torch.parallel.pipeline, "
+            "vlp_tpu_torch.parallel.sequence, vlp_tpu_torch.utils.flops, "
+            "vlp_tpu_torch.utils.yaml_subset, vlp_tpu_torch.train.sweep, "
+            "vlp_tpu_torch.setup_check, chip_smoke, chip_smoke_tp, "
+            "chip_smoke_pp; "
             f"print([m for m in {FORBIDDEN!r} if m in sys.modules] + "
             "[m for m in sys.modules if m.split('.')[0] == 'vlp_tpu'])")
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -57,7 +65,9 @@ def test_serve_and_chip_smoke_import_without_jax_or_host_pipeline():
 
 def _port_sources():
     paths = [os.path.join(REPO, f) for f in ("chip_smoke.py",
-                                             "chip_smoke_tp.py")]
+                                             "chip_smoke_tp.py",
+                                             "chip_smoke_pp.py",
+                                             "scripts/trace_pipeline.py")]
     for root, _, files in os.walk(os.path.join(REPO, "vlp_tpu_torch")):
         paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
     return paths
@@ -67,14 +77,53 @@ def test_port_sources_cover_the_parallel_package():
     names = {os.path.relpath(p, REPO) for p in _port_sources()}
     assert {os.path.join("vlp_tpu_torch", "parallel", f) for f in (
         "__init__.py", "mesh.py", "collectives.py", "infonce.py",
-        "fsdp.py", "tp.py")} <= names
-    assert "chip_smoke_tp.py" in names
+        "fsdp.py", "tp.py", "pipeline.py", "sequence.py")} <= names
+    assert {os.path.join("vlp_tpu_torch", *f) for f in (
+        ("utils", "flops.py"), ("utils", "yaml_subset.py"),
+        ("train", "sweep.py"), ("setup_check.py",))} <= names
+    assert {"chip_smoke_tp.py", "chip_smoke_pp.py",
+            os.path.join("scripts", "trace_pipeline.py")} <= names
 
 
 def test_port_sources_never_import_jax():
     for path in _port_sources():
         with open(path) as fh:
             assert not IMPORTS_JAX.search(fh.read()), path
+
+
+def test_port_sources_never_import_yaml_or_sklearn():
+    assert IMPORTS_HOST.search("    import yaml\n")
+    assert IMPORTS_HOST.search("from sklearn.ensemble import x\n")
+    for path in _port_sources():
+        with open(path) as fh:
+            assert not IMPORTS_HOST.search(fh.read()), path
+
+
+def test_sweep_flops_and_setup_check_run_with_the_host_stack_absent(
+        tmp_path):
+    """The sweep entry point's wandb handoff and a sweep file read, a FLOP
+    count and ``setup_check --device cpu`` where none of JAX, PyYAML,
+    scikit-learn, pandas, cv2 or the JAX package can be imported."""
+    code = (
+        "import json, sys\n"
+        f"sys.modules.update(dict.fromkeys({FORBIDDEN + ('vlp_tpu',)!r}))\n"
+        "import torch\n"
+        "from vlp_tpu_torch.train import sweep\n"
+        "from vlp_tpu_torch.utils.flops import analytic_flops\n"
+        "from vlp_tpu_torch import setup_check\n"
+        f"assert sweep.main([{SWEEP!r}, '--emit-wandb', 'w.yaml']) == 0\n"
+        "assert json.load(open('w.yaml'))['method'] == 'bayes'\n"
+        f"assert sweep.load_sweep({SWEEP!r})['metric']['goal'] == "
+        "'minimize'\n"
+        "assert analytic_flops(torch.mm, torch.zeros(4, 8), "
+        "torch.zeros(8, 2)) == 128\n"
+        "assert setup_check.main(['--device', 'cpu']) == 0\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(tmp_path),
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert "SETUP OK" in out.stdout
 
 
 def test_port_sources_never_import_the_jax_package():

@@ -23,19 +23,46 @@ import numpy as np
 import torch
 
 CPU = torch.device("cpu")
+# the ATen CPU kernels that call MKL's vector math (ATen/cpu/vml.h)
+VML_FUNCTIONS = ("acos", "asin", "atan", "cos", "erf", "erfc", "erfinv",
+                 "exp", "log", "log10", "log2", "sin", "sqrt", "tan", "tanh",
+                 "trunc")
+
+
+def warm_vml() -> None:
+    """One call of each MKL vector-math routine, on this thread alone.
+
+    MKL sets a routine up on its first call. When that first call comes
+    from two intra-op threads at once (a tensor large enough to split),
+    one thread's share now and then runs a low-accuracy path: exp off by
+    up to 1e-4 relative on half of a [4, 4, 17, 17] score tensor, which
+    moved a tiny ViT's output by 1.8e-5 of its largest value in about one
+    rank process in 300 under load. A one-element call runs on the
+    calling thread alone, so after it no first call is shared."""
+    for dtype in (torch.float32, torch.float64):
+        x = torch.full((1,), 0.5, dtype=dtype)
+        for name in VML_FUNCTIONS:
+            getattr(torch, name)(x)
 
 
 def _entry(target, rank, world, out, args, timeout_s, device,
-           model_parallel=1):
+           model_parallel=1, axis="model"):
     torch.set_num_threads(2)
-    from vlp_tpu_torch.parallel.mesh import create_mesh, destroy_mesh
+    warm_vml()
+    from vlp_tpu_torch.parallel import mesh as pmesh
 
     try:
-        mesh = create_mesh(None, device, init_method=f"file://{out}/store",
-                           rank=rank, world_size=world, timeout_s=timeout_s,
-                           model_parallel=model_parallel)
+        kw = dict(init_method=f"file://{out}/store", rank=rank,
+                  world_size=world, timeout_s=timeout_s)
+        if axis == "model":
+            mesh = pmesh.create_mesh(None, device,
+                                     model_parallel=model_parallel, **kw)
+        else:  # the pipeline's stage axis or the sequence's token axis
+            make = pmesh.create_pipeline_mesh if axis == "stage" \
+                else pmesh.create_seq_mesh
+            mesh = make(model_parallel, world // model_parallel, device, **kw)
         result = target(mesh, *args)
-        destroy_mesh(mesh)
+        pmesh.destroy_mesh(mesh)
     except BaseException:
         with open(f"{out}/rank{rank}.err", "w") as fh:
             fh.write(traceback.format_exc())
@@ -46,10 +73,12 @@ def _entry(target, rank, world, out, args, timeout_s, device,
 
 def run_ranks(target, world: int, tmp_dir, *args, timeout: float = 180.0,
               collective_timeout: float = 90.0, device: str = "cpu",
-              model_parallel: int = 1) -> List:
+              model_parallel: int = 1, axis: str = "model") -> List:
     """``target(mesh, *args)`` on ``world`` ranks (gloo on the CPU, NCCL on
     ``device="cuda"``), on the ``world / model_parallel`` x
-    ``model_parallel`` mesh; their results in global rank order. Raises
+    ``model_parallel`` mesh, whose second axis is ``axis`` (``model``:
+    ``create_mesh``; ``stage``: ``create_pipeline_mesh``; ``seq``:
+    ``create_seq_mesh``); their results in global rank order. Raises
     with the ranks' tracebacks if any rank failed or hung."""
     import multiprocessing as mp
 
@@ -57,7 +86,7 @@ def run_ranks(target, world: int, tmp_dir, *args, timeout: float = 180.0,
     out = tempfile.mkdtemp(dir=str(tmp_dir))
     procs = [ctx.Process(target=_entry, args=(target, r, world, out, args,
                                               collective_timeout, device,
-                                              model_parallel))
+                                              model_parallel, axis))
              for r in range(world)]
     for p in procs:
         p.start()

@@ -50,6 +50,19 @@ and the residual. A split half never takes a half-block kernel (it cannot
 form a partial sum); a half that stays whole keeps its kernel, as a
 whole block does. The patch embedding splits by output channels and the
 position embedding is gathered where it is added.
+
+Under sequence parallelism (``parallel/sequence.py`` calls a block with
+``seq_mesh``) its x holds one block of T / n tokens of each row:
+LayerNorm, the qkv product, the out-projection and the MLP run on the
+rank's own tokens, and only attention sees every token. In flax's layout
+k and v are gathered over the seq ranks and SDPA runs the rank's queries
+against all T keys; in the fused layout the packed qkv is gathered,
+``attend_qkv`` runs over the whole sequence and the rank keeps its rows
+(``attend_qkv_bwd`` then runs over the whole sequence, and the gather's
+reduce-scatter sums dqkv back to the rank's tokens). Neither half takes
+a half-block kernel there: ``ln_attention`` needs every token of a row
+block, and the reference's kernel gate sends every kernel to its XLA path
+on a 2-D mesh.
 """
 from __future__ import annotations
 
@@ -68,7 +81,7 @@ from vlp_tpu_torch.ops.fused_block import (ln_attention,
                                            supports_attn, supports_mlp)
 from vlp_tpu_torch.parallel.collectives import (all_reduce, copy_to_model,
                                                 gather_from_model,
-                                                reduce_from_model)
+                                                reduce_from_model, seq_gather)
 from vlp_tpu_torch.parallel import tp
 
 _LN_EPS = 1e-6
@@ -243,8 +256,15 @@ class FusedSelfAttention(nn.Module):
         self.qkv = Dense(dim, 3 * dim, device)
         self.out = Dense(dim, dim, device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.out(attend_qkv(self.qkv(x), self.num_heads))
+    def forward(self, x: torch.Tensor, seq_mesh=None) -> torch.Tensor:
+        """x [N, S, D]; with ``seq_mesh``, this seq rank's S of the row's
+        n S tokens."""
+        qkv = self.qkv(x)
+        if seq_mesh is None:
+            return self.out(attend_qkv(qkv, self.num_heads))
+        o = attend_qkv(seq_gather(qkv, seq_mesh), self.num_heads)
+        s, r = x.shape[1], seq_mesh.model_rank
+        return self.out(o[:, r * s:(r + 1) * s])
 
     def flax_qkv_shape(self) -> tuple:
         """The packed qkv kernel's shape in flax's tree ([D, 3D])."""
@@ -269,14 +289,20 @@ class MultiHeadAttention(nn.Module):
         self.out = Dense(dim, dim, device)
 
     def forward(self, x: torch.Tensor, bias: Optional[torch.Tensor] = None,
-                live: Optional[torch.Tensor] = None) -> torch.Tensor:
+                live: Optional[torch.Tensor] = None,
+                seq_mesh=None) -> torch.Tensor:
         """x [B, L, D] in the compute dtype; ``bias`` and ``live`` from
-        ``bert.padding_bias``, or None: no mask."""
+        ``bert.padding_bias``, or None: no mask. With ``seq_mesh`` (no
+        mask), x holds this seq rank's L of the row's n L tokens, whose k
+        and v are gathered."""
         b, length = x.shape[:2]
         width = self.qkv.weight.shape[1] // 3  # this rank's heads' width
         hd = width // self.num_heads
         qkv = self.qkv(x).view(b, length, 3, self.num_heads, hd)
         q, k, v = qkv.permute(2, 0, 3, 1, 4).unbind(0)
+        if seq_mesh is not None:
+            kv = seq_gather(qkv[:, :, 1:], seq_mesh)
+            k, v = kv.permute(2, 0, 3, 1, 4).unbind(0)
         # flax: query / jnp.sqrt(depth).astype(dtype)
         q = q / torch.tensor(math.sqrt(hd), dtype=x.dtype).item()
         if live is not None:
@@ -346,9 +372,17 @@ class EncoderBlock(nn.Module):
         # split over the model ranks (``tp_split_``)
         self.attn_split = self.mlp_split = False
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, seq_mesh=None) -> torch.Tensor:
+        """``seq_mesh``: x holds its seq rank's token block of each row
+        (``parallel/sequence.py``), and attention gathers the others."""
         if x.dim() == 4:
             return self._window_forward(x)
+        if seq_mesh is not None:
+            if self.attn_split or self.mlp_split:
+                raise ValueError("EncoderBlock: sequence parallelism over a "
+                                 "block split by tensor parallelism")
+            x = x + self.attn(self.ln1(x).to(x.dtype), seq_mesh=seq_mesh)
+            return self._mlp_half(x, False)
         n, s, d = x.shape
         if self.megakernel and not self.attn_split and supports_attn(
                 n, s, d, self.num_heads, x.element_size()):

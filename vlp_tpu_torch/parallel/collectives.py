@@ -33,6 +33,19 @@ the identity) after a layer split by rows; ``gather_from_model`` (the
 model ranks' blocks in order; backward: this rank's block) after a layer
 whose output is split.
 
+The pipeline's stage axis and the sequence's token axis (the second axis
+of ``create_pipeline_mesh`` / ``create_seq_mesh``, ``mesh.model_group``
+there too) have their own: ``hop`` sends a tensor to the next (or the
+previous) stage rank and receives the one from the other side, without a
+gradient (the pipeline's autograd Function runs the hops of its backward
+the other way, the adjoint of ``lax.ppermute``: ``parallel/pipeline.py``),
+and ``seq_gather`` assembles every seq rank's token block along dim 1
+(backward: the reduce-scatter sum over the seq ranks). On NCCL a hop is one
+``batch_isend_irecv``; gloo takes no point-to-point operation on a CUDA
+tensor (its send fails on the device pointer), so there the hop goes
+through a host copy of each tensor, while gloo's collectives take CUDA
+tensors as they are.
+
 The functions without a gradient (``gather_rows``, ``all_reduce_``,
 ``broadcast_module``) serve the metrics, the evaluation and the setup; the
 broadcasts run over the whole world, from global rank 0. On one rank of no
@@ -117,12 +130,17 @@ class ReduceScatter(torch.autograd.Function):
 
 # while a list, each model-axis collective appends to it the (start, end)
 # CUDA events recorded around it (the step's model-axis time is the sum of
-# their spans)
+# their spans); so each stage hop and each sequence gather or reduce-scatter
+# to its own list
 model_axis_events: Optional[list] = None
+stage_axis_events: Optional[list] = None
+seq_axis_events: Optional[list] = None
+# the sequence axis's collectives since the last reset_seq_counts()
+seq_counts = {"all_gather": 0, "reduce_scatter": 0}
 
 
-def _timed(fn):
-    events = model_axis_events
+def _timed(fn, axis: str = "model"):
+    events = globals()[f"{axis}_axis_events"]
     if events is None:
         return fn()
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
@@ -202,6 +220,82 @@ class GatherFromModel(torch.autograd.Function):
                             m.model_world).contiguous(), None, None, None)
 
 
+def hop(x: Optional[torch.Tensor], mesh: Mesh, shift: int,
+        like: Optional[torch.Tensor] = None) -> Optional[torch.Tensor]:
+    """One hop on the second axis, without a gradient: ``x`` (None: send
+    nothing) goes to second-axis rank ``r + shift``; returns what rank
+    ``r - shift`` sent, shaped as ``like`` (None: receive nothing). Both
+    sides of a pair must agree on whether it carries a tensor. Through the
+    host on gloo with a CUDA tensor (``host_hop``)."""
+    r = mesh.model_rank
+    ref = x if x is not None else like
+    if ref is None:
+        return None
+    staged = host_hop(mesh, ref)
+    out = None if like is None else torch.empty(
+        like.shape, dtype=like.dtype, device="cpu" if staged else like.device)
+
+    def run():
+        ops = []
+        if x is not None:
+            sent = x.detach().contiguous()
+            ops.append(dist.P2POp(dist.isend, sent.cpu() if staged else sent,
+                                  mesh.peer(r + shift), mesh.model_group))
+        if out is not None:
+            ops.append(dist.P2POp(dist.irecv, out, mesh.peer(r - shift),
+                                  mesh.model_group))
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+        return out if out is None or not staged else out.to(ref.device)
+
+    return _timed(run, "stage")
+
+
+def host_hop(mesh: Mesh, x: torch.Tensor) -> bool:
+    """Whether a hop of ``x`` goes through host copies: gloo with a CUDA
+    tensor."""
+    return x.is_cuda and dist.get_backend(mesh.model_group) == "gloo"
+
+
+def _tokens_major(x: torch.Tensor) -> torch.Tensor:
+    return x.movedim(1, 0).contiguous()
+
+
+class SeqGather(torch.autograd.Function):
+    """[b, t, ...] on each seq rank -> [b, n t, ...], the ranks' token
+    blocks in order; backward: the reduce-scatter sum back to this rank's
+    block."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        xt = _tokens_major(x)
+        out = xt.new_empty((xt.shape[0] * mesh.model_world, *xt.shape[1:]))
+        _timed(lambda: _all_gather(out, xt, group=mesh.model_group), "seq")
+        seq_counts["all_gather"] += 1
+        return out.movedim(0, 1).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh = ctx.mesh
+        gt = _tokens_major(g)
+        out = gt.new_empty((gt.shape[0] // mesh.model_world, *gt.shape[1:]))
+        _timed(lambda: _reduce_scatter(out, gt, group=mesh.model_group),
+               "seq")
+        seq_counts["reduce_scatter"] += 1
+        return out.movedim(0, 1).contiguous(), None
+
+
+def seq_gather(x: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
+    return x if mesh is None or mesh.model_world == 1 \
+        else SeqGather.apply(x, mesh)
+
+
+def reset_seq_counts() -> None:
+    for k in seq_counts:
+        seq_counts[k] = 0
+
+
 def copy_to_model(x: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
     return x if mesh is None else CopyToModel.apply(x, mesh)
 
@@ -273,16 +367,24 @@ def reduce_gradients(params: Iterable[torch.nn.Parameter],
     loss) keeps None, as in one process: every rank runs the same graph,
     so the set of such parameters is the same on every rank. A frozen
     group at lr 0 still has gradients and is reduced with the rest."""
-    if mesh is None:
-        return
+    if mesh is not None:
+        all_reduce_gradients(params, mesh.group, mesh.world)
+
+
+@torch.no_grad()
+def all_reduce_gradients(params: Iterable[torch.nn.Parameter], group,
+                      divisor: int) -> None:
+    """Each gradient summed over ``group`` and divided by ``divisor``: one
+    all-reduce a dtype."""
     buckets = {}
     for p in params:
         if p.grad is not None:
             buckets.setdefault(p.grad.dtype, []).append(p)
     for plist in buckets.values():
         flat = torch.cat([p.grad.reshape(-1) for p in plist])
-        dist.all_reduce(flat, group=mesh.group)
-        flat.div_(mesh.world)
+        dist.all_reduce(flat, group=group)
+        if divisor != 1:
+            flat.div_(divisor)
         offset = 0
         for p in plist:
             n = p.grad.numel()

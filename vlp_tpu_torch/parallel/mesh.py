@@ -29,6 +29,15 @@ rows, rows ``[r B/D, (r + 1) B/D)`` of it (``Mesh.rows``), and the M model
 ranks of one data rank hold the same rows. A process group that fails to
 form raises: a run never trains alone when it was asked to train with
 others.
+
+``create_pipeline_mesh`` and ``create_seq_mesh`` (counterparts of
+``vlp_tpu/parallel/pipeline.py:49-62`` and ``sequence.py:44-56``) lay the
+launcher's ranks out the same way on a ``(D, n)`` mesh whose second axis is
+the pipeline's stages or the sequence's token blocks: global rank ``g`` is
+data rank ``g // n`` and stage (or seq) rank ``g % n``. Every second axis
+is held in the same fields, ``model_rank``, ``model_world`` and
+``model_group``; ``second_axis`` names what they hold, so that a function
+of one axis refuses a mesh of another.
 """
 from __future__ import annotations
 
@@ -65,6 +74,14 @@ class Mesh:
     model_rank: int = 0
     model_world: int = 1
     model_group: Any = None
+    # what the model_* fields hold: "model" (tensor parallelism), "stage"
+    # (create_pipeline_mesh) or "seq" (create_seq_mesh)
+    second_axis: str = "model"
+
+    def peer(self, second_rank: int) -> int:
+        """The global rank of ``second_rank`` on this rank's row of the
+        second axis."""
+        return self.rank * self.model_world + second_rank % self.model_world
 
     @property
     def global_rank(self) -> int:
@@ -176,11 +193,7 @@ def create_mesh(mesh_cfg=None, device: str = "cuda",
         if mesh_cfg is not None:
             check_mesh_config(mesh_cfg, 1)
         return None
-    env = os.environ
-    rank = int(env.get("RANK", 0)) if rank is None else int(rank)
-    world = int(env.get("WORLD_SIZE", 1)) if world_size is None \
-        else int(world_size)
-    local_rank = int(env.get("LOCAL_RANK", rank))
+    rank, world = _world(rank, world_size)
     if mesh_cfg is not None:
         check_mesh_config(mesh_cfg, world)
     mp = int(model_parallel if model_parallel is not None
@@ -188,6 +201,25 @@ def create_mesh(mesh_cfg=None, device: str = "cuda",
     if mp < 1 or world % mp:
         raise ValueError(f"model_parallel={mp} does not divide the world "
                          f"of {world}")
+    dev = _init_group(device, init_method, rank, world, timeout_s)
+    return _grid(rank, world, mp, dev,
+                 getattr(mesh_cfg, "axis_name", "data"), "model")
+
+
+def _world(rank: Optional[int], world_size: Optional[int]) -> tuple:
+    env = os.environ
+    rank = int(env.get("RANK", 0)) if rank is None else int(rank)
+    world = int(env.get("WORLD_SIZE", 1)) if world_size is None \
+        else int(world_size)
+    return rank, world
+
+
+def _init_group(device: str, init_method: Optional[str], rank: int,
+                world: int, timeout_s: float) -> torch.device:
+    """Forms the default process group (``create_mesh``'s backend rule);
+    returns this rank's device."""
+    env = os.environ
+    local_rank = int(env.get("LOCAL_RANK", rank))
     kind = torch.device(device).type
     if kind == "cuda":
         if not torch.cuda.is_available():
@@ -225,23 +257,89 @@ def create_mesh(mesh_cfg=None, device: str = "cuda",
         raise RuntimeError(
             f"rank {rank} of {world}: the {backend} process group did not "
             f"form ({e}); the run stops rather than train alone") from e
+    return dev
+
+
+def _grid(rank: int, world: int, n: int, dev: torch.device, axis_name: str,
+          second_axis: str) -> Mesh:
+    """The (world / n, n) mesh, data-major, and this rank's place on it."""
     groups: Dict[str, Any] = {}
-    if mp > 1:
+    if n > 1:
         # every rank forms every group, in the same order
-        dp = world // mp
+        dp = world // n
         for d in range(dp):
-            g = dist.new_group([d * mp + m for m in range(mp)])
-            if rank // mp == d:
+            g = dist.new_group([d * n + m for m in range(n)])
+            if rank // n == d:
                 groups["model_group"] = g
-        for m in range(mp):
-            g = dist.new_group([d * mp + m for d in range(dp)])
-            if rank % mp == m:
+        for m in range(n):
+            g = dist.new_group([d * n + m for d in range(dp)])
+            if rank % n == m:
                 groups["group"] = g
-    mesh = Mesh(rank=rank // mp, world=world // mp, device=dev,
-                axis_name=getattr(mesh_cfg, "axis_name", "data"),
-                model_rank=rank % mp, model_world=mp, **groups)
+    mesh = Mesh(rank=rank // n, world=world // n, device=dev,
+                axis_name=axis_name, model_rank=rank % n, model_world=n,
+                second_axis=second_axis, **groups)
     mesh.barrier()
     return mesh
+
+
+def _axis_mesh(what: str, axis: str, n: int, data_parallel: int,
+               device: str, init_method: Optional[str],
+               rank: Optional[int], world_size: Optional[int],
+               timeout_s: float) -> Optional[Mesh]:
+    if n < 1 or data_parallel < 1:
+        raise ValueError(f"{what} mesh: {axis} {n} and data_parallel "
+                         f"{data_parallel} must be at least 1")
+    need = n * data_parallel
+    if init_method is None and not launched():
+        if need == 1:
+            return None
+        rank, world = 0, 1
+    else:
+        rank, world = _world(rank, world_size)
+    if need > world:
+        raise ValueError(f"{what} mesh needs {data_parallel}x{n}={need} "
+                         f"devices, have {world}")
+    if need < world:
+        raise ValueError(
+            f"{what} mesh needs {data_parallel}x{n}={need} devices, but "
+            f"{world} ranks were launched: launch {need} with python -m "
+            f"torch.distributed.run --nproc_per_node={need}")
+    dev = _init_group(device, init_method, rank, world, timeout_s)
+    mesh = _grid(rank, world, n, dev, "data", axis)
+    if n > 1:
+        # one collective on the second axis's group before its first
+        # point-to-point operation, which NCCL requires of a new group
+        one = torch.ones(1, device=dev)
+        dist.all_reduce(one, group=mesh.model_group)
+    return mesh
+
+
+def create_pipeline_mesh(n_stages: int, data_parallel: int = 1,
+                         device: str = "cuda",
+                         init_method: Optional[str] = None,
+                         rank: Optional[int] = None,
+                         world_size: Optional[int] = None,
+                         timeout_s: float = DEFAULT_TIMEOUT_S
+                         ) -> Optional[Mesh]:
+    """The (data_parallel, n_stages) mesh of ``parallel/pipeline.py`` on
+    the launcher's ranks (or ``init_method``'s): ``model_rank`` /
+    ``model_group`` the stage axis, ``rank`` / ``group`` the data axis.
+    Refuses a world of another size than D x n (the JAX text where it is
+    too small); None for one process asked for one stage."""
+    return _axis_mesh("pipeline", "stage", int(n_stages), int(data_parallel),
+                      device, init_method, rank, world_size, timeout_s)
+
+
+def create_seq_mesh(seq_parallel: int, data_parallel: int = 1,
+                    device: str = "cuda", init_method: Optional[str] = None,
+                    rank: Optional[int] = None,
+                    world_size: Optional[int] = None,
+                    timeout_s: float = DEFAULT_TIMEOUT_S) -> Optional[Mesh]:
+    """The (data_parallel, seq_parallel) mesh of ``parallel/sequence.py``:
+    ``model_rank`` / ``model_group`` the token axis, ``rank`` / ``group`` the
+    data axis; refusals as ``create_pipeline_mesh``'s."""
+    return _axis_mesh("seq", "seq", int(seq_parallel), int(data_parallel),
+                      device, init_method, rank, world_size, timeout_s)
 
 
 def destroy_mesh(mesh: Optional[Mesh]) -> None:
