@@ -314,6 +314,9 @@ Phases, each printing its lines before the last line:
 26. GPipe and sequence parallelism through ViT-L/16's and ViT-B/16's
    encoder stacks, the sweep entry point, ``setup_check`` and the FLOP
    count (``chip_smoke_pp.py``, its module docstring).
+27. The real-data path (``data.name=downstream|pretrain``) through the
+   training entry point on a corpus written in the INTERNAL, BTXRD, MURA
+   and LERA layouts (``chip_smoke_data.py``, its module docstring).
 
 Then one JSON line with every kernel: its launches in the timed training
 steps of the path that runs it (NesT-Small's for #1-#4, #11, #12; ViT-B's
@@ -327,8 +330,10 @@ phase 23's ``dp_vlp_resnet34_tinybert_train`` and ``dp_nest_train``, per
 rank, #1-#4 in the latter too; phase 24's ``*_remat_train``,
 ``vit_l_train``, ``vit_l_remat_train``, ``*_flax_layout_train``,
 ``fsdp_vlp_resnet34_tinybert_train`` and ``fsdp_vit_l_remat_train``;
-phase 25's ``tp_*`` and phase 26's ``pp_vit_l_*``, ``sp_vit_b_*`` and
-``sweep_resnet34``, a rank's per step or the sweep's),
+phase 25's ``tp_*``, phase 26's ``pp_vit_l_*``, ``sp_vit_b_*`` and
+``sweep_resnet34``, a rank's per step or the sweep's, and phase 27's
+``data_downstream_trainer``, ``data_pretrain_trainer`` and
+``dp_data_pretrain_trainer``, rank 0's),
 ``serve_launches`` the serving phases (``fusion_nest_serve``,
 ``vit_l_serve`` and ``*_flax_layout_serve`` among them); #7 and #8 also
 carry ``vit_l``, their errors and times per ViT-L/16 training step (24
@@ -4459,13 +4464,16 @@ def main() -> int:
         t26 = time.perf_counter()
         from chip_smoke_pp import phase_pp  # phase 26 in a module of its own
         pp_paths = phase_pp(smi, root, stats)
+        t27 = time.perf_counter()
+        from chip_smoke_data import phase_data  # phase 27, its own module
+        data_paths = phase_data(smi, root, stats)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     print(f"phases 3-19: {t20 - t0:.1f} s; phase 20: {t21 - t20:.1f} s; "
           f"phase 21: {t22 - t21:.1f} s; phase 22: {t23 - t22:.1f} s; "
           f"phase 23: {t24 - t23:.1f} s; phase 24: {t25 - t24:.1f} s; "
-          f"phase 25: {t26 - t25:.1f} s; phase 26: "
-          f"{time.perf_counter() - t26:.1f} s")
+          f"phase 25: {t26 - t25:.1f} s; phase 26: {t27 - t26:.1f} s; "
+          f"phase 27: {time.perf_counter() - t27:.1f} s")
     # kernel -> (source, the TPU kernel it replaces, the training path whose
     # launches and per-step times the line gives)
     sources = {
@@ -4504,7 +4512,7 @@ def main() -> int:
              "nest_unfused_train": unfused, "nest_nhwc_train": nhwc,
              "resnet34_train": r34, "xrv_resnet50_train": xrv,
              "vlp_resnet34_tinybert_train": vlp, **trainers, **fusion,
-             **dp, **remat_fsdp, **tp_paths, **pp_paths}
+             **dp, **remat_fsdp, **tp_paths, **pp_paths, **data_paths}
     serves = {"nest_serve": serve, "vit_b_serve": serve_vit,
               "nest_nhwc_serve": serve_nhwc, "resnet34_serve": serve_r34,
               "xrv_resnet50_serve": serve_xrv, **fusion_serves,
@@ -4572,4 +4580,7 @@ if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--pp-rank":
         from chip_smoke_pp import pp_rank
         raise SystemExit(pp_rank(Path(sys.argv[2])))
+    if len(sys.argv) == 3 and sys.argv[1] == "--data-rank":
+        from chip_smoke_data import data_rank
+        raise SystemExit(data_rank(Path(sys.argv[2])))
     raise SystemExit(main())

@@ -179,8 +179,15 @@ def test_decoders_fall_back_to_pil_then_raise(monkeypatch, pngs):
     rgb = tph.decode_image(pngs[3])
     np.testing.assert_array_equal(rgb, cv2.imread(pngs[3])[:, :, ::-1])
     monkeypatch.setitem(sys.modules, "PIL", None)
-    with pytest.raises(ImportError, match="cv2.*PIL"):
-        tph.decode_image(pngs[0])
+    # without both, PNGs take the numpy reader; anything else raises
+    # naming the two decoders
+    for path in pngs:
+        np.testing.assert_array_equal(tph.decode_image(path),
+                                      jph.decode_image(path))
+    jpeg = pngs[0][:-4] + ".jpg"
+    assert cv2.imwrite(jpeg, cv2.imread(pngs[0]))
+    with pytest.raises(ValueError, match="cv2.*PIL"):
+        tph.decode_image(jpeg)
     # resizing needs neither: cv2's INTER_AREA in numpy
     img = np.random.default_rng(2).random((6, 6)).astype(np.float32) * 255
     np.testing.assert_array_equal(

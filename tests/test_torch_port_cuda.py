@@ -12,7 +12,8 @@ against #4's dual tile's, and the attention schedule probes
 attn_sched and its backward in every mode) against their plain PyTorch
 versions,
 on the card; and the k-fold driver's first fold on the card with micro
-models (the augmentation's launches a train step, its checkpoints). Marked ``gpu``: without a CUDA
+models (the augmentation's launches a train step, its checkpoints), on the
+synthetic corpora and on a corpus in the real datasets' layouts. Marked ``gpu``: without a CUDA
 device every test here skips. Needs no JAX, so it runs on a machine without
 it:
 
@@ -1474,3 +1475,44 @@ def test_test_evaluation_on_the_card_matches_the_command_line(cuda,
                            "experiment=smoke_synthetic_only_imaging",
                            *overrides]) == 0
     assert out.read_bytes() == (tmp_path / "test_eval.csv").read_bytes()
+
+
+def test_real_data_fold_on_the_card_through_the_driver(cuda, tmp_path,
+                                                       monkeypatch):
+    """One fold of ``baseline_only_imaging_resnet34`` (micro ResNet, 64 px,
+    ``test=true``) through ``python -m vlp_tpu_torch.train --device cuda``'s
+    ``main`` on a corpus in the INTERNAL and BTXRD layouts
+    (``chip_smoke_data.write_corpus``, found through ``*_DATASET_PATH``):
+    the image cache built on the C++ route, 3 shear + 1 noise launches a
+    train step, the test CSV written."""
+    import json
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke_data
+    from vlp_tpu_torch.train import driver
+
+    env = chip_smoke_data.write_corpus(tmp_path / "corpus", downstream=80,
+                                       pretrain=60, sides=(64, 160))
+    for key, value in env.items():
+        if key.endswith("_PATH"):
+            monkeypatch.setenv(key, value)
+    out = tmp_path / "run"
+    chip_smoke_data.seed_cache(tmp_path / "corpus", out / "datacache")
+    for k in (SH.shear_rows, NZ.add_gaussian_noise):
+        k.launches = 0
+    assert driver.main([
+        "--device", "cuda", "experiment=baseline_only_imaging_resnet34",
+        "model.model=resnet_micro", "data.image_size=64",
+        "data.batch_size=16", "k_fold_cross_validation=false",
+        "trainer.max_epochs=1", "test=true", f"output_dir={out}"]) == 0
+    torch.cuda.synchronize()
+    with open(out / "metrics_fold0.jsonl") as fh:
+        steps = [json.loads(line)["_step"] for line in fh][-1]
+    assert steps > 0
+    assert SH.shear_rows.launches == 3 * steps
+    assert NZ.add_gaussian_noise.launches == steps
+    assert list((out / "datacache").glob("imgcache_*.npy"))
+    assert (out / "test_eval.csv").read_text().startswith(
+        "level,group,fold,metric,value\n")

@@ -7,7 +7,10 @@ and its warnings, and the raising case; ``class_weights``,
 ``ImageCache.open`` on a cache that the JAX ``ImageCache.build`` wrote;
 the numpy ``INTER_AREA`` against cv2; the synthetic corpora; the samplers' index sequences with
 their RNG state round trips; and each fold's statics and first-epoch
-batches against the JAX data modules' loaders, resident and host-assembled.
+batches against the JAX data modules' loaders, resident and host-assembled,
+on the synthetic corpora and on the real datasets' readers over a fixture
+corpus in their layouts (the port decoding with its PNG reader, the image
+caches' files byte-equal).
 
 Every comparison is exact: the same draws from the same seeded generators,
 the same float32 operations in the same order.
@@ -35,6 +38,8 @@ from vlp_tpu_torch.data import pipeline, preprocess_host, sampler, splits
 from vlp_tpu_torch.data import synthetic
 from vlp_tpu_torch.data.captions import DEFAULT_CAPTIONS_CSV, CaptionPool
 from vlp_tpu_torch.data.datamodule import build_datamodule
+
+import chip_smoke_data
 
 CPU = torch.device("cpu")
 
@@ -271,15 +276,54 @@ def _same(ours, theirs):
             assert np.array_equal(a[k], b[k]), k
 
 
-@pytest.mark.parametrize("name,overrides", [
-    ("baseline_only_imaging_resnet34", DOWNSTREAM),
-    ("smoke_synthetic_pretrain", PRETRAIN)], ids=["downstream", "pretrain"])
-def test_folds_match_the_jax_data_module(name, overrides, tmp_path):
+REAL = ["data.image_size=32", "data.batch_size=16",
+        "data.eval_batch_size=16", "data.max_token_length=12"]
+
+
+@pytest.fixture(scope="module")
+def corpus(tmp_path_factory):
+    """The four real datasets' layouts (``chip_smoke_data.write_corpus``)
+    at small sizes: 40 downstream and 60 pretrain PNGs of 20-48 pixels."""
+    root = tmp_path_factory.mktemp("corpus")
+    env = chip_smoke_data.write_corpus(root, downstream=40, pretrain=60,
+                                       sides=(20, 48))
+    return root, {k: v for k, v in env.items() if k.endswith("_PATH")}
+
+
+@pytest.mark.parametrize("name,overrides,real", [
+    ("baseline_only_imaging_resnet34", DOWNSTREAM, False),
+    ("smoke_synthetic_pretrain", PRETRAIN, False),
+    ("baseline_only_imaging_resnet34", REAL, True),
+    ("pretrain_resnet34_tinybert", REAL, True)],
+    ids=["downstream", "pretrain", "downstream_real", "pretrain_real"])
+def test_folds_match_the_jax_data_module(name, overrides, real, tmp_path,
+                                         corpus, monkeypatch):
+    """The real cases read the fixture corpus through ``*_DATASET_PATH``;
+    the port decodes its PNGs with its numpy reader, the JAX package with
+    cv2, and both build their caches on the C++ route: the same cache files
+    and the same folds, statics and batches."""
     jcfg = japply(jget(name), overrides)
     cfg = apply_overrides(get_experiment(name), overrides)
     jcfg.output_dir, cfg.output_dir = str(tmp_path / "j"), str(tmp_path / "p")
-    jfolds, folds = list(jbuild_dm(jcfg).folds()), \
-        list(build_datamodule(cfg, CPU).folds())
+    if real:
+        root, env = corpus
+        for key, value in env.items():
+            monkeypatch.setenv(key, value)
+        for out in ("j", "p"):
+            chip_smoke_data.seed_cache(root, tmp_path / out / "datacache")
+        monkeypatch.setattr(preprocess_host, "_cv2", lambda: None)
+        monkeypatch.setattr(preprocess_host, "_pil_image", lambda: None)
+    jdm, dm = jbuild_dm(jcfg), build_datamodule(cfg, CPU)
+    if real:
+        names = sorted(os.listdir(tmp_path / "j" / "datacache"))
+        assert names == sorted(os.listdir(tmp_path / "p" / "datacache"))
+        assert any(n.startswith("imgcache_") for n in names)
+        for n in names:
+            assert (tmp_path / "j" / "datacache" / n).read_bytes() == \
+                (tmp_path / "p" / "datacache" / n).read_bytes(), n
+        assert [s["image_path"] for s in dm.train_val] == \
+            [s["image_path"] for s in jdm.train_val]
+    jfolds, folds = list(jdm.folds()), list(dm.folds())
     assert len(folds) == len(jfolds) > 1
     for fold, jfold in zip(folds, jfolds):
         assert fold.index == jfold.index
@@ -299,6 +343,9 @@ def test_folds_match_the_jax_data_module(name, overrides, tmp_path):
         for key in fold.val_loaders:
             _same(_batches(fold.val_loaders[key]),
                   [jax.device_get(b) for b in jfold.val_loaders[key]])
+    if real and name.startswith("baseline"):
+        _same(_batches(dm.test_loader(2)),
+              [jax.device_get(b) for b in jdm.test_loader(2)])
 
 
 def test_resident_and_host_batches_are_equal(tmp_path, monkeypatch):
@@ -325,13 +372,8 @@ def test_resident_and_host_batches_are_equal(tmp_path, monkeypatch):
     it.close()
 
 
-def test_the_real_datasets_raise_naming_the_roadmap_item(tmp_path):
-    for name in ("baseline_only_imaging_resnet34",
-                 "pretrain_resnet34_tinybert"):
-        cfg = get_experiment(name)
-        cfg.output_dir = str(tmp_path)
-        with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
-            build_datamodule(cfg, CPU)
+def test_pretrain_has_no_test_loader_and_downstream_counts_its_test_split(
+        tmp_path):
     cfg = apply_overrides(get_experiment("smoke_synthetic_pretrain"),
                           PRETRAIN)
     cfg.output_dir = str(tmp_path)

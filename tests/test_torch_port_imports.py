@@ -1,6 +1,6 @@
 """The port's import boundary and its kernel loader.
 
-The machine with the card has no JAX, pandas, scikit-learn or cv2 (and the
+The machine with the card need not have JAX, pandas, scikit-learn, cv2 or PIL (and the
 port must not need PyYAML), so the serving entry point, the training step,
 the sweep and chip_smoke.py must import without them and without
 any module of the JAX package ``vlp_tpu``; and a missing CUDA compiler must
@@ -15,7 +15,7 @@ import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "flax", "optax", "orbax", "pandas", "sklearn", "cv2",
-             "yaml")
+             "yaml", "PIL")
 IMPORTS_JAX = re.compile(r"^\s*(import|from)\s+(jax|flax|optax|orbax)\b",
                          re.MULTILINE)
 # `import vlp_tpu`, `import vlp_tpu.x`, `from vlp_tpu(.x) import ...` at any
@@ -52,8 +52,11 @@ def test_serve_and_chip_smoke_import_without_jax_or_host_pipeline():
             "vlp_tpu_torch.parallel.tp, vlp_tpu_torch.parallel.pipeline, "
             "vlp_tpu_torch.parallel.sequence, vlp_tpu_torch.utils.flops, "
             "vlp_tpu_torch.utils.yaml_subset, vlp_tpu_torch.train.sweep, "
-            "vlp_tpu_torch.setup_check, chip_smoke, chip_smoke_tp, "
-            "chip_smoke_pp; "
+            "vlp_tpu_torch.setup_check, vlp_tpu_torch.data.tables, "
+            "vlp_tpu_torch.data.datasets, vlp_tpu_torch.data.png, "
+            "vlp_tpu_torch.data.preprocess_host, "
+            "vlp_tpu_torch.data.caption_generator, vlp_tpu_torch.native, "
+            "chip_smoke, chip_smoke_tp, chip_smoke_pp, chip_smoke_data; "
             f"print([m for m in {FORBIDDEN!r} if m in sys.modules] + "
             "[m for m in sys.modules if m.split('.')[0] == 'vlp_tpu'])")
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -67,6 +70,7 @@ def _port_sources():
     paths = [os.path.join(REPO, f) for f in ("chip_smoke.py",
                                              "chip_smoke_tp.py",
                                              "chip_smoke_pp.py",
+                                             "chip_smoke_data.py",
                                              "scripts/trace_pipeline.py")]
     for root, _, files in os.walk(os.path.join(REPO, "vlp_tpu_torch")):
         paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
@@ -81,8 +85,12 @@ def test_port_sources_cover_the_parallel_package():
     assert {os.path.join("vlp_tpu_torch", *f) for f in (
         ("utils", "flops.py"), ("utils", "yaml_subset.py"),
         ("train", "sweep.py"), ("setup_check.py",))} <= names
-    assert {"chip_smoke_tp.py", "chip_smoke_pp.py",
+    assert {"chip_smoke_tp.py", "chip_smoke_pp.py", "chip_smoke_data.py",
             os.path.join("scripts", "trace_pipeline.py")} <= names
+    assert {os.path.join("vlp_tpu_torch", *f) for f in (
+        ("data", "tables.py"), ("data", "datasets.py"), ("data", "png.py"),
+        ("data", "caption_generator.py"), ("native", "__init__.py"))} \
+        <= names
 
 
 def test_port_sources_never_import_jax():
@@ -255,3 +263,47 @@ def test_fusion_and_eval_modules_load_with_the_host_stack_absent(tmp_path):
     assert "--checkpoints" in out.stdout and "--device" in out.stdout
     assert (tmp_path / "t.csv").read_text().startswith(
         "level,group,fold,metric,value\n")
+
+
+def test_real_data_path_runs_with_the_host_stack_absent(tmp_path):
+    """The real datasets' readers, the frozen split, the numpy PNG reader,
+    the C++ route's cache build and both data modules, and the caption
+    generator, where none of JAX, pandas, scikit-learn, cv2, PIL or the
+    JAX package can be imported."""
+    code = (
+        "import os, sys\n"
+        f"sys.modules.update(dict.fromkeys({FORBIDDEN + ('vlp_tpu',)!r}))\n"
+        "from pathlib import Path\n"
+        "import torch\n"
+        "import chip_smoke_data\n"
+        "from vlp_tpu_torch.config import apply_overrides, get_experiment\n"
+        "from vlp_tpu_torch.data import caption_generator, preprocess_host\n"
+        "from vlp_tpu_torch.data.datamodule import build_datamodule\n"
+        "assert preprocess_host.decoder() == 'png (numpy + zlib)'\n"
+        "root = Path('corpus')\n"
+        "env = chip_smoke_data.write_corpus(root, downstream=40, "
+        "pretrain=60, sides=(20, 40))\n"
+        "os.environ.update({k: v for k, v in env.items() "
+        "if k.endswith('_PATH')})\n"
+        "for name in ('baseline_only_imaging_resnet34', "
+        "'pretrain_resnet34_tinybert'):\n"
+        "    cfg = apply_overrides(get_experiment(name), ["
+        "'data.image_size=32', 'data.batch_size=16', "
+        "'data.eval_batch_size=16', f'output_dir=out_{name}'])\n"
+        "    chip_smoke_data.seed_cache(root, Path(cfg.output_dir) / "
+        "'datacache')\n"
+        "    fold = next(build_datamodule(cfg, torch.device('cpu')).folds())\n"
+        "    batch = next(iter(fold.train_loader))\n"
+        "    assert batch['image_u8'].shape[1:] == (32, 32)\n"
+        "caption_generator.main('gen/captions.csv')\n"
+        "bad = ('jax', 'pandas', 'sklearn', 'cv2', 'PIL')\n"
+        "print([m for m in sys.modules if sys.modules[m] is not None and "
+        "(m.split('.')[0] in bad or m.split('.')[0] == 'vlp_tpu')])\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(tmp_path),
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]", out.stdout
+    assert (tmp_path / "gen" / "captions.csv").read_bytes().startswith(
+        b"anatomy_site,abnormality_label,caption\n")

@@ -216,7 +216,9 @@ def test_aggregate_folds_matches_jax():
     assert driver.aggregate_folds([]) == jdriver.aggregate_folds([]) == {}
 
 
-def test_config_fingerprint_and_checks(tmp_path):
+def test_config_fingerprint_and_checks(tmp_path, monkeypatch):
+    for name in ("INTERNAL", "BTXRD", "MURA", "LERA"):
+        monkeypatch.delenv(f"{name}_DATASET_PATH", raising=False)
     cfg = get_experiment("smoke_synthetic_only_imaging")
     jcfg = jget("smoke_synthetic_only_imaging")
     assert cfg.to_dict() == jcfg.to_dict()
@@ -230,12 +232,16 @@ def test_config_fingerprint_and_checks(tmp_path):
                            (["mesh.param_sharding=tp"], ValueError),
                            (["ckpt_path=x", "k_fold_cross_validation=true"],
                             ValueError),
-                           (["data.name=downstream"], NotImplementedError)):
+                           # the real datasets without their roots, as
+                           # the JAX package's readers refuse them
+                           (["data.name=downstream"], OSError)):
         bad = apply_overrides(get_experiment("smoke_synthetic_only_imaging"),
                               overrides)
         bad.output_dir = str(tmp_path)
         with pytest.raises(err):
             driver.train(bad, "cpu")
+    with pytest.raises(OSError, match="INTERNAL_DATASET_PATH"):
+        driver.train(bad, "cpu")
     # test=true runs (the frozen test-set evaluation after the folds) and
     # stays out of the fingerprint
     good = get_experiment("smoke_synthetic_only_imaging")

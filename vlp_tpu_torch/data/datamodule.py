@@ -6,14 +6,17 @@ and class weights, a frozen test split) and ``PretrainData`` (LERA + MURA,
 5-fold CV, joint caption tokenization, ``NoDuplicateCaptionSampler``
 batches) yield ``Fold``s of ``DeviceLoader``s over the uint8 image cache,
 the same folds, statics and batches as the JAX package's for a config
-(``tests/test_torch_port_data.py``). They run on the synthetic corpora
-(``data.name=synthetic_downstream|synthetic_pretrain``); the real datasets'
-readers (``vlp_tpu/data/datasets.py``) need pandas and the files, which are
-not in the repository, so ``downstream`` and ``pretrain`` raise
-(ROADMAP Queue 1 item 15). On a data mesh (``mesh``) every loader, the
-evaluation and test loaders too, gives this rank's rows of each global
-batch, so ``data.batch_size`` and ``data.eval_batch_size`` must divide by
-the world (``pipeline.DeviceLoader``).
+(``tests/test_torch_port_data.py``, ``tests/test_torch_port_datasets.py``).
+``data.name=downstream|pretrain`` read the real datasets (``datasets.py``,
+under ``*_DATASET_PATH``) and build their image cache
+(``ImageCache.build`` under ``<output_dir>/datacache``, the C++ route);
+``synthetic_downstream|synthetic_pretrain`` generate corpora. On a data
+mesh (``mesh``) rank 0 reads the datasets first, so that it alone writes
+their files (MURA's test-set hash, LERA's index) and the image cache; the
+other ranks read them after a barrier. Every loader, the evaluation and
+test loaders too, gives this rank's rows of each global batch, so
+``data.batch_size`` and ``data.eval_batch_size`` must divide by the world
+(``pipeline.DeviceLoader``).
 """
 from __future__ import annotations
 
@@ -26,8 +29,11 @@ import torch
 
 from vlp_tpu_torch.config import Config
 from vlp_tpu_torch.data import synthetic
+from vlp_tpu_torch.data.captions import DEFAULT_CAPTIONS_CSV, CaptionPool
+from vlp_tpu_torch.data.datasets import (BTXRDDataset, InternalDataset,
+                                         LERADataset, MURADataset)
 from vlp_tpu_torch.data.pipeline import ArrayBundle, DeviceLoader
-from vlp_tpu_torch.data.preprocess_host import fold_mean_std
+from vlp_tpu_torch.data.preprocess_host import ImageCache, fold_mean_std
 from vlp_tpu_torch.data.sampler import (NoDuplicateCaptionSampler,
                                         ShuffleBatchSampler)
 from vlp_tpu_torch.data.splits import (DOWNSTREAM_STRATIFY, PRETRAIN_STRATIFY,
@@ -63,12 +69,14 @@ def _subsample(samples: List[dict], n: Optional[int], seed: int) -> List[dict]:
     return [samples[i] for i in idx]
 
 
-def _real_data(name: str):
-    return NotImplementedError(
-        f"data.name={name!r}: the real datasets' readers need pandas and "
-        "the dataset files, neither of which the repository holds; the port "
-        "trains on data.name=synthetic_downstream|synthetic_pretrain "
-        "(ROADMAP.md Queue 1 item 15)")
+def _rank0_first(mesh, read):
+    """``read()`` on rank 0, then on the other ranks after a barrier: the
+    files it writes (hashes, indexes, the image cache) are written once."""
+    if mesh is None:
+        return read()
+    out = read() if mesh.is_main else None
+    mesh.barrier()
+    return out if mesh.is_main else read()
 
 
 class DownstreamData:
@@ -83,19 +91,38 @@ class DownstreamData:
         self.device = torch.device(device)
         self.cache_dir = cache_dir or os.path.join(cfg.output_dir, "datacache")
         d = cfg.data
-        if d.name != "synthetic_downstream":
-            raise _real_data(d.name)
-        samples, self.cache = synthetic.make_synthetic_downstream(
-            d.synthetic_num_samples, d.image_size, seed=d.seed,
-            crop=d.crop_larger_dimension)
-        # frozen "test" split for synthetic: last 25%
-        n_test = max(1, len(samples) // 4)
-        self.test = samples[-n_test:]
-        self.train_val = _subsample(samples[:-n_test],
-                                    d.try_with_only_n_samples, d.seed)
+        if d.name == "synthetic_downstream":
+            samples, self.cache = synthetic.make_synthetic_downstream(
+                d.synthetic_num_samples, d.image_size, seed=d.seed,
+                crop=d.crop_larger_dimension)
+            # frozen "test" split for synthetic: last 25%
+            n_test = max(1, len(samples) // 4)
+            self.test = samples[-n_test:]
+            train_val = samples[:-n_test]
+        else:
+            train_val, self.test, self.cache = _rank0_first(
+                mesh, self._read_real)
+            samples = train_val + self.test
+        self.train_val = _subsample(train_val, d.try_with_only_n_samples,
+                                    d.seed)
         self._cache_index = {s["image_path"]: i
                              for i, s in enumerate(samples)}
         self._statics_cache: Dict[int, TaskStatics] = {}
+
+    def _read_real(self):
+        """INTERNAL + BTXRD: their frozen splits and the cache of every
+        image, train/val then test (reference
+        DownstreamDataModule.py:203-253)."""
+        d = self.cfg.data
+        internal = InternalDataset(cache_dir=self.cache_dir)
+        btxrd = BTXRDDataset(cache_dir=self.cache_dir)
+        train_val = list(internal.train_val) + list(btxrd.train_val)
+        test = list(internal.test) + list(btxrd.test)
+        cache = ImageCache.build(
+            [s["image_path"] for s in train_val + test], self.cache_dir,
+            image_size=d.image_size, crop=d.crop_larger_dimension,
+            maximum_crop_ratio=d.maximum_crop_ratio)
+        return train_val, test, cache
 
     def _indices(self, samples: List[dict]) -> List[int]:
         return [self._cache_index[s["image_path"]] for s in samples]
@@ -177,15 +204,29 @@ class PretrainData:
         self.device = torch.device(device)
         self.cache_dir = cache_dir or os.path.join(cfg.output_dir, "datacache")
         d = cfg.data
-        if d.name != "synthetic_pretrain":
-            raise _real_data(d.name)
-        samples, self.cache = synthetic.make_synthetic_pretrain(
-            d.synthetic_num_samples, d.image_size, seed=d.seed,
-            captions_csv=d.captions_csv)
+        if d.name == "synthetic_pretrain":
+            samples, self.cache = synthetic.make_synthetic_pretrain(
+                d.synthetic_num_samples, d.image_size, seed=d.seed,
+                captions_csv=d.captions_csv)
+        else:
+            samples, self.cache = _rank0_first(mesh, self._read_real)
         self._cache_index = {s["image_path"]: i
                              for i, s in enumerate(samples)}
         self.train_val = _subsample(samples, d.try_with_only_n_samples,
                                     d.seed)
+
+    def _read_real(self):
+        """LERA + MURA train/val (captions cycled from one pool, LERA
+        first) and their image cache; MURA's valid split, the test set,
+        only checked against its hash."""
+        d = self.cfg.data
+        pool = CaptionPool(d.captions_csv or DEFAULT_CAPTIONS_CSV)
+        lera = LERADataset(pool, cache_dir=self.cache_dir)
+        mura = MURADataset(pool, cache_dir=self.cache_dir)
+        samples = list(lera.train_val) + list(mura.train_val)
+        cache = ImageCache.build([s["image_path"] for s in samples],
+                                 self.cache_dir, image_size=d.image_size)
+        return samples, cache
 
     def _loader(self, samples: List[dict], tokens, sampler,
                 batch_size: int) -> DeviceLoader:

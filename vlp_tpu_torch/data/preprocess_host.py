@@ -1,29 +1,39 @@
 """Deterministic host-side image preprocessing and the image cache (the
-port's own copy of the NumPy path of ``vlp_tpu/data/preprocess_host.py``).
+port's own copy of ``vlp_tpu/data/preprocess_host.py``).
 
   decode -> grayscale (ITU-R 601 luma) -> histogram equalisation (MONAI
   ``equalize_hist``, 256 bins) -> optional crop of the larger dimension
   (<= 5%) -> pad to square with the edge averages -> resize (area)
   -> round and clip to uint8
 
-The arithmetic is the reference's ``use_native=False`` path; its C++
-``native/`` route is not ported. The reference decodes and resizes with
-cv2 (``IMREAD_UNCHANGED``, ``INTER_AREA``); so does this copy where cv2 is
+``preprocess_image`` runs the NumPy path by default, as the JAX package's
+does, and with ``use_native=True`` the C++ route (``vlp_tpu_torch/native``:
+the same source as the JAX package's, so the same bytes; within one uint8
+step of the NumPy path, except where an image's gray levels fall on
+histogram bin edges, which the C++ route bins upwards and
+``np.histogram`` against its float32 edges: there the two routes' caches
+differ by a few steps, in both packages). The reference decodes and
+resizes with cv2
+(``IMREAD_UNCHANGED``, ``INTER_AREA``); so does this copy where cv2 is
 installed, importing it only inside ``decode_image`` and ``resize``, so
 that importing the serving path loads it not. Without cv2, ``resize``
 runs ``resize_area``, cv2's ``INTER_AREA`` written out in numpy with its
 float32 operations in cv2's order (bit-equal to cv2 on the square float
 images this pipeline resizes, up and down, ``tests/test_torch_port_data.
-py``): the machine with the card has no cv2, and the synthetic corpora are
-made there. ``decode_image`` falls back to PIL, and raises
-``ImportError`` without both; ``Predictor.predict_arrays`` takes
-preprocessed uint8 images and needs no decoder.
+py``): the machine with the card need not have cv2, and the synthetic
+corpora are made there. ``decode_image`` falls back to PIL, then to ``data/png.py``'s
+8-bit PNG reader, which gives cv2's pixels and refuses what it cannot
+read (a JPEG among them) naming cv2 and PIL; ``decoder()`` says which
+route is in use. ``Predictor.predict_arrays`` takes preprocessed uint8
+images and needs no decoder.
 
 ``ImageCache`` holds a corpus of preprocessed images: in memory
-(``from_arrays``, the synthetic corpora) or as the ``.npy`` memmap and JSON
-that the JAX package's ``ImageCache.build`` writes under the same key
-(``ImageCache.open``); ``fold_mean_std`` gives a fold's scalar mean and
-std, cached as JSON under the same key as the JAX package's.
+(``from_arrays``, the synthetic corpora) or as the ``imgcache_<key>.npy``
+memmap and its JSON under the JAX package's key (the options, the route
+and the paths), which ``build`` writes (through ``.tmp.npy`` and a rename)
+and ``open`` reads, so either package opens the other's cache;
+``fold_mean_std`` gives a fold's scalar mean and std, cached as JSON under
+the same key as the JAX package's.
 """
 from __future__ import annotations
 
@@ -34,6 +44,7 @@ from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
+from vlp_tpu_torch.data.png import read_png
 from vlp_tpu_torch.data.splits import hash_list_of_strings
 
 
@@ -47,15 +58,20 @@ def _cv2():
 
 
 def _pil_image():
+    """PIL's ``Image``, or None when it is not installed."""
     try:
         from PIL import Image
-    except ImportError as err:
-        raise ImportError(
-            "decoding or resizing an image file needs cv2 (opencv-python) or "
-            "PIL (pillow), and neither is installed; "
-            "Predictor.predict_arrays takes preprocessed uint8 images "
-            "without them") from err
+    except ImportError:
+        return None
     return Image
+
+
+def decoder() -> str:
+    """The route ``decode_image`` takes here: cv2, PIL, or the numpy PNG
+    reader."""
+    if _cv2() is not None:
+        return "cv2"
+    return "PIL" if _pil_image() is not None else "png (numpy + zlib)"
 
 
 def decode_image(path: str) -> np.ndarray:
@@ -69,11 +85,13 @@ def decode_image(path: str) -> np.ndarray:
             img = img[:, :, :3]  # DropChanneld(channel 3): strip alpha
         if img.ndim == 3 and img.shape[2] == 3:
             img = img[:, :, ::-1]  # BGR -> RGB
-    else:
+    elif _pil_image() is not None:
         pil = _pil_image().open(path)
         if pil.mode == "RGBA":
             pil = pil.convert("RGB")
         img = np.asarray(pil)
+    else:
+        img = read_png(path)
     if img.ndim == 2:
         img = img[:, :, None]
     return np.ascontiguousarray(img, dtype=np.uint8)
@@ -249,15 +267,22 @@ def resize_area(img: np.ndarray, size: int) -> np.ndarray:
 
 def preprocess_image(path_or_array, image_size: int = 224,
                      crop: bool = False, maximum_crop_ratio: float = 0.05,
-                     equalize: bool = True) -> np.ndarray:
+                     equalize: bool = True, use_native: bool = False
+                     ) -> np.ndarray:
     """The whole deterministic pipeline -> [image_size, image_size] uint8,
-    from a path or an HW / HWC uint8 array."""
+    from a path or an HW / HWC uint8 array; ``use_native=True`` runs it in
+    the C++ library (built at first use; a failed build raises)."""
     if isinstance(path_or_array, str):
         img = decode_image(path_or_array)
     else:
         img = np.asarray(path_or_array)
         if img.ndim == 2:
             img = img[:, :, None]
+    if use_native:
+        from vlp_tpu_torch.native import preprocess_image_native
+
+        return preprocess_image_native(img, image_size, crop,
+                                       maximum_crop_ratio, equalize)
     gray = to_grayscale(img)
     if equalize:
         gray = equalize_hist(gray)
@@ -268,11 +293,20 @@ def preprocess_image(path_or_array, image_size: int = 224,
     return np.clip(np.rint(gray), 0, 255).astype(np.uint8)
 
 
+def _cache_key(paths: Sequence[str], image_size: int, crop: bool,
+               maximum_crop_ratio: float, equalize: bool, native: bool):
+    """(options fingerprint, key) of a cache: the JAX package's."""
+    opts = (f"size={image_size}|crop={crop}"
+            f"|ratio={maximum_crop_ratio}|eq={equalize}")
+    return opts, hash_list_of_strings([opts, f"native={bool(native)}"]
+                                      + list(paths))
+
+
 class ImageCache:
     """A [N, S, S] uint8 corpus of deterministically preprocessed images
-    (in memory, or the memmap the JAX package's ``ImageCache.build`` wrote),
-    with the image paths in its row order and the preprocessing options'
-    fingerprint that ``fold_mean_std`` keys on."""
+    (in memory, or the ``.npy`` memmap ``build`` writes), with the image
+    paths in its row order and the preprocessing options' fingerprint that
+    ``fold_mean_std`` keys on."""
 
     def __init__(self, data: np.ndarray, paths: Sequence[str],
                  options_key: Optional[str] = None) -> None:
@@ -291,19 +325,70 @@ class ImageCache:
         return self.data[np.asarray(indices, dtype=np.int64)]
 
     @classmethod
+    def build(cls, paths: Sequence[str], cache_dir: str,
+              image_size: int = 224, crop: bool = False,
+              maximum_crop_ratio: float = 0.05, equalize: bool = True,
+              num_workers: int = 0, use_native: bool = True
+              ) -> "ImageCache":
+        """The cache of these paths under these options in ``cache_dir``:
+        opened where it exists (this package's or the JAX package's),
+        else each image preprocessed (``use_native``: by the C++ route,
+        which is part of the key; on ``num_workers`` threads where > 0)
+        into ``imgcache_<key>.tmp.npy``, which is then renamed, and its
+        ``.json`` written. One process builds a cache at a time: the ranks
+        of a data mesh leave it to rank 0 and ``open`` it after a
+        barrier."""
+        os.makedirs(cache_dir, exist_ok=True)
+        if use_native:
+            from vlp_tpu_torch.native import get_lib
+
+            get_lib()  # built once, before any worker thread
+        opts, key = _cache_key(paths, image_size, crop, maximum_crop_ratio,
+                               equalize, use_native)
+        npy = os.path.join(cache_dir, f"imgcache_{key}.npy")
+        meta = os.path.join(cache_dir, f"imgcache_{key}.json")
+        if os.path.exists(npy) and os.path.exists(meta):
+            return cls.open(paths, cache_dir, image_size, crop,
+                            maximum_crop_ratio, equalize, use_native)
+        n = len(paths)
+        arr = np.lib.format.open_memmap(npy + ".tmp.npy", mode="w+",
+                                        dtype=np.uint8,
+                                        shape=(n, image_size, image_size))
+
+        def work(path):
+            return preprocess_image(
+                path, image_size=image_size, crop=crop,
+                maximum_crop_ratio=maximum_crop_ratio, equalize=equalize,
+                use_native=use_native)
+
+        if num_workers > 0:
+            from concurrent.futures import ThreadPoolExecutor
+
+            with ThreadPoolExecutor(num_workers) as ex:
+                for i, out in enumerate(ex.map(work, paths)):
+                    arr[i] = out
+        else:
+            for i, p in enumerate(paths):
+                arr[i] = work(p)
+        arr.flush()
+        del arr
+        os.replace(npy + ".tmp.npy", npy)
+        with open(meta, "w") as fh:
+            json.dump({"num_images": n, "image_size": image_size,
+                       "crop": crop, "equalize": equalize}, fh)
+        return cls(np.load(npy, mmap_mode="r"), paths, options_key=opts)
+
+    @classmethod
     def open(cls, paths: Sequence[str], cache_dir: str, image_size: int = 224,
              crop: bool = False, maximum_crop_ratio: float = 0.05,
              equalize: bool = True, native: bool = True) -> "ImageCache":
-        """The cache that ``vlp_tpu.data.preprocess_host.ImageCache.build``
-        wrote for these paths and options (``native``: whether it used its
-        C++ route, which is part of the key) under ``cache_dir``:
+        """The cache ``build`` (this package's or the JAX package's) wrote
+        for these paths and options (``native``: whether it used the C++
+        route, which is part of the key) under ``cache_dir``:
         ``imgcache_<key>.npy`` memory-mapped, with its ``.json``. Raises
-        ``FileNotFoundError`` where it was not built; building it needs the
-        real images and the JAX package's ``ImageCache.build``."""
-        opts = (f"size={image_size}|crop={crop}"
-                f"|ratio={maximum_crop_ratio}|eq={equalize}")
-        key = hash_list_of_strings([opts, f"native={bool(native)}"]
-                                   + list(paths))
+        ``FileNotFoundError`` where it was not built."""
+        opts, key = _cache_key(paths, image_size, crop, maximum_crop_ratio,
+                               equalize, native)
         npy = os.path.join(cache_dir, f"imgcache_{key}.npy")
         meta = os.path.join(cache_dir, f"imgcache_{key}.json")
         if not (os.path.exists(npy) and os.path.exists(meta)):

@@ -11,19 +11,25 @@ algorithms here in numpy: the same draws from one
 when every class is thinner than ``n_splits`` (or there are fewer samples or
 groups than folds) and the same ``UserWarning`` when only some are, hence
 the same folds (``tests/test_torch_port_data.py`` holds them against the
-JAX package on many seeds and sizes). The frozen test-split files of the
-real datasets (``save_test_set_info``, ``load_frozen_split``) read and
-write CSVs through pandas and wait with the real-data readers
-(ROADMAP Queue 1 item 15).
+JAX package on many seeds and sizes). The frozen test split of the real
+datasets (``save_test_set_info``, ``save_test_set_hash``,
+``check_test_set_hash``, ``load_frozen_split``, ``create_frozen_split``;
+reference src/data/helpers/ensure_same_test_set.py) reads and writes the
+JAX package's files with ``data/tables.py``: ``test_set_split.csv``
+(pandas' bytes) beside the dataset and ``<DS>_test_set_hash.txt`` in the
+cache directory, with the same errors.
 """
 from __future__ import annotations
 
 import hashlib
+import os
 import warnings
 from collections import defaultdict
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+
+from vlp_tpu_torch.data.tables import read_csv, write_csv
 
 Sample = Dict[str, object]
 
@@ -36,6 +42,108 @@ def hash_list_of_strings(strings: Sequence[str]) -> str:
     for s in sorted(strings):
         h.update(str(s).encode("utf-8"))
     return h.hexdigest()
+
+
+# --------------------------------------------------------------------------
+# Frozen test split
+# --------------------------------------------------------------------------
+
+TEST_SPLIT_FILENAME = "test_set_split.csv"
+
+
+def save_test_set_info(samples: Sequence[Sample], test_paths: Sequence[str],
+                       dataset_dir: str) -> str:
+    """Write the path -> in-test-set membership CSV into the dataset
+    folder."""
+    test_set = set(test_paths)
+    out = os.path.join(dataset_dir, TEST_SPLIT_FILENAME)
+    write_csv(out, ("image_path", "is_test"),
+              [(s["image_path"], s["image_path"] in test_set)
+               for s in samples])
+    return out
+
+
+def save_test_set_hash(test_paths: Sequence[str], cache_dir: str,
+                       dataset_name: str) -> str:
+    os.makedirs(cache_dir, exist_ok=True)
+    out = os.path.join(cache_dir, f"{dataset_name}_test_set_hash.txt")
+    with open(out, "w") as fh:
+        fh.write(hash_list_of_strings(list(test_paths)))
+    return out
+
+
+def check_test_set_hash(test_paths: Sequence[str], cache_dir: str,
+                        dataset_name: str) -> None:
+    """Raise if the frozen test split drifted from the recorded hash."""
+    path = os.path.join(cache_dir, f"{dataset_name}_test_set_hash.txt")
+    if not os.path.exists(path):
+        raise FileNotFoundError(
+            f"Test-set hash file {path} is missing; refusing to proceed "
+            "without split-integrity verification.")
+    with open(path) as fh:
+        expected = fh.read().strip()
+    actual = hash_list_of_strings(list(test_paths))
+    if actual != expected:
+        raise RuntimeError(
+            f"Test-set hash mismatch for {dataset_name}: the frozen test "
+            f"split drifted (expected {expected[:12]}..., got "
+            f"{actual[:12]}...).")
+
+
+def load_frozen_split(samples: Sequence[Sample], dataset_dir: str,
+                      cache_dir: Optional[str] = None,
+                      dataset_name: Optional[str] = None
+                      ) -> Tuple[List[Sample], List[Sample]]:
+    """Split samples into (train, test) by membership in the frozen
+    ``test_set_split.csv``; raises if the file is absent (the reference's
+    FileNotFoundError tripwire, INTERNALDataset.py:211-213)."""
+    split_path = os.path.join(dataset_dir, TEST_SPLIT_FILENAME)
+    if not os.path.exists(split_path):
+        raise FileNotFoundError(
+            f"Frozen test split {split_path} not found. Create it once with "
+            "create_frozen_split() and commit it with the dataset.")
+    table = read_csv(split_path)
+    is_test = {str(p): bool(t)
+               for p, t in zip(table["image_path"], table["is_test"])}
+    train, test = [], []
+    for s in samples:
+        key = str(s["image_path"])
+        if key not in is_test:
+            raise KeyError(
+                f"Sample {key} missing from frozen split {split_path}; "
+                "the dataset drifted relative to the frozen split.")
+        (test if is_test[key] else train).append(s)
+    if cache_dir is not None and dataset_name is not None:
+        check_test_set_hash([s["image_path"] for s in test], cache_dir,
+                            dataset_name)
+    return train, test
+
+
+def create_frozen_split(samples: Sequence[Sample], dataset_dir: str, *,
+                        stratify_keys: Sequence[str],
+                        group_key: Optional[str] = None,
+                        test_size: float = 0.2, seed: int = 17,
+                        cache_dir: Optional[str] = None,
+                        dataset_name: Optional[str] = None
+                        ) -> Tuple[List[Sample], List[Sample]]:
+    """One-time creation of the frozen test split: the first fold of a
+    grouped (``group_key``) or plain stratified k-fold with
+    k = round(1 / test_size) is the test set (reference
+    INTERNALDataset.py:221-240, BTXRDDataset.py:189-197)."""
+    samples = list(samples)
+    y = _stratify_labels(samples, stratify_keys)
+    n_splits = max(2, round(1.0 / test_size))
+    if group_key is not None:
+        groups = np.array([str(s[group_key]) for s in samples])
+        train_idx, test_idx = stratified_group_kfold(y, groups, n_splits,
+                                                     seed)[0]
+    else:
+        train_idx, test_idx = stratified_kfold(y, n_splits, seed)[0]
+    test_paths = [samples[i]["image_path"] for i in test_idx]
+    save_test_set_info(samples, test_paths, dataset_dir)
+    if cache_dir is not None and dataset_name is not None:
+        save_test_set_hash(test_paths, cache_dir, dataset_name)
+    return [samples[i] for i in train_idx], [samples[i] for i in test_idx]
 
 
 def _stratify_labels(samples: Sequence[Sample], keys: Sequence[str]) -> np.ndarray:

@@ -15,13 +15,13 @@ in ``\\n``, written to a temporary file that is then renamed.
 """
 from __future__ import annotations
 
-import csv
 import math
 import os
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
+from vlp_tpu_torch.data import tables
 from vlp_tpu_torch.ops.metrics import auroc_exact
 
 SUBGROUP_LEVELS = ("dataset", "entity", "anatomy_site", "sex",
@@ -100,23 +100,12 @@ def _groups(column) -> Dict[object, np.ndarray]:
     return {k: np.asarray(out[k]) for k in sorted(out)}
 
 
-def _cell(value) -> str:
-    if isinstance(value, float):
-        return "NaN" if math.isnan(value) else repr(value)
-    return str(value)
-
-
 def write_csv(path: str, columns: Sequence[str], rows: Sequence[tuple]
               ) -> None:
     """``rows`` under a ``columns`` header as pandas' ``to_csv(index=False,
-    na_rep="NaN")`` writes them, through ``<path>.tmp`` and a rename."""
+    na_rep="NaN")`` writes them, through a temporary file and a rename."""
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    tmp = path + ".tmp"
-    with open(tmp, "w", newline="") as fh:
-        writer = csv.writer(fh, lineterminator="\n")
-        writer.writerow(columns)
-        writer.writerows([_cell(v) for v in row] for row in rows)
-    os.replace(tmp, path)
+    tables.write_csv(path, columns, rows, na_rep="NaN")
 
 
 def evaluate_results(output_file: Optional[str], frames: Sequence[Frame]

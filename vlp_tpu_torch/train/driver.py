@@ -49,10 +49,13 @@ replicated run's format)::
         mesh.param_sharding=tp
 
 Without the launcher's environment it is one process on one device.
-Not ported, each in ROADMAP Queue 1
-item 15 (b): the post-fit t-SNE and confusion plots (matplotlib, scikit-learn)
-are left out with a log line, so a fold's summary lacks their keys. The
-real datasets wait for their files; the synthetic ones run.
+``data.name=downstream|pretrain`` read the real datasets under
+``INTERNAL_DATASET_PATH``, ``BTXRD_DATASET_PATH``, ``MURA_DATASET_PATH``
+and ``LERA_DATASET_PATH`` (``data/datasets.py``; a VLP run's probe reads
+INTERNAL and BTXRD too); the synthetic corpora need none. Not ported, in
+ROADMAP Queue 1 item 15 (b): the post-fit t-SNE and confusion plots
+(matplotlib, scikit-learn) are left out with a log line, so a fold's
+summary lacks their keys.
 """
 from __future__ import annotations
 
