@@ -317,6 +317,11 @@ Phases, each printing its lines before the last line:
 27. The real-data path (``data.name=downstream|pretrain``) through the
    training entry point on a corpus written in the INTERNAL, BTXRD, MURA
    and LERA layouts (``chip_smoke_data.py``, its module docstring).
+28. The evaluation tooling: the driver's post-fit silhouettes, t-SNE and
+   confusion figures through NesT-Small, the t-SNE and silhouettes against
+   the CPU, ``replot``, the offline linear probe on 27b's checkpoint, the
+   results table, LaTeX, EDA and the DICOM windowing
+   (``chip_smoke_eval.py``, its module docstring).
 
 Then one JSON line with every kernel: its launches in the timed training
 steps of the path that runs it (NesT-Small's for #1-#4, #11, #12; ViT-B's
@@ -333,7 +338,8 @@ rank, #1-#4 in the latter too; phase 24's ``*_remat_train``,
 phase 25's ``tp_*``, phase 26's ``pp_vit_l_*``, ``sp_vit_b_*`` and
 ``sweep_resnet34``, a rank's per step or the sweep's, and phase 27's
 ``data_downstream_trainer``, ``data_pretrain_trainer`` and
-``dp_data_pretrain_trainer``, rank 0's),
+``dp_data_pretrain_trainer``, rank 0's, and phase 28's
+``eval_nest_trainer`` and ``eval_replot`` for #1-#4),
 ``serve_launches`` the serving phases (``fusion_nest_serve``,
 ``vit_l_serve`` and ``*_flax_layout_serve`` among them); #7 and #8 also
 carry ``vit_l``, their errors and times per ViT-L/16 training step (24
@@ -3088,17 +3094,21 @@ def _trainer_nest(smi: str, out: Path) -> dict:
     steps = rec["_step"]
     fold0 = next(build_datamodule(cfg, torch.device("cuda")).folds())
     evals = sum(len(loader) for loader in fold0.val_loaders.values())
-    want = {"ln_attention": 24 * (steps + evals),
-            "ln_mlp": 24 * (steps + evals), "ln_attention_bwd": 24 * steps,
-            "ln_mlp_bwd": 24 * steps, "shear_rows": 3 * steps,
-            "add_gaussian_noise": steps}
+    # the validation and the post-fit pass each run every val batch
+    want = {"ln_attention": 24 * (steps + 2 * evals),
+            "ln_mlp": 24 * (steps + 2 * evals),
+            "ln_attention_bwd": 24 * steps, "ln_mlp_bwd": 24 * steps,
+            "shear_rows": 3 * steps, "add_gaussian_noise": steps}
     check(launches == want, f"21c: launches {launches}, expected {want} "
-          f"({steps} train steps, {evals} eval forwards)")
+          f"({steps} train steps, {evals} val forwards, each again in the "
+          "post-fit pass)")
     _finite(rec, ["train/loss"] + [f"val/combined/{m}" for m in (
         "accuracy", "auroc", "loss")], "21c")
-    print(f"trainer {NEST}: 1 epoch, {steps} train steps and {evals} eval "
-          f"forwards, launches {launches} (24 of #1-#4 a train step, 24 of "
-          f"#1 and #2 an eval forward); train/images_per_sec "
+    print(f"trainer {NEST}: 1 epoch, {steps} train steps and {evals} val "
+          f"forwards (and {evals} post-fit), launches {launches} (24 of "
+          f"#1-#4 a train step, 24 of #1 and #2 an eval forward); "
+          f"silhouette_tumor {_fold_summary(out, 0)['silhouette_tumor']:.4f}"
+          f"; train/images_per_sec "
           f"{rec['train/images_per_sec']:.1f} (phase 6's step "
           f"{STEP_RATES.get(NEST, float('nan')):.1f}); "
           f"{_epoch_split(out, 1, seconds)}; on {smi}")
@@ -4467,13 +4477,17 @@ def main() -> int:
         t27 = time.perf_counter()
         from chip_smoke_data import phase_data  # phase 27, its own module
         data_paths = phase_data(smi, root, stats)
+        t28 = time.perf_counter()
+        from chip_smoke_eval import phase_eval  # phase 28, its own module
+        eval_paths = phase_eval(smi, root, stats)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     print(f"phases 3-19: {t20 - t0:.1f} s; phase 20: {t21 - t20:.1f} s; "
           f"phase 21: {t22 - t21:.1f} s; phase 22: {t23 - t22:.1f} s; "
           f"phase 23: {t24 - t23:.1f} s; phase 24: {t25 - t24:.1f} s; "
           f"phase 25: {t26 - t25:.1f} s; phase 26: {t27 - t26:.1f} s; "
-          f"phase 27: {time.perf_counter() - t27:.1f} s")
+          f"phase 27: {t28 - t27:.1f} s; phase 28: "
+          f"{time.perf_counter() - t28:.1f} s")
     # kernel -> (source, the TPU kernel it replaces, the training path whose
     # launches and per-step times the line gives)
     sources = {
@@ -4512,7 +4526,8 @@ def main() -> int:
              "nest_unfused_train": unfused, "nest_nhwc_train": nhwc,
              "resnet34_train": r34, "xrv_resnet50_train": xrv,
              "vlp_resnet34_tinybert_train": vlp, **trainers, **fusion,
-             **dp, **remat_fsdp, **tp_paths, **pp_paths, **data_paths}
+             **dp, **remat_fsdp, **tp_paths, **pp_paths, **data_paths,
+             **eval_paths}
     serves = {"nest_serve": serve, "vit_b_serve": serve_vit,
               "nest_nhwc_serve": serve_nhwc, "resnet34_serve": serve_r34,
               "xrv_resnet50_serve": serve_xrv, **fusion_serves,

@@ -9,8 +9,8 @@ shapes this path gives them ([64, 224, 224] and [128, 224, 224], both
 axes, the warp's ramps and random shifts; noise at sigma 1) against their
 plain versions with phase 5's bounds.
 
-The corpus (``write_corpus``): 8-bit gray, RGB and RGBA PNGs (the stdlib
-writer ``write_png``: zlib, filter 0) with sides of 320-1024 pixels,
+The corpus (``write_corpus``): 8-bit gray, RGB and RGBA PNGs (the numpy
+writer ``data/png.write_png``: zlib, filter 0) with sides of 320-1024 pixels,
 portrait and landscape; INTERNAL (tumours with Latin sites, numeric
 patient numbers, German sex codes; healthy images), BTXRD (one-hot sites
 and entities, healthy sites from their own table), MURA (train and valid
@@ -52,9 +52,7 @@ import json
 import os
 import shutil
 import statistics
-import struct
 import time
-import zlib
 from pathlib import Path
 
 import numpy as np
@@ -62,6 +60,8 @@ import torch
 
 from vlp_tpu_torch.data import preprocess_host
 from vlp_tpu_torch.data.datasets import InternalDataset, LERADataset
+# _chunk stays importable here: the tests build odd PNGs chunk by chunk
+from vlp_tpu_torch.data.png import _chunk, write_png
 from vlp_tpu_torch.data.splits import create_frozen_split
 from vlp_tpu_torch.data.tables import write_csv
 from vlp_tpu_torch.data.taxonomy import _SITE_MAP
@@ -94,29 +94,6 @@ LERA_SITES = ("ANKLE", "FOOT", "HIP", "KNEE")
 # --------------------------------------------------------------------------
 # the corpus
 # --------------------------------------------------------------------------
-
-def _chunk(kind: bytes, body: bytes) -> bytes:
-    return (struct.pack(">I", len(body)) + kind + body
-            + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
-
-
-def write_png(path, img: np.ndarray, level: int = 1) -> None:
-    """An 8-bit PNG of ``img``: [H, W] or [H, W, 1] gray, [H, W, 2] gray +
-    alpha, [H, W, 3] RGB or [H, W, 4] RGBA; every row filter 0 (none)."""
-    img = np.ascontiguousarray(img, np.uint8)
-    if img.ndim == 2:
-        img = img[:, :, None]
-    h, w, c = img.shape
-    colour = {1: 0, 2: 4, 3: 2, 4: 6}[c]
-    rows = np.zeros((h, 1 + w * c), np.uint8)
-    rows[:, 1:] = img.reshape(h, w * c)
-    with open(path, "wb") as fh:
-        fh.write(b"\x89PNG\r\n\x1a\n"
-                 + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, colour,
-                                               0, 0, 0))
-                 + _chunk(b"IDAT", zlib.compress(rows.tobytes(), level))
-                 + _chunk(b"IEND", b""))
-
 
 def radiograph(rng: np.random.Generator, h: int, w: int,
                channels: int = 1) -> np.ndarray:

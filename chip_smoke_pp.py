@@ -16,11 +16,12 @@ gathered qkv [16, 196, 2304], 12 heads), held against their plain versions
 with phase 7's bounds: the bf16 bound of 26a and 26b below is relative to
 a sequential run that launches the same kernels on the same shapes.
 
-26a. ViT-L/16's 24 encoder blocks (D 1024, 16 heads of 64, S 197) on the
+26a. 12 of ViT-L/16's 24 encoder blocks (D 1024, 16 heads of 64, S 197;
+     the depth cut to keep the script within its time limit) on the
      (1, n) pipeline mesh, each block's weights made on the card from its
      own seed, a stage rank building only its own; M = 4 and 8
      microbatches of 8 images. The fused layout in bf16 runs #7/#8 in
-     every block of every microbatch. Held against the same 24 blocks in
+     every block of every microbatch. Held against the same 12 blocks in
      sequence on global rank 0 from the same weights: in fp32 (flax's
      layout, TF32 off; M = 4) the output and each gradient tensor of the
      linear functional sum(y * w) within ``BOUND_FP32`` of its largest
@@ -31,7 +32,7 @@ a sequential run that launches the same kernels on the same shapes.
      idle share of a rank (1 - its stage_fn's CUDA-event spans / the step)
      against the schedule's bubble (n - 1) / (M + n - 1), the hop's event
      spans a step, a rank's parameter bytes against 1 / n of the stack's,
-     and #7/#8 launches a rank a step (``24 / n * M`` each).
+     and #7/#8 launches a rank a step (``12 / n * M`` each).
 26b. ViT-B/16's 12 blocks (D 768, 12 heads) on the (1, n) sequence mesh,
      each rank holding every block and T / n tokens of each row: the
      fused layout at T 196 (#7 takes S <= 256) and flax's at T 196 and 784
@@ -75,7 +76,7 @@ from vlp_tpu_torch.parallel.sequence import (make_seq_parallel_fn,
 
 WORLDS = (2, 4)
 # (depth, width, heads, tokens) of the stacks
-VIT_L = (24, 1024, 16, 197)
+VIT_L = (12, 1024, 16, 197)  # ViT-L/16's width; its depth 24 cut to 12
 VIT_B = (12, 768, 12)
 MICROBATCHES = (4, 8)
 MICROBATCH = 8

@@ -1,8 +1,10 @@
 """The port's import boundary and its kernel loader.
 
-The machine with the card need not have JAX, pandas, scikit-learn, cv2 or PIL (and the
-port must not need PyYAML), so the serving entry point, the training step,
-the sweep and chip_smoke.py must import without them and without
+The machine with the card need not have JAX, pandas, scikit-learn, cv2, PIL
+or matplotlib (and the port must not need PyYAML), so the serving entry
+point, the training step, the sweep, the evaluation tools and
+chip_smoke.py must import without them (matplotlib is imported only where
+a figure is drawn) and without
 any module of the JAX package ``vlp_tpu``; and a missing CUDA compiler must
 raise, never hand back a plain fallback.
 """
@@ -15,7 +17,7 @@ import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "flax", "optax", "orbax", "pandas", "sklearn", "cv2",
-             "yaml", "PIL")
+             "yaml", "PIL", "matplotlib")
 IMPORTS_JAX = re.compile(r"^\s*(import|from)\s+(jax|flax|optax|orbax)\b",
                          re.MULTILINE)
 # `import vlp_tpu`, `import vlp_tpu.x`, `from vlp_tpu(.x) import ...` at any
@@ -56,7 +58,13 @@ def test_serve_and_chip_smoke_import_without_jax_or_host_pipeline():
             "vlp_tpu_torch.data.datasets, vlp_tpu_torch.data.png, "
             "vlp_tpu_torch.data.preprocess_host, "
             "vlp_tpu_torch.data.caption_generator, vlp_tpu_torch.native, "
-            "chip_smoke, chip_smoke_tp, chip_smoke_pp, chip_smoke_data; "
+            "vlp_tpu_torch.eval.plotting, vlp_tpu_torch.eval.replot, "
+            "vlp_tpu_torch.eval.linear_probe_eval, "
+            "vlp_tpu_torch.eval.results_table, vlp_tpu_torch.eval.latex, "
+            "vlp_tpu_torch.eval.eda, vlp_tpu_torch.data.dicom_tools, "
+            "vlp_tpu_torch.data.base, "
+            "chip_smoke, chip_smoke_tp, chip_smoke_pp, chip_smoke_data, "
+            "chip_smoke_eval; "
             f"print([m for m in {FORBIDDEN!r} if m in sys.modules] + "
             "[m for m in sys.modules if m.split('.')[0] == 'vlp_tpu'])")
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -71,6 +79,7 @@ def _port_sources():
                                              "chip_smoke_tp.py",
                                              "chip_smoke_pp.py",
                                              "chip_smoke_data.py",
+                                             "chip_smoke_eval.py",
                                              "scripts/trace_pipeline.py")]
     for root, _, files in os.walk(os.path.join(REPO, "vlp_tpu_torch")):
         paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
@@ -91,6 +100,26 @@ def test_port_sources_cover_the_parallel_package():
         ("data", "tables.py"), ("data", "datasets.py"), ("data", "png.py"),
         ("data", "caption_generator.py"), ("native", "__init__.py"))} \
         <= names
+    assert {os.path.join("vlp_tpu_torch", *f) for f in (
+        ("eval", "plotting.py"), ("eval", "replot.py"),
+        ("eval", "linear_probe_eval.py"), ("eval", "results_table.py"),
+        ("eval", "latex.py"), ("eval", "eda.py"),
+        ("data", "dicom_tools.py"), ("data", "base.py"))} <= names
+    assert "chip_smoke_eval.py" in names
+
+
+IMPORTS_MATPLOTLIB = re.compile(r"^(\s*)(import|from)\s+matplotlib\b",
+                                re.MULTILINE)
+
+
+def test_matplotlib_is_imported_only_inside_functions():
+    """No module-level matplotlib import anywhere in the port: every one is
+    indented, inside the function that draws."""
+    assert IMPORTS_MATPLOTLIB.search("    import matplotlib\n")
+    for path in _port_sources():
+        with open(path) as fh:
+            for m in IMPORTS_MATPLOTLIB.finditer(fh.read()):
+                assert m.group(1), path
 
 
 def test_port_sources_never_import_jax():
@@ -307,3 +336,55 @@ def test_real_data_path_runs_with_the_host_stack_absent(tmp_path):
     assert out.stdout.strip().splitlines()[-1] == "[]", out.stdout
     assert (tmp_path / "gen" / "captions.csv").read_bytes().startswith(
         b"anatomy_site,abnormality_label,caption\n")
+
+
+def test_eval_tools_run_with_the_host_stack_absent(tmp_path):
+    """The evaluation tools where none of JAX, pandas, scikit-learn,
+    PyYAML, cv2, PIL, matplotlib or the JAX package can be imported: the
+    silhouettes and the confusion counts returned with one line naming
+    each figure not drawn, a sweep's LaTeX, a dataset report, the
+    windowing and its PNG, and the command lines' help."""
+    sweep = os.path.join(REPO, "configs", "sweeps", "pretrain", "vlp.yaml")
+    code = (
+        "import runpy, sys\n"
+        f"sys.modules.update(dict.fromkeys({FORBIDDEN + ('vlp_tpu',)!r}))\n"
+        "import numpy as np, torch\n"
+        "from vlp_tpu_torch.eval import eda, latex, plotting\n"
+        "from vlp_tpu_torch.data import dicom_tools, png\n"
+        "import vlp_tpu_torch.data.base\n"
+        "x = torch.randn(12, 5)\n"
+        "y = torch.tensor([0, 1] * 6)\n"
+        "s = plotting.plot_tsne_and_silhouette(x, y, ['a'] * 6 + ['b'] * 6,"
+        " 'p/tsne.png')\n"
+        "assert set(s) == {'silhouette_tumor', 'silhouette_dataset'}\n"
+        "cm = plotting.plot_confusion_matrix(torch.rand(12), y, "
+        "'p/cm.png')\n"
+        "assert cm.sum() == 12\n"
+        f"assert latex.main(['space', {sweep!r}]) == 0\n"
+        "r = eda.dataset_report([{'tumor': 1, 'sex': 'M'}, {'tumor': 0}])\n"
+        "assert r['sex_counts'] == {'M': 1}\n"
+        "assert eda.plot_distributions([{'tumor': 1, 'sex': 'M'}], "
+        "'e') == []\n"
+        "png.write_png('w.png', dicom_tools.window_to_uint8("
+        "np.arange(12).reshape(3, 4)))\n"
+        "assert png.read_png('w.png').shape == (3, 4, 1)\n"
+        "for mod in ('replot', 'linear_probe_eval', 'results_table'):\n"
+        "    sys.argv = [mod, '--help']\n"
+        "    try:\n"
+        "        runpy.run_module(f'vlp_tpu_torch.eval.{mod}', "
+        "run_name='__main__')\n"
+        "    except SystemExit as e:\n"
+        "        assert e.code == 0\n"
+        "print([m for m in sys.modules if sys.modules[m] is not None and "
+        f"m.split('.')[0] in {FORBIDDEN + ('vlp_tpu',)!r}])\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(tmp_path),
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]", out.stdout
+    for name in ("p/tsne.png", "p/cm.png", "e/dist_sex.png"):
+        assert f"matplotlib is not installed: {name} is not drawn" \
+            in out.stderr
+    assert not (tmp_path / "p").exists()
+    assert "--checkpoint" in out.stdout and "--csv" in out.stdout

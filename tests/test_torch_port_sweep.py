@@ -65,14 +65,17 @@ def test_all_14_sweep_files_read_as_yaml_safe_load():
     "a: null\nb:", "a: 010", "a: 0x1F", "a: 12:30", "a: -.5", "a: .inf",
     "a: +1_000", "a: [1, 'x', \"y\", {b: 2}]", "a:\n- 1\n- two",
     "a: 'it''s' # c", "a: b#c", "'q k': v", "k:\n  x: 1\n  y:\n    - [a, b]"
-    "\n    - c", "hello", "- a\n- b"])
+    "\n    - c", "hello", "- a\n- b", "a:\n  - b: 1",
+    "rows:\n  - section: Imaging\n    run_dir: out/x\n  -   k: [1, 2]\n"
+    "      m:\n        n: 3\n  - plain\n", "- a: 1\n  b: x, y (z)\n- c",
+    "title: A, b (4-fold CV) ]", "a: [x, y]"])
 def test_scalar_and_collection_forms_read_as_yaml_safe_load(text):
     assert safe_load(text) == yaml.safe_load(text)
 
 
 def test_what_the_subset_lacks_raises():
     for text in ("a: &x 1", "a: !tag 1", "a: |\n  text", "---\na: 1",
-                 "a:\n  - b: 1"):
+                 "a: b: 1", "- a: b: 1"):
         with pytest.raises(YamlError):
             safe_load(text)
 

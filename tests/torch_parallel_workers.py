@@ -709,3 +709,33 @@ def _same_tree(a, b) -> bool:
     if isinstance(a, torch.Tensor):
         return isinstance(b, torch.Tensor) and torch.equal(a, b)
     return a == b
+
+
+def post_fit_worker(mesh, overrides: List[str], out_dir: str) -> Dict:
+    """The driver's post-fit pass (``driver._post_fit_plots``) of the
+    smoke classifier's fold 0 at its init weights (seed 0) on ``mesh``, or
+    in one process when ``mesh`` is None, each rank writing under its own
+    ``out_dir/rank<r>``: the silhouettes, the val rows and the figures
+    under that directory."""
+    from vlp_tpu_torch.config import (TrainConfig, apply_overrides,
+                                      get_experiment)
+    from vlp_tpu_torch.data.datamodule import build_datamodule
+    from vlp_tpu_torch.models.tasks import build_task
+    from vlp_tpu_torch.train import driver
+    from vlp_tpu_torch.train.loop import Trainer
+
+    rank = 0 if mesh is None else mesh.global_rank
+    cfg = apply_overrides(get_experiment("smoke_synthetic_only_imaging"),
+                          FSDP_TRAINER + list(overrides))
+    cfg.output_dir = os.path.join(out_dir, f"rank{rank}")
+    fold = next(build_datamodule(cfg, CPU, mesh=mesh).folds())
+    torch.manual_seed(0)
+    task = build_task(TrainConfig.from_config(cfg), fold.statics, CPU, mesh)
+    trainer = Trainer(cfg, task, fold.train_loader, fold.val_loaders)
+    scores = driver._post_fit_plots(cfg, trainer, fold,
+                                    mesh is None or mesh.is_main)
+    figures = sorted(os.path.relpath(os.path.join(d, f), cfg.output_dir)
+                     for d, _, fs in os.walk(cfg.output_dir) for f in fs
+                     if f.endswith(".png"))
+    return {"scores": scores, "figures": figures,
+            "rows": sum(len(ld.bundle) for ld in fold.val_loaders.values())}

@@ -20,6 +20,7 @@ test loaders too, gives this rank's rows of each global batch, so
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import os
 from typing import Dict, Generator, List, Optional, Tuple
@@ -288,6 +289,24 @@ class PretrainData:
             "PretrainData deliberately exposes no test loader: the MURA "
             "test split must not be consumed during pretraining "
             "(reference PretrainDataModule.py:351-359).")
+
+
+def downstream_config(cfg: Config) -> Config:
+    """The downstream data of a run, as a config of its own (a deep copy:
+    the caller's cfg is not changed): a VLP config's ``downstream_data``
+    (its ``data`` is the caption corpus; ``synthetic_downstream`` where it
+    pretrains on a synthetic corpus), a classifier config's ``data``; the
+    run's mesh and output directory."""
+    ds_cfg = Config()
+    if cfg.model.task == "vision_language":
+        ds_cfg.data = copy.deepcopy(cfg.downstream_data)
+        if cfg.data.name.startswith("synthetic"):
+            ds_cfg.data.name = "synthetic_downstream"
+    else:
+        ds_cfg.data = copy.deepcopy(cfg.data)
+    ds_cfg.mesh = cfg.mesh
+    ds_cfg.output_dir = cfg.output_dir
+    return ds_cfg
 
 
 def build_datamodule(cfg: Config, device, cache_dir: Optional[str] = None,

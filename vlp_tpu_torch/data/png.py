@@ -1,5 +1,6 @@
-"""An 8-bit PNG reader in numpy and ``zlib``: the image decoder where
-neither cv2 nor PIL is installed (the machine with the card has neither).
+"""An 8-bit PNG reader and writer in numpy and ``zlib``: the image decoder
+where neither cv2 nor PIL is installed (the machine with the card need not
+have them), and the writer of the DICOM tools' PNGs and of test corpora.
 
 It reads non-interlaced 8-bit gray, gray + alpha, RGB and RGBA PNGs, all
 five row filters, and gives what ``cv2.imread(path, IMREAD_UNCHANGED)``
@@ -9,7 +10,8 @@ reads it as BGRA, the gray in each colour), RGB and RGBA as [H, W, 3]. It
 refuses every other PNG (16-bit, fewer bits, palette, interlaced) and
 every file that is not a PNG, naming the decoders that read them. Like
 cv2 it ignores a transparent colour (``tRNS``: its alpha is dropped) and
-a truecolour image's suggested palette.
+a truecolour image's suggested palette. ``write_png`` writes 8-bit gray,
+gray + alpha, RGB and RGBA, every row with filter 0 (none).
 """
 from __future__ import annotations
 
@@ -117,3 +119,27 @@ def read_png(path: str) -> np.ndarray:
     if channels == 2:  # cv2 reads gray + alpha as BGRA
         img = np.repeat(img[:, :, :1], 3, axis=2)
     return np.ascontiguousarray(img[:, :, :3])
+
+
+def _chunk(kind: bytes, body: bytes) -> bytes:
+    return (struct.pack(">I", len(body)) + kind + body
+            + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
+
+
+def write_png(path, img: np.ndarray, level: int = 1) -> None:
+    """An 8-bit PNG of ``img``: [H, W] or [H, W, 1] gray, [H, W, 2] gray +
+    alpha, [H, W, 3] RGB or [H, W, 4] RGBA; every row filter 0, the data
+    zlib-compressed at ``level``."""
+    img = np.ascontiguousarray(img, np.uint8)
+    if img.ndim == 2:
+        img = img[:, :, None]
+    h, w, c = img.shape
+    colour = {1: 0, 2: 4, 3: 2, 4: 6}[c]
+    rows = np.zeros((h, 1 + w * c), np.uint8)
+    rows[:, 1:] = img.reshape(h, w * c)
+    with open(path, "wb") as fh:
+        fh.write(SIGNATURE
+                 + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, colour,
+                                               0, 0, 0))
+                 + _chunk(b"IDAT", zlib.compress(rows.tobytes(), level))
+                 + _chunk(b"IEND", b""))

@@ -203,11 +203,22 @@ class OnlyImagingTask(_ImageTask):
         _, feats = self._apply(self._prep_eval(batch), batch)
         return feats
 
+    @torch.inference_mode()
+    def plot_outputs_fn(self, batch: Dict[str, torch.Tensor]
+                        ) -> torch.Tensor:
+        """[B, F + 1] fp32: the pooled features with the logit column
+        appended, from one eval-mode forward (the post-fit t-SNE and
+        confusion figures)."""
+        self.model.eval()
+        logits, feats = self._apply(self._prep_eval(batch), batch)
+        return torch.cat([feats.float(),
+                          logits.float().reshape(feats.shape[0], 1)], -1)
+
 
 class FusionTask(OnlyImagingTask):
-    """Imaging + clinical late fusion: ``OnlyImagingTask``'s loss, eval and
-    features with ``FusionModel``, which also reads ``batch["clinical"]``
-    [B, 15]; CORAL on the backbone features."""
+    """Imaging + clinical late fusion: ``OnlyImagingTask``'s loss, eval,
+    features and plot outputs with ``FusionModel``, which also reads
+    ``batch["clinical"]`` [B, 15]; CORAL on the backbone features."""
 
     model_class = FusionModel
 

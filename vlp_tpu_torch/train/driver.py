@@ -52,10 +52,13 @@ Without the launcher's environment it is one process on one device.
 ``data.name=downstream|pretrain`` read the real datasets under
 ``INTERNAL_DATASET_PATH``, ``BTXRD_DATASET_PATH``, ``MURA_DATASET_PATH``
 and ``LERA_DATASET_PATH`` (``data/datasets.py``; a VLP run's probe reads
-INTERNAL and BTXRD too); the synthetic corpora need none. Not ported, in
-ROADMAP Queue 1 item 15 (b): the post-fit t-SNE and confusion plots
-(matplotlib, scikit-learn) are left out with a log line, so a fold's
-summary lacks their keys.
+INTERNAL and BTXRD too); the synthetic corpora need none. After a
+classifier's fit, one eval-mode pass of the fold's final weights over its
+val loaders gives ``silhouette_tumor`` and ``silhouette_dataset`` in the
+fold's summary (``eval/plotting.py``, on the device; every rank takes part
+in the gather) and, on rank 0 where matplotlib is installed, the t-SNE and
+confusion figures under ``<output_dir>/plots/fold<k>/``; without
+matplotlib one line names each figure that is not drawn.
 """
 from __future__ import annotations
 
@@ -71,7 +74,9 @@ import numpy as np
 import torch
 
 from vlp_tpu_torch.config import Config, TrainConfig, apply_overrides
-from vlp_tpu_torch.data.datamodule import DownstreamData, build_datamodule
+from vlp_tpu_torch.data.datamodule import (DownstreamData, build_datamodule,
+                                           downstream_config)
+from vlp_tpu_torch.eval.plotting import plot_val_outputs
 from vlp_tpu_torch.eval.subgroup import evaluate_results
 from vlp_tpu_torch.eval.test_eval import collect_probs
 from vlp_tpu_torch.models.tasks import build_task
@@ -266,18 +271,8 @@ def _train(cfg: Config, device, mesh) -> Dict[str, float]:
 
     downstream = None
     if is_vlp:
-        # a deep copy: train() must not change the caller's cfg
-        ds_cfg = Config()
-        ds_cfg.data = copy.deepcopy(cfg.downstream_data)
-        ds_cfg.mesh = cfg.mesh
-        ds_cfg.output_dir = cfg.output_dir
-        if cfg.data.name.startswith("synthetic"):
-            ds_cfg.data.name = "synthetic_downstream"
-        downstream = DownstreamData(ds_cfg, device, mesh=mesh)
-    else:
-        logger.info("post-fit t-SNE and confusion plots are not ported "
-                    "(matplotlib, scikit-learn): the fold summaries lack "
-                    "their keys")
+        downstream = DownstreamData(downstream_config(cfg), device,
+                                    mesh=mesh)
 
     fold_summaries: List[Dict[str, float]] = []
     n_folds = None if cfg.k_fold_cross_validation else 1
@@ -344,6 +339,8 @@ def _train(cfg: Config, device, mesh) -> Dict[str, float]:
         _barrier(mesh)  # rank 0's checkpoints are on disk
         summary = dict(sink.sinks[0].summary)
         summary.update({f"time/{k}": v for k, v in trainer.times.items()})
+        if not is_vlp:
+            summary.update(_post_fit_plots(cfg, trainer, fold, main))
         if is_vlp and trainer.checkpointer and \
                 trainer.checkpointer.best_path:
             summary.update(_downstream_precision_at_k(cfg, trainer,
@@ -443,6 +440,19 @@ def _evaluate_test_set(cfg: Config, dm, device, mesh=None
     logger.info("Frozen test set: %s (full CSV: %s)",
                 {k: round(v, 4) for k, v in agg.items()}, out_csv)
     return agg
+
+
+def _post_fit_plots(cfg: Config, trainer: Trainer, fold, main: bool = True
+                    ) -> Dict[str, float]:
+    """The fold's silhouette scores by tumor label and by dataset from one
+    eval-mode pass of the trainer's final weights over its val loaders,
+    and, on rank 0, the t-SNE and confusion figures (reference
+    src/train.py:180-183, :261-325). Nothing is caught: a failed forward or
+    t-SNE fails the run; only a missing matplotlib skips the figures."""
+    return plot_val_outputs(
+        trainer.task, fold.val_loaders,
+        os.path.join(cfg.output_dir, "plots", f"fold{fold.index}"),
+        draw=main)
 
 
 def _downstream_precision_at_k(cfg: Config, trainer: Trainer,

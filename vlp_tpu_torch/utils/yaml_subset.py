@@ -1,8 +1,10 @@
 """A reader of the YAML that the sweep files use, without PyYAML.
 
-The subset: block mappings and block sequences by indentation, flow
-sequences ``[a, b]`` and flow mappings ``{a: b}``, plain, single- and
-double-quoted scalars, comments and blank lines. Plain scalars resolve as
+The subset: block mappings and block sequences by indentation (a
+sequence item may be a mapping, ``- key: value`` with its other keys
+below the first), flow sequences ``[a, b]`` and flow mappings ``{a: b}``,
+plain, single- and double-quoted scalars (a plain one on a key's line
+runs to the line's end), comments and blank lines. Plain scalars resolve as
 PyYAML's ``safe_load`` resolves them (YAML 1.1): ``true``/``yes``/``on``
 and their negations are booleans, ``~`` and ``null`` are None, integers
 may carry ``_``, a ``0x``/``0b`` or leading-zero octal base or base-60
@@ -151,7 +153,14 @@ def _flow(text: str, i: int) -> Tuple[Any, int]:
 
 
 def _scalar_line(text: str) -> Any:
-    """A value written on its key's (or dash's) line."""
+    """A value written on its key's (or dash's) line: a flow collection, a
+    quoted scalar, or a plain scalar to the line's end (commas and
+    brackets included, as in YAML's block context)."""
+    if text[0] not in "[{'\"":
+        if re.search(r": |:$", text):
+            raise YamlError(f"a mapping where a value was expected: "
+                            f"{text!r}")
+        return _plain(text.strip())
     value, end = _flow(text, 0)
     if text[end:].strip():
         raise YamlError(f"unexpected text after the value: {text!r}")
@@ -180,11 +189,18 @@ def _block(lines: List[Tuple[int, str]], i: int, indent: int
         out: List = []
         while i < len(lines) and lines[i][0] == indent and (
                 lines[i][1].startswith("- ") or lines[i][1] == "-"):
-            rest = lines[i][1][1:].strip()
+            text = lines[i][1]
+            rest = text[1:].strip()
+            if rest and re.match(r"[^\[{'\"].*?: |[^\[{'\"].*:$", rest):
+                # "- key: value": a mapping whose keys sit in the column
+                # of its first key
+                column = indent + len(text) - len(text[1:].lstrip())
+                lines[i] = (column, rest)
+                value, i = _block(lines, i, column)
+                out.append(value)
+                continue
             i += 1
             if rest:
-                if re.match(r"[^\[{'\"].*?: |[^\[{'\"].*:$", rest):
-                    raise YamlError(f"a mapping in a sequence item: {rest!r}")
                 out.append(_scalar_line(rest))
             elif i < len(lines) and lines[i][0] > indent:
                 value, i = _block(lines, i, lines[i][0])
