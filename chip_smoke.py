@@ -322,6 +322,14 @@ Phases, each printing its lines before the last line:
    the CPU, ``replot``, the offline linear probe on 27b's checkpoint, the
    results table, LaTeX, EDA and the DICOM windowing
    (``chip_smoke_eval.py``, its module docstring).
+29. The pretrained-weight imports: an HF hub cache with DistilBERT
+   (safetensors) and TinyBERT (``.bin``) checkpoints and their
+   ``vocab.txt``, and the torchxrayvision ResNet50 at
+   ``XRV_WEIGHTS_PATH``, written from a seed at full width, through the
+   training entry point's warm starts (``pretrain_resnet50_distilbert``,
+   ``pretrain_resnet18_tinybert``, ``baseline_only_imaging_xrv_
+   resnet50``) and the refusal of pretrained weights with hash ids
+   (``chip_smoke_weights.py``, its module docstring).
 
 Then one JSON line with every kernel: its launches in the timed training
 steps of the path that runs it (NesT-Small's for #1-#4, #11, #12; ViT-B's
@@ -339,7 +347,9 @@ phase 25's ``tp_*``, phase 26's ``pp_vit_l_*``, ``sp_vit_b_*`` and
 ``sweep_resnet34``, a rank's per step or the sweep's, and phase 27's
 ``data_downstream_trainer``, ``data_pretrain_trainer`` and
 ``dp_data_pretrain_trainer``, rank 0's, and phase 28's
-``eval_nest_trainer`` and ``eval_replot`` for #1-#4),
+``eval_nest_trainer`` and ``eval_replot`` for #1-#4, and phase 29's
+``weights_distilbert_trainer``, ``weights_tinybert_trainer`` and
+``weights_xrv_trainer``),
 ``serve_launches`` the serving phases (``fusion_nest_serve``,
 ``vit_l_serve`` and ``*_flax_layout_serve`` among them); #7 and #8 also
 carry ``vit_l``, their errors and times per ViT-L/16 training step (24
@@ -4480,14 +4490,17 @@ def main() -> int:
         t28 = time.perf_counter()
         from chip_smoke_eval import phase_eval  # phase 28, its own module
         eval_paths = phase_eval(smi, root, stats)
+        t29 = time.perf_counter()
+        from chip_smoke_weights import phase_weights  # phase 29, its own
+        weights_paths = phase_weights(smi, root, stats)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     print(f"phases 3-19: {t20 - t0:.1f} s; phase 20: {t21 - t20:.1f} s; "
           f"phase 21: {t22 - t21:.1f} s; phase 22: {t23 - t22:.1f} s; "
           f"phase 23: {t24 - t23:.1f} s; phase 24: {t25 - t24:.1f} s; "
           f"phase 25: {t26 - t25:.1f} s; phase 26: {t27 - t26:.1f} s; "
-          f"phase 27: {t28 - t27:.1f} s; phase 28: "
-          f"{time.perf_counter() - t28:.1f} s")
+          f"phase 27: {t28 - t27:.1f} s; phase 28: {t29 - t28:.1f} s; "
+          f"phase 29: {time.perf_counter() - t29:.1f} s")
     # kernel -> (source, the TPU kernel it replaces, the training path whose
     # launches and per-step times the line gives)
     sources = {
@@ -4527,7 +4540,7 @@ def main() -> int:
              "resnet34_train": r34, "xrv_resnet50_train": xrv,
              "vlp_resnet34_tinybert_train": vlp, **trainers, **fusion,
              **dp, **remat_fsdp, **tp_paths, **pp_paths, **data_paths,
-             **eval_paths}
+             **eval_paths, **weights_paths}
     serves = {"nest_serve": serve, "vit_b_serve": serve_vit,
               "nest_nhwc_serve": serve_nhwc, "resnet34_serve": serve_r34,
               "xrv_resnet50_serve": serve_xrv, **fusion_serves,

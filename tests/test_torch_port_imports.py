@@ -18,6 +18,10 @@ import pytest
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "flax", "optax", "orbax", "pandas", "sklearn", "cv2",
              "yaml", "PIL", "matplotlib")
+# the pretrained-weight imports read the HF files and xrv's checkpoint
+# themselves: the machine with the card has none of these packages
+HF_PACKAGES = ("transformers", "huggingface_hub", "safetensors",
+               "tokenizers", "torchxrayvision")
 IMPORTS_JAX = re.compile(r"^\s*(import|from)\s+(jax|flax|optax|orbax)\b",
                          re.MULTILINE)
 # `import vlp_tpu`, `import vlp_tpu.x`, `from vlp_tpu(.x) import ...` at any
@@ -62,10 +66,12 @@ def test_serve_and_chip_smoke_import_without_jax_or_host_pipeline():
             "vlp_tpu_torch.eval.linear_probe_eval, "
             "vlp_tpu_torch.eval.results_table, vlp_tpu_torch.eval.latex, "
             "vlp_tpu_torch.eval.eda, vlp_tpu_torch.data.dicom_tools, "
-            "vlp_tpu_torch.data.base, "
+            "vlp_tpu_torch.data.base, vlp_tpu_torch.utils.hf_files, "
+            "vlp_tpu_torch.models.torch_import, "
             "chip_smoke, chip_smoke_tp, chip_smoke_pp, chip_smoke_data, "
-            "chip_smoke_eval; "
-            f"print([m for m in {FORBIDDEN!r} if m in sys.modules] + "
+            "chip_smoke_eval, chip_smoke_weights; "
+            f"print([m for m in {FORBIDDEN + HF_PACKAGES!r} "
+            "if m in sys.modules] + "
             "[m for m in sys.modules if m.split('.')[0] == 'vlp_tpu'])")
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
@@ -80,6 +86,7 @@ def _port_sources():
                                              "chip_smoke_pp.py",
                                              "chip_smoke_data.py",
                                              "chip_smoke_eval.py",
+                                             "chip_smoke_weights.py",
                                              "scripts/trace_pipeline.py")]
     for root, _, files in os.walk(os.path.join(REPO, "vlp_tpu_torch")):
         paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
@@ -106,6 +113,10 @@ def test_port_sources_cover_the_parallel_package():
         ("eval", "latex.py"), ("eval", "eda.py"),
         ("data", "dicom_tools.py"), ("data", "base.py"))} <= names
     assert "chip_smoke_eval.py" in names
+    assert {"chip_smoke_weights.py",
+            os.path.join("vlp_tpu_torch", "utils", "hf_files.py"),
+            os.path.join("vlp_tpu_torch", "models", "torch_import.py")} \
+        <= names
 
 
 IMPORTS_MATPLOTLIB = re.compile(r"^(\s*)(import|from)\s+matplotlib\b",
@@ -120,6 +131,26 @@ def test_matplotlib_is_imported_only_inside_functions():
         with open(path) as fh:
             for m in IMPORTS_MATPLOTLIB.finditer(fh.read()):
                 assert m.group(1), path
+
+
+IMPORTS_HF = re.compile(r"^(\s*)(import|from)\s+(transformers|"
+                        r"huggingface_hub|safetensors|tokenizers|"
+                        r"torchxrayvision)\b", re.MULTILINE)
+
+
+def test_hf_packages_are_never_imported_and_xrv_only_in_a_function():
+    """The HF files are read by the port's own code; the optional
+    ``torchxrayvision`` package only inside the function that falls back
+    to it."""
+    assert IMPORTS_HF.search("from safetensors.torch import load_file\n")
+    found = []
+    for path in _port_sources():
+        with open(path) as fh:
+            for m in IMPORTS_HF.finditer(fh.read()):
+                assert m.group(3) == "torchxrayvision" and m.group(1), path
+                found.append(os.path.relpath(path, REPO))
+    assert found == [os.path.join("vlp_tpu_torch", "models",
+                                  "torch_import.py")]
 
 
 def test_port_sources_never_import_jax():

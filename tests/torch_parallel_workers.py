@@ -739,3 +739,36 @@ def post_fit_worker(mesh, overrides: List[str], out_dir: str) -> Dict:
                      if f.endswith(".png"))
     return {"scores": scores, "figures": figures,
             "rows": sum(len(ld.bundle) for ld in fold.val_loaders.values())}
+
+
+def hf_text_tower_worker(mesh, overrides: List[str], small: Dict) -> Dict:
+    """The VLP smoke model (TinyBERT at the widths ``small``) built as the
+    trainer builds it on ``mesh`` (or one process where it is None), then
+    the driver's text-tower import from the hub cache ``HF_HUB_CACHE``
+    names; the full state (gathered to rank 0 where sharded: the other
+    ranks get an empty dict)."""
+    import dataclasses
+    import types
+
+    from vlp_tpu_torch.config import (TrainConfig, apply_overrides,
+                                      get_experiment)
+    from vlp_tpu_torch.models import bert
+    from vlp_tpu_torch.parallel.fsdp import is_sharded
+    from vlp_tpu_torch.train import driver
+    from vlp_tpu_torch.train.setup import build_training
+    from vlp_tpu_torch.utils.checkpoint import model_state
+
+    full = bert.TEXT_CONFIGS["tinybert"]
+    bert.TEXT_CONFIGS["tinybert"] = dataclasses.replace(full, **small)
+    try:
+        cfg = apply_overrides(get_experiment("smoke_synthetic_pretrain"),
+                              list(overrides))
+        _, state, _ = build_training(TrainConfig.from_config(cfg), CPU, 1,
+                                     mesh=mesh)
+        driver._maybe_load_pretrained_text_tower(
+            cfg, types.SimpleNamespace(state=state))
+        return {"sharded": is_sharded(state.model),
+                "state": {k: _np(v)
+                          for k, v in model_state(state.model).items()}}
+    finally:
+        bert.TEXT_CONFIGS["tinybert"] = full

@@ -35,6 +35,9 @@ in C order, which keeps their element count; ``pack_qkv`` concatenates q,
 k and v). ``load_optimizer_state`` maps an optax ``adamw`` state (``mu``,
 ``nu``, ``count``) onto ``torch.optim.AdamW``'s per-parameter state the
 same way (parameters only), so weights and moments carry over together.
+``check_state`` holds a state dict imported from other files (the HF text
+towers, the torchvision ResNets) to a model's keys and full shapes
+(``state_shapes``).
 """
 from __future__ import annotations
 
@@ -159,6 +162,32 @@ def state_dict_from_flax(variables: Mapping[str, Any], model: nn.Module,
                        + (f" and {len(missing) - 1} more" if missing[1:]
                           else ""))
     return out
+
+
+def state_shapes(target: Any) -> Dict[str, tuple]:
+    """A module's state-dict shapes (a sharded module's DTensors give their
+    global ones), or a mapping's, whose values are tensors or shapes."""
+    if isinstance(target, nn.Module):
+        target = target.state_dict()
+    return {k: tuple(v.shape) if hasattr(v, "shape") else tuple(v)
+            for k, v in target.items()}
+
+
+def check_state(state: Mapping[str, torch.Tensor], target: Any,
+                what: str) -> None:
+    """Raises, naming the key, unless ``state`` has exactly ``target``'s
+    keys (``state_shapes``) with its shapes: a missing key or one with no
+    place in ``target`` a KeyError, a shape that differs a ValueError."""
+    want = state_shapes(target)
+    missing = sorted(set(want) - set(state))
+    extra = sorted(set(state) - set(want))
+    if missing or extra:
+        raise KeyError(f"{what} does not fit the model: missing "
+                       f"{missing[:3]}, no place for {extra[:3]}")
+    for key, shape in want.items():
+        if tuple(state[key].shape) != shape:
+            raise ValueError(f"{what}: {key!r} has shape "
+                             f"{tuple(state[key].shape)}, the model {shape}")
 
 
 def load_weights(model: nn.Module,

@@ -38,20 +38,37 @@ query kernel and the heads divide by M, and its FFN (``ffn_in`` by
 columns, ``ffn_out`` by rows) where the rule shards ``ffn_in``; the
 embedding tables split on the rule's dim (``vit.Embed``).
 
-``load_hf_weights`` (HF checkpoints from a local cache) is not ported: no
-HF files are in the repository or on the machine with the card.
+``load_hf_weights`` imports a pretrained HF checkpoint from the local hub
+cache (``utils/hf_files.py``, never the network), the counterpart of
+``vlp_tpu/models/bert.py:126-248``: DistilBERT's layout for ``distilbert``,
+BERT's (TinyBERT's) for the other towers. Each HF ``Linear`` ``[out, in]``
+becomes a ``Dense`` ``[in, out]``; q, k and v are transposed and
+concatenated into the packed ``qkv`` (q | k | v, ``convert.pack_qkv``'s
+order), the out-projection (``out_lin``, ``attention.output.dense``) goes to
+``out``, the LayerNorms and embeddings map directly; the result is held in
+fp32, as ``from_pretrained`` loads it. Files that are absent or cannot be
+read give None and a warning naming the repo id (the caller keeps random
+init, as the JAX package does); a key the layout needs that the checkpoint
+lacks, a shape that differs, or a ``config.json`` whose layer or head count
+is not the tower's raises, as the JAX converters, which run outside their
+``try``, raise.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import torch
 from torch import nn
 
+from vlp_tpu_torch.convert import check_state
 from vlp_tpu_torch.models.vit import (Dense, Embed, LayerNorm,
                                       MultiHeadAttention, gelu_exact)
 from vlp_tpu_torch.parallel import tp
+from vlp_tpu_torch.utils import hf_files
+from vlp_tpu_torch.utils.logging import get_logger
+
+logger = get_logger(__name__)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -149,3 +166,102 @@ class BertEncoder(nn.Module):
         for layer in self.layers:
             x = layer(x, bias, live)
         return x[:, 0].float()
+
+
+# --------------------------------------------------------------------------
+# HF checkpoint import
+# --------------------------------------------------------------------------
+
+# each HF layout's layer stack and, per port module of a layer, the HF
+# module it comes from (q, k, v: the parts of the packed qkv)
+HF_LAYOUTS = {
+    "distilbert": ("transformer.layer", {
+        "q": "attention.q_lin", "k": "attention.k_lin",
+        "v": "attention.v_lin", "attn.out": "attention.out_lin",
+        "attn_ln": "sa_layer_norm", "ffn_in": "ffn.lin1",
+        "ffn_out": "ffn.lin2", "ffn_ln": "output_layer_norm"}),
+    "bert": ("encoder.layer", {
+        "q": "attention.self.query", "k": "attention.self.key",
+        "v": "attention.self.value", "attn.out": "attention.output.dense",
+        "attn_ln": "attention.output.LayerNorm",
+        "ffn_in": "intermediate.dense", "ffn_out": "output.dense",
+        "ffn_ln": "output.LayerNorm"}),
+}
+# config.json's layer and head counts under each layout's names
+_HF_COUNTS = {"distilbert": ("n_layers", "n_heads"),
+              "bert": ("num_hidden_layers", "num_attention_heads")}
+
+
+def convert_hf_state(state: Mapping[str, torch.Tensor], cfg: BertConfig,
+                     layout: str,
+                     target: Any = None) -> Dict[str, torch.Tensor]:
+    """A base model's HF state (``hf_files.base_model_state``) -> a
+    ``BertEncoder``'s state dict in fp32 (``cfg``'s layer count and token
+    types; the widths are the checkpoint's). With ``target`` (the encoder,
+    or its keys mapped to tensors or shapes) the result must have exactly
+    its keys and shapes (``convert.check_state``)."""
+    def get(key: str) -> torch.Tensor:
+        if key not in state:
+            raise KeyError(f"the HF checkpoint lacks {key!r}")
+        return state[key].float()
+
+    out = {"word_embeddings.weight": get("embeddings.word_embeddings.weight"),
+           "position_embeddings.weight":
+               get("embeddings.position_embeddings.weight"),
+           "embed_ln.weight": get("embeddings.LayerNorm.weight"),
+           "embed_ln.bias": get("embeddings.LayerNorm.bias")}
+    if cfg.use_token_type:
+        out["token_type_embeddings.weight"] = get(
+            "embeddings.token_type_embeddings.weight")
+    stack, names = HF_LAYOUTS[layout]
+    for i in range(cfg.num_layers):
+        def hf(part: str, leaf: str) -> torch.Tensor:
+            return get(f"{stack}.{i}.{names[part]}.{leaf}")
+
+        pre = f"layers.{i}"
+        out[f"{pre}.attn.qkv.weight"] = torch.cat(
+            [hf(p, "weight").t() for p in "qkv"], 1)
+        out[f"{pre}.attn.qkv.bias"] = torch.cat([hf(p, "bias")
+                                                 for p in "qkv"])
+        for part in ("attn.out", "ffn_in", "ffn_out"):
+            out[f"{pre}.{part}.weight"] = hf(part, "weight").t()
+            out[f"{pre}.{part}.bias"] = hf(part, "bias")
+        for part in ("attn_ln", "ffn_ln"):
+            for leaf in ("weight", "bias"):
+                out[f"{pre}.{part}.{leaf}"] = hf(part, leaf)
+    out = {k: v.contiguous() for k, v in out.items()}
+    if target is not None:
+        check_state(out, target, "the HF checkpoint")
+    return out
+
+
+def load_hf_weights(target: Any, model_key: str
+                    ) -> Optional[Dict[str, torch.Tensor]]:
+    """The pretrained HF weights of ``TEXT_CONFIGS[model_key]`` from the
+    local hub cache as ``target``'s state dict (``target``: the encoder, or
+    its keys mapped to tensors or shapes; a split or sharded model's full
+    shapes), or None, with a warning, where they are not there."""
+    cfg = TEXT_CONFIGS[model_key]
+    try:
+        found = hf_files.load_pretrained(cfg.hf_name) if cfg.hf_name \
+            else None
+        reason = "not in the hub cache " + hf_files.hub_cache_dir()
+    except Exception as e:  # a file there that cannot be read
+        found, reason = None, f"{type(e).__name__}: {e}"
+    if found is None:
+        logger.warning("Pretrained %s weights unavailable locally (%s); "
+                       "text tower uses random init.",
+                       cfg.hf_name or model_key, reason)
+        return None
+    config, state, path = found
+    # the JAX package's choice: DistilBERT's converter for distilbert,
+    # BERT's for every other tower
+    layout = "distilbert" if model_key == "distilbert" else "bert"
+    counts = tuple(config.get(k) for k in _HF_COUNTS[layout])
+    if counts != (cfg.num_layers, cfg.num_heads):
+        raise ValueError(
+            f"{path}: config.json gives {counts} layers and heads, the "
+            f"{model_key} tower has {(cfg.num_layers, cfg.num_heads)}")
+    out = convert_hf_state(state, cfg, layout, target)
+    logger.info("Read pretrained %s weights from %s", cfg.hf_name, path)
+    return out

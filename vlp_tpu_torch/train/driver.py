@@ -58,7 +58,12 @@ val loaders gives ``silhouette_tumor`` and ``silhouette_dataset`` in the
 fold's summary (``eval/plotting.py``, on the device; every rank takes part
 in the gather) and, on rank 0 where matplotlib is installed, the t-SNE and
 confusion figures under ``<output_dir>/plots/fold<k>/``; without
-matplotlib one line names each figure that is not drawn.
+matplotlib one line names each figure that is not drawn. A VLP run's
+text tower starts from the pretrained DistilBERT or TinyBERT checkpoint
+where it and its ``vocab.txt`` are in the local HF hub cache
+(``HF_HUB_CACHE``, ``HF_HOME``, ...: ``utils/hf_files.py``), and the
+torchxrayvision ResNet50 with ``model.pretrained`` from
+``XRV_WEIGHTS_PATH``; without the files each keeps its random init.
 """
 from __future__ import annotations
 
@@ -79,7 +84,10 @@ from vlp_tpu_torch.data.datamodule import (DownstreamData, build_datamodule,
 from vlp_tpu_torch.eval.plotting import plot_val_outputs
 from vlp_tpu_torch.eval.subgroup import evaluate_results
 from vlp_tpu_torch.eval.test_eval import collect_probs
+from vlp_tpu_torch.data.tokenize import tokenizer_is_hash_fallback
+from vlp_tpu_torch.models.bert import TEXT_CONFIGS, load_hf_weights
 from vlp_tpu_torch.models.tasks import build_task
+from vlp_tpu_torch.models.torch_import import load_torchxrayvision_resnet50
 from vlp_tpu_torch.ops._build import load_library
 from vlp_tpu_torch.ops.retrieval import label_precision_at_k
 from vlp_tpu_torch.parallel import tp
@@ -90,6 +98,7 @@ from vlp_tpu_torch.train.callbacks import (DownstreamPrecisionAtK,
 from vlp_tpu_torch.train.loop import Trainer
 from vlp_tpu_torch.train.step import collect_over_loader
 from vlp_tpu_torch.utils import checkpoint as ckpt
+from vlp_tpu_torch.utils import hf_files
 from vlp_tpu_torch.utils.hparams import log_hyperparameters
 from vlp_tpu_torch.utils.logging import (JsonlSink, MemorySink, MultiSink,
                                          _to_jsonable, get_logger,
@@ -99,17 +108,43 @@ logger = get_logger(__name__)
 XRV = "resnet50-res512-all"
 
 
+def _entries(trainer: Trainer, prefix: str) -> Dict[str, tuple]:
+    """The replicated model's shape of each state entry under ``prefix``
+    (the prefix removed): a sharded model's DTensors give their global
+    shapes, a split one's splits."""
+    return {k[len(prefix):]: shape
+            for k, shape in tp.full_shapes(trainer.state.model).items()
+            if k.startswith(prefix)}
+
+
+def _load_entries(trainer: Trainer, prefix: str,
+                  state: Dict[str, torch.Tensor]) -> None:
+    """``state`` into the model's entries under ``prefix``; a sharded or
+    split model's ranks each take their shards (``ckpt.load_model_state``)."""
+    ckpt.load_model_state(trainer.state.model,
+                          {prefix + k: v for k, v in state.items()},
+                          strict=False)
+
+
 def _maybe_warm_start(cfg: Config, trainer: Trainer) -> None:
     """A classifier's backbone (the imaging-only or the fusion model's)
     from a VLP checkpoint's image tower (reference
     OnlyImagingModule.py:75-98), or from a classifier checkpoint's
-    backbone; the rest of the model keeps its init. The torchxrayvision
-    ResNet50's pretrained weights are not in the repository: it starts
-    from random init, as the JAX package's does without them."""
+    backbone; the rest of the model keeps its init. With
+    ``model.pretrained`` the torchxrayvision ResNet50's backbone first
+    takes the pretrained weights at ``XRV_WEIGHTS_PATH`` (or the
+    ``torchxrayvision`` package's; reference OnlyImagingModule.py:55-69,
+    ``models/torch_import.py``); where they cannot be loaded it keeps its
+    random init with a warning, as the JAX package's does."""
     if cfg.model.pretrained and cfg.model.model == XRV:
-        logger.warning("model.pretrained: the torchxrayvision weights are "
-                       "not in the repository; %s starts from random init",
-                       XRV)
+        weights = os.environ.get("XRV_WEIGHTS_PATH")
+        loaded = load_torchxrayvision_resnet50(
+            _entries(trainer, "backbone."), weights_path=weights)
+        if loaded is not None:
+            _load_entries(trainer, "backbone.", loaded)
+            logger.info("Loaded torchxrayvision resnet50 weights into the "
+                        "backbone from %s",
+                        weights or "the torchxrayvision package")
     path = cfg.model.pretrained_ckpt
     if not path:
         return
@@ -138,13 +173,31 @@ def _maybe_warm_start(cfg: Config, trainer: Trainer) -> None:
 
 
 def _maybe_load_pretrained_text_tower(cfg: Config, trainer: Trainer) -> None:
-    """The reference's text towers start from pretrained HF weights; their
-    files and tokenizer are not in the repository (ROADMAP Queue 1 item
-    16), so the text tower keeps its random init, as the JAX package's
-    does without a local HF cache."""
-    logger.info("pretrained %s text-tower weights are not in the "
-                "repository: the text tower starts from random init",
-                cfg.model.text_model)
+    """The reference's text towers start from pretrained HF weights
+    (VisionLanguageModule.py:38-60; ROADMAP Queue 1 item 16): where the
+    DistilBERT or TinyBERT checkpoint is in the local HF hub cache
+    (``models/bert.load_hf_weights``) the text tower takes it, else it
+    keeps its random init with a warning, as the JAX package's does.
+    Pretrained weights with the hash tokenizer's ids are refused: the
+    tokenizer's ``vocab.txt`` must be staged with them."""
+    prefix = "text_encoder."
+    target = _entries(trainer, prefix)
+    if not target:
+        return
+    state = load_hf_weights(target, cfg.model.text_model)
+    if state is None:
+        return
+    if tokenizer_is_hash_fallback(cfg.data.tokenizer):
+        raise RuntimeError(
+            f"pretrained {cfg.model.text_model} weights are available but "
+            f"tokenizer {cfg.data.tokenizer!r} fell back to the hash "
+            "tokenizer: hash-vocab token ids into a pretrained BERT "
+            "produce garbage. Stage the HF tokenizer files locally or run "
+            "the text tower from scratch.")
+    _load_entries(trainer, prefix, state)
+    name = TEXT_CONFIGS[cfg.model.text_model].hf_name
+    logger.info("Loaded pretrained %s text-tower weights from %s",
+                cfg.model.text_model, hf_files.snapshot_dir(name))
 
 
 def _linear_probe_callback(cfg: Config, downstream: DownstreamData,
